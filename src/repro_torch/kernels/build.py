@@ -1,0 +1,136 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` for ``sm_90a`` (all
+started together), linked into ``build/kernels/librepro_torch_kernels.so``
+at the root of the checkout, and loaded with ``ctypes``. The library
+exposes a plain C interface: pointers and the stream are ``void*``, sizes
+``int``, and every entry point returns ``cudaGetLastError()`` after its
+launch. A SHA-256 of the sources and flags decides whether a build on disk
+is current; the first kernel launch of a process builds when it is not.
+
+Nothing here runs at import time: this module imports on machines without
+``nvcc`` or a card, where the CPU tests take the plain versions.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+import time
+from pathlib import Path
+from typing import Tuple
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+LIB_NAME = "librepro_torch_kernels.so"
+ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+# no --use_fast_math: sqrtf and '/' must stay IEEE (the d1 kernel matches
+# its plain version bitwise on integer ratings)
+NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+MEASURE_CODES = {"cosine": 0, "pearson": 1, "euclidean": 2}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+SIGNATURES = {
+    # (a, b, out, A, B, P, measure, stream)
+    "masked_similarity_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # (rep, cand, vals, ids, U, C, n, k, n_valid, self_offset, measure, stream)
+    "topk_sim_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # (q, cand, part_vals, part_ids, vals, ids, B, C, n, k, n_valid,
+    #  self_offset, split, measure, stream)
+    "foldin_topk_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _P),
+}
+
+
+def nvcc() -> str:
+    return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "nvcc")
+
+
+def _digest(sources) -> str:
+    h = hashlib.sha256(" ".join((ARCH,) + NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()
+
+
+def build() -> Tuple[Path, str, float]:
+    """Compile and link the library unless the one on disk is current.
+
+    Returns ``(path, compiler_output, seconds)``; the output holds the
+    ``-Xptxas -v`` register, shared-memory and spill lines of a fresh build
+    and is empty when nothing was rebuilt. Raises if ``nvcc`` fails.
+    """
+    sources = sorted(CSRC.glob("*.cu"))
+    headers = sorted(CSRC.glob("*.cuh"))
+    lib = BUILD_DIR / LIB_NAME
+    stamp = BUILD_DIR / (LIB_NAME + ".sha256")
+    digest = _digest(sources + headers)
+    if lib.exists() and stamp.exists() and stamp.read_text() == digest:
+        return lib, "", 0.0
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    objs = [BUILD_DIR / f"{s.stem}.o" for s in sources]
+    procs = [subprocess.Popen([nvcc(), ARCH, *NVCC_FLAGS, "-c", str(s),
+                               "-o", str(o)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for s, o in zip(sources, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    for src, proc, log in zip(sources, procs, logs):
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {src.name}:\n{log}")
+    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
+    link = subprocess.run([nvcc(), ARCH, "-shared", "-o", str(tmp),
+                           *map(str, objs)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if link.returncode:
+        raise RuntimeError(f"linking {LIB_NAME} failed:\n{link.stdout}")
+    os.replace(tmp, lib)
+    stamp.write_text(digest)
+    return lib, "\n".join(logs), time.perf_counter() - t0
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    path, _, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, args in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous 2-D float32 tensor on one
+    CUDA device — the only input the kernels take."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name}: all inputs must be on one CUDA device, "
+                             f"got {[str(x.device) for x in tensors]}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name}: inputs must be float32, got {t.dtype}")
+        if t.dim() != 2 or not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous 2-D tensors")
+
+
+def launch(name: str, *args) -> None:
+    """Call C entry point ``name`` with ``args`` plus the current stream of
+    the first tensor's device; raise on a non-zero ``cudaGetLastError()``."""
+    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(dev):
+        err = getattr(library(), name)(*c_args, stream)
+    if err:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")

@@ -1,0 +1,27 @@
+"""Dispatch entry points: the CUDA kernel for CUDA tensors, its plain
+version (``ref.py``) for CPU tensors.
+
+``masked_similarity`` is a drop-in for
+``repro_torch.core.similarity.masked_similarity`` and the default ``sim_fn``
+of ``core.landmark_cf.fit`` / ``build_representation`` / ``fold_in``.
+"""
+from __future__ import annotations
+
+from .masked_similarity import masked_similarity
+from .knn_topk import foldin_topk, topk_sim
+
+# every kernel wrapper of the package; each carries a ``launches`` count
+WRAPPERS = (masked_similarity, topk_sim, foldin_topk)
+
+
+def reset_launches() -> None:
+    for fn in WRAPPERS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in WRAPPERS}
+
+
+__all__ = ["masked_similarity", "topk_sim", "foldin_topk", "WRAPPERS",
+           "reset_launches", "launch_counts"]
