@@ -19,10 +19,30 @@ non-zero and prints no result. Phases, one line each:
    the kernels and (b) with the plain d1 and the streaming graph, and
    compared;
 5. serve CLI — ``repro_torch.launch.serve`` at U=6040, P=3952, two waves;
-6. times — each kernel and its plain version (CUDA events), its launches
-   on the main path and its bound; a profiler breakdown of one fit →
+6. times — each kernel and its plain version (CUDA events, which include
+   the host's launch cost), the kernel's own device time (profiler), its
+   launches on its path and its bound; a profiler breakdown of one fit →
    fold-in → predict (device time by kernel, idle share); wall times of
    fit, fold-in and a 256-pair predict, and peak device memory.
+
+The IVF retrieval slice adds, each with its own time:
+
+7a. IVF kernels — the Lloyd assignment, the fused IVF probe and the
+    gathered-candidate scorer against their plain versions, bitwise, at the
+    IVF path's shapes (the index over the fitted ML-1M representation:
+    C=77 cells, cap=104, nprobe=19, k=13) and on edge cases (empty cells,
+    k above the live candidates, self ids, probe masks, bf16 and int8
+    payloads, C not a multiple of 8, all three measures);
+7b. IVF path — the same data: ``fit(..., backend="ivf")`` at the default
+    nprobe (recall@13 against the kernel graph), at nprobe == C (equal to
+    the streaming backend under the tie rule), a 64-user ivf fold-in, and
+    ``search(scorer="kernel")`` against ``scorer="fused"``; kernels 4–6
+    must launch;
+7c. lifecycle CLI — ``serve --lifecycle --retrieval ivf --early-exit``,
+    once at smoke size (a refresh fires, gen 1 swaps in oracle-exact, the
+    geometries stay within the buckets, mean recall >= 0.95) and once at
+    full width (U=6040, P=3952, 64 arrivals and a 64-row fold-in batch per
+    wave, 8 waves).
 
 The last two lines are the kernel table and
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. TF32 is off for
@@ -30,7 +50,10 @@ matmul and cuDNN throughout: the reference scores in full f32.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -51,7 +74,10 @@ from repro_torch.core.graph import kernel_rows  # noqa: E402
 from repro_torch.core.selection import popularity_landmarks  # noqa: E402
 from repro_torch.core.topk import list_mismatches  # noqa: E402
 from repro_torch.data import ratings as data  # noqa: E402
-from repro_torch.kernels import build, knn_topk, ops, ref  # noqa: E402
+from repro_torch import retrieval as rt  # noqa: E402
+from repro_torch.core.graph import finalize_topk  # noqa: E402
+from repro_torch.kernels import (assign_clusters, build, ivf_probe,  # noqa: E402
+                                 knn_topk, ops, ref, score_candidates)
 from repro_torch.launch import serve  # noqa: E402
 
 DEVICE = "cuda"
@@ -73,7 +99,18 @@ KERNELS = {
     "foldin_topk": dict(
         source="src/repro_torch/kernels/csrc/knn_topk.cu",
         replaces="src/repro/kernels/knn_topk.py:235"),
+    "assign_clusters": dict(
+        source="src/repro_torch/kernels/csrc/assign_clusters.cu",
+        replaces="src/repro/retrieval/kmeans.py:74"),
+    "fused_probe_topk": dict(
+        source="src/repro_torch/kernels/csrc/ivf_probe.cu",
+        replaces="src/repro/kernels/ivf_probe.py:135"),
+    "score_candidates": dict(
+        source="src/repro_torch/kernels/csrc/score_candidates.cu",
+        replaces="src/repro/retrieval/index.py:519"),
 }
+GRAPH_KERNELS = ("masked_similarity", "topk_sim", "foldin_topk")
+IVF_KERNELS = ("assign_clusters", "fused_probe_topk", "score_candidates")
 
 
 def sync():
@@ -139,7 +176,7 @@ def phase_kernels(train):
     fit_r, new_r = train[:-FOLD_IN], train[-FOLD_IN:]
     lm = fit_r[popularity_landmarks(fit_r, cfg.MODEL.n_landmarks)]
     ra = _ratings(1130, 777, seed=11)
-    err = {name: 0.0 for name in KERNELS}
+    err = {name: 0.0 for name in GRAPH_KERNELS}
     notes = []
 
     def d1(tag, a, b, main):
@@ -264,7 +301,7 @@ def phase_main_path(train, d, test_idx):
     a = run_main_path(train, d, test_idx, kernels=True)
     peak = torch.cuda.max_memory_allocated()
     b = run_main_path(train, d, test_idx, kernels=False)
-    if not all(v > 0 for v in a["counts"].values()):
+    if not all(a["counts"][name] > 0 for name in GRAPH_KERNELS):
         raise AssertionError(f"a kernel did not launch on the main path: "
                              f"{a['counts']}")
     if any(b["counts"].values()):
@@ -341,6 +378,38 @@ def _event_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+# the device functions of each wrapper, as the profiler names them
+DEVICE_FUNCS = {
+    "masked_similarity": ("masked_similarity_kernel",),
+    "topk_sim": ("topk_scan_kernel",),
+    "foldin_topk": ("topk_scan_kernel", "topk_merge_kernel"),
+    "assign_clusters": ("assign_kernel",),
+    "fused_probe_topk": ("probe_kernel",),
+    "score_candidates": ("score_kernel",),
+}
+
+
+def _device_ms(fn, name, iters=20):
+    """Device time per call of ``name``'s own kernels, from a
+    ``torch.profiler`` trace of ``iters`` calls (the event time of
+    ``_event_ms`` includes the host's launch cost whenever the kernel is
+    shorter than it); None when the trace holds no device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        sync()
+    total = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                if e.device_type == DeviceType.CUDA
+                and any(f in e.name for f in DEVICE_FUNCS[name]))
+    return total / 1e3 / iters if total else None
+
+
 def _wall_s(fn, reps=5):
     times = []
     for _ in range(reps):
@@ -395,6 +464,57 @@ def _bound(bytes_moved, flops):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _ivf_rows(ivf, ivf_counts, err):
+    """Rows 4–6 of the kernel table at the IVF path's shapes."""
+    import torch.nn.functional as F
+
+    index, probe = ivf["index"], ivf["probe"]
+    rows_all = ivf["all_rows"]
+    u, n = rows_all.shape
+    c, cap = index.lists.shape
+    xr = kernel_rows(rows_all, "cosine")
+    cr = kernel_rows(index.centroids, "cosine")
+    live = int(index.fill[probe.long()].sum())  # (query, live slot) pairs
+    b, nprobe = probe.shape
+    q, cand = ivf["q"], ivf["cand"]
+    qb, m = cand.shape[:2]
+    args = (rows_all, probe, index.lists, index.rows, index.scale, index.fill)
+    kw = dict(k=13, self_ids=ivf["self_ids"])
+    calls = {
+        "assign_clusters": (
+            lambda: assign_clusters.assign_clusters(xr, cr),
+            lambda: ref.assign_clusters_ref(xr, cr),
+            None, 4 * (u * n + c * n + u), 2 * u * c * n,
+            f"U={u} C={c} n={n} (cosine, normalized rows)"),
+        "fused_probe_topk": (
+            lambda: ivf_probe.fused_probe_topk(*args, **kw),
+            lambda: ref.fused_probe_topk_ref(*args, **kw),
+            None,
+            4 * (b * n + b * nprobe + c * cap + c * cap * n + c + b)
+            + 8 * b * 13, live * (4 * n + 4),
+            f"b={b} nprobe={nprobe} C={c} cap={cap} n={n} k=13 f32, "
+            f"{live} live (query, slot) pairs"),
+        "score_candidates": (
+            lambda: score_candidates.score_candidates(q, cand),
+            lambda: ref.score_candidates_ref(q, cand),
+            lambda: F.cosine_similarity(q[:, None, :], cand, dim=-1),
+            4 * (qb * n + qb * m * n + qb * m), qb * m * (4 * n + 4),
+            f"b={qb} m={m} n={n}"),
+    }
+    table = []
+    for name, (kern, plain, lib, nbytes, flops, shape) in calls.items():
+        bound_ms, bound_by = _bound(nbytes, flops)
+        table.append(dict(
+            name=name, route="cuda", **KERNELS[name], shape=shape,
+            launches=ivf_counts[name], max_abs_err=err[name],
+            max_err=err[name], ms=_event_ms(kern, 50),
+            plain_ms=_event_ms(plain, 3), bound_ms=bound_ms,
+            bound_us=bound_ms * 1e3, bound_by=bound_by,
+            library_ms=None if lib is None else _event_ms(lib, 50),
+            device_ms=_device_ms(kern, name)))
+    return table
+
+
 def phase_times(train, a, err, peak):
     st = a["state"]
     u_fit, p = st.ratings.shape
@@ -432,7 +552,7 @@ def phase_times(train, a, err, peak):
             launches=launches[name], max_abs_err=err[name],
             max_err=err[name], ms=ms, plain_ms=_event_ms(plain, 10),
             bound_ms=bound_ms, bound_us=bound_ms * 1e3, bound_by=bound_by,
-            library_ms=None))
+            library_ms=None, device_ms=_device_ms(kern, name)))
     spec = cfg.MODEL
     users, items = (x[:256] for x in a["fit_pairs"][:2])
     print("phase 6 profile: " + json.dumps(_profile(
@@ -447,6 +567,229 @@ def phase_times(train, a, err, peak):
         peak_device_bytes_main_path=peak)
     print("phase 6 times: " + json.dumps(walls))
     return table
+
+
+# ----------------------------------------------------------- IVF retrieval
+def _bitwise(name, got, want):
+    sync()
+    for g, w in zip(got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(f"{name}: not bitwise equal to its plain "
+                                 f"version")
+
+
+def _quantized(index, payload):
+    """The index's payload stored as ``payload`` (same lists and fills)."""
+    rows = rt.dequantize_payload(index.rows, index.scale)
+    stored, scale = rt.quantize_payload(rows.reshape(-1, rows.shape[-1]),
+                                        payload)
+    return rt.IVFIndex(index.centroids, index.lists,
+                       stored.reshape(rows.shape[:2] + (-1,)).contiguous(),
+                       index.fill, None if scale is None
+                       else scale.reshape(index.lists.shape).contiguous())
+
+
+def _edge_index(c, cap, n, seed):
+    """Ragged fills with empty cells, ids a permutation."""
+    rng = np.random.default_rng(seed)
+    fill = rng.integers(1, cap + 1, c)
+    fill[::4] = 0
+    ids = rng.permutation(int(fill.sum()))
+    lists = np.zeros((c, cap), np.int32)
+    rows = np.zeros((c, cap, n), np.float32)
+    o = 0
+    for j in range(c):
+        lists[j, :fill[j]] = ids[o:o + fill[j]]
+        rows[j, :fill[j]] = rng.normal(size=(fill[j], n))
+        o += fill[j]
+    return rt.IVFIndex(torch.as_tensor(rng.normal(size=(c, n)).astype(
+        np.float32), device=DEVICE), torch.as_tensor(lists, device=DEVICE),
+        torch.as_tensor(rows, device=DEVICE),
+        torch.as_tensor(fill.astype(np.int32), device=DEVICE))
+
+
+def phase_ivf_kernels(a):
+    """7a: kernels 4–6 against their plain versions, bitwise. Returns the
+    main-path inputs (for the times) and the largest error per kernel."""
+    t0 = time.perf_counter()
+    rep = a["state"].representation  # (5976, 20) as the main path made it
+    u = rep.shape[0]
+    spec = rt.resolve_ivf(None, u)
+    index = rt.build_index(rep, spec, "cosine")
+    notes = []
+    # kernel 4: the Lloyd assignment at the k-means shape, every measure,
+    # plus a tiled (C > 256) and a wide (n = 64) case
+    wide = torch.as_tensor(np.random.default_rng(21).normal(
+        size=(3001, 64)).astype(np.float32), device=DEVICE)
+    for measure in sim.MEASURES:
+        for tag, x, cent in (("main", rep, index.centroids),
+                             ("C=300", rep, rep[::19][:300]),
+                             ("n=64", wide, wide[7::11][:77])):
+            xr, cr = kernel_rows(x, measure), kernel_rows(cent, measure)
+            _bitwise(f"assign_clusters {tag} {measure}",
+                     [assign_clusters.assign_clusters(xr, cr, measure)],
+                     [ref.assign_clusters_ref(xr, cr, measure)])
+    notes.append("assign 9/9 bitwise")
+    # kernel 5: the graph-build search through the index (every row a
+    # query, its own id excluded), all payloads and measures
+    probe = rt.probe_cells(index, rep, spec.nprobe, "cosine")
+    self_ids = torch.arange(u, dtype=torch.int32, device=DEVICE)
+    n_ok = 0
+    for payload in rt.PAYLOAD_DTYPES:
+        idx = index if payload == "f32" else _quantized(index, payload)
+        for measure in sim.MEASURES:
+            args = (rep, probe, idx.lists, idx.rows, idx.scale, idx.fill)
+            kw = dict(k=13, measure=measure, self_ids=self_ids)
+            _bitwise(f"fused_probe_topk main {payload} {measure}",
+                     ivf_probe.fused_probe_topk(*args, **kw),
+                     ref.fused_probe_topk_ref(*args, **kw))
+            n_ok += 1
+    # edge cases: empty cells, k above the live candidates, masked probes,
+    # C = 13 and n = 64, self ids that sit in the probed cells
+    g = torch.Generator().manual_seed(22)
+    for c, cap, n, k, nprobe in ((13, 40, 64, 32, 5), (6, 3, 7, 13, 4)):
+        e = _edge_index(c, cap, n, seed=c)
+        q = torch.randn((300, n), generator=g).to(DEVICE)
+        pr = torch.stack([torch.randperm(c, generator=g)[:nprobe]
+                          for _ in range(300)]).to(torch.int32).to(DEVICE)
+        sid = e.lists[pr[:, 0].long(), 0].contiguous()
+        ok = (torch.rand((300, nprobe), generator=g) > 0.3).to(
+            torch.int32).to(DEVICE)
+        for payload in rt.PAYLOAD_DTYPES:
+            ee = e if payload == "f32" else _quantized(e, payload)
+            for measure in sim.MEASURES:
+                args = (q, pr, ee.lists, ee.rows, ee.scale, ee.fill)
+                kw = dict(k=k, measure=measure, self_ids=sid, probe_ok=ok)
+                got = ivf_probe.fused_probe_topk(*args, **kw)
+                _bitwise(f"fused_probe_topk C={c} {payload} {measure}", got,
+                         ref.fused_probe_topk_ref(*args, **kw))
+                if nprobe * cap < k and not torch.isinf(got[0][:, -1]).all():
+                    raise AssertionError("k above the live candidates: "
+                                         "the tail must be empty")
+                n_ok += 1
+    notes.append(f"fused probe {n_ok}/{n_ok} bitwise")
+    # kernel 6: one partial-probe query block of the scorer
+    qb = 256
+    m = spec.nprobe * index.capacity
+    cand = index.rows[probe[:qb].long()].reshape(qb, m, -1).contiguous()
+    q = rep[:qb].contiguous()
+    for measure in sim.MEASURES:
+        _bitwise(f"score_candidates {measure}",
+                 [score_candidates.score_candidates(q, cand, measure)],
+                 [ref.score_candidates_ref(q, cand, measure)])
+    notes.append("scorer 3/3 bitwise")
+    print(f"phase 7a IVF kernels: index C={index.n_clusters} "
+          f"cap={index.capacity} nprobe={spec.nprobe} over U={u} n="
+          f"{rep.shape[1]}; " + "; ".join(notes)
+          + f" | {time.perf_counter() - t0:.1f}s")
+    return dict(index=index, probe=probe, self_ids=self_ids, cand=cand, q=q,
+                all_rows=rep)
+
+
+def phase_ivf_path(train, a):
+    """7b: the IVF path at the ML-1M shape through the user's entry points.
+    Returns this path's launch counts."""
+    t0 = time.perf_counter()
+    spec = cfg.MODEL
+    u_fit = train.shape[0] - FOLD_IN
+    matrix = RatingMatrix(train[:u_fit], u_fit, train.shape[1])
+    kernel_graph = a["state"].graph
+    c = rt.resolve_ivf(None, u_fit).n_clusters
+    sync()
+    ops.reset_launches()
+    st = fit(matrix, spec, backend="ivf")
+    rec_fit = rt.recall_at_k(st.graph.indices, kernel_graph.indices)
+    index = rt.build_index(st.representation, rt.resolve_ivf(None, u_fit),
+                           spec.d2)
+    folded = fold_in(st, train[u_fit:], spec, backend="ivf",
+                     ivf_index=index)
+    rec_fold = rt.recall_at_k(folded.graph.indices[u_fit:],
+                              a["folded"].graph.indices[u_fit:])
+    rep = st.representation
+    sids = torch.arange(u_fit, dtype=torch.int32, device=DEVICE)
+    nprobe = rt.resolve_ivf(None, u_fit).nprobe
+    kv, ki = rt.search(index, rep, 13, nprobe, spec.d2, self_ids=sids,
+                       scorer="kernel")
+    fv, fi = rt.search(index, rep, 13, nprobe, spec.d2, self_ids=sids,
+                       scorer="fused")
+    sync()
+    counts = ops.launch_counts()
+    if not all(counts[name] > 0 for name in IVF_KERNELS):
+        raise AssertionError(f"an IVF kernel did not launch: {counts}")
+    # the two scorers score with one algebra in one order: equal values
+    # slot by slot; ids differ only in the order of exact ties
+    if not torch.equal(kv, fv):
+        raise AssertionError("kernel and fused scorers: values differ")
+    bad = list_mismatches(kv, ki, fv, fi, RTOL, ATOL)
+    if bad.size:
+        raise AssertionError(f"kernel vs fused scorer rows {bad[:8]}")
+    # full probe: exact — the streaming backend under the tie rule, and the
+    # fused kernel bitwise equal to its plain version there too
+    full = rt.IVFSpec(nprobe=c)
+    g_full = fit(matrix, spec, backend="ivf", ivf=full).graph
+    g_str = fit(matrix, spec, backend="streaming").graph
+    bad = list_mismatches(g_str.weights, g_str.indices, g_full.weights,
+                          g_full.indices, RTOL, ATOL)
+    if bad.size:
+        raise AssertionError(f"full-probe ivf vs streaming rows {bad[:8]}")
+    pr = rt.probe_cells(index, rep, c, spec.d2)
+    args = (rep, pr, index.lists, index.rows, index.scale, index.fill)
+    _bitwise("fused_probe_topk full probe",
+             ivf_probe.fused_probe_topk(*args, k=13, self_ids=sids),
+             ref.fused_probe_topk_ref(*args, k=13, self_ids=sids))
+    swapped = int((g_full.indices != g_str.indices).any(dim=1).sum())
+    print(f"phase 7b IVF path: fit(backend=ivf) C={c} nprobe={nprobe} "
+          f"recall@13 vs kernel graph {rec_fit:.4f}; 64-user ivf fold-in "
+          f"recall@13 {rec_fold:.4f}; nprobe=C equals streaming under the "
+          f"tie rule ({swapped} of {u_fit} rows with a tie swapped at the "
+          f"cut); kernel vs fused "
+          f"scorer equal; launches {counts} | "
+          f"{time.perf_counter() - t0:.1f}s")
+    return counts
+
+
+def phase_lifecycle():
+    """7c: the lifecycle serve CLI with IVF retrieval, smoke and full
+    width. Returns the full-width run's launch counts."""
+    ckpt = ROOT / "build" / "chip_smoke_ckpt"
+    out = {}
+    for tag, argv in (
+            ("smoke", ["--smoke", "--users", "128", "--items", "64",
+                       "--waves", "6", "--arrivals", "32", "--requests",
+                       "2", "--batch", "32", "--min-bucket", "128"]),
+            ("full", ["--users", "6040", "--items", "3952", "--arrivals",
+                      "64", "--foldin", "64", "--waves", "8"])):
+        shutil.rmtree(ckpt, ignore_errors=True)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        ops.reset_launches()
+        with contextlib.redirect_stdout(buf):
+            serve.main(["--workload", "cf", "--lifecycle", "--retrieval",
+                        "ivf", "--early-exit", "--ckpt", str(ckpt)] + argv)
+        sync()
+        counts = ops.launch_counts()
+        text = buf.getvalue()
+        print(text, end="")
+        for want in ("cf lifecycle: done", "geometries per request-path"):
+            if want not in text:
+                raise AssertionError(f"lifecycle {tag}: missing {want!r}")
+        if tag == "smoke":
+            for want in ("refresh -> gen 1 launched in background",
+                         "swapped in gen 1",
+                         "swap oracle-exact vs from-scratch fit (gen 1): "
+                         "True", "wave 5: gen 1"):
+                if want not in text:
+                    raise AssertionError(f"lifecycle smoke: missing {want!r}")
+        line = next(ln for ln in text.splitlines()
+                    if ln.startswith("ivf retrieval: recall@k per wave"))
+        mean = float(line.split("(mean ")[1].split(",")[0])
+        if tag == "smoke" and mean < serve.IVF_RECALL_SLO:
+            raise AssertionError(f"lifecycle smoke recall {mean}")
+        out[tag] = counts
+        print(f"phase 7c lifecycle CLI ({tag}): mean recall {mean:.3f}, "
+              f"launches {counts} | {time.perf_counter() - t0:.1f}s")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return out["full"]
 
 
 def main():
@@ -469,7 +812,12 @@ def main():
     err = phase_kernels(train)
     a, peak = phase_main_path(train, d, test_idx)
     phase_serve()
-    table = phase_times(train, a, err, peak)
+    ivf = phase_ivf_kernels(a)
+    err.update({name: 0.0 for name in IVF_KERNELS})  # bitwise, checked
+    ivf_counts = phase_ivf_path(train, a)
+    phase_lifecycle()
+    table = phase_times(train, a, err, peak) + _ivf_rows(ivf, ivf_counts,
+                                                         err)
     print(f"card: {card}")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,8 @@
-"""Arch config 'landmark_cf': the paper's hyperparameters and the
-MovieLens-1M shapes, as plain constants (there is no LM registry here)."""
+"""Arch config 'landmark_cf': the paper's hyperparameters, the
+MovieLens-1M shapes and the lifecycle's refresh thresholds, as plain
+constants (there is no LM registry here)."""
 from ..core.types import LandmarkSpec
+from ..lifecycle.policy import RefreshSpec
 
 # the reproduced paper (Lima, Mello, Zimbrão 2017), §4.4
 MODEL = LandmarkSpec(n_landmarks=20, selection="popularity", d1="cosine",
@@ -10,3 +12,20 @@ SMOKE = LandmarkSpec(n_landmarks=8, selection="popularity")
 # paper Table 1: MovieLens-1M users × items
 ML1M_FIT = dict(n_users=6040, n_items=3952)
 ML1M_PREDICT = dict(n_users=6040, n_items=3952, n_pairs=131072)
+
+# the continual-serving lifecycle: production drift/refresh thresholds, and
+# a twitchy variant sized for the smoke replay (small reservoir, fires
+# after two consecutive breaching evaluations) — the reference's values
+REFRESH = RefreshSpec()
+SMOKE_REFRESH = RefreshSpec(
+    mae_ratio=1.15,  # holdout MAE on ~256 withheld ratings is noisy; the
+    min_coverage_ratio=0.8,  # coverage drop is the reliable smoke signal
+    max_foldin_frac=0.6,
+    patience=2,
+    cooldown_waves=1,
+    min_holdout=16,
+    reservoir=256,
+    holdout_frac=0.25,
+    max_skew=1.5,  # drifted arrivals pile onto few IVF cells within a
+    rebalance_patience=1,  # wave or two — repack on the first breach
+)

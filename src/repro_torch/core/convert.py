@@ -1,9 +1,14 @@
-"""Carry a fitted state across frameworks as numpy arrays.
+"""Carry a fitted state or an IVF index across frameworks as numpy arrays.
 
-The keys are ``landmark_idx``, ``representation``, ``ratings``,
-``graph.indices`` and ``graph.weights``. The tests fit with the JAX
-reference, convert its state with ``numpy.asarray`` under these keys, and
-serve it from this package, so both serve from the same fitted state.
+A state's keys are ``landmark_idx``, ``representation``, ``ratings``,
+``graph.indices`` and ``graph.weights``; an index's are
+:data:`IVF_KEYS` (``scale`` only for int8 payloads). The tests build with
+the JAX reference, convert with ``numpy.asarray`` under these keys, and
+serve from this package, so both packages work on the same artifact.
+bfloat16 payload rows travel as their uint16 bits: a numpy ``bfloat16``
+array (``ml_dtypes``) is read through its bits, and
+:func:`ivf_index_to_numpy` returns the bits with ``rows_dtype`` naming
+them.
 """
 from __future__ import annotations
 
@@ -40,4 +45,48 @@ def landmark_state_to_numpy(state: LandmarkState) -> Dict[str, np.ndarray]:
         "ratings": state.ratings.cpu().numpy(),
         "graph.indices": g.indices.cpu().numpy(),
         "graph.weights": g.weights.cpu().numpy(),
+    }
+
+
+IVF_KEYS = ("centroids", "lists", "rows", "fill", "scale")
+
+
+def _rows_from_numpy(rows: np.ndarray, device) -> torch.Tensor:
+    if rows.dtype.name == "bfloat16":
+        rows = rows.view(np.uint16)
+    if rows.dtype == np.uint16:  # bfloat16 bits
+        return torch.from_numpy(rows.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.tensor(rows, device=device)
+
+
+def ivf_index_from_numpy(d: Dict[str, np.ndarray], device="cuda"):
+    """A ``retrieval.IVFIndex`` on ``device`` from numpy arrays under
+    :data:`IVF_KEYS` (``scale`` may be absent or None)."""
+    from ..retrieval import IVFIndex
+
+    scale = d.get("scale")
+    return IVFIndex(
+        torch.tensor(np.asarray(d["centroids"], np.float32), device=device),
+        torch.tensor(np.asarray(d["lists"]).astype(np.int32), device=device),
+        _rows_from_numpy(np.asarray(d["rows"]), device),
+        torch.tensor(np.asarray(d["fill"]).astype(np.int32), device=device),
+        None if scale is None else torch.tensor(
+            np.asarray(scale, np.float32), device=device))
+
+
+def ivf_index_to_numpy(index) -> Dict[str, np.ndarray]:
+    """The numpy arrays of an index under :data:`IVF_KEYS`, plus
+    ``rows_dtype`` (``float32``, ``bfloat16`` — rows as uint16 bits — or
+    ``int8``)."""
+    rows = index.rows.cpu()
+    bf16 = rows.dtype == torch.bfloat16
+    return {
+        "centroids": index.centroids.cpu().numpy(),
+        "lists": index.lists.to(torch.int32).cpu().numpy(),
+        "rows": (rows.view(torch.int16).numpy().view(np.uint16) if bf16
+                 else rows.numpy()),
+        "rows_dtype": "bfloat16" if bf16 else str(rows.numpy().dtype),
+        "fill": index.fill.cpu().numpy(),
+        "scale": None if index.scale is None else index.scale.cpu().numpy(),
     }

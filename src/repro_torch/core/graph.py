@@ -15,19 +15,31 @@ kernel      O(U·k)          the fused d2 + top-k CUDA kernels
                             (``kernels/knn_topk.py``); score tiles never
                             leave the chip's shared memory. On a CPU tensor
                             the wrapper runs its plain version.
+ivf         O(U·(n+1)·      sublinear candidate generation: an IVF index
+            slack)          over the landmark embedding (``retrieval``)
+                            prunes each row's scan to the nprobe nearest
+                            cells. Exact at nprobe == n_clusters (under the
+                            tie rule on the card); approximate at the
+                            default nprobe.
 ==========  ==============  ================================================
 
 ``auto`` resolves by the tensor's device: ``kernel`` for a CUDA tensor,
-``streaming`` for a CPU tensor. All backends exclude self, store weight 0
-for empty slots, and emit lists in canonical order (weight desc, id asc),
-so Eq. (1) prediction (core.knn) is backend-agnostic.
+``streaming`` for a CPU tensor (``ivf`` is opt-in: recall below 1 is a
+policy decision). All backends exclude self, store weight 0 for empty
+slots, and emit lists in canonical order (weight desc, id asc), so Eq. (1)
+prediction (core.knn) is backend-agnostic.
 
 :func:`extend_neighbor_graph` appends b new rows without refitting: a
 new-vs-all candidate scan, then a back-patch of the existing rows whose
 top-k should now include a new row (one (U, b) block, b ≪ U).
+:func:`extend_neighbor_graph_bucketed` is its shape-stable form behind
+``lifecycle.buckets``: arrays stay padded to a bucket capacity and the
+valid-row counts are plain integers, so every fold-in at one
+(capacity, batch) geometry runs the same shapes.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple
 
 import torch
@@ -35,18 +47,15 @@ import torch
 from ..kernels import knn_topk
 from .similarity import EPS, dense_similarity, streaming_knn_graph
 from .topk import canonical_topk
-from .types import NeighborGraph
+from .types import NeighborGraph, round_up
 
-BACKENDS = ("dense", "streaming", "kernel", "auto")
+BACKENDS = ("dense", "streaming", "kernel", "ivf", "auto")
 
 
 def resolve_backend(backend: str, device) -> str:
     """``auto`` → ``kernel`` for a CUDA ``device``, ``streaming`` for a CPU one."""
     if backend == "auto":
         return "kernel" if torch.device(device).type == "cuda" else "streaming"
-    if backend == "ivf":
-        raise NotImplementedError(
-            "the ivf graph backend is ported with the retrieval slice")
     if backend not in BACKENDS:
         raise ValueError(f"unknown graph backend {backend!r}; expected {BACKENDS}")
     return backend
@@ -76,11 +85,14 @@ def finalize_topk(vals: torch.Tensor, idx: torch.Tensor) -> NeighborGraph:
 
 def build_neighbor_graph(rep: torch.Tensor, measure: str = "cosine",
                          k: int = 13, backend: str = "auto", *,
-                         chunk: int = 4096) -> NeighborGraph:
+                         chunk: int = 4096, ivf=None) -> NeighborGraph:
     """Top-k neighbor graph over ``rep`` rows under d2 ``measure``.
 
     Self is always excluded. ``k`` is clamped to U-1 (a row cannot have
-    more distinct neighbors than other rows).
+    more distinct neighbors than other rows). ``backend="ivf"`` builds a
+    fresh IVF index over ``rep`` (``ivf`` a ``retrieval.IVFSpec``, None for
+    the defaults) and searches it at its nprobe; callers that keep the
+    index for serving build it through ``retrieval`` themselves.
     """
     u = rep.shape[0]
     k = max(1, min(k, u - 1)) if u > 1 else 1
@@ -91,6 +103,14 @@ def build_neighbor_graph(rep: torch.Tensor, measure: str = "cosine",
     if backend == "streaming":
         vals, idx = streaming_knn_graph(rep, measure, k=k, chunk=chunk,
                                         exclude_self=True)
+        return finalize_topk(vals, idx)
+    if backend == "ivf":
+        from ..retrieval import build_index, resolve_ivf, search
+
+        cfg = resolve_ivf(ivf, u)
+        index = build_index(rep, cfg, measure)
+        vals, idx = search(index, rep, k, cfg.nprobe, measure,
+                           self_ids=torch.arange(u, device=rep.device))
         return finalize_topk(vals, idx)
     repq = kernel_rows(rep, measure)
     vals, idx = knn_topk.topk_sim(repq, repq, k=k, exclude_self=True,
@@ -124,14 +144,42 @@ def _streaming_query_topk(queries: torch.Tensor, cand_src: torch.Tensor,
     return best_v, best_i
 
 
+def _ivf_query_topk(rep, new_rep, measure, k, ivf, ivf_index):
+    """New-vs-all half of the ``ivf`` backend: append the batch (ids
+    U..U+b-1) to the index, then search it — the batch rows are candidates
+    for each other too."""
+    from ..retrieval import (IVFSpec, append, build_index, grow_capacity,
+                             resolve_ivf, search)
+
+    u, b = rep.shape[0], new_rep.shape[0]
+    if ivf_index is None:
+        cfg = resolve_ivf(ivf, u)
+        ivf_index = build_index(rep, cfg, measure)
+    else:
+        cfg = resolve_ivf(dataclasses.replace(
+            ivf or IVFSpec(), n_clusters=ivf_index.n_clusters), u)
+    c, cap = ivf_index.n_clusters, ivf_index.capacity
+    if u + b > c * cap:  # append drops what does not fit: reserve room
+        ivf_index = grow_capacity(ivf_index, round_up(max(
+            -(-int((u + b) * cfg.slack) // c), -(-(u + b) // c)), 8))
+    ids = u + torch.arange(b, dtype=torch.int32, device=rep.device)
+    with_batch = append(ivf_index, new_rep, ids, measure,
+                        spill_choices=cfg.spill_choices)
+    return search(with_batch, new_rep, k, cfg.nprobe, measure, self_ids=ids)
+
+
 def extend_neighbor_graph(graph: NeighborGraph, rep: torch.Tensor,
                           new_rep: torch.Tensor, measure: str = "cosine",
-                          backend: str = "auto", *, chunk: int = 4096
-                          ) -> NeighborGraph:
+                          backend: str = "auto", *, chunk: int = 4096,
+                          ivf=None, ivf_index=None) -> NeighborGraph:
     """Append b rows (ids U..U+b-1) to a fitted graph without refitting.
 
     1. **new-vs-all**: each new row scans all U+b candidates for its own
-       top-k (the ``kernel`` backend runs the skinny fold-in kernels).
+       top-k (the ``kernel`` backend runs the skinny fold-in kernels; the
+       ``ivf`` backend appends the batch to an IVF index over the existing
+       rows — ``ivf_index``, or one built here from ``ivf`` — and probes its
+       nearest cells, growing the lists first when the batch could
+       overflow them; the caller's index is not modified).
     2. **back-patch**: the (U, b) existing-vs-new block is merged into the
        existing rows' lists, so an old row whose true top-k now contains a
        new row is updated too. This half stays plain torch, as in the
@@ -154,6 +202,8 @@ def extend_neighbor_graph(graph: NeighborGraph, rep: torch.Tensor,
         cand = torch.cat([kernel_rows(rep, measure), queries])
         vals, idx = knn_topk.foldin_topk(queries, cand, k=k, self_offset=u,
                                          measure=measure)
+    elif backend == "ivf":
+        vals, idx = _ivf_query_topk(rep, new_rep, measure, k, ivf, ivf_index)
     elif backend == "dense":
         cand = torch.cat([rep, new_rep])
         sims = dense_similarity(new_rep, cand, measure)
@@ -180,3 +230,94 @@ def extend_neighbor_graph(graph: NeighborGraph, rep: torch.Tensor,
     pi = mi.gather(1, sel)
     return NeighborGraph(torch.cat([pi, new_rows.indices]),
                          torch.cat([pv, new_rows.weights]))
+
+
+def _bucketed_query_topk(queries: torch.Tensor, cand_src: torch.Tensor,
+                         measure: str, k: int, chunk: int, n_valid: int,
+                         b_valid: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over a capacity-padded candidate block in (bq, chunk) tiles:
+    valid candidates are rows ``< n_valid + b_valid``, and query i skips its
+    own slot ``n_valid + i``."""
+    bq = queries.shape[0]
+    c = cand_src.shape[0]
+    dev = queries.device
+    chunk = max(min(chunk, c), min(k, c))
+    row_gid = n_valid + torch.arange(bq, device=dev)
+    best_v = torch.full((bq, k), float("-inf"), dtype=torch.float32,
+                        device=dev)
+    best_i = torch.zeros((bq, k), dtype=torch.int32, device=dev)
+    for c0 in range(0, c, chunk):
+        cand = cand_src[c0:c0 + chunk]
+        sims = dense_similarity(queries, cand, measure)
+        cand_ids = c0 + torch.arange(cand.shape[0], device=dev)
+        invalid = ((cand_ids >= n_valid + b_valid)[None, :]
+                   | (cand_ids[None, :] == row_gid[:, None]))
+        v, i = canonical_topk(sims.masked_fill(invalid, float("-inf")),
+                              min(k, cand.shape[0]))
+        mv = torch.cat([best_v, v], dim=1)
+        mi = torch.cat([best_i, (i + c0).to(torch.int32)], dim=1)
+        best_v, sel = canonical_topk(mv, k)
+        best_i = mi.gather(1, sel)
+    return best_v, best_i
+
+
+def extend_neighbor_graph_bucketed(graph: NeighborGraph, rep: torch.Tensor,
+                                   new_rep: torch.Tensor, n_valid: int,
+                                   b_valid: int, measure: str = "cosine",
+                                   backend: str = "auto", *,
+                                   chunk: int = 4096) -> NeighborGraph:
+    """Shape-stable :func:`extend_neighbor_graph`: a (C, k) graph in, the
+    same (C, k) graph out.
+
+    ``rep`` (C, n) holds the new batch already written at rows
+    ``[n_valid, n_valid + bq)``; ``new_rep`` (bq, n) is the batch, rows
+    ``>= b_valid`` filler.
+
+    1. **new-vs-all** — each batch row's top-k over the valid prefix (ids
+       ``< n_valid + b_valid``), stored at slots ``[n_valid, n_valid+bq)``;
+       filler rows store (0, 0.0). The ``kernel`` backend (``auto`` on a
+       CUDA tensor) runs the fold-in kernels, whose ``n_valid`` and
+       ``self_offset`` are exactly these masks; ``streaming`` (``auto`` on
+       a CPU tensor) scans (bq, chunk) tiles with ``dense_similarity``.
+       The two round cosine differently and agree under the tie rule.
+    2. **back-patch** — the (C, bq) existing-vs-new block is merged into
+       rows ``< n_valid`` only; filler columns are -inf.
+    """
+    if graph.is_compact:
+        graph = graph.to_full()
+    bq = new_rep.shape[0]
+    c = rep.shape[0]
+    k = graph.k
+    dev = rep.device
+    backend = resolve_backend(backend, dev)
+    if backend == "kernel":
+        vals, idx = knn_topk.foldin_topk(
+            kernel_rows(new_rep, measure), kernel_rows(rep, measure), k=k,
+            self_offset=n_valid, n_valid=n_valid + b_valid, measure=measure)
+    elif backend == "streaming":
+        vals, idx = _bucketed_query_topk(new_rep, rep, measure, k, chunk,
+                                         n_valid, b_valid)
+    else:
+        raise ValueError(f"bucketed extend runs the kernel or streaming "
+                         f"backend, not {backend!r}")
+    new_rows = finalize_topk(vals, idx)
+    q_valid = (torch.arange(bq, device=dev) < b_valid)[:, None]
+    new_idx = torch.where(q_valid, new_rows.indices,
+                          torch.zeros_like(new_rows.indices))
+    new_w = torch.where(q_valid, new_rows.weights,
+                        torch.zeros_like(new_rows.weights))
+
+    back = dense_similarity(rep, new_rep, measure)  # (C, bq)
+    back = back.masked_fill(~q_valid.T, float("-inf"))
+    batch_ids = (n_valid + torch.arange(bq, dtype=torch.int32, device=dev)
+                 ).expand(c, bq)
+    mv = torch.cat([graph.weights, back], dim=1)  # (C, k + bq)
+    mi = torch.cat([graph.indices, batch_ids], dim=1)
+    pv, sel = canonical_topk(mv, k)
+    pi = mi.gather(1, sel)
+    r_valid = (torch.arange(c, device=dev) < n_valid)[:, None]
+    indices = torch.where(r_valid, pi, graph.indices)
+    weights = torch.where(r_valid, pv, graph.weights)
+    indices[n_valid:n_valid + bq] = new_idx
+    weights[n_valid:n_valid + bq] = new_w
+    return NeighborGraph(indices, weights)

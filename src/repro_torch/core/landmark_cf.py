@@ -2,7 +2,8 @@
 
 Pipeline (user-based; item-based transposes the rating matrix first):
 
-  1. ``select_landmarks``            — popularity (§3.3)
+  1. ``select_landmarks``            — popularity, random, dist. of
+                                       ratings, coresets (§3.3)
   2. ``d1``                          — (U, n) user-landmark representation,
                                        by default the CUDA kernel behind
                                        ``kernels.ops.masked_similarity``
@@ -67,27 +68,33 @@ def build_representation(ratings: torch.Tensor, landmark_idx: torch.Tensor,
 
 
 def fit(matrix: RatingMatrix, spec: LandmarkSpec, sim_fn=None, *,
-        dense_sims: bool = False, backend: Optional[str] = None
+        dense_sims: bool = False, backend: Optional[str] = None,
+        generator: Optional[torch.Generator] = None, ivf=None
         ) -> LandmarkState:
     """Fit landmark CF on one device, the device of ``matrix``.
 
     The fitted artifact is a (U, k) NeighborGraph built by ``core.graph``
-    (backend from ``spec.graph_backend`` unless overridden).
-    ``dense_sims=True`` keeps the dense (U, U) d2 matrix instead.
+    (backend from ``spec.graph_backend`` unless overridden; ``ivf`` is the
+    ``retrieval.IVFSpec`` of ``backend="ivf"``). ``generator`` drives the
+    random selection strategies (popularity ignores it), so a fit is
+    reproducible from its seed. ``dense_sims=True`` keeps the dense (U, U)
+    d2 matrix instead.
     """
     r = _oriented(matrix.ratings, spec.mode)
-    idx = select_landmarks(r, spec.n_landmarks, spec.selection)
+    idx = select_landmarks(r, spec.n_landmarks, spec.selection, generator,
+                           sim_fn)
     rep = build_representation(r, idx, spec.d1, sim_fn)
     if dense_sims:
         return LandmarkState(idx, rep, r, sims=dense_similarity(rep, rep, spec.d2))
     graph = build_neighbor_graph(rep, spec.d2, spec.k_neighbors,
-                                 backend=backend or spec.graph_backend)
+                                 backend=backend or spec.graph_backend,
+                                 ivf=ivf)
     return LandmarkState(idx, rep, r, graph=graph)
 
 
 def fold_in(state: LandmarkState, new_ratings: torch.Tensor,
             spec: LandmarkSpec, sim_fn=None, *, backend: Optional[str] = None,
-            chunk: int = 4096) -> LandmarkState:
+            chunk: int = 4096, ivf=None, ivf_index=None) -> LandmarkState:
     """Project b new rows into the fitted state without a refit.
 
     d1 is O(b·n·P) against the frozen landmark rows; the graph grows via
@@ -96,6 +103,11 @@ def fold_in(state: LandmarkState, new_ratings: torch.Tensor,
     concatenated matrix with the *same* landmarks, up to top-k ties.
     ``new_ratings`` rows follow the state's orientation (new users in user
     mode, new items in item mode).
+
+    ``backend="ivf"`` searches the new rows' neighbors through an IVF index
+    (``ivf`` a ``retrieval.IVFSpec``); pass the serve loop's live
+    ``ivf_index`` over the existing rows to skip building one. The returned
+    state does not carry the index: append the batch to it separately.
     """
     if state.graph is None:
         raise ValueError(
@@ -106,7 +118,8 @@ def fold_in(state: LandmarkState, new_ratings: torch.Tensor,
     new_rep = fn(new_ratings, landmarks, spec.d1)  # (b, n)
     graph = extend_neighbor_graph(
         state.graph, state.representation, new_rep, spec.d2,
-        backend=backend or spec.graph_backend, chunk=chunk)
+        backend=backend or spec.graph_backend, chunk=chunk, ivf=ivf,
+        ivf_index=ivf_index)
     return LandmarkState(
         state.landmark_idx,
         torch.cat([state.representation, new_rep]),

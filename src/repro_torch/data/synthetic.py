@@ -1,0 +1,48 @@
+"""Synthetic arrival streams for the CF lifecycle loop.
+
+A numpy copy of the reference's ``drifting_ratings``: deterministic in
+``(seed, wave)``, so one seed gives byte-identical arrays in both packages.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+
+def drifting_ratings(
+    seed: int,
+    wave: int,
+    batch: int,
+    n_items: int,
+    *,
+    n_waves: int = 8,
+    n_groups: int = 4,
+    drift: float = 1.0,
+    density: float = 0.25,
+    sigma: float = 0.6,
+) -> np.ndarray:
+    """Preference-drifting arrival stream for the CF lifecycle loop.
+
+    Items are split into ``n_groups`` contiguous blocks; wave ``t``'s users
+    concentrate their ratings on a Gaussian window of groups whose center
+    slides from group 0 (wave 0) to ``drift * (n_groups - 1)`` (last wave), and
+    rate focus-group items high and off-focus items low. Early and late waves
+    therefore rate nearly disjoint item sets — landmarks selected at wave 0
+    lose coverage of later arrivals, which is exactly what the drift monitor
+    must detect (tested in tests/test_lifecycle.py).
+
+    Deterministic in (seed, wave) like every generator in this module; returns
+    a dense (batch, n_items) block, 0 == missing.
+    """
+    rng = np.random.default_rng(np.random.SeedSequence([seed, wave]))
+    g = (np.arange(n_items) * n_groups) // n_items  # item -> group
+    center = drift * (n_groups - 1) * wave / max(n_waves - 1, 1)
+    aff = np.exp(-0.5 * ((np.arange(n_groups) - center) / sigma) ** 2)
+    aff = aff / max(aff.max(), 1e-12)  # focus group -> 1.0
+    # per-item rating probability: overall density held fixed, mass follows aff
+    p_item = density * n_items * aff[g] / max(aff[g].sum(), 1e-12)
+    p_item = np.clip(p_item, 0.0, 0.95)
+    rated = rng.random((batch, n_items)) < p_item[None, :]
+    base = 1.0 + 4.0 * aff[g]  # focus items ~5, fringe ~1
+    vals = np.clip(np.rint(base[None, :] + rng.normal(0.0, 0.7, (batch, n_items))),
+                   1, 5)
+    return (vals * rated).astype(np.float32)

@@ -44,6 +44,14 @@ SIGNATURES = {
     #  self_offset, split, measure, stream)
     "foldin_topk_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _I, _P),
+    # (rep, cent, out, U, C, n, measure, stream)
+    "assign_clusters_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # (q, cand, out, B, M, n, measure, stream)
+    "score_candidates_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # (q, probe, lists, rows, scale, fill, self_ids, probe_ok, vals, ids,
+    #  B, nprobe, cap, n, k, measure, payload, stream)
+    "ivf_probe_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                      _I, _I, _I, _P),
 }
 
 
@@ -124,12 +132,28 @@ def check_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: inputs must be contiguous 2-D tensors")
 
 
+def check_cuda(name: str, t: torch.Tensor, ndim: int, dtypes,
+               device: torch.device) -> None:
+    """Raise unless ``t`` is a contiguous ``ndim``-D tensor of one of
+    ``dtypes`` on the CUDA ``device`` (the per-argument check of the kernels
+    that take integer tables or quantized payloads beside float rows)."""
+    if t.device != device:
+        raise ValueError(f"{name}: all inputs must be on {device}, got "
+                         f"{t.device}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name}: expected {dtypes}, got {t.dtype}")
+    if t.dim() != ndim or not t.is_contiguous():
+        raise ValueError(f"{name}: inputs must be contiguous {ndim}-D "
+                         f"tensors, got shape {tuple(t.shape)}")
+
+
 def launch(name: str, *args) -> None:
     """Call C entry point ``name`` with ``args`` plus the current stream of
     the first tensor's device; raise on a non-zero ``cudaGetLastError()``."""
     dev = next(a.device for a in args if isinstance(a, torch.Tensor))
     stream = torch.cuda.current_stream(dev).cuda_stream
     c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    # None passes a null pointer (an optional operand the kernel skips)
     with torch.cuda.device(dev):
         err = getattr(library(), name)(*c_args, stream)
     if err:

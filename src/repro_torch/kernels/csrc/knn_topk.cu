@@ -43,120 +43,17 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "topk_common.cuh"
+
 namespace {
 
-constexpr float kEps = 1e-8f;
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ bool better(float v, int id, float w, int jd) {
-  return v > w || (v == w && id < jd);
-}
-
-// A lane's best KMAX entries, sorted canonically. KMAX >= k, so the top k
-// of the union of the 32 lanes' lists is the top k of all candidates. Every
-// index is a compile-time constant (insertion is a select network), so the
-// lists stay in registers.
-template <int KMAX>
-struct TopK {
-  float v[KMAX];
-  int id[KMAX];
-
-  __device__ __forceinline__ void init() {
-#pragma unroll
-    for (int j = 0; j < KMAX; ++j) {
-      v[j] = -INFINITY;
-      id[j] = 0;
-    }
-  }
-
-  __device__ __forceinline__ void offer(float nv, int nid) {
-    if (!better(nv, nid, v[KMAX - 1], id[KMAX - 1])) return;
-    // slot j takes old j-1 if the new entry outranks it, else the new
-    // entry if it outranks old j, else keeps old j; walking down reads
-    // only slots not yet written
-#pragma unroll
-    for (int j = KMAX - 1; j > 0; --j) {
-      const bool above = better(nv, nid, v[j - 1], id[j - 1]);
-      const bool here = better(nv, nid, v[j], id[j]);
-      v[j] = above ? v[j - 1] : (here ? nv : v[j]);
-      id[j] = above ? id[j - 1] : (here ? nid : id[j]);
-    }
-    if (better(nv, nid, v[0], id[0])) {
-      v[0] = nv;
-      id[0] = nid;
-    }
-  }
-
-  __device__ __forceinline__ void pop() {
-#pragma unroll
-    for (int j = 0; j < KMAX - 1; ++j) {
-      v[j] = v[j + 1];
-      id[j] = id[j + 1];
-    }
-    v[KMAX - 1] = -INFINITY;
-    id[KMAX - 1] = 0;
-  }
-};
-
-// k rounds of a warp-wide arg-max over the 32 list heads; the lane holding
-// the winner pops it. All 32 lanes must call this.
-template <int KMAX>
-__device__ __forceinline__ void warp_merge(TopK<KMAX>& t, int k,
-                                           float* out_v, int* out_i) {
-  const int lane = threadIdx.x & 31;
-  for (int r = 0; r < k; ++r) {
-    float bv = t.v[0];
-    int bi = t.id[0];
-    int bl = lane;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(kFull, bv, off);
-      const int oi = __shfl_xor_sync(kFull, bi, off);
-      const int ol = __shfl_xor_sync(kFull, bl, off);
-      if (better(ov, oi, bv, bi) || (ov == bv && oi == bi && ol < bl)) {
-        bv = ov;
-        bi = oi;
-        bl = ol;
-      }
-    }
-    if (lane == 0) {
-      out_v[r] = bv;
-      out_i[r] = bv == -INFINITY ? 0 : bi;  // empty slot
-    }
-    if (lane == bl) t.pop();
-  }
-}
-
-// Pearson centering of one row of n <= NMAX values (a register array or a
-// shared-memory row): the mean of a left-to-right sum, subtracted. The
-// loops are unrolled with constant indices so a register row stays in
-// registers.
-template <int NMAX, typename Row>
-__device__ __forceinline__ void center(Row& x, int n) {
-  float s = 0.0f;
-#pragma unroll
-  for (int d = 0; d < NMAX; ++d) {
-    if (d < n) s = __fadd_rn(s, x[d]);
-  }
-  const float mean = __fdiv_rn(s, static_cast<float>(n));
-#pragma unroll
-  for (int d = 0; d < NMAX; ++d) {
-    if (d < n) x[d] = __fsub_rn(x[d], mean);
-  }
-}
-
-// Σ x[d]² over n <= NMAX values, added left to right.
-template <int NMAX, typename Row>
-__device__ __forceinline__ float sq_norm(const Row& x, int n) {
-  float s = 0.0f;
-#pragma unroll
-  for (int d = 0; d < NMAX; ++d) {
-    if (d < n) s = __fadd_rn(s, __fmul_rn(x[d], x[d]));
-  }
-  return s;
-}
+using repro::TopK;
+using repro::center;
+using repro::sq_norm;
+using repro::warp_merge;
 
 // Scores of one query row against candidate rows [c_begin, c_end), folded
 // into canonical top-k lists. Grid: x over groups of kWarps query rows,
@@ -216,18 +113,8 @@ topk_scan_kernel(const float* __restrict__ q, const float* __restrict__ cand,
         for (int d = 0; d < NMAX; ++d) {
           if (d < n) z = __fadd_rn(z, __fmul_rn(qr[d], cr[d]));
         }
-        float s;
-        if (measure == 0) {  // cosine: rows are L2-normalized by the caller
-          s = z;
-        } else if (measure == 1) {
-          const float den = fmaxf(
-              __fmul_rn(__fsqrt_rn(qnorm), __fsqrt_rn(cnorm[r])), kEps);
-          s = __fdiv_rn(z, den);
-        } else {
-          const float d2 = fmaxf(
-              __fadd_rn(__fsub_rn(qnorm, __fmul_rn(2.0f, z)), cnorm[r]), 0.0f);
-          s = __fdiv_rn(1.0f, __fadd_rn(1.0f, __fsqrt_rn(d2)));
-        }
+        float s = repro::tile_epilogue(
+            z, qnorm, measure == 0 ? 0.0f : cnorm[r], measure);
         const int gid = t0 + r;
         if (gid >= n_valid || gid == self_gid) s = -INFINITY;
         best.offer(s, gid);

@@ -7,11 +7,15 @@ of ``core.landmark_cf.fit`` / ``build_representation`` / ``fold_in``.
 """
 from __future__ import annotations
 
+from .assign_clusters import assign_clusters
+from .ivf_probe import fused_probe_topk
 from .masked_similarity import masked_similarity
 from .knn_topk import foldin_topk, topk_sim
+from .score_candidates import score_candidates
 
 # every kernel wrapper of the package; each carries a ``launches`` count
-WRAPPERS = (masked_similarity, topk_sim, foldin_topk)
+WRAPPERS = (masked_similarity, topk_sim, foldin_topk, assign_clusters,
+            fused_probe_topk, score_candidates)
 
 
 def reset_launches() -> None:
@@ -23,5 +27,6 @@ def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in WRAPPERS}
 
 
-__all__ = ["masked_similarity", "topk_sim", "foldin_topk", "WRAPPERS",
+__all__ = ["masked_similarity", "topk_sim", "foldin_topk", "assign_clusters",
+           "fused_probe_topk", "score_candidates", "WRAPPERS",
            "reset_launches", "launch_counts"]

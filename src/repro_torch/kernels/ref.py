@@ -22,10 +22,11 @@ def masked_similarity_ref(r_a: torch.Tensor, r_b: torch.Tensor,
 
 
 def _row_sums(x: torch.Tensor) -> torch.Tensor:
-    """Σ_d x[:, d] added left to right, as the kernel adds."""
-    s = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
-    for d in range(x.shape[1]):
-        s = s + x[:, d]
+    """Σ_d x[..., d] over the last axis, added left to right, as the
+    kernels add."""
+    s = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    for d in range(x.shape[-1]):
+        s = s + x[..., d]
     return s
 
 
@@ -34,7 +35,7 @@ def _row_means(x: torch.Tensor) -> torch.Tensor:
     kernel's. (Dividing by a Python number lets torch multiply by its
     reciprocal on the card, one rounding more.)"""
     s = _row_sums(x)
-    return s / torch.full_like(s, x.shape[1])
+    return s / torch.full_like(s, x.shape[-1])
 
 
 def tile_sims(rep: torch.Tensor, cand: torch.Tensor, measure: str
@@ -106,3 +107,96 @@ def foldin_topk_ref(rep: torch.Tensor, cand: torch.Tensor, k: int = 14,
     i is candidate ``self_offset + i`` (None: the queries are not among the
     candidates)."""
     return _masked_topk(rep, cand, k, self_offset, n_valid, measure)
+
+
+def assign_clusters_ref(rep: torch.Tensor, cent: torch.Tensor,
+                        measure: str = "cosine") -> torch.Tensor:
+    """Oracle for kernels.assign_clusters: (U,) int32 arg-max over the
+    :func:`tile_sims` scores of each row against the centroids, ties to the
+    lowest centroid id. Cosine expects rows and centroids L2-normalized by
+    the caller, as the kernel does."""
+    sims = tile_sims(rep.float(), cent.float(), measure)
+    return canonical_topk(sims, 1)[1][:, 0].to(torch.int32)
+
+
+def gathered_sims(q: torch.Tensor, cand: torch.Tensor, measure: str
+                  ) -> torch.Tensor:
+    """d2 scores (b, m) of each query row ``q (b, n)`` against its own
+    candidate rows ``cand (b, m, n)``, with the ``dense_similarity`` algebra
+    on raw rows: pearson centers both rows; cosine and pearson are
+    z / max(√|q|²·√|c|², eps); euclidean 1/(1+√max(|q|² − 2z + |c|², 0)).
+
+    Each score depends only on its two rows, whatever m is. Every sum runs
+    over the landmark axis left to right with a rounding after each
+    multiply and add, as the scorer and probe kernels sum, so on the card
+    they agree bitwise.
+    """
+    q, cand = q.float(), cand.float()
+    if measure == "pearson":
+        q = q - _row_means(q)[:, None]
+        cand = cand - _row_means(cand)[..., None]
+    z = torch.zeros(cand.shape[:-1], dtype=q.dtype, device=q.device)
+    for d in range(q.shape[-1]):
+        z = z + q[:, None, d] * cand[..., d]
+    nu = _row_sums(q * q)[:, None]
+    nv = _row_sums(cand * cand)
+    if measure in ("cosine", "pearson"):
+        return z / (_sqrt(nu) * _sqrt(nv)).clamp(min=EPS)
+    if measure == "euclidean":
+        d2 = (nu - 2.0 * z + nv).clamp(min=0.0)
+        return 1.0 / (1.0 + _sqrt(d2))
+    raise ValueError(f"unknown measure {measure!r}")
+
+
+def score_candidates_ref(q: torch.Tensor, cand: torch.Tensor,
+                         measure: str = "cosine") -> torch.Tensor:
+    """Oracle for kernels.score_candidates: :func:`gathered_sims`."""
+    return gathered_sims(q, cand, measure)
+
+
+INT_MAX = 2 ** 31 - 1
+
+
+def fused_probe_topk_ref(q, probe, lists, rows, scale, fill, *, k: int,
+                         measure: str = "cosine", self_ids=None,
+                         probe_ok=None, block: int = 256):
+    """Oracle for kernels.ivf_probe.fused_probe_topk: per query, the
+    canonical top-k (value desc, id asc) over the live slots of its probed
+    posting lists, scored with :func:`gathered_sims` on the dequantized
+    payload (int8 rows times their f32 scale). Slots at or past the cell's
+    fill, the query's own id and masked (query, probe rank) pairs are never
+    selected; empty slots are (-inf, 0). Queries go in blocks of ``block``
+    so the gathered candidates stay bounded."""
+    b, nprobe = probe.shape
+    cap = lists.shape[1]
+    dev = q.device
+    vals = torch.full((b, k), float("-inf"), dtype=torch.float32, device=dev)
+    ids = torch.zeros((b, k), dtype=torch.int32, device=dev)
+    slot = torch.arange(cap, device=dev)
+    for b0 in range(0, b, block):
+        pr = probe[b0:b0 + block].long()  # (qb, nprobe)
+        qb = pr.shape[0]
+        cand = rows[pr].float()  # (qb, nprobe, cap, n)
+        if scale is not None:
+            cand = cand * scale[pr][..., None]
+        sims = gathered_sims(q[b0:b0 + block], cand.reshape(qb, -1,
+                                                            cand.shape[-1]),
+                             measure)
+        cid = lists[pr].to(torch.int32)  # (qb, nprobe, cap)
+        keep = slot[None, None, :] < fill[pr][..., None]
+        if self_ids is not None:
+            keep = keep & (cid != self_ids[b0:b0 + block, None, None])
+        if probe_ok is not None:
+            keep = keep & probe_ok[b0:b0 + block, :, None].bool()
+        keep = keep.reshape(qb, -1)
+        sims = sims.masked_fill(~keep, float("-inf"))
+        cid = cid.reshape(qb, -1).masked_fill(~keep, INT_MAX)
+        if sims.shape[1] < k:  # fewer slots than the list: the tail is empty
+            pad = k - sims.shape[1]
+            sims = torch.cat([sims, sims.new_full((qb, pad), float("-inf"))], 1)
+            cid = torch.cat([cid, cid.new_full((qb, pad), INT_MAX)], 1)
+        v, i = canonical_topk(sims, k, ids=cid)
+        vals[b0:b0 + qb] = v
+        ids[b0:b0 + qb] = torch.where(torch.isfinite(v), i,
+                                      torch.zeros_like(i))
+    return vals, ids

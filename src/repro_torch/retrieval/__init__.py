@@ -1,0 +1,35 @@
+"""IVF retrieval over the landmark embedding: a k-means coarse quantizer
+(``kmeans``) and an inverted-file index with fused probe search
+(``index``)."""
+from .index import (
+    IVFIndex,
+    IVFSpec,
+    PAYLOAD_DTYPES,
+    SCORERS,
+    append,
+    build_index,
+    dequantize_payload,
+    ensure_index_capacity,
+    grow_capacity,
+    place_plan,
+    probe_cells,
+    quantize_payload,
+    recall_at_k,
+    resolve_ivf,
+    resolve_scorer,
+    score_recall_at_k,
+    search,
+    search_early_exit,
+)
+from .kmeans import (ASSIGN_BACKENDS, assign_clusters, init_centroids, kmeans,
+                     resolve_assign_backend)
+
+__all__ = [
+    "IVFIndex", "IVFSpec", "PAYLOAD_DTYPES", "SCORERS", "ASSIGN_BACKENDS",
+    "append", "assign_clusters", "build_index", "dequantize_payload",
+    "ensure_index_capacity", "grow_capacity", "init_centroids", "kmeans",
+    "place_plan", "probe_cells", "quantize_payload", "recall_at_k",
+    "resolve_assign_backend", "resolve_ivf", "resolve_scorer",
+    "score_recall_at_k", "search",
+    "search_early_exit",
+]

@@ -1,0 +1,209 @@
+"""Checkpoints with atomic commit and keep-k garbage collection, one device.
+
+The on-disk layout is the reference's (``repro.train.checkpoint``), so an
+artifact written by either package loads in the other:
+
+  <dir>/step_00000100.tmp/          # written first
+      manifest.json                 # step, leaf count, shapes, dtypes, shards
+      leaf_0000/shard_0000.npy      # one .npy per leaf (one shard: one device)
+      state.json                    # sidecar (LandmarkState artifacts)
+  <dir>/step_00000100/              # atomic rename on success
+
+A tree is a dict (or list/tuple) of tensors or arrays, flattened the way
+``jax.tree_util`` flattens it: dict keys in sorted order, sequences in
+order, depth first. bfloat16 leaves are stored as their uint16 bits and
+named ``bfloat16`` in the manifest.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+def _flatten(tree) -> List:
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree) for leaf in _flatten(tree[key])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for sub in tree for leaf in _flatten(sub)]
+    return [tree]
+
+
+def _unflatten(like, leaves):
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {key: build(node[key]) for key in sorted(node)}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(sub) for sub in node)
+        return next(it)
+
+    return build(like)
+
+
+def _to_host(leaf) -> Tuple[np.ndarray, str]:
+    """A leaf as the numpy array that goes to disk (bf16 as uint16 bits)
+    and the dtype name the manifest records."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+        return t.numpy(), str(t.numpy().dtype)
+    a = np.asarray(leaf)
+    return a, str(a.dtype)
+
+
+def save_checkpoint(directory: str, step: int, tree: Any, keep: int = 3,
+                    extra_files: Optional[Dict[str, str]] = None) -> Path:
+    """Write ``tree`` as step ``step``; atomic via a tmp dir + rename, then
+    drop all but the newest ``keep`` committed steps. ``extra_files``
+    (name → text) land in the tmp dir before the rename, so sidecars commit
+    with the tensors."""
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    final = directory / f"step_{step:08d}"
+    tmp = directory / f"step_{step:08d}.tmp"
+    if tmp.exists():
+        shutil.rmtree(tmp)
+    tmp.mkdir(parents=True)
+    leaves = _flatten(tree)
+    manifest: Dict[str, Any] = {"step": step, "n_leaves": len(leaves),
+                                "leaves": []}
+    for i, leaf in enumerate(leaves):
+        host, dtype = _to_host(leaf)
+        leaf_dir = tmp / f"leaf_{i:04d}"
+        leaf_dir.mkdir()
+        np.save(leaf_dir / "shard_0000.npy", host)
+        manifest["leaves"].append({
+            "shape": list(host.shape), "dtype": dtype,
+            "shards": [{"file": "shard_0000.npy",
+                        "index": [[0, s] for s in host.shape]}]})
+    (tmp / "manifest.json").write_text(json.dumps(manifest))
+    for name, text in (extra_files or {}).items():
+        (tmp / name).write_text(text)
+    if final.exists():
+        shutil.rmtree(final)
+    os.rename(tmp, final)  # atomic commit
+    ckpts = sorted(p for p in directory.glob("step_*")
+                   if not p.name.endswith(".tmp"))
+    for old in ckpts[:-keep]:
+        shutil.rmtree(old, ignore_errors=True)
+    return final
+
+
+def latest_step(directory: str) -> Optional[int]:
+    """Highest committed step: past the rename (no ``.tmp``) and holding a
+    ``manifest.json`` — a partial directory left by a crash is invisible."""
+    d = Path(directory)
+    if not d.exists():
+        return None
+    steps = [int(p.name.split("_")[1]) for p in d.glob("step_*")
+             if not p.name.endswith(".tmp") and (p / "manifest.json").exists()]
+    return max(steps) if steps else None
+
+
+def _load_leaf(leaf_dir: Path, meta: Dict) -> np.ndarray:
+    is_bf16 = meta["dtype"] == "bfloat16"
+    full = np.zeros(meta["shape"], dtype=np.uint16 if is_bf16
+                    else np.dtype(meta["dtype"]))
+    for shard in meta["shards"]:
+        data = np.load(leaf_dir / shard["file"])
+        idx = tuple(slice(a, b) for a, b in shard["index"]) or ...
+        full[idx] = data
+    return full
+
+
+def _to_tensor(host: np.ndarray, dtype: str, device) -> torch.Tensor:
+    if dtype == "bfloat16":
+        return torch.from_numpy(host.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(host).to(device)
+
+
+def restore_checkpoint(directory: str, tree_like: Any,
+                       step: Optional[int] = None, device="cuda") -> Any:
+    """Restore step ``step`` (default: the latest) into the structure of
+    ``tree_like``, every leaf a tensor on ``device``. Shards written by a
+    multi-device save are reassembled from their index ranges."""
+    step = step if step is not None else latest_step(directory)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint under {directory}")
+    d = Path(directory) / f"step_{step:08d}"
+    manifest = json.loads((d / "manifest.json").read_text())
+    n = len(_flatten(tree_like))
+    if n != manifest["n_leaves"]:
+        raise ValueError(f"tree structure changed: {n} leaves vs "
+                         f"{manifest['n_leaves']} on disk")
+    leaves = [_to_tensor(_load_leaf(d / f"leaf_{i:04d}", meta),
+                         meta["dtype"], device)
+              for i, meta in enumerate(manifest["leaves"])]
+    return _unflatten(tree_like, leaves)
+
+
+# --------------------------------------------------------------- CF artifacts
+# A fitted LandmarkState is stored as a field-named dict (sorted-key flatten
+# order) plus a state.json sidecar recording which fields exist, so a
+# restore needs no fitted template.
+
+
+def save_landmark_state(directory: str, state, *, compact: bool = False,
+                        step: int = 0, keep: int = 3) -> Path:
+    """Persist a fitted ``LandmarkState`` (graph ids and weights included).
+
+    ``compact=True`` stores the graph as uint16 ids + bf16 weights (half the
+    artifact bytes; U < 65536). Landmark ids are stored as int32, as the
+    reference stores them."""
+    graph = state.graph
+    if compact and graph is not None:
+        graph = graph.to_compact()
+    tree = {
+        "landmark_idx": state.landmark_idx.to(torch.int32),
+        "representation": state.representation,
+        "ratings": state.ratings,
+    }
+    if graph is not None:
+        tree["graph_indices"] = graph.indices
+        tree["graph_weights"] = graph.weights
+    if state.sims is not None:
+        tree["sims"] = state.sims
+    meta = {"kind": "landmark_state", "fields": sorted(tree),
+            "compact": bool(compact and graph is not None), "row_shards": 1}
+    return save_checkpoint(directory, step, tree, keep=keep,
+                           extra_files={"state.json": json.dumps(meta)})
+
+
+def landmark_state_meta(directory: str, step: Optional[int] = None) -> Dict:
+    """The state.json sidecar of a saved LandmarkState."""
+    step = step if step is not None else latest_step(directory)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint under {directory}")
+    return json.loads(
+        (Path(directory) / f"step_{step:08d}" / "state.json").read_text())
+
+
+def load_landmark_state(directory: str, step: Optional[int] = None, *,
+                        widen: bool = True, device="cuda"):
+    """Rebuild a ``LandmarkState`` on ``device`` from
+    ``save_landmark_state`` output (either package's). ``widen=True``
+    returns the int32/f32 graph even from a compact artifact."""
+    from ..core.landmark_cf import LandmarkState
+    from ..core.types import NeighborGraph
+
+    step = step if step is not None else latest_step(directory)
+    meta = landmark_state_meta(directory, step)
+    tree = restore_checkpoint(directory, {f: 0 for f in meta["fields"]},
+                              step=step, device=device)
+    graph = None
+    if "graph_indices" in tree:
+        graph = NeighborGraph(tree["graph_indices"], tree["graph_weights"])
+        if widen and graph.is_compact:
+            graph = graph.to_full()
+    return LandmarkState(tree["landmark_idx"].to(torch.int64),
+                         tree["representation"], tree["ratings"],
+                         graph=graph, sims=tree.get("sims"))

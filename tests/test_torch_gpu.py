@@ -9,7 +9,10 @@ Tolerances:
 - d1 cosine on integer ratings: bitwise equal (exact moments, the same
   IEEE epilogue); pearson and euclidean: rtol=1e-5, atol=1e-6;
 - the top-k kernels: bitwise equal values and ids — the plain version
-  repeats the kernel's summation order and epilogue op for op.
+  repeats the kernel's summation order and epilogue op for op;
+- the Lloyd assignment, the gathered-candidate scorer and the fused IVF
+  probe (f32, bf16 and int8 payloads): bitwise equal to their plain
+  versions, for the same reason.
 """
 import numpy as np
 import pytest
@@ -18,7 +21,8 @@ import torch
 import repro_torch.core as T
 from repro_torch.core import similarity as sim
 from repro_torch.core.graph import kernel_rows
-from repro_torch.kernels import knn_topk, ops, ref
+from repro_torch.kernels import (assign_clusters, ivf_probe, knn_topk, ops,
+                                 ref, score_candidates)
 
 pytestmark = pytest.mark.gpu
 RTOL, ATOL = 1e-5, 1e-6
@@ -43,6 +47,11 @@ def _ratings(u, p, device, density=0.3, seed=0):
 def _rep(u, n, device, seed=0):
     r = _ratings(u, 200, device, seed=seed)
     return sim.masked_similarity(r, r[:n])
+
+
+def _rows(u, n, device, seed=0):
+    """u representation rows of width n (any u)."""
+    return _rep(max(u, n), n, device, seed=seed)[:u].contiguous()
 
 
 @pytest.mark.parametrize("measure", MEASURES)
@@ -108,7 +117,8 @@ def test_fit_on_the_card_matches_plain_versions(cuda):
     a = T.fold_in(T.fit(T.RatingMatrix(r[:650], 650, 300), spec), r[650:],
                   spec)
     counts = ops.launch_counts()
-    assert all(v > 0 for v in counts.values()), counts
+    graph_path = ("masked_similarity", "topk_sim", "foldin_topk")
+    assert all(counts[name] > 0 for name in graph_path), counts
     ops.reset_launches()
     b = T.fold_in(T.fit(T.RatingMatrix(r[:650], 650, 300), spec,
                         sim_fn=sim.masked_similarity, backend="streaming"),
@@ -135,3 +145,106 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="k=33"):
         knn_topk.topk_sim(rep[:, :20].contiguous(), rep[:, :20].contiguous(),
                           33)
+
+
+@pytest.mark.parametrize("measure", MEASURES)
+@pytest.mark.parametrize("u,c,n", [(5976, 77, 20), (1001, 13, 64),
+                                   (37, 300, 33), (9, 1, 1)])
+def test_assign_clusters_kernel_matches_plain(cuda, measure, u, c, n):
+    rep = _rows(u, n, cuda, seed=6)
+    cent = kernel_rows(rep[torch.randperm(u, device=cuda)[:c]]
+                       if c <= u else rep[:1].repeat(c, 1), measure)
+    rep = kernel_rows(rep, measure)
+    got = assign_clusters.assign_clusters(rep, cent, measure)
+    want = ref.assign_clusters_ref(rep, cent, measure)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("measure", MEASURES)
+@pytest.mark.parametrize("b,m,n", [(256, 1976, 20), (5, 130, 64), (1, 1, 3)])
+def test_score_candidates_kernel_matches_plain(cuda, measure, b, m, n):
+    q = _rows(b, n, cuda, seed=7)
+    cand = _rows(b * m, n, cuda, seed=8).reshape(b, m, n)
+    got = score_candidates.score_candidates(q, cand, measure)
+    want = ref.score_candidates_ref(q, cand, measure)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _ivf_layout(device, c, cap, n, seed, payload="f32", empty=(0,)):
+    """A posting-list layout: ragged fills (``empty`` cells hold nothing),
+    ids a permutation, payload rows from d1 representations."""
+    rng = np.random.default_rng(seed)
+    fill = rng.integers(1, cap + 1, c)
+    fill[list(empty)] = 0
+    u = int(fill.sum())
+    lists = np.zeros((c, cap), np.int32)
+    ids = rng.permutation(u)
+    o = 0
+    for j in range(c):
+        lists[j, :fill[j]] = ids[o:o + fill[j]]
+        o += fill[j]
+    rep = _rows(max(u, 1), n, device, seed=seed)
+    rows = torch.zeros((c, cap, n), device=device)
+    for j in range(c):
+        rows[j, :fill[j]] = rep[torch.as_tensor(lists[j, :fill[j]].astype(
+            np.int64), device=device)]
+    scale = None
+    if payload == "bf16":
+        rows = rows.to(torch.bfloat16)
+    elif payload == "int8":
+        amax = rows.abs().amax(-1)
+        scale = amax / torch.full_like(amax, 127.0)
+        rows = torch.round(rows / scale.clamp(min=1e-8)[..., None]).to(
+            torch.int8)
+    return (torch.as_tensor(lists, device=device), rows, scale,
+            torch.as_tensor(fill.astype(np.int32), device=device), rep)
+
+
+@pytest.mark.parametrize("measure", MEASURES)
+@pytest.mark.parametrize("payload", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("b,c,cap,n,nprobe,k", [
+    (5976, 77, 104, 20, 19, 13), (300, 13, 40, 64, 13, 32),
+    (40, 6, 70, 20, 2, 13), (17, 5, 3, 7, 2, 13)])
+def test_fused_probe_kernel_matches_plain(cuda, measure, payload, b, c, cap,
+                                          n, nprobe, k):
+    """Empty cells, k above the live candidates (the last case holds at
+    most 6 per query), self ids, a probe_ok mask, C not a multiple of 8,
+    every payload type: values and ids bitwise equal."""
+    lists, rows, scale, fill, rep = _ivf_layout(cuda, c, cap, n, seed=9,
+                                                payload=payload)
+    g = torch.Generator(device="cpu").manual_seed(10)
+    q = _rows(b, n, cuda, seed=11)
+    probe = torch.stack([torch.randperm(c, generator=g)[:nprobe]
+                         for _ in range(b)]).to(torch.int32).to(cuda)
+    self_ids = torch.randint(-1, int(fill.sum()), (b,), generator=g
+                             ).to(torch.int32).to(cuda)
+    probe_ok = (torch.rand((b, nprobe), generator=g) > 0.2).to(
+        torch.int32).to(cuda)
+    args = (q, probe, lists, rows, scale, fill)
+    kw = dict(k=k, measure=measure, self_ids=self_ids, probe_ok=probe_ok)
+    got = ivf_probe.fused_probe_topk(*args, **kw)
+    want = ref.fused_probe_topk_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if nprobe * cap < k:  # fewer candidates than slots: the tail is empty
+        assert torch.isinf(got[0][:, -1]).all()
+
+
+def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    rep = _rows(50, 20, cuda)
+    with pytest.raises(ValueError, match="width"):
+        assign_clusters.assign_clusters(_rows(9, 65, cuda), _rows(3, 65, cuda))
+    with pytest.raises(ValueError, match="3-D"):
+        score_candidates.score_candidates(rep, rep)
+    lists, rows, scale, fill, _ = _ivf_layout(cuda, 4, 8, 20, seed=1,
+                                              payload="int8")
+    probe = torch.zeros((50, 1), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="scales"):
+        ivf_probe.fused_probe_topk(rep, probe, lists, rows, None, fill, k=5)
+    with pytest.raises(ValueError, match="k=33"):
+        ivf_probe.fused_probe_topk(rep, probe, lists, rows, scale, fill, k=33)
+    with pytest.raises(ValueError, match="int32"):
+        ivf_probe.fused_probe_topk(rep, probe.long(), lists, rows, scale,
+                                   fill, k=5)

@@ -17,21 +17,36 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = re.compile(r"^\s*(import|from) (jax|repro)(\.|\s|$)", re.M)
 
 
-def test_serve_cli_smoke_on_cpu(capsys):
-    serve.main(["--workload", "cf", "--smoke", "--device", "cpu"])
+def test_serve_cli_smoke_on_cpu(capsys, tmp_path):
+    """An empty --ckpt: fit, checkpoint, load the artifact and serve it; a
+    second run on the same directory loads without fitting."""
+    args = ["--workload", "cf", "--smoke", "--device", "cpu", "--ckpt",
+            str(tmp_path)]
+    serve.main(args)
     out = capsys.readouterr().out
     assert "tf32: off" in out
     assert "fit U=512 P=128 n=8 k=13 on cpu" in out
+    assert f"checkpointed {tmp_path}" in out
+    assert "loaded U=512 graph k=13" in out
     assert "wave 0: U=512" in out and "wave 1: U=528" in out
     assert "fold-in +16 users" in out
     assert out.rstrip().endswith("cf serve: done")
+    serve.main(args)
+    again = capsys.readouterr().out
+    assert "fit U=" not in again and "loaded U=512 graph k=13" in again
+    assert again.rstrip().endswith("cf serve: done")
 
 
-@pytest.mark.parametrize("backend", ["dense", "streaming", "kernel"])
+@pytest.mark.parametrize("backend", ["dense", "streaming", "kernel", "ivf"])
 def test_serve_cli_graph_backends(capsys, backend):
     serve.main(["--smoke", "--device", "cpu", "--waves", "2", "--requests",
                 "2", "--graph-backend", backend])
     assert "cf serve: done" in capsys.readouterr().out
+
+
+def test_serve_cli_refuses_ivf_retrieval_without_lifecycle():
+    with pytest.raises(SystemExit, match="lifecycle"):
+        serve.main(["--smoke", "--device", "cpu", "--retrieval", "ivf"])
 
 
 def test_port_sources_never_import_jax_or_the_reference():
@@ -55,15 +70,17 @@ def test_wrappers_never_launch_for_cpu_tensors():
     st = T.fold_in(st, torch.as_tensor(r[70:]), spec)
     assert st.graph.indices.shape == (80, 4)
     assert ops.launch_counts() == {"masked_similarity": 0, "topk_sim": 0,
-                                   "foldin_topk": 0}
+                                   "foldin_topk": 0, "assign_clusters": 0,
+                                   "fused_probe_topk": 0,
+                                   "score_candidates": 0}
 
 
 def test_resolve_backend_follows_the_tensor_device():
     assert resolve_backend("auto", "cpu") == "streaming"
     assert resolve_backend("auto", torch.device("cuda")) == "kernel"
     assert resolve_backend("kernel", "cpu") == "kernel"
-    with pytest.raises(NotImplementedError, match="retrieval slice"):
-        resolve_backend("ivf", "cpu")
+    assert resolve_backend("ivf", "cpu") == "ivf"
+    assert resolve_backend("ivf", torch.device("cuda")) == "ivf"
     with pytest.raises(ValueError, match="unknown graph backend"):
         resolve_backend("pallas", "cpu")
 
@@ -87,6 +104,8 @@ def test_kernel_input_checks_reject_cpu_tensors():
 def test_build_paths_stay_in_the_checkout():
     assert build.BUILD_DIR == ROOT / "build" / "kernels"
     assert sorted(p.name for p in build.CSRC.glob("*.cu")) == [
-        "knn_topk.cu", "masked_similarity.cu"]
+        "assign_clusters.cu", "ivf_probe.cu", "knn_topk.cu",
+        "masked_similarity.cu", "score_candidates.cu"]
+    assert [p.name for p in build.CSRC.glob("*.cuh")] == ["topk_common.cuh"]
     assert "sm_90a" in build.ARCH
     assert "--use_fast_math" not in build.NVCC_FLAGS
