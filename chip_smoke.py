@@ -42,7 +42,7 @@ The IVF retrieval slice adds, each with its own time:
     once at smoke size (a refresh fires, gen 1 swaps in oracle-exact, the
     geometries stay within the buckets, mean recall >= 0.95) and once at
     full width (U=6040, P=3952, 64 arrivals and a 64-row fold-in batch per
-    wave, 8 waves).
+    wave, 8 waves); every kernel must launch in each run.
 
 The last two lines are the kernel table and
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. TF32 is off for
@@ -464,8 +464,12 @@ def _bound(bytes_moved, flops):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _ivf_rows(ivf, ivf_counts, err):
-    """Rows 4–6 of the kernel table at the IVF path's shapes."""
+def _ivf_rows(ivf, ivf_counts, life_counts, err):
+    """Rows 4–6 of the kernel table at the IVF path's shapes.
+
+    The operation counts are the least work each function needs on these
+    inputs: a dot product (2n) and a 3-op epilogue (multiply, max, divide)
+    per scored pair, and a squared norm (2n) once per distinct row."""
     import torch.nn.functional as F
 
     index, probe = ivf["index"], ivf["probe"]
@@ -475,6 +479,7 @@ def _ivf_rows(ivf, ivf_counts, err):
     xr = kernel_rows(rows_all, "cosine")
     cr = kernel_rows(index.centroids, "cosine")
     live = int(index.fill[probe.long()].sum())  # (query, live slot) pairs
+    stored = int(index.fill.sum())  # live rows in the index
     b, nprobe = probe.shape
     q, cand = ivf["q"], ivf["cand"]
     qb, m = cand.shape[:2]
@@ -491,14 +496,16 @@ def _ivf_rows(ivf, ivf_counts, err):
             lambda: ref.fused_probe_topk_ref(*args, **kw),
             None,
             4 * (b * n + b * nprobe + c * cap + c * cap * n + c + b)
-            + 8 * b * 13, live * (4 * n + 4),
+            + 8 * b * 13, live * (2 * n + 3) + 2 * n * (stored + b),
             f"b={b} nprobe={nprobe} C={c} cap={cap} n={n} k=13 f32, "
             f"{live} live (query, slot) pairs"),
         "score_candidates": (
             lambda: score_candidates.score_candidates(q, cand),
             lambda: ref.score_candidates_ref(q, cand),
             lambda: F.cosine_similarity(q[:, None, :], cand, dim=-1),
-            4 * (qb * n + qb * m * n + qb * m), qb * m * (4 * n + 4),
+            # every gathered candidate is a row of its own: its norm too
+            4 * (qb * n + qb * m * n + qb * m),
+            qb * m * (4 * n + 3) + 2 * n * qb,
             f"b={qb} m={m} n={n}"),
     }
     table = []
@@ -506,8 +513,8 @@ def _ivf_rows(ivf, ivf_counts, err):
         bound_ms, bound_by = _bound(nbytes, flops)
         table.append(dict(
             name=name, route="cuda", **KERNELS[name], shape=shape,
-            launches=ivf_counts[name], max_abs_err=err[name],
-            max_err=err[name], ms=_event_ms(kern, 50),
+            launches=ivf_counts[name], launches_lifecycle=life_counts[name],
+            max_abs_err=err[name], max_err=err[name], ms=_event_ms(kern, 50),
             plain_ms=_event_ms(plain, 3), bound_ms=bound_ms,
             bound_us=bound_ms * 1e3, bound_by=bound_by,
             library_ms=None if lib is None else _event_ms(lib, 50),
@@ -515,7 +522,7 @@ def _ivf_rows(ivf, ivf_counts, err):
     return table
 
 
-def phase_times(train, a, err, peak):
+def phase_times(train, a, err, peak, life_counts):
     st = a["state"]
     u_fit, p = st.ratings.shape
     n, k = st.representation.shape[1], st.graph.k
@@ -549,8 +556,9 @@ def phase_times(train, a, err, peak):
         ms = _event_ms(kern, 50)
         table.append(dict(
             name=name, route="cuda", **KERNELS[name], shape=shape,
-            launches=launches[name], max_abs_err=err[name],
-            max_err=err[name], ms=ms, plain_ms=_event_ms(plain, 10),
+            launches=launches[name], launches_lifecycle=life_counts[name],
+            max_abs_err=err[name], max_err=err[name], ms=ms,
+            plain_ms=_event_ms(plain, 10),
             bound_ms=bound_ms, bound_us=bound_ms * 1e3, bound_by=bound_by,
             library_ms=None, device_ms=_device_ms(kern, name)))
     spec = cfg.MODEL
@@ -750,7 +758,8 @@ def phase_ivf_path(train, a):
 
 def phase_lifecycle():
     """7c: the lifecycle serve CLI with IVF retrieval, smoke and full
-    width. Returns the full-width run's launch counts."""
+    width. Every kernel must launch in each run. Returns the full-width
+    run's launch counts."""
     ckpt = ROOT / "build" / "chip_smoke_ckpt"
     out = {}
     for tag, argv in (
@@ -770,6 +779,10 @@ def phase_lifecycle():
         counts = ops.launch_counts()
         text = buf.getvalue()
         print(text, end="")
+        idle = [name for name in KERNELS if not counts[name] > 0]
+        if idle:
+            raise AssertionError(f"lifecycle {tag}: {idle} never launched "
+                                 f"({counts})")
         for want in ("cf lifecycle: done", "geometries per request-path"):
             if want not in text:
                 raise AssertionError(f"lifecycle {tag}: missing {want!r}")
@@ -815,9 +828,9 @@ def main():
     ivf = phase_ivf_kernels(a)
     err.update({name: 0.0 for name in IVF_KERNELS})  # bitwise, checked
     ivf_counts = phase_ivf_path(train, a)
-    phase_lifecycle()
-    table = phase_times(train, a, err, peak) + _ivf_rows(ivf, ivf_counts,
-                                                         err)
+    life_counts = phase_lifecycle()
+    table = (phase_times(train, a, err, peak, life_counts)
+             + _ivf_rows(ivf, ivf_counts, life_counts, err))
     print(f"card: {card}")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -40,7 +40,7 @@ valid-row counts are plain integers, so every fold-in at one
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -119,10 +119,12 @@ def build_neighbor_graph(rep: torch.Tensor, measure: str = "cosine",
 
 
 def _streaming_query_topk(queries: torch.Tensor, cand_src: torch.Tensor,
-                          measure: str, k: int, chunk: int, self_offset: int
+                          measure: str, k: int, chunk: int, self_offset: int,
+                          n_valid: Optional[int] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k candidates per query row (query i is candidate
-    ``self_offset + i``), scanning (b, chunk) score tiles only."""
+    ``self_offset + i``), scanning (b, chunk) score tiles only. Candidates
+    at or past ``n_valid`` (default: none) are never picked."""
     b = queries.shape[0]
     c = cand_src.shape[0]
     dev = queries.device
@@ -134,9 +136,11 @@ def _streaming_query_topk(queries: torch.Tensor, cand_src: torch.Tensor,
         cand = cand_src[c0:c0 + chunk]
         sims = dense_similarity(queries, cand, measure)
         cand_ids = c0 + torch.arange(cand.shape[0], device=dev)
-        sims = sims.masked_fill(cand_ids[None, :] == row_gid[:, None],
-                                float("-inf"))
-        v, i = canonical_topk(sims, min(k, cand.shape[0]))
+        invalid = cand_ids[None, :] == row_gid[:, None]
+        if n_valid is not None:
+            invalid = invalid | (cand_ids >= n_valid)[None, :]
+        v, i = canonical_topk(sims.masked_fill(invalid, float("-inf")),
+                              min(k, cand.shape[0]))
         mv = torch.cat([best_v, v], dim=1)
         mi = torch.cat([best_i, (i + c0).to(torch.int32)], dim=1)
         best_v, sel = canonical_topk(mv, k)
@@ -232,35 +236,6 @@ def extend_neighbor_graph(graph: NeighborGraph, rep: torch.Tensor,
                          torch.cat([pv, new_rows.weights]))
 
 
-def _bucketed_query_topk(queries: torch.Tensor, cand_src: torch.Tensor,
-                         measure: str, k: int, chunk: int, n_valid: int,
-                         b_valid: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k over a capacity-padded candidate block in (bq, chunk) tiles:
-    valid candidates are rows ``< n_valid + b_valid``, and query i skips its
-    own slot ``n_valid + i``."""
-    bq = queries.shape[0]
-    c = cand_src.shape[0]
-    dev = queries.device
-    chunk = max(min(chunk, c), min(k, c))
-    row_gid = n_valid + torch.arange(bq, device=dev)
-    best_v = torch.full((bq, k), float("-inf"), dtype=torch.float32,
-                        device=dev)
-    best_i = torch.zeros((bq, k), dtype=torch.int32, device=dev)
-    for c0 in range(0, c, chunk):
-        cand = cand_src[c0:c0 + chunk]
-        sims = dense_similarity(queries, cand, measure)
-        cand_ids = c0 + torch.arange(cand.shape[0], device=dev)
-        invalid = ((cand_ids >= n_valid + b_valid)[None, :]
-                   | (cand_ids[None, :] == row_gid[:, None]))
-        v, i = canonical_topk(sims.masked_fill(invalid, float("-inf")),
-                              min(k, cand.shape[0]))
-        mv = torch.cat([best_v, v], dim=1)
-        mi = torch.cat([best_i, (i + c0).to(torch.int32)], dim=1)
-        best_v, sel = canonical_topk(mv, k)
-        best_i = mi.gather(1, sel)
-    return best_v, best_i
-
-
 def extend_neighbor_graph_bucketed(graph: NeighborGraph, rep: torch.Tensor,
                                    new_rep: torch.Tensor, n_valid: int,
                                    b_valid: int, measure: str = "cosine",
@@ -295,8 +270,9 @@ def extend_neighbor_graph_bucketed(graph: NeighborGraph, rep: torch.Tensor,
             kernel_rows(new_rep, measure), kernel_rows(rep, measure), k=k,
             self_offset=n_valid, n_valid=n_valid + b_valid, measure=measure)
     elif backend == "streaming":
-        vals, idx = _bucketed_query_topk(new_rep, rep, measure, k, chunk,
-                                         n_valid, b_valid)
+        vals, idx = _streaming_query_topk(new_rep, rep, measure, k, chunk,
+                                          self_offset=n_valid,
+                                          n_valid=n_valid + b_valid)
     else:
         raise ValueError(f"bucketed extend runs the kernel or streaming "
                          f"backend, not {backend!r}")

@@ -122,8 +122,9 @@ def assign_clusters_ref(rep: torch.Tensor, cent: torch.Tensor,
 def gathered_sims(q: torch.Tensor, cand: torch.Tensor, measure: str
                   ) -> torch.Tensor:
     """d2 scores (b, m) of each query row ``q (b, n)`` against its own
-    candidate rows ``cand (b, m, n)``, with the ``dense_similarity`` algebra
-    on raw rows: pearson centers both rows; cosine and pearson are
+    candidate rows ``cand (b, m, n)`` — or against one candidate block
+    ``cand (m, n)`` shared by every query — with the ``dense_similarity``
+    algebra on raw rows: pearson centers both rows; cosine and pearson are
     z / max(√|q|²·√|c|², eps); euclidean 1/(1+√max(|q|² − 2z + |c|², 0)).
 
     Each score depends only on its two rows, whatever m is. Every sum runs
@@ -135,7 +136,8 @@ def gathered_sims(q: torch.Tensor, cand: torch.Tensor, measure: str
     if measure == "pearson":
         q = q - _row_means(q)[:, None]
         cand = cand - _row_means(cand)[..., None]
-    z = torch.zeros(cand.shape[:-1], dtype=q.dtype, device=q.device)
+    z = torch.zeros((q.shape[0], cand.shape[-2]), dtype=q.dtype,
+                    device=q.device)
     for d in range(q.shape[-1]):
         z = z + q[:, None, d] * cand[..., d]
     nu = _row_sums(q * q)[:, None]

@@ -37,8 +37,8 @@ import torch
 from ..configs import landmark_cf as cfg
 from ..core import RatingMatrix, fit, fold_in, knn
 from ..serving.stats import latency_stats
-from ..train.checkpoint import (landmark_state_meta, latest_step,
-                                load_landmark_state, save_landmark_state)
+from ..train.checkpoint import (latest_step, load_landmark_state,
+                                save_landmark_state)
 
 IVF_RECALL_SLO = 0.95  # serving recall target; nprobe escalates to hold it
 
@@ -485,8 +485,6 @@ def _serve_cf_lifecycle(args):
                                   *rows.shape), spec,
                      generator=torch.Generator().manual_seed(gen))
         og = oracle.graph
-        if landmark_state_meta(ckpt_dir, gen)["compact"]:
-            og = og.to_compact().to_full()
         exact = (torch.equal(loaded.graph.indices, og.indices)
                  and torch.equal(loaded.graph.weights, og.weights))
         print(f"swap oracle-exact vs from-scratch fit (gen {gen}): {exact}")

@@ -40,18 +40,13 @@ class RefreshManager:
     refitted representation inside the background swap (the quantizer is
     frozen between refreshes, like the landmarks); ``poll`` then returns
     ``(generation, state, index)``. The index is derived data, rebuilt from
-    the artifact in one call, so it is not checkpointed. ``compact`` stores
-    the uint16/bf16 graph while U < ``compact_max_rows``.
+    the artifact in one call, so it is not checkpointed.
     """
 
-    def __init__(self, ckpt_dir: str, spec: LandmarkSpec, *,
-                 compact: bool = False, compact_max_rows: int = 65536,
-                 keep: int = 3, ivf=None, device="cuda"):
+    def __init__(self, ckpt_dir: str, spec: LandmarkSpec, *, ivf=None,
+                 device="cuda"):
         self.ckpt_dir = ckpt_dir
         self.spec = spec
-        self.compact = compact
-        self.compact_max_rows = compact_max_rows
-        self.keep = keep
         self.ivf = ivf
         self.device = torch.device(device)
         self._thread: Optional[threading.Thread] = None
@@ -84,9 +79,7 @@ class RefreshManager:
                 rt = torch.as_tensor(r, device=self.device)
                 st = fit(RatingMatrix(rt, r.shape[0], r.shape[1]), self.spec,
                          generator=torch.Generator().manual_seed(seed))
-                compact = self.compact and r.shape[0] < self.compact_max_rows
-                save_landmark_state(self.ckpt_dir, st, compact=compact,
-                                    step=generation, keep=self.keep)
+                save_landmark_state(self.ckpt_dir, st, step=generation)
                 if self.ivf is not None:
                     from ..retrieval import build_index, resolve_ivf
 

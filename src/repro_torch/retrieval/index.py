@@ -24,11 +24,16 @@ Scorers of :func:`search`:
 - ``plain`` — the reference's ``jnp`` path: at partial probe the gathered
   candidates are scored with ``kernels.ref.gathered_sims`` and ranked with a
   positional top-k over the (probe rank, slot) columns; at full probe one
-  shared id-sorted candidate matrix is scored with ``dense_similarity``,
-  the streaming backend's algebra;
-- ``kernel`` — the reference's ``pallas`` path: the same, with the partial
-  probe scored by the gathered-candidate kernel
-  (``kernels/score_candidates.py``);
+  shared id-sorted candidate matrix is scored with the same
+  ``gathered_sims`` sums. (The reference scores full probe with a GEMM,
+  which XLA rounds as its multiply-reduce; ``torch.matmul`` does not, and
+  where a query's top-k scores lie within a few ulps of each other — the
+  drifting stream's — a GEMM-scored exact search would miss partial-probe
+  neighbors by rounding alone, at every nprobe below C);
+- ``kernel`` — the reference's ``pallas`` path: the partial probe scored by
+  the gathered-candidate kernel (``kernels/score_candidates.py``), full
+  probe by ``dense_similarity``, the streaming backend's algebra, as the
+  reference does;
 - ``fused`` — the one-pass probe kernel (``kernels/ivf_probe.py``): gather,
   score and a (value desc, id asc) top-k, for every nprobe;
 - ``auto`` — ``fused`` for a CUDA tensor, ``plain`` for a CPU tensor.
@@ -430,9 +435,10 @@ def search(index: IVFIndex, queries: torch.Tensor, k: int, nprobe: int,
     ``tomb`` the search uses the gathered scorer instead). Queries go in
     ``qb``-row blocks so the gathered (qb, nprobe·cap, n) candidates stay
     bounded. At ``nprobe == n_clusters`` the ``plain``/``kernel`` scorers
-    score one id-sorted candidate matrix with ``dense_similarity``, the
-    streaming backend's algebra. Empty slots hold -inf (and id 0 from the
-    fused scorer); feed through ``graph.finalize_topk`` for a graph.
+    score one id-sorted candidate matrix (``plain`` with its partial-probe
+    sums, ``kernel`` with ``dense_similarity``). Empty slots hold -inf (and
+    id 0 from the fused scorer); feed through ``graph.finalize_topk`` for a
+    graph.
     """
     if index.is_compact:
         index = index.to_full()
@@ -471,7 +477,8 @@ def search(index: IVFIndex, queries: torch.Tensor, k: int, nprobe: int,
             invalid_col = invalid_col | (fvalid & tomb[flat.long()])
         for b0 in range(0, b, qb):
             qq, ss = q[b0:b0 + qb], sids[b0:b0 + qb]
-            sims = dense_similarity(qq, cmat, measure)
+            sims = (ref.gathered_sims(qq, cmat, measure) if mode == "plain"
+                    else dense_similarity(qq, cmat, measure))
             invalid = invalid_col[None, :] | (flat[None, :] == ss[:, None])
             v, i = _padded_topk(sims.masked_fill(invalid, float("-inf")),
                                 flat.expand(qq.shape[0], -1), k)

@@ -383,3 +383,25 @@ def test_score_recall_counts_exact_ties_as_hits():
     assert R.score_recall_at_k(got_v, want_v) == 1.0
     worse = torch.tensor([[0.9, 0.8, 0.7], [0.6, -inf, -inf]])
     assert R.score_recall_at_k(worse, want_v) == pytest.approx((2 / 3) / 2)
+
+
+@pytest.mark.parametrize("measure", MEASURES)
+def test_plain_scores_a_pair_alike_at_every_nprobe(measure):
+    """The plain scorer sums a (query, candidate) pair in one order at
+    partial and at full probe: every listed score is bitwise the pair's
+    ``gathered_sims``. On near-parallel rows, whose top-k scores lie a few
+    ulps apart, another order at full probe would make the exact search
+    disagree with every partial probe by rounding alone."""
+    rng = np.random.default_rng(21)
+    rep = (rng.normal(size=12) + 1e-3 * rng.normal(size=(150, 12))
+           ).astype(np.float32)
+    rep_t = torch.as_tensor(rep)
+    idx = R.build_index(rep_t, R.resolve_ivf(R.IVFSpec(n_clusters=8), 150),
+                        measure)
+    q, sids = rep_t[:40], torch.arange(40)
+    for nprobe in (3, 8):
+        v, i = R.search(idx, q, 9, nprobe, measure, self_ids=sids,
+                        scorer="plain")
+        assert torch.isfinite(v).all()
+        want = ref.gathered_sims(q, rep_t[i.long()], measure)
+        assert torch.equal(v, want), nprobe
