@@ -44,6 +44,25 @@ The IVF retrieval slice adds, each with its own time:
     full width (U=6040, P=3952, 64 arrivals and a 64-row fold-in batch per
     wave, 8 waves); every kernel must launch in each run.
 
+The LM slice adds, each with its own time:
+
+8a. landmark summary kernel — against its plain version (dense f32
+    softmax) at the reference tests' shapes (n, S, D) = (64, 1024, 64),
+    (128, 2048, 128), (32, 512, 256), f32, a ragged (16, 777, 32), and the
+    SmolLM-360M landmark shape: 10 problems (B=2 × 5 kv heads) of
+    G·n = 1536 landmark queries against S = 4096, D = 64, bf16 inputs;
+    rtol=1e-4, atol=1e-5 (the reference's kernel-vs-oracle tolerance);
+8b. landmark-attention forward — SmolLM-360M at full width (32 layers,
+    random weights from seed 0), ``attn_backend="landmark"``, B = 2,
+    S = 4096, tokens ``lm_batch(0, 0, 2, 4096, 49152)``: once through the
+    kernel (which must launch 32 times, one per layer) and once with the
+    plain B̃V; logits within 5% of the largest logit (bf16), both CE losses
+    printed;
+8c. LM serve CLI — ``serve --workload lm --arch smollm-360m`` with the
+    exact KV cache and with ``--landmark``, full width; and one exact
+    decode step's logits against ``lm_forward``'s last position within
+    0.15, the reference's bf16 bound.
+
 The last two lines are the kernel table and
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. TF32 is off for
 matmul and cuDNN throughout: the reference scores in full f32.
@@ -51,6 +70,7 @@ matmul and cuDNN throughout: the reference scores in full f32.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import shutil
@@ -59,6 +79,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -78,16 +99,24 @@ from repro_torch import retrieval as rt  # noqa: E402
 from repro_torch.core.graph import finalize_topk  # noqa: E402
 from repro_torch.kernels import (assign_clusters, build, ivf_probe,  # noqa: E402
                                  knn_topk, ops, ref, score_candidates)
+from repro_torch.configs import registry  # noqa: E402
+from repro_torch.data import synthetic  # noqa: E402
+from repro_torch.kernels import landmark_attention as lsum  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import transformer as lm  # noqa: E402
 
 DEVICE = "cuda"
 RTOL, ATOL = 1e-5, 1e-6
 FOLD_IN = 64  # users held out of the fit and folded in
 TOPN_USERS = 256
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s
-# outside the tensor cores
+# outside the tensor cores, dense bf16 FLOP/s on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_TC_FLOPS = 989e12
+# exp2 results/s of the special-function units: 132 SMs x 16 a clock
+# (compute capability 9.0) x 1.83 GHz, the clock behind the 989 TFLOP/s
+SFU_PER_S = 132 * 16 * 1.83e9
 
 KERNELS = {
     "masked_similarity": dict(
@@ -108,9 +137,18 @@ KERNELS = {
     "score_candidates": dict(
         source="src/repro_torch/kernels/csrc/score_candidates.cu",
         replaces="src/repro/retrieval/index.py:519"),
+    "landmark_summary": dict(
+        source="src/repro_torch/kernels/csrc/landmark_summary.cu",
+        replaces="src/repro/kernels/landmark_attention.py:51"),
 }
 GRAPH_KERNELS = ("masked_similarity", "topk_sim", "foldin_topk")
 IVF_KERNELS = ("assign_clusters", "fused_probe_topk", "score_candidates")
+CF_KERNELS = GRAPH_KERNELS + IVF_KERNELS
+# the landmark-attention forward of phase 8b: SmolLM-360M at full width
+LM_ARCH, LM_BATCH, LM_SEQ = "smollm-360m", 2, 4096
+LM_RTOL, LM_ATOL = 1e-4, 1e-5  # kernel 7 vs its plain version
+LM_LOGIT_REL = 0.05  # bf16 forward, kernel vs plain B̃V, of max |logit|
+DECODE_ATOL = 0.15  # bf16 decode step vs forward (tests/test_archs_smoke.py)
 
 
 def sync():
@@ -386,6 +424,7 @@ DEVICE_FUNCS = {
     "assign_clusters": ("assign_kernel",),
     "fused_probe_topk": ("probe_kernel",),
     "score_candidates": ("score_kernel",),
+    "landmark_summary": ("summary_kernel",),
 }
 
 
@@ -779,7 +818,7 @@ def phase_lifecycle():
         counts = ops.launch_counts()
         text = buf.getvalue()
         print(text, end="")
-        idle = [name for name in KERNELS if not counts[name] > 0]
+        idle = [name for name in CF_KERNELS if not counts[name] > 0]
         if idle:
             raise AssertionError(f"lifecycle {tag}: {idle} never launched "
                                  f"({counts})")
@@ -803,6 +842,237 @@ def phase_lifecycle():
               f"launches {counts} | {time.perf_counter() - t0:.1f}s")
     shutil.rmtree(ckpt, ignore_errors=True)
     return out["full"]
+
+
+# ------------------------------------------------------------- LM slice
+def _lm_inputs(p, n, s, d, dtype, seed):
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    return tuple(torch.randn((p, rows, d), generator=g, device=DEVICE).to(
+        dtype) for rows in (n, s, s))
+
+
+def _lm_model_shape():
+    """(P, n, S, D) of phase 8b's summary launches: one problem per
+    (batch, kv head), G·n_landmarks landmark queries each."""
+    cfg = registry.get(LM_ARCH).model
+    g = cfg.n_heads // cfg.n_kv_heads
+    return (LM_BATCH * cfg.n_kv_heads, g * cfg.n_landmarks, LM_SEQ,
+            cfg.head_dim)
+
+
+def phase_lm_kernel():
+    """8a: kernel 7 against its plain version. Returns the model-shape
+    inputs (for the times) and the largest error there."""
+    t0 = time.perf_counter()
+    notes, main_err, model_in = [], 0.0, None
+    cases = [((1, 64, 1024, 64), torch.float32),
+             ((1, 128, 2048, 128), torch.float32),
+             ((1, 32, 512, 256), torch.float32),
+             ((1, 16, 777, 32), torch.float32),
+             (_lm_model_shape(), torch.bfloat16)]
+    for i, ((p, n, s_, d), dtype) in enumerate(cases):
+        q, k, v = _lm_inputs(p, n, s_, d, dtype, seed=30 + i)
+        got = ops.landmark_summary(q, k, v)
+        want = ref.landmark_summary_ref(q, k, v, 1.0 / np.sqrt(d))
+        sync()
+        torch.testing.assert_close(got, want, rtol=LM_RTOL, atol=LM_ATOL)
+        e = float((got - want).abs().max())
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        notes.append(f"P={p} n={n} S={s_} D={d} {tag} max|err| {e:.3g}")
+        if i == len(cases) - 1:
+            main_err, model_in = e, (q, k, v)
+    print(f"phase 8a landmark summary kernel (rtol={LM_RTOL}, "
+          f"atol={LM_ATOL}): " + "; ".join(notes)
+          + f" | {time.perf_counter() - t0:.1f}s")
+    return model_in, main_err
+
+
+def _smollm(**over):
+    cfg = dataclasses.replace(registry.get(LM_ARCH).model, **over)
+    return lm.init_lm(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                      DEVICE)
+
+
+def phase_lm_forward():
+    """8b: the landmark-attention forward at full SmolLM-360M width, with
+    the kernel and with the plain B̃V. Returns the kernel run's launch
+    counts and its forward time."""
+    t0 = time.perf_counter()
+    model = _smollm(attn_backend="landmark")
+    cfg = model.cfg
+    batch = {key: torch.as_tensor(val, device=DEVICE) for key, val in
+             synthetic.lm_batch(0, 0, LM_BATCH, LM_SEQ, cfg.vocab).items()}
+    out = {}
+    def reversed_keys(q, k, v, scale):  # the same sum, in reverse key order
+        return ref.landmark_summary_ref(q, k.flip(-2), v.flip(-2), scale)
+
+    with torch.inference_mode():
+        for tag, fn in (("kernel", ops.landmark_summary),
+                        ("plain", ref.landmark_summary_ref),
+                        ("reversed", reversed_keys)):
+            # the model's B̃V calls ops.landmark_summary: swap in fn there
+            with mock.patch.object(ops, "landmark_summary", fn):
+                lm.lm_forward(model, batch["tokens"][:, :2 * cfg.n_landmarks])
+                sync()  # warm
+                ops.reset_launches()
+                t1 = time.perf_counter()
+                logits, _ = lm.lm_forward(model, batch["tokens"])
+                sync()
+                wall = time.perf_counter() - t1
+                counts = ops.launch_counts()
+                loss = float(lm.lm_loss(model, batch))
+            out[tag] = dict(logits=logits, counts=counts, wall=wall,
+                            loss=loss)
+    ka, pa = out["kernel"], out["plain"]
+    if ka["counts"]["landmark_summary"] != cfg.n_layers:
+        raise AssertionError(f"landmark forward: kernel 7 launched "
+                             f"{ka['counts']['landmark_summary']} times, "
+                             f"not once per layer ({cfg.n_layers})")
+    if any(pa["counts"].values()):
+        raise AssertionError(f"plain forward launched kernels: "
+                             f"{pa['counts']}")
+    logits, want = ka["logits"], pa["logits"]
+    if logits.shape != (LM_BATCH, LM_SEQ, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError("landmark forward: logits not finite / shaped")
+    rel = float((logits - want).abs().max() / want.abs().max())
+    floor = float((out["reversed"]["logits"] - want).abs().max()
+                  / want.abs().max())
+    if rel > LM_LOGIT_REL:
+        raise AssertionError(f"landmark forward: kernel vs plain logits "
+                             f"differ by {rel:.4f} of max |logit|")
+    for tag in ("kernel", "plain"):
+        if not abs(out[tag]["loss"] - np.log(cfg.vocab)) < 2.0:
+            raise AssertionError(f"{tag} CE {out[tag]['loss']} is not near "
+                                 f"uniform ({np.log(cfg.vocab):.3f})")
+    print(f"phase 8b landmark forward: {LM_ARCH} L={cfg.n_layers} "
+          f"d={cfg.d_model} B={LM_BATCH} S={LM_SEQ} n={cfg.n_landmarks} "
+          f"launches {ka['counts']} | CE kernel {ka['loss']:.6f} plain "
+          f"{pa['loss']:.6f} (uniform {np.log(cfg.vocab):.6f}); logits "
+          f"max|Δ|/max|logit| {rel:.5f} (limit {LM_LOGIT_REL}; plain vs "
+          f"plain over reversed keys, the bf16 floor: {floor:.5f}); forward "
+          f"wall kernel {ka['wall'] * 1e3:.1f} ms, plain "
+          f"{pa['wall'] * 1e3:.1f} ms | {time.perf_counter() - t0:.1f}s")
+    del out, logits, want
+    with torch.inference_mode():
+        print("phase 8b profile (one landmark forward, kernel path): "
+              + json.dumps(_profile(lambda: lm.lm_forward(
+                  model, batch["tokens"]))))
+    del model
+    torch.cuda.empty_cache()
+    return ka["counts"]
+
+
+def phase_lm_serve():
+    """8c: the LM serve CLI at full width, exact and landmark decode, and
+    one exact decode step against the forward pass."""
+    t0 = time.perf_counter()
+    for extra in ([], ["--landmark"]):
+        buf = io.StringIO()
+        t1 = time.perf_counter()
+        ops.reset_launches()
+        with contextlib.redirect_stdout(buf):
+            serve.main(["--workload", "lm", "--arch", LM_ARCH] + extra)
+        sync()
+        lines = buf.getvalue().strip().splitlines()
+        print("\n".join(lines))
+        if not (lines[-3].startswith("prefill 4x32: ")
+                and lines[-2].startswith("decode 16 tokens (")
+                and lines[-1].startswith("sample ids: [")):
+            raise AssertionError(f"lm serve {extra}: unexpected output")
+        print(f"phase 8c lm serve CLI {' '.join(extra) or '(exact KV)'}: "
+              f"{lines[-3]} | {lines[-2]} | launches {ops.launch_counts()} "
+              f"| {time.perf_counter() - t1:.1f}s")
+    model = _smollm()
+    toks = torch.as_tensor(synthetic.lm_batch(0, 0, 2, 16, model.cfg.vocab)[
+        "tokens"], device=DEVICE)
+    with torch.inference_mode():
+        logits_pre, cache = lm.lm_prefill(model, toks[:, :8], max_seq=16)
+        dec, cache = lm.lm_decode_step(model, cache, toks[:, 8:9])
+        full, _ = lm.lm_forward(model, toks[:, :9])
+        served = lm.make_cache(model.cfg, 4, 48, DEVICE)
+        served["length"].fill_(32)
+        tok = toks[:, :1].repeat(2, 1)
+        print("phase 8c profile (one exact decode step, B=4, cache 33/48): "
+              + json.dumps(_profile(lambda: lm.lm_decode_step(
+                  model, dict(served, length=served["length"].clone()),
+                  tok))))
+    err = float((dec[:, 0] - full[:, -1]).abs().max())
+    if logits_pre.shape != (2, 1, model.cfg.vocab) or int(
+            cache["length"]) != 9 or not err < DECODE_ATOL:
+        raise AssertionError(f"exact decode vs forward: max|Δ| {err}, "
+                             f"length {int(cache['length'])}")
+    print(f"phase 8c decode vs forward: {LM_ARCH} full width, one exact "
+          f"decode step after an 8-token prefill, max|Δ logits| {err:.4f} "
+          f"(limit {DECODE_ATOL}) | {time.perf_counter() - t0:.1f}s")
+    del model
+    torch.cuda.empty_cache()
+
+
+def _lm_bound(p, n, s_, d, in_bytes):
+    """Least time for p problems of softmax(q̃Kᵀ·scale)V with bf16 inputs
+    and f32 results: q, k, v read once and the f32 output written once;
+    q̃Kᵀ on the bf16 tensor cores (exact products, f32 sums); PV with the
+    f32 probabilities split into two bf16 terms (16 bits of mantissa, well
+    inside the 1e-4 bound), so two bf16 products; one exp per score on the
+    special-function units, which run beside the tensor cores."""
+    t_bytes = (in_bytes + 4 * p * n * d) / HBM_BYTES_PER_S * 1e3
+    t_tc = p * 3 * (2 * n * s_ * d) / BF16_TC_FLOPS * 1e3
+    t_exp = p * n * s_ / SFU_PER_S * 1e3
+    t_ops = max(t_tc, t_exp)
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _lm_row(model_in, err, counts, life_counts):
+    """Row 7 of the kernel table at phase 8b's shape."""
+    import torch.nn.functional as F
+
+    q, k, v = model_in
+    p, n, d = q.shape
+    s_ = k.shape[1]
+    bound_ms, bound_by = _lm_bound(
+        p, n, s_, d, q.element_size() * (q.numel() + k.numel() + v.numel()))
+    # SDPA takes (batch, heads, L, D): the problems as (B, Hkv) so its
+    # fused backends can run; f32 inputs as the kernel computes in f32
+    q4, k4, v4 = (t.reshape(LM_BATCH, p // LM_BATCH, *t.shape[1:])
+                  for t in (q, k, v))
+    qf, kf, vf = q4.float(), k4.float(), v4.float()
+    sdpa_bf16 = _event_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4),
+                          20)
+    print(f"phase 6 sdpa: F.scaled_dot_product_attention on (B, Hkv, n, D) ="
+          f" ({LM_BATCH}, {p // LM_BATCH}, {n}, {d}) against S={s_}: bf16 "
+          f"inputs {sdpa_bf16:.4f} ms, backend {_sdpa_backend(q4, k4, v4)}; "
+          f"f32 inputs backend {_sdpa_backend(qf, kf, vf)}")
+    return dict(
+        name="landmark_summary", route="cuda", **KERNELS["landmark_summary"],
+        shape=f"P={p} (B={LM_BATCH} x Hkv) n={n} (G x n_landmarks) S={s_} "
+        f"D={d} bf16", launches=counts["landmark_summary"],
+        launches_lifecycle=life_counts["landmark_summary"], max_abs_err=err, max_err=err,
+        ms=_event_ms(lambda: ops.landmark_summary(q, k, v), 20),
+        plain_ms=_event_ms(lambda: ref.landmark_summary_ref(
+            q, k, v, 1.0 / np.sqrt(d)), 5),
+        bound_ms=bound_ms, bound_us=bound_ms * 1e3, bound_by=bound_by,
+        library_ms=_event_ms(
+            lambda: F.scaled_dot_product_attention(qf, kf, vf), 20),
+        library_bf16_ms=sdpa_bf16,
+        device_ms=_device_ms(lambda: ops.landmark_summary(q, k, v),
+                             "landmark_summary"))
+
+
+def _sdpa_backend(q, k, v):
+    """The device kernels one SDPA call ran, by name (which backend)."""
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        F.scaled_dot_product_attention(q, k, v)
+        sync()
+    names = {e.name.split("(")[0].removeprefix("void ")[:80]
+             for e in prof.events() if e.device_type == DeviceType.CUDA}
+    keys = ("flash", "fmha", "mem_eff", "attention", "cudnn", "gemm")
+    named = sorted(x for x in names if any(k in x.lower() for k in keys))
+    return named or sorted(names) or "not measured (no device events)"
 
 
 def main():
@@ -829,8 +1099,12 @@ def main():
     err.update({name: 0.0 for name in IVF_KERNELS})  # bitwise, checked
     ivf_counts = phase_ivf_path(train, a)
     life_counts = phase_lifecycle()
+    model_in, lm_err = phase_lm_kernel()
+    lm_counts = phase_lm_forward()
+    phase_lm_serve()
     table = (phase_times(train, a, err, peak, life_counts)
-             + _ivf_rows(ivf, ivf_counts, life_counts, err))
+             + _ivf_rows(ivf, ivf_counts, life_counts, err)
+             + [_lm_row(model_in, lm_err, lm_counts, life_counts)])
     print(f"card: {card}")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

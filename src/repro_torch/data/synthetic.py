@@ -1,11 +1,29 @@
-"""Synthetic arrival streams for the CF lifecycle loop.
+"""Synthetic inputs: LM token batches and the CF lifecycle's arrival
+stream.
 
-A numpy copy of the reference's ``drifting_ratings``: deterministic in
-``(seed, wave)``, so one seed gives byte-identical arrays in both packages.
+Numpy copies of the reference's ``lm_batch`` and ``drifting_ratings``:
+deterministic in ``(seed, step)`` / ``(seed, wave)``, so one seed gives
+byte-identical arrays in both packages.
 """
 from __future__ import annotations
 
+from typing import Dict
+
 import numpy as np
+
+
+def lm_batch(seed: int, step: int, batch: int, seq_len: int, vocab: int
+             ) -> Dict[str, np.ndarray]:
+    """Zipf-distributed token stream with next-token labels."""
+    rng = np.random.default_rng(np.random.SeedSequence([seed, step]))
+    # Zipf via inverse-CDF over a truncated harmonic distribution.
+    u = rng.random((batch, seq_len + 1))
+    toks = np.minimum((u ** (-1.0 / 1.1) - 1.0).astype(np.int64), vocab - 1)
+    toks = toks % vocab
+    return {
+        "tokens": toks[:, :-1].astype(np.int32),
+        "labels": toks[:, 1:].astype(np.int32),
+    }
 
 
 def drifting_ratings(

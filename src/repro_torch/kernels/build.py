@@ -4,7 +4,7 @@ Every ``csrc/*.cu`` is compiled by its own ``nvcc`` for ``sm_90a`` (all
 started together), linked into ``build/kernels/librepro_torch_kernels.so``
 at the root of the checkout, and loaded with ``ctypes``. The library
 exposes a plain C interface: pointers and the stream are ``void*``, sizes
-``int``, and every entry point returns ``cudaGetLastError()`` after its
+``int``, scales ``float``, and every entry point returns ``cudaGetLastError()`` after its
 launch. A SHA-256 of the sources and flags decides whether a build on disk
 is current; the first kernel launch of a process builds when it is not.
 
@@ -34,7 +34,7 @@ NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 MEASURE_CODES = {"cosine": 0, "pearson": 1, "euclidean": 2}
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # (a, b, out, A, B, P, measure, stream)
     "masked_similarity_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
@@ -52,6 +52,8 @@ SIGNATURES = {
     #  B, nprobe, cap, n, k, measure, payload, stream)
     "ivf_probe_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _I, _I, _I, _P),
+    # (q, k, v, out, P, N, S, D, dtype, scale, stream)
+    "landmark_summary": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
 }
 
 

@@ -3,19 +3,22 @@ version (``ref.py``) for CPU tensors.
 
 ``masked_similarity`` is a drop-in for
 ``repro_torch.core.similarity.masked_similarity`` and the default ``sim_fn``
-of ``core.landmark_cf.fit`` / ``build_representation`` / ``fold_in``.
+of ``core.landmark_cf.fit`` / ``build_representation`` / ``fold_in``;
+``landmark_summary`` computes the B̃V term of
+``models.layers.landmark_attention``.
 """
 from __future__ import annotations
 
 from .assign_clusters import assign_clusters
 from .ivf_probe import fused_probe_topk
+from .landmark_attention import landmark_summary
 from .masked_similarity import masked_similarity
 from .knn_topk import foldin_topk, topk_sim
 from .score_candidates import score_candidates
 
 # every kernel wrapper of the package; each carries a ``launches`` count
 WRAPPERS = (masked_similarity, topk_sim, foldin_topk, assign_clusters,
-            fused_probe_topk, score_candidates)
+            fused_probe_topk, score_candidates, landmark_summary)
 
 
 def reset_launches() -> None:
@@ -28,5 +31,5 @@ def launch_counts() -> dict:
 
 
 __all__ = ["masked_similarity", "topk_sim", "foldin_topk", "assign_clusters",
-           "fused_probe_topk", "score_candidates", "WRAPPERS",
-           "reset_launches", "launch_counts"]
+           "fused_probe_topk", "score_candidates", "landmark_summary",
+           "WRAPPERS", "reset_launches", "launch_counts"]

@@ -202,3 +202,13 @@ def fused_probe_topk_ref(q, probe, lists, rows, scale, fill, *, k: int,
         ids[b0:b0 + qb] = torch.where(torch.isfinite(v), i,
                                       torch.zeros_like(i))
     return vals, ids
+
+
+def landmark_summary_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         scale: float) -> torch.Tensor:
+    """Oracle for kernels.landmark_summary: softmax(q kᵀ · scale) v.
+
+    q: (..., n, D), k/v: (..., S, D) → (..., n, D). Computed densely in f32.
+    """
+    s = (q.float() @ k.float().transpose(-1, -2)) * scale  # (..., n, S)
+    return torch.softmax(s, dim=-1) @ v.float()

@@ -1,16 +1,22 @@
-"""Serving launcher — the landmark-CF serve loops on one device.
+"""Serving launcher — mode-dispatched on ``--workload``, on one device.
 
-- ``python -m repro_torch.launch.serve --workload cf [--smoke]`` loads a
-  fitted ``LandmarkState`` artifact from ``--ckpt`` (fitting and
-  checkpointing one first when the directory holds none), then runs waves
-  of Eq. (1) pair predictions and top-N recommendations, folding a batch of
-  new users into the state between waves (``core.fold_in``: no refit).
-- ``--lifecycle``: the continual-serving loop — a drifting arrival stream
+- ``lm`` (default): prefill a batch of prompts, then decode with the exact
+  KV cache or, with ``--landmark``, through O(n) landmark summaries.
+  ``python -m repro_torch.launch.serve --arch smollm-360m --smoke --tokens 16``
+  As in the reference, ``--landmark`` decodes from an empty landmark cache
+  with random landmark keys and queries (seeds 1 and 2): the prompt's
+  prefill cache is not folded in.
+- ``cf``: loads a fitted ``LandmarkState`` artifact from ``--ckpt``
+  (fitting and checkpointing one first when the directory holds none),
+  then runs waves of Eq. (1) pair predictions and top-N recommendations,
+  folding a batch of new users into the state between waves
+  (``core.fold_in``: no refit). ``--workload cf [--smoke]``
+- ``cf --lifecycle``: the continual-serving loop — a drifting arrival stream
   (``data.synthetic.drifting_ratings``) through bucket-padded state
   (``lifecycle.buckets``), drift monitoring (holdout-MAE reservoir, fold-in
   volume, landmark coverage) and a policy-triggered background refresh
   with a generation-stamped artifact swap.
-- ``--lifecycle --retrieval ivf``: the same loop with an IVF index over the
+- ``cf --lifecycle --retrieval ivf``: the same loop with an IVF index over the
   landmark embedding: fold-in appends arrivals under the frozen quantizer,
   the refresh rebuilds it inside the swap, a list-skew gate repacks it,
   and every wave reports recall@k of the serving-nprobe search against the
@@ -20,8 +26,9 @@
 Everything runs on the card unless ``--device cpu`` is given; asking for
 ``cuda`` on a machine without one raises. TF32 is switched off for matmuls
 and cuDNN at start: the reference scores in full f32
-(``Precision.HIGHEST``). Latency is reported per wave as p50/p95/p99 of
-the timed requests, each timed to the end of its device work.
+(``Precision.HIGHEST``). CF latency is reported per wave as p50/p95/p99 of
+the timed requests, each timed to the end of its device work; LM prefill
+and decode times end in a device synchronize.
 """
 from __future__ import annotations
 
@@ -35,7 +42,10 @@ import numpy as np
 import torch
 
 from ..configs import landmark_cf as cfg
+from ..configs import registry
 from ..core import RatingMatrix, fit, fold_in, knn
+from ..data import synthetic
+from ..models import transformer as lm_mod
 from ..serving.stats import latency_stats
 from ..train.checkpoint import (latest_step, load_landmark_state,
                                 save_landmark_state)
@@ -48,6 +58,50 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+# ------------------------------------------------------------------------- lm
+def _serve_lm(args):
+    device = torch.device(args.device)
+    arch = registry.get(args.arch)
+    lcfg = arch.smoke_model if args.smoke else arch.model
+    model = lm_mod.init_lm(lcfg, torch.Generator(device).manual_seed(0),
+                           device)
+    prompts = torch.as_tensor(synthetic.lm_batch(
+        0, 0, args.batch, args.prompt_len, lcfg.vocab)["tokens"],
+        device=device)
+    max_seq = args.prompt_len + args.tokens
+
+    t0 = time.perf_counter()
+    logits, cache = lm_mod.lm_prefill(model, prompts, max_seq=max_seq)
+    _sync(device)
+    t_prefill = time.perf_counter() - t0
+    print(f"prefill {args.batch}x{args.prompt_len}: {t_prefill*1e3:.0f}ms")
+
+    if args.landmark:
+        cache = lm_mod.make_landmark_cache(lcfg, args.batch, device)
+        for key, seed in (("k_lm", 1), ("q_lm", 2)):
+            g = torch.Generator(device).manual_seed(seed)
+            cache[key] = torch.randn(cache[key].shape, generator=g,
+                                     device=device).to(lcfg.dtype)
+        step = lm_mod.lm_landmark_decode_step
+    else:
+        step = lm_mod.lm_decode_step
+
+    tok = logits[:, -1:].argmax(-1).to(torch.int32)
+    out_tokens = [tok]
+    t0 = time.perf_counter()
+    for _ in range(args.tokens):
+        logits, cache = step(model, cache, tok)
+        tok = logits.argmax(-1).to(torch.int32)
+        out_tokens.append(tok)
+    _sync(device)
+    dt = time.perf_counter() - t0
+    mode = "landmark O(n)" if args.landmark else "exact KV"
+    print(f"decode {args.tokens} tokens ({mode}): "
+          f"{dt/args.tokens*1e3:.1f} ms/token")
+    print("sample ids:", torch.cat(out_tokens, 1).cpu().numpy()[0][:12])
+
+
+# ------------------------------------------------------------------------- cf
 def _synth_ratings(rng, users, items, device, density=0.08):
     """Uniform ratings 1..5 at ``density`` — the reference's generator, so
     one seed gives the same matrix in both packages."""
@@ -509,16 +563,27 @@ def _serve_cf_lifecycle(args):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        description="Landmark-CF serve loops: load (or fit and checkpoint) "
-        "an artifact, then waves of pair predictions and top-N "
+        description="Serve loops. lm: prefill + decode with the exact KV "
+        "cache or landmark summaries. cf: load (or fit and checkpoint) an "
+        "artifact, then waves of pair predictions and top-N "
         "recommendations with fold-ins between them; --lifecycle adds drift "
         "monitoring and background refresh, --retrieval ivf an IVF index.")
-    ap.add_argument("--workload", choices=("cf",), default="cf")
+    ap.add_argument("--workload", choices=("lm", "cf"), default="lm")
     ap.add_argument("--smoke", action="store_true",
-                    help="smoke spec and sizes (U<=512, P<=128, 2 waves; "
-                    "lifecycle: U<=256, P<=96)")
-    ap.add_argument("--batch", type=int, default=256,
-                    help="pairs/users per request")
+                    help="lm: the arch's smoke model; cf: smoke spec and "
+                    "sizes (U<=512, P<=128, 2 waves; lifecycle: U<=256, "
+                    "P<=96)")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="lm: decode batch (default 4); cf: pairs/users per "
+                    "request (default 256)")
+    # lm flags
+    ap.add_argument("--arch", default="smollm-360m",
+                    choices=sorted(registry.ARCHS))
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--tokens", type=int, default=16)
+    ap.add_argument("--landmark", action="store_true",
+                    help="lm: decode through O(n) landmark summaries")
+    # cf flags
     ap.add_argument("--users", type=int, default=8192)
     ap.add_argument("--items", type=int, default=512)
     ap.add_argument("--waves", type=int, default=None,
@@ -565,6 +630,8 @@ def main(argv=None):
                     help="torch device to serve on (default cuda; the CPU "
                     "only when asked for)")
     args = ap.parse_args(argv)
+    if args.batch is None:
+        args.batch = 4 if args.workload == "lm" else 256
     if args.retrieval == "ivf" and not args.lifecycle:
         raise SystemExit("--retrieval ivf runs on the lifecycle replay "
                          "(--workload cf --lifecycle)")
@@ -575,7 +642,10 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     print("tf32: off for matmul and cuDNN (full f32, as the reference's "
           "Precision.HIGHEST)")
-    if args.lifecycle:
+    if args.workload == "lm":
+        with torch.inference_mode():
+            _serve_lm(args)
+    elif args.lifecycle:
         _serve_cf_lifecycle(args)
     else:
         _serve_cf(args)

@@ -12,7 +12,14 @@ Tolerances:
   repeats the kernel's summation order and epilogue op for op;
 - the Lloyd assignment, the gathered-candidate scorer and the fused IVF
   probe (f32, bf16 and int8 payloads): bitwise equal to their plain
-  versions, for the same reason.
+  versions, for the same reason;
+- the landmark summary (f32 and bf16 inputs): rtol=1e-4, atol=1e-5, the
+  reference's own kernel-vs-oracle tolerance — a streamed softmax with
+  running max and denominator against a dense f32 one;
+- a landmark-attention forward through the kernel against the same
+  forward with the plain summary, bf16: within 5% of the largest logit
+  (the kernel's f32 sums in another order, rounded to bf16 on the way
+  out, then two layers of bf16 products).
 """
 import numpy as np
 import pytest
@@ -23,6 +30,7 @@ from repro_torch.core import similarity as sim
 from repro_torch.core.graph import kernel_rows
 from repro_torch.kernels import (assign_clusters, ivf_probe, knn_topk, ops,
                                  ref, score_candidates)
+from repro_torch.kernels import landmark_attention as lsum
 
 pytestmark = pytest.mark.gpu
 RTOL, ATOL = 1e-5, 1e-6
@@ -248,3 +256,75 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="int32"):
         ivf_probe.fused_probe_topk(rep, probe.long(), lists, rows, scale,
                                    fill, k=5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("p,n,s,d", [(1, 64, 1024, 64), (1, 128, 2048, 128),
+                                     (1, 32, 512, 256), (1, 16, 777, 32),
+                                     (3, 100, 70, 64), (10, 1536, 4096, 64)])
+def test_landmark_summary_kernel_matches_plain(cuda, dtype, p, n, s, d):
+    """The reference tests' shapes, a ragged S, a tiny S below one key
+    tile, and the SmolLM-360M landmark shape (10 problems of G·n = 1536
+    landmark queries against S = 4096)."""
+    g = torch.Generator(device=cuda).manual_seed(n + s)
+    q, k, v = (torch.randn((p, rows, d), generator=g, device=cuda).to(dtype)
+               for rows in (n, s, s))
+    before = lsum.landmark_summary.launches
+    got = ops.landmark_summary(q, k, v)
+    want = ref.landmark_summary_ref(q, k, v, 1.0 / np.sqrt(d))
+    torch.cuda.synchronize()
+    assert lsum.landmark_summary.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (p, n, d)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    if p == 1:  # the single-problem form is the same launch
+        one = ops.landmark_summary(q[0], k[0], v[0])
+        assert torch.equal(one, got[0])
+
+
+def test_landmark_summary_rejects_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros((2, 8, 64), device=cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ops.landmark_summary(x.half(), x.half(), x.half())
+    with pytest.raises(ValueError, match="bfloat16"):
+        ops.landmark_summary(x, x.bfloat16(), x)
+    with pytest.raises(ValueError, match="on cuda"):
+        ops.landmark_summary(x, x.cpu(), x)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ops.landmark_summary(x.cpu(), x, x)
+    with pytest.raises(ValueError, match="backward"):
+        ops.landmark_summary(x.clone().requires_grad_(), x, x)
+    with pytest.raises(ValueError, match="head dim"):
+        y = torch.zeros((2, 8, 48), device=cuda)
+        ops.landmark_summary(y, y, y)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.landmark_summary(x.transpose(1, 2), x, x)
+
+
+def test_landmark_forward_on_the_card_launches_once_per_layer(cuda,
+                                                             monkeypatch):
+    """A smoke LM with the landmark backend: one kernel launch per layer,
+    logits close to the same forward with the plain summary, which
+    launches nothing."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.data import synthetic
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(registry.get("smollm-360m").smoke_model,
+                              attn_backend="landmark")
+    model = T.init_lm(cfg, torch.Generator(cuda).manual_seed(0), cuda)
+    toks = torch.as_tensor(synthetic.lm_batch(0, 0, 2, 64, cfg.vocab)[
+        "tokens"], device=cuda)
+    with torch.no_grad():
+        ops.reset_launches()
+        got, _ = T.lm_forward(model, toks)
+        assert ops.launch_counts()["landmark_summary"] == cfg.n_layers
+        ops.reset_launches()
+        monkeypatch.setattr(ops, "landmark_summary", ref.landmark_summary_ref)
+        want, _ = T.lm_forward(model, toks)
+        assert all(v == 0 for v in ops.launch_counts().values())
+    torch.cuda.synchronize()
+    rel = float((got - want).abs().max() / want.abs().max())
+    assert rel < 0.05, rel

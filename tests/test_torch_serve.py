@@ -39,14 +39,15 @@ def test_serve_cli_smoke_on_cpu(capsys, tmp_path):
 
 @pytest.mark.parametrize("backend", ["dense", "streaming", "kernel", "ivf"])
 def test_serve_cli_graph_backends(capsys, backend):
-    serve.main(["--smoke", "--device", "cpu", "--waves", "2", "--requests",
-                "2", "--graph-backend", backend])
+    serve.main(["--workload", "cf", "--smoke", "--device", "cpu", "--waves",
+                "2", "--requests", "2", "--graph-backend", backend])
     assert "cf serve: done" in capsys.readouterr().out
 
 
 def test_serve_cli_refuses_ivf_retrieval_without_lifecycle():
     with pytest.raises(SystemExit, match="lifecycle"):
-        serve.main(["--smoke", "--device", "cpu", "--retrieval", "ivf"])
+        serve.main(["--workload", "cf", "--smoke", "--device", "cpu",
+                    "--retrieval", "ivf"])
 
 
 def test_port_sources_never_import_jax_or_the_reference():
@@ -72,7 +73,8 @@ def test_wrappers_never_launch_for_cpu_tensors():
     assert ops.launch_counts() == {"masked_similarity": 0, "topk_sim": 0,
                                    "foldin_topk": 0, "assign_clusters": 0,
                                    "fused_probe_topk": 0,
-                                   "score_candidates": 0}
+                                   "score_candidates": 0,
+                                   "landmark_summary": 0}
 
 
 def test_resolve_backend_follows_the_tensor_device():
@@ -93,7 +95,7 @@ def test_card_is_the_default_device():
         T.RatingMatrix.from_coo(np.array([0]), np.array([0]),
                                 np.array([5.0], np.float32), 2, 2)
     with pytest.raises((RuntimeError, AssertionError)):
-        serve.main(["--smoke", "--waves", "1"])
+        serve.main(["--workload", "cf", "--smoke", "--waves", "1"])
 
 
 def test_kernel_input_checks_reject_cpu_tensors():
@@ -105,7 +107,7 @@ def test_build_paths_stay_in_the_checkout():
     assert build.BUILD_DIR == ROOT / "build" / "kernels"
     assert sorted(p.name for p in build.CSRC.glob("*.cu")) == [
         "assign_clusters.cu", "ivf_probe.cu", "knn_topk.cu",
-        "masked_similarity.cu", "score_candidates.cu"]
+        "landmark_summary.cu", "masked_similarity.cu", "score_candidates.cu"]
     assert [p.name for p in build.CSRC.glob("*.cuh")] == ["topk_common.cuh"]
     assert "sm_90a" in build.ARCH
     assert "--use_fast_math" not in build.NVCC_FLAGS
