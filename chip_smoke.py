@@ -10,6 +10,10 @@ non-zero and prints no result. Phases, one line each:
 
 1. device — the card's name, count, and ``nvidia-smi`` name and power limit;
 2. build — nvcc's seconds and its ``-Xptxas -v`` register/spill lines;
+   for the tensor-core landmark-summary kernel, per head dim: registers,
+   static shared memory, spills, and the HGMMA (wgmma) instructions that
+   ``cuobjdump -sass`` counts in it (``wgmma.mma_async`` in its PTX where
+   the toolkit has no ``cuobjdump``) — none is a failure;
 3. kernels — each kernel against its plain version on the card, at the
    main-path shapes, at ragged shapes and on duplicated rows, all three
    measures;
@@ -46,18 +50,22 @@ The IVF retrieval slice adds, each with its own time:
 
 The LM slice adds, each with its own time:
 
-8a. landmark summary kernel — against its plain version (dense f32
-    softmax) at the reference tests' shapes (n, S, D) = (64, 1024, 64),
-    (128, 2048, 128), (32, 512, 256), f32, a ragged (16, 777, 32), and the
+8a. landmark summary kernels — both routes (bf16 inputs on the tensor-core
+    kernel, f32 on the CUDA-core kernel) against the plain version (dense
+    f32 softmax) at the reference tests' shapes (n, S, D) = (64, 1024, 64),
+    (128, 2048, 128), (32, 512, 256), a ragged (16, 777, 32), ragged S and
+    n with P > 1 at D = 128 and 256, S below one key tile, and the
     SmolLM-360M landmark shape: 10 problems (B=2 × 5 kv heads) of
-    G·n = 1536 landmark queries against S = 4096, D = 64, bf16 inputs;
-    rtol=1e-4, atol=1e-5 (the reference's kernel-vs-oracle tolerance);
+    G·n = 1536 landmark queries against S = 4096, D = 64; rtol=1e-4,
+    atol=1e-5 (the reference's kernel-vs-oracle tolerance);
 8b. landmark-attention forward — SmolLM-360M at full width (32 layers,
     random weights from seed 0), ``attn_backend="landmark"``, B = 2,
     S = 4096, tokens ``lm_batch(0, 0, 2, 4096, 49152)``: once through the
-    kernel (which must launch 32 times, one per layer) and once with the
-    plain B̃V; logits within 5% of the largest logit (bf16), both CE losses
-    printed;
+    kernel (which must launch 32 times, one per layer, all on the
+    tensor-core route) and once with the plain B̃V; logits within 5% of
+    the largest logit (bf16), both CE losses printed; then the same forward
+    in f32 with the depth cut to 2 layers, through the CUDA-core route (2
+    launches) and the plain B̃V, held to the same bounds;
 8c. LM serve CLI — ``serve --workload lm --arch smollm-360m`` with the
     exact KV cache and with ``--landmark``, full width; and one exact
     decode step's logits against ``lm_forward``'s last position within
@@ -137,7 +145,12 @@ KERNELS = {
     "score_candidates": dict(
         source="src/repro_torch/kernels/csrc/score_candidates.cu",
         replaces="src/repro/retrieval/index.py:519"),
+    # kernel 7's two routes: bf16 inputs on the tensor cores, f32 on CUDA
+    # cores
     "landmark_summary": dict(
+        source="src/repro_torch/kernels/csrc/landmark_summary.cu",
+        replaces="src/repro/kernels/landmark_attention.py:51"),
+    "landmark_summary_f32": dict(
         source="src/repro_torch/kernels/csrc/landmark_summary.cu",
         replaces="src/repro/kernels/landmark_attention.py:51"),
 }
@@ -175,6 +188,57 @@ def phase_build():
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     print(f"phase 2 build: {seconds:.1f}s -> {build.BUILD_DIR / build.LIB_NAME}"
           f" | ptxas: " + " ; ".join(keep))
+    print("phase 2 tensor-core kernel: " + json.dumps(_wgmma_report(log)))
+
+
+def _wgmma_report(log):
+    """Per instantiation of the tensor-core summary kernel (by head dim):
+    the ``-Xptxas -v`` registers, static shared memory and spill bytes, and
+    the wgmma instructions in its machine code. Raises if one has none."""
+    import re
+
+    wgmma_fn = "summary_wgmma_kernel"
+    report, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            m = re.search(wgmma_fn + r"ILi(\d+)E", ln)
+            name = f"D={m.group(1)}" if m else None
+        elif name and "spill stores" in ln:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          ln)
+            report.setdefault(name, {})["spill_bytes"] = [int(m.group(1)),
+                                                          int(m.group(2))]
+        elif name and "Used" in ln and "registers" in ln:
+            entry = report.setdefault(name, {})
+            entry["registers"] = int(re.search(r"Used (\d+) registers",
+                                               ln).group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            entry["static_smem_bytes"] = int(sm.group(1)) if sm else 0
+    obj = build.BUILD_DIR / "landmark_summary.o"
+    cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
+    if cuobjdump.exists():
+        sass = subprocess.run([str(cuobjdump), "-sass", str(obj)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        count, name = {}, None
+        for ln in sass.splitlines():
+            if "Function :" in ln:
+                m = re.search(wgmma_fn + r"ILi(\d+)E", ln)
+                name = f"D={m.group(1)}" if m else None
+            elif name and "HGMMA" in ln:
+                count[name] = count.get(name, 0) + 1
+        how = "HGMMA in cuobjdump -sass"
+    else:
+        ptx = subprocess.run(
+            [build.nvcc(), build.ARCH, "-std=c++17", "-O3", "-ptx", "-o", "-",
+             str(build.CSRC / "landmark_summary.cu")],
+            capture_output=True, text=True, check=True).stdout
+        count = {"all": ptx.count("wgmma.mma_async")}
+        how = "wgmma.mma_async in the PTX"
+    if not count or min(count.values()) == 0:
+        raise AssertionError(f"{wgmma_fn}: no wgmma instructions ({how}: "
+                             f"{count})")
+    return {"instructions": how, "count": count, "ptxas": report}
 
 
 def _topk_err(want, got):
@@ -424,7 +488,8 @@ DEVICE_FUNCS = {
     "assign_clusters": ("assign_kernel",),
     "fused_probe_topk": ("probe_kernel",),
     "score_candidates": ("score_kernel",),
-    "landmark_summary": ("summary_kernel",),
+    "landmark_summary": ("summary_wgmma_kernel",),
+    "landmark_summary_f32": ("summary_f32_kernel",),
 }
 
 
@@ -861,30 +926,34 @@ def _lm_model_shape():
 
 
 def phase_lm_kernel():
-    """8a: kernel 7 against its plain version. Returns the model-shape
-    inputs (for the times) and the largest error there."""
+    """8a: both routes of kernel 7 against the plain version. Returns the
+    model-shape inputs and the largest error there, per dtype."""
     t0 = time.perf_counter()
-    notes, main_err, model_in = [], 0.0, None
-    cases = [((1, 64, 1024, 64), torch.float32),
-             ((1, 128, 2048, 128), torch.float32),
-             ((1, 32, 512, 256), torch.float32),
-             ((1, 16, 777, 32), torch.float32),
-             (_lm_model_shape(), torch.bfloat16)]
-    for i, ((p, n, s_, d), dtype) in enumerate(cases):
-        q, k, v = _lm_inputs(p, n, s_, d, dtype, seed=30 + i)
-        got = ops.landmark_summary(q, k, v)
-        want = ref.landmark_summary_ref(q, k, v, 1.0 / np.sqrt(d))
-        sync()
-        torch.testing.assert_close(got, want, rtol=LM_RTOL, atol=LM_ATOL)
-        e = float((got - want).abs().max())
-        tag = "bf16" if dtype == torch.bfloat16 else "f32"
-        notes.append(f"P={p} n={n} S={s_} D={d} {tag} max|err| {e:.3g}")
-        if i == len(cases) - 1:
-            main_err, model_in = e, (q, k, v)
-    print(f"phase 8a landmark summary kernel (rtol={LM_RTOL}, "
-          f"atol={LM_ATOL}): " + "; ".join(notes)
+    notes, model_in, model_err = [], {}, {}
+    shapes = [(1, 64, 1024, 64), (1, 128, 2048, 128), (1, 32, 512, 256),
+              (1, 16, 777, 32), (2, 130, 300, 128), (2, 200, 777, 256),
+              (1, 100, 60, 256), _lm_model_shape()]
+    ops.reset_launches()
+    for i, (p, n, s_, d) in enumerate(shapes):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = _lm_inputs(p, n, s_, d, dtype, seed=30 + i)
+            got = ops.landmark_summary(q, k, v)
+            want = ref.landmark_summary_ref(q, k, v, 1.0 / np.sqrt(d))
+            sync()
+            torch.testing.assert_close(got, want, rtol=LM_RTOL, atol=LM_ATOL)
+            e = float((got - want).abs().max())
+            tag = "bf16" if dtype == torch.bfloat16 else "f32"
+            notes.append(f"P={p} n={n} S={s_} D={d} {tag} max|err| {e:.3g}")
+            if i == len(shapes) - 1:
+                model_err[dtype], model_in[dtype] = e, (q, k, v)
+    routes = dict(lsum.landmark_summary.route_launches)
+    if routes != {"tensor_core": len(shapes), "cuda_core": len(shapes)}:
+        raise AssertionError(f"8a: launches by route {routes}, not "
+                             f"{len(shapes)} each")
+    print(f"phase 8a landmark summary kernels (rtol={LM_RTOL}, "
+          f"atol={LM_ATOL}; launches by route {routes}): " + "; ".join(notes)
           + f" | {time.perf_counter() - t0:.1f}s")
-    return model_in, main_err
+    return model_in, model_err
 
 
 def _smollm(**over):
@@ -893,26 +962,16 @@ def _smollm(**over):
                       DEVICE)
 
 
-def phase_lm_forward():
-    """8b: the landmark-attention forward at full SmolLM-360M width, with
-    the kernel and with the plain B̃V. Returns the kernel run's launch
-    counts and its forward time."""
-    t0 = time.perf_counter()
-    model = _smollm(attn_backend="landmark")
-    cfg = model.cfg
-    batch = {key: torch.as_tensor(val, device=DEVICE) for key, val in
-             synthetic.lm_batch(0, 0, LM_BATCH, LM_SEQ, cfg.vocab).items()}
+def _forward_variants(model, batch, variants):
+    """One landmark forward per (tag, summary function): the model's B̃V
+    calls ops.landmark_summary, swapped for each function in turn. The
+    counts are read from the timed run alone."""
     out = {}
-    def reversed_keys(q, k, v, scale):  # the same sum, in reverse key order
-        return ref.landmark_summary_ref(q, k.flip(-2), v.flip(-2), scale)
-
     with torch.inference_mode():
-        for tag, fn in (("kernel", ops.landmark_summary),
-                        ("plain", ref.landmark_summary_ref),
-                        ("reversed", reversed_keys)):
-            # the model's B̃V calls ops.landmark_summary: swap in fn there
+        for tag, fn in variants:
             with mock.patch.object(ops, "landmark_summary", fn):
-                lm.lm_forward(model, batch["tokens"][:, :2 * cfg.n_landmarks])
+                lm.lm_forward(model, batch["tokens"][
+                    :, :2 * model.cfg.n_landmarks])
                 sync()  # warm
                 ops.reset_launches()
                 t1 = time.perf_counter()
@@ -920,47 +979,105 @@ def phase_lm_forward():
                 sync()
                 wall = time.perf_counter() - t1
                 counts = ops.launch_counts()
+                routes = dict(lsum.landmark_summary.route_launches)
                 loss = float(lm.lm_loss(model, batch))
-            out[tag] = dict(logits=logits, counts=counts, wall=wall,
-                            loss=loss)
+            out[tag] = dict(logits=logits, counts=counts, routes=routes,
+                            wall=wall, loss=loss)
+    return out
+
+
+def _check_forward(out, cfg, route, batch_size, tag_dtype):
+    """The kernel forward launched kernel 7 once per layer, all on `route`;
+    the plain one launched nothing; logits finite, shaped, within
+    LM_LOGIT_REL of the plain forward's; both CE near ln V. Returns the
+    relative logit difference."""
     ka, pa = out["kernel"], out["plain"]
-    if ka["counts"]["landmark_summary"] != cfg.n_layers:
-        raise AssertionError(f"landmark forward: kernel 7 launched "
-                             f"{ka['counts']['landmark_summary']} times, "
-                             f"not once per layer ({cfg.n_layers})")
+    want_routes = {r: cfg.n_layers if r == route else 0
+                   for r in lsum.landmark_summary.route_launches}
+    if (ka["counts"]["landmark_summary"] != cfg.n_layers
+            or ka["routes"] != want_routes):
+        raise AssertionError(f"{tag_dtype} landmark forward: kernel 7 "
+                             f"launched {ka['counts']['landmark_summary']} "
+                             f"times by route {ka['routes']}, not once per "
+                             f"layer ({cfg.n_layers}) on {route}")
     if any(pa["counts"].values()):
         raise AssertionError(f"plain forward launched kernels: "
                              f"{pa['counts']}")
     logits, want = ka["logits"], pa["logits"]
-    if logits.shape != (LM_BATCH, LM_SEQ, cfg.vocab) or not bool(
+    if logits.shape != (batch_size, LM_SEQ, cfg.vocab) or not bool(
             torch.isfinite(logits).all()):
-        raise AssertionError("landmark forward: logits not finite / shaped")
+        raise AssertionError(f"{tag_dtype} landmark forward: logits not "
+                             f"finite / shaped")
     rel = float((logits - want).abs().max() / want.abs().max())
-    floor = float((out["reversed"]["logits"] - want).abs().max()
-                  / want.abs().max())
     if rel > LM_LOGIT_REL:
-        raise AssertionError(f"landmark forward: kernel vs plain logits "
-                             f"differ by {rel:.4f} of max |logit|")
+        raise AssertionError(f"{tag_dtype} landmark forward: kernel vs plain "
+                             f"logits differ by {rel:.4f} of max |logit|")
     for tag in ("kernel", "plain"):
         if not abs(out[tag]["loss"] - np.log(cfg.vocab)) < 2.0:
-            raise AssertionError(f"{tag} CE {out[tag]['loss']} is not near "
-                                 f"uniform ({np.log(cfg.vocab):.3f})")
+            raise AssertionError(f"{tag_dtype} {tag} CE {out[tag]['loss']} "
+                                 f"is not near uniform "
+                                 f"({np.log(cfg.vocab):.3f})")
+    return rel
+
+
+def phase_lm_forward():
+    """8b: the landmark-attention forward at full SmolLM-360M width, with
+    the kernel and with the plain B̃V, in bf16 (the tensor-core route), then
+    in f32 at 2 layers (the CUDA-core route). Returns the launches of each
+    route's kernel forward."""
+    t0 = time.perf_counter()
+    model = _smollm(attn_backend="landmark")
+    cfg = model.cfg
+    batch = {key: torch.as_tensor(val, device=DEVICE) for key, val in
+             synthetic.lm_batch(0, 0, LM_BATCH, LM_SEQ, cfg.vocab).items()}
+
+    def reversed_keys(q, k, v, scale):  # the same sum, in reverse key order
+        return ref.landmark_summary_ref(q, k.flip(-2), v.flip(-2), scale)
+
+    out = _forward_variants(model, batch, (
+        ("kernel", ops.landmark_summary), ("plain", ref.landmark_summary_ref),
+        ("reversed", reversed_keys)))
+    rel = _check_forward(out, cfg, "tensor_core", LM_BATCH, "bf16")
+    ka, pa = out["kernel"], out["plain"]
+    want = pa["logits"]
+    floor = float((out["reversed"]["logits"] - want).abs().max()
+                  / want.abs().max())
     print(f"phase 8b landmark forward: {LM_ARCH} L={cfg.n_layers} "
           f"d={cfg.d_model} B={LM_BATCH} S={LM_SEQ} n={cfg.n_landmarks} "
-          f"launches {ka['counts']} | CE kernel {ka['loss']:.6f} plain "
-          f"{pa['loss']:.6f} (uniform {np.log(cfg.vocab):.6f}); logits "
-          f"max|Δ|/max|logit| {rel:.5f} (limit {LM_LOGIT_REL}; plain vs "
-          f"plain over reversed keys, the bf16 floor: {floor:.5f}); forward "
-          f"wall kernel {ka['wall'] * 1e3:.1f} ms, plain "
-          f"{pa['wall'] * 1e3:.1f} ms | {time.perf_counter() - t0:.1f}s")
-    del out, logits, want
+          f"bf16, launches {ka['counts']} by route {ka['routes']} | CE "
+          f"kernel {ka['loss']:.6f} plain {pa['loss']:.6f} (uniform "
+          f"{np.log(cfg.vocab):.6f}); logits max|Δ|/max|logit| {rel:.5f} "
+          f"(limit {LM_LOGIT_REL}; plain vs plain over reversed keys, the "
+          f"bf16 floor: {floor:.5f}); forward wall kernel "
+          f"{ka['wall'] * 1e3:.1f} ms, plain {pa['wall'] * 1e3:.1f} ms | "
+          f"{time.perf_counter() - t0:.1f}s")
+    launches = {"tensor_core": ka["routes"]["tensor_core"]}
+    del out, want
     with torch.inference_mode():
         print("phase 8b profile (one landmark forward, kernel path): "
               + json.dumps(_profile(lambda: lm.lm_forward(
                   model, batch["tokens"]))))
     del model
     torch.cuda.empty_cache()
-    return ka["counts"]
+
+    t0 = time.perf_counter()
+    model = _smollm(attn_backend="landmark", dtype=torch.float32, n_layers=2)
+    cfg = model.cfg
+    out = _forward_variants(model, batch, (
+        ("kernel", ops.landmark_summary), ("plain", ref.landmark_summary_ref)))
+    rel = _check_forward(out, cfg, "cuda_core", LM_BATCH, "f32")
+    ka, pa = out["kernel"], out["plain"]
+    print(f"phase 8b f32 landmark forward: {LM_ARCH} full width, L cut to "
+          f"{cfg.n_layers}, B={LM_BATCH} S={LM_SEQ}, f32, launches by route "
+          f"{ka['routes']} | CE kernel {ka['loss']:.6f} plain "
+          f"{pa['loss']:.6f}; logits max|Δ|/max|logit| {rel:.3g} (limit "
+          f"{LM_LOGIT_REL}); forward wall kernel {ka['wall'] * 1e3:.1f} ms, "
+          f"plain {pa['wall'] * 1e3:.1f} ms | "
+          f"{time.perf_counter() - t0:.1f}s")
+    launches["cuda_core"] = ka["routes"]["cuda_core"]
+    del out, model
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_lm_serve():
@@ -1023,40 +1140,63 @@ def _lm_bound(p, n, s_, d, in_bytes):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _lm_row(model_in, err, counts, life_counts):
-    """Row 7 of the kernel table at phase 8b's shape."""
+def _lm_bound_f32(p, n, s_, d):
+    """The same function on f32 inputs, which cannot go through bf16
+    products exactly: q, k, v (f32) read once, the output written once;
+    q̃Kᵀ and PV (4·n·S·D) and the exps (n·S) at the f32 rate."""
+    return _bound(4 * p * (n * d + 2 * s_ * d) + 4 * p * n * d,
+                  p * (4 * n * s_ * d + n * s_))
+
+
+def _lm_rows(model_in, err, launches, life_counts):
+    """Row 7 of the kernel table at phase 8b's shape, one entry per route:
+    bf16 inputs on the tensor-core kernel (launches on the bf16 landmark
+    forward), f32 inputs on the CUDA-core kernel (launches on the f32 one).
+    bf16 and f32 SDPA on the same inputs are the yardsticks; the port never
+    calls them."""
     import torch.nn.functional as F
 
-    q, k, v = model_in
-    p, n, d = q.shape
-    s_ = k.shape[1]
-    bound_ms, bound_by = _lm_bound(
-        p, n, s_, d, q.element_size() * (q.numel() + k.numel() + v.numel()))
-    # SDPA takes (batch, heads, L, D): the problems as (B, Hkv) so its
-    # fused backends can run; f32 inputs as the kernel computes in f32
-    q4, k4, v4 = (t.reshape(LM_BATCH, p // LM_BATCH, *t.shape[1:])
-                  for t in (q, k, v))
-    qf, kf, vf = q4.float(), k4.float(), v4.float()
-    sdpa_bf16 = _event_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4),
-                          20)
-    print(f"phase 6 sdpa: F.scaled_dot_product_attention on (B, Hkv, n, D) ="
-          f" ({LM_BATCH}, {p // LM_BATCH}, {n}, {d}) against S={s_}: bf16 "
-          f"inputs {sdpa_bf16:.4f} ms, backend {_sdpa_backend(q4, k4, v4)}; "
-          f"f32 inputs backend {_sdpa_backend(qf, kf, vf)}")
-    return dict(
-        name="landmark_summary", route="cuda", **KERNELS["landmark_summary"],
-        shape=f"P={p} (B={LM_BATCH} x Hkv) n={n} (G x n_landmarks) S={s_} "
-        f"D={d} bf16", launches=counts["landmark_summary"],
-        launches_lifecycle=life_counts["landmark_summary"], max_abs_err=err, max_err=err,
-        ms=_event_ms(lambda: ops.landmark_summary(q, k, v), 20),
-        plain_ms=_event_ms(lambda: ref.landmark_summary_ref(
-            q, k, v, 1.0 / np.sqrt(d)), 5),
-        bound_ms=bound_ms, bound_us=bound_ms * 1e3, bound_by=bound_by,
-        library_ms=_event_ms(
-            lambda: F.scaled_dot_product_attention(qf, kf, vf), 20),
-        library_bf16_ms=sdpa_bf16,
-        device_ms=_device_ms(lambda: ops.landmark_summary(q, k, v),
-                             "landmark_summary"))
+    rows = []
+    for dtype, name, route in (
+            (torch.bfloat16, "landmark_summary", "tensor_core"),
+            (torch.float32, "landmark_summary_f32", "cuda_core")):
+        q, k, v = model_in[dtype]
+        p, n, d = q.shape
+        s_ = k.shape[1]
+        if dtype == torch.bfloat16:
+            bound_ms, bound_by = _lm_bound(
+                p, n, s_, d, 2 * (q.numel() + k.numel() + v.numel()))
+        else:
+            bound_ms, bound_by = _lm_bound_f32(p, n, s_, d)
+        # SDPA takes (batch, heads, L, D): the problems as (B, Hkv) so its
+        # fused backends can run
+        q4, k4, v4 = (t.reshape(LM_BATCH, p // LM_BATCH, *t.shape[1:])
+                      for t in (q, k, v))
+        bf = [t.bfloat16() for t in (q4, k4, v4)]
+        f32 = [t.float() for t in (q4, k4, v4)]
+        sdpa_bf16 = _event_ms(lambda: F.scaled_dot_product_attention(*bf), 20)
+        sdpa_f32 = _event_ms(lambda: F.scaled_dot_product_attention(*f32), 20)
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        print(f"phase 6 sdpa ({tag} row): F.scaled_dot_product_attention on "
+              f"(B, Hkv, n, D) = ({LM_BATCH}, {p // LM_BATCH}, {n}, {d}) "
+              f"against S={s_}: bf16 inputs {sdpa_bf16:.4f} ms, backend "
+              f"{_sdpa_backend(*bf)}; f32 inputs {sdpa_f32:.4f} ms, backend "
+              f"{_sdpa_backend(*f32)}")
+        rows.append(dict(
+            name=name, route="cuda", kernel_route=route, **KERNELS[name],
+            shape=f"P={p} (B={LM_BATCH} x Hkv) n={n} (G x n_landmarks) "
+            f"S={s_} D={d} {tag}", launches=launches[route],
+            launches_lifecycle=life_counts["landmark_summary"],
+            max_abs_err=err[dtype], max_err=err[dtype],
+            ms=_event_ms(lambda: ops.landmark_summary(q, k, v), 20),
+            plain_ms=_event_ms(lambda: ref.landmark_summary_ref(
+                q, k, v, 1.0 / np.sqrt(d)), 5),
+            bound_ms=bound_ms, bound_us=bound_ms * 1e3, bound_by=bound_by,
+            library_ms=sdpa_bf16 if dtype == torch.bfloat16 else sdpa_f32,
+            library_bf16_ms=sdpa_bf16, library_f32_ms=sdpa_f32,
+            device_ms=_device_ms(lambda: ops.landmark_summary(q, k, v),
+                                 name)))
+    return rows
 
 
 def _sdpa_backend(q, k, v):
@@ -1100,11 +1240,11 @@ def main():
     ivf_counts = phase_ivf_path(train, a)
     life_counts = phase_lifecycle()
     model_in, lm_err = phase_lm_kernel()
-    lm_counts = phase_lm_forward()
+    lm_launches = phase_lm_forward()
     phase_lm_serve()
     table = (phase_times(train, a, err, peak, life_counts)
              + _ivf_rows(ivf, ivf_counts, life_counts, err)
-             + [_lm_row(model_in, lm_err, lm_counts, life_counts)])
+             + _lm_rows(model_in, lm_err, lm_launches, life_counts))
     print(f"card: {card}")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -52,8 +52,10 @@ SIGNATURES = {
     #  B, nprobe, cap, n, k, measure, payload, stream)
     "ivf_probe_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _I, _I, _I, _P),
-    # (q, k, v, out, P, N, S, D, dtype, scale, stream)
-    "landmark_summary": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    # (q, k, v, out, P, N, S, D, scale, stream): f32 inputs, CUDA cores
+    "landmark_summary_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # the same for bf16 inputs: TMA + wgmma on the tensor cores
+    "landmark_summary_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
 }
 
 

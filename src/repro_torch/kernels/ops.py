@@ -16,7 +16,8 @@ from .masked_similarity import masked_similarity
 from .knn_topk import foldin_topk, topk_sim
 from .score_candidates import score_candidates
 
-# every kernel wrapper of the package; each carries a ``launches`` count
+# every kernel wrapper of the package; each carries a ``launches`` count,
+# and a wrapper with more than one kernel a ``route_launches`` count each
 WRAPPERS = (masked_similarity, topk_sim, foldin_topk, assign_clusters,
             fused_probe_topk, score_candidates, landmark_summary)
 
@@ -24,6 +25,8 @@ WRAPPERS = (masked_similarity, topk_sim, foldin_topk, assign_clusters,
 def reset_launches() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
+        if hasattr(fn, "route_launches"):
+            fn.route_launches = dict.fromkeys(fn.route_launches, 0)
 
 
 def launch_counts() -> dict:

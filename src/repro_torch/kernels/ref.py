@@ -7,6 +7,7 @@ kernel against its plain version on the card.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -212,3 +213,42 @@ def landmark_summary_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     s = (q.float() @ k.float().transpose(-1, -2)) * scale  # (..., n, S)
     return torch.softmax(s, dim=-1) @ v.float()
+
+
+def landmark_summary_split_ref(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, scale: float, *,
+                               split: bool = True, block: int = 128
+                               ) -> torch.Tensor:
+    """The tensor-core kernel's arithmetic (``kernels.landmark_summary`` on
+    bfloat16 inputs) in plain torch, to check its numerics on the CPU; never
+    on a model path.
+
+    q, k, v are taken as bfloat16 (rounded if they are not). Keys go in
+    tiles of ``block``: scores are the bf16 products summed in f32, times
+    c = scale·log2(e); a running max m, alpha = 2^(m_old − m_new) (0 while
+    m_old is −inf), p = 2^(s − m_new), z summed from the f32 p; PV takes p
+    as p_hi = bf16(p) plus p_lo = bf16(p − p_hi), each a bf16 product summed
+    in f32 (``split=False``: p_hi alone, which the 1e-4 bound does not
+    hold). Returns (..., n, D) float32 = acc / max(z, 1e-30).
+    """
+    q, k, v = (t.to(torch.bfloat16).float() for t in (q, k, v))
+    c = torch.tensor(scale, dtype=torch.float32) * torch.tensor(
+        math.log2(math.e), dtype=torch.float32)
+    m = torch.full(q.shape[:-1], float("-inf"), dtype=torch.float32,
+                   device=q.device)
+    z = torch.zeros_like(m)
+    acc = torch.zeros_like(q)
+    for k0 in range(0, k.shape[-2], block):
+        kt, vt = k[..., k0:k0 + block, :], v[..., k0:k0 + block, :]
+        s = (q @ kt.transpose(-1, -2)) * c
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.where(m == float("-inf"), torch.zeros_like(m),
+                            torch.exp2(m - m_new))
+        p = torch.exp2(s - m_new[..., None])
+        z = z * alpha + p.sum(-1)
+        hi = p.bfloat16().float()
+        acc = acc * alpha[..., None] + hi @ vt
+        if split:
+            acc = acc + (p - hi).bfloat16().float() @ vt
+        m = m_new
+    return acc / z.clamp(min=1e-30)[..., None]

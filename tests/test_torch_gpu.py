@@ -13,9 +13,11 @@ Tolerances:
 - the Lloyd assignment, the gathered-candidate scorer and the fused IVF
   probe (f32, bf16 and int8 payloads): bitwise equal to their plain
   versions, for the same reason;
-- the landmark summary (f32 and bf16 inputs): rtol=1e-4, atol=1e-5, the
-  reference's own kernel-vs-oracle tolerance — a streamed softmax with
-  running max and denominator against a dense f32 one;
+- the landmark summary (f32 inputs on the CUDA-core kernel, bf16 inputs on
+  the tensor-core kernel): rtol=1e-4, atol=1e-5, the reference's own
+  kernel-vs-oracle tolerance — a streamed softmax with running max and
+  denominator against a dense f32 one (the bf16 route splits P into two
+  bf16 terms to stay inside it);
 - a landmark-attention forward through the kernel against the same
   forward with the plain summary, bf16: within 5% of the largest logit
   (the kernel's f32 sums in another order, rounded to bf16 on the way
@@ -262,19 +264,24 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("p,n,s,d", [(1, 64, 1024, 64), (1, 128, 2048, 128),
                                      (1, 32, 512, 256), (1, 16, 777, 32),
-                                     (3, 100, 70, 64), (10, 1536, 4096, 64)])
+                                     (3, 100, 70, 64), (10, 1536, 4096, 64),
+                                     (3, 70, 777, 32), (2, 130, 300, 128),
+                                     (2, 200, 777, 256), (1, 100, 60, 256)])
 def test_landmark_summary_kernel_matches_plain(cuda, dtype, p, n, s, d):
-    """The reference tests' shapes, a ragged S, a tiny S below one key
-    tile, and the SmolLM-360M landmark shape (10 problems of G·n = 1536
-    landmark queries against S = 4096)."""
+    """The reference tests' shapes, ragged S and n at every head dim with
+    P > 1, S below one key tile, and the SmolLM-360M landmark shape (10
+    problems of G·n = 1536 landmark queries against S = 4096)."""
     g = torch.Generator(device=cuda).manual_seed(n + s)
     q, k, v = (torch.randn((p, rows, d), generator=g, device=cuda).to(dtype)
                for rows in (n, s, s))
     before = lsum.landmark_summary.launches
+    route = lsum.ROUTES[dtype][0]
+    routed = lsum.landmark_summary.route_launches[route]
     got = ops.landmark_summary(q, k, v)
     want = ref.landmark_summary_ref(q, k, v, 1.0 / np.sqrt(d))
     torch.cuda.synchronize()
     assert lsum.landmark_summary.launches == before + 1
+    assert lsum.landmark_summary.route_launches[route] == routed + 1
     assert got.dtype == torch.float32 and got.shape == (p, n, d)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
     if p == 1:  # the single-problem form is the same launch
@@ -299,6 +306,39 @@ def test_landmark_summary_rejects_what_the_kernel_does_not_take(cuda):
         ops.landmark_summary(y, y, y)
     with pytest.raises(ValueError, match="contiguous"):
         ops.landmark_summary(x.transpose(1, 2), x, x)
+    b = x.bfloat16()
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.landmark_summary(b.transpose(1, 2), b, b)
+    # a contiguous bf16 view 2 bytes past a 16-byte boundary: no TMA base
+    off = torch.zeros(b.numel() + 8, dtype=torch.bfloat16,
+                      device=cuda)[1:1 + b.numel()].view(b.shape)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.landmark_summary(off, b, b)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.landmark_summary(b, b, off)
+
+
+def test_landmark_summary_dtype_chooses_the_route(cuda):
+    """bf16 inputs launch the tensor-core kernel, f32 inputs the CUDA-core
+    kernel; the total counts both; the two agree within the bound on the
+    same (bf16-representable) values."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn((2, rows, 64), generator=g, device=cuda
+                           ).bfloat16() for rows in (96, 500, 500))
+    ops.reset_launches()
+    a = ops.landmark_summary(q, k, v)
+    assert lsum.landmark_summary.route_launches == {"tensor_core": 1,
+                                                    "cuda_core": 0}
+    b = ops.landmark_summary(q.float(), k.float(), v.float())
+    assert lsum.landmark_summary.route_launches == {"tensor_core": 1,
+                                                    "cuda_core": 1}
+    assert ops.launch_counts()["landmark_summary"] == 2
+    torch.cuda.synchronize()
+    torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    ops.reset_launches()
+    assert lsum.landmark_summary.route_launches == {"tensor_core": 0,
+                                                    "cuda_core": 0}
 
 
 def test_landmark_forward_on_the_card_launches_once_per_layer(cuda,
@@ -321,6 +361,9 @@ def test_landmark_forward_on_the_card_launches_once_per_layer(cuda,
         ops.reset_launches()
         got, _ = T.lm_forward(model, toks)
         assert ops.launch_counts()["landmark_summary"] == cfg.n_layers
+        # a bf16 model: every layer on the tensor-core kernel
+        assert lsum.landmark_summary.route_launches == {
+            "tensor_core": cfg.n_layers, "cuda_core": 0}
         ops.reset_launches()
         monkeypatch.setattr(ops, "landmark_summary", ref.landmark_summary_ref)
         want, _ = T.lm_forward(model, toks)

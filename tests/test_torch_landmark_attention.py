@@ -13,7 +13,11 @@ Tolerances:
 - landmark attention in f32: rtol=1e-4, atol=2e-5 — the same f32 sums, then
   eight Newton–Schulz iterations on an n × n softmax (a pseudo-inverse
   amplifies a last-bit difference by the matrix's condition number, which
-  stays small for these segment-mean landmarks).
+  stays small for these segment-mean landmarks);
+- the tensor-core kernel's arithmetic (``ref.landmark_summary_split_ref``:
+  bf16 products summed in f32, P split into two bf16 terms) on bf16
+  inputs: rtol=1e-4, atol=1e-5, the summary's bound, against the reference
+  and against the dense plain version.
 """
 import numpy as np
 import pytest
@@ -62,8 +66,8 @@ def test_summary_ragged_sequence_matches_reference_dispatch():
 
 
 def test_summary_batches_problems_and_upcasts_bf16():
-    """A (P, n, D) batch equals P single problems; bf16 inputs give what
-    their f32 upcast gives (the kernel upcasts on load)."""
+    """A (P, n, D) batch equals P single problems; on the CPU bf16 inputs
+    give what their f32 upcast gives (the plain version upcasts)."""
     q = torch.as_tensor(_normal((3, 40, 64), 7)).bfloat16()
     k = torch.as_tensor(_normal((3, 300, 64), 8)).bfloat16()
     v = torch.as_tensor(_normal((3, 300, 64), 9)).bfloat16()
@@ -79,8 +83,57 @@ def test_summary_wrapper_never_launches_on_the_cpu():
     ops.reset_launches()
     x = torch.zeros((4, 8, 32))
     ops.landmark_summary(x, x, x)
+    ops.landmark_summary(x.bfloat16(), x.bfloat16(), x.bfloat16())
     assert lsum.landmark_summary.launches == 0
     assert ops.launch_counts()["landmark_summary"] == 0
+    assert lsum.landmark_summary.route_launches == {"tensor_core": 0,
+                                                    "cuda_core": 0}
+
+
+def _bf16(shape, seed):
+    """Normal samples rounded to bf16, as f32 numpy (exact in both)."""
+    x = torch.as_tensor(_normal(shape, seed)).bfloat16()
+    return x.float().numpy()
+
+
+@pytest.mark.parametrize("n,s,d", [(64, 1024, 64), (128, 2048, 128),
+                                   (32, 512, 256), (16, 777, 32),
+                                   (48, 777, 128), (24, 100, 64),
+                                   (8, 60, 256), (20, 50, 32)])
+def test_split_arithmetic_matches_reference(n, s, d):
+    """The tensor-core kernel's arithmetic on bf16 inputs — bf16 q·k
+    products summed in f32, P as bf16(p) + bf16(p − bf16(p)), z from the
+    f32 p, key tiles of the kernel's width (128 keys for D ≤ 64, 64 above)
+    — against the reference's dispatch (its Pallas kernel in interpret mode
+    where S is a multiple of 512, with its ragged combine otherwise) and
+    against the dense plain version, at every head dim, a ragged S and an
+    S shorter than one tile."""
+    q, k, v = _bf16((n, d), 50), _bf16((s, d), 51), _bf16((s, d), 52)
+    scale = 1.0 / np.sqrt(d)
+    want = np.asarray(jops.landmark_summary(jnp.asarray(q), jnp.asarray(k),
+                                            jnp.asarray(v)))
+    tq, tk, tv = (torch.as_tensor(x).bfloat16() for x in (q, k, v))
+    got = ref.landmark_summary_split_ref(tq, tk, tv, scale,
+                                         block=128 if d <= 64 else 64)
+    assert got.dtype == torch.float32 and got.shape == (n, d)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    dense = ref.landmark_summary_ref(tq, tk, tv, scale)
+    torch.testing.assert_close(got, dense, rtol=RTOL, atol=ATOL)
+
+
+def test_single_bf16_term_of_p_breaks_the_bound():
+    """Why the kernel splits P: at (n, S, D) = (256, 4096, 64), p rounded to
+    one bf16 term before PV misses rtol=1e-4 / atol=1e-5 against the plain
+    version (max |err| ~1.6e-4); the two-term split meets it (~3e-7)."""
+    q, k, v = (torch.as_tensor(_bf16(shape, 60 + i)).bfloat16()
+               for i, shape in enumerate([(256, 64), (4096, 64), (4096, 64)]))
+    want = ref.landmark_summary_ref(q, k, v, 0.125)
+    one = ref.landmark_summary_split_ref(q, k, v, 0.125, split=False)
+    two = ref.landmark_summary_split_ref(q, k, v, 0.125)
+    assert not torch.allclose(one, want, rtol=RTOL, atol=ATOL)
+    assert float((one - want).abs().max()) > 10 * ATOL
+    torch.testing.assert_close(two, want, rtol=RTOL, atol=ATOL)
+    assert float((two - want).abs().max()) < 0.1 * ATOL
 
 
 @pytest.mark.parametrize("n_landmarks", [4, 8, 16])
