@@ -10,10 +10,11 @@ non-zero and prints no result. Phases, one line each:
 
 1. device — the card's name, count, and ``nvidia-smi`` name and power limit;
 2. build — nvcc's seconds and its ``-Xptxas -v`` register/spill lines;
-   for the tensor-core landmark-summary kernel, per head dim: registers,
-   static shared memory, spills, and the HGMMA (wgmma) instructions that
-   ``cuobjdump -sass`` counts in it (``wgmma.mma_async`` in its PTX where
-   the toolkit has no ``cuobjdump``) — none is a failure;
+   for the tensor-core landmark-summary kernel, per route (bf16, f32) and
+   head dim: registers, static shared memory, spills, and the HGMMA
+   (wgmma) instructions that ``cuobjdump -sass`` counts in it
+   (``wgmma.mma_async`` in its PTX where the toolkit has no
+   ``cuobjdump``) — none is a failure;
 3. kernels — each kernel against its plain version on the card, at the
    main-path shapes, at ragged shapes and on duplicated rows, all three
    measures;
@@ -51,21 +52,23 @@ The IVF retrieval slice adds, each with its own time:
 The LM slice adds, each with its own time:
 
 8a. landmark summary kernels — both routes (bf16 inputs on the tensor-core
-    kernel, f32 on the CUDA-core kernel) against the plain version (dense
-    f32 softmax) at the reference tests' shapes (n, S, D) = (64, 1024, 64),
+    loop as they are, f32 inputs split into bf16 terms first and run
+    through the same loop) against the plain version (dense f32 softmax) at
+    the reference tests' shapes (n, S, D) = (64, 1024, 64),
     (128, 2048, 128), (32, 512, 256), a ragged (16, 777, 32), ragged S and
     n with P > 1 at D = 128 and 256, S below one key tile, and the
     SmolLM-360M landmark shape: 10 problems (B=2 × 5 kv heads) of
     G·n = 1536 landmark queries against S = 4096, D = 64; rtol=1e-4,
-    atol=1e-5 (the reference's kernel-vs-oracle tolerance);
+    atol=1e-5 (the reference's kernel-vs-oracle tolerance); and the f32
+    route's split pass bitwise against the same rounding in torch there;
 8b. landmark-attention forward — SmolLM-360M at full width (32 layers,
     random weights from seed 0), ``attn_backend="landmark"``, B = 2,
     S = 4096, tokens ``lm_batch(0, 0, 2, 4096, 49152)``: once through the
     kernel (which must launch 32 times, one per layer, all on the
     tensor-core route) and once with the plain B̃V; logits within 5% of
     the largest logit (bf16), both CE losses printed; then the same forward
-    in f32 with the depth cut to 2 layers, through the CUDA-core route (2
-    launches) and the plain B̃V, held to the same bounds;
+    in f32 with the depth cut to 2 layers, through the f32_split route (2
+    launches, 6 split passes) and the plain B̃V, held to the same bounds;
 8c. LM serve CLI — ``serve --workload lm --arch smollm-360m`` with the
     exact KV cache and with ``--landmark``, full width; and one exact
     decode step's logits against ``lm_forward``'s last position within
@@ -145,8 +148,8 @@ KERNELS = {
     "score_candidates": dict(
         source="src/repro_torch/kernels/csrc/score_candidates.cu",
         replaces="src/repro/retrieval/index.py:519"),
-    # kernel 7's two routes: bf16 inputs on the tensor cores, f32 on CUDA
-    # cores
+    # kernel 7's two routes, both on the tensor cores: bf16 inputs as they
+    # are, f32 inputs split into bf16 terms first
     "landmark_summary": dict(
         source="src/repro_torch/kernels/csrc/landmark_summary.cu",
         replaces="src/repro/kernels/landmark_attention.py:51"),
@@ -191,18 +194,27 @@ def phase_build():
     print("phase 2 tensor-core kernel: " + json.dumps(_wgmma_report(log)))
 
 
+def _wgmma_name(line):
+    """'bf16 D=64' / 'f32 D=64' for a line naming an instantiation of the
+    tensor-core summary kernel (template <int D, bool F32>), else None."""
+    import re
+
+    m = re.search(r"summary_wgmma_kernelILi(\d+)ELb([01])E", line)
+    return f"{('bf16', 'f32')[int(m.group(2))]} D={m.group(1)}" if m else None
+
+
 def _wgmma_report(log):
-    """Per instantiation of the tensor-core summary kernel (by head dim):
-    the ``-Xptxas -v`` registers, static shared memory and spill bytes, and
-    the wgmma instructions in its machine code. Raises if one has none."""
+    """Per instantiation of the tensor-core summary kernel (by route and
+    head dim): the ``-Xptxas -v`` registers, static shared memory and spill
+    bytes, and the wgmma instructions in its machine code. Raises if one
+    has none."""
     import re
 
     wgmma_fn = "summary_wgmma_kernel"
     report, name = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            m = re.search(wgmma_fn + r"ILi(\d+)E", ln)
-            name = f"D={m.group(1)}" if m else None
+            name = _wgmma_name(ln)
         elif name and "spill stores" in ln:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           ln)
@@ -223,8 +235,7 @@ def _wgmma_report(log):
         count, name = {}, None
         for ln in sass.splitlines():
             if "Function :" in ln:
-                m = re.search(wgmma_fn + r"ILi(\d+)E", ln)
-                name = f"D={m.group(1)}" if m else None
+                name = _wgmma_name(ln)
             elif name and "HGMMA" in ln:
                 count[name] = count.get(name, 0) + 1
         how = "HGMMA in cuobjdump -sass"
@@ -235,8 +246,10 @@ def _wgmma_report(log):
             capture_output=True, text=True, check=True).stdout
         count = {"all": ptx.count("wgmma.mma_async")}
         how = "wgmma.mma_async in the PTX"
-    if not count or min(count.values()) == 0:
-        raise AssertionError(f"{wgmma_fn}: no wgmma instructions ({how}: "
+    if not count or min(count.values()) == 0 or (
+            "all" not in count and len(count) != 8):
+        raise AssertionError(f"{wgmma_fn}: not 8 instantiations (2 routes "
+                             f"x 4 head dims) each with wgmma ({how}: "
                              f"{count})")
     return {"instructions": how, "count": count, "ptxas": report}
 
@@ -489,7 +502,8 @@ DEVICE_FUNCS = {
     "fused_probe_topk": ("probe_kernel",),
     "score_candidates": ("score_kernel",),
     "landmark_summary": ("summary_wgmma_kernel",),
-    "landmark_summary_f32": ("summary_f32_kernel",),
+    "landmark_summary_f32": ("summary_wgmma_kernel", "split_terms_kernel"),
+    "split_terms": ("split_terms_kernel",),  # the f32 route's split pass
 }
 
 
@@ -926,8 +940,10 @@ def _lm_model_shape():
 
 
 def phase_lm_kernel():
-    """8a: both routes of kernel 7 against the plain version. Returns the
-    model-shape inputs and the largest error there, per dtype."""
+    """8a: both routes of kernel 7 against the plain version, and the f32
+    route's split pass bitwise against its plain version at the model
+    shape. Returns the model-shape inputs and the largest error there, per
+    dtype."""
     t0 = time.perf_counter()
     notes, model_in, model_err = [], {}, {}
     shapes = [(1, 64, 1024, 64), (1, 128, 2048, 128), (1, 32, 512, 256),
@@ -947,12 +963,21 @@ def phase_lm_kernel():
             if i == len(shapes) - 1:
                 model_err[dtype], model_in[dtype] = e, (q, k, v)
     routes = dict(lsum.landmark_summary.route_launches)
-    if routes != {"tensor_core": len(shapes), "cuda_core": len(shapes)}:
+    if routes != {"tensor_core": len(shapes), "f32_split": len(shapes)}:
         raise AssertionError(f"8a: launches by route {routes}, not "
                              f"{len(shapes)} each")
+    for t, terms in zip(model_in[torch.float32],
+                        (lsum.QK_TERMS, lsum.QK_TERMS, lsum.V_TERMS)):
+        got, want = lsum.bf16_terms(t, terms), ref.bf16_terms(t, terms)
+        sync()
+        if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+            raise AssertionError(f"8a: split pass of {tuple(t.shape)} into "
+                                 f"{terms} terms differs from its plain "
+                                 f"version")
     print(f"phase 8a landmark summary kernels (rtol={LM_RTOL}, "
           f"atol={LM_ATOL}; launches by route {routes}): " + "; ".join(notes)
-          + f" | {time.perf_counter() - t0:.1f}s")
+          + f"; split pass at the model shape bitwise equal | "
+          f"{time.perf_counter() - t0:.1f}s")
     return model_in, model_err
 
 
@@ -974,33 +999,38 @@ def _forward_variants(model, batch, variants):
                     :, :2 * model.cfg.n_landmarks])
                 sync()  # warm
                 ops.reset_launches()
+                lsum.bf16_terms.launches = 0
                 t1 = time.perf_counter()
                 logits, _ = lm.lm_forward(model, batch["tokens"])
                 sync()
                 wall = time.perf_counter() - t1
                 counts = ops.launch_counts()
                 routes = dict(lsum.landmark_summary.route_launches)
+                splits = lsum.bf16_terms.launches
                 loss = float(lm.lm_loss(model, batch))
             out[tag] = dict(logits=logits, counts=counts, routes=routes,
-                            wall=wall, loss=loss)
+                            splits=splits, wall=wall, loss=loss)
     return out
 
 
 def _check_forward(out, cfg, route, batch_size, tag_dtype):
-    """The kernel forward launched kernel 7 once per layer, all on `route`;
-    the plain one launched nothing; logits finite, shaped, within
+    """The kernel forward launched kernel 7 once per layer, all on `route`
+    (with three split passes each on the f32_split route); the plain one
+    launched nothing; logits finite, shaped, within
     LM_LOGIT_REL of the plain forward's; both CE near ln V. Returns the
     relative logit difference."""
     ka, pa = out["kernel"], out["plain"]
     want_routes = {r: cfg.n_layers if r == route else 0
                    for r in lsum.landmark_summary.route_launches}
+    want_splits = 3 * cfg.n_layers if route == "f32_split" else 0
     if (ka["counts"]["landmark_summary"] != cfg.n_layers
-            or ka["routes"] != want_routes):
+            or ka["routes"] != want_routes or ka["splits"] != want_splits):
         raise AssertionError(f"{tag_dtype} landmark forward: kernel 7 "
                              f"launched {ka['counts']['landmark_summary']} "
-                             f"times by route {ka['routes']}, not once per "
+                             f"times by route {ka['routes']} with "
+                             f"{ka['splits']} split passes, not once per "
                              f"layer ({cfg.n_layers}) on {route}")
-    if any(pa["counts"].values()):
+    if any(pa["counts"].values()) or pa["splits"]:
         raise AssertionError(f"plain forward launched kernels: "
                              f"{pa['counts']}")
     logits, want = ka["logits"], pa["logits"]
@@ -1023,7 +1053,7 @@ def _check_forward(out, cfg, route, batch_size, tag_dtype):
 def phase_lm_forward():
     """8b: the landmark-attention forward at full SmolLM-360M width, with
     the kernel and with the plain B̃V, in bf16 (the tensor-core route), then
-    in f32 at 2 layers (the CUDA-core route). Returns the launches of each
+    in f32 at 2 layers (the f32_split route). Returns the launches of each
     route's kernel forward."""
     t0 = time.perf_counter()
     model = _smollm(attn_backend="landmark")
@@ -1065,16 +1095,16 @@ def phase_lm_forward():
     cfg = model.cfg
     out = _forward_variants(model, batch, (
         ("kernel", ops.landmark_summary), ("plain", ref.landmark_summary_ref)))
-    rel = _check_forward(out, cfg, "cuda_core", LM_BATCH, "f32")
+    rel = _check_forward(out, cfg, "f32_split", LM_BATCH, "f32")
     ka, pa = out["kernel"], out["plain"]
     print(f"phase 8b f32 landmark forward: {LM_ARCH} full width, L cut to "
           f"{cfg.n_layers}, B={LM_BATCH} S={LM_SEQ}, f32, launches by route "
-          f"{ka['routes']} | CE kernel {ka['loss']:.6f} plain "
+          f"{ka['routes']}, split passes {ka['splits']} | CE kernel {ka['loss']:.6f} plain "
           f"{pa['loss']:.6f}; logits max|Δ|/max|logit| {rel:.3g} (limit "
           f"{LM_LOGIT_REL}); forward wall kernel {ka['wall'] * 1e3:.1f} ms, "
           f"plain {pa['wall'] * 1e3:.1f} ms | "
           f"{time.perf_counter() - t0:.1f}s")
-    launches["cuda_core"] = ka["routes"]["cuda_core"]
+    launches["f32_split"] = ka["routes"]["f32_split"]
     del out, model
     torch.cuda.empty_cache()
     return launches
@@ -1126,48 +1156,60 @@ def phase_lm_serve():
     torch.cuda.empty_cache()
 
 
-def _lm_bound(p, n, s_, d, in_bytes):
-    """Least time for p problems of softmax(q̃Kᵀ·scale)V with bf16 inputs
-    and f32 results: q, k, v read once and the f32 output written once;
-    q̃Kᵀ on the bf16 tensor cores (exact products, f32 sums); PV with the
-    f32 probabilities split into two bf16 terms (16 bits of mantissa, well
-    inside the 1e-4 bound), so two bf16 products; one exp per score on the
-    special-function units, which run beside the tensor cores."""
-    t_bytes = (in_bytes + 4 * p * n * d) / HBM_BYTES_PER_S * 1e3
-    t_tc = p * 3 * (2 * n * s_ * d) / BF16_TC_FLOPS * 1e3
+def _lm_bound(p, n, s_, d, dtype):
+    """Least time for p problems of softmax(q̃Kᵀ·scale)V with f32 results,
+    on the route of the inputs' dtype: the bytes moved, and the bf16
+    products on the tensor cores (exact products, f32 sums) beside one exp
+    per score on the special-function units, which run beside them.
+
+    bf16 inputs: q, k, v read once, the f32 output written once; q̃Kᵀ, and
+    PV with the f32 probabilities split into two bf16 terms (16 bits of
+    mantissa, well inside the 1e-4 bound): 3 products of 2·n·S·D.
+    f32 inputs: q, k, v (f32) read once, their bf16 planes (three terms of
+    q and k, two of v) written once and read once, the output written
+    once; six products for q̃Kᵀ and three for PV: 9 of 2·n·S·D."""
+    q_el, kv_el = p * n * d, p * s_ * d
+    if dtype == torch.bfloat16:
+        moved, products = 2 * (q_el + 2 * kv_el), 3
+    else:
+        planes = 3 * q_el + 3 * kv_el + 2 * kv_el
+        moved, products = 4 * (q_el + 2 * kv_el) + 2 * 2 * planes, 9
+    t_bytes = (moved + 4 * q_el) / HBM_BYTES_PER_S * 1e3
+    t_tc = p * products * (2 * n * s_ * d) / BF16_TC_FLOPS * 1e3
     t_exp = p * n * s_ / SFU_PER_S * 1e3
     t_ops = max(t_tc, t_exp)
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _lm_bound_f32(p, n, s_, d):
-    """The same function on f32 inputs, which cannot go through bf16
-    products exactly: q, k, v (f32) read once, the output written once;
-    q̃Kᵀ and PV (4·n·S·D) and the exps (n·S) at the f32 rate."""
+def _lm_bound_f32_cores(p, n, s_, d):
+    """A yardstick for the f32 route: the same function on f32 inputs with
+    every operation at the f32 rate outside the tensor cores — q, k, v read
+    once, the output written once, q̃Kᵀ and PV (4·n·S·D) and the exps
+    (n·S)."""
     return _bound(4 * p * (n * d + 2 * s_ * d) + 4 * p * n * d,
                   p * (4 * n * s_ * d + n * s_))
 
 
 def _lm_rows(model_in, err, launches, life_counts):
     """Row 7 of the kernel table at phase 8b's shape, one entry per route:
-    bf16 inputs on the tensor-core kernel (launches on the bf16 landmark
-    forward), f32 inputs on the CUDA-core kernel (launches on the f32 one).
-    bf16 and f32 SDPA on the same inputs are the yardsticks; the port never
-    calls them."""
+    bf16 inputs on the tensor-core route (launches on the bf16 landmark
+    forward), f32 inputs on the f32_split route (launches on the f32 one).
+    bf16 and f32 SDPA on the same inputs are the yardsticks, and for the
+    f32 route the f32-rate bound as well; the port never calls them."""
     import torch.nn.functional as F
 
     rows = []
     for dtype, name, route in (
             (torch.bfloat16, "landmark_summary", "tensor_core"),
-            (torch.float32, "landmark_summary_f32", "cuda_core")):
+            (torch.float32, "landmark_summary_f32", "f32_split")):
         q, k, v = model_in[dtype]
         p, n, d = q.shape
         s_ = k.shape[1]
-        if dtype == torch.bfloat16:
-            bound_ms, bound_by = _lm_bound(
-                p, n, s_, d, 2 * (q.numel() + k.numel() + v.numel()))
-        else:
-            bound_ms, bound_by = _lm_bound_f32(p, n, s_, d)
+        bound_ms, bound_by = _lm_bound(p, n, s_, d, dtype)
+        extra = {} if dtype == torch.bfloat16 else dict(
+            bound_f32_cores_ms=_lm_bound_f32_cores(p, n, s_, d)[0],
+            split_device_ms=_device_ms(
+                lambda: ops.landmark_summary(q, k, v), "split_terms"))
         # SDPA takes (batch, heads, L, D): the problems as (B, Hkv) so its
         # fused backends can run
         q4, k4, v4 = (t.reshape(LM_BATCH, p // LM_BATCH, *t.shape[1:])
@@ -1195,7 +1237,7 @@ def _lm_rows(model_in, err, launches, life_counts):
             library_ms=sdpa_bf16 if dtype == torch.bfloat16 else sdpa_f32,
             library_bf16_ms=sdpa_bf16, library_f32_ms=sdpa_f32,
             device_ms=_device_ms(lambda: ops.landmark_summary(q, k, v),
-                                 name)))
+                                 name), **extra))
     return rows
 
 

@@ -34,7 +34,8 @@ NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 MEASURE_CODES = {"cosine": 0, "pearson": 1, "euclidean": 2}
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 SIGNATURES = {
     # (a, b, out, A, B, P, measure, stream)
     "masked_similarity_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
@@ -52,9 +53,11 @@ SIGNATURES = {
     #  B, nprobe, cap, n, k, measure, payload, stream)
     "ivf_probe_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _I, _I, _I, _P),
-    # (q, k, v, out, P, N, S, D, scale, stream): f32 inputs, CUDA cores
+    # (x, planes, n, terms, stream): f32 → bf16 terms, the f32 route's split
+    "split_bf16_terms": (_P, _P, _L, _I, _P),
+    # (q, k, v, out, P, N, S, D, scale, stream): TMA + wgmma on the tensor
+    # cores, q k v as f32 inputs' bf16 planes (3, 3, 2 terms) or bf16 inputs
     "landmark_summary_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
-    # the same for bf16 inputs: TMA + wgmma on the tensor cores
     "landmark_summary_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
 }
 

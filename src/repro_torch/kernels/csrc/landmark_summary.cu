@@ -1,5 +1,5 @@
-// Landmark summary softmax(Q̃ Kᵀ · scale) V for Hopper: a TMA + wgmma flash
-// loop for bf16 inputs, and an f32 CUDA-core kernel for f32 inputs.
+// Landmark summary softmax(Q̃ Kᵀ · scale) V for Hopper: one TMA + wgmma
+// flash loop on bf16 terms of the inputs, for bf16 and for f32 inputs.
 //
 // Replaces the TPU kernel src/repro/kernels/landmark_attention.py
 // landmark_summary_kernel (body _kernel): the B̃V term of landmark
@@ -10,22 +10,23 @@
 // that head's (S, D) keys and values, so one launch per layer serves them
 // all. Keys at or past S are masked in the kernel: any S works.
 //
-// What bounds it on an H100 (chip_smoke.py::_lm_bound): at the
-// landmark-attention shape of SmolLM-360M (P = 2·5 problems of n = 3·512
-// queries, S = 4096, D = 64, bf16 inputs) the ~16 MB moved take ~5 µs; the
-// tensor-core work, q̃Kᵀ plus PV as two bf16 products (below), is
-// 6·n·S·D = 24 GFLOP a launch: 0.0244 ms at 989 TFLOP/s bf16. Operations
-// bound it, on the tensor cores.
+// What bounds it on an H100 (chip_smoke.py::_lm_bound): at
+// the landmark-attention shape of SmolLM-360M (P = 2·5 problems of
+// n = 3·512 queries, S = 4096, D = 64) the bytes moved take 5 µs (bf16
+// inputs) to 28 µs (f32 inputs and their bf16 planes); the tensor-core work
+// is 3 bf16 products of 2·n·S·D a problem for bf16 inputs (0.0244 ms at
+// 989 TFLOP/s) and 9 for f32 inputs (0.0733 ms). Operations bound both
+// routes, on the tensor cores.
 //
-// bf16 route (summary_wgmma_kernel), designed to that bound:
+// The loop (summary_wgmma_kernel<D, F32>), designed to that bound:
 // - a block owns a 128-row query tile of one problem: two consumer
 //   warpgroups of 64 rows and one producer warp (288 threads; at D = 256
 //   one consumer warpgroup and 64 rows). At the 8b shape that is
 //   12 × 10 = 120 blocks, one wave on 132 SMs;
 // - the producer's one lane loads the Q tile once and streams K and V tiles
 //   of BK keys through a ring of STAGES shared-memory buffers by TMA (3-D
-//   tensor maps (D, rows, P), 128-byte swizzle, 64-byte at D = 32), with
-//   full/empty mbarriers, so loads stay in flight while the consumers
+//   tensor maps (D, rows, terms·P), 128-byte swizzle, 64-byte at D = 32),
+//   with full/empty mbarriers, so loads stay in flight while the consumers
 //   compute. A tile never reaches into the next problem: TMA zero-fills
 //   past S and past n;
 // - S = Q Kᵀ by wgmma m64nBKk16 with both operands in shared memory: the
@@ -46,18 +47,24 @@
 // 3.1e-4 on normal bf16 inputs at (n, S, D) = (256, 4096, 64),
 // (64, 1024, 64), (128, 2048, 128), (16, 777, 32) — 16–31× atol; split in
 // two it gives 3.0e-7 to 5.9e-7, 3–6% of it (this arithmetic emulated on
-// the CPU: kernels/ref.py::landmark_summary_split_ref). The split costs a
-// third product, which the bound above counts.
+// the CPU: kernels/ref.py::landmark_summary_split_ref).
 //
-// f32 route (summary_f32_kernel): f32 q and k cannot go through bf16
-// products exactly, so f32 inputs take a CUDA-core kernel: a block of 256
-// threads owns 64 query rows held in shared memory; 64-key K and V tiles are
-// staged one after the other; each thread computes a 4×4 register tile of
-// scores, written scaled to a shared score tile (keys ≥ S are −inf); one
-// warp per 8 rows takes the row max by shuffles, p = exp(s − m_new),
-// alpha = exp(m_old − m_new) or 0 while m_old is −inf; each thread adds
-// p·v into a 4 × D/16 register accumulator. Its bound is the f32 rate:
-// 0.241 ms at the 8b shape.
+// bf16 route (F32 = false): q, k, v are one term each; q̃Kᵀ is one product,
+// PV two (p_hi v, p_lo v).
+//
+// f32 route (F32 = true): f32 q, k, v cannot go through one bf16 product,
+// so a split pass (split_terms_kernel) first writes q and k as three bf16
+// planes each and v as two: x0 = bf16(x), x1 = bf16(x − x0),
+// x2 = bf16(x − x0 − x1), each subtraction exact in f32. The loop then
+// issues six products into the score accumulator, the small ones first
+// and q0k0 last (q2k0, q1k1, q0k2, q1k0, q0k1, q0k0; the dropped q1k2,
+// q2k1, q2k2 are ~2^-24 of the score), and three into PV (p_hi v0,
+// p_lo v0, p_hi v1). Two terms of q and k give 7–17× the plain f32
+// version's own error at scores 16× unit scale; three give 0.9–1.3× (the
+// CPU emulation kernels/ref.py::landmark_summary_f32_split_ref against an
+// f64 oracle). The planes take 3× the bf16 route's Q bytes and 2.5× its K/V
+// bytes in shared memory, so the f32 route has fewer or smaller key tiles
+// in its ring (Tiles below).
 //
 // Head dims D ∈ {32, 64, 128, 256} on both routes; the wrapper rejects
 // others. The dtype chooses the route; nothing falls back.
@@ -79,44 +86,67 @@ using repro::pin;
 using repro::sm90_desc;
 using repro::smem_addr;
 
-// ============================================================ bf16 route
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Tiles per head dim: WGS consumer warpgroups of 64 query rows, BK keys a
-// tile, STAGES buffers in the ring. ptxas budgets registers for whole
-// warpgroups, so a 288-thread block gets 168 a thread: enough for this loop
-// up to D = 128 without spills (chip_smoke.py phase 2 prints the counts).
-// At D = 256 the 64 × 256 accumulator alone takes 128: one consumer
-// warpgroup (160 threads, up to 255 registers each) keeps it free of
-// spills, with a 32 KB Q tile and two 64 KB stages.
-template <int D> struct Tiles;
-template <> struct Tiles<32> {
+// Tiles per head dim and route: WGS consumer warpgroups of 64 query rows,
+// BK keys a tile, STAGES buffers in the ring. ptxas budgets registers for
+// whole warpgroups, so a 288-thread block gets 168 a thread: enough for
+// this loop up to D = 128 without spills (chip_smoke.py phase 2 prints the
+// counts). At D = 256 the 64 × 256 accumulator alone takes 128: one
+// consumer warpgroup (160 threads, up to 255 registers each) keeps it free
+// of spills. The f32 route's shared memory (three Q planes, three K and two
+// V planes a stage) fits 227 KB with two 128-key stages at D = 64 (209 KB;
+// 13% faster at the 8b shape than three 64-key stages, tools/
+// time_landmark_summary.py on an H100), 32-key tiles at D = 128 (217 KB)
+// and one 32-key stage at D = 256 (177 KB).
+template <int D, bool F32> struct Tiles;
+template <> struct Tiles<32, false> {
   static constexpr int WGS = 2, BK = 128, STAGES = 3;
 };
-template <> struct Tiles<64> {
+template <> struct Tiles<64, false> {
   static constexpr int WGS = 2, BK = 128, STAGES = 3;
 };
-template <> struct Tiles<128> {
+template <> struct Tiles<128, false> {
   static constexpr int WGS = 2, BK = 64, STAGES = 3;
 };
-template <> struct Tiles<256> {
+template <> struct Tiles<256, false> {
   static constexpr int WGS = 1, BK = 64, STAGES = 2;
 };
+template <> struct Tiles<32, true> {
+  static constexpr int WGS = 2, BK = 128, STAGES = 3;
+};
+template <> struct Tiles<64, true> {
+  static constexpr int WGS = 2, BK = 128, STAGES = 2;
+};
+template <> struct Tiles<128, true> {
+  static constexpr int WGS = 2, BK = 32, STAGES = 3;
+};
+template <> struct Tiles<256, true> {
+  static constexpr int WGS = 1, BK = 32, STAGES = 1;
+};
 
+// the swizzled shared-memory rows of a head dim, as TMA writes them
 template <int D>
-struct Layout {
-  static constexpr int BQ = 64 * Tiles<D>::WGS;  // query rows per block
-  static constexpr int CONSUMERS = 128 * Tiles<D>::WGS;
-  static constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
-  static constexpr int BK = Tiles<D>::BK;
-  static constexpr int STAGES = Tiles<D>::STAGES;
+struct Swizzle {
   static constexpr int SW = D >= 64 ? 128 : 64;  // swizzle span, bytes
   static constexpr int AE = SW / 2;              // bf16 per swizzled row
   static constexpr int NCB = D / AE;             // column blocks of a tile
   static constexpr uint32_t MODE = SW == 128 ? 1 : 2;  // descriptor swizzle
-  static constexpr int Q_BYTES = BQ * D * 2;
-  static constexpr int KV_BYTES = BK * D * 2;    // one K (or V) tile
-  static constexpr size_t SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES;
+};
+
+template <int D, bool F32>
+struct Layout : Swizzle<D> {
+  static constexpr int QT = F32 ? 3 : 1;  // bf16 terms of q and of k
+  static constexpr int VT = F32 ? 2 : 1;  // bf16 terms of v
+  static constexpr int BQ = 64 * Tiles<D, F32>::WGS;  // query rows a block
+  static constexpr int CONSUMERS = 128 * Tiles<D, F32>::WGS;
+  static constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
+  static constexpr int BK = Tiles<D, F32>::BK;
+  static constexpr int STAGES = Tiles<D, F32>::STAGES;
+  static constexpr int Q_BYTES = BQ * D * 2;    // one plane of the Q tile
+  static constexpr int KV_BYTES = BK * D * 2;   // one plane of a K or V tile
+  static constexpr int STAGE_BYTES = (QT + VT) * KV_BYTES;
+  static constexpr size_t SMEM = 1024 + QT * Q_BYTES + STAGES * STAGE_BYTES;
 };
 
 __device__ __forceinline__ float ex2(float x) {
@@ -131,34 +161,61 @@ __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
+// the low and high bf16 halves of a bf16x2 register, as floats
+__device__ __forceinline__ float lo_f32(uint32_t h) {
+  return __uint_as_float(h << 16);
+}
+__device__ __forceinline__ float hi_f32(uint32_t h) {
+  return __uint_as_float(h & 0xffff0000u);
+}
+
 // p (two f32) → p_hi = bf16(p), p_lo = bf16(p − p_hi); p − p_hi is exact
 __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
                                            uint32_t& lo) {
   hi = pack_bf16(a, b);
-  const float ha = __uint_as_float(hi << 16);
-  const float hb = __uint_as_float(hi & 0xffff0000u);
-  lo = pack_bf16(a - ha, b - hb);
+  lo = pack_bf16(a - lo_f32(hi), b - hi_f32(hi));
 }
 
-template <int D>
-__global__ void __launch_bounds__(Layout<D>::THREADS, 1)
+// x (n4 float4s) → `terms` bf16 planes (terms, 4·n4): plane t holds
+// bf16(x − x0 − … − x_{t−1}), every subtraction exact in f32
+__global__ void split_terms_kernel(const float4* __restrict__ x,
+                                   uint2* __restrict__ planes, long long n4,
+                                   int terms) {
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < n4; i += step) {
+    float4 r = x[i];
+    for (int t = 0; t < terms; ++t) {
+      const uint32_t a = pack_bf16(r.x, r.y), b = pack_bf16(r.z, r.w);
+      planes[t * n4 + i] = make_uint2(a, b);
+      r.x -= lo_f32(a);
+      r.y -= hi_f32(a);
+      r.z -= lo_f32(b);
+      r.w -= hi_f32(b);
+    }
+  }
+}
+
+template <int D, bool F32>
+__global__ void __launch_bounds__(Layout<D, F32>::THREADS, 1)
 summary_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                      const __grid_constant__ CUtensorMap kmap,
                      const __grid_constant__ CUtensorMap vmap,
-                     float* __restrict__ out, int N, int S, float c) {
-  using L = Layout<D>;
+                     float* __restrict__ out, int P, int N, int S, float c) {
+  using L = Layout<D, F32>;
   constexpr int BQ = L::BQ, BK = L::BK, STAGES = L::STAGES, SW = L::SW,
-                AE = L::AE;
+                AE = L::AE, QT = L::QT, VT = L::VT;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full_bar[STAGES];
   __shared__ __align__(8) uint64_t empty_bar[STAGES];
   __shared__ __align__(8) uint64_t q_bar;
 
-  // tiles start on a 1024-byte boundary: the swizzle repeats every 8 rows
+  // tiles start on a 1024-byte boundary: the swizzle repeats every 8 rows.
+  // QT Q planes, then STAGES stages of QT K planes and VT V planes
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t q_s = (raw + 1023) & ~1023u;
-  const uint32_t k_s = q_s + L::Q_BYTES;               // STAGES K tiles
-  const uint32_t v_s = k_s + STAGES * L::KV_BYTES;     // STAGES V tiles
+  const uint32_t kv_s = q_s + QT * L::Q_BYTES;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row0 = blockIdx.x * BQ;
@@ -177,23 +234,31 @@ summary_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
   if (warp == L::CONSUMERS / 32) {
     // ---------------------------------------------------------- producer
+    // plane t of problem `prob` is slice t·P + prob of its tensor map
     if (lane == 0) {
       const uint32_t qb = smem_addr(&q_bar);
-      mbar_expect_tx(qb, L::Q_BYTES);
-      for (int cb = 0; cb < L::NCB; ++cb) {
-        repro::tma_load_3d(q_s + cb * BQ * SW, &qmap, qb, cb * AE, row0,
-                           prob);
+      mbar_expect_tx(qb, QT * L::Q_BYTES);
+      for (int a = 0; a < QT; ++a) {
+        for (int cb = 0; cb < L::NCB; ++cb) {
+          repro::tma_load_3d(q_s + a * L::Q_BYTES + cb * BQ * SW, &qmap, qb,
+                             cb * AE, row0, a * P + prob);
+        }
       }
       for (int t = 0; t < tiles; ++t) {
         const int st = t % STAGES;
         mbar_wait(smem_addr(&empty_bar[st]), ((t / STAGES) & 1) ^ 1);
         const uint32_t fb = smem_addr(&full_bar[st]);
-        mbar_expect_tx(fb, 2 * L::KV_BYTES);
+        const uint32_t stage = kv_s + st * L::STAGE_BYTES;
+        mbar_expect_tx(fb, L::STAGE_BYTES);
         for (int cb = 0; cb < L::NCB; ++cb) {
-          repro::tma_load_3d(k_s + st * L::KV_BYTES + cb * BK * SW, &kmap, fb,
-                             cb * AE, t * BK, prob);
-          repro::tma_load_3d(v_s + st * L::KV_BYTES + cb * BK * SW, &vmap, fb,
-                             cb * AE, t * BK, prob);
+          for (int b = 0; b < QT; ++b) {
+            repro::tma_load_3d(stage + b * L::KV_BYTES + cb * BK * SW, &kmap,
+                               fb, cb * AE, t * BK, b * P + prob);
+          }
+          for (int b = 0; b < VT; ++b) {
+            repro::tma_load_3d(stage + (QT + b) * L::KV_BYTES + cb * BK * SW,
+                               &vmap, fb, cb * AE, t * BK, b * P + prob);
+          }
         }
       }
     }
@@ -219,21 +284,37 @@ summary_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   for (int t = 0; t < tiles; ++t) {
     const int st = t % STAGES;
     mbar_wait(smem_addr(&full_bar[st]), (t / STAGES) & 1);
-    const uint32_t k_t = k_s + st * L::KV_BYTES;
-    const uint32_t v_t = v_s + st * L::KV_BYTES;
+    const uint32_t k_t = kv_s + st * L::STAGE_BYTES;
+    const uint32_t v_t = k_t + QT * L::KV_BYTES;
+    // f32: Q's address opaque to the compiler, so the 3·D/16 descriptors
+    // of its planes are made again each tile instead of held in registers
+    // across the loop (at D = 64 they spilled)
+    uint32_t q_t = q_wg;
+    if constexpr (F32) asm volatile("" : "+r"(q_t));
 
-    // S = Q Kᵀ over D in k16 steps: column block kk / (AE/16), 32 bytes a
-    // step inside it
+    // S = Σ q_a k_bᵀ over a + b < QT, the small products first and q0 k0
+    // last; each over D in k16 steps: column block kk / (AE/16), 32 bytes
+    // a step inside it
     float s[BK / 2];
     repro::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int cb = kk / (AE / 16), off = (kk % (AE / 16)) * 32;
-      const uint64_t da =
-          sm90_desc(q_wg + cb * BQ * SW + off, 16, 8 * SW, L::MODE);
-      const uint64_t db =
-          sm90_desc(k_t + cb * BK * SW + off, 16, 8 * SW, L::MODE);
-      repro::wgmma_ss<BK>(s, da, db, kk > 0);
+    for (int sum = QT - 1; sum >= 0; --sum) {
+#pragma unroll
+      for (int a = sum; a >= 0; --a) {
+        const int b = sum - a;
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int cb = kk / (AE / 16), off = (kk % (AE / 16)) * 32;
+          const uint64_t da = sm90_desc(
+              q_t + a * L::Q_BYTES + cb * BQ * SW + off, 16, 8 * SW,
+              L::MODE);
+          const uint64_t db = sm90_desc(
+              k_t + b * L::KV_BYTES + cb * BK * SW + off, 16, 8 * SW,
+              L::MODE);
+          repro::wgmma_ss<BK>(s, da, db,
+                              sum < QT - 1 || a < sum || kk > 0);
+        }
+      }
     }
     repro::wgmma_commit();
     repro::wgmma_wait_all();
@@ -301,7 +382,7 @@ summary_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       }
     }
 
-    // O += P_hi V + P_lo V, k16 steps of 16 keys down V's rows
+    // O += P_hi V0 + P_lo V0 (+ P_hi V1), k16 steps of 16 keys down V's rows
     pin(o);
     pin(p_hi);
     pin(p_lo);
@@ -312,6 +393,11 @@ summary_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
           sm90_desc(v_t + kc * 16 * SW, BK * SW, 8 * SW, L::MODE);
       repro::wgmma_rs<D>(o, p_hi[kc], dv);
       repro::wgmma_rs<D>(o, p_lo[kc], dv);
+      if constexpr (VT == 2) {
+        const uint64_t dv1 = sm90_desc(v_t + L::KV_BYTES + kc * 16 * SW,
+                                       BK * SW, 8 * SW, L::MODE);
+        repro::wgmma_rs<D>(o, p_hi[kc], dv1);
+      }
     }
     repro::wgmma_commit();
     repro::wgmma_wait_all();
@@ -372,265 +458,104 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a (P, rows, D) bf16 tensor as a 3-D map read in (AE, box_rows, 1) boxes
+// a (slices, rows, D) bf16 tensor as a 3-D map read in (AE, box_rows, 1)
+// boxes
 template <int D>
-bool tensor_map(CUtensorMap* map, const void* base, int P, int rows,
+bool tensor_map(CUtensorMap* map, const void* base, int slices, int rows,
                 int box_rows) {
-  using L = Layout<D>;
+  using W = Swizzle<D>;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(P)};
+                              static_cast<cuuint64_t>(slices)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
                                  static_cast<cuuint64_t>(rows) * D * 2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(L::AE),
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(W::AE),
                              static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                 const_cast<void*>(base), dims, strides, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE,
-                L::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                W::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                              : CU_TENSOR_MAP_SWIZZLE_64B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* out, int P,
-                int N, int S, float scale, cudaStream_t stream) {
-  using L = Layout<D>;
+// q (QT, P, N, D), k (QT, P, S, D), v (VT, P, S, D) bf16 planes → out
+template <int D, bool F32>
+int launch_summary(const void* q, const void* k, const void* v, void* out,
+                   int P, int N, int S, float scale, cudaStream_t stream) {
+  using L = Layout<D, F32>;
   CUtensorMap qm, km, vm;
-  if (!tensor_map<D>(&qm, q, P, N, L::BQ) ||
-      !tensor_map<D>(&km, k, P, S, L::BK) ||
-      !tensor_map<D>(&vm, v, P, S, L::BK)) {
+  if (!tensor_map<D>(&qm, q, L::QT * P, N, L::BQ) ||
+      !tensor_map<D>(&km, k, L::QT * P, S, L::BK) ||
+      !tensor_map<D>(&vm, v, L::VT * P, S, L::BK)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   static bool ready = false;  // the >48 KB opt-in, once per instantiation
   if (!ready) {
     const cudaError_t err = cudaFuncSetAttribute(
-        summary_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        summary_wgmma_kernel<D, F32>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(L::SMEM));
     if (err != cudaSuccess) return static_cast<int>(err);
     ready = true;
   }
   const dim3 grid((N + L::BQ - 1) / L::BQ, P);
-  summary_wgmma_kernel<D><<<grid, L::THREADS, L::SMEM, stream>>>(
-      qm, km, vm, static_cast<float*>(out), N, S, scale * kLog2e);
+  summary_wgmma_kernel<D, F32><<<grid, L::THREADS, L::SMEM, stream>>>(
+      qm, km, vm, static_cast<float*>(out), P, N, S, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
-// ============================================================= f32 route
-constexpr int kBQF = 64;       // query rows per block
-constexpr int kBK = 64;        // keys per tile
-constexpr int kThreads = 256;  // 16 × 16
-constexpr unsigned kFull = 0xffffffffu;
-
-template <int D>
-constexpr size_t smem_bytes() {
-  // q tile and k tile at an odd row stride (conflict-free column reads),
-  // v tile, score tile, and m / z / alpha per row
-  return sizeof(float) * ((size_t)kBQF * (D + 1) + (size_t)kBK * (D + 1) +
-                          (size_t)kBK * D + (size_t)kBQF * (kBK + 1) +
-                          3 * kBQF);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-summary_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, float* __restrict__ out,
-                   int N, int S, float scale) {
-  extern __shared__ float smem[];
-  constexpr int QS = D + 1;
-  constexpr int PS = kBK + 1;
-  constexpr int DC = D / 16;  // accumulator columns per thread
-  float* qs = smem;            // kBQF × QS
-  float* ks = qs + kBQF * QS;  // kBK × QS
-  float* vs = ks + kBK * QS;   // kBK × D
-  float* ps = vs + kBK * D;    // kBQF × PS scores, then probabilities
-  float* m_s = ps + kBQF * PS;  // running max per row
-  float* z_s = m_s + kBQF;      // running denominator per row
-  float* a_s = z_s + kBQF;      // this tile's alpha per row
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int row0 = blockIdx.x * kBQF;
-  const size_t prob = blockIdx.y;
-  const float* qp = q + prob * N * D;
-  const float* kp = k + prob * S * D;
-  const float* vp = v + prob * S * D;
-
-  for (int e = tid; e < kBQF * D; e += kThreads) {
-    const int r = e / D, d = e - r * D;
-    qs[r * QS + d] = row0 + r < N ? qp[(size_t)(row0 + r) * D + d] : 0.0f;
+template <bool F32>
+int launch(const void* q, const void* k, const void* v, void* out, int P,
+           int N, int S, int D, float scale, void* stream) {
+  if (P <= 0 || N <= 0 || S <= 0 || P > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (tid < kBQF) {
-    m_s[tid] = -INFINITY;
-    z_s[tid] = 0.0f;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32: return launch_summary<32, F32>(q, k, v, out, P, N, S, scale, st);
+    case 64: return launch_summary<64, F32>(q, k, v, out, P, N, S, scale, st);
+    case 128:
+      return launch_summary<128, F32>(q, k, v, out, P, N, S, scale, st);
+    case 256:
+      return launch_summary<256, F32>(q, k, v, out, P, N, S, scale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  float acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.0f;
-  }
-
-  for (int k0 = 0; k0 < S; k0 += kBK) {
-    __syncthreads();  // the previous tile is no longer read
-    for (int e = tid; e < kBK * D; e += kThreads) {
-      const int r = e / D, d = e - r * D;
-      const bool ok = k0 + r < S;
-      const size_t off = (size_t)(k0 + r) * D + d;
-      ks[r * QS + d] = ok ? kp[off] : 0.0f;
-      vs[r * D + d] = ok ? vp[off] : 0.0f;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-    }
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qa[4], kb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = qs[(ty + 16 * i) * QS + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kb[j] = ks[(tx + 16 * j) * QS + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = tx + 16 * j;
-        ps[(ty + 16 * i) * PS + key] =
-            k0 + key < S ? s[i][j] * scale : -INFINITY;
-      }
-    }
-    __syncthreads();
-
-    for (int rr = 0; rr < kBQF / (kThreads / 32); ++rr) {
-      const int r = warp * (kBQF / (kThreads / 32)) + rr;
-      float* pr = ps + r * PS;
-      const float x0 = pr[lane], x1 = pr[lane + 32];
-      float mx = fmaxf(x0, x1);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
-      }
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mx);  // finite: key k0 < S is live
-      const float p0 = expf(x0 - m_new), p1 = expf(x1 - m_new);
-      pr[lane] = p0;
-      pr[lane + 32] = p1;
-      float sum = p0 + p1;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        sum += __shfl_xor_sync(kFull, sum, off);
-      }
-      __syncwarp();  // every lane has read m_s[r] before lane 0 writes it
-      if (lane == 0) {
-        const float alpha = isfinite(m_old) ? expf(m_old - m_new) : 0.0f;
-        m_s[r] = m_new;
-        z_s[r] = z_s[r] * alpha + sum;
-        a_s[r] = alpha;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float alpha = a_s[ty + 16 * i];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
-    }
-#pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      float pa[4], vb[DC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pa[i] = ps[(ty + 16 * i) * PS + j];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) vb[c] = vs[j * D + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(pa[i], vb[c], acc[i][c]);
-      }
-    }
-  }
-
-  float* op = out + prob * N * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (row0 + r >= N) continue;
-    const float z = fmaxf(z_s[r], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      op[(size_t)(row0 + r) * D + tx + 16 * c] = acc[i][c] / z;
-    }
-  }
-}
-
-template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* out, int P,
-               int N, int S, float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  static bool ready = false;  // the >48 KB opt-in, once per instantiation
-  if (!ready) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        summary_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    ready = true;
-  }
-  const dim3 grid((N + kBQF - 1) / kBQF, P);
-  summary_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), N, S, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-bool valid(int P, int N, int S) {
-  return P > 0 && N > 0 && S > 0 && P <= 65535;
 }
 
 }  // namespace
 
-// f32 q, k, v (P, N, D) / (P, S, D) → f32 out (P, N, D), CUDA cores.
+// f32 x (n floats, n a multiple of 4, 16-byte aligned) → planes
+// (terms, n) bf16, terms ∈ {1, 2, 3}: the f32 route's split pass.
+extern "C" int split_bf16_terms(const void* x, void* planes, long long n,
+                                int terms, void* stream) {
+  if (n <= 0 || n % 4 || terms < 1 || terms > 3) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long n4 = n / 4;
+  const int threads = 256;
+  const long long want = (n4 + threads - 1) / threads;
+  const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
+  split_terms_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(x), static_cast<uint2*>(planes), n4, terms);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// f32 inputs as bf16 planes from split_bf16_terms: q and k three terms
+// (3, P, N, D) / (3, P, S, D), v two (2, P, S, D) → f32 out (P, N, D).
 extern "C" int landmark_summary_f32(const void* q, const void* k,
                                     const void* v, void* out, int P, int N,
                                     int S, int D, float scale, void* stream) {
-  if (!valid(P, N, S)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32: return launch_f32<32>(q, k, v, out, P, N, S, scale, st);
-    case 64: return launch_f32<64>(q, k, v, out, P, N, S, scale, st);
-    case 128: return launch_f32<128>(q, k, v, out, P, N, S, scale, st);
-    case 256: return launch_f32<256>(q, k, v, out, P, N, S, scale, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch<true>(q, k, v, out, P, N, S, D, scale, stream);
 }
 
 // bf16 q, k, v (contiguous, 16-byte aligned) → f32 out, TMA + wgmma.
 extern "C" int landmark_summary_bf16(const void* q, const void* k,
                                      const void* v, void* out, int P, int N,
                                      int S, int D, float scale, void* stream) {
-  if (!valid(P, N, S)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32: return launch_bf16<32>(q, k, v, out, P, N, S, scale, st);
-    case 64: return launch_bf16<64>(q, k, v, out, P, N, S, scale, st);
-    case 128: return launch_bf16<128>(q, k, v, out, P, N, S, scale, st);
-    case 256: return launch_bf16<256>(q, k, v, out, P, N, S, scale, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch<false>(q, k, v, out, P, N, S, D, scale, stream);
 }

@@ -119,6 +119,22 @@ __device__ __forceinline__ void pin(uint32_t (&r)[K][4]) {
   }
 }
 
+// d(64×32) (+)= a(64×16, smem, K-major) · b(16×32, smem, K-major)
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15 "
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d(64×64) (+)= a(64×16, smem, K-major) · b(16×64, smem, K-major)
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
                                               uint64_t db, int accumulate) {
@@ -286,8 +302,10 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int accumulate) {
-  static_assert(N == 64 || N == 128, "wgmma_ss: N in {64, 128}");
-  if constexpr (N == 64) wgmma_ss_n64(d, da, db, accumulate);
+  static_assert(N == 32 || N == 64 || N == 128,
+                "wgmma_ss: N in {32, 64, 128}");
+  if constexpr (N == 32) wgmma_ss_n32(d, da, db, accumulate);
+  else if constexpr (N == 64) wgmma_ss_n64(d, da, db, accumulate);
   else wgmma_ss_n128(d, da, db, accumulate);
 }
 

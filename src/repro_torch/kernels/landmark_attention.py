@@ -3,10 +3,12 @@
 sequence with running (max, denominator, accumulator), the B̃V term of
 landmark attention. See the source's opening note for the design and bound.
 
-The inputs' dtype chooses the route: bfloat16 goes to the tensor-core kernel
-(TMA + wgmma, P split into two bf16 terms), float32 to the CUDA-core kernel.
+The inputs' dtype chooses the route, both on the tensor cores (one TMA +
+wgmma loop, P split into two bf16 terms): bfloat16 inputs go in as they
+are (``tensor_core``); float32 inputs are first split into bf16 planes by
+:func:`bf16_terms`, three terms of q and k and two of v (``f32_split``).
 ``landmark_summary.launches`` counts both; ``landmark_summary.route_launches``
-counts each.
+counts each; ``bf16_terms.launches`` counts the split pass.
 """
 from __future__ import annotations
 
@@ -20,9 +22,38 @@ from . import build, ref
 HEAD_DIMS = (32, 64, 128, 256)
 # dtype → (route, C entry point)
 ROUTES = {torch.bfloat16: ("tensor_core", "landmark_summary_bf16"),
-          torch.float32: ("cuda_core", "landmark_summary_f32")}
+          torch.float32: ("f32_split", "landmark_summary_f32")}
+QK_TERMS, V_TERMS = 3, 2  # bf16 terms of f32 q and k, and of f32 v
 MAX_PROBLEMS = 65535  # the grid's y axis
-TMA_ALIGN = 16  # bytes: TMA's base address and row strides
+# bytes: TMA's base address and row strides, and the split pass's float4
+# loads
+ALIGN = 16
+
+
+def bf16_terms(x: torch.Tensor, terms: int) -> torch.Tensor:
+    """float32 ``x`` as ``terms`` bfloat16 planes ``(terms, *x.shape)``:
+    x0 = bf16(x), x1 = bf16(x − x0), x2 = bf16(x − x0 − x1) — the f32
+    route's split pass (``split_bf16_terms`` in ``csrc/landmark_summary.cu``).
+
+    A CUDA tensor (contiguous, 16-byte aligned, a multiple of 4 elements,
+    ``terms`` in 1–3; else ValueError) goes through the kernel; a CPU
+    tensor takes the plain version, :func:`ref.bf16_terms`.
+    """
+    if x.device.type == "cpu":
+        return ref.bf16_terms(x, terms)
+    build.check_cuda("bf16_terms", x, x.dim(), (torch.float32,), x.device)
+    if x.data_ptr() % ALIGN or x.numel() % 4 or not 1 <= terms <= 3:
+        raise ValueError(f"bf16_terms: needs a {ALIGN}-byte aligned base, "
+                         f"a multiple of 4 elements and 1-3 terms")
+    planes = torch.empty((terms, *x.shape), dtype=torch.bfloat16,
+                         device=x.device)
+    if x.numel():
+        build.launch("split_bf16_terms", x, planes, x.numel(), terms)
+        bf16_terms.launches += 1
+    return planes
+
+
+bf16_terms.launches = 0
 
 
 def landmark_summary(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -35,7 +66,7 @@ def landmark_summary(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     float32 or bfloat16.
 
     CUDA tensors go through the kernel of their dtype's route (contiguous,
-    one dtype, on one device, 16-byte aligned for TMA, D in
+    one dtype, on one device, 16-byte aligned, D in
     :data:`HEAD_DIMS`, no gradient: there is no backward kernel; else
     ValueError); a failed launch raises RuntimeError. CPU tensors take the
     plain version.
@@ -58,12 +89,12 @@ def landmark_summary(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q, k, v = q[None], k[None], v[None]
     for t in (q, k, v):
         build.check_cuda("landmark_summary", t, 3, (q.dtype,), q.device)
-        # TMA reads bf16 tiles: the base on a 16-byte boundary; the row
-        # stride, 2·D bytes of a contiguous tensor, is a multiple of 16 for
-        # every D in HEAD_DIMS
-        if q.dtype == torch.bfloat16 and t.data_ptr() % TMA_ALIGN:
-            raise ValueError(f"landmark_summary: bfloat16 inputs must start "
-                             f"on a {TMA_ALIGN}-byte boundary (TMA)")
+        # TMA reads bf16 tiles and the split pass f32 float4s: the base on
+        # a 16-byte boundary; the row stride, 2·D or 4·D bytes of a
+        # contiguous tensor, is a multiple of 16 for every D in HEAD_DIMS
+        if t.data_ptr() % ALIGN:
+            raise ValueError(f"landmark_summary: inputs must start on a "
+                             f"{ALIGN}-byte boundary (TMA)")
     p, n, _ = q.shape
     s = k.shape[1]
     if k.shape != (p, s, d) or v.shape != k.shape:
@@ -79,6 +110,9 @@ def landmark_summary(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((p, n, d), dtype=torch.float32, device=q.device)
     if p and n:
         route, entry = ROUTES[q.dtype]
+        if route == "f32_split":
+            q, k = bf16_terms(q, QK_TERMS), bf16_terms(k, QK_TERMS)
+            v = bf16_terms(v, V_TERMS)
         build.launch(entry, q, k, v, out, p, n, s, d, float(scale))
         landmark_summary.launches += 1
         landmark_summary.route_launches[route] += 1

@@ -215,40 +215,95 @@ def landmark_summary_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.softmax(s, dim=-1) @ v.float()
 
 
-def landmark_summary_split_ref(q: torch.Tensor, k: torch.Tensor,
-                               v: torch.Tensor, scale: float, *,
-                               split: bool = True, block: int = 128
-                               ) -> torch.Tensor:
-    """The tensor-core kernel's arithmetic (``kernels.landmark_summary`` on
-    bfloat16 inputs) in plain torch, to check its numerics on the CPU; never
-    on a model path.
+def bf16_terms(x: torch.Tensor, terms: int) -> torch.Tensor:
+    """Oracle for kernels.landmark_attention.bf16_terms: ``x`` as a sum of
+    ``terms`` bfloat16 values, (terms, *x.shape). x0 = bf16(x),
+    x1 = bf16(x − x0), x2 = bf16(x − x0 − x1), each rounded to nearest;
+    every subtraction is exact in f32, and three terms hold a normal f32
+    value exactly (8 + 8 + 8 significant bits)."""
+    out, r = [], x.float()
+    for _ in range(terms):
+        t = r.bfloat16()
+        out.append(t)
+        r = r - t.float()
+    return torch.stack(out)
 
-    q, k, v are taken as bfloat16 (rounded if they are not). Keys go in
-    tiles of ``block``: scores are the bf16 products summed in f32, times
-    c = scale·log2(e); a running max m, alpha = 2^(m_old − m_new) (0 while
-    m_old is −inf), p = 2^(s − m_new), z summed from the f32 p; PV takes p
-    as p_hi = bf16(p) plus p_lo = bf16(p − p_hi), each a bf16 product summed
-    in f32 (``split=False``: p_hi alone, which the 1e-4 bound does not
-    hold). Returns (..., n, D) float32 = acc / max(z, 1e-30).
+
+def _split_flash(qt, kt, vt, scale: float, block: int, p_terms: int
+                 ) -> torch.Tensor:
+    """The tensor-core loop's arithmetic on bf16 terms: ``qt``/``kt``
+    (terms, ..., rows, D) and ``vt`` (v_terms, ..., S, D), bf16 values.
+
+    Keys go in tiles of ``block``. Scores are the products q_a k_bᵀ with
+    a + b < terms, bf16 products summed in f32, the small ones first and
+    q0 k0 last (the kernel's issue order), times c = scale·log2(e); a
+    running max m, alpha = 2^(m_old − m_new) (0 while m_old is −inf),
+    p = 2^(s − m_new), z summed from the f32 p; PV takes p as
+    p_hi = bf16(p) and, with ``p_terms`` 2, p_lo = bf16(p − p_hi), each a
+    bf16 product summed in f32: p_hi v0, p_lo v0, then p_hi v1 when v has
+    two terms. Returns acc / max(z, 1e-30), float32.
     """
-    q, k, v = (t.to(torch.bfloat16).float() for t in (q, k, v))
+    qt, kt, vt = (t.float() for t in (qt, kt, vt))
+    terms = qt.shape[0]
+    pairs = [(a, s - a) for s in range(terms - 1, -1, -1)
+             for a in range(s, -1, -1)]
     c = torch.tensor(scale, dtype=torch.float32) * torch.tensor(
         math.log2(math.e), dtype=torch.float32)
-    m = torch.full(q.shape[:-1], float("-inf"), dtype=torch.float32,
-                   device=q.device)
+    m = torch.full(qt.shape[1:-1], float("-inf"), dtype=torch.float32,
+                   device=qt.device)
     z = torch.zeros_like(m)
-    acc = torch.zeros_like(q)
-    for k0 in range(0, k.shape[-2], block):
-        kt, vt = k[..., k0:k0 + block, :], v[..., k0:k0 + block, :]
-        s = (q @ kt.transpose(-1, -2)) * c
+    acc = torch.zeros_like(qt[0])
+    for k0 in range(0, kt.shape[-2], block):
+        ktile, vtile = kt[..., k0:k0 + block, :], vt[..., k0:k0 + block, :]
+        s = torch.zeros(())
+        for a, b in pairs:
+            s = s + qt[a] @ ktile[b].transpose(-1, -2)
+        s = s * c
         m_new = torch.maximum(m, s.amax(-1))
         alpha = torch.where(m == float("-inf"), torch.zeros_like(m),
                             torch.exp2(m - m_new))
         p = torch.exp2(s - m_new[..., None])
         z = z * alpha + p.sum(-1)
         hi = p.bfloat16().float()
-        acc = acc * alpha[..., None] + hi @ vt
-        if split:
-            acc = acc + (p - hi).bfloat16().float() @ vt
+        acc = acc * alpha[..., None] + hi @ vtile[0]
+        if p_terms == 2:
+            acc = acc + (p - hi).bfloat16().float() @ vtile[0]
+        if vtile.shape[0] == 2:
+            acc = acc + hi @ vtile[1]
         m = m_new
     return acc / z.clamp(min=1e-30)[..., None]
+
+
+def landmark_summary_split_ref(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, scale: float, *,
+                               split: bool = True, block: int = 128
+                               ) -> torch.Tensor:
+    """The tensor-core kernel's arithmetic on bfloat16 inputs
+    (``kernels.landmark_summary``'s ``tensor_core`` route) in plain torch,
+    to check its numerics on the CPU; never on a model path.
+
+    q, k, v are taken as bfloat16 (rounded if they are not), one term each;
+    the loop is :func:`_split_flash` with P split into two bf16 terms
+    (``split=False``: p_hi alone, which the 1e-4 bound does not hold).
+    Returns (..., n, D) float32.
+    """
+    q, k, v = (bf16_terms(t.to(torch.bfloat16), 1) for t in (q, k, v))
+    return _split_flash(q, k, v, scale, block, 2 if split else 1)
+
+
+def landmark_summary_f32_split_ref(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, scale: float, *,
+                                   qk_terms: int = 3, block: int = 128
+                                   ) -> torch.Tensor:
+    """The ``f32_split`` route's arithmetic on float32 inputs in plain
+    torch, to check its numerics on the CPU; never on a model path.
+
+    q and k become ``qk_terms`` bf16 terms each and v two
+    (:func:`bf16_terms`); q̃Kᵀ takes the products q_a k_bᵀ with
+    a + b < qk_terms (six for three terms: q2k0, q1k1, q0k2, q1k0, q0k1,
+    q0k0, in that order), PV the three p_hi v0, p_lo v0, p_hi v1; the loop
+    is :func:`_split_flash`. ``block`` is the kernel's key tile (128 keys at
+    D ≤ 64, 32 above). Returns (..., n, D) float32.
+    """
+    return _split_flash(bf16_terms(q, qk_terms), bf16_terms(k, qk_terms),
+                        bf16_terms(v, 2), scale, block, 2)

@@ -13,11 +13,12 @@ Tolerances:
 - the Lloyd assignment, the gathered-candidate scorer and the fused IVF
   probe (f32, bf16 and int8 payloads): bitwise equal to their plain
   versions, for the same reason;
-- the landmark summary (f32 inputs on the CUDA-core kernel, bf16 inputs on
-  the tensor-core kernel): rtol=1e-4, atol=1e-5, the reference's own
-  kernel-vs-oracle tolerance — a streamed softmax with running max and
-  denominator against a dense f32 one (the bf16 route splits P into two
-  bf16 terms to stay inside it);
+- the landmark summary (both routes on the tensor cores: bf16 inputs as
+  they are, f32 inputs split into bf16 terms): rtol=1e-4, atol=1e-5, the
+  reference's own kernel-vs-oracle tolerance — a streamed softmax with
+  running max and denominator against a dense f32 one (P is split into two
+  bf16 terms, f32 q and k into three, to stay inside it);
+- the f32 route's split pass: bitwise equal to the same rounding in torch;
 - a landmark-attention forward through the kernel against the same
   forward with the plain summary, bf16: within 5% of the largest logit
   (the kernel's f32 sums in another order, rounded to bf16 on the way
@@ -266,11 +267,13 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
                                      (1, 32, 512, 256), (1, 16, 777, 32),
                                      (3, 100, 70, 64), (10, 1536, 4096, 64),
                                      (3, 70, 777, 32), (2, 130, 300, 128),
-                                     (2, 200, 777, 256), (1, 100, 60, 256)])
+                                     (2, 200, 777, 256), (1, 100, 60, 256),
+                                     (2, 50, 20, 128), (3, 65, 1000, 256)])
 def test_landmark_summary_kernel_matches_plain(cuda, dtype, p, n, s, d):
     """The reference tests' shapes, ragged S and n at every head dim with
-    P > 1, S below one key tile, and the SmolLM-360M landmark shape (10
-    problems of G·n = 1536 landmark queries against S = 4096)."""
+    P > 1, S below one key tile (of either route), and the SmolLM-360M
+    landmark shape (10 problems of G·n = 1536 landmark queries against
+    S = 4096)."""
     g = torch.Generator(device=cuda).manual_seed(n + s)
     q, k, v = (torch.randn((p, rows, d), generator=g, device=cuda).to(dtype)
                for rows in (n, s, s))
@@ -317,28 +320,63 @@ def test_landmark_summary_rejects_what_the_kernel_does_not_take(cuda):
         ops.landmark_summary(off, b, b)
     with pytest.raises(ValueError, match="16-byte"):
         ops.landmark_summary(b, b, off)
+    # the same for f32, 4 bytes past: no float4 loads in the split pass
+    off = torch.zeros(x.numel() + 4, device=cuda)[1:1 + x.numel()].view(
+        x.shape)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.landmark_summary(off, x, x)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.landmark_summary(x, off, x)
+    with pytest.raises(ValueError, match="16-byte"):
+        lsum.bf16_terms(off, 3)
 
 
 def test_landmark_summary_dtype_chooses_the_route(cuda):
-    """bf16 inputs launch the tensor-core kernel, f32 inputs the CUDA-core
-    kernel; the total counts both; the two agree within the bound on the
-    same (bf16-representable) values."""
+    """bf16 inputs go to the tensor-core route as they are, f32 inputs to
+    the f32_split route (three split passes, then the loop); the total
+    counts both; the two agree within the bound on the same
+    (bf16-representable) values."""
     g = torch.Generator(device=cuda).manual_seed(3)
     q, k, v = (torch.randn((2, rows, 64), generator=g, device=cuda
                            ).bfloat16() for rows in (96, 500, 500))
     ops.reset_launches()
+    splits = lsum.bf16_terms.launches
     a = ops.landmark_summary(q, k, v)
     assert lsum.landmark_summary.route_launches == {"tensor_core": 1,
-                                                    "cuda_core": 0}
+                                                    "f32_split": 0}
+    assert lsum.bf16_terms.launches == splits
     b = ops.landmark_summary(q.float(), k.float(), v.float())
     assert lsum.landmark_summary.route_launches == {"tensor_core": 1,
-                                                    "cuda_core": 1}
+                                                    "f32_split": 1}
+    assert lsum.bf16_terms.launches == splits + 3
     assert ops.launch_counts()["landmark_summary"] == 2
     torch.cuda.synchronize()
     torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
     ops.reset_launches()
     assert lsum.landmark_summary.route_launches == {"tensor_core": 0,
-                                                    "cuda_core": 0}
+                                                    "f32_split": 0}
+
+
+@pytest.mark.parametrize("terms", [1, 2, 3])
+@pytest.mark.parametrize("shape", [(10, 1536, 64), (3, 777, 32), (4,)])
+def test_bf16_terms_kernel_matches_plain(cuda, terms, shape):
+    """The split pass against the same rounding in torch, bitwise, on
+    normal values spread over 2^±60 and on zeros, at the SmolLM-360M q
+    shape, a ragged one and one float4."""
+    g = torch.Generator(device=cuda).manual_seed(terms)
+    x = torch.randn(shape, generator=g, device=cuda) * torch.exp2(
+        torch.randint(-60, 61, shape, generator=g, device=cuda).float())
+    x.view(-1)[::7] = 0.0
+    before = lsum.bf16_terms.launches
+    got = lsum.bf16_terms(x, terms)
+    want = ref.bf16_terms(x, terms)
+    torch.cuda.synchronize()
+    assert lsum.bf16_terms.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (terms, *shape)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    if terms == 3:  # three terms hold a normal f32 value exactly
+        assert torch.equal(got.double().sum(0), x.double())
 
 
 def test_landmark_forward_on_the_card_launches_once_per_layer(cuda,
@@ -363,7 +401,7 @@ def test_landmark_forward_on_the_card_launches_once_per_layer(cuda,
         assert ops.launch_counts()["landmark_summary"] == cfg.n_layers
         # a bf16 model: every layer on the tensor-core kernel
         assert lsum.landmark_summary.route_launches == {
-            "tensor_core": cfg.n_layers, "cuda_core": 0}
+            "tensor_core": cfg.n_layers, "f32_split": 0}
         ops.reset_launches()
         monkeypatch.setattr(ops, "landmark_summary", ref.landmark_summary_ref)
         want, _ = T.lm_forward(model, toks)

@@ -16,8 +16,11 @@ Tolerances:
   stays small for these segment-mean landmarks);
 - the tensor-core kernel's arithmetic (``ref.landmark_summary_split_ref``:
   bf16 products summed in f32, P split into two bf16 terms) on bf16
-  inputs: rtol=1e-4, atol=1e-5, the summary's bound, against the reference
-  and against the dense plain version.
+  inputs, and the f32 route's (``ref.landmark_summary_f32_split_ref``: q
+  and k as three bf16 terms, v as two) on f32 inputs: rtol=1e-4, atol=1e-5,
+  the summary's bound, against the reference and against the dense plain
+  version;
+- the split into bf16 terms: exact (three terms hold a normal f32 value).
 """
 import numpy as np
 import pytest
@@ -87,7 +90,10 @@ def test_summary_wrapper_never_launches_on_the_cpu():
     assert lsum.landmark_summary.launches == 0
     assert ops.launch_counts()["landmark_summary"] == 0
     assert lsum.landmark_summary.route_launches == {"tensor_core": 0,
-                                                    "cuda_core": 0}
+                                                    "f32_split": 0}
+    lsum.bf16_terms.launches = 0
+    lsum.bf16_terms(x, 3)
+    assert lsum.bf16_terms.launches == 0
 
 
 def _bf16(shape, seed):
@@ -134,6 +140,71 @@ def test_single_bf16_term_of_p_breaks_the_bound():
     assert float((one - want).abs().max()) > 10 * ATOL
     torch.testing.assert_close(two, want, rtol=RTOL, atol=ATOL)
     assert float((two - want).abs().max()) < 0.1 * ATOL
+
+
+# the f32 route's key tile per head dim (csrc/landmark_summary.cu Tiles)
+F32_BLOCK = {32: 128, 64: 128, 128: 32, 256: 32}
+
+
+@pytest.mark.parametrize("n,s,d", [(64, 1024, 64), (128, 2048, 128),
+                                   (32, 512, 256), (16, 777, 32),
+                                   (48, 777, 128), (24, 100, 64),
+                                   (8, 20, 256), (20, 50, 32),
+                                   (1536, 4096, 64)])
+def test_f32_split_arithmetic_matches_reference(n, s, d):
+    """The f32 route's arithmetic on f32 inputs — q and k as three bf16
+    terms and v as two, six q̃Kᵀ products (small ones first), PV as
+    p_hi v0 + p_lo v0 + p_hi v1, key tiles of the kernel's width — against
+    the reference's dispatch (its Pallas kernel in interpret mode where S
+    is a multiple of 512, with its ragged combine otherwise) and against
+    the dense plain version, at every head dim, a ragged S, an S shorter
+    than one tile and the SmolLM-360M landmark problem."""
+    q, k, v = _normal((n, d), 70), _normal((s, d), 71), _normal((s, d), 72)
+    want = np.asarray(jops.landmark_summary(jnp.asarray(q), jnp.asarray(k),
+                                            jnp.asarray(v)))
+    tq, tk, tv = (torch.as_tensor(x) for x in (q, k, v))
+    got = ref.landmark_summary_f32_split_ref(tq, tk, tv, 1.0 / np.sqrt(d),
+                                             block=F32_BLOCK[d])
+    assert got.dtype == torch.float32 and got.shape == (n, d)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    dense = ref.landmark_summary_ref(tq, tk, tv, 1.0 / np.sqrt(d))
+    torch.testing.assert_close(got, dense, rtol=RTOL, atol=ATOL)
+
+
+def test_two_bf16_terms_of_q_and_k_break_the_bound():
+    """Why f32 q and k take three terms: with q and k scaled ×4 (scores 16×
+    unit scale) at (n, S, D) = (256, 4096, 64), against an f64 oracle,
+    three terms stay within 2× of the plain f32 version's own error (~0.9×)
+    while two exceed 5× of it (~11×)."""
+    q, k = (torch.as_tensor(_normal(shape, 80 + i)) * 4
+            for i, shape in enumerate([(256, 64), (4096, 64)]))
+    v = torch.as_tensor(_normal((4096, 64), 82))
+    oracle = torch.softmax(q.double() @ k.double().T * 0.125, -1) @ v.double()
+
+    def err(x):
+        return float((x.double() - oracle).abs().max())
+
+    plain = err(ref.landmark_summary_ref(q, k, v, 0.125))
+    three = err(ref.landmark_summary_f32_split_ref(q, k, v, 0.125))
+    two = err(ref.landmark_summary_f32_split_ref(q, k, v, 0.125, qk_terms=2))
+    assert three < 2 * plain, (three, plain)
+    assert two > 5 * plain, (two, plain)
+
+
+def test_three_bf16_terms_hold_an_f32_exactly():
+    """The split pass's plain version: x0 + x1 + x2 == x for normal f32
+    values over 2^±100 (and zeros); each term is bf16(what is left); the
+    wrapper takes it for CPU tensors."""
+    rng = np.random.default_rng(90)
+    x = torch.as_tensor((rng.normal(size=4000) * np.exp2(
+        rng.integers(-100, 101, 4000))).astype(np.float32))
+    x[::9] = 0.0
+    t = lsum.bf16_terms(x, 3)
+    assert t.dtype == torch.bfloat16 and t.shape == (3, 4000)
+    assert torch.equal(t.double().sum(0), x.double())
+    assert torch.equal(t[0], x.bfloat16())
+    assert torch.equal(t[1], (x - t[0].float()).bfloat16())
+    assert torch.equal(ref.bf16_terms(x, 2), t[:2])
 
 
 @pytest.mark.parametrize("n_landmarks", [4, 8, 16])

@@ -13,8 +13,9 @@ versions of a kernel compare within one call on one card. Per run it
 prints one JSON line: the tree, the route, the max |err| against the plain
 version, CUDA-event ms per call over 50 calls after warm-up (host launch
 cost included) and the kernel's own device ms per call from a
-``torch.profiler`` trace of 20 calls (null when the trace holds no device
-events). Needs a CUDA card and ``nvcc``.
+``torch.profiler`` trace of 20 calls, the f32 route's split passes
+included (null when the trace holds no device events), and the split
+passes' share of it alone. Needs a CUDA card and ``nvcc``.
 """
 from __future__ import annotations
 
@@ -49,6 +50,7 @@ def _one(tree: str) -> None:
         return start.elapsed_time(end) / iters
 
     def device_ms(fn, iters=20):
+        """(all of the route's kernels, the split passes alone), ms/call"""
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -56,11 +58,13 @@ def _one(tree: str) -> None:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.time_range.end - e.time_range.start
-                    for e in prof.events()
-                    if e.device_type == DeviceType.CUDA
-                    and "summary" in e.name)
-        return total / 1e3 / iters if total else None
+        spans = [(e.name, e.time_range.end - e.time_range.start)
+                 for e in prof.events() if e.device_type == DeviceType.CUDA]
+        total = sum(t for name, t in spans
+                    if "summary" in name or "split_terms" in name)
+        split = sum(t for name, t in spans if "split_terms" in name)
+        return ((total / 1e3 / iters if total else None),
+                split / 1e3 / iters)
 
     p, n, s, d = SHAPE
     g = torch.Generator(device="cuda").manual_seed(41)
@@ -72,11 +76,12 @@ def _one(tree: str) -> None:
                      - ref.landmark_summary_ref(q, k, v, d ** -0.5)
                      ).abs().max())
         run = lambda: ops.landmark_summary(q, k, v)  # noqa: E731
+        dev, split = device_ms(run)
         print(json.dumps({
             "tree": tree, "route": "bf16" if dtype == torch.bfloat16
             else "f32", "shape": dict(zip("PnSD", SHAPE)),
             "max_abs_err": err, "events_ms": event_ms(run, 50),
-            "device_ms": device_ms(run)}), flush=True)
+            "device_ms": dev, "split_device_ms": split}), flush=True)
 
 
 def main() -> int:
