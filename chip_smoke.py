@@ -14,7 +14,8 @@ non-zero and prints no result. Phases, one line each:
    head dim: registers, static shared memory, spills, and the HGMMA
    (wgmma) instructions that ``cuobjdump -sass`` counts in it
    (``wgmma.mma_async`` in its PTX where the toolkit has no
-   ``cuobjdump``) — none is a failure;
+   ``cuobjdump``) — none is a failure; for the fused IVF probe kernel, per
+   padded row width, its registers, static shared memory and spills;
 3. kernels — each kernel against its plain version on the card, at the
    main-path shapes, at ragged shapes and on duplicated rows, all three
    measures;
@@ -26,7 +27,11 @@ non-zero and prints no result. Phases, one line each:
 5. serve CLI — ``repro_torch.launch.serve`` at U=6040, P=3952, two waves;
 6. times — each kernel and its plain version (CUDA events, which include
    the host's launch cost), the kernel's own device time (profiler), its
-   launches on its path and its bound; a profiler breakdown of one fit →
+   launches on its path and its bound (the fused IVF probe's device time
+   counts every kernel of its call: the order, then the probe); the fused
+   probe again at the lifecycle's batch sizes (64 and 256 queries), with
+   the groups of the graph build's call (queries a block, union cells,
+   rows staged against rows probed); a profiler breakdown of one fit →
    fold-in → predict (device time by kernel, idle share); wall times of
    fit, fold-in and a 256-pair predict, and peak device memory.
 
@@ -37,7 +42,9 @@ The IVF retrieval slice adds, each with its own time:
     IVF path's shapes (the index over the fitted ML-1M representation:
     C=77 cells, cap=104, nprobe=19, k=13) and on edge cases (empty cells,
     k above the live candidates, self ids, probe masks, bf16 and int8
-    payloads, C not a multiple of 8, all three measures);
+    payloads, C not a multiple of 8, all three measures), and at a 64-row
+    batch and on the graph build's queries shuffled (whose lists must be
+    the unshuffled ones moved);
 7b. IVF path — the same data: ``fit(..., backend="ivf")`` at the default
     nprobe (recall@13 against the kernel graph), at nprobe == C (equal to
     the streaming backend under the tie rule), a 64-user ivf fold-in, and
@@ -192,6 +199,7 @@ def phase_build():
     print(f"phase 2 build: {seconds:.1f}s -> {build.BUILD_DIR / build.LIB_NAME}"
           f" | ptxas: " + " ; ".join(keep))
     print("phase 2 tensor-core kernel: " + json.dumps(_wgmma_report(log)))
+    print("phase 2 fused probe kernel: " + json.dumps(_ptxas(log, _probe_name)))
 
 
 def _wgmma_name(line):
@@ -203,18 +211,24 @@ def _wgmma_name(line):
     return f"{('bf16', 'f32')[int(m.group(2))]} D={m.group(1)}" if m else None
 
 
-def _wgmma_report(log):
-    """Per instantiation of the tensor-core summary kernel (by route and
-    head dim): the ``-Xptxas -v`` registers, static shared memory and spill
-    bytes, and the wgmma instructions in its machine code. Raises if one
-    has none."""
+def _probe_name(line):
+    """'n<=20' for a line naming an instantiation of the fused probe
+    kernel (template <int NV4>: rows padded to 4·NV4), else None."""
     import re
 
-    wgmma_fn = "summary_wgmma_kernel"
+    m = re.search(r"probe_group_kernelILi(\d+)E", line)
+    return f"n<={4 * int(m.group(1))}" if m else None
+
+
+def _ptxas(log, name_of):
+    """The ``-Xptxas -v`` registers, static shared memory and spill bytes
+    of each kernel instantiation that ``name_of`` names."""
+    import re
+
     report, name = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            name = _wgmma_name(ln)
+            name = name_of(ln)
         elif name and "spill stores" in ln:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           ln)
@@ -226,6 +240,16 @@ def _wgmma_report(log):
                                                ln).group(1))
             sm = re.search(r"(\d+) bytes smem", ln)
             entry["static_smem_bytes"] = int(sm.group(1)) if sm else 0
+    return report
+
+
+def _wgmma_report(log):
+    """Per instantiation of the tensor-core summary kernel (by route and
+    head dim): the ``-Xptxas -v`` registers, static shared memory and spill
+    bytes, and the wgmma instructions in its machine code. Raises if one
+    has none."""
+    wgmma_fn = "summary_wgmma_kernel"
+    report = _ptxas(log, _wgmma_name)
     obj = build.BUILD_DIR / "landmark_summary.o"
     cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
     if cuobjdump.exists():
@@ -499,7 +523,9 @@ DEVICE_FUNCS = {
     "topk_sim": ("topk_scan_kernel",),
     "foldin_topk": ("topk_scan_kernel", "topk_merge_kernel"),
     "assign_clusters": ("assign_kernel",),
-    "fused_probe_topk": ("probe_kernel",),
+    # None: every kernel of the call (the argsort that groups the queries,
+    # then the probe kernel)
+    "fused_probe_topk": None,
     "score_candidates": ("score_kernel",),
     "landmark_summary": ("summary_wgmma_kernel",),
     "landmark_summary_f32": ("summary_wgmma_kernel", "split_terms_kernel"),
@@ -522,9 +548,10 @@ def _device_ms(fn, name, iters=20):
         for _ in range(iters):
             fn()
         sync()
+    funcs = DEVICE_FUNCS[name]
     total = sum(e.time_range.end - e.time_range.start for e in prof.events()
                 if e.device_type == DeviceType.CUDA
-                and any(f in e.name for f in DEVICE_FUNCS[name]))
+                and (funcs is None or any(f in e.name for f in funcs)))
     return total / 1e3 / iters if total else None
 
 
@@ -637,7 +664,50 @@ def _ivf_rows(ivf, ivf_counts, life_counts, err):
             bound_us=bound_ms * 1e3, bound_by=bound_by,
             library_ms=None if lib is None else _event_ms(lib, 50),
             device_ms=_device_ms(kern, name)))
+    print("phase 6 fused probe: " + json.dumps(_probe_shapes(ivf)))
     return table
+
+
+def _probe_shapes(ivf):
+    """Row 5 at the lifecycle's batch sizes on phase 6's index (a 64-row
+    fold-in and the 256-query recall probes at nprobe 19 and C), and the
+    groups the graph build's call runs in: queries a block, union cells a
+    group, and rows staged against rows probed."""
+    index, probe, u_ids = ivf["index"], ivf["probe"], ivf["self_ids"]
+    rows_all = ivf["all_rows"]
+    c, cap = index.lists.shape
+    nprobe = probe.shape[1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for bq, npr in ((64, nprobe), (256, nprobe), (256, c)):
+        q = rows_all[:bq].contiguous()
+        pr = rt.probe_cells(index, q, npr, "cosine")
+        sid = u_ids[:bq]
+
+        def call(q=q, pr=pr, sid=sid):
+            return ivf_probe.fused_probe_topk(
+                q, pr, index.lists, index.rows, index.scale, index.fill,
+                k=13, self_ids=sid)
+
+        out[f"b={bq} nprobe={npr}"] = dict(
+            group=ivf_probe.plan_group(bq, sms, c), ms=_event_ms(call, 50),
+            device_ms=_device_ms(call, "fused_probe_topk"))
+    b = probe.shape[0]
+    group = ivf_probe.plan_group(b, sms, c)
+    order = ivf_probe.group_order(probe, group)
+    live = index.fill.clamp(max=cap)
+    pad = -b % group
+    cells = torch.cat([probe[order], probe[order[-1:].expand(pad)]]).long()
+    cells = torch.sort(cells.reshape(-1, group * nprobe), dim=1).values
+    first = torch.ones_like(cells, dtype=torch.bool)
+    first[:, 1:] = cells[:, 1:] != cells[:, :-1]
+    union = first.sum(1)
+    staged = int((live[cells] * first).sum())
+    out[f"b={b} nprobe={nprobe} groups"] = dict(
+        group=group, union_cells_mean=float(union.float().mean()),
+        union_cells_max=int(union.max()), rows_staged=staged,
+        rows_probed=int(live[probe.long()].sum()))
+    return out
 
 
 def phase_times(train, a, err, peak, life_counts):
@@ -793,7 +863,30 @@ def phase_ivf_kernels(a):
                     raise AssertionError("k above the live candidates: "
                                          "the tail must be empty")
                 n_ok += 1
-    notes.append(f"fused probe {n_ok}/{n_ok} bitwise")
+    # the lifecycle's batch sizes (one query a block, its rows split over
+    # the block's warps) and the graph build's queries shuffled (other
+    # groups, other unions): bitwise the plain version, and the shuffled
+    # lists the unshuffled ones moved
+    perm = torch.randperm(u, generator=g).to(DEVICE)
+    full = (rep, probe, index.lists, index.rows, index.scale, index.fill)
+    base = ivf_probe.fused_probe_topk(*full, k=13, self_ids=self_ids)
+    for tag, sel in (("b=64", torch.arange(u - 64, u, device=DEVICE)),
+                     ("permuted", perm)):
+        for payload in rt.PAYLOAD_DTYPES:
+            idx = index if payload == "f32" else _quantized(index, payload)
+            for measure in sim.MEASURES:
+                args = (rep[sel], probe[sel], idx.lists, idx.rows, idx.scale,
+                        idx.fill)
+                kw = dict(k=13, measure=measure, self_ids=self_ids[sel])
+                got = ivf_probe.fused_probe_topk(*args, **kw)
+                _bitwise(f"fused_probe_topk {tag} {payload} {measure}", got,
+                         ref.fused_probe_topk_ref(*args, **kw))
+                if payload == "f32" and measure == "cosine":
+                    _bitwise(f"fused_probe_topk {tag}: moved lists", got,
+                             [x[sel] for x in base])
+                n_ok += 1
+    notes.append(f"fused probe {n_ok}/{n_ok} bitwise (b=64 and permuted "
+                 f"queries among them)")
     # kernel 6: one partial-probe query block of the scorer
     qb = 256
     m = spec.nprobe * index.capacity

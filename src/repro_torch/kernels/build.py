@@ -49,10 +49,10 @@ SIGNATURES = {
     "assign_clusters_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
     # (q, cand, out, B, M, n, measure, stream)
     "score_candidates_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
-    # (q, probe, lists, rows, scale, fill, self_ids, probe_ok, vals, ids,
-    #  B, nprobe, cap, n, k, measure, payload, stream)
-    "ivf_probe_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                      _I, _I, _I, _P),
+    # (q, probe, probe_ok, order, lists, rows, scale, fill, self_ids, vals,
+    #  ids, B, nprobe, C, cap, n, k, measure, payload, group, stream)
+    "ivf_probe_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                      _I, _I, _I, _I, _I, _I, _P),
     # (x, planes, n, terms, stream): f32 → bf16 terms, the f32 route's split
     "split_bf16_terms": (_P, _P, _L, _I, _P),
     # (q, k, v, out, P, N, S, D, scale, stream): TMA + wgmma on the tensor

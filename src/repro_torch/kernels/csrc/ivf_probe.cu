@@ -10,33 +10,49 @@
 //
 // What bounds it on an H100: at the ML-1M graph build through the index
 // (b = 5976 queries, nprobe = 19 of C = 77 cells, cap = 104, n = 20,
-// k = 13) each query reads ~19·104 rows, ~0.16 MB, so the gathered bytes
-// are ~0.95 GB if every probe missed the cache (~0.28 ms) — but the whole
-// f32 index is 0.64 MB and stays in the 50 MB L2, so the unique bytes are
-// ~1 MB and the 2·b·m·n = 0.47 GFLOP of scores (~7 µs) bound it. Per-slot
-// list insertion, not the dot products, sets its time, as in topk_sim.
-//
-// Design:
-// - one warp owns one query, held in registers (pearson-centered, squared
-//   norm precomputed); 4 warps per block, each with its own 32-row staging
-//   buffer in shared memory;
-// - per probed cell the warp copies its live slots 32 rows at a time with
-//   coalesced loads (the rows of a cell are contiguous), dequantizing on
-//   the way (bf16 widened; int8 times the row's f32 scale, one rounding, as
-//   the plain version); each lane then scores one staged row from shared
-//   memory (odd row stride: conflict-free);
-// - scores follow repro::dense_epilogue — z / max(√|q|²·√|c|², eps) for
-//   cosine and centered pearson, 1/(1+√d²) for euclidean — with the f32
-//   left-to-right sums of the plain version (kernels/ref.py::gathered_sims),
-//   so the two agree bitwise. It is NOT the normalized-row cosine of the
-//   graph-build kernels;
-// - slots at or past the cell's fill, the query's own id and masked
-//   (query, probe rank) pairs are never offered; each lane keeps a sorted
-//   register top-KMAX under (value desc, id asc) and repro::warp_merge
-//   emits the canonical list, empty slots as (-inf, 0).
-// Any cap (the warp loops over slots), empty cells and k above the live
-// candidates are handled; n <= 64 and k <= 32 (register arrays). The probe
-// table must hold distinct cells per query, as the reference requires.
+// k = 13; 9.49 M live (query, slot) pairs) the whole f32 index is 0.64 MB
+// and stays in the 50 MB L2, so bytes do not bound it; the 2n-flop dot and
+// 3-op epilogue per pair do: 0.41 GFLOP, ~6 µs at 67 TFLOP/s. The sums
+// must stay left to right with a rounding after each multiply and add (no
+// FMA, no tensor cores), so each pair costs 2n FP32 instructions and its
+// row's n floats read from shared memory; what a kernel spends beyond that
+// is restaging a cell once per query that probes it, per-pair norms, list
+// insertion, and latency. The design:
+// - query groups that share cells: a first kernel orders the queries by
+//   their first-probed (nearest) cell (a counting sort in one block), and a
+//   block of 8 warps owns G consecutive queries of that order (G = 8, 4, 2
+//   or 1, chosen by the wrapper from b so the grid still fills the card).
+//   The block marks, per cell, which of its queries probe it (one byte a
+//   cell in shared memory; probe_ok == 0 entries never enter), so each cell
+//   of their union is staged once per block;
+// - per-slot quantities once per staging: the union's live rows are packed
+//   back to back, in cell order, and staged 256 at a time, one thread a row
+//   (16-byte loads where n % 4 == 0), double buffered: the dequantized row
+//   (bf16 widened; int8 times its f32 scale, one rounding), for pearson its
+//   mean and centered row, and its squared norm (euclidean) or its root
+//   (cosine, pearson). A pair then costs the n-term dot and the epilogue;
+// - warp (g, s) scores the 32-row subchunks s, s + S, … (S = 8 / G) of a
+//   round, lane = row, where its query g probes the row's cell, the query
+//   read from shared memory as broadcasts (80 registers a thread, three
+//   blocks an SM); at G = 1 the 8 warps split one query's rows and merge
+//   their lists at the end;
+// - a warp-wide top-k: lane j holds the warp's j-th entry, the bar is lane
+//   k−1's entry under the canonical order, and a ballot picks the rows that
+//   beat it: a few go in one shuffle-up each, many (a list's first rows)
+//   through a bitonic sort and merge.
+// Measured on an H100 80GB HBM3 at 700 W at the shape above
+// (tools/time_ivf_probe.py): ~0.15 ms for the probe kernel and ~0.01 ms for
+// the order, against 0.56 ms for one warp per query restaging its own
+// cells; 25× the bound, with scoring the largest share.
+// Every sum runs left to right with the round-to-nearest intrinsics of
+// topk_common.cuh, as kernels/ref.py::gathered_sims adds, and the canonical
+// order does not depend on the order in which rows are visited (each id
+// lies in one list), so values and ids are bitwise the plain version's.
+// Slots at or past the cell's fill and the query's own id are never
+// offered; empty slots come out as (-inf, 0). Any cap and nprobe (probe
+// entries past 1024 a block go in further segments), n <= 64, k <= 32, and
+// C <= 32768 for G > 1. The probe table must hold distinct cells per
+// query, as the reference requires.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -46,9 +62,40 @@
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
+using repro::better;
+using repro::kFull;
 
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRows = kThreads;         // staged rows per round: one a thread
+constexpr int kEntries = 1024;          // (query, probe) entries per segment
+constexpr int kPerThread = kEntries / kThreads;
+
+// Row stride in floats: NP rounded so that 8 lanes reading float4s of 8
+// consecutive rows hit 8 distinct 16-byte bank groups (stride = 4 mod 8).
+template <int NV4>
+struct Width {
+  static constexpr int NP = 4 * NV4;
+  static constexpr int STR = NP % 8 == 4 ? NP : NP + 4;
+  static constexpr size_t kSmem =
+      sizeof(float) * 2 * kRows * (STR + 3);  // rows, aux, ids, masks
+};
+
+// Four payload elements widened to f32 exactly: f32 as they are, bf16 by
+// its bits, int8 by value.
+__device__ __forceinline__ float4 widen4(float4 v) { return v; }
+__device__ __forceinline__ float4 widen4(uint2 v) {
+  return make_float4(__uint_as_float(v.x << 16),
+                     __uint_as_float(v.x & 0xffff0000u),
+                     __uint_as_float(v.y << 16),
+                     __uint_as_float(v.y & 0xffff0000u));
+}
+__device__ __forceinline__ float4 widen4(int v) {
+  return make_float4(static_cast<float>(static_cast<int8_t>(v)),
+                     static_cast<float>(static_cast<int8_t>(v >> 8)),
+                     static_cast<float>(static_cast<int8_t>(v >> 16)),
+                     static_cast<float>(static_cast<int8_t>(v >> 24)));
+}
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -57,139 +104,527 @@ __device__ __forceinline__ float widen(int8_t x) {
   return static_cast<float>(x);
 }
 
-template <int NMAX, int KMAX, typename T>
-__global__ void __launch_bounds__(kThreads)
-probe_kernel(const float* __restrict__ q, const int* __restrict__ probe,
-             const int* __restrict__ lists, const T* __restrict__ rows,
-             const float* __restrict__ scale, const int* __restrict__ fill,
-             const int* __restrict__ self_ids,
-             const int* __restrict__ probe_ok, float* __restrict__ out_v,
-             int* __restrict__ out_i, int B, int nprobe, int cap, int n,
-             int k, int measure) {
-  __shared__ float stage[kWarps][32 * (NMAX + 1)];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int qi = blockIdx.x * kWarps + warp;
-  if (qi >= B) return;  // uniform across the warp; only warp syncs below
-  const int stride = n | 1;  // odd row stride: conflict-free lane reads
-  float* st = stage[warp];
+template <typename T> struct Vec4;  // four elements in one load
+template <> struct Vec4<float> { using type = float4; };
+template <> struct Vec4<__nv_bfloat16> { using type = uint2; };
+template <> struct Vec4<int8_t> { using type = int; };
 
-  float qr[NMAX];
+// One payload row of n elements into x, zero past n. ``vec``: n % 4 == 0
+// and the rows 4-element aligned, so the row loads as n / 4 vectors. The
+// loads are independent and issue back to back.
+template <int NP, typename T>
+__device__ __forceinline__ void load_row(float (&x)[NP], const T* row, int n,
+                                         bool vec) {
+  if (vec) {
+    using V = typename Vec4<T>::type;
+    const V* r = reinterpret_cast<const V*>(row);
 #pragma unroll
-  for (int d = 0; d < NMAX; ++d) {
-    qr[d] = d < n ? q[(size_t)qi * n + d] : 0.0f;
+    for (int c = 0; c < NP / 4; ++c) {
+      const float4 f = 4 * c < n ? widen4(r[c]) : make_float4(0, 0, 0, 0);
+      x[4 * c] = f.x;
+      x[4 * c + 1] = f.y;
+      x[4 * c + 2] = f.z;
+      x[4 * c + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int d = 0; d < NP; ++d) x[d] = d < n ? widen(row[d]) : 0.0f;
   }
-  if (measure == 1) repro::center<NMAX>(qr, n);
-  const float qnorm = repro::sq_norm<NMAX>(qr, n);
-  const int sid = self_ids[qi];
+}
 
-  repro::TopK<KMAX> best;
-  best.init();
-  for (int j = 0; j < nprobe; ++j) {
-    if (probe_ok[(size_t)qi * nprobe + j] == 0) continue;  // uniform
-    const int cell = probe[(size_t)qi * nprobe + j];
-    const int live = min(fill[cell], cap);
-    const size_t base = (size_t)cell * cap;
-    for (int s0 = 0; s0 < live; s0 += 32) {
-      const int rn = min(32, live - s0);
-      __syncwarp();  // the previous rows are no longer read
-      for (int e = lane; e < rn * n; e += 32) {
-        const int r = e / n, d = e - r * n;
-        float x = widen(rows[(base + s0) * n + e]);
-        if (scale != nullptr) x = __fmul_rn(x, scale[base + s0 + r]);
-        st[r * stride + d] = x;
-      }
-      __syncwarp();
-      if (lane < rn) {
-        const int id = lists[base + s0 + lane];
-        if (id != sid) {
-          const float* cr = st + lane * stride;
-          const float mean = measure == 1 ? repro::row_mean<NMAX>(cr, n)
-                                          : 0.0f;
-          float z = 0.0f, cn = 0.0f;
+// Exclusive scan of one 64-bit value per thread over the block; ``total``
+// gets the block's sum. All threads must call it.
+__device__ __forceinline__ long long block_scan(long long v, long long* wsum,
+                                                long long& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  long long x = v;
 #pragma unroll
-          for (int d = 0; d < NMAX; ++d) {
-            if (d < n) {
-              const float c = measure == 1 ? __fsub_rn(cr[d], mean) : cr[d];
-              z = __fadd_rn(z, __fmul_rn(qr[d], c));
-              cn = __fadd_rn(cn, __fmul_rn(c, c));
-            }
+  for (int off = 1; off < 32; off <<= 1) {
+    const long long y = __shfl_up_sync(kFull, x, off);
+    if (lane >= off) x += y;
+  }
+  if (lane == 31) wsum[warp] = x;
+  __syncthreads();
+  long long before = 0;
+  total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    if (w < warp) before += wsum[w];
+    total += wsum[w];
+  }
+  __syncthreads();  // wsum may be written again
+  return before + x - v;
+}
+
+// One compare-exchange of a warp-wide bitonic network: this lane and lane
+// ^ stride swap entries unless this lane already holds the better one
+// (``keep_better``) or the worse one.
+__device__ __forceinline__ void exchange(float& v, int& id, int stride,
+                                         bool keep_better) {
+  const float ov = __shfl_xor_sync(kFull, v, stride);
+  const int oi = __shfl_xor_sync(kFull, id, stride);
+  if (keep_better ? better(ov, oi, v, id) : better(v, id, ov, oi)) {
+    v = ov;
+    id = oi;
+  }
+}
+
+constexpr int kBatch = 6;  // offers at least this many: sort and merge
+
+// The warp's list: lane j holds entry j in canonical order (32 entries,
+// empty ones (-inf, 0)), and (tv, ti) is entry k−1, the bar a candidate
+// must clear. Offers every lane's (v, id) where ``want``; all 32 lanes
+// must call it. A few candidates go in one by one (a shuffle-up each);
+// many (a list's first rows) are sorted by a bitonic network and merged
+// into the list by another. Both keep the list's top 32, of which the
+// top k is what the kernel writes.
+struct WarpList {
+  float ev = -INFINITY, tv = -INFINITY;
+  int eid = 0, ti = 0;
+
+  __device__ __forceinline__ void offer(bool want, float v, int id, int k) {
+    const int lane = threadIdx.x & 31;
+    want = want && better(v, id, tv, ti);
+    unsigned bal = __ballot_sync(kFull, want);
+    if (__popc(bal) >= kBatch) {
+      // non-candidates rank below every entry, the empty ones included
+      float cv = want ? v : -INFINITY;
+      int ci = want ? id : 0x7fffffff;
+#pragma unroll
+      for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+        for (int stride = size >> 1; stride > 0; stride >>= 1) {
+          exchange(cv, ci, stride,
+                   ((lane & stride) == 0) == ((lane & size) == 0));
+        }
+      }
+      // the list descending, the candidates reversed ascending: the better
+      // of each pair is a bitonic sequence holding the top 32
+      const float rv = __shfl_sync(kFull, cv, 31 - lane);
+      const int ri = __shfl_sync(kFull, ci, 31 - lane);
+      if (better(rv, ri, ev, eid)) {
+        ev = rv;
+        eid = ri;
+      }
+#pragma unroll
+      for (int stride = 16; stride > 0; stride >>= 1) {
+        exchange(ev, eid, stride, (lane & stride) == 0);
+      }
+      tv = __shfl_sync(kFull, ev, k - 1);
+      ti = __shfl_sync(kFull, eid, k - 1);
+      return;
+    }
+    if (!bal) return;
+    // one by one against the bar of the ballot: a candidate that a later
+    // one pushed below entry k−1 only fills a slot past k
+    do {
+      const int src = __ffs(bal) - 1;
+      bal &= bal - 1;
+      const float cv = __shfl_sync(kFull, v, src);
+      const int ci = __shfl_sync(kFull, id, src);
+      const float pv = __shfl_up_sync(kFull, ev, 1);
+      const int pi = __shfl_up_sync(kFull, eid, 1);
+      const bool above = lane > 0 && better(cv, ci, pv, pi);
+      const bool here = better(cv, ci, ev, eid);
+      ev = above ? pv : (here ? cv : ev);
+      eid = above ? pi : (here ? ci : eid);
+    } while (bal);
+    tv = __shfl_sync(kFull, ev, k - 1);
+    ti = __shfl_sync(kFull, eid, k - 1);
+  }
+};
+
+template <int NV4>
+__global__ void __launch_bounds__(kThreads)
+probe_group_kernel(const float* __restrict__ q, const int* __restrict__ probe,
+                   const int* __restrict__ probe_ok,
+                   const int* __restrict__ order,
+                   const int* __restrict__ lists, const void* __restrict__ rows,
+                   const float* __restrict__ scale,
+                   const int* __restrict__ fill,
+                   const int* __restrict__ self_ids, float* __restrict__ out_v,
+                   int* __restrict__ out_i, int B, int nprobe, int C,
+                   int cap, int n, int k, int measure, int payload, int G) {
+  constexpr int NP = Width<NV4>::NP, STR = Width<NV4>::STR;
+  extern __shared__ float4 dyn[];
+  float* s_rows = reinterpret_cast<float*>(dyn);  // [2][kRows][STR]
+  float* s_aux = s_rows + 2 * kRows * STR;        // [2][kRows]
+  int* s_ids = reinterpret_cast<int*>(s_aux + 2 * kRows);
+  int* s_mask = s_ids + 2 * kRows;
+  unsigned* c_mask = reinterpret_cast<unsigned*>(s_mask + 2 * kRows);
+  __shared__ int u_cell[kEntries];  // the union's cells
+  __shared__ int u_pre[kEntries + 1];  // first packed row of each cell
+  __shared__ unsigned char u_mask[kEntries];  // which queries probe it
+  __shared__ long long wsum[kWarps];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int S = kWarps / G;
+  const int g = warp % G, s = warp / G;
+  const int q0 = blockIdx.x * G;
+  const int gcount = min(G, B - q0);
+  const bool active = g < gcount;
+  const int qi = active ? (order ? order[q0 + g] : q0 + g) : 0;
+
+  // the query: centered for pearson, zero past n (adds +0 to every sum)
+  float qr[NP];
+#pragma unroll
+  for (int d = 0; d < NP; ++d) {
+    qr[d] = active && d < n ? q[(size_t)qi * n + d] : 0.0f;
+  }
+  if (measure == 1) repro::center<NP>(qr, n);
+  const float qn = repro::sq_norm<NP>(qr, n);
+  const float q_aux = measure == 2 ? qn : __fsqrt_rn(qn);
+  // the scoring loop reads the query from shared memory (one broadcast
+  // float4 a step), which keeps its registers for the rows
+  __shared__ float4 s_q[kWarps][NV4];
+  if (lane < NV4) {
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int c = 0; c < NV4; ++c) {
+      if (c == lane) v = make_float4(qr[4 * c], qr[4 * c + 1], qr[4 * c + 2],
+                                     qr[4 * c + 3]);
+    }
+    s_q[warp][lane] = v;
+  }
+  __syncwarp();
+  const int sid = active && self_ids ? self_ids[qi] : -1;
+  const size_t elem = payload == 0 ? 4 : payload == 1 ? 2 : 1;
+  const bool vec = n % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(rows) % (4 * elem) == 0;
+
+  WarpList list;
+  // cells [c0, c1) are this thread's in the union's scan (G > 1)
+  const int per = (C + kThreads - 1) / kThreads;
+  const int c0 = min(tid * per, C), c1 = min(c0 + per, C);
+  const int c_words = G > 1 ? (C + 3) / 4 : 0;
+  auto cell_bits = [&](int c) {
+    return (c_mask[c >> 2] >> ((c & 3) * 8)) & 0xffu;
+  };
+  const int cols = min(nprobe, kEntries / G);  // probe columns a segment
+  for (int j0 = 0; j0 < nprobe; j0 += cols) {
+    const int jn = min(cols, nprobe - j0);
+    // the union: one entry per distinct cell with live rows (in probe
+    // order at G = 1, else in cell order, each cell's byte in ``c_mask``
+    // naming the queries that probe it), and its rows' offset in the
+    // packed order, from one scan of (count, rows) pairs
+    long long mine = 0;
+    int cell[kPerThread], live[kPerThread];
+    if (G == 1) {
+#pragma unroll
+      for (int i = 0; i < kPerThread; ++i) {
+        const int j = tid * kPerThread + i;
+        cell[i] = 0;
+        live[i] = 0;
+        if (j < jn && active) {
+          const size_t at = (size_t)qi * nprobe + j0 + j;
+          if (!probe_ok || probe_ok[at]) {
+            cell[i] = probe[at];
+            live[i] = max(min(fill[cell[i]], cap), 0);
           }
-          best.offer(repro::dense_epilogue(z, qnorm, cn, measure), id);
+        }
+        if (live[i] > 0) mine += (1LL << 32) | live[i];
+      }
+    } else {
+      for (int w = tid; w < c_words; w += kThreads) c_mask[w] = 0;
+      __syncthreads();
+      for (int e = tid; e < G * jn; e += kThreads) {
+        const int gg = e / jn;
+        if (gg < gcount) {
+          const int qq = order[q0 + gg];
+          const size_t at = (size_t)qq * nprobe + j0 + (e - gg * jn);
+          if (!probe_ok || probe_ok[at]) {
+            const int c = probe[at];
+            atomicOr(&c_mask[c >> 2], (1u << gg) << ((c & 3) * 8));
+          }
+        }
+      }
+      __syncthreads();
+      for (int c = c0; c < c1; ++c) {
+        if (cell_bits(c)) {
+          const int l = max(min(fill[c], cap), 0);
+          if (l > 0) mine += (1LL << 32) | l;
         }
       }
     }
+    long long total;
+    long long at = block_scan(mine, wsum, total);
+    const int n_rows = static_cast<int>(total & 0xffffffffLL);
+    auto put = [&](int c, int l, unsigned m) {
+      const int u = static_cast<int>(at >> 32);
+      u_cell[u] = c;
+      u_mask[u] = static_cast<unsigned char>(m);
+      u_pre[u] = static_cast<int>(at & 0xffffffffLL);
+      at += (1LL << 32) | l;
+    };
+    if (G == 1) {
+#pragma unroll
+      for (int i = 0; i < kPerThread; ++i) {
+        if (live[i] > 0) put(cell[i], live[i], 1u);
+      }
+    } else {
+      for (int c = c0; c < c1; ++c) {
+        const unsigned m = cell_bits(c);
+        if (m) {
+          const int l = max(min(fill[c], cap), 0);
+          if (l > 0) put(c, l, m);
+        }
+      }
+    }
+    if (tid == 0) u_pre[total >> 32] = n_rows;
+    __syncthreads();
+
+    // stage packed row p = round · kRows + tid: dequantized, centered for
+    // pearson, with its norm term; the cursor walks the union forward
+    int cur = 0;
+    auto stage = [&](int round, int buf) {
+      const int p = round * kRows + tid;
+      const bool live = p < n_rows;
+      long long slot = 0;
+      int mask = 0, id = 0;
+      if (live) {
+        while (u_pre[cur + 1] <= p) ++cur;
+        slot = static_cast<long long>(u_cell[cur]) * cap + (p - u_pre[cur]);
+        mask = u_mask[cur];
+        id = lists[slot];
+      }
+      const float sc = payload == 2 && live ? scale[slot] : 1.0f;
+      float x[NP];
+      if (live) {
+        if (payload == 0) {
+          load_row<NP>(x, static_cast<const float*>(rows) + slot * n, n, vec);
+        } else if (payload == 1) {
+          load_row<NP>(x, static_cast<const __nv_bfloat16*>(rows) + slot * n,
+                       n, vec);
+        } else {
+          load_row<NP>(x, static_cast<const int8_t*>(rows) + slot * n, n,
+                       vec);
+#pragma unroll
+          for (int d = 0; d < NP; ++d) {
+            if (d < n) x[d] = __fmul_rn(x[d], sc);
+          }
+        }
+      }
+      s_mask[buf * kRows + tid] = mask;
+      if (!live) return;
+      if (measure == 1) repro::center<NP>(x, n);
+      const float vn = repro::sq_norm<NP>(x, n);
+      float4* dst = reinterpret_cast<float4*>(s_rows +
+                                              (buf * kRows + tid) * STR);
+#pragma unroll
+      for (int c = 0; c < NV4; ++c) {
+        dst[c] = make_float4(x[4 * c], x[4 * c + 1], x[4 * c + 2],
+                             x[4 * c + 3]);
+      }
+      s_aux[buf * kRows + tid] = measure == 2 ? vn : __fsqrt_rn(vn);
+      s_ids[buf * kRows + tid] = id;
+    };
+
+    // the score of this warp's query against a staged row
+    auto score = [&](float z, float aux) {
+      if (measure == 2) {
+        const float d2 =
+            fmaxf(__fadd_rn(__fsub_rn(qn, __fmul_rn(2.0f, z)), aux), 0.0f);
+        return __fdiv_rn(1.0f, __fadd_rn(1.0f, __fsqrt_rn(d2)));
+      }
+      return __fdiv_rn(z, fmaxf(__fmul_rn(q_aux, aux), repro::kEps));
+    };
+
+    const int rounds = (n_rows + kRows - 1) / kRows;
+    if (rounds > 0) stage(0, 0);
+    __syncthreads();
+    for (int r = 0; r < rounds; ++r) {
+      const int buf = r & 1;
+      if (r + 1 < rounds) stage(r + 1, buf ^ 1);
+      const int subs = (min(kRows, n_rows - r * kRows) + 31) >> 5;
+      for (int j = s; j < subs; j += S) {
+        const int row = buf * kRows + j * 32 + lane;
+        bool want = active && ((s_mask[row] >> g) & 1);
+        if (!__any_sync(kFull, want)) continue;
+        const int id = s_ids[row];
+        want = want && id != sid;
+        const float4* cr = reinterpret_cast<const float4*>(s_rows + row * STR);
+        float z = 0.0f;
+#pragma unroll
+        for (int c = 0; c < NV4; ++c) {
+          const float4 x = cr[c], y = s_q[warp][c];
+          z = __fadd_rn(z, __fmul_rn(y.x, x.x));
+          z = __fadd_rn(z, __fmul_rn(y.y, x.y));
+          z = __fadd_rn(z, __fmul_rn(y.z, x.z));
+          z = __fadd_rn(z, __fmul_rn(y.w, x.w));
+        }
+        list.offer(want, score(z, s_aux[row]), id, k);
+      }
+      __syncthreads();  // the buffer just read is staged next round
+    }
+    __syncthreads();  // the union is read no more: the next keys replace it
   }
-  repro::warp_merge(best, k, out_v + (size_t)qi * k, out_i + (size_t)qi * k);
+
+  // the S warps of a query merge their lists into warp (g, 0)'s
+  if (S > 1) {
+    float* m_v = s_rows;
+    int* m_i = reinterpret_cast<int*>(s_rows + kThreads);
+    m_v[tid] = list.ev;
+    m_i[tid] = list.eid;
+    __syncthreads();
+    if (s == 0 && active) {
+      for (int t = 1; t < S; ++t) {
+        const int from = (t * G + g) * 32 + lane;
+        list.offer(true, m_v[from], m_i[from], k);
+      }
+    }
+  }
+  if (s == 0 && active && lane < k) {
+    out_v[(size_t)qi * k + lane] = list.ev;
+    out_i[(size_t)qi * k + lane] = list.ev == -INFINITY ? 0 : list.eid;
+  }
 }
 
-template <int NMAX, int KMAX, typename T>
-cudaError_t launch(const void* q, const void* probe, const void* lists,
-                   const void* rows, const void* scale, const void* fill,
-                   const void* self_ids, const void* probe_ok, void* vals,
-                   void* ids, int B, int nprobe, int cap, int n, int k,
-                   int measure, cudaStream_t stream) {
-  const dim3 grid((B + kWarps - 1) / kWarps);
-  probe_kernel<NMAX, KMAX, T><<<grid, kThreads, 0, stream>>>(
+// The queries' order for the groups: a counting sort by first-probed cell
+// in one block — a histogram of the C cells, its exclusive scan, then each
+// query takes the next place of its cell. The order within a cell is the
+// atomics' and may change from call to call; the lists do not.
+constexpr int kOrderThreads = 1024;
+constexpr int kOrderCells = 32768;  // cells the counters hold (128 KB)
+int g_order_smem = 0;  // the order kernel's dynamic shared memory limit
+
+__global__ void __launch_bounds__(kOrderThreads)
+order_kernel(const int* __restrict__ probe, int B, int nprobe, int C,
+             int* __restrict__ order) {
+  extern __shared__ int bins[];
+  __shared__ int wsum[kOrderThreads / 32];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  auto cell_of = [&](int i) {
+    return min(max(probe[(size_t)i * nprobe], 0), C - 1);
+  };
+  for (int c = tid; c < C; c += kOrderThreads) bins[c] = 0;
+  __syncthreads();
+  // each pass loads its keys for 8 queries a thread at once
+  auto keys = [&](int base, int (&key)[8]) {
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int i = base + r * kOrderThreads + tid;
+      key[r] = i < B ? cell_of(i) : -1;
+    }
+  };
+  auto count = [&](const int (&key)[8]) {
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      if (key[r] >= 0) atomicAdd(&bins[key[r]], 1);
+    }
+  };
+  int key[8];  // the first 8192 queries' cells stay for the second pass
+  keys(0, key);
+  count(key);
+  for (int base = 8 * kOrderThreads; base < B; base += 8 * kOrderThreads) {
+    int more[8];
+    keys(base, more);
+    count(more);
+  }
+  __syncthreads();
+  const int per = (C + kOrderThreads - 1) / kOrderThreads;
+  const int c0 = min(tid * per, C), c1 = min(c0 + per, C);
+  int sum = 0;
+  for (int c = c0; c < c1; ++c) sum += bins[c];
+  int x = sum;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, off);
+    if (lane >= off) x += y;
+  }
+  if (lane == 31) wsum[warp] = x;
+  __syncthreads();
+  int at = x - sum;
+  for (int w = 0; w < warp; ++w) at += wsum[w];
+  for (int c = c0; c < c1; ++c) {
+    const int t = bins[c];
+    bins[c] = at;
+    at += t;
+  }
+  __syncthreads();
+  for (int base = 0; base < B; base += 8 * kOrderThreads) {
+    if (base) keys(base, key);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      if (key[r] >= 0) {
+        order[atomicAdd(&bins[key[r]], 1)] = base + r * kOrderThreads + tid;
+      }
+    }
+  }
+}
+
+template <int NV4>
+cudaError_t launch(const void* q, const void* probe, const void* probe_ok,
+                   void* order, const void* lists, const void* rows,
+                   const void* scale, const void* fill, const void* self_ids,
+                   void* vals, void* ids, int B, int nprobe, int C, int cap,
+                   int n, int k, int measure, int payload, int G,
+                   cudaStream_t stream) {
+  const size_t smem =
+      Width<NV4>::kSmem + (G > 1 ? sizeof(unsigned) * ((C + 3) / 4) : 0);
+  static size_t sized = 0;  // the dynamic shared memory limit set so far
+  if (smem > sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        probe_group_kernel<NV4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    sized = smem;
+  }
+  if (G > 1) {
+    const int cells_bytes = static_cast<int>(sizeof(int)) * C;
+    if (cells_bytes > g_order_smem) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          order_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          cells_bytes);
+      if (err != cudaSuccess) return err;
+      g_order_smem = cells_bytes;
+    }
+    order_kernel<<<1, kOrderThreads, cells_bytes, stream>>>(
+        static_cast<const int*>(probe), B, nprobe, C, static_cast<int*>(order));
+  }
+  const dim3 grid((B + G - 1) / G);
+  probe_group_kernel<NV4><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const int*>(probe),
-      static_cast<const int*>(lists), static_cast<const T*>(rows),
-      static_cast<const float*>(scale), static_cast<const int*>(fill),
-      static_cast<const int*>(self_ids), static_cast<const int*>(probe_ok),
-      static_cast<float*>(vals), static_cast<int*>(ids), B, nprobe, cap, n, k,
-      measure);
+      static_cast<const int*>(probe_ok),
+      static_cast<const int*>(order), static_cast<const int*>(lists),
+      rows, static_cast<const float*>(scale), static_cast<const int*>(fill),
+      static_cast<const int*>(self_ids), static_cast<float*>(vals),
+      static_cast<int*>(ids), B, nprobe, C, cap, n, k, measure, payload, G);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch(const void* q, const void* probe, const void* lists,
-                     const void* rows, const void* scale, const void* fill,
-                     const void* self_ids, const void* probe_ok, void* vals,
-                     void* ids, int B, int nprobe, int cap, int n, int k,
-                     int measure, cudaStream_t s) {
-  if (n <= 32 && k <= 16)
-    return launch<32, 16, T>(q, probe, lists, rows, scale, fill, self_ids,
-                             probe_ok, vals, ids, B, nprobe, cap, n, k,
-                             measure, s);
-  if (n <= 32)
-    return launch<32, 32, T>(q, probe, lists, rows, scale, fill, self_ids,
-                             probe_ok, vals, ids, B, nprobe, cap, n, k,
-                             measure, s);
-  if (k <= 16)
-    return launch<64, 16, T>(q, probe, lists, rows, scale, fill, self_ids,
-                             probe_ok, vals, ids, B, nprobe, cap, n, k,
-                             measure, s);
-  return launch<64, 32, T>(q, probe, lists, rows, scale, fill, self_ids,
-                           probe_ok, vals, ids, B, nprobe, cap, n, k, measure,
-                           s);
 }
 
 }  // namespace
 
 // payload: 0 = f32 rows, 1 = bf16 rows, 2 = int8 rows with f32 scales.
+// probe_ok and self_ids may be null (all probes kept, no self id). G is 1,
+// 2, 4 or 8 queries a block; for G > 1 ``order`` is scratch for b int32
+// that the call fills (the queries by first-probed cell, C <= 32768) before
+// block i takes order[i·G .. i·G + G); for G = 1 it is null.
 extern "C" int ivf_probe_f32(const void* q, const void* probe,
+                             const void* probe_ok, void* order,
                              const void* lists, const void* rows,
                              const void* scale, const void* fill,
-                             const void* self_ids, const void* probe_ok,
-                             void* vals, void* ids, int B, int nprobe,
-                             int cap, int n, int k, int measure, int payload,
-                             void* stream) {
-  if (B <= 0 || nprobe <= 0 || cap <= 0 || n <= 0 || n > 64 || k <= 0 ||
-      k > 32 || measure < 0 || measure > 2 || payload < 0 || payload > 2 ||
-      (payload == 2) != (scale != nullptr)) {
+                             const void* self_ids, void* vals, void* ids,
+                             int B, int nprobe, int C, int cap, int n, int k,
+                             int measure, int payload, int G, void* stream) {
+  if (B <= 0 || nprobe <= 0 || C <= 0 || cap <= 0 || n <= 0 || n > 64 ||
+      k <= 0 || k > 32 || measure < 0 || measure > 2 || payload < 0 ||
+      payload > 2 || (payload == 2) != (scale != nullptr) ||
+      (G != 1 && G != 2 && G != 4 && G != 8) ||
+      (G > 1) != (order != nullptr) || (G > 1 && C > kOrderCells)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (payload == 0)
-    return static_cast<int>(dispatch<float>(q, probe, lists, rows, scale,
-                                            fill, self_ids, probe_ok, vals,
-                                            ids, B, nprobe, cap, n, k,
-                                            measure, s));
-  if (payload == 1)
-    return static_cast<int>(dispatch<__nv_bfloat16>(
-        q, probe, lists, rows, scale, fill, self_ids, probe_ok, vals, ids, B,
-        nprobe, cap, n, k, measure, s));
-  return static_cast<int>(dispatch<int8_t>(q, probe, lists, rows, scale,
-                                           fill, self_ids, probe_ok, vals,
-                                           ids, B, nprobe, cap, n, k, measure,
-                                           s));
+  const int nv4 = (n + 3) / 4;
+#define REPRO_PROBE(NV4)                                                  \
+  return static_cast<int>(launch<NV4>(q, probe, probe_ok, order, lists,  \
+                                      rows, scale, fill, self_ids, vals,  \
+                                      ids, B, nprobe, C, cap, n, k,       \
+                                      measure, payload, G, s))
+  if (nv4 <= 2) REPRO_PROBE(2);
+  if (nv4 <= 4) REPRO_PROBE(4);
+  if (nv4 <= 5) REPRO_PROBE(5);
+  if (nv4 <= 8) REPRO_PROBE(8);
+  if (nv4 <= 12) REPRO_PROBE(12);
+  REPRO_PROBE(16);
+#undef REPRO_PROBE
 }

@@ -2,9 +2,17 @@
 query, gather its probed posting-list blocks, dequantize, score with the
 ``dense_similarity`` algebra and keep the canonical top-k, without the
 (b, nprobe·cap, n) candidate tensor ever reaching device memory.
+
+The kernel's block owns ``G`` queries that share cells: the call orders
+the queries by their first-probed (nearest) cell on the card and the
+wrapper picks ``G`` from the batch size (:func:`plan_group`), so each cell
+of a group's union is staged once per block. The order and ``G`` change
+which rows a block visits, never the result: the lists are canonical and
+each id lies in one list.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -13,6 +21,32 @@ from . import build, ref
 from .knn_topk import MAX_K, MAX_WIDTH
 
 PAYLOAD_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+GROUPS = (8, 4, 2)  # queries a block may own besides 1 (8 warps a block)
+ORDER_MAX_CELLS = 32768  # cells the kernel's counting sort holds
+
+
+def plan_group(b: int, sms: int, cells: int = 1) -> int:
+    """Queries per block: the largest of 8, 4, 2 whose grid still gives
+    every one of ``sms`` SMs two blocks, else 1 (the block's 8 warps then
+    split one query's rows and merge their lists). Grouping needs the
+    queries ordered by cell, for at most ``ORDER_MAX_CELLS`` cells."""
+    if cells > ORDER_MAX_CELLS:
+        return 1
+    return next((g for g in GROUPS if -(-b // g) >= 2 * sms), 1)
+
+
+def group_order(probe: torch.Tensor, group: int) -> Optional[torch.Tensor]:
+    """The order in which blocks take the queries: by first-probed cell, so
+    neighbouring queries probe overlapping cells; None (the queries' own
+    order) when a block owns one query. This is the plain version of the
+    kernel's counting sort, stable where the kernel's atomics leave the
+    order within a cell open."""
+    return None if group == 1 else torch.argsort(probe[:, 0], stable=True)
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def fused_probe_topk(q: torch.Tensor, probe: torch.Tensor,
@@ -72,22 +106,27 @@ def fused_probe_topk(q: torch.Tensor, probe: torch.Tensor,
         raise ValueError(f"fused_probe_topk: k={k} outside 1..{MAX_K}")
     if measure not in build.MEASURE_CODES:
         raise ValueError(f"unknown measure {measure!r}")
-    if self_ids is None:
-        self_ids = torch.full((b,), -1, dtype=torch.int32, device=dev)
-    if probe_ok is None:
-        probe_ok = torch.ones((b, nprobe), dtype=torch.int32, device=dev)
-    self_ids = self_ids.to(torch.int32).contiguous()
-    probe_ok = probe_ok.to(torch.int32).contiguous()
-    build.check_cuda("fused_probe_topk self_ids", self_ids, 1, i32, dev)
-    build.check_cuda("fused_probe_topk probe_ok", probe_ok, 2, i32, dev)
-    if self_ids.shape[0] != b or tuple(probe_ok.shape) != (b, nprobe):
-        raise ValueError("fused_probe_topk: self_ids/probe_ok shapes")
+    if self_ids is not None:
+        self_ids = self_ids.to(torch.int32).contiguous()
+        build.check_cuda("fused_probe_topk self_ids", self_ids, 1, i32, dev)
+        if self_ids.shape[0] != b:
+            raise ValueError("fused_probe_topk: self_ids/probe_ok shapes")
+    if probe_ok is not None:
+        probe_ok = probe_ok.to(torch.int32).contiguous()
+        build.check_cuda("fused_probe_topk probe_ok", probe_ok, 2, i32, dev)
+        if tuple(probe_ok.shape) != (b, nprobe):
+            raise ValueError("fused_probe_topk: self_ids/probe_ok shapes")
     vals = torch.empty((b, k), dtype=torch.float32, device=dev)
     ids = torch.empty((b, k), dtype=torch.int32, device=dev)
     if b and nprobe and c and cap:
-        build.launch("ivf_probe_f32", q, probe, lists, rows, scale, fill,
-                     self_ids, probe_ok, vals, ids, b, nprobe, cap, n, k,
-                     build.MEASURE_CODES[measure], PAYLOAD_CODES[rows.dtype])
+        group = plan_group(b, _sms(dev.index if dev.index is not None
+                                   else torch.cuda.current_device()), c)
+        order = (None if group == 1
+                 else torch.empty(b, dtype=torch.int32, device=dev))
+        build.launch("ivf_probe_f32", q, probe, probe_ok, order, lists, rows,
+                     scale, fill, self_ids, vals, ids, b, nprobe, c, cap, n,
+                     k, build.MEASURE_CODES[measure],
+                     PAYLOAD_CODES[rows.dtype], group)
         fused_probe_topk.launches += 1
     else:
         vals.fill_(float("-inf"))

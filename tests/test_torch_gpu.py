@@ -215,24 +215,66 @@ def _ivf_layout(device, c, cap, n, seed, payload="f32", empty=(0,)):
 
 @pytest.mark.parametrize("measure", MEASURES)
 @pytest.mark.parametrize("payload", ["f32", "bf16", "int8"])
-@pytest.mark.parametrize("b,c,cap,n,nprobe,k", [
-    (5976, 77, 104, 20, 19, 13), (300, 13, 40, 64, 13, 32),
-    (40, 6, 70, 20, 2, 13), (17, 5, 3, 7, 2, 13)])
+@pytest.mark.parametrize("b,c,cap,n,nprobe,k,variant", [
+    (5976, 77, 104, 20, 19, 13, "random"), (300, 13, 40, 64, 13, 32, "random"),
+    (40, 6, 70, 20, 2, 13, "random"), (17, 5, 3, 7, 2, 13, "random"),
+    # batch sizes at the group edges (G = 1, 2, 4, 8; partial last groups)
+    (1, 77, 104, 20, 19, 13, "random"), (63, 77, 104, 20, 19, 13, "random"),
+    (64, 77, 104, 20, 19, 13, "random"), (257, 77, 104, 20, 19, 13, "random"),
+    (601, 77, 104, 20, 19, 13, "random"),
+    (1055, 77, 104, 20, 19, 13, "random"),
+    (2105, 77, 104, 20, 19, 13, "random"),
+    # every query with one home cell; a home cell that is empty
+    (5976, 77, 104, 20, 19, 13, "one_home"),
+    (257, 77, 104, 20, 19, 13, "one_home"),
+    (2105, 77, 104, 20, 19, 13, "empty_home"),
+    # nprobe = C
+    (5976, 77, 104, 20, 77, 13, "random"), (64, 77, 104, 20, 77, 13, "random"),
+    # cap regrown past 128, and past one round of 256 rows
+    (3000, 20, 200, 20, 7, 13, "random"), (64, 20, 200, 20, 7, 13, "random"),
+    (2105, 9, 300, 20, 3, 13, "random"),
+    # n = 64 with k = 32 in groups of 8
+    (3000, 13, 40, 64, 5, 32, "random"),
+    # probe columns past one block's 1024 sorted entries (two segments)
+    (3000, 200, 8, 20, 150, 13, "random"),
+    # equal scores in different groups and cells; one cell masked for all
+    (2105, 11, 50, 20, 4, 13, "ties"), (2105, 11, 50, 20, 6, 13, "drop_cell"),
+])
 def test_fused_probe_kernel_matches_plain(cuda, measure, payload, b, c, cap,
-                                          n, nprobe, k):
-    """Empty cells, k above the live candidates (the last case holds at
+                                          n, nprobe, k, variant):
+    """Empty cells, k above the live candidates (the fourth case holds at
     most 6 per query), self ids, a probe_ok mask, C not a multiple of 8,
-    every payload type: values and ids bitwise equal."""
+    every payload type, and what the grouped design makes risky — group
+    edges and the split-query route, shared or empty home cells, full
+    probes, regrown caps, two segments of probe columns, ties across
+    groups and cells, a masked union cell: values and ids bitwise equal."""
     lists, rows, scale, fill, rep = _ivf_layout(cuda, c, cap, n, seed=9,
                                                 payload=payload)
     g = torch.Generator(device="cpu").manual_seed(10)
     q = _rows(b, n, cuda, seed=11)
     probe = torch.stack([torch.randperm(c, generator=g)[:nprobe]
-                         for _ in range(b)]).to(torch.int32).to(cuda)
+                         for _ in range(b)])
+    if variant in ("one_home", "empty_home"):  # cell 0 is empty
+        home = 0 if variant == "empty_home" else 1
+        rest = torch.stack([torch.randperm(c - 1, generator=g)[:nprobe - 1]
+                            for _ in range(b)])
+        probe = torch.cat([torch.full((b, 1), home),
+                           rest + (rest >= home).long()], 1)
+    if variant == "ties":  # cells 1 and 2 share rows
+        m = int(min(fill[1], fill[2]))
+        rows[2, :m] = rows[1, :m]
+        if scale is not None:
+            scale[2, :m] = scale[1, :m]
+    probe = probe.to(torch.int32).to(cuda)
     self_ids = torch.randint(-1, int(fill.sum()), (b,), generator=g
                              ).to(torch.int32).to(cuda)
     probe_ok = (torch.rand((b, nprobe), generator=g) > 0.2).to(
         torch.int32).to(cuda)
+    if variant == "ties":  # query 0 again, in other groups
+        for t in (q, probe, self_ids, probe_ok):
+            t[b // 2::7] = t[0]
+    if variant == "drop_cell":
+        probe_ok[probe == 3] = 0
     args = (q, probe, lists, rows, scale, fill)
     kw = dict(k=k, measure=measure, self_ids=self_ids, probe_ok=probe_ok)
     got = ivf_probe.fused_probe_topk(*args, **kw)
@@ -241,6 +283,9 @@ def test_fused_probe_kernel_matches_plain(cuda, measure, payload, b, c, cap,
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     if nprobe * cap < k:  # fewer candidates than slots: the tail is empty
         assert torch.isinf(got[0][:, -1]).all()
+    if variant == "ties":  # the repeated queries' lists are equal
+        assert torch.equal(got[0][b // 2::7], got[0][:1].expand(
+            len(range(b // 2, b, 7)), k))
 
 
 def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):

@@ -25,7 +25,11 @@ padding) it builds the reference's index for ``--seeds`` k-means keys and,
 over the same rows, the port's index (a) around the reference's final
 centroids, (b) by the port's k-means from the reference's initial
 centroids and (c) from the port's own generator seeds, and prints recall@k
-by id of each against the reference's exact search at a few nprobe. Each
+by id of each against the reference's exact search at a few nprobe. For
+the first seed and index (a) it then says where the two packages part:
+rows placed in another cell, probe tables at the first nprobe, and the
+exact searches' per-pair scores (the reference's GEMM against the port's
+left-to-right sums) with the ids tied at each query's k-th score. Each
 package runs in a process of its own, handing arrays over in an ``.npz``.
 """
 from __future__ import annotations
@@ -130,6 +134,7 @@ def _ref_side(args, d: dict) -> dict:
     from repro import retrieval as rt
     from repro.configs import registry
     from repro.core import RatingMatrix, fit
+    from repro.core.similarity import dense_similarity
     from repro.data.synthetic import drifting_ratings
     from repro.retrieval.kmeans import init_centroids
 
@@ -154,7 +159,28 @@ def _ref_side(args, d: dict) -> dict:
             v, i = rt.search(index, q, K, nprobe, spec.d2, self_ids=sids)
             out[f"ref/{seed}/{nprobe}"] = np.stack(
                 [np.asarray(v), np.asarray(i).astype(np.float32)])
+        if seed == 0:  # where the packages part, for the first index
+            csims = dense_similarity(q, index.centroids, spec.d2)
+            out["ref_probe"] = np.asarray(
+                jax.lax.top_k(csims, _nprobes(c)[0])[1])
+            out["ref_csims"] = np.asarray(csims)
+            out.update(_exact_inputs("ref", index))
+            out["ref_exact"] = np.asarray(dense_similarity(
+                q, jnp.asarray(out["ref_cand"]), spec.d2))
     return out
+
+
+def _exact_inputs(side: str, index) -> dict:
+    """The index's placement and its live payload rows sorted by id (the
+    candidate matrix of the exact search), as numpy."""
+    lists, fill = np.asarray(index.lists), np.asarray(index.fill)
+    rows = np.asarray(index.rows).reshape(-1, index.rows.shape[-1])
+    live = (np.arange(lists.shape[1])[None, :] < fill[:, None]).reshape(-1)
+    flat = lists.reshape(-1)
+    order = np.argsort(np.where(live, flat, 2 ** 31 - 1), kind="stable")
+    order = order[:int(live.sum())]
+    return {f"{side}_lists": lists, f"{side}_fill": fill,
+            f"{side}_ids": flat[order], f"{side}_cand": rows[order]}
 
 
 def _port_side(args, d: dict) -> dict:
@@ -165,6 +191,7 @@ def _port_side(args, d: dict) -> dict:
     from repro_torch import retrieval as rt
     from repro_torch.configs import landmark_cf as cfgs
     from repro_torch.core import RatingMatrix, fit
+    from repro_torch.kernels import ref
     from repro_torch.retrieval.kmeans import kmeans
 
     spec = dataclasses.replace(cfgs.MODEL, selection=args.selection)
@@ -194,6 +221,12 @@ def _port_side(args, d: dict) -> dict:
                 v, i = rt.search(index, q, K, nprobe, spec.d2, self_ids=sids)
                 out[f"{name}/{seed}/{nprobe}"] = np.stack(
                     [v.numpy(), i.numpy().astype(np.float32)])
+            if seed == 0 and name == "port_ref_centroids":
+                out["port_probe"] = rt.probe_cells(
+                    index, q, _nprobes(c)[0], spec.d2).numpy()
+                out.update(_exact_inputs("port", index))
+                out["port_exact"] = ref.gathered_sims(
+                    q, torch.as_tensor(out["port_cand"]), spec.d2).numpy()
     return out
 
 
@@ -220,6 +253,67 @@ def _recall_score(got, want) -> float:
     hit = (np.isfinite(gv) & (gv >= cut)).sum(1)
     n = ok.sum(1)
     return float((np.minimum(hit, n) / np.maximum(n, 1)).mean())
+
+
+def _where_they_part(d: dict, nprobe: int) -> dict:
+    """Placement, probe tables and exact per-pair scores of the reference's
+    first index against the port's index around its centroids."""
+    def cells(side):
+        lists, fill = d[f"{side}_lists"], d[f"{side}_fill"]
+        return {int(i): j for j in range(len(fill)) for i in lists[j, :fill[j]]}
+    rc, pc = cells("ref"), cells("port")
+    cs = -np.sort(-d["ref_csims"], axis=1)
+    same_ids = bool(np.array_equal(d["ref_ids"], d["port_ids"]))
+    rs, ps = d["ref_exact"], d["port_exact"]
+    out = {"rows": len(rc), "rows_in_another_cell": sum(
+        rc[i] != pc.get(i) for i in rc),
+        "probe_nprobe": nprobe, "probe_same_cells": float(np.mean(
+            [set(a) == set(b) for a, b in zip(d["ref_probe"],
+                                              d["port_probe"])])),
+        "probe_score_span": float((cs[:, 0] - cs[:, nprobe - 1]).mean()),
+        "exact_candidates_equal": same_ids}
+    if same_ids:
+        ids, qids = d["ref_ids"], d["qids"]
+        other = ids[None, :] != qids[:, None]  # the query's own row is out
+        diff = np.abs(rs - ps)[other]
+        c = int(d["cent0"].shape[0])
+        rv, ri = d[f"ref/0/{c}"]
+        pv, pi = d[f"port_ref_centroids/0/{c}"]
+        out.update(
+            exact_pair_max_abs_diff=float(diff.max()),
+            exact_pair_share_equal=float((diff == 0).mean()),
+            ids_at_kth_score_ref=float(np.mean(
+                [(rs[b][other[b]] == rv[b, K - 1]).sum()
+                 for b in range(len(qids))])),
+            ids_at_kth_score_port=float(np.mean(
+                [(ps[b][other[b]] == pv[b, K - 1]).sum()
+                 for b in range(len(qids))])),
+            queries_with_other_ids=int(sum(
+                set(a.astype(int)) != set(b.astype(int))
+                for a, b in zip(ri, pi))))
+    return out
+
+
+def _part_lines(p: dict) -> list:
+    lines = [f"where they part (seed 0, port index around the reference's "
+             f"centroids): {p['rows_in_another_cell']} of {p['rows']} rows "
+             f"in another cell; probe tables at nprobe {p['probe_nprobe']} "
+             f"hold the same cells for {p['probe_same_cells']:.3f} of the "
+             f"queries, whose {p['probe_nprobe']} nearest centroids' "
+             f"scores span {p['probe_score_span']:.3g} on average"]
+    if p["exact_candidates_equal"]:
+        lines.append(
+            f"exact searches: the same candidates; per-pair scores "
+            f"(reference GEMM vs port left-to-right sums) differ by up to "
+            f"{p['exact_pair_max_abs_diff']:.3g}, equal for "
+            f"{p['exact_pair_share_equal']:.3f} of pairs; ids tied at the "
+            f"k-th score per query: reference "
+            f"{p['ids_at_kth_score_ref']:.1f}, port "
+            f"{p['ids_at_kth_score_port']:.1f}; "
+            f"{p['queries_with_other_ids']} queries with other top-{K} ids")
+    else:
+        lines.append("exact searches: the candidate ids differ")
+    return lines
 
 
 def controlled(args, argv: list) -> int:
@@ -266,6 +360,10 @@ def controlled(args, argv: list) -> int:
                       f" — {cols}")
     print("  (mean [min, max] over seeds; 'vs port exact' is the port's "
           "full-probe search around the reference's centroids)")
+    parts = _where_they_part(d, nps[0])
+    for line in _part_lines(parts):
+        print("  " + line)
+    table["where_they_part"] = parts
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(
