@@ -11,24 +11,32 @@ non-zero and prints no result. Phases, one line each:
 1. device — the card's name, count, and ``nvidia-smi`` name and power limit;
 2. build — nvcc's seconds and its ``-Xptxas -v`` register/spill lines;
    for the tensor-core landmark-summary kernel, per route (bf16, f32) and
-   head dim: registers, static shared memory, spills, and the HGMMA
-   (wgmma) instructions that ``cuobjdump -sass`` counts in it
+   head dim, and for d1's tensor-core moments kernel, per load width:
+   registers, static shared memory, spills, and the HGMMA (wgmma)
+   instructions that ``cuobjdump -sass`` counts in it
    (``wgmma.mma_async`` in its PTX where the toolkit has no
    ``cuobjdump``) — none is a failure; for the fused IVF probe kernel, per
    padded row width, its registers, static shared memory and spills;
 3. kernels — each kernel against its plain version on the card, at the
    main-path shapes, at ragged shapes and on duplicated rows, all three
-   measures;
+   measures; d1 on both routes, the tensor-core route bitwise the f32
+   route, also at the guard's limits (|v| = 8, P = 65535), and off the
+   guard (1.1-star steps) the f32 route's result;
 4. main path — MovieLens-1M-shaped synthetic ratings (seed 0), fold 0:
    fit on all users but the last 64, predict the test pairs, top-10 for
    256 users, fold in the last 64 users and predict theirs; run (a) with
    the kernels and (b) with the plain d1 and the streaming graph, and
-   compared;
+   compared; d1's result by route for each call of (a) (each must be the
+   tensor-core route's), and (c) (a) again with d1 on its f32 route, every
+   output bitwise (a)'s;
 5. serve CLI — ``repro_torch.launch.serve`` at U=6040, P=3952, two waves;
 6. times — each kernel and its plain version (CUDA events, which include
    the host's launch cost), the kernel's own device time (profiler), its
-   launches on its path and its bound (the fused IVF probe's device time
-   counts every kernel of its call: the order, then the probe); the fused
+   launches on its path and its bound (d1's tensor-core route and the
+   fused IVF probe count every kernel of their call: the workspace memset,
+   planes, moments and finalize; the order, then the probe); d1 as two
+   rows, the tensor-core route and the f32 route forced, each also at the
+   fold-in shape; the fused
    probe again at the lifecycle's batch sizes (64 and 256 queries), with
    the groups of the graph build's call (queries a block, union cells,
    rows staged against rows probed); a profiler breakdown of one fit →
@@ -49,12 +57,14 @@ The IVF retrieval slice adds, each with its own time:
     nprobe (recall@13 against the kernel graph), at nprobe == C (equal to
     the streaming backend under the tie rule), a 64-user ivf fold-in, and
     ``search(scorer="kernel")`` against ``scorer="fused"``; kernels 4–6
-    must launch;
+    must launch, and every d1 call must keep the tensor-core route's
+    result;
 7c. lifecycle CLI — ``serve --lifecycle --retrieval ivf --early-exit``,
     once at smoke size (a refresh fires, gen 1 swaps in oracle-exact, the
     geometries stay within the buckets, mean recall >= 0.95) and once at
     full width (U=6040, P=3952, 64 arrivals and a 64-row fold-in batch per
-    wave, 8 waves); every kernel must launch in each run.
+    wave, 8 waves); every kernel must launch in each run, and every d1
+    call must keep the tensor-core route's result.
 
 The LM slice adds, each with its own time:
 
@@ -120,6 +130,7 @@ from repro_torch.kernels import (assign_clusters, build, ivf_probe,  # noqa: E40
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.kernels import landmark_attention as lsum  # noqa: E402
+from repro_torch.kernels import masked_similarity as ms  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import transformer as lm  # noqa: E402
 
@@ -137,7 +148,12 @@ BF16_TC_FLOPS = 989e12
 SFU_PER_S = 132 * 16 * 1.83e9
 
 KERNELS = {
+    # d1's two routes: bf16 wgmma moments (exact on ratings, guarded), and
+    # f32 FMAs on the CUDA cores
     "masked_similarity": dict(
+        source="src/repro_torch/kernels/csrc/masked_similarity.cu",
+        replaces="src/repro/kernels/masked_similarity.py:72"),
+    "masked_similarity_f32": dict(
         source="src/repro_torch/kernels/csrc/masked_similarity.cu",
         replaces="src/repro/kernels/masked_similarity.py:72"),
     "topk_sim": dict(
@@ -198,7 +214,12 @@ def phase_build():
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     print(f"phase 2 build: {seconds:.1f}s -> {build.BUILD_DIR / build.LIB_NAME}"
           f" | ptxas: " + " ; ".join(keep))
-    print("phase 2 tensor-core kernel: " + json.dumps(_wgmma_report(log)))
+    print("phase 2 tensor-core kernel: " + json.dumps(_wgmma_report(
+        log, "landmark_summary", _wgmma_name, 8,
+        "2 routes x 4 head dims")))
+    print("phase 2 d1 tensor-core kernel: " + json.dumps(_wgmma_report(
+        log, "masked_similarity", _d1_name, 2,
+        "16-byte and 4-byte loads")))
     print("phase 2 fused probe kernel: " + json.dumps(_ptxas(log, _probe_name)))
 
 
@@ -209,6 +230,15 @@ def _wgmma_name(line):
 
     m = re.search(r"summary_wgmma_kernelILi(\d+)ELb([01])E", line)
     return f"{('bf16', 'f32')[int(m.group(2))]} D={m.group(1)}" if m else None
+
+
+def _d1_name(line):
+    """'16-byte loads' / '4-byte loads' for a line naming an instantiation
+    of d1's tensor-core moments kernel (template <bool VEC>), else None."""
+    import re
+
+    m = re.search(r"moments_wgmma_kernelILb([01])E", line)
+    return f"{(4, 16)[int(m.group(1))]}-byte loads" if m else None
 
 
 def _probe_name(line):
@@ -243,14 +273,13 @@ def _ptxas(log, name_of):
     return report
 
 
-def _wgmma_report(log):
-    """Per instantiation of the tensor-core summary kernel (by route and
-    head dim): the ``-Xptxas -v`` registers, static shared memory and spill
-    bytes, and the wgmma instructions in its machine code. Raises if one
-    has none."""
-    wgmma_fn = "summary_wgmma_kernel"
-    report = _ptxas(log, _wgmma_name)
-    obj = build.BUILD_DIR / "landmark_summary.o"
+def _wgmma_report(log, stem, name_of, want, what):
+    """Per instantiation of a tensor-core kernel in ``csrc/<stem>.cu`` that
+    ``name_of`` names: the ``-Xptxas -v`` registers, static shared memory
+    and spill bytes, and the wgmma instructions in its machine code. Raises
+    unless ``want`` instantiations (``what``) each have some."""
+    report = _ptxas(log, name_of)
+    obj = build.BUILD_DIR / f"{stem}.o"
     cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
     if cuobjdump.exists():
         sass = subprocess.run([str(cuobjdump), "-sass", str(obj)],
@@ -259,22 +288,21 @@ def _wgmma_report(log):
         count, name = {}, None
         for ln in sass.splitlines():
             if "Function :" in ln:
-                name = _wgmma_name(ln)
+                name = name_of(ln)
             elif name and "HGMMA" in ln:
                 count[name] = count.get(name, 0) + 1
         how = "HGMMA in cuobjdump -sass"
     else:
         ptx = subprocess.run(
             [build.nvcc(), build.ARCH, "-std=c++17", "-O3", "-ptx", "-o", "-",
-             str(build.CSRC / "landmark_summary.cu")],
+             str(build.CSRC / f"{stem}.cu")],
             capture_output=True, text=True, check=True).stdout
         count = {"all": ptx.count("wgmma.mma_async")}
         how = "wgmma.mma_async in the PTX"
     if not count or min(count.values()) == 0 or (
-            "all" not in count and len(count) != 8):
-        raise AssertionError(f"{wgmma_fn}: not 8 instantiations (2 routes "
-                             f"x 4 head dims) each with wgmma ({how}: "
-                             f"{count})")
+            "all" not in count and len(count) != want):
+        raise AssertionError(f"{stem}: not {want} instantiations ({what}) "
+                             f"each with wgmma ({how}: {count})")
     return {"instructions": how, "count": count, "ptxas": report}
 
 
@@ -319,22 +347,61 @@ def phase_kernels(train):
     notes = []
 
     def d1(tag, a, b, main):
+        """Both routes against the plain version; the tensor-core route
+        (guard on) bitwise the f32 route for every measure."""
         for measure in sim.MEASURES:
-            got = ops.masked_similarity(a, b, measure)
             want = ref.masked_similarity_ref(a, b, measure)
-            sync()
-            if measure == "cosine" and not torch.equal(got, want):
-                raise AssertionError(f"masked_similarity {tag}: cosine on "
-                                     f"integer ratings is not bitwise equal")
-            torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
-            e = float((got - want).abs().max())
-            if main:
-                err["masked_similarity"] = max(err["masked_similarity"], e)
+            f32 = ops.masked_similarity(a, b, measure, route="f32")
+            for route, got in (("tensor_core", ops.masked_similarity(
+                    a, b, measure)), ("f32", f32)):
+                sync()
+                if measure == "cosine" and not torch.equal(got, want):
+                    raise AssertionError(f"masked_similarity {tag} {route}: "
+                                         f"cosine on integer ratings is not "
+                                         f"bitwise equal")
+                torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+                if not torch.equal(got, f32):
+                    raise AssertionError(f"masked_similarity {tag} "
+                                         f"{measure}: the tensor-core route "
+                                         f"is not bitwise the f32 route")
+                e = float((got - want).abs().max())
+                if main:
+                    key = "masked_similarity" + (
+                        "_f32" if route == "f32" else "")
+                    err[key] = max(err[key], e)
         notes.append(f"d1 {tag} {tuple(a.shape)}x{tuple(b.shape)} ok")
 
+    err["masked_similarity_f32"] = 0.0
+    ops.reset_launches()
     d1("fit", fit_r, lm, True)
     d1("fold-in", new_r, lm, True)
     d1("ragged", ra[:1000], ra[1000:], False)
+    # the guard's limits: ±8, ±7.5 and ½ at the largest P the route takes
+    # (every x and y up to 64·P, just under 2^22), bitwise the f32 route
+    rng = np.random.default_rng(13)
+    big = rng.choice([-8.0, -7.5, 0.5, 7.5, 8.0], (155, ref.D1_MAX_ITEMS))
+    big *= rng.random(big.shape) < 0.7
+    big[:3] = 8.0
+    big = torch.as_tensor(big.astype(np.float32), device=DEVICE)
+    d1("guard limits", big[:130], big[130:], False)
+    results = ms.route_results()
+    if results != {"tensor_core": 12, "f32_fallback": 0}:
+        raise AssertionError(f"d1 on ratings: results {results}, not 12 "
+                             f"tensor-core results")
+    # off the guard (1.1-star steps): the f32 route's result, bitwise
+    off = ra[:1000] * 1.1
+    for measure in sim.MEASURES:
+        got = ops.masked_similarity(off, ra[1000:], measure)
+        want = ops.masked_similarity(off, ra[1000:], measure, route="f32")
+        sync()
+        if not torch.equal(got, want):
+            raise AssertionError("d1 off the guard: not the f32 route's "
+                                 "result")
+    results = ms.route_results()
+    if results != {"tensor_core": 12, "f32_fallback": 3}:
+        raise AssertionError(f"d1 off the guard: results {results}")
+    notes.append(f"d1 guard: P={ref.D1_MAX_ITEMS} at |v| <= 8 bitwise; "
+                 f"1.1-steps take the f32 result ({results})")
 
     rep = sim.masked_similarity(train, lm)  # (U, n) as the main path makes it
     rag = sim.masked_similarity(ra[:1001], ra[:20])
@@ -394,13 +461,21 @@ def _pairs(test_idx, d, lo, hi):
             d.ratings[sel])
 
 
-def run_main_path(train, d, test_idx, kernels):
+def _d1_f32(r_a, r_b, measure="cosine"):
+    """d1 forced onto its f32 route (the kernel before the tensor-core
+    route existed)."""
+    return ops.masked_similarity(r_a, r_b, measure, route="f32")
+
+
+def run_main_path(train, d, test_idx, kernels, sim_fn=None):
     """fit → predict → top-N → fold-in → predict, on the card. ``kernels``
-    False forces the plain d1 and the streaming graph. Returns the outputs,
-    the launch counts of this run, and its wall times."""
+    False forces the plain d1 and the streaming graph; ``sim_fn`` replaces
+    the default d1. Returns the outputs, the launch counts of this run (d1's
+    f32-route launches as ``masked_similarity_f32``), d1's results by route
+    after fit and after fold-in, and its wall times."""
     spec = cfg.MODEL
     u_fit = train.shape[0] - FOLD_IN
-    sim_fn = None if kernels else sim.masked_similarity
+    sim_fn = sim_fn if kernels else sim.masked_similarity
     backend = "auto" if kernels else "streaming"
     fit_pairs = _pairs(test_idx, d, 0, u_fit)
     new_pairs = _pairs(test_idx, d, u_fit, train.shape[0])
@@ -413,6 +488,7 @@ def run_main_path(train, d, test_idx, kernels):
              backend=backend)
     sync()
     t_fit = time.perf_counter() - t0
+    d1_fit = ms.route_results()
     pred_fit = predict(st, fit_pairs[0], fit_pairs[1], spec)
     top_i, top_s = knn.recommend_topn_graph(st.graph, st.ratings, rec_users,
                                             n=10)
@@ -424,10 +500,27 @@ def run_main_path(train, d, test_idx, kernels):
     pred_new = predict(st2, new_pairs[0], new_pairs[1], spec)
     sync()
     counts = ops.launch_counts()
+    counts["masked_similarity_f32"] = ms.masked_similarity.route_launches[
+        "f32"]
+    d1_all = ms.route_results()
+    d1 = {"fit": d1_fit, "fold-in": {k: d1_all[k] - d1_fit[k]
+                                     for k in d1_all}}
     return dict(state=st, folded=st2, pred_fit=pred_fit, pred_new=pred_new,
                 top=(top_i, top_s), rec_users=rec_users, fit_pairs=fit_pairs,
-                new_pairs=new_pairs, counts=counts, t_fit=t_fit,
+                new_pairs=new_pairs, counts=counts, d1=d1, t_fit=t_fit,
                 t_fold=t_fold)
+
+
+def _check_d1_routes(where, counts, results):
+    """Every d1 call of a run took the tensor-core route and kept its
+    result: none went to the f32 route, none had its result replaced."""
+    n = counts["masked_similarity"]
+    if not (n > 0 and counts["masked_similarity_f32"] == 0
+            and results == {"tensor_core": n, "f32_fallback": 0}):
+        raise AssertionError(f"{where}: d1 calls {n}, f32-route launches "
+                             f"{counts['masked_similarity_f32']}, results "
+                             f"{results}: not every call took the "
+                             f"tensor-core route's result")
 
 
 def _same_sets(ga, gb):
@@ -445,6 +538,33 @@ def phase_main_path(train, d, test_idx):
                              f"{a['counts']}")
     if any(b["counts"].values()):
         raise AssertionError(f"plain run launched kernels: {b['counts']}")
+    for step, results in a["d1"].items():
+        if results != {"tensor_core": 1, "f32_fallback": 0}:
+            raise AssertionError(f"main path {step}: d1 results {results}, "
+                                 f"not one tensor-core result")
+    _check_d1_routes("main path", a["counts"], {
+        k: a["d1"]["fit"][k] + a["d1"]["fold-in"][k]
+        for k in a["d1"]["fit"]})
+    # (c): the same run with d1 on its f32 route, the kernel the tensor-core
+    # route replaced on this path: every output bitwise equal
+    c = run_main_path(train, d, test_idx, kernels=True, sim_fn=_d1_f32)
+    same_c = {
+        "representation": torch.equal(a["state"].representation,
+                                       c["state"].representation),
+        "folded representation": torch.equal(
+            a["folded"].representation, c["folded"].representation),
+        "graph": all(torch.equal(x, y) for x, y in (
+            (a["state"].graph.weights, c["state"].graph.weights),
+            (a["state"].graph.indices, c["state"].graph.indices),
+            (a["folded"].graph.weights, c["folded"].graph.weights),
+            (a["folded"].graph.indices, c["folded"].graph.indices))),
+        "predictions": torch.equal(a["pred_fit"], c["pred_fit"])
+        and torch.equal(a["pred_new"], c["pred_new"]),
+        "top-N": all(torch.equal(x, y) for x, y in zip(a["top"], c["top"]))}
+    if not all(same_c.values()) or c["counts"]["masked_similarity_f32"] != 2:
+        raise AssertionError(f"main path, d1 tensor-core vs f32 route: "
+                             f"bitwise {same_c}, f32 launches "
+                             f"{c['counts']['masked_similarity_f32']}")
     sa, sb = a["state"], b["state"]
     if not torch.equal(sa.landmark_idx, sb.landmark_idx):
         raise AssertionError("landmark ids differ")
@@ -491,6 +611,8 @@ def phase_main_path(train, d, test_idx):
     print(f"phase 4 main path: U={train.shape[0]} P={train.shape[1]} "
           f"n={cfg.MODEL.n_landmarks} k={cfg.MODEL.k_neighbors} "
           f"launches(a)={a['counts']} launches(b)={b['counts']} "
+          f"d1 results by call (a) {json.dumps(a['d1'])}; (c) d1 on the "
+          f"f32 route: every output bitwise (a)'s ({', '.join(same_c)}) | "
           f"fit(a)={a['t_fit']:.3f}s fold-in(a)={a['t_fold']:.4f}s | "
           + json.dumps(out))
     return a, peak
@@ -519,7 +641,10 @@ def _event_ms(fn, iters):
 
 # the device functions of each wrapper, as the profiler names them
 DEVICE_FUNCS = {
-    "masked_similarity": ("masked_similarity_kernel",),
+    # the tensor-core route: every kernel of the call (the workspace memset,
+    # the planes, the moments, the finalize launch)
+    "masked_similarity": None,
+    "masked_similarity_f32": ("masked_similarity_kernel",),
     "topk_sim": ("topk_scan_kernel",),
     "foldin_topk": ("topk_scan_kernel", "topk_merge_kernel"),
     "assign_clusters": ("assign_kernel",),
@@ -601,6 +726,20 @@ def _profile(run):
     return {"kernels_launched": len(spans), "device_busy_ms": busy / 1e3,
             "window_ms": window / 1e3, "idle_share": 1 - busy / window,
             "top_ms": dict(top)}
+
+
+def _d1_bound(a, b, p, tensor_core):
+    """(least ms, what sets it) for d1 on (a, p) against (b, p): r_a and
+    r_b read once, the (a, b) output written once; the tensor-core route's
+    bf16 products, 2·a·p·(24 + 48 + 64) per N tile of 21 landmarks, at the
+    tensor cores' rate, or the f32 route's 12·a·b·p FMA work at the f32
+    rate."""
+    nbytes = 4 * (a * p + b * p + a * b)
+    if not tensor_core:
+        return _bound(nbytes, 12 * a * b * p)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * a * p * 136 * -(-b // 21) / BF16_TC_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def _bound(bytes_moved, flops):
@@ -720,12 +859,19 @@ def phase_times(train, a, err, peak, life_counts):
     cand = torch.cat([rows, new])
     b = new.shape[0]
     c = cand.shape[0]
+    new_r = train[u_fit:]
     calls = {
         "masked_similarity": (
             lambda: ops.masked_similarity(st.ratings, lm),
             lambda: ref.masked_similarity_ref(st.ratings, lm),
-            4 * (u_fit * p + n * p + u_fit * n), 12 * u_fit * n * p,
-            f"A={u_fit} B={n} P={p} (fit; fold-in A={b})"),
+            *_d1_bound(u_fit, n, p, True),
+            f"A={u_fit} B={n} P={p} (fit), tensor-core route; every kernel "
+            f"of the call (workspace memset, planes, moments, finalize)"),
+        "masked_similarity_f32": (
+            lambda: _d1_f32(st.ratings, lm),
+            lambda: ref.masked_similarity_ref(st.ratings, lm),
+            *_d1_bound(u_fit, n, p, False),
+            f"A={u_fit} B={n} P={p} (fit), f32 route forced"),
         "topk_sim": (
             lambda: knn_topk.topk_sim(rows, rows, k, exclude_self=True),
             lambda: ref.topk_sim_ref(rows, rows, k, exclude_self=True),
@@ -740,15 +886,25 @@ def phase_times(train, a, err, peak, life_counts):
     launches = a["counts"]
     table = []
     for name, (kern, plain, nbytes, flops, shape) in calls.items():
-        bound_ms, bound_by = _bound(nbytes, flops)
-        ms = _event_ms(kern, 50)
+        if name.startswith("masked_similarity"):
+            bound_ms, bound_by = nbytes, flops
+        else:
+            bound_ms, bound_by = _bound(nbytes, flops)
         table.append(dict(
             name=name, route="cuda", **KERNELS[name], shape=shape,
             launches=launches[name], launches_lifecycle=life_counts[name],
-            max_abs_err=err[name], max_err=err[name], ms=ms,
-            plain_ms=_event_ms(plain, 10),
+            max_abs_err=err[name], max_err=err[name],
+            ms=_event_ms(kern, 50), plain_ms=_event_ms(plain, 10),
             bound_ms=bound_ms, bound_us=bound_ms * 1e3, bound_by=bound_by,
             library_ms=None, device_ms=_device_ms(kern, name)))
+    # d1 at the fold-in shape, both routes, beside rows 1 and 1′
+    for row, fn in zip(table[:2], (ops.masked_similarity, _d1_f32)):
+        call = lambda fn=fn: fn(new_r, lm)
+        row.update(foldin_shape=f"A={b} B={n} P={p}",
+                   foldin_ms=_event_ms(call, 50),
+                   foldin_device_ms=_device_ms(call, row["name"]),
+                   foldin_bound_ms=_d1_bound(b, n, p, row["name"] ==
+                                             "masked_similarity")[0])
     spec = cfg.MODEL
     users, items = (x[:256] for x in a["fit_pairs"][:2])
     print("phase 6 profile: " + json.dumps(_profile(
@@ -933,8 +1089,15 @@ def phase_ivf_path(train, a):
                        scorer="fused")
     sync()
     counts = ops.launch_counts()
+    counts["masked_similarity_f32"] = ms.masked_similarity.route_launches[
+        "f32"]
+    d1 = ms.route_results()
     if not all(counts[name] > 0 for name in IVF_KERNELS):
         raise AssertionError(f"an IVF kernel did not launch: {counts}")
+    _check_d1_routes("IVF path", counts, d1)
+    if not torch.equal(st.representation, a["state"].representation):
+        raise AssertionError("IVF path: the fit's representation differs "
+                             "from the main path's")
     # the two scorers score with one algebra in one order: equal values
     # slot by slot; ids differ only in the order of exact ties
     if not torch.equal(kv, fv):
@@ -962,7 +1125,8 @@ def phase_ivf_path(train, a):
           f"recall@13 {rec_fold:.4f}; nprobe=C equals streaming under the "
           f"tie rule ({swapped} of {u_fit} rows with a tie swapped at the "
           f"cut); kernel vs fused "
-          f"scorer equal; launches {counts} | "
+          f"scorer equal; launches {counts}; d1 results {d1}, the "
+          f"representation bitwise the main path's | "
           f"{time.perf_counter() - t0:.1f}s")
     return counts
 
@@ -988,12 +1152,16 @@ def phase_lifecycle():
                         "ivf", "--early-exit", "--ckpt", str(ckpt)] + argv)
         sync()
         counts = ops.launch_counts()
+        counts["masked_similarity_f32"] = ms.masked_similarity.route_launches[
+            "f32"]
+        d1 = ms.route_results()
         text = buf.getvalue()
         print(text, end="")
         idle = [name for name in CF_KERNELS if not counts[name] > 0]
         if idle:
             raise AssertionError(f"lifecycle {tag}: {idle} never launched "
                                  f"({counts})")
+        _check_d1_routes(f"lifecycle {tag}", counts, d1)
         for want in ("cf lifecycle: done", "geometries per request-path"):
             if want not in text:
                 raise AssertionError(f"lifecycle {tag}: missing {want!r}")
@@ -1011,7 +1179,8 @@ def phase_lifecycle():
             raise AssertionError(f"lifecycle smoke recall {mean}")
         out[tag] = counts
         print(f"phase 7c lifecycle CLI ({tag}): mean recall {mean:.3f}, "
-              f"launches {counts} | {time.perf_counter() - t0:.1f}s")
+              f"launches {counts}, d1 results {d1} | "
+              f"{time.perf_counter() - t0:.1f}s")
     shutil.rmtree(ckpt, ignore_errors=True)
     return out["full"]
 

@@ -82,6 +82,7 @@ using repro::mbar_arrive;
 using repro::mbar_expect_tx;
 using repro::mbar_init;
 using repro::mbar_wait;
+using repro::pack_bf16;
 using repro::pin;
 using repro::sm90_desc;
 using repro::smem_addr;
@@ -153,12 +154,6 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
-}
-
-// two floats as a bf16x2 register (round to nearest), `a` in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<uint32_t*>(&h);
 }
 
 // the low and high bf16 halves of a bf16x2 register, as floats

@@ -1,4 +1,5 @@
-// Masked co-rated similarity (d1) for Hopper, f32 on CUDA cores.
+// Masked co-rated similarity (d1) for Hopper: a tensor-core route (bf16
+// wgmma, exact on rating data) and an f32 route on the CUDA cores.
 //
 // Replaces the TPU kernel src/repro/kernels/masked_similarity.py,
 // masked_similarity_kernel (body _kernel): the six co-rated moments
@@ -8,29 +9,106 @@
 // with 0 where c <= 1. A rating of 0 means "missing", so the masks are
 // built on the fly from the values themselves.
 //
-// What bounds it on an H100: at the fit shape (A = 6040 users, B = 20
-// landmarks, P = 3952 items) it moves ~96 MB (R read once) but does
-// 12·A·B·P = 5.7 GFLOP of f32 FMA work, so it is bound by operations
-// (~86 µs at the 67 TFLOP/s f32 peak) well before bytes (~29 µs).
-// The design keeps every moment in registers and reads each R tile from
-// device memory once per column tile of B: one block owns a 32×32 output
-// tile (256 threads, 2×2 outputs each, 24 accumulators a thread), streams
-// P in 64-wide shared-memory tiles of both operands, and applies the
-// epilogue in the same order of operations as the plain version
-// (core/similarity.py::_finalize) with round-to-nearest intrinsics the
-// compiler may not contract. On integer ratings every moment is an exact
-// integer in f32 while P·25 < 2^24, so cosine agrees with the plain
-// version bitwise. bf16 tensor cores are exact on such data too and would
-// move it to the memory bound; that is later work.
+// What bounds it on an H100: at the fit shape (A = 5976 users, B = 20
+// landmarks, P = 3952 items) R is read once, 95.3 MB: 0.0284 ms at
+// 3.35 TB/s. On the CUDA cores the 12·A·B·P = 5.7 GFLOP of f32 work take
+// 0.0846 ms at 67 TFLOP/s, so the f32 route is bound by operations; on the
+// tensor cores (bf16 products of 2·A·N·P with N = 24 + 48 + 64 per 21
+// landmarks, 6.4 GFLOP at 989 TFLOP/s, 0.0065 ms) the bytes bound it.
+//
+// Tensor-core route: planes_kernel, moments_wgmma_kernel, then the f32
+// kernel's finalize mode.
+// - exactness: on values that are multiples of ½ with |v| ≤ 8 every
+//   operand a, a², [a≠0] (and the same of b) is exact in bf16, every
+//   product a multiple of ¼ exact in f32, and every partial sum, in any
+//   order, a multiple of ¼ below 64·P ≤ 2^22 while P < 65536: exact in
+//   f32. So the moments equal the f32 route's bit for bit, and so does the
+//   epilogue, which both routes share. Ratings 1..5 with 0 for missing are
+//   such values (whole and half stars);
+// - the guard: both kernels check every value they read and raise a flag
+//   in the workspace on one the route cannot hold exactly (NaN and ±inf
+//   included); the finalize launch, in the same stream, reads the flag and
+//   computes the f32 route instead when it is set. No host sync. P is
+//   checked on the host;
+// - planes_kernel writes the landmark planes [b≠0 ; b ; b²] (3 × 21
+//   landmarks in N = 64, one zero column) once per call, as bf16 8 KB tiles
+//   of 64 items already in the shared-memory layout wgmma reads (MN-major,
+//   128-byte swizzle): 0.5 MB at the fit shape;
+// - moments_wgmma_kernel: one block of two warpgroups owns 128 rows of r_a
+//   and one N tile. Per k16 step each thread reads its A fragment's eight
+//   f32 values from shared memory, checks them, and forms a, [a≠0] and a²
+//   as bf16 register fragments; three wgmmas with A from registers against
+//   the same B tile give a²·[b≠0] (x; m64n24), a·[b≠0 ; b] (sx, z; m64n48)
+//   and [a≠0]·[b≠0 ; b ; b²] (c, sy, y; m64n64): 12 + 24 + 32 f32
+//   accumulators a thread. R never goes to device memory in bf16;
+// - the item order inside a k16 step is permuted so that a thread's four
+//   values of one row (logical k 2t, 2t+1, 2t+8, 2t+9) are four adjacent
+//   items: one 16-byte shared-memory read, conflict-free by an XOR of the
+//   chunk index with the row's parity. The planes are written in the same
+//   order (row k of a step holds item perm⁻¹(k)), so the sums are the same;
+// - loading: a ring of four slots of 64 items, two stages loaded ahead by
+//   cp.async from all 256 threads: the planes tile (8 KB) and the A tile
+//   (128 × 64 f32, 32 KB), 16-byte copies where P % 4 == 0 and r_a is
+//   16-byte aligned (P = 3952), 4-byte copies otherwise; copies past A or P
+//   zero-fill. No padded copy of R is made. A stage's wgmmas run on while
+//   the next stage is converted (wait_group 1), so a slot is reloaded only
+//   two stages after its products were issued;
+// - filling the card: the (row tile, N tile, stage) units are split evenly
+//   over one block per SM (stream-K). A block flushes its partial moments
+//   with f32 atomicAdd into a (6, B, A) workspace when its tile changes and
+//   at its end; every partial sum is exact, so any order gives the same
+//   bits. A = 5976 has 47 row tiles, A = 64 (a fold-in batch) one: both
+//   keep every SM busy;
+// - the finalize launch is the f32 kernel in finalize mode: one block per
+//   32 × 32 outputs reads the six moments, applies finalize() unchanged,
+//   and writes its outputs through shared memory in row order.
+//
+// f32 route (masked_similarity_kernel): every moment in registers, each R
+// tile read from device memory once per column tile of B: one block owns a
+// 32×32 output tile (256 threads, 2×2 outputs each, 24 accumulators a
+// thread), streams P in 64-wide shared-memory tiles of both operands. On
+// integer ratings every moment is an exact integer in f32 while
+// P·25 < 2^24.
+//
+// Both routes apply the epilogue in the same order of operations as the
+// plain version (core/similarity.py::_finalize) with round-to-nearest
+// intrinsics the compiler may not contract, so cosine on integer ratings
+// agrees with the plain version bitwise.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
+
+using repro::pack_bf16;
+using repro::pin;
+using repro::sm90_desc;
+using repro::smem_addr;
+using repro::wgmma_wait;
 
 constexpr float kEps = 1e-8f;
 constexpr int kBA = 32;   // rows of r_a per block
 constexpr int kBB = 32;   // rows of r_b per block
 constexpr int kBP = 64;   // items per shared-memory tile
 constexpr int kThreads = 256;  // 16 x 16 threads, 2 x 2 outputs each
+
+// tensor-core route
+constexpr int kMaxItems = 65535;  // P < 2^16 keeps every sum below 2^22
+constexpr float kGuardMax = 8.0f;
+constexpr int kWGs = 2;                  // consumer warpgroups a block
+constexpr int kRows = 64 * kWGs;         // rows of r_a a block
+constexpr int kTcThreads = 128 * kWGs;
+constexpr int kItems = 64;               // items a stage: four k16 steps
+constexpr int kLm = 21;                  // landmarks an N tile (3 · 21 ≤ 64)
+constexpr int kStages = 4;
+constexpr int kAhead = kStages - 2;  // stages loaded ahead of the one used
+constexpr int kPlaneBytes = kItems * 128;    // bf16 planes: 64 k rows × 64 n
+constexpr int kAStage = kRows * kItems * 4;  // f32 A tile, 32 KB
+constexpr int kStageBytes = kPlaneBytes + kAStage;  // a multiple of 1024
+constexpr size_t kTcSmem = 1024 + kStages * kStageBytes;
+enum Moment { kZ = 0, kX, kY, kC, kSx, kSy };
 
 __device__ __forceinline__ float finalize(int measure, float z, float x,
                                           float y, float c, float sx,
@@ -53,20 +131,55 @@ __device__ __forceinline__ float finalize(int measure, float z, float x,
   return __fsqrt_rn(fmaxf(d2, 0.0f));
 }
 
+// The f32 route, and the tensor-core route's finalize launch.
+// `moments` null: the f32 route. Else the (6, B, A) moments of the
+// tensor-core route: finalized here unless `*flag` is set (a value failed
+// the route's guard), in which case the f32 route runs instead; `results`
+// counts [finalized, f32 instead] calls.
 __global__ void __launch_bounds__(kThreads)
 masked_similarity_kernel(const float* __restrict__ ra,
                          const float* __restrict__ rb,
                          float* __restrict__ out, int A, int B, int P,
-                         int measure) {
+                         int measure, const float* __restrict__ moments,
+                         const int* __restrict__ flag,
+                         int* __restrict__ results) {
   // transposed tiles: [item][row]; the +1 pad keeps the transposing
   // stores free of bank conflicts
   __shared__ float as[kBP][kBA + 1];
   __shared__ float bs[kBP][kBB + 1];
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
   const int a0 = blockIdx.x * kBA;
   const int b0 = blockIdx.y * kBB;
+  const bool first = blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0;
 
+  if (moments != nullptr && *flag == 0) {
+    // thread: row a0 + r, columns b0 + cg + 8j; as[col][row] holds the
+    // tile so that the outputs leave in row order
+    const int r = threadIdx.x & 31, cg = threadIdx.x >> 5;
+    const size_t plane = static_cast<size_t>(A) * B;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = cg + 8 * j, gr = a0 + r, gc = b0 + col;
+      float v = 0.0f;
+      if (gr < A && gc < B) {
+        const float* m = moments + static_cast<size_t>(gc) * A + gr;
+        v = finalize(measure, m[kZ * plane], m[kX * plane], m[kY * plane],
+                     m[kC * plane], m[kSx * plane], m[kSy * plane]);
+      }
+      as[col][r] = v;
+    }
+    __syncthreads();
+    const int na = min(kBA, A - a0), nb = min(kBB, B - b0);
+    for (int i = threadIdx.x; i < na * nb; i += kThreads) {
+      const int rr = i / nb, cc = i % nb;
+      out[static_cast<size_t>(a0 + rr) * B + b0 + cc] = as[cc][rr];
+    }
+    if (first) atomicAdd(&results[0], 1);
+    return;
+  }
+  if (moments != nullptr && first) atomicAdd(&results[1], 1);
+
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
   float z[2][2] = {}, x[2][2] = {}, y[2][2] = {};
   float c[2][2] = {}, sx[2][2] = {}, sy[2][2] = {};
 
@@ -125,6 +238,324 @@ masked_similarity_kernel(const float* __restrict__ ra,
   }
 }
 
+// ------------------------------------------------------ tensor-core route
+// a value the route holds exactly: a multiple of ½ with |v| ≤ 8 (false for
+// NaN and ±inf)
+__device__ __forceinline__ bool exact_value(float v) {
+  const float t = __fmul_rn(v, 2.0f);
+  return fabsf(v) <= kGuardMax && t == rintf(t);
+}
+
+// [a≠0], [b≠0] as a bf16x2 register
+__device__ __forceinline__ uint32_t pack_mask(float a, float b) {
+  return (a != 0.0f ? 0x3F80u : 0u) | (b != 0.0f ? 0x3F800000u : 0u);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// shared-memory stores of this thread → visible to wgmma's operand reads
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+template <int K>
+__device__ __forceinline__ void zero(float (&r)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) r[i] = 0.0f;
+}
+
+// byte offset of bf16 (k, n) in a planes tile: 128-byte rows of 64 n,
+// 16-byte chunks swizzled by k mod 8 (the layout TMA's 128-byte swizzle
+// writes, MN-major)
+__device__ __forceinline__ uint32_t plane_offset(int k, int n) {
+  return k * 128 + ((((n >> 3) ^ (k & 7))) << 4) + (n & 7) * 2;
+}
+
+// The landmark planes of every (N tile, stage), as the moments kernel
+// stages them: block (ks, n) writes the 8 KB tile of items 64·ks.. of
+// landmarks 21·n.., [b≠0 ; b ; b²] in columns 0.., 21.., 42.. (63 zero),
+// physical item p of a k16 step in its logical row
+// 2·(p/4) + (p & 1) + 8·((p/2) & 1). Raises `flag` on a value the route
+// cannot hold.
+__global__ void __launch_bounds__(kThreads)
+planes_kernel(const float* __restrict__ rb, uint4* __restrict__ planes,
+              int* __restrict__ flag, int B, int P, int k_stages) {
+  __shared__ __align__(16) uint8_t tile[kPlaneBytes];
+  const int ks = blockIdx.x, n = blockIdx.y, tid = threadIdx.x;
+  for (int i = tid; i < kPlaneBytes / 16; i += kThreads) {
+    reinterpret_cast<uint4*>(tile)[i] = make_uint4(0, 0, 0, 0);
+  }
+  __syncthreads();
+  bool ok = true;
+  for (int e = tid; e < kLm * kItems; e += kThreads) {
+    const int l = e >> 6, item = e & 63;
+    const int gl = n * kLm + l, gi = ks * kItems + item;
+    const float v = gl < B && gi < P ? rb[static_cast<size_t>(gl) * P + gi]
+                                     : 0.0f;
+    ok &= exact_value(v);
+    const int p = item & 15;
+    const int k = (item & ~15) | ((p >> 2) << 1) | (p & 1) | ((p & 2) << 2);
+    *reinterpret_cast<uint16_t*>(tile + plane_offset(k, l)) =
+        v != 0.0f ? 0x3F80u : 0u;
+    *reinterpret_cast<__nv_bfloat16*>(tile + plane_offset(k, kLm + l)) =
+        __float2bfloat16_rn(v);
+    *reinterpret_cast<__nv_bfloat16*>(tile + plane_offset(k, 2 * kLm + l)) =
+        __float2bfloat16_rn(__fmul_rn(v, v));
+  }
+  if (!ok) *flag = 1;
+  __syncthreads();
+  uint4* dst = planes + (static_cast<size_t>(n) * k_stages + ks) *
+                            (kPlaneBytes / 16);
+  for (int i = tid; i < kPlaneBytes / 16; i += kThreads) {
+    dst[i] = reinterpret_cast<const uint4*>(tile)[i];
+  }
+}
+
+// Stage unit u (tile = u / k_stages, stage u % k_stages; tile = m·NT + n)
+// into ring slot `dst`: the N tile's planes for the stage (8 KB), then the
+// A tile (128 rows × 64 items f32, row r's 16-byte chunk c at c ^ 4·(r & 1)).
+template <bool VEC>
+__device__ __forceinline__ void stage_unit(const float* __restrict__ ra,
+                                           const uint4* __restrict__ planes,
+                                           uint32_t dst, long long u,
+                                           int k_stages, int n_tiles, int A,
+                                           int P) {
+  const long long tile = u / k_stages;
+  const int ks = static_cast<int>(u - tile * k_stages);
+  const int m = static_cast<int>(tile / n_tiles);
+  const int n = static_cast<int>(tile - static_cast<long long>(m) * n_tiles);
+  const int row0 = m * kRows, item0 = ks * kItems;
+  const int tid = threadIdx.x;
+  const uint4* src = planes + (static_cast<size_t>(n) * k_stages + ks) *
+                                  (kPlaneBytes / 16);
+#pragma unroll
+  for (int i = 0; i < kPlaneBytes / 16 / kTcThreads; ++i) {
+    const int q = tid + i * kTcThreads;
+    cp_async16(dst + q * 16, src + q, 16);
+  }
+  const uint32_t a_dst = dst + kPlaneBytes;
+  if constexpr (VEC) {
+#pragma unroll
+    for (int i = 0; i < kRows * 16 / kTcThreads; ++i) {
+      const int q = tid + i * kTcThreads;
+      const int r = q >> 4, c = q & 15;
+      const int gr = row0 + r, gi = item0 + 4 * c;
+      const bool live = gr < A && gi < P;
+      cp_async16(a_dst + r * 256 + ((c ^ ((r & 1) << 2)) << 4),
+                 live ? ra + static_cast<size_t>(gr) * P + gi : ra,
+                 live ? 16 : 0);
+    }
+  } else {
+#pragma unroll 4
+    for (int i = 0; i < kRows * kItems / kTcThreads; ++i) {
+      const int e = tid + i * kTcThreads;
+      const int r = e >> 6, it = e & 63;
+      const int gr = row0 + r, gi = item0 + it;
+      const bool live = gr < A && gi < P;
+      cp_async4(a_dst + r * 256 + ((((it >> 2) ^ ((r & 1) << 2))) << 4) +
+                    (it & 3) * 4,
+                live ? ra + static_cast<size_t>(gr) * P + gi : ra,
+                live ? 4 : 0);
+    }
+  }
+}
+
+// Partial moments of this warp's 16 rows → the (6, B, A) workspace.
+// Accumulator element 4j + e: row gid + 8·(e >> 1), column
+// 8j + 2·tig + (e & 1) = 21·plane + landmark of [b≠0 ; b ; b²]: a² times
+// the first 24 columns (x), a times the first 48 (sx, z), [a≠0] times all
+// 64 (c, sy, y).
+__device__ __forceinline__ void flush(float* __restrict__ ws,
+                                      const float (&acc_q)[12],
+                                      const float (&acc_a)[24],
+                                      const float (&acc_m)[32], int row_base,
+                                      int lm0, int A, int B) {
+  const int lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const size_t mstride = static_cast<size_t>(B) * A;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = row_base + gid + 8 * (e >> 1);
+      const int col = 8 * j + 2 * tig + (e & 1);
+      const int plane = col / kLm, l = lm0 + col - plane * kLm;
+      if (row >= A || l >= B || plane > 2) continue;
+      float* w = ws + static_cast<size_t>(l) * A + row;
+      const float vm = acc_m[4 * j + e];
+      if (vm != 0.0f) {
+        atomicAdd(w + mstride * (plane == 0 ? kC : plane == 1 ? kSy : kY),
+                  vm);
+      }
+      if (j < 6 && plane < 2 && acc_a[4 * j + e] != 0.0f) {
+        atomicAdd(w + mstride * (plane == 0 ? kSx : kZ), acc_a[4 * j + e]);
+      }
+      if (j < 3 && plane == 0 && acc_q[4 * j + e] != 0.0f) {
+        atomicAdd(w + mstride * kX, acc_q[4 * j + e]);
+      }
+    }
+  }
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(kTcThreads, 1)
+moments_wgmma_kernel(const float* __restrict__ ra,
+                     const uint4* __restrict__ planes, float* __restrict__ ws,
+                     int* __restrict__ flag, int A, int B, int P,
+                     int k_stages, int n_tiles, long long units) {
+  extern __shared__ uint8_t smem_raw[];
+  // slots on a 1024-byte boundary (the planes' swizzle repeats every 8
+  // rows): the planes tile, then the A tile
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t ring = (raw + 1023) & ~1023u;
+  const uint8_t* const ring_p = smem_raw + (ring - raw);
+
+  const long long u0 = units * blockIdx.x / gridDim.x;
+  const long long u1 = units * (blockIdx.x + 1) / gridDim.x;
+  if (u0 >= u1) return;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  // this warp's first row of the block's 128; the thread's: + gid, + gid + 8
+  const int w_row = (warp >> 2) * 64 + (warp & 3) * 16;
+
+#pragma unroll
+  for (int s = 0; s < kAhead; ++s) {
+    if (u0 + s < u1) {
+      stage_unit<VEC>(ra, planes, ring + s * kStageBytes, u0 + s, k_stages,
+                      n_tiles, A, P);
+    }
+    cp_async_commit();
+  }
+
+  float acc_q[12], acc_a[24], acc_m[32];
+  zero(acc_q);
+  zero(acc_a);
+  zero(acc_m);
+  bool ok = true;
+  long long cur = u0 / k_stages;
+
+  for (long long u = u0; u < u1; ++u) {
+    const int it = static_cast<int>(u - u0);
+    const uint32_t slot = ring + (it % kStages) * kStageBytes;
+    cp_async_wait<kAhead - 1>();
+    fence_async_shared();
+    // stage `it` has landed in every thread's part; the wgmmas of stage
+    // it − 2, whose slot the next load takes, are done in every warpgroup
+    __syncthreads();
+    if (u + kAhead < u1) {
+      stage_unit<VEC>(ra, planes, ring + ((it + kAhead) % kStages) *
+                                           kStageBytes,
+                      u + kAhead, k_stages, n_tiles, A, P);
+    }
+    cp_async_commit();
+
+    const long long tile = u / k_stages;
+    if (tile != cur) {
+      wgmma_wait<0>();
+      pin(acc_q);
+      pin(acc_a);
+      pin(acc_m);
+      const int m = static_cast<int>(cur / n_tiles);
+      flush(ws, acc_q, acc_a, acc_m, m * kRows + w_row,
+            static_cast<int>(cur - static_cast<long long>(m) * n_tiles) *
+                kLm,
+            A, B);
+      zero(acc_q);
+      zero(acc_a);
+      zero(acc_m);
+      cur = tile;
+    }
+
+    // four k16 steps: the thread's rows gid and gid + 8 of the warp's 16,
+    // items 16s + 4·tig..+3 (logical k 2·tig, 2·tig+1, 2·tig+8, 2·tig+9)
+    const float* at = reinterpret_cast<const float*>(
+                          ring_p + (slot - ring) + kPlaneBytes) +
+                      (w_row + gid) * kItems;
+#pragma unroll
+    for (int s = 0; s < kItems / 16; ++s) {
+      const int chunk = (4 * s + tig) ^ ((gid & 1) << 2);
+      const float4 x = *reinterpret_cast<const float4*>(at + chunk * 4);
+      const float4 y =
+          *reinterpret_cast<const float4*>(at + 8 * kItems + chunk * 4);
+      ok &= exact_value(x.x) & exact_value(x.y) & exact_value(x.z) &
+            exact_value(x.w) & exact_value(y.x) & exact_value(y.y) &
+            exact_value(y.z) & exact_value(y.w);
+      // A fragments: reg 0 (row gid, k 2t..2t+1), 1 (row gid+8, same k),
+      // 2 (row gid, k 2t+8..2t+9), 3 (row gid+8, same k)
+      const uint32_t fa[4] = {pack_bf16(x.x, x.y), pack_bf16(y.x, y.y),
+                              pack_bf16(x.z, x.w), pack_bf16(y.z, y.w)};
+      const uint32_t fm[4] = {pack_mask(x.x, x.y), pack_mask(y.x, y.y),
+                              pack_mask(x.z, x.w), pack_mask(y.z, y.w)};
+      const uint32_t fq[4] = {
+          pack_bf16(__fmul_rn(x.x, x.x), __fmul_rn(x.y, x.y)),
+          pack_bf16(__fmul_rn(y.x, y.x), __fmul_rn(y.y, y.y)),
+          pack_bf16(__fmul_rn(x.z, x.z), __fmul_rn(x.w, x.w)),
+          pack_bf16(__fmul_rn(y.z, y.z), __fmul_rn(y.w, y.w))};
+      const uint64_t db =
+          sm90_desc(slot + s * 16 * 128, kItems * 128, 8 * 128, 1);
+      repro::wgmma_fence();
+      repro::wgmma_rs<24>(acc_q, fq, db);
+      repro::wgmma_rs<48>(acc_a, fa, db);
+      repro::wgmma_rs<64>(acc_m, fm, db);
+    }
+    repro::wgmma_commit();
+    // this stage's products run on while the next stage is converted
+    wgmma_wait<1>();
+  }
+
+  wgmma_wait<0>();
+  pin(acc_q);
+  pin(acc_a);
+  pin(acc_m);
+  const int m = static_cast<int>(cur / n_tiles);
+  flush(ws, acc_q, acc_a, acc_m, m * kRows + w_row,
+        static_cast<int>(cur - static_cast<long long>(m) * n_tiles) * kLm,
+        A, B);
+  if (!ok) *flag = 1;
+}
+
+template <bool VEC>
+cudaError_t launch_moments(const float* ra, const uint4* planes, float* ws,
+                           int* flag, int A, int B, int P, int k_stages,
+                           int n_tiles, long long units, cudaStream_t st) {
+  static bool ready = false;  // the >48 KB opt-in, once per instantiation
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        moments_wgmma_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kTcSmem));
+    if (err != cudaSuccess) return err;
+    ready = true;
+  }
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err != cudaSuccess) return err;
+  const int grid = static_cast<int>(units < sms ? units : sms);
+  moments_wgmma_kernel<VEC><<<grid, kTcThreads, kTcSmem, st>>>(
+      ra, planes, ws, flag, A, B, P, k_stages, n_tiles, units);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int masked_similarity_f32(const void* ra, const void* rb,
@@ -137,6 +568,53 @@ extern "C" int masked_similarity_f32(const void* ra, const void* rb,
   masked_similarity_kernel<<<grid, kThreads, 0,
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(ra), static_cast<const float*>(rb),
-      static_cast<float*>(out), A, B, P, measure);
+      static_cast<float*>(out), A, B, P, measure, nullptr, nullptr, nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core route: zero the moments and the flag of `ws`, write the
+// landmark planes, the moments kernel, then the finalize launch, which
+// runs the f32 route instead when the flag is set and counts into
+// `results` (int[2]: finalized, f32 instead). `ws` holds the (6, B, A)
+// f32 moments, the guard flag, then on the next 16-byte boundary the
+// landmark planes, ⌈B/21⌉·⌈P/64⌉ tiles of 8 KB.
+extern "C" int masked_similarity_tc(const void* ra, const void* rb, void* out,
+                                    void* ws, void* results, int A, int B,
+                                    int P, int measure, void* stream) {
+  if (A <= 0 || B <= 0 || P < 0 || P > kMaxItems || measure < 0 ||
+      measure > 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t n_moments = static_cast<size_t>(6) * A * B;
+  float* w = static_cast<float*>(ws);
+  int* flag = reinterpret_cast<int*>(w + n_moments);
+  uint4* planes = reinterpret_cast<uint4*>(
+      static_cast<uint8_t*>(ws) + (n_moments * 4 + 16 + 15) / 16 * 16);
+  cudaError_t err = cudaMemsetAsync(ws, 0, (n_moments + 1) * 4, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int m_tiles = (A + kRows - 1) / kRows;
+  const int n_tiles = (B + kLm - 1) / kLm;
+  const int k_stages = (P + kItems - 1) / kItems;
+  const long long units =
+      static_cast<long long>(m_tiles) * n_tiles * k_stages;
+  const float* a = static_cast<const float*>(ra);
+  const float* b = static_cast<const float*>(rb);
+  if (units > 0) {
+    planes_kernel<<<dim3(k_stages, n_tiles), kThreads, 0, st>>>(
+        b, planes, flag, B, P, k_stages);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const bool vec = P % 4 == 0 && reinterpret_cast<uintptr_t>(ra) % 16 == 0;
+    err = vec ? launch_moments<true>(a, planes, w, flag, A, B, P, k_stages,
+                                     n_tiles, units, st)
+              : launch_moments<false>(a, planes, w, flag, A, B, P, k_stages,
+                                      n_tiles, units, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  dim3 grid((A + kBA - 1) / kBA, (B + kBB - 1) / kBB);
+  masked_similarity_kernel<<<grid, kThreads, 0, st>>>(
+      a, b, static_cast<float*>(out), A, B, P, measure, w, flag,
+      static_cast<int*>(results));
   return static_cast<int>(cudaGetLastError());
 }

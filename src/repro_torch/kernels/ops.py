@@ -17,7 +17,8 @@ from .knn_topk import foldin_topk, topk_sim
 from .score_candidates import score_candidates
 
 # every kernel wrapper of the package; each carries a ``launches`` count,
-# and a wrapper with more than one kernel a ``route_launches`` count each
+# a wrapper with more than one kernel a ``route_launches`` count each, and
+# d1 its card-side count of guarded results (``results``)
 WRAPPERS = (masked_similarity, topk_sim, foldin_topk, assign_clusters,
             fused_probe_topk, score_candidates, landmark_summary)
 
@@ -27,6 +28,8 @@ def reset_launches() -> None:
         fn.launches = 0
         if hasattr(fn, "route_launches"):
             fn.route_launches = dict.fromkeys(fn.route_launches, 0)
+        if hasattr(fn, "results"):
+            fn.results = {}
 
 
 def launch_counts() -> dict:

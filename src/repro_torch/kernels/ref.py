@@ -22,6 +22,49 @@ def masked_similarity_ref(r_a: torch.Tensor, r_b: torch.Tensor,
     return _finalize(measure, *corated_moments(r_a.float(), r_b.float()))
 
 
+# d1's tensor-core route holds values that are multiples of ½ with
+# |v| <= 8, over fewer than 2^16 items: then v, v² and the masks are exact
+# in bf16, every product is a multiple of ¼, and every sum of them stays
+# below 64·P < 2^22, exact in f32 in any order
+D1_GUARD_MAX = 8.0
+D1_MAX_ITEMS = 65535
+
+
+def d1_guard_ref(r: torch.Tensor) -> bool:
+    """The guard of d1's tensor-core route on one operand: True when every
+    value is a multiple of ½ with |v| <= 8 (NaN and ±inf fail)."""
+    r = r.float()
+    t = r * 2.0
+    return bool(((r.abs() <= D1_GUARD_MAX) & (t == torch.round(t))).all())
+
+
+def masked_similarity_tc_ref(r_a: torch.Tensor, r_b: torch.Tensor,
+                             measure: str = "cosine") -> torch.Tensor:
+    """The tensor-core route's arithmetic in plain torch, on any values (no
+    guard), to check its numerics on the CPU; never on a model path.
+
+    The operands become bf16 (round to nearest): a, [a≠0] and a² (the f32
+    square, rounded) of r_a, and the stacked planes [b ; [b≠0] ; b²] of
+    r_b. Three products with f32 sums — a·planes (z, sx),
+    [a≠0]·planes (sy, c, y), a²·planes (x) — give the six moments, then
+    :func:`_finalize`. On values :func:`d1_guard_ref` admits this equals
+    :func:`masked_similarity_ref` bit for bit.
+    """
+    a, b = r_a.float(), r_b.float()
+
+    def planes(x):
+        return (x.bfloat16().float(), (x != 0).float(),
+                (x * x).bfloat16().float())
+
+    a1, am, a2 = planes(a)
+    stacked = torch.cat(planes(b)).T  # (P, 3B)
+    n = b.shape[0]
+    p1, p2, p3 = a1 @ stacked, am @ stacked, a2 @ stacked
+    z, sx = p1[:, :n], p1[:, n:2 * n]
+    sy, c, y = p2[:, :n], p2[:, n:2 * n], p2[:, 2 * n:]
+    return _finalize(measure, z, p3[:, n:2 * n], y, c, sx, sy)
+
+
 def _row_sums(x: torch.Tensor) -> torch.Tensor:
     """Σ_d x[..., d] over the last axis, added left to right, as the
     kernels add."""

@@ -7,7 +7,10 @@ the checkout (the first test builds the kernels into ``build/kernels/``).
 
 Tolerances:
 - d1 cosine on integer ratings: bitwise equal (exact moments, the same
-  IEEE epilogue); pearson and euclidean: rtol=1e-5, atol=1e-6;
+  IEEE epilogue); pearson and euclidean: rtol=1e-5, atol=1e-6; d1's
+  tensor-core route against its f32 route: bitwise, every measure (exact
+  moments on values its guard admits; the f32 route's own result where a
+  value fails the guard);
 - the top-k kernels: bitwise equal values and ids — the plain version
   repeats the kernel's summation order and epilogue op for op;
 - the Lloyd assignment, the gathered-candidate scorer and the fused IVF
@@ -34,6 +37,7 @@ from repro_torch.core.graph import kernel_rows
 from repro_torch.kernels import (assign_clusters, ivf_probe, knn_topk, ops,
                                  ref, score_candidates)
 from repro_torch.kernels import landmark_attention as lsum
+from repro_torch.kernels import masked_similarity as ms
 
 pytestmark = pytest.mark.gpu
 RTOL, ATOL = 1e-5, 1e-6
@@ -65,19 +69,105 @@ def _rows(u, n, device, seed=0):
     return _rep(max(u, n), n, device, seed=seed)[:u].contiguous()
 
 
+@pytest.mark.parametrize("route", ["auto", "f32"])
 @pytest.mark.parametrize("measure", MEASURES)
 @pytest.mark.parametrize("shape", [(1000, 130, 777), (64, 20, 3952),
                                    (5, 3, 1), (33, 1, 70)])
-def test_masked_similarity_kernel_matches_plain(cuda, measure, shape):
+def test_masked_similarity_kernel_matches_plain(cuda, measure, shape, route):
     a, b, p = shape
     r = _ratings(a + b, p, cuda, seed=1)
-    got = ops.masked_similarity(r[:a], r[a:], measure)
+    got = ops.masked_similarity(r[:a], r[a:], measure, route=route)
     want = ref.masked_similarity_ref(r[:a], r[a:], measure)
     torch.cuda.synchronize()
     if measure == "cosine":
         assert torch.equal(got, want)
     else:
         torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+def _d1_routes(r_a, r_b, measure):
+    """(tensor-core route's output, f32 route's output), the launch and
+    result counts checked: the first call launched the tensor-core route
+    and kept its result."""
+    ops.reset_launches()
+    got = ops.masked_similarity(r_a, r_b, measure)
+    want = ops.masked_similarity(r_a, r_b, measure, route="f32")
+    assert ms.masked_similarity.route_launches == {"tensor_core": 1,
+                                                   "f32": 1}
+    assert ms.route_results() == {"tensor_core": 1, "f32_fallback": 0}
+    return got, want
+
+
+@pytest.mark.parametrize("measure", MEASURES)
+@pytest.mark.parametrize("shape", [(5976, 20, 3952), (64, 20, 3952),
+                                   (1000, 130, 777), (300, 20, 777),
+                                   (200, 7, 1), (65, 20, 3952)])
+def test_masked_similarity_tc_route_is_bitwise_the_f32_route(cuda, measure,
+                                                             shape):
+    """On ratings the tensor-core route's moments are exact: every measure
+    bitwise the f32 route's, and cosine bitwise the plain version — at the
+    ML-1M fit and fold-in shapes, B over seven N tiles, P % 16 != 0,
+    P = 1, A = 65 (a second row tile of one row)."""
+    a, b, p = shape
+    r = _ratings(a + b, p, cuda, density=0.08 if a > 1000 else 0.3, seed=8)
+    got, want = _d1_routes(r[:a], r[a:], measure)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if measure == "cosine":
+        assert torch.equal(got, ref.masked_similarity_ref(r[:a], r[a:],
+                                                          measure))
+
+
+@pytest.mark.parametrize("measure", MEASURES)
+@pytest.mark.parametrize("p", [ref.D1_MAX_ITEMS - 3, ref.D1_MAX_ITEMS])
+def test_masked_similarity_tc_route_is_exact_at_the_guards_limits(cuda,
+                                                                  measure, p):
+    """Values ±8, ±7.5 and ½ at the largest P the route takes (16-byte and
+    4-byte loads): x and y reach 64·P, just under 2^22, and the tensor
+    cores' f32 sums must stay exact — bitwise the f32 route."""
+    rng = np.random.default_rng(9)
+    vals = rng.choice([-8.0, -7.5, 0.5, 7.5, 8.0], (130 + 25, p))
+    vals *= rng.random(vals.shape) < 0.7
+    vals[:3] = 8.0  # no zero: sums at their largest
+    vals[130:133] = -8.0
+    r = torch.as_tensor(vals.astype(np.float32), device=cuda)
+    assert ref.d1_guard_ref(r)
+    got, want = _d1_routes(r[:130], r[130:], measure)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_masked_similarity_off_the_guard_takes_the_f32_result(cuda):
+    """Values the route cannot hold (0.1 steps in r_a; one 0.3 or NaN in
+    the landmarks): the f32 route's output replaces the tensor-core
+    route's, with no host sync, and the card counts the replacement. Past
+    D1_MAX_ITEMS items the host sends the call to the f32 route."""
+    r = _ratings(300, 777, cuda, seed=10)
+    tenths = r[:280] * 1.1  # 1.1, 2.2, ...: off the guard
+    lm = r[280:].clone()
+    lm_bad = lm.clone()
+    lm_bad[3, 5] = 0.3
+    lm_nan = lm.clone()
+    lm_nan[7, 11] = float("nan")
+    ops.reset_launches()
+    for i, (ra, rb) in enumerate(((tenths, lm), (r[:280], lm_bad),
+                                  (r[:280], lm_nan))):
+        for measure in MEASURES:
+            got = ops.masked_similarity(ra, rb, measure)
+            want = ops.masked_similarity(ra, rb, measure, route="f32")
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                       equal_nan=True)
+    assert ms.masked_similarity.route_launches == {"tensor_core": 9,
+                                                   "f32": 9}
+    assert ms.route_results() == {"tensor_core": 0, "f32_fallback": 9}
+    wide = _ratings(3, ref.D1_MAX_ITEMS + 1, cuda, seed=11)
+    ops.reset_launches()
+    got = ops.masked_similarity(wide[:2], wide[2:])
+    assert ms.masked_similarity.route_launches == {"tensor_core": 0,
+                                                   "f32": 1}
+    assert ms.route_results() == {"tensor_core": 0, "f32_fallback": 0}
+    assert torch.equal(got, ref.masked_similarity_ref(wide[:2], wide[2:]))
 
 
 @pytest.mark.parametrize("measure", MEASURES)
@@ -150,6 +240,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         ops.masked_similarity(r.T, r.T)
     with pytest.raises(ValueError, match="one CUDA device"):
         ops.masked_similarity(r, r.cpu())
+    with pytest.raises(ValueError, match="route"):
+        ops.masked_similarity(r, r, route="tensor_core")
     rep = _rep(80, 65, cuda)
     with pytest.raises(ValueError, match="width"):
         knn_topk.topk_sim(rep, rep, 5)
