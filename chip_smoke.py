@@ -16,10 +16,11 @@ non-zero and prints no result. Phases, one line each:
    instructions that ``cuobjdump -sass`` counts in it
    (``wgmma.mma_async`` in its PTX where the toolkit has no
    ``cuobjdump``) — none is a failure; for the fused IVF probe kernel, per
-   padded row width, its registers, static shared memory and spills;
+   padded row width, and for the top-k scan kernel, per tile variant and
+   measure, its registers, static shared memory and spills;
 3. kernels — each kernel against its plain version on the card, at the
    main-path shapes, at ragged shapes and on duplicated rows, all three
-   measures; d1 on both routes, the tensor-core route bitwise the f32
+   measures; the top-k kernels bitwise (values and ids), or the run fails; d1 on both routes, the tensor-core route bitwise the f32
    route, also at the guard's limits (|v| = 8, P = 65535), and off the
    guard (1.1-star steps) the f32 route's result;
 4. main path — MovieLens-1M-shaped synthetic ratings (seed 0), fold 0:
@@ -221,6 +222,7 @@ def phase_build():
         log, "masked_similarity", _d1_name, 2,
         "16-byte and 4-byte loads")))
     print("phase 2 fused probe kernel: " + json.dumps(_ptxas(log, _probe_name)))
+    print("phase 2 top-k scan kernel: " + json.dumps(_ptxas(log, _scan_name)))
 
 
 def _wgmma_name(line):
@@ -248,6 +250,21 @@ def _probe_name(line):
 
     m = re.search(r"probe_group_kernelILi(\d+)E", line)
     return f"n<={4 * int(m.group(1))}" if m else None
+
+
+def _scan_name(line):
+    """'R=2 S=4 W=8 stages=4 cosine' for a line naming an instantiation of
+    the top-k scan kernel (template <class T, int M>: T a Tile<R, S, W,
+    STAGES, MINB>, M the measure), else None."""
+    import re
+
+    m = re.search(r"topk_scan_kernelI\w*?TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)"
+                  r"ELi\d+EEELi(\d)E", line)
+    if not m:
+        return None
+    r, s, w, stages, measure = m.groups()
+    return (f"R={r} S={s} W={w} stages={stages} "
+            f"{sim.MEASURES[int(measure)]}")
 
 
 def _ptxas(log, name_of):
@@ -437,7 +454,7 @@ def phase_kernels(train):
                 ref.foldin_topk_ref
             kern = getattr(knn_topk, name)
             e, bitwise = _check_topk(f"{name} {tag} {measure}", call(plain),
-                                     call(kern))
+                                     call(kern), strict=True)
             exact.append(bitwise)
             if main:
                 err[name] = max(err[name], e)
@@ -645,8 +662,10 @@ DEVICE_FUNCS = {
     # the planes, the moments, the finalize launch)
     "masked_similarity": None,
     "masked_similarity_f32": ("masked_similarity_kernel",),
-    "topk_sim": ("topk_scan_kernel",),
-    "foldin_topk": ("topk_scan_kernel", "topk_merge_kernel"),
+    # the prep pass, the scan, and the merge of the candidate splits
+    "topk_sim": ("topk_prep_kernel", "topk_scan_kernel", "topk_merge_kernel"),
+    "foldin_topk": ("topk_prep_kernel", "topk_scan_kernel",
+                    "topk_merge_kernel"),
     "assign_clusters": ("assign_kernel",),
     # None: every kernel of the call (the argsort that groups the queries,
     # then the probe kernel)
@@ -897,6 +916,11 @@ def phase_times(train, a, err, peak, life_counts):
             ms=_event_ms(kern, 50), plain_ms=_event_ms(plain, 10),
             bound_ms=bound_ms, bound_us=bound_ms * 1e3, bound_by=bound_by,
             library_ms=None, device_ms=_device_ms(kern, name)))
+    # rows 2 and 3 also beside their no-FMA floor: every product and sum
+    # rounded on its own (bitwise the plain version), 2n instructions a
+    # pair at one instruction a lane a clock
+    for row, pairs in zip(table[2:4], (u_fit * u_fit, b * c)):
+        row["no_fma_floor_ms"] = pairs * 2 * n / (F32_FLOPS / 2) * 1e3
     # d1 at the fold-in shape, both routes, beside rows 1 and 1′
     for row, fn in zip(table[:2], (ops.masked_similarity, _d1_f32)):
         call = lambda fn=fn: fn(new_r, lm)

@@ -42,12 +42,11 @@ SIGNATURES = {
     # (a, b, out, ws, results, A, B, P, measure, stream): bf16 wgmma
     # moments, then the finalize launch (the f32 route when the guard fails)
     "masked_similarity_tc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # (rep, cand, vals, ids, U, C, n, k, n_valid, self_offset, measure, stream)
-    "topk_sim_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # (q, cand, part_vals, part_ids, vals, ids, B, C, n, k, n_valid,
-    #  self_offset, split, measure, stream)
-    "foldin_topk_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _P),
+    # (q, cand, prep, part_vals, part_ids, vals, ids, rows, C, n, k, n_valid,
+    #  self_offset, measure, variant, qt, ct, splits, tiles_per_split,
+    #  stream): prep, scan and (splits > 1) merge
+    "topk_scan_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                      _I, _I, _I, _I, _I, _P),
     # (rep, cent, out, U, C, n, measure, stream)
     "assign_clusters_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
     # (q, cand, out, B, M, n, measure, stream)
@@ -62,6 +61,8 @@ SIGNATURES = {
     # cores, q k v as f32 inputs' bf16 planes (3, 3, 2 terms) or bf16 inputs
     "landmark_summary_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     "landmark_summary_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # (variant, n, measure) -> resident scan blocks an SM holds (no stream)
+    "topk_scan_blocks_per_sm": (_I, _I, _I),
 }
 
 

@@ -62,8 +62,8 @@
 
 namespace {
 
-using repro::better;
 using repro::kFull;
+using repro::WarpList;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
@@ -155,84 +155,6 @@ __device__ __forceinline__ long long block_scan(long long v, long long* wsum,
   __syncthreads();  // wsum may be written again
   return before + x - v;
 }
-
-// One compare-exchange of a warp-wide bitonic network: this lane and lane
-// ^ stride swap entries unless this lane already holds the better one
-// (``keep_better``) or the worse one.
-__device__ __forceinline__ void exchange(float& v, int& id, int stride,
-                                         bool keep_better) {
-  const float ov = __shfl_xor_sync(kFull, v, stride);
-  const int oi = __shfl_xor_sync(kFull, id, stride);
-  if (keep_better ? better(ov, oi, v, id) : better(v, id, ov, oi)) {
-    v = ov;
-    id = oi;
-  }
-}
-
-constexpr int kBatch = 6;  // offers at least this many: sort and merge
-
-// The warp's list: lane j holds entry j in canonical order (32 entries,
-// empty ones (-inf, 0)), and (tv, ti) is entry k−1, the bar a candidate
-// must clear. Offers every lane's (v, id) where ``want``; all 32 lanes
-// must call it. A few candidates go in one by one (a shuffle-up each);
-// many (a list's first rows) are sorted by a bitonic network and merged
-// into the list by another. Both keep the list's top 32, of which the
-// top k is what the kernel writes.
-struct WarpList {
-  float ev = -INFINITY, tv = -INFINITY;
-  int eid = 0, ti = 0;
-
-  __device__ __forceinline__ void offer(bool want, float v, int id, int k) {
-    const int lane = threadIdx.x & 31;
-    want = want && better(v, id, tv, ti);
-    unsigned bal = __ballot_sync(kFull, want);
-    if (__popc(bal) >= kBatch) {
-      // non-candidates rank below every entry, the empty ones included
-      float cv = want ? v : -INFINITY;
-      int ci = want ? id : 0x7fffffff;
-#pragma unroll
-      for (int size = 2; size <= 32; size <<= 1) {
-#pragma unroll
-        for (int stride = size >> 1; stride > 0; stride >>= 1) {
-          exchange(cv, ci, stride,
-                   ((lane & stride) == 0) == ((lane & size) == 0));
-        }
-      }
-      // the list descending, the candidates reversed ascending: the better
-      // of each pair is a bitonic sequence holding the top 32
-      const float rv = __shfl_sync(kFull, cv, 31 - lane);
-      const int ri = __shfl_sync(kFull, ci, 31 - lane);
-      if (better(rv, ri, ev, eid)) {
-        ev = rv;
-        eid = ri;
-      }
-#pragma unroll
-      for (int stride = 16; stride > 0; stride >>= 1) {
-        exchange(ev, eid, stride, (lane & stride) == 0);
-      }
-      tv = __shfl_sync(kFull, ev, k - 1);
-      ti = __shfl_sync(kFull, eid, k - 1);
-      return;
-    }
-    if (!bal) return;
-    // one by one against the bar of the ballot: a candidate that a later
-    // one pushed below entry k−1 only fills a slot past k
-    do {
-      const int src = __ffs(bal) - 1;
-      bal &= bal - 1;
-      const float cv = __shfl_sync(kFull, v, src);
-      const int ci = __shfl_sync(kFull, id, src);
-      const float pv = __shfl_up_sync(kFull, ev, 1);
-      const int pi = __shfl_up_sync(kFull, eid, 1);
-      const bool above = lane > 0 && better(cv, ci, pv, pi);
-      const bool here = better(cv, ci, ev, eid);
-      ev = above ? pv : (here ? cv : ev);
-      eid = above ? pi : (here ? ci : eid);
-    } while (bal);
-    tv = __shfl_sync(kFull, ev, k - 1);
-    ti = __shfl_sync(kFull, eid, k - 1);
-  }
-};
 
 template <int NV4>
 __global__ void __launch_bounds__(kThreads)

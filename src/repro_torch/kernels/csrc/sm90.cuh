@@ -1,7 +1,7 @@
-// Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tensor
-// loads, and warpgroup matrix multiplies (wgmma) on bf16 operands with f32
-// accumulators. Used by landmark_summary.cu and masked_similarity.cu; see
-// there for how they fit.
+// Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA bulk and
+// tensor loads, and warpgroup matrix multiplies (wgmma) on bf16 operands
+// with f32 accumulators. Used by landmark_summary.cu, masked_similarity.cu
+// and knn_topk.cu; see there for how they fit.
 //
 // Shared-memory operands are described by wgmma matrix descriptors
 // (sm90_desc). The layouts are the canonical ones TMA writes with a 64- or
@@ -77,6 +77,17 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 }
 
 // --------------------------------------------------------------------- TMA
+// `bytes` (a multiple of 16) from global `src` into shared memory at
+// `dst`, both 16-byte aligned; completion is counted in bytes on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // box at (c0, c1, c2) of a 3-D tensor map into shared memory; completion
 // is counted in bytes on `bar`. Elements outside the tensor arrive as zeros.
 __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,

@@ -1,6 +1,6 @@
 // Device code shared by the port's scoring kernels (knn_topk.cu,
-// ivf_probe.cu, assign_clusters.cu): the canonical order, a lane's
-// register-resident top-k list and its warp merge, and the left-to-right
+// ivf_probe.cu, assign_clusters.cu): the canonical order, a warp-wide
+// top-k list (lane j holds entry j), and the left-to-right
 // row reductions that keep every kernel bitwise equal to its plain version
 // (kernels/ref.py).
 //
@@ -23,81 +23,83 @@ __device__ __forceinline__ bool better(float v, int id, float w, int jd) {
   return v > w || (v == w && id < jd);
 }
 
-// A lane's best KMAX entries, sorted canonically. KMAX >= k, so the top k
-// of the union of the 32 lanes' lists is the top k of all candidates. Every
-// index is a compile-time constant (insertion is a select network), so the
-// lists stay in registers.
-template <int KMAX>
-struct TopK {
-  float v[KMAX];
-  int id[KMAX];
-
-  __device__ __forceinline__ void init() {
-#pragma unroll
-    for (int j = 0; j < KMAX; ++j) {
-      v[j] = -INFINITY;
-      id[j] = 0;
-    }
-  }
-
-  __device__ __forceinline__ void offer(float nv, int nid) {
-    if (!better(nv, nid, v[KMAX - 1], id[KMAX - 1])) return;
-    // slot j takes old j-1 if the new entry outranks it, else the new
-    // entry if it outranks old j, else keeps old j; walking down reads
-    // only slots not yet written
-#pragma unroll
-    for (int j = KMAX - 1; j > 0; --j) {
-      const bool above = better(nv, nid, v[j - 1], id[j - 1]);
-      const bool here = better(nv, nid, v[j], id[j]);
-      v[j] = above ? v[j - 1] : (here ? nv : v[j]);
-      id[j] = above ? id[j - 1] : (here ? nid : id[j]);
-    }
-    if (better(nv, nid, v[0], id[0])) {
-      v[0] = nv;
-      id[0] = nid;
-    }
-  }
-
-  __device__ __forceinline__ void pop() {
-#pragma unroll
-    for (int j = 0; j < KMAX - 1; ++j) {
-      v[j] = v[j + 1];
-      id[j] = id[j + 1];
-    }
-    v[KMAX - 1] = -INFINITY;
-    id[KMAX - 1] = 0;
-  }
-};
-
-// k rounds of a warp-wide arg-max over the 32 list heads; the lane holding
-// the winner pops it. Empty slots come out as (-inf, 0). All 32 lanes must
-// call this.
-template <int KMAX>
-__device__ __forceinline__ void warp_merge(TopK<KMAX>& t, int k,
-                                           float* out_v, int* out_i) {
-  const int lane = threadIdx.x & 31;
-  for (int r = 0; r < k; ++r) {
-    float bv = t.v[0];
-    int bi = t.id[0];
-    int bl = lane;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(kFull, bv, off);
-      const int oi = __shfl_xor_sync(kFull, bi, off);
-      const int ol = __shfl_xor_sync(kFull, bl, off);
-      if (better(ov, oi, bv, bi) || (ov == bv && oi == bi && ol < bl)) {
-        bv = ov;
-        bi = oi;
-        bl = ol;
-      }
-    }
-    if (lane == 0) {
-      out_v[r] = bv;
-      out_i[r] = bv == -INFINITY ? 0 : bi;  // empty slot
-    }
-    if (lane == bl) t.pop();
+// One compare-exchange of a warp-wide bitonic network: this lane and lane
+// ^ stride swap entries unless this lane already holds the better one
+// (``keep_better``) or the worse one.
+__device__ __forceinline__ void exchange(float& v, int& id, int stride,
+                                         bool keep_better) {
+  const float ov = __shfl_xor_sync(kFull, v, stride);
+  const int oi = __shfl_xor_sync(kFull, id, stride);
+  if (keep_better ? better(ov, oi, v, id) : better(v, id, ov, oi)) {
+    v = ov;
+    id = oi;
   }
 }
+
+constexpr int kBatch = 6;  // offers at least this many: sort and merge
+
+// The warp's list: lane j holds entry j in canonical order (32 entries,
+// empty ones (-inf, 0)), and (tv, ti) is entry k−1, the bar a candidate
+// must clear. Offers every lane's (v, id) where ``want``; all 32 lanes
+// must call it. A few candidates go in one by one (a shuffle-up each);
+// many (a list's first rows) are sorted by a bitonic network and merged
+// into the list by another. Both keep the list's top 32, of which the
+// top k is what the kernel writes.
+struct WarpList {
+  float ev = -INFINITY, tv = -INFINITY;
+  int eid = 0, ti = 0;
+
+  __device__ __forceinline__ void offer(bool want, float v, int id, int k) {
+    const int lane = threadIdx.x & 31;
+    want = want && better(v, id, tv, ti);
+    unsigned bal = __ballot_sync(kFull, want);
+    if (__popc(bal) >= kBatch) {
+      // non-candidates rank below every entry, the empty ones included
+      float cv = want ? v : -INFINITY;
+      int ci = want ? id : 0x7fffffff;
+#pragma unroll
+      for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+        for (int stride = size >> 1; stride > 0; stride >>= 1) {
+          exchange(cv, ci, stride,
+                   ((lane & stride) == 0) == ((lane & size) == 0));
+        }
+      }
+      // the list descending, the candidates reversed ascending: the better
+      // of each pair is a bitonic sequence holding the top 32
+      const float rv = __shfl_sync(kFull, cv, 31 - lane);
+      const int ri = __shfl_sync(kFull, ci, 31 - lane);
+      if (better(rv, ri, ev, eid)) {
+        ev = rv;
+        eid = ri;
+      }
+#pragma unroll
+      for (int stride = 16; stride > 0; stride >>= 1) {
+        exchange(ev, eid, stride, (lane & stride) == 0);
+      }
+      tv = __shfl_sync(kFull, ev, k - 1);
+      ti = __shfl_sync(kFull, eid, k - 1);
+      return;
+    }
+    if (!bal) return;
+    // one by one against the bar of the ballot: a candidate that a later
+    // one pushed below entry k−1 only fills a slot past k
+    do {
+      const int src = __ffs(bal) - 1;
+      bal &= bal - 1;
+      const float cv = __shfl_sync(kFull, v, src);
+      const int ci = __shfl_sync(kFull, id, src);
+      const float pv = __shfl_up_sync(kFull, ev, 1);
+      const int pi = __shfl_up_sync(kFull, eid, 1);
+      const bool above = lane > 0 && better(cv, ci, pv, pi);
+      const bool here = better(cv, ci, ev, eid);
+      ev = above ? pv : (here ? cv : ev);
+      eid = above ? pi : (here ? ci : eid);
+    } while (bal);
+    tv = __shfl_sync(kFull, ev, k - 1);
+    ti = __shfl_sync(kFull, eid, k - 1);
+  }
+};
 
 // The mean of one row of n <= NMAX values (a register array or a
 // shared-memory row): a left-to-right sum over a true division by n.
@@ -133,20 +135,27 @@ __device__ __forceinline__ float sq_norm(const Row& x, int n) {
   return s;
 }
 
+// The d2 epilogue of the graph-build tiles with pearson's norms as their
+// roots: pearson z / max(ru·rv, eps) where ru = √|u|², rv = √|v|² (a kernel
+// takes each root once per row); cosine and euclidean as tile_epilogue.
+__device__ __forceinline__ float tile_epilogue_rooted(float z, float un,
+                                                      float vn, int measure) {
+  if (measure == 0) return z;
+  if (measure == 1) return __fdiv_rn(z, fmaxf(__fmul_rn(un, vn), kEps));
+  const float d2 = fmaxf(__fadd_rn(__fsub_rn(un, __fmul_rn(2.0f, z)), vn),
+                         0.0f);
+  return __fdiv_rn(1.0f, __fadd_rn(1.0f, __fsqrt_rn(d2)));
+}
+
 // The d2 epilogue of the graph-build tiles (plain version:
 // kernels/ref.py::tile_sims): cosine on caller-normalized rows is the raw
 // dot z; pearson z / max(√|u|²·√|v|², eps) on centered rows; euclidean
 // 1 / (1 + √max(|u|² − 2z + |v|², 0)). ``un``/``vn`` are squared norms.
 __device__ __forceinline__ float tile_epilogue(float z, float un, float vn,
                                                int measure) {
-  if (measure == 0) return z;
-  if (measure == 1) {
-    return __fdiv_rn(z, fmaxf(__fmul_rn(__fsqrt_rn(un), __fsqrt_rn(vn)),
-                              kEps));
-  }
-  const float d2 = fmaxf(__fadd_rn(__fsub_rn(un, __fmul_rn(2.0f, z)), vn),
-                         0.0f);
-  return __fdiv_rn(1.0f, __fadd_rn(1.0f, __fsqrt_rn(d2)));
+  if (measure == 1) return tile_epilogue_rooted(z, __fsqrt_rn(un),
+                                                __fsqrt_rn(vn), 1);
+  return tile_epilogue_rooted(z, un, vn, measure);
 }
 
 // The ``dense_similarity`` epilogue on raw rows (plain version:

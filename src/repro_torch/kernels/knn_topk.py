@@ -3,15 +3,19 @@
 
 - :func:`topk_sim` — the neighbor-graph build: every query row's top-k
   candidates, the (U, C) score matrix never written.
-- :func:`foldin_topk` — the skinny fold-in search: candidates split across
-  blocks, then the partial lists merged by a second kernel.
+- :func:`foldin_topk` — the skinny fold-in search of a batch of new rows.
 
-Both return lists in canonical order (value desc, id asc) with empty slots
-as (-inf, 0). Cosine expects rows L2-normalized by the caller; pearson and
-euclidean take raw representation rows.
+Both run the same three launches: a prep pass lays the candidates out
+d-major (centered and normed once), the scan scores candidate tiles in
+register micro-tiles against a per-query bar, and, when the candidate
+tiles are split across blocks to fill the card, a merge of the splits'
+lists. Both return lists in canonical order (value desc, id asc) with
+empty slots as (-inf, 0). Cosine expects rows L2-normalized by the caller;
+pearson and euclidean take raw representation rows.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -19,8 +23,54 @@ import torch
 from . import build, ref
 
 MAX_WIDTH = 64  # landmark axis n: register array size of the kernel
-MAX_K = 32  # list length: register array size of the kernel
-FOLDIN_SPLIT = 512  # candidates per block of the fold-in search
+MAX_K = 32  # list length: lanes of the warp-wide list
+# (queries, candidates) a block's tile in each scan variant, by the index
+# that csrc/knn_topk.cu's with_tile takes
+SCAN_VARIANTS = ((16, 128), (8, 128))
+# the variant of a call with more than SMALL_ROWS query rows, and of one
+# with at most SMALL_ROWS
+LARGE_VARIANT, SMALL_VARIANT, SMALL_ROWS = 0, 1, 256
+MIN_TILES = 2  # candidate tiles a split takes at the least
+MAX_SPLITS = 16  # splits·k entries a row for the merge kernel at the most
+
+
+def plan_scan(rows: int, c: int, variant: int, sms: int, per_sm: int,
+              min_tiles: int = MIN_TILES, max_splits: int = MAX_SPLITS
+              ) -> Tuple[int, int]:
+    """(splits, tiles a split) of a scan of ``rows`` queries against ``c``
+    candidates on ``sms`` SMs of ``per_sm`` resident blocks each.
+
+    Blocks on one SM share it, so a call takes about as long as the SM
+    with the most blocks: of the split counts whose grid stays resident
+    (and whose splits hold ``min_tiles`` tiles, at most ``max_splits`` of
+    them), the one with the least ⌈blocks / sms⌉ / splits, the fewest on a
+    tie — each split costs the merge warps a first tile that every score
+    enters. Every tile lies in exactly one split.
+    """
+    qt, ct = SCAN_VARIANTS[variant]
+    q = -(-rows // qt)
+    n_tiles = -(-c // ct)
+    top = max(1, min(n_tiles // min_tiles, sms * per_sm // q, max_splits))
+    splits = min(range(1, top + 1),
+                 key=lambda s: (-(-q * s // sms) / s, s))
+    tps = -(-n_tiles // splits)
+    return -(-n_tiles // tps), tps
+
+
+@functools.cache
+def _occupancy(device: int, variant: int, n: int, measure: str
+               ) -> Tuple[int, int]:
+    """(SMs, resident scan blocks an SM) of the card at width n. The C
+    call also lets the scan use the shared memory of the widest rows on
+    this device, so it runs before the first launch there."""
+    with torch.cuda.device(device):
+        per_sm = build.library().topk_scan_blocks_per_sm(
+            variant, n, build.MEASURE_CODES[measure])
+    if per_sm <= 0:
+        raise RuntimeError(f"topk scan variant {variant}: occupancy query "
+                           f"failed ({per_sm})")
+    return torch.cuda.get_device_properties(
+        device).multi_processor_count, per_sm
 
 
 def _check(name, rep, cand, k, n_valid, measure):
@@ -38,6 +88,40 @@ def _check(name, rep, cand, k, n_valid, measure):
         raise ValueError(f"unknown measure {measure!r}")
 
 
+def _scan(name, rep, cand, k, n_valid, self_offset, measure):
+    """The kernels' call: prep, scan and merge on CUDA tensors."""
+    n_valid = cand.shape[0] if n_valid is None else n_valid
+    _check(name, rep, cand, k, n_valid, measure)
+    rows, n = rep.shape
+    c = cand.shape[0]
+    dev = rep.device
+    vals = torch.empty((rows, k), dtype=torch.float32, device=dev)
+    ids = torch.empty((rows, k), dtype=torch.int32, device=dev)
+    if not rows or not c:
+        vals.fill_(float("-inf"))
+        ids.zero_()
+        return vals, ids, False
+    variant = LARGE_VARIANT if rows > SMALL_ROWS else SMALL_VARIANT
+    qt, ct = SCAN_VARIANTS[variant]
+    splits, tps = plan_scan(rows, c, variant,
+                            *_occupancy(dev.index, variant, n, measure),
+                            MIN_TILES,
+                            MAX_SPLITS)
+    prep = torch.empty((n + 1, -(-c // ct) * ct), dtype=torch.float32,
+                       device=dev)
+    part_v, part_i = vals, ids
+    if splits > 1:
+        part_v = torch.empty((rows, splits, k), dtype=torch.float32,
+                             device=dev)
+        part_i = torch.empty((rows, splits, k), dtype=torch.int32,
+                             device=dev)
+    build.launch("topk_scan_f32", rep, cand, prep, part_v, part_i, vals, ids,
+                 rows, c, n, k, n_valid,
+                 -1 if self_offset is None else self_offset,
+                 build.MEASURE_CODES[measure], variant, qt, ct, splits, tps)
+    return vals, ids, True
+
+
 def topk_sim(rep: torch.Tensor, cand: torch.Tensor, k: int = 14,
              exclude_self: bool = False, n_valid: Optional[int] = None,
              measure: str = "cosine") -> Tuple[torch.Tensor, torch.Tensor]:
@@ -45,23 +129,13 @@ def topk_sim(rep: torch.Tensor, cand: torch.Tensor, k: int = 14,
 
     Candidates ``>= n_valid`` (default: all valid) are never selected;
     ``exclude_self`` assumes rep row i is candidate i and masks it. CUDA
-    tensors go through the kernel, CPU tensors take the plain version.
+    tensors go through the kernels, CPU tensors take the plain version.
     """
     if rep.device.type == "cpu" and cand.device.type == "cpu":
         return ref.topk_sim_ref(rep, cand, k, exclude_self, n_valid, measure)
-    n_valid = cand.shape[0] if n_valid is None else n_valid
-    _check("topk_sim", rep, cand, k, n_valid, measure)
-    u, n = rep.shape
-    vals = torch.empty((u, k), dtype=torch.float32, device=rep.device)
-    ids = torch.empty((u, k), dtype=torch.int32, device=rep.device)
-    if u and cand.shape[0]:
-        build.launch("topk_sim_f32", rep, cand, vals, ids, u, cand.shape[0],
-                     n, k, n_valid, 0 if exclude_self else -1,
-                     build.MEASURE_CODES[measure])
-        topk_sim.launches += 1
-    else:
-        vals.fill_(float("-inf"))
-        ids.zero_()
+    vals, ids, launched = _scan("topk_sim", rep, cand, k, n_valid,
+                                0 if exclude_self else None, measure)
+    topk_sim.launches += launched
     return vals, ids
 
 
@@ -77,26 +151,9 @@ def foldin_topk(rep: torch.Tensor, cand: torch.Tensor, k: int = 14,
     """
     if rep.device.type == "cpu" and cand.device.type == "cpu":
         return ref.foldin_topk_ref(rep, cand, k, self_offset, n_valid, measure)
-    n_valid = cand.shape[0] if n_valid is None else n_valid
-    _check("foldin_topk", rep, cand, k, n_valid, measure)
-    b, n = rep.shape
-    c = cand.shape[0]
-    vals = torch.empty((b, k), dtype=torch.float32, device=rep.device)
-    ids = torch.empty((b, k), dtype=torch.int32, device=rep.device)
-    if b and c:
-        splits = -(-c // FOLDIN_SPLIT)
-        part_v = torch.empty((b, splits, k), dtype=torch.float32,
-                             device=rep.device)
-        part_i = torch.empty((b, splits, k), dtype=torch.int32,
-                             device=rep.device)
-        build.launch("foldin_topk_f32", rep, cand, part_v, part_i, vals, ids,
-                     b, c, n, k, n_valid,
-                     -1 if self_offset is None else self_offset,
-                     FOLDIN_SPLIT, build.MEASURE_CODES[measure])
-        foldin_topk.launches += 1
-    else:
-        vals.fill_(float("-inf"))
-        ids.zero_()
+    vals, ids, launched = _scan("foldin_topk", rep, cand, k, n_valid,
+                                self_offset, measure)
+    foldin_topk.launches += launched
     return vals, ids
 
 

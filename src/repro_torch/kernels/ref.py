@@ -153,6 +153,51 @@ def foldin_topk_ref(rep: torch.Tensor, cand: torch.Tensor, k: int = 14,
     return _masked_topk(rep, cand, k, self_offset, n_valid, measure)
 
 
+def topk_bar_scan_ref(rep: torch.Tensor, cand: torch.Tensor, k: int = 14,
+                      self_offset: Optional[int] = None,
+                      n_valid: Optional[int] = None, measure: str = "cosine",
+                      tile: int = 64, split_tiles: Optional[int] = None):
+    """The top-k scan kernel's selection in plain torch, to check on the
+    CPU that it gives :func:`foldin_topk_ref`'s lists; never on a model
+    path.
+
+    The candidates are cut into splits of ``split_tiles`` tiles of ``tile``
+    (None: one split). Within a split the tiles go in ascending id; a
+    score enters the list only if it beats the bar, entry k−1's value
+    (-inf while fewer than k are listed), strictly, and each tile's
+    entrants are merged into the list canonically, which keeps k entries.
+    The splits' lists are merged canonically at the end.
+    """
+    rep, cand = rep.float(), cand.float()
+    rows, c = rep.shape[0], cand.shape[0]
+    n_valid = c if n_valid is None else n_valid
+    sims = tile_sims(rep, cand, measure)
+    col = torch.arange(c, device=rep.device)
+    invalid = (col >= n_valid)[None, :].expand(rows, c)
+    if self_offset is not None:
+        row = self_offset + torch.arange(rows, device=rep.device)
+        invalid = invalid | (col[None, :] == row[:, None])
+    sims = sims.masked_fill(invalid, float("-inf"))
+    span = c if split_tiles is None else split_tiles * tile
+    parts_v, parts_i = [], []
+    for s0 in range(0, c, span):
+        lv = sims.new_full((rows, k), float("-inf"))
+        li = torch.zeros((rows, k), dtype=torch.long, device=rep.device)
+        for t0 in range(s0, min(c, s0 + span), tile):
+            t1 = min(t0 + tile, s0 + span, c)
+            v = sims[:, t0:t1]
+            enter = v > lv[:, k - 1:]
+            lv, li = canonical_topk(
+                torch.cat([lv, v.masked_fill(~enter, float("-inf"))], 1), k,
+                ids=torch.cat([li, col[t0:t1].expand(rows, -1)], 1))
+        parts_v.append(lv)
+        parts_i.append(li)
+    vals, ids = canonical_topk(torch.cat(parts_v, 1), k,
+                               ids=torch.cat(parts_i, 1))
+    ids = torch.where(torch.isfinite(vals), ids, torch.zeros_like(ids))
+    return vals, ids.to(torch.int32)
+
+
 def assign_clusters_ref(rep: torch.Tensor, cent: torch.Tensor,
                         measure: str = "cosine") -> torch.Tensor:
     """Oracle for kernels.assign_clusters: (U,) int32 arg-max over the

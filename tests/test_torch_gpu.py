@@ -194,6 +194,73 @@ def test_foldin_topk_kernel_matches_plain(cuda, measure, b, c):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _scan_plan(rows, c, n, k, device):
+    """(variant, (QT, CT), splits, tiles a split) the wrapper takes."""
+    variant = (knn_topk.LARGE_VARIANT if rows > knn_topk.SMALL_ROWS
+               else knn_topk.SMALL_VARIANT)
+    sms, per_sm = knn_topk._occupancy(device.index or 0, variant, n,
+                                      "cosine")
+    return (variant, knn_topk.SCAN_VARIANTS[variant],
+            *knn_topk.plan_scan(rows, c, variant, sms, per_sm,
+                                knn_topk.MIN_TILES, knn_topk.MAX_SPLITS))
+
+
+@pytest.mark.parametrize("measure", MEASURES)
+@pytest.mark.parametrize("u", [65, 300, 17, 257])
+def test_topk_sim_rows_not_a_multiple_of_the_query_tile(cuda, measure, u):
+    """Query blocks with rows past U (both variants: U <= 256 and above)."""
+    _, (qt, _), _, _ = _scan_plan(u, u, 20, 13, cuda)
+    assert u % qt
+    rep = kernel_rows(_rep(u, 20, cuda, seed=6), measure)
+    got = knn_topk.topk_sim(rep, rep, 13, exclude_self=True, measure=measure)
+    want = ref.topk_sim_ref(rep, rep, 13, exclude_self=True, measure=measure)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("measure", MEASURES)
+@pytest.mark.parametrize("u,c", [(300, 40), (20, 7)])
+def test_topk_fewer_candidates_than_one_tile(cuda, measure, u, c):
+    """C below one candidate tile (and, at C = 7, below k): one ragged
+    tile, empty slots (-inf, 0)."""
+    rep = kernel_rows(_rep(u, 20, cuda, seed=7), measure)
+    cand = rep[:c].contiguous()
+    _, (_, ct), splits, _ = _scan_plan(u, c, 20, 13, cuda)
+    assert c < ct and splits == 1
+    got = knn_topk.topk_sim(rep, cand, 13, measure=measure)
+    want = ref.topk_sim_ref(rep, cand, 13, measure=measure)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("measure", MEASURES)
+def test_topk_split_boundary_at_n_valid(cuda, measure):
+    """n_valid on the first split boundary: the splits past it hold only
+    masked candidates and must return empty lists to the merge."""
+    u = 1001
+    _, (_, ct), splits, tps = _scan_plan(u, u, 20, 13, cuda)
+    assert splits > 1
+    n_valid = tps * ct
+    rep = kernel_rows(_rep(u, 20, cuda, seed=8), measure)
+    got = knn_topk.topk_sim(rep, rep, 13, exclude_self=True, n_valid=n_valid,
+                            measure=measure)
+    want = ref.topk_sim_ref(rep, rep, 13, exclude_self=True, n_valid=n_valid,
+                            measure=measure)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("measure", MEASURES)
+def test_topk_sim_fit_shape_bitwise(cuda, measure):
+    """The graph build's shape: U = C = 5976, n = 20, k = 13, self
+    excluded."""
+    rep = kernel_rows(_rep(5976, 20, cuda, seed=9), measure)
+    got = knn_topk.topk_sim(rep, rep, 13, exclude_self=True, measure=measure)
+    want = ref.topk_sim_ref(rep, rep, 13, exclude_self=True, measure=measure)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 @pytest.mark.parametrize("measure", MEASURES)
 def test_topk_duplicated_rows_tie_to_lowest_id(cuda, measure):
     """Triples of identical rows: equal scores must break to the lowest id,
