@@ -16,8 +16,9 @@ non-zero and prints no result. Phases, one line each:
    instructions that ``cuobjdump -sass`` counts in it
    (``wgmma.mma_async`` in its PTX where the toolkit has no
    ``cuobjdump``) — none is a failure; for the fused IVF probe kernel, per
-   padded row width, and for the top-k scan kernel, per tile variant and
-   measure, its registers, static shared memory and spills;
+   padded row width, for the top-k scan kernel, per tile variant and
+   measure, and for the Lloyd kernel, per register row width, its
+   registers, static shared memory and spills;
 3. kernels — each kernel against its plain version on the card, at the
    main-path shapes, at ragged shapes and on duplicated rows, all three
    measures; the top-k kernels bitwise (values and ids), or the run fails; d1 on both routes, the tensor-core route bitwise the f32
@@ -40,13 +41,20 @@ non-zero and prints no result. Phases, one line each:
    fold-in shape; the fused
    probe again at the lifecycle's batch sizes (64 and 256 queries), with
    the groups of the graph build's call (queries a block, union cells,
-   rows staged against rows probed); a profiler breakdown of one fit →
+   rows staged against rows probed); kernel 4 as the whole ``kmeans()``
+   call (one launch) for each measure at the IVF shape and, cosine, at the
+   lifecycle's capacity bucket, beside the assignment alone and
+   ``build_index``; a profiler breakdown of one fit →
    fold-in → predict (device time by kernel, idle share); wall times of
    fit, fold-in and a 256-pair predict, and peak device memory.
 
 The IVF retrieval slice adds, each with its own time:
 
-7a. IVF kernels — the Lloyd assignment, the fused IVF probe and the
+7a. IVF kernels — the Lloyd kernel (the assignment alone, and a whole
+    k-means: 0, 1 and 8 steps at the IVF shape, (1001, 13, 64), (37, 300, 33), (9, 1, 1) and (300, 7,
+    25), so every register width, the lifecycle's capacity bucket with
+    n_valid < U, and with an empty cell; two launches bitwise equal), the
+    fused IVF probe and the
     gathered-candidate scorer against their plain versions, bitwise, at the
     IVF path's shapes (the index over the fitted ML-1M representation:
     C=77 cells, cap=104, nprobe=19, k=13) and on edge cases (empty cells,
@@ -57,9 +65,10 @@ The IVF retrieval slice adds, each with its own time:
 7b. IVF path — the same data: ``fit(..., backend="ivf")`` at the default
     nprobe (recall@13 against the kernel graph), at nprobe == C (equal to
     the streaming backend under the tie rule), a 64-user ivf fold-in, and
-    ``search(scorer="kernel")`` against ``scorer="fused"``; kernels 4–6
-    must launch, and every d1 call must keep the tensor-core route's
-    result;
+    ``search(scorer="kernel")`` against ``scorer="fused"``; the index
+    that ``fit`` built and the one built again from the same seed bitwise
+    equal (centroids, lists, rows, fill); kernels 4–6 must launch, and
+    every d1 call must keep the tensor-core route's result;
 7c. lifecycle CLI — ``serve --lifecycle --retrieval ivf --early-exit``,
     once at smoke size (a refresh fires, gen 1 swaps in oracle-exact, the
     geometries stay within the buckets, mean recall >= 0.95) and once at
@@ -223,6 +232,7 @@ def phase_build():
         "16-byte and 4-byte loads")))
     print("phase 2 fused probe kernel: " + json.dumps(_ptxas(log, _probe_name)))
     print("phase 2 top-k scan kernel: " + json.dumps(_ptxas(log, _scan_name)))
+    print("phase 2 Lloyd kernel: " + json.dumps(_ptxas(log, _lloyd_name)))
 
 
 def _wgmma_name(line):
@@ -250,6 +260,15 @@ def _probe_name(line):
 
     m = re.search(r"probe_group_kernelILi(\d+)E", line)
     return f"n<={4 * int(m.group(1))}" if m else None
+
+
+def _lloyd_name(line):
+    """'n<=20' for a line naming an instantiation of the Lloyd kernel
+    (template <int NMAX>: a register row of NMAX floats), else None."""
+    import re
+
+    m = re.search(r"lloyd_kernelILi(\d+)E", line)
+    return f"n<={m.group(1)}" if m else None
 
 
 def _scan_name(line):
@@ -666,7 +685,7 @@ DEVICE_FUNCS = {
     "topk_sim": ("topk_prep_kernel", "topk_scan_kernel", "topk_merge_kernel"),
     "foldin_topk": ("topk_prep_kernel", "topk_scan_kernel",
                     "topk_merge_kernel"),
-    "assign_clusters": ("assign_kernel",),
+    "assign_clusters": ("lloyd_kernel",),
     # None: every kernel of the call (the argsort that groups the queries,
     # then the probe kernel)
     "fused_probe_topk": None,
@@ -770,17 +789,23 @@ def _bound(bytes_moved, flops):
 def _ivf_rows(ivf, ivf_counts, life_counts, err):
     """Rows 4–6 of the kernel table at the IVF path's shapes.
 
-    The operation counts are the least work each function needs on these
-    inputs: a dot product (2n) and a 3-op epilogue (multiply, max, divide)
-    per scored pair, and a squared norm (2n) once per distinct row."""
+    Row 4 is the whole ``kmeans()`` call of the IVF build (one launch of
+    the Lloyd kernel), bounded by its nine assignments' products (the
+    update's adds are U·n a step) or by its rows and centroids read once
+    and its outputs written once. The other operation counts are the least
+    work each function needs on these inputs: a dot product (2n) and a
+    3-op epilogue (multiply, max, divide) per scored pair, and a squared
+    norm (2n) once per distinct row."""
     import torch.nn.functional as F
 
     index, probe = ivf["index"], ivf["probe"]
     rows_all = ivf["all_rows"]
     u, n = rows_all.shape
     c, cap = index.lists.shape
-    xr = kernel_rows(rows_all, "cosine")
-    cr = kernel_rows(index.centroids, "cosine")
+    spec = rt.resolve_ivf(None, u)
+    init = rt.init_centroids(torch.Generator().manual_seed(spec.seed),
+                             rows_all, c)
+    steps = spec.iters + 1  # assignments a k-means
     live = int(index.fill[probe.long()].sum())  # (query, live slot) pairs
     stored = int(index.fill.sum())  # live rows in the index
     b, nprobe = probe.shape
@@ -790,10 +815,12 @@ def _ivf_rows(ivf, ivf_counts, life_counts, err):
     kw = dict(k=13, self_ids=ivf["self_ids"])
     calls = {
         "assign_clusters": (
-            lambda: assign_clusters.assign_clusters(xr, cr),
-            lambda: ref.assign_clusters_ref(xr, cr),
-            None, 4 * (u * n + c * n + u), 2 * u * c * n,
-            f"U={u} C={c} n={n} (cosine, normalized rows)"),
+            lambda: rt.kmeans(rows_all, c, "cosine", iters=spec.iters,
+                              init=init),
+            lambda: ref.kmeans_lloyd_ref(rows_all, init, spec.iters),
+            None, 4 * (u * n + 2 * c * n + u), steps * 2 * u * c * n,
+            f"kmeans() U={u} C={c} n={n} {spec.iters} steps, cosine, from "
+            f"given centroids: the whole call"),
         "fused_probe_topk": (
             lambda: ivf_probe.fused_probe_topk(*args, **kw),
             lambda: ref.fused_probe_topk_ref(*args, **kw),
@@ -822,8 +849,65 @@ def _ivf_rows(ivf, ivf_counts, life_counts, err):
             bound_us=bound_ms * 1e3, bound_by=bound_by,
             library_ms=None if lib is None else _event_ms(lib, 50),
             device_ms=_device_ms(kern, name)))
+    table[0].update(_kmeans_times(ivf, init, spec))
     print("phase 6 fused probe: " + json.dumps(_probe_shapes(ivf)))
     return table
+
+
+def _device_calls(fn, iters=20):
+    """(device ms, device operations) per call of ``fn``: every kernel and
+    copy it runs, from a ``torch.profiler`` trace of ``iters`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        sync()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return (sum(spans) / 1e3 / iters if spans else None), len(spans) / iters
+
+
+def _kmeans_times(ivf, init, spec):
+    """Row 4's other numbers: the launches per ``kmeans()`` call, the
+    Lloyd kernel's time for each measure at the IVF shape and, cosine, at
+    the lifecycle's capacity bucket; the assignment alone (the earlier row
+    4); ``build_index`` at the IVF shape."""
+    rows_all, index = ivf["all_rows"], ivf["index"]
+    c = index.n_clusters
+    _, launches = _device_calls(
+        lambda: rt.kmeans(rows_all, c, "cosine", iters=spec.iters, init=init))
+    cap, nv = ivf["capacity"]
+    c_life = rt.resolve_ivf(None, nv).n_clusters
+    init_life = rt.init_centroids(torch.Generator().manual_seed(0), cap,
+                                  c_life, nv)
+    cells = {}
+    for measure in sim.MEASURES:
+        call = lambda m=measure: assign_clusters.kmeans_lloyd(
+            rows_all, init, spec.iters, None, m)
+        cells[measure] = dict(ms=_event_ms(call, 50),
+                              device_ms=_device_calls(call)[0])
+    call = lambda: assign_clusters.kmeans_lloyd(cap, init_life, spec.iters,
+                                                nv, "cosine")
+    cells[f"capacity U={cap.shape[0]} n_valid={nv} C={c_life}"] = dict(
+        ms=_event_ms(call, 50), device_ms=_device_calls(call)[0])
+    xr, cr = kernel_rows(rows_all, "cosine"), kernel_rows(init, "cosine")
+    alone = lambda: assign_clusters.assign_clusters(xr, cr)
+    build = lambda: rt.build_index(rows_all, spec, "cosine")
+    build_dev, build_ops = _device_calls(build)
+    out = dict(launches_per_call=launches, lloyd_kernel=cells,
+               assign_alone=dict(ms=_event_ms(alone, 50),
+                                 device_ms=_device_ms(alone,
+                                                      "assign_clusters")),
+               build_index=dict(ms=_event_ms(build, 20),
+                                device_ms=build_dev,
+                                device_ops_per_call=build_ops))
+    print("phase 6 kmeans: " + json.dumps(out))
+    return out
 
 
 def _probe_shapes(ivf):
@@ -1006,6 +1090,8 @@ def phase_ivf_kernels(a):
                      [assign_clusters.assign_clusters(xr, cr, measure)],
                      [ref.assign_clusters_ref(xr, cr, measure)])
     notes.append("assign 9/9 bitwise")
+    capacity = _capacity_rows(a["folded"].representation)
+    notes.append(_check_lloyd(rep, capacity))
     # kernel 5: the graph-build search through the index (every row a
     # query, its own id excluded), all payloads and measures
     probe = rt.probe_cells(index, rep, spec.nprobe, "cosine")
@@ -1082,7 +1168,70 @@ def phase_ivf_kernels(a):
           f"{rep.shape[1]}; " + "; ".join(notes)
           + f" | {time.perf_counter() - t0:.1f}s")
     return dict(index=index, probe=probe, self_ids=self_ids, cand=cand, q=q,
-                all_rows=rep)
+                all_rows=rep, capacity=capacity)
+
+
+LIFECYCLE_CAPACITY = 8192  # the lifecycle's bucket for 6040 rows
+
+
+def _capacity_rows(rep):
+    """``rep`` padded with zero rows to the lifecycle's capacity bucket, and
+    its live-row count."""
+    rows = torch.zeros((LIFECYCLE_CAPACITY, rep.shape[1]), device=DEVICE)
+    rows[:rep.shape[0]] = rep
+    return rows, rep.shape[0]
+
+
+def _bits(t):
+    """A tensor compared bit for bit (f32 as its int32 pattern)."""
+    return t.contiguous().view(torch.int32) if t.is_floating_point() else t
+
+
+def _check_lloyd(rep, capacity):
+    """Kernel 4 as a whole k-means against its plain version, bitwise, and
+    a second launch against the first: 0, 1 and 8 steps, every measure."""
+    rng = np.random.default_rng(23)
+
+    def rows(u, n):
+        return torch.as_tensor(rng.normal(size=(u, n)).astype(np.float32),
+                               device=DEVICE)
+
+    def first(x, c, nv):
+        return (x[torch.as_tensor(rng.permutation(nv)[:c], device=DEVICE)]
+                if c <= nv else x[:1].repeat(c, 1)).contiguous()
+
+    cap, nv = capacity
+    x500 = rows(500, 20)
+    cases = [("IVF", rep, 77, None), ("n=64", rows(1001, 64), 13, None),
+             ("C>U", rows(37, 33), 300, None), ("tiny", rows(9, 1), 1, None),
+             ("n=25", rows(300, 25), 7, None),
+             ("capacity", cap, 78, nv),
+             ("empty cell", x500, None, None)]
+    n_ok = 0
+    for tag, x, c, n_valid in cases:
+        if c is None:  # a far centroid no row is nearest to (euclidean)
+            init = torch.cat([x[:5], torch.full((1, 20), 50.0,
+                                                device=DEVICE)])
+        else:
+            init = first(x, c, x.shape[0] if n_valid is None else n_valid)
+        for measure in sim.MEASURES:
+            for iters in (0, 1, 8):
+                want = ref.kmeans_lloyd_ref(x, init, iters, n_valid, measure)
+                for _ in range(2):  # a second launch: the same bits
+                    got = assign_clusters.kmeans_lloyd(x, init, iters,
+                                                       n_valid, measure)
+                    sync()
+                    if not all(torch.equal(_bits(g), _bits(w))
+                               for g, w in zip(got, want)):
+                        raise AssertionError(
+                            f"kmeans_lloyd {tag} {measure} iters={iters}: "
+                            f"not bitwise its plain version")
+                    n_ok += 1
+                if c is None and measure == "euclidean" and iters == 8 and (
+                        (want[1] == 5).any()
+                        or not torch.equal(want[0][5], init[5])):
+                    raise AssertionError("empty cell: not kept")
+    return f"Lloyd {n_ok}/{n_ok} bitwise (two launches each)"
 
 
 def phase_ivf_path(train, a):
@@ -1096,10 +1245,24 @@ def phase_ivf_path(train, a):
     c = rt.resolve_ivf(None, u_fit).n_clusters
     sync()
     ops.reset_launches()
-    st = fit(matrix, spec, backend="ivf")
+    built, real_build = [], rt.build_index
+
+    def keep(*args, **kw):  # the index fit builds, kept
+        built.append(real_build(*args, **kw))
+        return built[-1]
+
+    with mock.patch.object(rt, "build_index", keep):
+        st = fit(matrix, spec, backend="ivf")
     rec_fit = rt.recall_at_k(st.graph.indices, kernel_graph.indices)
     index = rt.build_index(st.representation, rt.resolve_ivf(None, u_fit),
                            spec.d2)
+    if len(built) != 1 or not all(
+            torch.equal(_bits(x), _bits(y)) for x, y in zip(
+                (built[0].centroids, built[0].lists, built[0].rows,
+                 built[0].fill),
+                (index.centroids, index.lists, index.rows, index.fill))):
+        raise AssertionError("IVF path: the index fit built and the one "
+                             "built again from the same seed differ")
     folded = fold_in(st, train[u_fit:], spec, backend="ivf",
                      ivf_index=index)
     rec_fold = rt.recall_at_k(folded.graph.indices[u_fit:],
@@ -1145,7 +1308,9 @@ def phase_ivf_path(train, a):
              ref.fused_probe_topk_ref(*args, k=13, self_ids=sids))
     swapped = int((g_full.indices != g_str.indices).any(dim=1).sum())
     print(f"phase 7b IVF path: fit(backend=ivf) C={c} nprobe={nprobe} "
-          f"recall@13 vs kernel graph {rec_fit:.4f}; 64-user ivf fold-in "
+          f"recall@13 vs kernel graph {rec_fit:.4f}; the index fit built "
+          f"and build_index again from its seed bitwise equal; 64-user ivf "
+          f"fold-in "
           f"recall@13 {rec_fold:.4f}; nprobe=C equals streaming under the "
           f"tie rule ({swapped} of {u_fit} rows with a tie swapped at the "
           f"cut); kernel vs fused "

@@ -1,7 +1,7 @@
 """The dense LM architectures, with the reference registry's exact
 hyperparameters and smoke models (sources inline). The MoE entries
 (``deepseek-moe-16b``, ``dbrx-132b``) wait for the MoE FFN (ROADMAP queue
-1, item 13)."""
+1 (MoE))."""
 from __future__ import annotations
 
 from typing import Dict

@@ -47,8 +47,10 @@ SIGNATURES = {
     #  stream): prep, scan and (splits > 1) merge
     "topk_scan_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                       _I, _I, _I, _I, _I, _P),
-    # (rep, cent, out, U, C, n, measure, stream)
-    "assign_clusters_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # (rep, init, cent, assign, prep, pval, cscratch, U, C, n, iters,
+    #  n_valid, measure, normalize, stream): a whole k-means in one launch
+    "kmeans_lloyd_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _I, _P),
     # (q, cand, out, B, M, n, measure, stream)
     "score_candidates_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
     # (q, probe, probe_ok, order, lists, rows, scale, fill, self_ids, vals,

@@ -208,6 +208,62 @@ def assign_clusters_ref(rep: torch.Tensor, cent: torch.Tensor,
     return canonical_topk(sims, 1)[1][:, 0].to(torch.int32)
 
 
+def l2_normalize_ref(x: torch.Tensor) -> torch.Tensor:
+    """x / max(√Σx², eps) per row, the squares added left to right as the
+    Lloyd kernel adds them (not ``torch.sum``'s order)."""
+    return x / _sqrt(_row_sums(x * x))[:, None].clamp(min=EPS)
+
+
+def cell_sums_ref(rows: torch.Tensor, seg: torch.Tensor, c: int):
+    """``(sums (c, n) f32, counts (c,) int64)`` of the member ``rows`` of
+    each cell (cell ``seg[i]`` of row i), the members added in ascending
+    row order from +0.0 — ``jax.ops.segment_sum``'s order and CPU
+    ``index_add_``'s.
+
+    A stable sort lists each cell's members in row order; step j adds
+    every cell's j-th member where it has one (a masked add, so a cell's
+    sum sees its members' adds and no others). No atomics, so the card
+    adds in this order too.
+    """
+    order = torch.sort(seg.long(), stable=True).indices
+    counts = torch.bincount(seg.long(), minlength=c)
+    starts = torch.cumsum(counts, 0) - counts
+    sums = torch.zeros((c, rows.shape[1]), dtype=torch.float32,
+                       device=rows.device)
+    last = max(rows.shape[0] - 1, 0)
+    for j in range(int(counts.max()) if rows.shape[0] else 0):
+        member = rows[order[(starts + j).clamp(max=last)]]
+        sums = torch.where((counts > j)[:, None], sums + member, sums)
+    return sums, counts
+
+
+def kmeans_lloyd_ref(rep: torch.Tensor, init: torch.Tensor, iters: int = 8,
+                     n_valid: Optional[int] = None, measure: str = "cosine",
+                     normalize: bool = True):
+    """Oracle for kernels.kmeans_lloyd: ``iters`` Lloyd steps from
+    ``init``, then the assignment of all U rows; ``(centroids (C, n) f32,
+    assign (U,) int32)``.
+
+    Each step assigns the rows below ``n_valid`` (:func:`assign_clusters_ref`
+    on rows and centroids L2-normalized by :func:`l2_normalize_ref` for
+    cosine when ``normalize``, as the kernel normalizes them), then divides
+    :func:`cell_sums_ref` over their raw rows by the exact counts (an IEEE
+    division); a cell without members keeps its centroid.
+    """
+    rows = rep.float()
+    nv = rows.shape[0] if n_valid is None else n_valid
+    prep = (l2_normalize_ref if measure == "cosine" and normalize
+            else (lambda x: x))
+    scored = prep(rows)
+    cent = init.float().clone()
+    for _ in range(iters):
+        a = assign_clusters_ref(scored[:nv], prep(cent), measure)
+        sums, counts = cell_sums_ref(rows[:nv], a, cent.shape[0])
+        cnt = counts.to(torch.float32)[:, None]
+        cent = torch.where(cnt > 0, sums / cnt.clamp(min=1.0), cent)
+    return cent, assign_clusters_ref(scored, prep(cent), measure)
+
+
 def gathered_sims(q: torch.Tensor, cand: torch.Tensor, measure: str
                   ) -> torch.Tensor:
     """d2 scores (b, m) of each query row ``q (b, n)`` against its own

@@ -26,7 +26,7 @@ from .layers import (LandmarkKVState, apply_rope, decode_attention,
 
 INV_127 = float(np.float32(1.0 / 127.0))  # the f32 reciprocal of 127
 MOE_TODO = ("MoE FFN (moe_ffn / moe_ffn_ragged) is not ported yet: "
-            "ROADMAP queue 1, item 13")
+            "ROADMAP queue 1 (MoE)")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -6,21 +6,22 @@ rows into ``n_clusters`` cells so a neighbor search can prune to the
 the neighbor graph uses (for euclidean, 1/(1+d) is decreasing in d, so the
 arg-max similarity is the arg-min distance).
 
-The assignment step is the only O(U·C·n) product per iteration; on the card
-it runs in the assignment kernel (``kernels/assign_clusters.py``), which
-scores with the graph-build epilogue on caller-normalized rows. ``auto``
-resolves by the tensor's device: the kernel for a CUDA tensor, the plain
-``dense_similarity`` arg-max for a CPU tensor. Quantizer quality, not
-bit-exactness, is what matters here: any partition gives an exact index at
-``nprobe == n_clusters``.
+``auto`` resolves by the tensor's device. On the card (``kernel``) the
+whole of k-means is one launch of the Lloyd kernel
+(``kernels/assign_clusters.py::kmeans_lloyd``): the assignment with the
+graph-build epilogue, cosine rows normalized once in the kernel, and each
+cell's sum over its members in ascending row order. On the CPU
+(``plain``) the assignment is the ``dense_similarity`` arg-max and the
+sums ``index_add_``, which adds in that same order. Both are
+deterministic; the reference's ``segment_sum`` adds in that order too, so
+from the same initialization the centroids agree bit for bit wherever the
+assignments agree (they may differ at a near tie, since the two score in
+another order).
 
 Initialization picks ``n_clusters`` distinct valid rows uniformly (top-k of
 uniform keys drawn from a ``torch.Generator``, padded rows masked); the
 update is the Euclidean mean of the member rows, with empty clusters
-keeping their centroid. The member sums are ``index_add_`` with a dump
-segment for padded rows; on the card ``index_add_`` adds with atomics in no
-fixed order, so two builds of one index may differ in the last bits of a
-centroid (and then, at a near-tie, in one assignment).
+keeping their centroid and padded rows taking no part.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ from ..core.graph import kernel_rows
 from ..core.similarity import dense_similarity
 from ..core.topk import canonical_topk
 from ..kernels.assign_clusters import assign_clusters as assign_kernel
+from ..kernels.assign_clusters import kmeans_lloyd
 
 ASSIGN_BACKENDS = ("plain", "kernel", "auto")
 
@@ -92,18 +94,20 @@ def kmeans(rep: torch.Tensor, n_clusters: int, measure: str = "cosine",
     """
     u = rep.shape[0]
     dev = rep.device
-    rep32 = rep.to(torch.float32)
-    valid = (torch.arange(u, device=dev) < n_valid) if n_valid is not None \
-        else torch.ones(u, dtype=torch.bool, device=dev)
-    vrep = rep32 * valid[:, None]
+    rep32 = rep.to(torch.float32).contiguous()
     if init is None:
         gen = generator if generator is not None \
             else torch.Generator().manual_seed(0)
         init = init_centroids(gen, rep32, n_clusters, n_valid)
-    cent = init.to(device=dev, dtype=torch.float32)
+    cent = init.to(device=dev, dtype=torch.float32).contiguous()
+    if resolve_assign_backend(backend, dev) == "kernel":
+        return kmeans_lloyd(rep32, cent, iters, n_valid, measure)
+    valid = (torch.arange(u, device=dev) < n_valid) if n_valid is not None \
+        else torch.ones(u, dtype=torch.bool, device=dev)
+    vrep = rep32 * valid[:, None]
     ones = valid.to(torch.float32)
     for _ in range(iters):
-        a = assign_clusters(rep32, cent, measure, backend)
+        a = assign_clusters(rep32, cent, measure, "plain")
         seg = torch.where(valid, a.long(), torch.full_like(a.long(),
                                                            n_clusters))
         sums = torch.zeros((n_clusters + 1, rep.shape[1]), device=dev
@@ -112,4 +116,4 @@ def kmeans(rep: torch.Tensor, n_clusters: int, measure: str = "cosine",
             0, seg, ones)[:-1]
         cent = torch.where(cnt[:, None] > 0,
                            sums / cnt.clamp(min=1.0)[:, None], cent)
-    return cent, assign_clusters(rep32, cent, measure, backend)
+    return cent, assign_clusters(rep32, cent, measure, "plain")

@@ -13,9 +13,10 @@ Tolerances:
   value fails the guard);
 - the top-k kernels: bitwise equal values and ids — the plain version
   repeats the kernel's summation order and epilogue op for op;
-- the Lloyd assignment, the gathered-candidate scorer and the fused IVF
-  probe (f32, bf16 and int8 payloads): bitwise equal to their plain
-  versions, for the same reason;
+- the Lloyd kernel (a whole k-means, or the assignment alone), the
+  gathered-candidate scorer and the fused IVF probe (f32, bf16 and int8
+  payloads): bitwise equal to their plain versions, for the same reason;
+  two Lloyd launches on the same inputs bitwise equal to each other;
 - the landmark summary (both routes on the tensor cores: bf16 inputs as
   they are, f32 inputs split into bf16 terms): rtol=1e-4, atol=1e-5, the
   reference's own kernel-vs-oracle tolerance — a streamed softmax with
@@ -329,6 +330,89 @@ def test_assign_clusters_kernel_matches_plain(cuda, measure, u, c, n):
     want = ref.assign_clusters_ref(rep, cent, measure)
     torch.cuda.synchronize()
     assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+def _bits(x):
+    """A tensor compared bit for bit (f32 as its int32 pattern: -0.0 is
+    not +0.0)."""
+    return x.contiguous().view(torch.int32) if x.is_floating_point() else x
+
+
+def _lloyd_case(cuda, measure, iters, rep, init, n_valid=None):
+    got = assign_clusters.kmeans_lloyd(rep, init, iters, n_valid, measure)
+    again = assign_clusters.kmeans_lloyd(rep, init, iters, n_valid, measure)
+    want = ref.kmeans_lloyd_ref(rep, init, iters, n_valid, measure)
+    torch.cuda.synchronize()
+    assert got[1].dtype == torch.int32 and got[0].shape == init.shape
+    for g, w, a in zip(got, want, again):
+        assert torch.equal(_bits(g), _bits(w))
+        assert torch.equal(_bits(g), _bits(a))
+    return got
+
+
+@pytest.mark.parametrize("iters", [0, 1, 8])
+@pytest.mark.parametrize("measure", MEASURES)
+@pytest.mark.parametrize("u,c,n,n_valid", [
+    (5976, 77, 20, None), (1001, 13, 64, None), (37, 300, 33, None),
+    (9, 1, 1, None), (300, 7, 25, None),  # every register width
+    # the lifecycle's capacity buckets: full width and smoke size
+    (8192, 78, 20, 6040), (256, 12, 20, 128)])
+def test_kmeans_lloyd_kernel_matches_plain(cuda, iters, measure, u, c, n,
+                                           n_valid):
+    rep = _rows(u, n, cuda, seed=6)
+    nv = u if n_valid is None else n_valid
+    rep[nv:] = 0.0  # a bucket's padding rows
+    init = (rep[torch.randperm(nv, device=cuda)[:c]] if c <= nv
+            else rep[:1].repeat(c, 1)).contiguous()
+    _lloyd_case(cuda, measure, iters, rep, init, n_valid)
+
+
+@pytest.mark.parametrize("u,c,n_valid,iters,measures", [
+    # windows of assignments (n_valid > 8192) and staging rounds (a cell of
+    # more than 612 members at n = 20)
+    (20000, 3, None, 2, MEASURES),
+    # more rows a block than one pass and one prepare chunk hold
+    (80000, 4, 79000, 1, ("cosine",))])
+def test_kmeans_lloyd_large_shapes(cuda, u, c, n_valid, iters, measures):
+    rep = torch.as_tensor(np.random.default_rng(9).normal(
+        size=(u, 20)).astype(np.float32), device=cuda)
+    init = rep[:c].contiguous()
+    for measure in measures:
+        _lloyd_case(cuda, measure, iters, rep, init, n_valid)
+
+
+def test_kmeans_lloyd_empty_cells_and_no_valid_rows(cuda):
+    rep = _rows(500, 20, cuda, seed=7)
+    far = torch.full((1, 20), 50.0, device=cuda)
+    init = torch.cat([rep[:5], far]).contiguous()
+    cent, assign = _lloyd_case(cuda, "euclidean", 8, rep, init)
+    assert not (assign == 5).any() and torch.equal(cent[5], far[0])
+    for measure in MEASURES:
+        cent, _ = _lloyd_case(cuda, measure, 8, rep, init, n_valid=0)
+        assert torch.equal(_bits(cent), _bits(init))
+
+
+def test_kmeans_on_the_card_is_one_launch_and_reproducible(cuda):
+    """``kmeans(backend="auto")`` runs the whole Lloyd loop in one launch,
+    and two index builds from one seed are bitwise equal."""
+    import repro_torch.retrieval as R
+
+    rep = _rows(3000, 20, cuda, seed=8)
+    init = rep[:40].contiguous()
+    ops.reset_launches()
+    cent, assign = R.kmeans(rep, 40, "cosine", init=init)
+    assert assign_clusters.assign_clusters.launches == 1
+    want = assign_clusters.kmeans_lloyd(rep, init, 8)
+    assert torch.equal(_bits(cent), _bits(want[0]))
+    assert torch.equal(assign, want[1])
+    spec = R.resolve_ivf(None, 3000)
+    a, b = (R.build_index(rep, spec, "cosine", n_valid=2900)
+            for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(a.centroids), _bits(b.centroids))
+    for x, y in ((a.lists, b.lists), (a.fill, b.fill)):
+        assert torch.equal(x, y)
+    assert torch.equal(_bits(a.rows), _bits(b.rows))
 
 
 @pytest.mark.parametrize("measure", MEASURES)
