@@ -101,6 +101,24 @@ The LM slice adds, each with its own time:
     decode step's logits against ``lm_forward``'s last position within
     0.15, the reference's bf16 bound.
 
+The engine slice adds:
+
+9.  engine CLI — ``serve --workload cf --engine``, once ``--smoke`` and once
+    at full width (U=6040, P=3952, 128-row batches, 64-row folds, 8 s of
+    open-loop load, ``--retrieval ivf --early-exit``) with ``--trace-dir``,
+    ``--metrics-json`` and ``--torch-profile`` under ``build/phase9/``:
+    each run's bitwise-vs-solo audit must re-run N > 0 requests with 0
+    mismatches, with no non-finite prediction, at least one fold, the read
+    geometries within |batch shapes| x |capacities|, every d1 call on the
+    tensor-core route; at full width also d1, the fold-in scan and kernels
+    4-6 launched, the exports through ``benchmarks/check_obs.py``
+    (read/fold overlap required), and, in the profiler trace of the load
+    window, the fold lane's d1 and scan kernels on a stream no read batch
+    ran on, launched by the fold lane's thread. Prints sustained QPS, read
+    p50/p95/p99, shed and pad fractions, fold p50/p99 and the device's
+    busy and idle share of the load window; the kernel table gains each
+    row's launches in the full run (``launches_engine``).
+
 The last two lines are the kernel table and
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. TF32 is off for
 matmul and cuDNN throughout: the reference scores in full f32.
@@ -1607,6 +1625,164 @@ def phase_lm_serve():
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ engine slice
+# the kernels the engine CLI must launch at full width: d1 and the fold-in
+# scan on the fold lane, the IVF sidecar's build (kernel 4), fused probe and
+# candidate scorer
+ENGINE_KERNELS = ("masked_similarity", "foldin_topk", "assign_clusters",
+                  "fused_probe_topk", "score_candidates")
+# the fold lane's device functions, as the profiler names them: d1 (planes,
+# moments, finalize) and the fold-in top-k scan (prep, scan, merge)
+FOLD_FUNCS = {"d1": ("planes_kernel", "moments_wgmma_kernel",
+                     "masked_similarity_kernel"),
+              "scan": ("topk_prep_kernel", "topk_scan_kernel",
+                       "topk_merge_kernel")}
+ENGINE_DIR = ROOT / "build" / "phase9"
+
+
+def _thread_ids(lane):
+    """The ids a profiler trace may give a lane's thread: its OS thread id
+    (threads the profiler knows), or the low 32 bits of its pthread handle
+    (CUPTI's default thread id), as unsigned, signed, or the magnitude of
+    the signed value — the last is what torch 2.11's trace writes."""
+    low = lane["ident"] & 0xFFFFFFFF
+    signed = low - (1 << 32) if low >= 1 << 31 else low
+    return {lane["native_id"], low, signed, abs(signed)}
+
+
+def _lane_streams(path, lanes):
+    """Read the ``torch.profiler`` Chrome trace of the engine's load window:
+    the streams of the fold lane's d1 and scan kernels and of the kernels
+    the read lane's thread launched (each kernel's launch, by correlation
+    id, names its thread), the launching threads of the fold lane's
+    kernels, kernel counts by (lane, stream), and the device's busy share of
+    the window (the union of kernel, copy and memset intervals over the
+    trace's span)."""
+    doc = json.loads(Path(path).read_text())
+    evs = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    launcher = {e["args"]["correlation"]: e["tid"] for e in evs
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    lane_of = {tid: name for name, lane in lanes.items()
+               for tid in _thread_ids(lane)}
+    fold = {lane: set() for lane in FOLD_FUNCS}
+    fold_lanes, by_lane, spans = set(), {}, []
+    for e in evs:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        spans.append((e["ts"], e["ts"] + e["dur"]))
+        if e["cat"] != "kernel":
+            continue
+        stream = e["args"].get("stream")
+        lane = lane_of.get(launcher.get(e["args"].get("correlation")),
+                           "other")
+        key = f"{lane}@{stream}"
+        by_lane[key] = by_lane.get(key, 0) + 1
+        for kind, funcs in FOLD_FUNCS.items():
+            if any(f in e["name"] for f in funcs):
+                fold[kind].add(stream)
+                fold_lanes.add(lane)
+    t0 = min(e["ts"] for e in evs)
+    t1 = max(e["ts"] + e["dur"] for e in evs)
+    spans.sort()
+    busy, end = 0.0, t0
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    read_streams = sorted({int(k.split("@")[1]) for k in by_lane
+                           if k.startswith("engine-reads@")})
+    return dict(fold_streams={k: sorted(v) for k, v in fold.items()},
+                fold_lanes=sorted(fold_lanes), read_streams=read_streams,
+                kernels_by_lane_stream=by_lane, window_ms=(t1 - t0) / 1e3,
+                busy_share=busy / (t1 - t0), idle_share=1 - busy / (t1 - t0),
+                device_ops=len(spans),
+                trace_mb=Path(path).stat().st_size / 2 ** 20)
+
+
+def phase_engine():
+    """9: the engine serve CLI, ``--smoke`` and at full width with the IVF
+    sidecar, the obs exports and a torch.profiler capture of the load
+    window. Each run: a bitwise-vs-solo audit with N > 0 re-runs and 0
+    mismatches, no non-finite prediction, at least one fold, the read
+    geometries within budget, every d1 call on the tensor-core route; at
+    full width also every engine kernel launched, the exports through
+    ``benchmarks/check_obs.py`` (read/fold overlap required), and the fold
+    lane's d1 and scan kernels on a stream no read batch used. Returns the
+    full run's launch counts."""
+    from benchmarks import check_obs
+
+    shutil.rmtree(ENGINE_DIR, ignore_errors=True)
+    trace, metrics, prof = (ENGINE_DIR / "trace", ENGINE_DIR / "metrics.json",
+                            ENGINE_DIR / "profile")
+    out = {}
+    for tag, argv in (
+            ("smoke", ["--smoke"]),
+            ("full", ["--users", "6040", "--items", "3952", "--batch", "128",
+                      "--foldin", "64", "--duration", "8", "--retrieval",
+                      "ivf", "--early-exit", "--trace-dir", str(trace),
+                      "--metrics-json", str(metrics), "--torch-profile",
+                      str(prof)])):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        ops.reset_launches()
+        with contextlib.redirect_stdout(buf):
+            res = serve.main(["--workload", "cf", "--engine"] + argv)
+        sync()
+        counts = ops.launch_counts()
+        counts["masked_similarity_f32"] = ms.masked_similarity.route_launches[
+            "f32"]
+        d1 = ms.route_results()
+        text = buf.getvalue()
+        print(text, end="")
+        want = (f"bitwise vs solo replay: {res['checked']} requests re-run, "
+                f"0 mismatches | non-finite predictions: 0")
+        if not (res["checked"] > 0 and res["mismatches"] == 0
+                and want in text and res["nonfinite"] == 0):
+            raise AssertionError(f"engine {tag}: audit {res['checked']} "
+                                 f"re-run, {res['mismatches']} mismatches, "
+                                 f"{res['nonfinite']} non-finite")
+        if res["completed"]["fold"] < 1:
+            raise AssertionError(f"engine {tag}: no fold batch completed")
+        if max(res["geometries"].values()) > res["geometry_budget"]:
+            raise AssertionError(f"engine {tag}: geometries "
+                                 f"{res['geometries']} over budget "
+                                 f"{res['geometry_budget']}")
+        if not text.rstrip().endswith("cf engine: done"):
+            raise AssertionError(f"engine {tag}: missing 'cf engine: done'")
+        _check_d1_routes(f"engine {tag}", counts, d1)
+        lanes = {}
+        if tag == "full":
+            idle = [k for k in ENGINE_KERNELS if not counts[k] > 0]
+            if idle:
+                raise AssertionError(f"engine full: {idle} never launched "
+                                     f"({counts})")
+            check_obs.check_trace(str(trace / "trace.json"),
+                                  require_overlap=True)
+            check_obs.check_metrics(str(metrics))
+            lanes = _lane_streams(prof / "torch_trace.json", res["lane_ids"])
+            fold = set().union(*lanes["fold_streams"].values())
+            if not (all(lanes["fold_streams"].values())
+                    and lanes["read_streams"]
+                    and not fold & set(lanes["read_streams"])
+                    and lanes["fold_lanes"] == ["engine-folds"]):
+                raise AssertionError(f"engine full: the fold lane's kernels "
+                                     f"do not run on a stream of their own: "
+                                     f"{lanes}, lane ids {res['lane_ids']}")
+        rl, fl = res["read_latency"], res["fold_latency"]
+        print(f"phase 9 engine CLI ({tag}): sustained {res['qps']:.1f} QPS, "
+              f"read p50/p95/p99 {rl.p50_ms:.3f}/{rl.p95_ms:.3f}/"
+              f"{rl.p99_ms:.3f} ms ({rl.count} reads), shed_frac "
+              f"{res['shed_frac']:.4f}, pad_frac {res['pad_frac']:.4f}, fold "
+              f"p50/p99 {fl.p50_ms:.3f}/{fl.p99_ms:.3f} ms "
+              f"({res['completed']['fold']} folds), audit {res['checked']} "
+              f"re-run 0 mismatches, geometries {res['geometries']} (budget "
+              f"{res['geometry_budget']}), launches {counts}, d1 results "
+              f"{d1}" + (f", load window {json.dumps(lanes)}" if lanes else "")
+              + f" | {time.perf_counter() - t0:.1f}s")
+        out[tag] = counts
+    return out["full"]
+
+
 def _lm_bound(p, n, s_, d, dtype):
     """Least time for p problems of softmax(q̃Kᵀ·scale)V with f32 results,
     on the route of the inputs' dtype: the bytes moved, and the bf16
@@ -1735,9 +1911,12 @@ def main():
     model_in, lm_err = phase_lm_kernel()
     lm_launches = phase_lm_forward()
     phase_lm_serve()
+    engine_counts = phase_engine()
     table = (phase_times(train, a, err, peak, life_counts)
              + _ivf_rows(ivf, ivf_counts, life_counts, err)
              + _lm_rows(model_in, lm_err, lm_launches, life_counts))
+    for row in table:  # the engine run's launches, every row
+        row["launches_engine"] = engine_counts.get(row["name"], 0)
     print(f"card: {card}")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,12 @@ zeroes both numerator and denominator terms).
 
 The graph entry points accept an optional scalar ``n_valid``: rows
 ``>= n_valid`` are padding and their weights are forced to 0 before Eq. (1).
+
+Both sums of Eq. (1) run over the k neighbors in one fixed order
+(:func:`_sum_k`), never through a library reduction or batched product,
+whose plan (and so its order of additions) may change with the batch
+size. A row's prediction is therefore the same bits in every batch that
+holds it — the request engine's bitwise-against-solo contract.
 """
 from __future__ import annotations
 
@@ -52,12 +58,27 @@ def _center(ratings: torch.Tensor):
     return mask, means, (ratings - means[:, None]) * mask
 
 
+def _sum_k(x: torch.Tensor) -> torch.Tensor:
+    """Sum over axis 1 (the k neighbors) by pairwise halving after
+    zero-padding k to a power of two: elementwise adds only, in an order
+    fixed by k alone, so a row's sum does not depend on its batch."""
+    k = x.shape[1]
+    width = 1 << max(k - 1, 0).bit_length()
+    if width != k:
+        x = torch.cat([x, x.new_zeros((x.shape[0], width - k)
+                                      + tuple(x.shape[2:]))], dim=1)
+    while x.shape[1] > 1:
+        half = x.shape[1] // 2
+        x = x[:, :half] + x[:, half:]
+    return x[:, 0]
+
+
 def _block_predict(idx, w, centered, mask, mu):
     """Eq. (1) for one user block given its (block, k) neighbor lists."""
     nb_centered = centered[idx]  # (block, k, P)
     nb_mask = mask[idx]
-    num = torch.einsum("bk,bkp->bp", w, nb_centered)
-    den = torch.einsum("bk,bkp->bp", w.abs(), nb_mask)
+    num = _sum_k(w[:, :, None] * nb_centered)
+    den = _sum_k(w.abs()[:, :, None] * nb_mask)
     return mu[:, None] + num / den.clamp(min=EPS)
 
 
@@ -99,8 +120,8 @@ def _pair_predict(idx, w, users, items, ratings, mask, means):
     """Eq. (1) for (B,) pairs given their (B, k) neighbor lists."""
     r = ratings[idx, items[:, None]]
     m = mask[idx, items[:, None]]
-    num = torch.sum(w * (r - means[idx]) * m, dim=1)
-    den = torch.sum(w.abs() * m, dim=1)
+    num = _sum_k(w * (r - means[idx]) * m)
+    den = _sum_k(w.abs() * m)
     return means[users] + num / den.clamp(min=EPS)
 
 

@@ -22,6 +22,18 @@
   and every wave reports recall@k of the serving-nprobe search against the
   exact (full-probe) search, escalating nprobe to hold a 0.95 SLO;
   ``--early-exit`` adds per-query adaptive probing.
+- ``cf --engine``: open-loop serving through the request engine
+  (``serving.engine``): a load generator drives mixed pair/top-N/fold
+  traffic at ``--rate`` for ``--duration`` seconds through continuous
+  micro-batching, bounded admission and the async fold lane (its own CUDA
+  stream on the card), and reports sustained QPS, p50/p95/p99 under load,
+  the shed fraction and a bitwise-vs-solo audit; ``--retrieval ivf``
+  probes IVF recall while the engine is under load.
+
+``--trace-dir`` and ``--metrics-json`` export the engine's, the
+lifecycle's and the retrieval sidecar's spans and series (``obs``), on the
+``--engine`` and ``--lifecycle`` paths; ``--torch-profile DIR`` captures a
+``torch.profiler`` trace of the engine's load window.
 
 Everything runs on the card unless ``--device cpu`` is given; asking for
 ``cuda`` on a machine without one raises. TF32 is switched off for matmuls
@@ -35,12 +47,14 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import math
+import os
 import tempfile
 import time
 
 import numpy as np
 import torch
 
+from .. import obs as obslib
 from ..configs import landmark_cf as cfg
 from ..configs import registry
 from ..core import RatingMatrix, fit, fold_in, knn
@@ -320,6 +334,13 @@ def _serve_cf_lifecycle(args):
     rng = np.random.default_rng(0)
     bq = args.foldin  # fold-in batch bucket: b is padded to this, always
     buckets.reset_geometries()
+    o = None
+    if args.trace_dir or args.metrics_json:
+        # per-wave drift gauges land in the registry, and the installed
+        # tracer catches the background refresh spans (refresh.fit /
+        # refresh.commit / refresh.ivf_rebuild)
+        o = obslib.Observability(sample_rate=args.sample_rate, seed=0)
+        obslib.install(o)
 
     # ---- base generation: fit on the wave-0 population, commit, bucket ----
     # a reused --ckpt keeps earlier runs' steps; this run's generations go
@@ -404,6 +425,8 @@ def _serve_cf_lifecycle(args):
 
         # ---- drift detection + refresh decision ---------------------------
         snap = monitor.holdout_snapshot(mon, bst)
+        if o is not None:
+            monitor.publish_snapshot(o.registry, snap)
         if math.isnan(pol.base_mae) and snap.holdout_count >= rspec.min_holdout:
             pol.base_mae = snap.mae  # post-fit baseline, first healthy holdout
         fire, reasons = policy.decide(pol, rspec, snap)
@@ -453,6 +476,8 @@ def _serve_cf_lifecycle(args):
                 st_new.representation, torch.ones(snap_u, device=device))
             mon = monitor.rebase(mon, bst.n_valid, new_cov)
             snap, reasons = monitor.holdout_snapshot(mon, bst), []
+            if o is not None:
+                monitor.publish_snapshot(o.registry, snap)
             mae_post = snap.mae
             policy.on_swap(pol, gen, mae_post, rspec)
             last_refit, pending = pending, None
@@ -558,7 +583,341 @@ def _serve_cf_lifecycle(args):
             assert np.mean(recalls) >= IVF_RECALL_SLO, (
                 f"ivf smoke recall {np.mean(recalls):.3f} < {IVF_RECALL_SLO} "
                 "on the drifting stream")
+    if o is not None:
+        from ..retrieval import publish_retrieval
+
+        obslib.publish_compile_counts(o.registry)
+        if use_ivf:
+            publish_retrieval(
+                o.registry, nprobe=retrieval.nprobe,
+                clusters=index.n_clusters,
+                recall=(float(np.mean(recalls)) if recalls
+                        else float("nan")),
+                early_exit=bool(args.early_exit), probes=len(recalls))
+        else:
+            publish_retrieval(o.registry)
+        _export_obs(o, args)
     print("cf lifecycle: done")
+
+
+def _export_obs(o, args):
+    """Write the trace and the metrics snapshot that were asked for, then
+    uninstall the process-wide instance."""
+    if args.trace_dir:
+        tp = o.export_trace(args.trace_dir)
+        print(f"obs: {len(o.tracer.events())} spans "
+              f"({o.tracer.dropped} dropped) -> {tp}")
+    if args.metrics_json:
+        print(f"obs: metrics snapshot -> "
+              f"{o.export_metrics(args.metrics_json)}")
+    obslib.uninstall()
+
+
+# ------------------------------------------------------------------ cf engine
+def _serve_cf_engine(args):
+    """Open-loop serving through the request engine: continuous
+    micro-batching over the bucketed state, bounded admission with load
+    shedding, and an async fold-in lane on a CUDA stream of its own. A load
+    generator drives mixed pair/top-N/fold traffic at ``--rate`` requests/s
+    (0: twice the closed-loop capacity) for ``--duration`` seconds; the run
+    reports sustained QPS, p50/p95/p99 and the shed fraction, re-runs a
+    sample of the reads alone (bitwise), and checks that the read
+    geometries stay within |batch shapes| x |capacities used|. ``--smoke``
+    also holds the SLOs under load: QPS > 0, read p95 within the SLO, at
+    least one fold, recall >= 0.95 with ``--retrieval ivf``. Returns the
+    engine's stats with the run's figures."""
+    from ..lifecycle import buckets, monitor
+    from ..serving import EngineConfig, LocalBackend, RequestEngine
+
+    device = torch.device(args.device)
+    spec = cfg.SMOKE if args.smoke else cfg.MODEL
+    spec = dataclasses.replace(spec, selection=args.selection)
+    if args.smoke:
+        _clamp_lifecycle_smoke(args)
+        args.duration = min(args.duration, 4.0)
+    rng = np.random.default_rng(0)
+    n0 = args.users  # load targets the base population: valid in every gen
+
+    r0 = _synth_ratings(rng, args.users, args.items, device)
+    t0 = time.perf_counter()
+    st = fit(RatingMatrix(r0, args.users, args.items), spec,
+             generator=torch.Generator().manual_seed(0))
+    _sync(device)
+    print(f"fit U={args.users} P={args.items} n={spec.n_landmarks} "
+          f"k={st.graph.k} on {device}: "
+          f"{(time.perf_counter() - t0) * 1e3:.0f}ms")
+
+    ecfg = EngineConfig(max_batch=args.batch, min_shape=min(32, args.batch),
+                        queue_cap=args.batch * 8, max_wait_ms=2.0,
+                        slo_ms=250.0, fold_bq=args.foldin, topn=args.topn)
+    backend = LocalBackend(buckets.from_state(st, args.min_bucket,
+                                              args.growth),
+                           spec, min_bucket=args.min_bucket,
+                           growth=args.growth,
+                           warm_shapes=ecfg.batch_shapes(),
+                           warm_topn=args.topn)
+    buckets.reset_geometries()  # the run's geometries, warm-up included
+
+    # optional IVF sidecar: retrieval health probed while the engine is
+    # under load (index maintenance itself rides the lifecycle loop)
+    use_ivf = args.retrieval == "ivf"
+    recalls, probeds, ee_recalls = [], [], []
+    if use_ivf:
+        from .. import retrieval as rt
+
+        user_ivf = rt.IVFSpec(n_clusters=args.clusters or None,
+                              nprobe=args.nprobe or None)
+        retrieval = rt.resolve_ivf(user_ivf, n0)
+        if args.smoke and not args.nprobe:
+            # the lifecycle replays' smoke-scale bump
+            retrieval = dataclasses.replace(
+                retrieval,
+                nprobe=max(retrieval.nprobe, retrieval.n_clusters // 2))
+        index = rt.build_index(st.representation, retrieval, spec.d2)
+        kk = st.graph.k
+        qids0 = _ids(rng, n0, min(args.batch, n0), device)
+        qrep0 = st.representation[qids0.long()]
+        ve, ie = rt.search(index, qrep0, kk, index.n_clusters, spec.d2,
+                           self_ids=qids0)
+
+        def recall_probe():
+            """(SLO recall, mean probed/q, early-exit recall or None). The
+            SLO is judged on the full-budget search; early exit rides atop
+            the escalated budget and is reported, not gated."""
+            np_ = retrieval.nprobe
+            va, ia = rt.search(index, qrep0, kk, np_, spec.d2,
+                               self_ids=qids0)
+            rec = rt.recall_at_k(ia, ie, va, ve)
+            ee, probed = None, float(np_)
+            if args.early_exit:
+                ev, ei, pq = rt.search_early_exit(index, qrep0, kk, np_,
+                                                  spec.d2, self_ids=qids0)
+                ee = rt.recall_at_k(ei, ie, ev, ve)
+                probed = float(pq.float().mean())
+            return rec, probed, ee
+
+        esc_count = 0
+        rec0, _pq, _ee = recall_probe()
+        while rec0 < IVF_RECALL_SLO and retrieval.nprobe < index.n_clusters:
+            esc = min(index.n_clusters, max(retrieval.nprobe + 1,
+                                            (retrieval.nprobe * 3) // 2))
+            retrieval = dataclasses.replace(retrieval, nprobe=esc)
+            esc_count += 1
+            rec0, _pq, _ee = recall_probe()
+        print(f"retrieval: ivf C={index.n_clusters} nprobe={retrieval.nprobe}"
+              f" pre-load recall@{kk}={rec0:.3f}")
+
+    o = None
+    if args.trace_dir or args.metrics_json or args.torch_profile:
+        o = obslib.Observability(sample_rate=args.sample_rate, seed=0)
+        obslib.install(o)
+        # lifecycle feed: withhold a holdout slice from each fold batch, so
+        # the exported lifecycle series carries a real holdout MAE
+        obs_rspec = cfg.SMOKE_REFRESH if args.smoke else cfg.REFRESH
+        obs_cov = monitor.batch_coverage(st.representation,
+                                         torch.ones(n0, device=device))
+        obs_mon = monitor.init_monitor(obs_rspec.reservoir, n0, obs_cov,
+                                       device)
+        obs_gen = torch.Generator().manual_seed(17)  # reservoir draws
+
+    eng = RequestEngine(backend, ecfg, clock=time.perf_counter, obs=o)
+    # warm every (batch shape, kind) — the geometry budget the run is held
+    # to (x capacities used; folds may grow the bucket once)
+    pub = backend.snapshot()
+    for s in ecfg.batch_shapes():
+        z = np.zeros(s, np.int64)
+        backend.predict_pairs(pub, z, z)
+        backend.recommend_topn(pub, z, args.topn)
+    # warm the fold lane outside the timed window: the first fold pays its
+    # allocations and the regrown capacity's read warm-up
+    backend.fold_in(_synth_ratings(rng, args.foldin, args.items,
+                                   "cpu").numpy(), ecfg.fold_bq)
+    pub = backend.snapshot()
+
+    # closed-loop synchronous baseline: one padded call per request, each
+    # waiting for the previous; its capacity anchors the auto rate
+    rq = np.random.default_rng(7)
+    svc = []
+    for _ in range(24):
+        m = int(rq.integers(4, 17))
+        u = np.zeros(ecfg.pad_shape(m), np.int64)
+        u[:m] = rq.integers(0, n0, m)
+        it = np.zeros_like(u)
+        it[:m] = rq.integers(0, args.items, m)
+        t0 = time.perf_counter()
+        backend.predict_pairs(pub, u, it)
+        svc.append(time.perf_counter() - t0)
+    sync = latency_stats(svc)
+    sync_qps = 1.0 / float(np.mean(svc))
+    rate = args.rate if args.rate > 0 else 2.0 * sync_qps
+    print(f"sync baseline: {sync_qps:.0f} req/s closed-loop "
+          f"({sync.brief()}) -> open-loop target {rate:.0f} req/s")
+
+    fold_batches = [_synth_ratings(rq, args.foldin, args.items, "cpu").numpy()
+                    for _ in range(4)]
+    reqs = []
+    with obslib.profile_trace(args.torch_profile):
+        eng.start()
+        try:
+            t_start = time.perf_counter()
+            t_stop = t_start + args.duration
+            next_arr = t_start
+            fold_every = args.duration / 3.0
+            next_fold = t_start + fold_every * 0.6
+            next_probe = t_start + args.duration / 6.0
+            next_pub = t_start + 0.5  # registry publish cadence (obs only)
+            folds_sent = 0
+            next_start = backend.n_users  # logical id of the next folded row
+            while True:
+                now = time.perf_counter()
+                if now >= t_stop:
+                    break
+                if now >= next_arr:
+                    m = int(rq.integers(4, 17))
+                    uu = rq.integers(0, n0, m)
+                    if rq.random() < 0.15:
+                        r = eng.submit("topn", users=uu)
+                    else:
+                        r = eng.submit("pair", users=uu,
+                                       items=rq.integers(0, args.items, m))
+                    if r is not None:
+                        reqs.append(r)
+                    next_arr += rq.exponential(1.0 / rate)
+                    continue
+                if now >= next_fold and folds_sent < len(fold_batches):
+                    if o is not None:
+                        train, hrows, hcols, hvals = _withhold(
+                            rq, fold_batches[folds_sent],
+                            obs_rspec.holdout_frac)
+                        eng.submit("fold", rows=train)
+                        obs_mon = _offer_holdout(
+                            obs_mon, rng, obs_gen, next_start, hrows, hcols,
+                            hvals, obs_rspec.reservoir)
+                        next_start += len(train)
+                    else:
+                        eng.submit("fold", rows=fold_batches[folds_sent])
+                    folds_sent += 1
+                    next_fold += fold_every
+                    continue
+                if use_ivf and now >= next_probe:
+                    # retrieval health under load, launched under the
+                    # engine's exec_lock like a read batch
+                    with eng.exec_lock:
+                        rec, pq, ee = recall_probe()
+                    recalls.append(rec)
+                    probeds.append(pq)
+                    if ee is not None:
+                        ee_recalls.append(ee)
+                    next_probe += args.duration / 6.0
+                    continue
+                if o is not None and now >= next_pub:
+                    # periodic publish: mid-window snapshots see live queue
+                    # depth and latency series, not just the final state
+                    eng.publish_metrics()
+                    next_pub += 0.5
+                    continue
+                time.sleep(min(0.0005, max(0.0, next_arr - now)))
+            for r in reqs:  # drain: every admitted request must complete
+                if not r.done.wait(timeout=60.0):
+                    raise RuntimeError("admitted request never completed")
+        finally:
+            eng.stop()
+    t_last = max([r.t_done for r in reqs] or [t_start])
+    if args.torch_profile:
+        print(f"obs: torch.profiler trace of the load window -> "
+              f"{os.path.join(args.torch_profile, obslib.profile.TRACE_NAME)}")
+
+    # post-run bitwise audit against the final generation, solo replay
+    for _ in range(8):
+        m = int(rq.integers(1, 17))
+        uu = rq.integers(0, backend.n_users, m)
+        eng.submit("pair", users=uu, items=rq.integers(0, args.items, m))
+        eng.submit("topn", users=uu)
+    eng.pump_reads()
+    checked, bad = eng.verify_sample(limit=16)
+
+    stats = eng.stats()
+    elapsed = max(t_last - t_start, 1e-9)
+    sustained_qps = stats["reads_completed"] / elapsed
+    rl = stats["read_latency"]
+    print(f"engine: sustained {sustained_qps:.0f} QPS over {elapsed:.1f}s "
+          f"({stats['reads_completed']} reads in {stats['batches']} batches, "
+          f"mean {stats['mean_batch_rows']:.1f} rows, "
+          f"pad {stats['pad_frac']:.0%})")
+    print(f"latency under load: {rl.brief()} | admission: "
+          f"shed_frac={stats['shed_frac']:.3f} "
+          f"(queue_cap={ecfg.queue_cap} rows)")
+    print(f"fold lane: {stats['completed']['fold']} batches "
+          f"(+{stats['folded_rows']} users -> gen {stats['generation']}, "
+          f"U={backend.n_users}) fold {stats['fold_latency'].brief()} — "
+          f"reads never waited on a write")
+    print(f"bitwise vs solo replay: {checked} requests re-run, "
+          f"{bad} mismatches | non-finite predictions: {stats['nonfinite']}")
+    caps = sorted(backend.caps_used)
+    geo = buckets.geometry_counts()
+    counts = {k: geo.get(k, 0) for k in ("pair", "topn")}
+    budget = len(ecfg.batch_shapes()) * len(caps)
+    print(f"geometries per request-path family: {counts} "
+          f"(budget {budget}: {len(ecfg.batch_shapes())} batch shapes x "
+          f"buckets {caps})")
+    if max(counts.values()) > budget:
+        raise AssertionError(f"geometry count {counts} exceeds the shapes x "
+                             f"buckets budget {budget}")
+    if use_ivf:
+        ee_note = (f" early-exit recall {np.mean(ee_recalls):.3f}"
+                   if ee_recalls else "")
+        print(f"ivf under load: {len(recalls)} probes, recall@{kk} "
+              f"{[f'{r:.3f}' for r in recalls]} "
+              f"probed/q={np.mean(probeds):.1f}/{retrieval.nprobe}{ee_note}"
+              if recalls else "ivf under load: window too short for probes")
+    if o is not None:
+        # final registry state: engine counters/histograms, per-family
+        # geometry growth, the retrieval series (exact-mode when no index
+        # is up), and the lifecycle holdout snapshot — one export carries
+        # all three groups
+        from ..retrieval import publish_retrieval
+
+        eng.publish_metrics()
+        obslib.publish_compile_counts(o.registry)
+        if use_ivf:
+            publish_retrieval(
+                o.registry, nprobe=retrieval.nprobe,
+                clusters=index.n_clusters,
+                probed_per_q=(float(np.mean(probeds)) if probeds
+                              else float(retrieval.nprobe)),
+                recall=(float(np.mean(recalls)) if recalls else rec0),
+                early_exit=bool(args.early_exit),
+                escalations=esc_count, probes=len(recalls))
+        else:
+            publish_retrieval(o.registry)
+        monitor.publish_snapshot(
+            o.registry, monitor.holdout_snapshot(obs_mon,
+                                                 backend.snapshot()[0]))
+        _export_obs(o, args)
+    if bad:
+        raise AssertionError("micro-batched results diverged from solo "
+                             "execution")
+    if stats["nonfinite"]:
+        raise AssertionError("non-finite predictions under load")
+    if args.smoke:
+        if not sustained_qps > 0:
+            raise AssertionError("engine completed no reads under load")
+        if not (rl.count > 0 and rl.p95_ms <= ecfg.slo_ms):
+            raise AssertionError(f"read p95 {rl.p95_ms:.1f}ms breached the "
+                                 f"{ecfg.slo_ms:.0f}ms SLO under load")
+        if stats["completed"]["fold"] < 1:
+            raise AssertionError("smoke run must exercise the fold lane")
+        if use_ivf and not (recalls
+                            and np.mean(recalls) >= IVF_RECALL_SLO):
+            raise AssertionError(
+                f"ivf recall under load "
+                f"{np.mean(recalls) if recalls else float('nan'):.3f} "
+                f"< {IVF_RECALL_SLO}")
+    print("cf engine: done")
+    return dict(stats, qps=sustained_qps, elapsed_s=elapsed,
+                checked=checked, mismatches=bad, geometries=counts,
+                geometry_budget=budget, lane_ids=dict(eng.lane_ids),
+                recalls=recalls)
 
 
 def main(argv=None):
@@ -567,7 +926,8 @@ def main(argv=None):
         "cache or landmark summaries. cf: load (or fit and checkpoint) an "
         "artifact, then waves of pair predictions and top-N "
         "recommendations with fold-ins between them; --lifecycle adds drift "
-        "monitoring and background refresh, --retrieval ivf an IVF index.")
+        "monitoring and background refresh, --retrieval ivf an IVF index; "
+        "--engine serves open-loop traffic through the request engine.")
     ap.add_argument("--workload", choices=("lm", "cf"), default="lm")
     ap.add_argument("--smoke", action="store_true",
                     help="lm: the arch's smoke model; cf: smoke spec and "
@@ -626,15 +986,53 @@ def main(argv=None):
     ap.add_argument("--early-exit", action="store_true",
                     help="retrieval=ivf: per-query adaptive probing; wave "
                     "stats report probed cells per query")
+    ap.add_argument("--engine", action="store_true",
+                    help="cf: serve through the continuous micro-batching "
+                    "request engine (open-loop load generator, admission "
+                    "control, async fold-in lane on its own CUDA stream)")
+    ap.add_argument("--rate", type=float, default=0.0,
+                    help="engine: target arrival rate in requests/s (0 = "
+                    "2x the measured closed-loop capacity)")
+    ap.add_argument("--duration", type=float, default=8.0,
+                    help="engine: load window in seconds (smoke clamps to 4)")
+    ap.add_argument("--mutations", action="store_true",
+                    help="engine: the write path (updates, removals); not "
+                    "in this build — it comes with the mutation slice")
+    ap.add_argument("--mesh", default=None,
+                    help="sharded serving over a device mesh; not in this "
+                    "build — it comes with the multi-GPU slice")
+    ap.add_argument("--trace-dir", default=None,
+                    help="obs: write a Chrome trace-event JSON of the run "
+                    "(engine batch/request spans, fold lane, lifecycle "
+                    "refresh spans) into this directory")
+    ap.add_argument("--metrics-json", default=None,
+                    help="obs: write the unified metrics snapshot (engine, "
+                    "retrieval and lifecycle series) to this JSON file")
+    ap.add_argument("--sample-rate", type=float, default=1.0,
+                    help="obs: per-request span sampling rate in [0, 1] "
+                    "(seeded; per-batch and background spans are always "
+                    "recorded while tracing)")
+    ap.add_argument("--torch-profile", default=None,
+                    help="obs: capture a torch.profiler trace (CPU and CUDA "
+                    "activity) of the engine's load window into this "
+                    "directory")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda; the CPU "
                     "only when asked for)")
     args = ap.parse_args(argv)
     if args.batch is None:
         args.batch = 4 if args.workload == "lm" else 256
-    if args.retrieval == "ivf" and not args.lifecycle:
-        raise SystemExit("--retrieval ivf runs on the lifecycle replay "
-                         "(--workload cf --lifecycle)")
+    if args.mutations:
+        raise SystemExit("--mutations (the engine's write lane: updates and "
+                         "removals through a mutable backend) comes with the "
+                         "port's mutation slice; serve --engine without it")
+    if args.mesh:
+        raise SystemExit("--mesh (sharded serving) comes with the port's "
+                         "multi-GPU slice; serve on one device without it")
+    if args.retrieval == "ivf" and not (args.lifecycle or args.engine):
+        raise SystemExit("--retrieval ivf runs on the lifecycle replay or "
+                         "the request engine (--workload cf --lifecycle / "
+                         "--engine)")
     if args.waves is None:
         args.waves = 8 if args.lifecycle else 3
     args.requests = max(1, args.requests)  # the wave loops time at least one
@@ -645,6 +1043,8 @@ def main(argv=None):
     if args.workload == "lm":
         with torch.inference_mode():
             _serve_lm(args)
+    elif args.engine:
+        return _serve_cf_engine(args)
     elif args.lifecycle:
         _serve_cf_lifecycle(args)
     else:

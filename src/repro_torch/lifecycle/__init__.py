@@ -16,8 +16,8 @@ from .buckets import (BucketedState, bucket_capacity, bucket_schedule,
                       ensure_capacity, fold_in_bucketed, fold_in_rows,
                       from_state, predict_pairs, recommend_topn)
 from .monitor import (MonitorState, Snapshot, batch_coverage,
-                      holdout_snapshot, init_monitor, observe_fold_in, rebase,
-                      reservoir_add, shard_skew)
+                      holdout_snapshot, init_monitor, observe_fold_in,
+                      publish_snapshot, rebase, reservoir_add, shard_skew)
 from .policy import (PolicyState, RefreshSpec, decide, should_compact,
                      should_compact_tombstones, should_rebalance)
 from .refresh import RefreshManager
@@ -26,7 +26,8 @@ __all__ = [
     "BucketedState", "bucket_capacity", "bucket_schedule", "ensure_capacity",
     "fold_in_bucketed", "fold_in_rows", "from_state", "predict_pairs",
     "recommend_topn", "MonitorState", "Snapshot", "batch_coverage",
-    "holdout_snapshot", "init_monitor", "observe_fold_in", "rebase",
+    "holdout_snapshot", "init_monitor", "observe_fold_in",
+    "publish_snapshot", "rebase",
     "reservoir_add", "shard_skew", "PolicyState", "RefreshSpec", "decide",
     "should_compact", "should_compact_tombstones", "should_rebalance",
     "RefreshManager",

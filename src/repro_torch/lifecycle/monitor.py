@@ -61,6 +61,18 @@ class Snapshot:
     tombstone_frac: float = 0.0  # tombstoned rows / appended rows
 
 
+def publish_snapshot(registry, snap: Snapshot,
+                     prefix: str = "lifecycle") -> None:
+    """Mirror a :class:`Snapshot` into an obs metrics registry as
+    ``<prefix>.<field>`` gauges — the lifecycle series of the unified
+    metrics export (``serve --metrics-json``). One gauge per field; an
+    empty-reservoir NaN MAE exports as NaN (null in strict JSON), not 0 —
+    absence of evidence stays distinguishable from a perfect score."""
+    for f in dataclasses.fields(snap):
+        registry.gauge(f"{prefix}.{f.name}").set(
+            float(getattr(snap, f.name)))
+
+
 def init_monitor(reservoir_size: int, n_base: int, base_coverage: float,
                  device="cuda") -> MonitorState:
     z = torch.zeros(reservoir_size, dtype=torch.int32, device=device)

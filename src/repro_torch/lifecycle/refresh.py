@@ -9,8 +9,14 @@ mid-refresh leaves the previous generation as the loadable artifact, and
 generations are monotone (``request`` refuses non-increasing ones).
 
 On the card the thread's kernels run on that thread's current stream (the
-wrappers launch on ``torch.cuda.current_stream``), and the kernel launch
-counters are plain attributes: read them after :meth:`join`.
+wrappers launch on ``torch.cuda.current_stream``), which is the default
+stream, and the kernel launch counters are plain attributes: read them
+after :meth:`join`.
+
+With an observability instance installed (``obs.install``), the refit
+records the spans ``refresh.fit``, ``refresh.commit`` and
+``refresh.ivf_rebuild`` (each ending after its device work) and bumps
+``lifecycle.refreshes`` / sets ``lifecycle.refresh_generation`` at commit.
 
 Oracle property: the swapped artifact equals a from-scratch ``fit`` with a
 generator seeded by the generation on the same accumulated rows — refresh
@@ -24,6 +30,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs as obslib
 from ..core import RatingMatrix, fit
 from ..core.types import LandmarkSpec
 from ..train.checkpoint import save_landmark_state
@@ -55,6 +62,11 @@ class RefreshManager:
         self._error: Optional[BaseException] = None
         self._last_generation = -1
 
+    def _sync(self) -> None:
+        """Wait for this thread's device work (its current stream)."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
     @property
     def busy(self) -> bool:
         return self._thread is not None and self._thread.is_alive()
@@ -76,21 +88,35 @@ class RefreshManager:
 
         def work():
             try:
-                rt = torch.as_tensor(r, device=self.device)
-                st = fit(RatingMatrix(rt, r.shape[0], r.shape[1]), self.spec,
-                         generator=torch.Generator().manual_seed(seed))
-                save_landmark_state(self.ckpt_dir, st, step=generation)
+                with obslib.span("refresh.fit", cat="lifecycle",
+                                 args={"generation": generation,
+                                       "rows": int(r.shape[0])}):
+                    rt = torch.as_tensor(r, device=self.device)
+                    st = fit(RatingMatrix(rt, r.shape[0], r.shape[1]),
+                             self.spec,
+                             generator=torch.Generator().manual_seed(seed))
+                    self._sync()
+                with obslib.span("refresh.commit", cat="lifecycle",
+                                 args={"generation": generation}):
+                    save_landmark_state(self.ckpt_dir, st, step=generation)
+                o = obslib.current()
+                if o is not None and o.enabled:
+                    o.registry.counter("lifecycle.refreshes").inc()
+                    o.registry.gauge("lifecycle.refresh_generation").set(
+                        float(generation))
                 if self.ivf is not None:
                     from ..retrieval import build_index, resolve_ivf
 
-                    cfg = resolve_ivf(self.ivf, st.representation.shape[0])
-                    result = (generation, st,
-                              build_index(st.representation, cfg,
-                                          self.spec.d2))
+                    with obslib.span("refresh.ivf_rebuild", cat="lifecycle",
+                                     args={"generation": generation}):
+                        cfg = resolve_ivf(self.ivf,
+                                          st.representation.shape[0])
+                        index = build_index(st.representation, cfg,
+                                            self.spec.d2)
+                        self._sync()
+                    result = (generation, st, index)
                 else:
                     result = (generation, st)
-                if self.device.type == "cuda":
-                    torch.cuda.current_stream(self.device).synchronize()
                 with self._lock:
                     self._result = result
             except BaseException as e:  # surfaced on the next poll

@@ -1,6 +1,6 @@
 """IVF retrieval over the landmark embedding: a k-means coarse quantizer
-(``kmeans``) and an inverted-file index with fused probe search
-(``index``)."""
+(``kmeans``), an inverted-file index with fused probe search (``index``),
+and the sidecar's metrics series (``observe``)."""
 from .index import (
     IVFIndex,
     IVFSpec,
@@ -23,12 +23,14 @@ from .index import (
 )
 from .kmeans import (ASSIGN_BACKENDS, assign_clusters, init_centroids, kmeans,
                      resolve_assign_backend)
+from .observe import publish_retrieval
 
 __all__ = [
     "IVFIndex", "IVFSpec", "PAYLOAD_DTYPES", "SCORERS", "ASSIGN_BACKENDS",
     "append", "assign_clusters", "build_index", "dequantize_payload",
     "ensure_index_capacity", "grow_capacity", "init_centroids", "kmeans",
-    "place_plan", "probe_cells", "quantize_payload", "recall_at_k",
+    "place_plan", "probe_cells", "publish_retrieval", "quantize_payload",
+    "recall_at_k",
     "resolve_assign_backend", "resolve_ivf", "resolve_scorer",
     "score_recall_at_k", "search",
     "search_early_exit",

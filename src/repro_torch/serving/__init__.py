@@ -1,1 +1,19 @@
-"""Serving helpers."""
+"""Request-path serving: the micro-batching engine and latency stats.
+
+``serving.stats`` is the shared p50/p95/p99 helper (wave loops + engine),
+``serving.engine`` the continuous micro-batching core with admission
+control and the async fold lane. ``launch/serve.py --engine`` wires them
+into the load-generator harness.
+"""
+from .engine import EngineConfig, LocalBackend, Request, RequestEngine
+from .stats import LatencyStats, histogram_latency, latency_stats
+
+__all__ = [
+    "EngineConfig",
+    "LatencyStats",
+    "LocalBackend",
+    "Request",
+    "RequestEngine",
+    "histogram_latency",
+    "latency_stats",
+]

@@ -1,0 +1,641 @@
+"""Continuous micro-batching request engine over the warm bucketed state.
+
+The wave loops in ``launch/serve.py`` replay synchronous traffic: one batch
+at a time, reads and fold-ins strictly interleaved. A server faces
+concurrent pair/top-N/fold-in requests with tail-latency SLOs. This module
+is that server core, host-side and testable without threads:
+
+  queue      ``submit()`` admits a request into a bounded deadline heap;
+             admission is by *rows* (a top-N request for 32 users costs 32
+             rows of queue budget). Overflow sheds — the caller gets
+             ``None`` back and the shed counter feeds ``shed_frac``.
+  former     ``pump_reads()`` pops requests in deadline order, packs
+             same-kind runs up to ``max_batch`` rows, pads to the next
+             power-of-two batch shape, and runs ONE read call per batch.
+             Shapes are drawn from ``EngineConfig.batch_shapes()``, so the
+             geometries stay bounded at |shapes| x |buckets| per request
+             kind — the geometries the lifecycle records.
+  write lane fold-ins go to a separate queue drained by ``pump_folds()`` on
+             its own cadence (its own thread in threaded mode). A fold
+             never runs on the read path; it builds the next-generation
+             state off to the side and swaps it in with one atomic publish,
+             so an in-flight read batch keeps the generation it started
+             with.
+  bit-identity
+             per-row kNN math is row-independent: Eq. (1) sums over the
+             fixed k axis in a fixed order (``core.knn``), never over the
+             batch axis, so any packing/padding of admitted requests gives
+             bitwise the same per-row results as running each request
+             alone — ``verify_sample()`` re-checks exactly that against
+             the live generation.
+
+On the card the two lanes run on two CUDA streams of their own
+(:class:`LocalBackend`): read batches on ``read_stream``, folds (the d1
+and fold-in top-k scan kernels among them) on ``fold_stream``, so a read
+batch never queues on the device behind a fold. A fold is published only
+after its stream has finished.
+
+This module holds the single-device backend. The sharded and mutable
+backends (``ShardedBackend``, ``MutableLocalBackend``,
+``MutableShardedBackend``) and the ``update``/``remove`` write kinds come
+with the mutation and multi-GPU slices.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import heapq
+import threading
+import time
+from typing import Callable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import obs as obslib
+from ..core.types import NeighborGraph
+from ..lifecycle import buckets
+from ..obs.registry import Histogram
+from .stats import histogram_latency
+
+READ_KINDS = ("pair", "topn")
+WRITE_KINDS = ("fold",)
+MUTATION_KINDS = ("update", "remove")  # need a mutable backend
+
+
+@dataclasses.dataclass
+class Request:
+    """One admitted request. ``done`` fires after its batch executes."""
+
+    kind: str                       # "pair" | "topn" | "fold"
+    users: Optional[np.ndarray]     # logical user ids (reads)
+    items: Optional[np.ndarray]     # item ids (pair reads only)
+    rows: Optional[np.ndarray]      # dense rating rows (folds)
+    deadline: float                 # absolute monotonic seconds
+    t_submit: float
+    seq: int
+    done: threading.Event = dataclasses.field(
+        default_factory=threading.Event)
+    result: object = None           # (b,) preds | (items, scores) | gen
+    generation: int = -1            # generation the request executed against
+    t_done: float = 0.0
+    t_pickup: float = 0.0           # batch-former pickup / write-lane drain
+    sampled: bool = False           # selected by the trace sampler
+    trace_id: int = 0               # root span id when sampled
+
+    @property
+    def n_rows(self) -> int:
+        src = self.rows if self.kind == "fold" else self.users
+        return int(len(src))
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Queueing-model knobs. ``batch_shapes()`` is the geometry budget."""
+
+    max_batch: int = 128            # rows per executed read batch
+    min_shape: int = 8              # smallest padded batch shape
+    queue_cap: int = 1024           # admission bound, in rows
+    max_wait_ms: float = 2.0        # batch-fill wait (threaded mode)
+    slo_ms: float = 50.0            # default per-request deadline
+    fold_queue_cap: int = 64        # fold lane bound, in requests
+    fold_bq: int = 32               # fold-in micro-batch quantum
+    topn: int = 10
+
+    def batch_shapes(self) -> Tuple[int, ...]:
+        shapes = []
+        s = max(1, self.min_shape)
+        while s < self.max_batch:
+            shapes.append(s)
+            s *= 2
+        shapes.append(self.max_batch)
+        return tuple(shapes)
+
+    def pad_shape(self, rows: int) -> int:
+        for s in self.batch_shapes():
+            if rows <= s:
+                return s
+        return self.max_batch
+
+
+def _tensors(bst: buckets.BucketedState) -> Tuple[torch.Tensor, ...]:
+    """Every tensor of a bucketed state (a fold writes ratings and
+    representation in place and rebuilds the graph)."""
+    st = bst.state
+    return (st.landmark_idx, st.representation, st.ratings,
+            st.graph.indices, st.graph.weights)
+
+
+def _clone(bst: buckets.BucketedState) -> buckets.BucketedState:
+    """A copy of every tensor of ``bst``: the fold lane folds into it, so
+    the published generation is never written."""
+    idx, rep, ratings, gi, gw = (t.clone() for t in _tensors(bst))
+    st = dataclasses.replace(bst.state, landmark_idx=idx, representation=rep,
+                             ratings=ratings, graph=NeighborGraph(gi, gw))
+    return buckets.BucketedState(st, bst.n_valid)
+
+
+def _on(stream: Optional[torch.cuda.Stream]):
+    return (contextlib.nullcontext() if stream is None
+            else torch.cuda.stream(stream))
+
+
+class LocalBackend:
+    """Single-device executor: logical user id == dense row index.
+
+    Reads return host arrays: each output is one device-to-host copy, which
+    ends when the read's device work has. On a CUDA state, reads run on
+    ``read_stream`` and folds on ``fold_stream`` (CPU states: None, and
+    everything runs in the calling thread's order). A fold clones the whole
+    published state on the fold stream (after the read stream's queued work)
+    and folds into the clone; the new generation is published only after
+    ``fold_stream.synchronize()``, its tensors marked in use on the read
+    stream (``record_stream``), so the allocator never hands their memory
+    to the fold lane while a read may still use it.
+    """
+
+    serialize_folds = False  # one device, no collectives: true overlap
+
+    def __init__(self, bst: buckets.BucketedState, spec, *,
+                 min_bucket: int = 256, growth: float = 2.0,
+                 warm_shapes: Tuple[int, ...] = (), warm_topn: int = 10):
+        self.spec = spec
+        self.min_bucket = min_bucket
+        self.growth = growth
+        self.warm_shapes = warm_shapes
+        self.warm_topn = warm_topn
+        self._pub = (bst, 0)        # (state, generation) — one atomic cell
+        self.caps_used = {bst.capacity}  # the geometry budget's bucket axis
+        self.device = bst.state.ratings.device
+        self.read_stream = self.fold_stream = None
+        if self.device.type == "cuda":
+            here = torch.cuda.current_stream(self.device)
+            self.read_stream = torch.cuda.Stream(self.device)
+            self.fold_stream = torch.cuda.Stream(self.device)
+            # both lanes start after the work that made the state
+            self.read_stream.wait_stream(here)
+            self.fold_stream.wait_stream(here)
+
+    def _warm(self, pub) -> None:
+        """Run the reads of a new bucket capacity BEFORE the publish, on the
+        read stream: its geometries are recorded and the read stream's
+        allocator pool grows here, on the fold lane, so the first live read
+        at the new capacity does not pay for it."""
+        for s in self.warm_shapes:
+            z = np.zeros(s, np.int64)
+            self.predict_pairs(pub, z, z)
+            self.recommend_topn(pub, z, self.warm_topn)
+
+    @property
+    def generation(self) -> int:
+        return self._pub[1]
+
+    @property
+    def n_users(self) -> int:
+        return int(self._pub[0].n_valid)
+
+    def snapshot(self):
+        return self._pub
+
+    def predict_pairs(self, pub, users: np.ndarray,
+                      items: np.ndarray) -> np.ndarray:
+        bst, _ = pub
+        with _on(self.read_stream):
+            out = buckets.predict_pairs(
+                bst, torch.as_tensor(users, device=self.device),
+                torch.as_tensor(items, device=self.device))
+            return out.cpu().numpy()
+
+    def recommend_topn(self, pub, users: np.ndarray, n: int):
+        bst, _ = pub
+        with _on(self.read_stream):
+            ti, ts = buckets.recommend_topn(
+                bst, torch.as_tensor(users, device=self.device), n=n)
+            return ti.cpu().numpy(), ts.cpu().numpy()
+
+    def fold_in(self, rows: np.ndarray, bq: int) -> int:
+        bst, gen = self._pub
+        with _on(self.fold_stream):
+            if self.fold_stream is not None:
+                self.fold_stream.wait_stream(self.read_stream)
+                for t in _tensors(bst):
+                    t.record_stream(self.fold_stream)
+            new = buckets.fold_in_rows(_clone(bst), rows, bq, self.spec,
+                                       min_bucket=self.min_bucket,
+                                       growth=self.growth)
+        if self.fold_stream is not None:
+            self.fold_stream.synchronize()
+            for t in _tensors(new):
+                t.record_stream(self.read_stream)
+        if new.capacity not in self.caps_used:
+            self._warm((new, gen + 1))
+            self.caps_used.add(new.capacity)
+        self._pub = (new, gen + 1)
+        return gen + 1
+
+
+class RequestEngine:
+    """Deadline-heap admission + continuous micro-batching + async folds.
+
+    The core is synchronous and single-threaded-testable: ``submit()`` then
+    ``pump_reads()`` / ``pump_folds()``. ``start()`` wraps the two pumps in
+    their own threads for open-loop load generation; folds then drain on a
+    cadence that never touches the read thread.
+
+    ``exec_lock`` serializes device-program *launches*. Read batches always
+    hold it (uncontended on the happy path — microseconds). Folds take it
+    only when the backend sets ``serialize_folds`` (a backend whose fold
+    and read programs must not run at once). Sidecar device work that runs
+    beside a live engine (e.g. retrieval health probes) holds the same
+    lock.
+    """
+
+    def __init__(self, backend, config: EngineConfig = EngineConfig(),
+                 clock: Callable[[], float] = time.monotonic,
+                 obs: Optional["obslib.Observability"] = None):
+        self.backend = backend
+        self.config = config
+        self.clock = clock
+        # obs is optional; the tracer reference is always valid (the
+        # DISABLED singleton's inert tracer when off) so hot-path guards
+        # are a single ``.active`` attribute read
+        self.obs = obs
+        self._tracer = obs.tracer if obs is not None else obslib.DISABLED.tracer
+        self.exec_lock = threading.Lock()
+        self._lock = threading.Lock()
+        self._read_cond = threading.Condition(self._lock)
+        self._fold_cond = threading.Condition(self._lock)
+        self._heap: List[Tuple[float, int, Request]] = []
+        self._folds: List[Request] = []
+        self._queued_rows = 0
+        self._seq = 0
+        self._threads: List[threading.Thread] = []
+        self._running = False
+        # each lane thread's ids (``start``): its ``threading`` ident (the
+        # pthread handle) and its OS thread id — a device trace names the
+        # thread that launched each kernel by one of them
+        self.lane_ids: dict = {}
+        # stats
+        self.submitted = {k: 0 for k in READ_KINDS + WRITE_KINDS}
+        self.shed = {k: 0 for k in READ_KINDS + WRITE_KINDS}
+        self.completed = {k: 0 for k in READ_KINDS + WRITE_KINDS}
+        # bounded log-bucketed histograms (ms) — fixed memory regardless of
+        # how long the server runs, quantiles within one bucket width
+        self.latencies = {k: Histogram() for k in READ_KINDS + WRITE_KINDS}
+        self.launches: dict = {}        # (kind, pad_shape) -> launch count
+        self.batches = 0
+        self.exec_rows = 0
+        self.pad_rows = 0
+        self.nonfinite = 0
+        self.folded_rows = 0
+        self._verify_ring: List[Tuple[Request, object]] = []
+        self._verify_cap = 64
+
+    # ------------------------------------------------------------- admission
+    def submit(self, kind: str, *, users=None, items=None, rows=None,
+               deadline_ms: Optional[float] = None) -> Optional[Request]:
+        """Admit one request; returns it, or ``None`` when shed."""
+        now = self.clock()
+        slo = self.config.slo_ms if deadline_ms is None else deadline_ms
+        if kind in READ_KINDS:
+            users = np.asarray(users, np.int64)
+            if kind == "pair":
+                items = np.asarray(items, np.int64)
+            req = Request(kind, users, items, None, now + slo / 1e3, now, 0)
+            if req.n_rows > self.config.max_batch:
+                raise ValueError(
+                    f"request of {req.n_rows} rows exceeds max_batch="
+                    f"{self.config.max_batch}; split it client-side")
+            with self._lock:
+                if self._queued_rows + req.n_rows > self.config.queue_cap:
+                    self.shed[kind] += 1
+                    return None
+                req.seq = self._seq = self._seq + 1
+                self._queued_rows += req.n_rows
+                self.submitted[kind] += 1
+                heapq.heappush(self._heap, (req.deadline, req.seq, req))
+                self._read_cond.notify()
+            tr = self._tracer
+            if tr.active and tr.should_sample():
+                req.sampled = True
+                req.trace_id = tr.new_id()
+            return req
+        if kind in MUTATION_KINDS:
+            raise ValueError(
+                f"kind {kind!r} needs a mutable backend "
+                "(MutableLocalBackend / MutableShardedBackend)")
+        if kind in WRITE_KINDS:
+            req = Request(kind, None, None, np.asarray(rows),
+                          now + slo / 1e3, now, 0)
+            with self._lock:
+                if len(self._folds) >= self.config.fold_queue_cap:
+                    self.shed[kind] += 1
+                    return None
+                req.seq = self._seq = self._seq + 1
+                self.submitted[kind] += 1
+                self._folds.append(req)
+                self._fold_cond.notify()
+            tr = self._tracer
+            if tr.active and tr.should_sample():
+                req.sampled = True
+                req.trace_id = tr.new_id()
+            return req
+        raise ValueError(f"unknown request kind {kind!r}")
+
+    # ---------------------------------------------------------- batch former
+    def _form_batch(self) -> List[Request]:
+        """Take the earliest-deadline request's kind, then fill with that
+        kind's requests in deadline order up to ``max_batch`` rows, skipping
+        over other-kind entries (they keep their heap position and form the
+        next batch — per-kind deadline order is preserved, and the other
+        kind cannot starve because its earliest deadline picks the next
+        batch's kind). Caller holds the lock."""
+        if not self._heap:
+            return []
+        kind = self._heap[0][2].kind
+        batch, deferred, rows = [], [], 0
+        while self._heap:
+            entry = heapq.heappop(self._heap)
+            nxt = entry[2]
+            if nxt.kind != kind:
+                deferred.append(entry)
+                continue
+            if batch and rows + nxt.n_rows > self.config.max_batch:
+                deferred.append(entry)
+                break
+            self._queued_rows -= nxt.n_rows
+            batch.append(nxt)
+            rows += nxt.n_rows
+        for entry in deferred:
+            heapq.heappush(self._heap, entry)
+        return batch
+
+    def _execute(self, batch: List[Request]) -> None:
+        kind = batch[0].kind
+        rows = sum(r.n_rows for r in batch)
+        shape = self.config.pad_shape(rows)
+        users = np.zeros(shape, np.int64)
+        items = np.zeros(shape, np.int64)
+        off = 0
+        for r in batch:
+            users[off:off + r.n_rows] = r.users
+            if kind == "pair":
+                items[off:off + r.n_rows] = r.items
+            off += r.n_rows
+        tr = self._tracer
+        t_ready = self.clock() if tr.active else 0.0
+        with self.exec_lock:
+            t_launch = self.clock() if tr.active else 0.0
+            pub = self.backend.snapshot()
+            if kind == "pair":
+                out = self.backend.predict_pairs(pub, users, items)
+                self.nonfinite += int((~np.isfinite(out[:rows])).sum())
+            else:
+                out = self.backend.recommend_topn(pub, users,
+                                                  self.config.topn)
+        now = self.clock()
+        gen = pub[-1]   # the backend publishes (..., generation)
+        off = 0
+        for r in batch:
+            if kind == "pair":
+                r.result = out[off:off + r.n_rows]
+            else:
+                r.result = (out[0][off:off + r.n_rows],
+                            out[1][off:off + r.n_rows])
+            off += r.n_rows
+            r.generation = gen
+            r.t_done = now
+            self.completed[kind] += 1
+            self.latencies[kind].record((now - r.t_submit) * 1e3)
+            r.done.set()
+            if len(self._verify_ring) < self._verify_cap:
+                self._verify_ring.append((r, r.result))
+        self.batches += 1
+        self.exec_rows += rows
+        self.pad_rows += shape - rows
+        key = (kind, shape)
+        self.launches[key] = self.launches.get(key, 0) + 1
+        if tr.active:
+            bid = batch[0].seq
+            evs = []
+            if t_launch > t_ready:
+                evs.append({"name": "exec_wait", "cat": "engine",
+                            "t0": t_ready, "t1": t_launch,
+                            "args": {"kind": kind}})
+            evs.append({"name": f"execute[{kind}]", "cat": "engine",
+                        "t0": t_launch, "t1": now,
+                        "args": {"rows": rows, "shape": shape, "gen": gen,
+                                 "batch": bid}})
+            tr.complete_many(evs)
+            recs = [(kind, r.t_submit, r.t_pickup, now, r.trace_id,
+                     r.n_rows, gen, bid) for r in batch if r.sampled]
+            if recs:
+                tr.complete_requests(recs, child="exec")
+
+    def pump_reads(self, max_batches: Optional[int] = None) -> int:
+        """Drain queued reads now; returns the number of batches executed."""
+        n = 0
+        while max_batches is None or n < max_batches:
+            with self._lock:
+                batch = self._form_batch()
+            if not batch:
+                break
+            tp = self.clock()
+            for r in batch:
+                r.t_pickup = tp
+            self._execute(batch)
+            n += 1
+        return n
+
+    # ------------------------------------------------------------ write lane
+    def pump_folds(self, max_folds: Optional[int] = None) -> int:
+        """Drain queued fold-ins now (never called from the read path)."""
+        n = 0
+        tr = self._tracer
+        while max_folds is None or n < max_folds:
+            with self._lock:
+                if not self._folds:
+                    break
+                req = self._folds.pop(0)
+            t_pickup = self.clock() if tr.active else 0.0
+            req.t_pickup = t_pickup
+            if getattr(self.backend, "serialize_folds", False):
+                with self.exec_lock:
+                    t_apply = self.clock() if tr.active else t_pickup
+                    gen = self.backend.fold_in(req.rows, self.config.fold_bq)
+            else:
+                t_apply = t_pickup
+                gen = self.backend.fold_in(req.rows, self.config.fold_bq)
+            now = self.clock()
+            req.result = gen
+            req.generation = gen
+            req.t_done = now
+            with self._lock:
+                self.completed[req.kind] += 1
+                self.latencies[req.kind].record((now - req.t_submit) * 1e3)
+                self.folded_rows += len(req.rows)
+                self._verify_ring.clear()   # prior generation retired
+            req.done.set()
+            if tr.active:
+                if t_apply > t_pickup:
+                    tr.complete("exec_wait", "engine", t_pickup, t_apply,
+                                args={"kind": req.kind})
+                tr.complete(f"apply[{req.kind}]", "write", t_apply, now,
+                            args={"rows": req.n_rows, "gen": gen})
+                if req.sampled:
+                    tr.complete_requests(
+                        [(req.kind, req.t_submit, t_pickup, now,
+                          req.trace_id, req.n_rows, gen, None)],
+                        child="apply")
+            n += 1
+        return n
+
+    # -------------------------------------------------------------- threaded
+    def start(self) -> None:
+        self._running = True
+
+        def read_loop():
+            while True:
+                with self._lock:
+                    while self._running and not self._heap:
+                        self._read_cond.wait(timeout=0.05)
+                    if not self._running and not self._heap:
+                        return
+                    first = self._heap[0][2] if self._heap else None
+                # brief fill wait: let the batch accumulate, bounded by
+                # max_wait and by the earliest deadline
+                if first is not None:
+                    wait = min(self.config.max_wait_ms / 1e3,
+                               max(0.0, first.deadline - self.clock()))
+                    deadline = self.clock() + wait
+                    while (self.clock() < deadline
+                           and self._queued_rows < self.config.max_batch):
+                        time.sleep(0.0005)
+                self.pump_reads(max_batches=1)
+
+        def fold_loop():
+            while True:
+                with self._lock:
+                    while self._running and not self._folds:
+                        self._fold_cond.wait(timeout=0.05)
+                    if not self._running and not self._folds:
+                        return
+                self.pump_folds(max_folds=1)
+
+        for fn, name in ((read_loop, "engine-reads"),
+                         (fold_loop, "engine-folds")):
+            t = threading.Thread(target=fn, name=name, daemon=True)
+            t.start()
+            self._threads.append(t)
+            self.lane_ids[name] = {"ident": t.ident,
+                                   "native_id": t.native_id}
+
+    def stop(self) -> None:
+        with self._lock:
+            self._running = False
+            self._read_cond.notify_all()
+            self._fold_cond.notify_all()
+        for t in self._threads:
+            t.join(timeout=30.0)
+        self._threads = []
+
+    # ----------------------------------------------------------------- stats
+    def stats(self) -> dict:
+        offered = sum(self.submitted.values()) + sum(self.shed.values())
+        reads = sum(self.completed[k] for k in READ_KINDS)
+        read_h = Histogram()
+        for k in READ_KINDS:
+            read_h.merge(self.latencies[k])
+        with self._lock:
+            queue_rows = self._queued_rows
+            write_queue = len(self._folds)
+        return {
+            "offered": offered,
+            "submitted": dict(self.submitted),
+            "completed": dict(self.completed),
+            "shed": dict(self.shed),
+            "shed_frac": (sum(self.shed.values()) / offered
+                          if offered else 0.0),
+            # per-kind shed fractions: write-lane pressure is visible
+            # separately from read pressure instead of one aggregate
+            "shed_frac_by_kind": {
+                k: (self.shed[k] / (self.submitted[k] + self.shed[k])
+                    if self.submitted[k] + self.shed[k] else 0.0)
+                for k in READ_KINDS + WRITE_KINDS},
+            "queue_rows": queue_rows,
+            "write_queue": write_queue,
+            "read_latency": histogram_latency(read_h),
+            "fold_latency": histogram_latency(self.latencies["fold"]),
+            "batches": self.batches,
+            "mean_batch_rows": (self.exec_rows / self.batches
+                                if self.batches else 0.0),
+            "pad_frac": (self.pad_rows /
+                         max(1, self.pad_rows + self.exec_rows)),
+            "nonfinite": self.nonfinite,
+            "folded_rows": self.folded_rows,
+            "generation": self.backend.generation,
+            "reads_completed": reads,
+        }
+
+    def publish_metrics(self) -> None:
+        """Copy the engine's hot-path stats into the obs registry — called
+        at snapshot points (periodic, end-of-run), never per request, so
+        the registry adds zero cost to the serve path. Idempotent: counters
+        and histograms are published as absolute copies (``set`` /
+        ``publish_histogram``), never re-accumulated."""
+        o = self.obs
+        if o is None or not o.enabled:
+            return
+        reg = o.registry
+        for k in READ_KINDS + WRITE_KINDS:
+            reg.counter(f"engine.submitted.{k}").set(self.submitted[k])
+            reg.counter(f"engine.shed.{k}").set(self.shed[k])
+            reg.counter(f"engine.completed.{k}").set(self.completed[k])
+            reg.publish_histogram(f"engine.latency_ms.{k}",
+                                  self.latencies[k])
+        for (kind, shape), c in list(self.launches.items()):
+            reg.counter(f"exec.engine.{kind}.b{shape}.launches").set(c)
+        reg.counter("engine.batches").set(self.batches)
+        reg.counter("engine.exec_rows").set(self.exec_rows)
+        reg.counter("engine.pad_rows").set(self.pad_rows)
+        reg.counter("engine.nonfinite").set(self.nonfinite)
+        reg.counter("engine.folded_rows").set(self.folded_rows)
+        with self._lock:
+            queue_rows = self._queued_rows
+            write_queue = len(self._folds)
+        reg.gauge("engine.queue_rows").set(float(queue_rows))
+        reg.gauge("engine.write_queue").set(float(write_queue))
+        reg.gauge("engine.row_occupancy").set(
+            self.exec_rows / max(1, self.exec_rows + self.pad_rows))
+        reg.gauge("engine.generation").set(float(self.backend.generation))
+
+    def verify_sample(self, limit: int = 16) -> Tuple[int, int]:
+        """Re-run recent completed reads SOLO against their generation and
+        count bitwise mismatches. Only requests still on the live generation
+        are checked (folds clear the ring), so the comparison is exact.
+        """
+        pub = self.backend.snapshot()
+        gen = pub[-1]
+        checked = bad = 0
+        with self._lock:
+            ring = list(self._verify_ring)[:limit]
+        for req, got in ring:
+            if req.generation != gen:
+                continue
+            checked += 1
+            shape = self.config.pad_shape(req.n_rows)
+            users = np.zeros(shape, np.int64)
+            users[:req.n_rows] = req.users
+            if req.kind == "pair":
+                items = np.zeros(shape, np.int64)
+                items[:req.n_rows] = req.items
+                ref = self.backend.predict_pairs(pub, users,
+                                                 items)[:req.n_rows]
+                ok = np.array_equal(ref, got)
+            else:
+                ti, ts = self.backend.recommend_topn(pub, users,
+                                                     self.config.topn)
+                ok = (np.array_equal(ti[:req.n_rows], got[0])
+                      and np.array_equal(ts[:req.n_rows], got[1]))
+            bad += 0 if ok else 1
+        return checked, bad

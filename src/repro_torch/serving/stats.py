@@ -1,6 +1,7 @@
 """Shared latency statistics — one percentile helper for every serve mode:
 p50/p95/p99 plus the sample count, used by the wave replays of
-``launch/serve.py``."""
+``launch/serve.py`` and, through :func:`histogram_latency`, by the request
+engine's bounded per-kind latency histograms."""
 from __future__ import annotations
 
 import dataclasses
@@ -38,3 +39,14 @@ def latency_stats(ts: Sequence[float]) -> LatencyStats:
     p50, p95, p99 = (float(x) for x in np.percentile(ms, (50, 95, 99)))
     return LatencyStats(len(ms), p50, p95, p99)
 
+
+
+def histogram_latency(hist) -> LatencyStats:
+    """:class:`LatencyStats` view of an ``obs.Histogram`` recorded in
+    milliseconds — the engine's bounded replacement for raw latency lists.
+    Quantiles are the histogram's bucket-resolved order statistics, within
+    one bucket width (≤ ``growth - 1`` relative) of exact."""
+    if not hist.count:
+        return LatencyStats(0, float("nan"), float("nan"), float("nan"))
+    return LatencyStats(hist.count, hist.percentile(50),
+                        hist.percentile(95), hist.percentile(99))

@@ -697,3 +697,131 @@ def test_landmark_forward_on_the_card_launches_once_per_layer(cuda,
     torch.cuda.synchronize()
     rel = float((got - want).abs().max() / want.abs().max())
     assert rel < 0.05, rel
+
+
+# ------------------------------------------------------------ request engine
+def _engine_state(cuda, u=6040, p=3952, min_bucket=256):
+    """A fit at MovieLens-1M width (the paper's spec), bucketed."""
+    from repro_torch.lifecycle import buckets
+
+    r = _ratings(u, p, cuda, density=0.042, seed=9)
+    spec = T.LandmarkSpec(n_landmarks=20, k_neighbors=13)
+    st = T.fit(T.RatingMatrix(r, u, p), spec)
+    return buckets.from_state(st, min_bucket), spec
+
+
+def test_engine_reads_bitwise_at_every_padded_shape_on_the_card(cuda):
+    """At ML-1M width, a request's pair predictions and top-N lists are the
+    same bits at every padded batch shape 8..128 and at any offset as when
+    it runs alone at its own shape: the engine's bitwise-against-solo
+    contract on the card, where a library reduction's plan could depend on
+    the batch."""
+    from repro_torch.serving import EngineConfig, LocalBackend
+
+    bst, spec = _engine_state(cuda)
+    backend = LocalBackend(bst, spec)
+    pub = backend.snapshot()
+    cfg = EngineConfig(max_batch=128, min_shape=8, topn=10)
+    rng = np.random.default_rng(0)
+    u, p = bst.n_valid, bst.state.ratings.shape[1]
+    for m in (1, 5, 16, 37, 128):
+        uu, it = rng.integers(0, u, m), rng.integers(0, p, m)
+        solo_u = np.zeros(cfg.pad_shape(m), np.int64)
+        solo_u[:m] = uu
+        solo_i = np.zeros_like(solo_u)
+        solo_i[:m] = it
+        want_p = backend.predict_pairs(pub, solo_u, solo_i)[:m]
+        want_i, want_s = backend.recommend_topn(pub, solo_u, cfg.topn)
+        assert np.isfinite(want_p).all()
+        for shape in cfg.batch_shapes():
+            if shape < m:
+                continue
+            for off in sorted({0, (shape - m) // 2, shape - m}):
+                bu, bi = rng.integers(0, u, shape), rng.integers(0, p, shape)
+                bu[off:off + m], bi[off:off + m] = uu, it
+                got_p = backend.predict_pairs(pub, bu, bi)[off:off + m]
+                got_i, got_s = backend.recommend_topn(pub, bu, cfg.topn)
+                assert np.array_equal(got_p, want_p), (m, shape, off)
+                assert np.array_equal(got_i[off:off + m], want_i[:m])
+                assert np.array_equal(got_s[off:off + m], want_s[:m])
+
+
+def test_engine_fold_lane_runs_on_its_own_stream(cuda):
+    """The backend's two lanes are two streams, neither the default one; a
+    fold on the fold stream publishes bitwise the state a plain
+    ``fold_in_rows`` on the default stream gives, launches d1 and the
+    fold-in scan, and leaves the generation it cloned untouched."""
+    from repro_torch.lifecycle import buckets
+    from repro_torch.serving import LocalBackend
+    from repro_torch.serving.engine import _clone, _tensors
+
+    bst, spec = _engine_state(cuda, u=2000, p=800)
+    backend = LocalBackend(bst, spec, warm_shapes=(8, 16), warm_topn=10)
+    default = torch.cuda.default_stream(cuda)
+    streams = {backend.read_stream, backend.fold_stream, default}
+    assert len(streams) == 3
+    pub = backend.snapshot()
+    before = [t.clone() for t in _tensors(pub[0])]
+    rows = _ratings(64, 800, cuda, seed=11).cpu().numpy()
+    want = buckets.fold_in_rows(_clone(pub[0]), rows, 64, spec)
+    ops.reset_launches()
+    assert backend.fold_in(rows, 64) == 1
+    counts = ops.launch_counts()
+    assert counts["masked_similarity"] == 1 and counts["foldin_topk"] == 1
+    got = backend.snapshot()[0]
+    assert got.n_valid == want.n_valid == bst.n_valid + 64
+    for a, b in zip(_tensors(got), _tensors(want)):
+        assert torch.equal(a, b)
+    for a, b in zip(before, _tensors(pub[0])):
+        assert torch.equal(a, b)
+
+
+def test_threaded_engine_on_the_card(cuda):
+    """Reads from four client threads while folds run on the fold lane:
+    every request completes, predictions are finite, and the live
+    generation's sample re-runs bitwise."""
+    import threading
+
+    from repro_torch.serving import EngineConfig, LocalBackend, RequestEngine
+
+    bst, spec = _engine_state(cuda, u=3000, p=1000)
+    cfg = EngineConfig(max_batch=64, min_shape=8, queue_cap=4096,
+                       slo_ms=500.0, fold_bq=32, topn=10)
+    backend = LocalBackend(bst, spec, warm_shapes=cfg.batch_shapes())
+    eng = RequestEngine(backend, cfg)
+    eng.start()
+    done, lock = [], threading.Lock()
+
+    def client(seed):
+        rng = np.random.default_rng(seed)
+        mine = []
+        for _ in range(40):
+            m = int(rng.integers(1, 17))
+            uu = rng.integers(0, 3000, m)
+            r = (eng.submit("topn", users=uu) if rng.random() < 0.2 else
+                 eng.submit("pair", users=uu, items=rng.integers(0, 1000, m)))
+            assert r is not None and r.done.wait(30.0)
+            mine.append(r)
+        with lock:
+            done.extend(mine)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(4)]
+    try:
+        for t in threads:
+            t.start()
+        folds = [eng.submit("fold", rows=_ratings(
+            32, 1000, cuda, seed=20 + i).cpu().numpy()) for i in range(3)]
+        for t in threads:
+            t.join(timeout=60.0)
+            assert not t.is_alive()
+        assert all(f.done.wait(60.0) for f in folds)
+    finally:
+        eng.stop()
+    assert len(done) == 160 and backend.generation == 3
+    assert all(np.isfinite(r.result).all() for r in done if r.kind == "pair")
+    assert eng.stats()["nonfinite"] == 0
+    eng.submit("pair", users=np.arange(3000, 3064), items=np.zeros(64, int))
+    eng.submit("topn", users=np.arange(8))
+    eng.pump_reads()
+    checked, bad = eng.verify_sample()
+    assert checked >= 2 and bad == 0
