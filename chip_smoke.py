@@ -119,6 +119,31 @@ The engine slice adds:
     busy and idle share of the load window; the kernel table gains each
     row's launches in the full run (``launches_engine``).
 
+The mutation slice adds:
+
+10. mutation — at the main-path fit (users 0..5975, MODEL), for all three
+    d2 measures, after an 8-user update (no tombstone) and an 8-user
+    removal: the repair rescan on the scan kernel (live rows gathered,
+    top-(k+1), ids mapped back, self dropped) bitwise the same pipeline
+    with the kernel's plain version, and within the tie rule of the
+    streaming rescan (euclidean at B3's 2e-3); the drop-row scatters with
+    ineffective ids; the IVF-backed repair at partial probe (the gathered
+    scorer) bitwise the plain scorer's lists; then the full-width oracle: 8 updates (one a landmark
+    user) and 8 removals drained, against the port's own kernel build over
+    the mutated matrix with the frozen basis (ratings and representation
+    bitwise, the graph under the tie rule, the weights differing in any bit
+    counted), and again after ``compact_tombstones`` over the survivors, no
+    live row citing a dead one; the device time of a drain of 8 dirty
+    rows. Then ``serve --engine --mutations``, ``--smoke`` and at full
+    width (obs exports and a profiler capture under ``build/phase10/``):
+    audit N > 0 with 0 mismatches, no non-finite prediction, at least one
+    update and one removal, the pre-compaction bar, repair rescans on the
+    scan kernel, the smoke's compacting swap, and at full width every
+    write-lane kernel on a stream no read batch ran on. Prints QPS, read
+    p50/p95/p99, write-lane p50/p99 per kind, mutated and repaired rows
+    and the tombstone fraction; the kernel table gains each row's launches
+    in the full run (``launches_mutations``).
+
 The last two lines are the kernel table and
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. TF32 is off for
 matmul and cuDNN throughout: the reference scores in full f32.
@@ -147,9 +172,10 @@ from repro_torch.configs import landmark_cf as cfg  # noqa: E402
 from repro_torch.core import (RatingMatrix, fit, fold_in, knn,  # noqa: E402
                               predict)
 from repro_torch.core import similarity as sim  # noqa: E402
-from repro_torch.core.graph import kernel_rows  # noqa: E402
+from repro_torch.core.graph import (build_neighbor_graph,  # noqa: E402
+                                    filter_self_from_topk, kernel_rows)
 from repro_torch.core.selection import popularity_landmarks  # noqa: E402
-from repro_torch.core.topk import list_mismatches  # noqa: E402
+from repro_torch.core.topk import canonical_topk, list_mismatches  # noqa: E402
 from repro_torch.data import ratings as data  # noqa: E402
 from repro_torch import retrieval as rt  # noqa: E402
 from repro_torch.core.graph import finalize_topk  # noqa: E402
@@ -160,6 +186,8 @@ from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.kernels import landmark_attention as lsum  # noqa: E402
 from repro_torch.kernels import masked_similarity as ms  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.lifecycle import buckets  # noqa: E402
+from repro_torch import mutation  # noqa: E402
 from repro_torch.models import transformer as lm  # noqa: E402
 
 DEVICE = "cuda"
@@ -711,6 +739,7 @@ DEVICE_FUNCS = {
     "landmark_summary": ("summary_wgmma_kernel",),
     "landmark_summary_f32": ("summary_wgmma_kernel", "split_terms_kernel"),
     "split_terms": ("split_terms_kernel",),  # the f32 route's split pass
+    "repair_drain": None,  # every kernel of a drain (phase 10)
 }
 
 
@@ -1666,6 +1695,7 @@ def _lane_streams(path, lanes):
     lane_of = {tid: name for name, lane in lanes.items()
                for tid in _thread_ids(lane)}
     fold = {lane: set() for lane in FOLD_FUNCS}
+    lanes_by_kind = {kind: set() for kind in FOLD_FUNCS}
     fold_lanes, by_lane, spans = set(), {}, []
     for e in evs:
         if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
@@ -1682,6 +1712,7 @@ def _lane_streams(path, lanes):
             if any(f in e["name"] for f in funcs):
                 fold[kind].add(stream)
                 fold_lanes.add(lane)
+                lanes_by_kind[kind].add(lane)
     t0 = min(e["ts"] for e in evs)
     t1 = max(e["ts"] + e["dur"] for e in evs)
     spans.sort()
@@ -1691,8 +1722,13 @@ def _lane_streams(path, lanes):
         end = max(end, b)
     read_streams = sorted({int(k.split("@")[1]) for k in by_lane
                            if k.startswith("engine-reads@")})
+    write_streams = sorted({int(k.split("@")[1]) for k in by_lane
+                            if k.startswith("engine-folds@")})
     return dict(fold_streams={k: sorted(v) for k, v in fold.items()},
                 fold_lanes=sorted(fold_lanes), read_streams=read_streams,
+                write_streams=write_streams,
+                lanes_by_kind={k: sorted(v) for k, v in
+                               lanes_by_kind.items()},
                 kernels_by_lane_stream=by_lane, window_ms=(t1 - t0) / 1e3,
                 busy_share=busy / (t1 - t0), idle_share=1 - busy / (t1 - t0),
                 device_ops=len(spans),
@@ -1780,6 +1816,334 @@ def phase_engine():
               f"{d1}" + (f", load window {json.dumps(lanes)}" if lanes else "")
               + f" | {time.perf_counter() - t0:.1f}s")
         out[tag] = counts
+    return out["full"]
+
+
+# ---------------------------------------------------------- mutation slice
+MUTATION_DIR = ROOT / "build" / "phase10"
+# the streaming rescan's euclidean epilogue |u|² − 2z + |v|² cancels between
+# close rows, where the scan kernel sums (u − v)² in one fixed order: B3's
+# bound of ROADMAP.md, as tests/test_torch_graph.py holds exact copies
+EUCLID_ATOL = 2e-3
+DEAD_ROWS = (100, 250, 999, 1500, 2000, 3001, 4500, 5975)
+UPDATED_ROWS = (7, 300, 1234, 2500, 3999, 5000, 5900)  # + a landmark user
+
+
+def _mutable(state, measure):
+    """A MutableState over the main-path fit, its graph built under d2
+    ``measure`` by the kernel backend (the fit's own graph for cosine)."""
+    if measure != "cosine":
+        state = dataclasses.replace(state, graph=build_neighbor_graph(
+            state.representation, measure, cfg.MODEL.k_neighbors, "kernel"))
+    return mutation.from_bucketed(buckets.from_state(state))
+
+
+def _dirty_rows(mst):
+    return torch.nonzero(mst.dirty & ~mst.tomb & (torch.arange(
+        mst.capacity, device=mst.tomb.device) < mst.n_valid)).flatten()
+
+
+def _rescan_plain(mst, measure):
+    """The kernel rescan's pipeline — live rows gathered, top-(k+1), ids
+    mapped back, self dropped — with the scan kernel's plain version on the
+    same tensors: the graph rows the repair must write, bitwise."""
+    rep, tomb = mst.bstate.state.representation, mst.tomb
+    k = mst.bstate.state.graph.k
+    sel = _dirty_rows(mst)
+    live = torch.nonzero(~tomb[:mst.n_valid]).flatten()
+    v, i = ref.foldin_topk_ref(kernel_rows(rep[sel], measure),
+                               kernel_rows(rep[live], measure), k + 1, None,
+                               live.numel(), measure)
+    ids = torch.where(torch.isfinite(v), live[i.long()],
+                      torch.zeros_like(live[i.long()])).to(torch.int32)
+    return sel, finalize_topk(*filter_self_from_topk(v, ids, sel, k))
+
+
+def _cites_dead(mst):
+    """Citations of tombstoned rows in live rows' lists (inert slots
+    excepted)."""
+    g = mst.bstate.state.graph
+    live = (torch.arange(mst.capacity, device=mst.tomb.device) < mst.n_valid
+            ) & ~mst.tomb
+    cited = mst.tomb[g.indices.long()] & ~((g.indices == 0) & (g.weights == 0))
+    return int(cited[live].sum())
+
+
+def _update_batch(state, p):
+    ids = np.array((int(state.landmark_idx[0]),) + UPDATED_ROWS, np.int64)
+    rows = _ratings(8, p, seed=31).cpu().numpy()
+    return ids, rows
+
+
+def _phase10_rescans(state):
+    """10 (1): the kernel rescan bitwise its plain pipeline, and within the
+    tie rule of the streaming rescan, for all three measures, after an
+    8-user update (no tombstone) and after an 8-user removal; the drop-row
+    scatters on the card with filler, out-of-range, negative and
+    tombstoned ids. Returns notes."""
+    p = state.ratings.shape[1]
+    ids, rows = _update_batch(state, p)
+    dead = np.array(DEAD_ROWS, np.int64)
+    notes = []
+    for measure in sim.MEASURES:
+        spec = dataclasses.replace(cfg.MODEL, d2=measure)
+        base = _mutable(state, measure)
+        for tag, mst in (
+                ("no tomb", mutation.update_ratings(base, ids, rows, 8, spec)),
+                ("8 dead", mutation.remove_users(base, dead, 8))):
+            sel, want = _rescan_plain(mst, measure)
+            n0 = knn_topk.foldin_topk.launches
+            kern, done = mutation.repair(mst, sel.numel(), spec,
+                                         backend="kernel")
+            sync()
+            if knn_topk.foldin_topk.launches != n0 + 1 or done != sel.numel():
+                raise AssertionError(f"rescan {measure} {tag}: launches "
+                                     f"{knn_topk.foldin_topk.launches - n0}")
+            stream, _ = mutation.repair(mst, sel.numel(), spec,
+                                        backend="streaming")
+            gk, gs = kern.bstate.state.graph, stream.bstate.state.graph
+            if not (torch.equal(gk.indices[sel], want.indices)
+                    and torch.equal(gk.weights[sel], want.weights)):
+                raise AssertionError(f"rescan {measure} {tag}: not bitwise "
+                                     f"its plain pipeline")
+            atol = EUCLID_ATOL if measure == "euclidean" else ATOL
+            bad = list_mismatches(gs.weights[sel], gs.indices[sel],
+                                  gk.weights[sel], gk.indices[sel], RTOL, atol)
+            if bad.size:
+                raise AssertionError(f"rescan {measure} {tag}: rows "
+                                     f"{sel[bad[:8]].tolist()} disagree with "
+                                     f"the streaming rescan")
+            diff = float((gk.weights[sel] - gs.weights[sel]).abs().max())
+            notes.append(f"{measure} {tag}: {sel.numel()} rows bitwise, "
+                         f"max |Δw| vs streaming {diff:.3g}")
+    # the drop-row scatters: a noisy batch is bitwise its one effective row
+    spec = cfg.MODEL
+    base = mutation.remove_users(_mutable(state, "cosine"), dead, 8)
+    noisy = np.array([DEAD_ROWS[0], 10 ** 6, -3, 7, DEAD_ROWS[1], 0, 0, 0])
+    clean = np.array([7, -1, -1, -1, -1, -1, -1, -1])
+    row = np.repeat(rows[:1], 8, axis=0)
+    for tag, a_, b_ in (
+            ("update", mutation.update_ratings(base, noisy, row, 5, spec),
+             mutation.update_ratings(base, clean, row, 1, spec)),
+            ("remove", mutation.remove_users(base, noisy, 5),
+             mutation.remove_users(base, clean, 1))):
+        got, want = _mutation_tensors(a_), _mutation_tensors(b_)
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"{tag}: ineffective ids changed the state")
+    sync()
+    notes.append("drop-row scatters: filler, out-of-range, negative and "
+                 "tombstoned ids bitwise no-ops (update, remove)")
+    # the IVF-backed repair at partial probe: the tombstone-masked search on
+    # the gathered scorer (kernel 6), bitwise the plain scorer's lists
+    n_valid, k = base.n_valid, base.bstate.state.graph.k
+    rep = base.bstate.state.representation
+    ivf = rt.resolve_ivf(rt.IVFSpec(), n_valid)
+    index = rt.build_index(rep, ivf, "cosine", n_valid=n_valid)
+    sel = _dirty_rows(base)
+    n0 = ops.score_candidates.launches
+    got, _ = mutation.repair(base, sel.numel(), spec, ivf_index=index,
+                             nprobe=ivf.nprobe)
+    sync()
+    launched = ops.score_candidates.launches - n0
+    v, i = rt.search(index, rep[sel], k, ivf.nprobe, "cosine", self_ids=sel,
+                     tomb=base.tomb, scorer="plain")
+    v, si = canonical_topk(v.masked_fill(i >= n_valid, float("-inf")), k)
+    want = finalize_topk(v, i.gather(1, si))
+    g = got.bstate.state.graph
+    if not (launched > 0 and torch.equal(g.indices[sel], want.indices)
+            and torch.equal(g.weights[sel], want.weights)
+            and not _cites_dead(got)):
+        raise AssertionError(f"ivf repair: {launched} gathered-scorer "
+                             f"launches, not bitwise the plain scorer's, or "
+                             f"a dead row cited")
+    notes.append(f"ivf repair (C={index.n_clusters}, nprobe={ivf.nprobe}): "
+                 f"{sel.numel()} rows bitwise the plain scorer's, {launched} "
+                 f"gathered-scorer launches")
+    return notes
+
+
+def _mutation_tensors(mst):
+    st = mst.bstate.state
+    return (st.representation, st.ratings, st.graph.indices, st.graph.weights,
+            mst.landmarks, mst.tomb, mst.dirty)
+
+
+def _oracle_check(tag, mst, ratings, landmarks, live, spec):
+    """The state's live rows against the port's own from-scratch build
+    (kernel backend) over ``ratings[live]`` with the frozen basis: ratings
+    and representation bitwise, the graph under the tie rule. Returns the
+    count of graph weights that differ in any bit."""
+    st = mst.bstate.state
+    u = ratings.shape[0]
+    rep = ops.masked_similarity(ratings, landmarks, spec.d1)
+    if not (torch.equal(st.ratings[:u], ratings)
+            and torch.equal(st.representation[:u], rep)):
+        raise AssertionError(f"oracle {tag}: ratings or representation not "
+                             f"bitwise the from-scratch ones")
+    g = build_neighbor_graph(rep[live], spec.d2, spec.k_neighbors, "kernel")
+    inert = (g.indices == 0) & (g.weights == 0)
+    oi = torch.where(inert, torch.zeros_like(g.indices),
+                     live[g.indices.long()].to(torch.int32))
+    gi, gw = st.graph.indices[live], st.graph.weights[live]
+    bad = list_mismatches(g.weights, oi, gw, gi, RTOL, ATOL)
+    if bad.size:
+        raise AssertionError(f"oracle {tag}: rows {live[bad[:8]].tolist()} "
+                             f"disagree beyond the tie rule")
+    return int((gw.view(torch.int32) != g.weights.view(torch.int32)).sum())
+
+
+def _phase10_oracle(state):
+    """10 (2): update 8 users (one a landmark user) and remove 8 at full
+    width, drain, compare with the port's own build over the mutated
+    matrix; then compact and compare with a build over the survivors."""
+    spec = cfg.MODEL
+    u, p = state.ratings.shape
+    mst0 = _mutable(state, "cosine")
+    ids, rows = _update_batch(state, p)
+    dead = torch.as_tensor(DEAD_ROWS, device=DEVICE)
+    mst = mutation.update_ratings(mst0, ids, rows, 8, spec)
+    mst = mutation.remove_users(mst, np.array(DEAD_ROWS), 8)
+    cites = [_cites_dead(mst)]
+    n0 = knn_topk.foldin_topk.launches
+    dirty0 = mst.dirty_count()
+    mst = mutation.drain_repairs(mst, spec)
+    sync()
+    rescans = knn_topk.foldin_topk.launches - n0
+    cites.append(_cites_dead(mst))
+    if any(cites) or mst.dirty_count() or not rescans:
+        raise AssertionError(f"oracle: citations of dead rows {cites}, "
+                             f"{mst.dirty_count()} dirty after the drain, "
+                             f"{rescans} rescan launches")
+    ratings = state.ratings.clone()
+    ratings[torch.as_tensor(ids, device=DEVICE)] = torch.as_tensor(
+        rows, device=DEVICE)
+    ratings[dead] = 0.0
+    live = torch.nonzero(~mst.tomb[:u]).flatten()
+    bits = {"drained": _oracle_check("drained", mst, ratings, mst.landmarks,
+                                     live, spec)}
+    comp = mutation.compact_tombstones(mst)
+    n = live.numel()
+    if comp.n_valid != n or comp.tombstone_frac() != 0.0:
+        raise AssertionError("compaction left tombstones")
+    bits["compacted"] = _oracle_check(
+        "compacted", comp, ratings[live], mst.landmarks,
+        torch.arange(n, device=DEVICE), spec)
+    # device time of one drain of 8 dirty rows
+    eight = torch.zeros_like(mst0.dirty)
+    eight[torch.as_tensor(UPDATED_ROWS + (0,), device=DEVICE)] = True
+    mst8 = dataclasses.replace(mst0, dirty=eight)
+    drain = lambda: mutation.drain_repairs(mst8, spec)
+    times = dict(drain8_device_ms=_device_ms(drain, "repair_drain"),
+                 drain8_event_ms=_event_ms(drain, 20))
+    return dict(dirty_rows=dirty0, rescan_launches=rescans,
+                live_rows=n, weights_differing_in_any_bit=bits, **times)
+
+
+def phase_mutation(state, card):
+    """10: the write path on the card — the rescan and scatter checks and
+    the full-width oracle, then ``serve --engine --mutations`` ``--smoke``
+    and at full width (obs exports and a torch.profiler capture under
+    ``build/phase10/``): each run's audit N > 0 with 0 mismatches, no
+    non-finite prediction, the pre-compaction bar, the repair rescans on
+    the scan kernel, every write-lane kernel on the fold lane's stream;
+    the smoke's compacting swap; at full width at least one update and
+    one removal. Returns the full run's launch counts."""
+    from benchmarks import check_obs
+
+    t0 = time.perf_counter()
+    notes = _phase10_rescans(state)
+    print("phase 10 rescans: " + "; ".join(notes))
+    oracle = _phase10_oracle(state)
+    print(f"phase 10 oracle ({card}): {json.dumps(oracle)}")
+    shutil.rmtree(MUTATION_DIR, ignore_errors=True)
+    trace, metrics, prof = (MUTATION_DIR / "trace",
+                            MUTATION_DIR / "metrics.json",
+                            MUTATION_DIR / "profile")
+    rescans = {"n": 0}
+    real_repair = mutation.mutate.repair
+
+    def counted_repair(*a, **kw):  # the rescans' launches, counted apart
+        n0 = knn_topk.foldin_topk.launches
+        out = real_repair(*a, **kw)
+        rescans["n"] += knn_topk.foldin_topk.launches - n0
+        return out
+
+    out = {}
+    for tag, argv in (
+            ("smoke", ["--smoke"]),
+            ("full", ["--users", "6040", "--items", "3952", "--batch", "128",
+                      "--foldin", "64", "--duration", "8", "--trace-dir",
+                      str(trace), "--metrics-json", str(metrics),
+                      "--torch-profile", str(prof)])):
+        buf = io.StringIO()
+        t1 = time.perf_counter()
+        rescans["n"] = 0
+        ops.reset_launches()
+        with contextlib.redirect_stdout(buf), \
+                mock.patch.object(mutation.mutate, "repair", counted_repair):
+            res = serve.main(["--workload", "cf", "--engine", "--mutations"]
+                             + argv)
+        sync()
+        counts = ops.launch_counts()
+        counts["masked_similarity_f32"] = ms.masked_similarity.route_launches[
+            "f32"]
+        d1 = ms.route_results()
+        text = buf.getvalue()
+        print(text, end="")
+        mut = res["mutations"]
+        want = (f"bitwise vs solo replay: {res['checked']} requests re-run, "
+                f"0 mismatches | non-finite predictions: 0")
+        if not (res["checked"] > 0 and res["mismatches"] == 0
+                and want in text and res["nonfinite"] == 0):
+            raise AssertionError(f"mutations {tag}: audit {res['checked']} "
+                                 f"re-run, {res['mismatches']} mismatches, "
+                                 f"{res['nonfinite']} non-finite")
+        if not text.rstrip().endswith("cf engine: done"):
+            raise AssertionError(f"mutations {tag}: no 'cf engine: done'")
+        if mut["cites_dead"] or mut["dirty_published"]:
+            raise AssertionError(f"mutations {tag}: pre-compaction bar {mut}")
+        if not (res["completed"]["update"] >= 1
+                and res["completed"]["remove"] >= 1):
+            raise AssertionError(f"mutations {tag}: completed "
+                                 f"{res['completed']}")
+        if not rescans["n"] > 0:
+            raise AssertionError(f"mutations {tag}: no repair rescan "
+                                 f"launched the scan kernel")
+        if tag == "smoke" and not (
+                "refresh swap: " in text and "tombstone_frac=0.000"
+                in text.split("refresh swap: ")[1].splitlines()[0]):
+            raise AssertionError("mutations smoke: no compacting swap")
+        _check_d1_routes(f"mutations {tag}", counts, d1)
+        lanes = {}
+        if tag == "full":
+            check_obs.check_trace(str(trace / "trace.json"),
+                                  require_overlap=True)
+            check_obs.check_metrics(str(metrics))
+            lanes = _lane_streams(prof / "torch_trace.json", res["lane_ids"])
+            reads = set(lanes["read_streams"])
+            if not (lanes["write_streams"] and reads
+                    and not reads & set(lanes["write_streams"])
+                    and lanes["lanes_by_kind"]["scan"] == ["engine-folds"]
+                    and not reads & set(lanes["fold_streams"]["d1"])):
+                raise AssertionError(f"mutations full: a write-lane kernel "
+                                     f"ran on the read lane's stream: "
+                                     f"{lanes}, lane ids {res['lane_ids']}")
+        rl = res["read_latency"]
+        wl = {k: f"{v.p50_ms:.3f}/{v.p99_ms:.3f} ms ({v.count})"
+              for k, v in mut["write_latency"].items()}
+        print(f"phase 10 mutations CLI ({tag}, {card}): sustained "
+              f"{res['qps']:.1f} QPS, read p50/p95/p99 {rl.p50_ms:.3f}/"
+              f"{rl.p95_ms:.3f}/{rl.p99_ms:.3f} ms ({rl.count} reads), "
+              f"write p50/p99 {wl}, mutated_rows {res['mutated_rows']}, "
+              f"repaired_rows {res['repaired_rows']}, tombstone_frac "
+              f"{res['tombstone_frac']:.4f}, swap "
+              f"{ {k: mut.get(k) for k in ('compacted', 'swap_gen')} }, "
+              f"rescan launches {rescans['n']}, audit {res['checked']} re-run "
+              f"0 mismatches, launches {counts}, d1 results {d1}"
+              + (f", load window {json.dumps(lanes)}" if lanes else "")
+              + f" | {time.perf_counter() - t1:.1f}s")
+        out[tag] = counts
+    print(f"phase 10: {time.perf_counter() - t0:.1f}s")
     return out["full"]
 
 
@@ -1915,8 +2279,12 @@ def main():
     table = (phase_times(train, a, err, peak, life_counts)
              + _ivf_rows(ivf, ivf_counts, life_counts, err)
              + _lm_rows(model_in, lm_err, lm_launches, life_counts))
-    for row in table:  # the engine run's launches, every row
+    # after the kernel times: run after phase 10, phase 6's profiler
+    # sessions saw only part of the device events
+    mutation_counts = phase_mutation(a["state"], card)
+    for row in table:  # the engine runs' launches, every row
         row["launches_engine"] = engine_counts.get(row["name"], 0)
+        row["launches_mutations"] = mutation_counts.get(row["name"], 0)
     print(f"card: {card}")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

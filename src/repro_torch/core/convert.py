@@ -1,7 +1,10 @@
-"""Carry a fitted state or an IVF index across frameworks as numpy arrays.
+"""Carry a fitted state, a mutable state or an IVF index across frameworks
+as numpy arrays.
 
 A state's keys are ``landmark_idx``, ``representation``, ``ratings``,
-``graph.indices`` and ``graph.weights``; an index's are
+``graph.indices`` and ``graph.weights``; a mutable state's
+(``mutation.MutableState``, its bucketed state padded to its capacity)
+add :data:`MUTABLE_KEYS`; an index's are
 :data:`IVF_KEYS` (``scale`` only for int8 payloads). The tests build with
 the JAX reference, convert with ``numpy.asarray`` under these keys, and
 serve from this package, so both packages work on the same artifact.
@@ -46,6 +49,32 @@ def landmark_state_to_numpy(state: LandmarkState) -> Dict[str, np.ndarray]:
         "graph.indices": g.indices.cpu().numpy(),
         "graph.weights": g.weights.cpu().numpy(),
     }
+
+
+MUTABLE_KEYS = ("landmarks", "tomb", "dirty", "n_valid")
+
+
+def mutable_state_from_numpy(d: Dict[str, np.ndarray], device="cuda"):
+    """A ``mutation.MutableState`` on ``device`` from numpy arrays under
+    :data:`KEYS` + :data:`MUTABLE_KEYS` (the state's arrays at capacity)."""
+    from ..lifecycle.buckets import BucketedState
+    from ..mutation import MutableState
+
+    return MutableState(
+        BucketedState(landmark_state_from_numpy(d, device), int(d["n_valid"])),
+        torch.tensor(np.asarray(d["landmarks"], np.float32), device=device),
+        torch.tensor(np.asarray(d["tomb"], bool), device=device),
+        torch.tensor(np.asarray(d["dirty"], bool), device=device))
+
+
+def mutable_state_to_numpy(mst) -> Dict[str, np.ndarray]:
+    """The numpy arrays of a ``mutation.MutableState``, under :data:`KEYS`
+    + :data:`MUTABLE_KEYS`."""
+    d = landmark_state_to_numpy(mst.bstate.state)
+    d.update(landmarks=mst.landmarks.cpu().numpy(),
+             tomb=mst.tomb.cpu().numpy(), dirty=mst.dirty.cpu().numpy(),
+             n_valid=np.int64(mst.n_valid))
+    return d
 
 
 IVF_KEYS = ("centroids", "lists", "rows", "fill", "scale")

@@ -83,6 +83,68 @@ def finalize_topk(vals: torch.Tensor, idx: torch.Tensor) -> NeighborGraph:
     )
 
 
+def merge_canonical_topk(av: torch.Tensor, ai: torch.Tensor,
+                         bv: torch.Tensor, bi: torch.Tensor, k: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The canonical top-k of two lists that are each canonical already
+    ((rows, ka) and (rows, kb), value desc then id asc), without a sort:
+    each element's merged position is its own index plus the count of the
+    other list's elements that precede it.
+
+    Exact when no element of one list ties an element of the other in both
+    value and id (the callers' lists are id-disjoint); -inf pads that cannot
+    reach the top k may tie harmlessly."""
+    ka, kb = av.shape[1], bv.shape[1]
+    if ka + kb < k:
+        raise ValueError(f"merging {ka} + {kb} candidates cannot fill k={k}")
+    eq = bv[:, :, None] == av[:, None, :]  # (rows, kb, ka)
+    b_before_a = (bv[:, :, None] > av[:, None, :]) | (
+        eq & (bi[:, :, None] < ai[:, None, :]))
+    a_before_b = (av[:, None, :] > bv[:, :, None]) | (
+        eq & (ai[:, None, :] < bi[:, :, None]))
+    dev = av.device
+    pos = torch.cat([torch.arange(ka, device=dev) + b_before_a.sum(1),
+                     torch.arange(kb, device=dev) + a_before_b.sum(2)], 1)
+    # slot s takes the element whose merged position is s (the first such,
+    # as the reference's argmax does)
+    slot = (pos[:, None, :] == torch.arange(k, device=dev)[None, :, None]
+            ).to(torch.int8).argmax(dim=2)
+    return (torch.cat([av, bv], 1).gather(1, slot),
+            torch.cat([ai, bi], 1).gather(1, slot))
+
+
+def evict_neighbors(graph: NeighborGraph, dead: torch.Tensor
+                    ) -> Tuple[NeighborGraph, torch.Tensor]:
+    """Drop every citation of a ``dead`` row id ((capacity,) bool) from all
+    neighbor lists. Returns ``(graph, hit)``: the surviving entries keep
+    their canonical order and emptied slots become (0, 0.0); ``hit`` marks
+    the rows that lost an entry (their k-th neighbor is now unknown, so the
+    caller owes them a rescan). Fresh tensors; ``graph`` is not written.
+
+    The inert (0, 0.0) slot cites id 0, so a dead row 0 hits every row
+    holding one — spurious but safe (the rescan restores the slot)."""
+    cited_dead = dead[graph.indices.long()]
+    hit = cited_dead.any(dim=1)
+    v, i = canonical_topk(graph.weights.masked_fill(cited_dead,
+                                                    float("-inf")),
+                          graph.k, ids=graph.indices)
+    g = finalize_topk(v, i)
+    return NeighborGraph(torch.where(hit[:, None], g.indices, graph.indices),
+                         torch.where(hit[:, None], g.weights,
+                                     graph.weights)), hit
+
+
+def filter_self_from_topk(vals: torch.Tensor, idx: torch.Tensor,
+                          row_ids: torch.Tensor, k: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Drop each row's own id from a canonical (rows, k+1) top-k list and
+    keep the best ``k`` (the order among the rest is kept)."""
+    vals = vals.masked_fill(idx == row_ids[:, None].to(idx.dtype),
+                            float("-inf"))
+    v, sel = canonical_topk(vals, k)
+    return v, idx.gather(1, sel)
+
+
 def build_neighbor_graph(rep: torch.Tensor, measure: str = "cosine",
                          k: int = 13, backend: str = "auto", *,
                          chunk: int = 4096, ivf=None) -> NeighborGraph:
@@ -120,16 +182,20 @@ def build_neighbor_graph(rep: torch.Tensor, measure: str = "cosine",
 
 def _streaming_query_topk(queries: torch.Tensor, cand_src: torch.Tensor,
                           measure: str, k: int, chunk: int, self_offset: int,
-                          n_valid: Optional[int] = None
+                          n_valid: Optional[int] = None, *,
+                          self_ids: Optional[torch.Tensor] = None,
+                          dead: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k candidates per query row (query i is candidate
-    ``self_offset + i``), scanning (b, chunk) score tiles only. Candidates
-    at or past ``n_valid`` (default: none) are never picked."""
+    ``self_offset + i``, or ``self_ids[i]`` when given), scanning (b, chunk)
+    score tiles only. Candidates at or past ``n_valid`` (default: none) and
+    those marked in ``dead`` ((C,) bool) are never picked."""
     b = queries.shape[0]
     c = cand_src.shape[0]
     dev = queries.device
     chunk = max(min(chunk, c), min(k, c))
-    row_gid = self_offset + torch.arange(b, device=dev)
+    row_gid = (self_offset + torch.arange(b, device=dev) if self_ids is None
+               else self_ids.to(device=dev, dtype=torch.int64))
     best_v = torch.full((b, k), float("-inf"), dtype=torch.float32, device=dev)
     best_i = torch.zeros((b, k), dtype=torch.int32, device=dev)
     for c0 in range(0, c, chunk):
@@ -139,6 +205,8 @@ def _streaming_query_topk(queries: torch.Tensor, cand_src: torch.Tensor,
         invalid = cand_ids[None, :] == row_gid[:, None]
         if n_valid is not None:
             invalid = invalid | (cand_ids >= n_valid)[None, :]
+        if dead is not None:
+            invalid = invalid | dead[c0:c0 + chunk][None, :]
         v, i = canonical_topk(sims.masked_fill(invalid, float("-inf")),
                               min(k, cand.shape[0]))
         mv = torch.cat([best_v, v], dim=1)

@@ -13,7 +13,10 @@ zeroes both numerator and denominator terms).
   weights (weight 0 contributes nothing).
 
 The graph entry points accept an optional scalar ``n_valid``: rows
-``>= n_valid`` are padding and their weights are forced to 0 before Eq. (1).
+``>= n_valid`` are padding and their weights are forced to 0 before Eq. (1);
+and an optional (capacity,) bool ``tomb``: tombstoned rows (deleted users,
+``mutation``) contribute nothing either, even before their citations are
+repaired.
 
 Both sums of Eq. (1) run over the k neighbors in one fixed order
 (:func:`_sum_k`), never through a library reduction or batched product,
@@ -34,9 +37,13 @@ EPS = 1e-8
 
 
 def _mask_padded_rows(idx: torch.Tensor, w: torch.Tensor,
-                      n_valid: Optional[int]) -> torch.Tensor:
-    """Gathered neighbor weights with padded-row ids (``>= n_valid``)
-    zeroed. Operates on the (B, k) query slice only."""
+                      n_valid: Optional[int],
+                      tomb: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Gathered neighbor weights with padded-row ids (``>= n_valid``) and
+    tombstoned ids (``tomb[idx]``) zeroed. Operates on the (B, k) query
+    slice only."""
+    if tomb is not None:
+        w = torch.where(tomb[idx], torch.zeros_like(w), w)
     if n_valid is None:
         return w
     return torch.where(idx < n_valid, w, torch.zeros_like(w))
@@ -137,7 +144,8 @@ def predict_pairs(sims: torch.Tensor, ratings: torch.Tensor,
 
 def recommend_topn_graph(graph: NeighborGraph, ratings: torch.Tensor,
                          users: torch.Tensor, n: int = 10, *,
-                         n_valid: Optional[int] = None):
+                         n_valid: Optional[int] = None,
+                         tomb: Optional[torch.Tensor] = None):
     """Top-N unseen items per query user — the serve-path recommendation op.
 
     Scores every item with Eq. (1) from the user's neighbor list, masks
@@ -149,7 +157,7 @@ def recommend_topn_graph(graph: NeighborGraph, ratings: torch.Tensor,
     mask, means, centered = _center(ratings)
     users = users.to(torch.int64)
     idx, w = _gathered(graph, users, centered.dtype)
-    w = _mask_padded_rows(idx, w, n_valid)
+    w = _mask_padded_rows(idx, w, n_valid, tomb)
     preds = _block_predict(idx, w, centered, mask, means[users])  # (B, P)
     preds = preds.masked_fill(mask[users] > 0, float("-inf"))
     scores, items = canonical_topk(preds, n)
@@ -159,10 +167,11 @@ def recommend_topn_graph(graph: NeighborGraph, ratings: torch.Tensor,
 
 def predict_pairs_graph(graph: NeighborGraph, ratings: torch.Tensor,
                         users: torch.Tensor, items: torch.Tensor, *,
-                        n_valid: Optional[int] = None) -> torch.Tensor:
+                        n_valid: Optional[int] = None,
+                        tomb: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``predict_pairs`` from a NeighborGraph — no (U, U) array anywhere."""
     mask, means, _ = _center(ratings)
     users, items = users.to(torch.int64), items.to(torch.int64)
     idx, w = _gathered(graph, users, ratings.dtype)
-    w = _mask_padded_rows(idx, w, n_valid)
+    w = _mask_padded_rows(idx, w, n_valid, tomb)
     return _pair_predict(idx, w, users, items, ratings, mask, means)

@@ -101,6 +101,16 @@ class NeighborGraph:
         return NeighborGraph(self.indices.to(torch.int32),
                              self.weights.to(torch.float32))
 
+    def remap(self, table: torch.Tensor) -> "NeighborGraph":
+        """Rewrite neighbor ids through an old-id → new-id ``table`` (the
+        row space re-ordered: tombstone compaction in ``mutation``). Inert
+        (0, 0.0) slots stay (0, 0.0) even when old row 0 moved; weights are
+        untouched (similarities are row-pair-local)."""
+        inert = (self.indices == 0) & (self.weights == 0)
+        mapped = table[self.indices.long()].to(self.indices.dtype)
+        return NeighborGraph(torch.where(inert, torch.zeros_like(mapped),
+                                         mapped), self.weights)
+
     @staticmethod
     def from_dense_sims(sims: torch.Tensor, k: int, exclude_self: bool = True
                         ) -> "NeighborGraph":

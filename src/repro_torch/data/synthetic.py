@@ -1,9 +1,9 @@
-"""Synthetic inputs: LM token batches and the CF lifecycle's arrival
-stream.
+"""Synthetic inputs: LM token batches, the CF lifecycle's arrival stream
+and the write path's mutation events.
 
-Numpy copies of the reference's ``lm_batch`` and ``drifting_ratings``:
-deterministic in ``(seed, step)`` / ``(seed, wave)``, so one seed gives
-byte-identical arrays in both packages.
+Numpy copies of the reference's ``lm_batch``, ``drifting_ratings`` and
+``mutation_events``: deterministic in ``(seed, step)`` / ``(seed, wave)``,
+so one seed gives byte-identical arrays in both packages.
 """
 from __future__ import annotations
 
@@ -64,3 +64,48 @@ def drifting_ratings(
     vals = np.clip(np.rint(base[None, :] + rng.normal(0.0, 0.7, (batch, n_items))),
                    1, 5)
     return (vals * rated).astype(np.float32)
+
+
+def mutation_events(
+    seed: int,
+    wave: int,
+    n_users: int,
+    n_items: int,
+    *,
+    n_events: int = 16,
+    rerate_frac: float = 0.5,
+    unrate_frac: float = 0.25,
+    delete_frac: float = 0.25,
+    density: float = 0.25,
+) -> Dict[str, np.ndarray]:
+    """Write-path event stream (re-rate / un-rate / delete), deterministic in
+    ``(seed, wave)``.
+
+    Each wave draws ``n_events`` events over distinct users of
+    ``[0, n_users)``, each event's kind from the (rerate, unrate, delete)
+    fractions, normalized. A re-rate carries a full replacement rating row
+    at ``density``; an un-rate a replacement row with about half of a fresh
+    row's entries cleared (both are ``"update"`` requests); a delete carries
+    a zero row.
+
+    Returns ``{"kinds", "users", "rows"}``: kinds (E,) int8 (0 = re-rate,
+    1 = un-rate, 2 = delete), users (E,) int64 distinct ids, rows
+    (E, n_items) float32.
+    """
+    if n_events > n_users:
+        raise ValueError(f"n_events={n_events} > n_users={n_users}")
+    rng = np.random.default_rng(np.random.SeedSequence([seed, wave, 7]))
+    p = np.asarray([rerate_frac, unrate_frac, delete_frac], np.float64)
+    if p.sum() <= 0:
+        raise ValueError("at least one event fraction must be positive")
+    p = p / p.sum()
+    kinds = rng.choice(3, size=n_events, p=p).astype(np.int8)
+    users = rng.choice(n_users, size=n_events, replace=False).astype(np.int64)
+    rated = rng.random((n_events, n_items)) < density
+    vals = np.clip(np.rint(3.0 + rng.normal(0.0, 1.2, (n_events, n_items))),
+                   1, 5)
+    rows = (vals * rated).astype(np.float32)
+    thin = rng.random((n_events, n_items)) < 0.5
+    rows[kinds == 1] *= thin[kinds == 1]
+    rows[kinds == 2] = 0.0
+    return {"kinds": kinds, "users": users, "rows": rows}

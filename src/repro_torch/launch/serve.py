@@ -29,6 +29,13 @@
   stream on the card), and reports sustained QPS, p50/p95/p99 under load,
   the shed fraction and a bitwise-vs-solo audit; ``--retrieval ivf``
   probes IVF recall while the engine is under load.
+- ``cf --engine --mutations``: the same server with the write path open
+  (``serving.MutableLocalBackend``): waves of re-rate, un-rate and delete
+  events (``data.synthetic.mutation_events``) ride the write lane beside
+  the folds, each publish drains its repairs, an engine-fed drift monitor
+  accumulates holdout, fold-in volume and tombstone stats from the live
+  traffic, and after the window the lifecycle policy's verdict can fire a
+  tombstone-compacting refresh.
 
 ``--trace-dir`` and ``--metrics-json`` export the engine's, the
 lifecycle's and the retrieval sidecar's spans and series (``obs``), on the
@@ -624,10 +631,15 @@ def _serve_cf_engine(args):
     sample of the reads alone (bitwise), and checks that the read
     geometries stay within |batch shapes| x |capacities used|. ``--smoke``
     also holds the SLOs under load: QPS > 0, read p95 within the SLO, at
-    least one fold, recall >= 0.95 with ``--retrieval ivf``. Returns the
-    engine's stats with the run's figures."""
-    from ..lifecycle import buckets, monitor
-    from ..serving import EngineConfig, LocalBackend, RequestEngine
+    least one fold, recall >= 0.95 with ``--retrieval ivf``; with
+    ``--mutations`` also at least one update and one removal. With
+    ``--mutations`` the run also holds the pre-compaction bar (no live row
+    cites a deleted row, no dirty row published). Returns the engine's
+    stats with the run's figures."""
+    from ..kernels import ops
+    from ..lifecycle import buckets, monitor, policy
+    from ..serving import (EngineConfig, LocalBackend, MutableLocalBackend,
+                           RequestEngine, histogram_latency)
 
     device = torch.device(args.device)
     spec = cfg.SMOKE if args.smoke else cfg.MODEL
@@ -637,6 +649,14 @@ def _serve_cf_engine(args):
         args.duration = min(args.duration, 4.0)
     rng = np.random.default_rng(0)
     n0 = args.users  # load targets the base population: valid in every gen
+    mutations = bool(args.mutations)
+    if mutations:
+        rspec = cfg.SMOKE_REFRESH if args.smoke else cfg.REFRESH
+        if args.smoke:
+            # a smoke-length window deletes only a few percent of the base
+            # population: drop the compaction gate so the smoke still
+            # exercises the policy-fired, tombstone-compacting refresh
+            rspec = dataclasses.replace(rspec, max_tombstone_frac=0.01)
 
     r0 = _synth_ratings(rng, args.users, args.items, device)
     t0 = time.perf_counter()
@@ -650,12 +670,13 @@ def _serve_cf_engine(args):
     ecfg = EngineConfig(max_batch=args.batch, min_shape=min(32, args.batch),
                         queue_cap=args.batch * 8, max_wait_ms=2.0,
                         slo_ms=250.0, fold_bq=args.foldin, topn=args.topn)
-    backend = LocalBackend(buckets.from_state(st, args.min_bucket,
-                                              args.growth),
-                           spec, min_bucket=args.min_bucket,
-                           growth=args.growth,
-                           warm_shapes=ecfg.batch_shapes(),
-                           warm_topn=args.topn)
+    backend_cls = MutableLocalBackend if mutations else LocalBackend
+    backend = backend_cls(buckets.from_state(st, args.min_bucket,
+                                             args.growth),
+                          spec, min_bucket=args.min_bucket,
+                          growth=args.growth,
+                          warm_shapes=ecfg.batch_shapes(),
+                          warm_topn=args.topn)
     buckets.reset_geometries()  # the run's geometries, warm-up included
 
     # optional IVF sidecar: retrieval health probed while the engine is
@@ -711,6 +732,7 @@ def _serve_cf_engine(args):
     if args.trace_dir or args.metrics_json or args.torch_profile:
         o = obslib.Observability(sample_rate=args.sample_rate, seed=0)
         obslib.install(o)
+    if o is not None and not mutations:
         # lifecycle feed: withhold a holdout slice from each fold batch, so
         # the exported lifecycle series carries a real holdout MAE
         obs_rspec = cfg.SMOKE_REFRESH if args.smoke else cfg.REFRESH
@@ -719,6 +741,47 @@ def _serve_cf_engine(args):
         obs_mon = monitor.init_monitor(obs_rspec.reservoir, n0, obs_cov,
                                        device)
         obs_gen = torch.Generator().manual_seed(17)  # reservoir draws
+    if mutations:
+        # the engine-fed drift monitor: reservoir, fold-in volume and
+        # tombstone fraction accumulate from live engine traffic in the
+        # load loop; the policy's verdict is taken once the window drains
+        # (writes are async: a mid-window refresh would renumber rows under
+        # queued folds)
+        base_cov = monitor.batch_coverage(st.representation,
+                                          torch.ones(n0, device=device))
+        mon = monitor.init_monitor(rspec.reservoir, n0, base_cov, device)
+        pol = policy.PolicyState(generation=backend.generation)
+        mgen = torch.Generator().manual_seed(11)  # reservoir draws
+        alive = np.ones(n0, bool)  # host view of not-yet-deleted base users
+        removed_ids = []
+
+        def _drift_snapshot():
+            mst = backend.snapshot()[0]
+            return monitor.holdout_snapshot(
+                mon, mst.bstate, tomb=mst.tomb,
+                tombstone_frac=backend.tombstone_frac)
+
+        def _remap_reservoir(mon, table):
+            """Renumber the reservoir's triples across a swap; deleted
+            users' withheld ratings leave the holdout with them."""
+            filled = mon.res_filled
+            ru = mon.res_users[:filled].cpu().numpy()
+            nu = table[ru]
+            keep = nu >= 0
+            pad = mon.reservoir_size - int(keep.sum())
+
+            def kept(src, dt):
+                return torch.as_tensor(np.concatenate(
+                    [src[keep].astype(dt), np.zeros(pad, dt)]),
+                    device=device)
+
+            return dataclasses.replace(
+                mon, res_users=kept(nu, np.int32),
+                res_items=kept(mon.res_items[:filled].cpu().numpy(),
+                               np.int32),
+                res_ratings=kept(mon.res_ratings[:filled].cpu().numpy(),
+                                 np.float32),
+                res_filled=int(keep.sum()))
 
     eng = RequestEngine(backend, ecfg, clock=time.perf_counter, obs=o)
     # warm every (batch shape, kind) — the geometry budget the run is held
@@ -733,6 +796,19 @@ def _serve_cf_engine(args):
     backend.fold_in(_synth_ratings(rng, args.foldin, args.items,
                                    "cpu").numpy(), ecfg.fold_bq)
     pub = backend.snapshot()
+    if mutations:
+        # warm the write lane itself, after the fold warm-up (which crosses
+        # the bucket boundary) so it runs at the capacity the window's
+        # writes run at: a self-update (rows rewritten with their current
+        # values) runs the update, the repair rescan and the publish, and a
+        # zero-valid removal the tombstone scatter
+        warm_ids = np.arange(8)
+        backend.apply_update(
+            warm_ids,
+            pub[0].bstate.state.ratings[torch.as_tensor(
+                warm_ids, device=device)].cpu().numpy())
+        backend.apply_remove(np.zeros(0, np.int64))
+        pub = backend.snapshot()
 
     # closed-loop synchronous baseline: one padded call per request, each
     # waiting for the previous; its capacity anchors the auto rate
@@ -768,10 +844,41 @@ def _serve_cf_engine(args):
             next_pub = t_start + 0.5  # registry publish cadence (obs only)
             folds_sent = 0
             next_start = backend.n_users  # logical id of the next folded row
+            mut_every = args.duration / 4.0
+            next_mut = t_start + mut_every * 0.4
+            mut_wave = 0
             while True:
                 now = time.perf_counter()
                 if now >= t_stop:
                     break
+                if mutations and now >= next_mut:
+                    # a deterministic event wave (re-rate / un-rate / delete)
+                    # against still-live base users, on the write lane
+                    # beside the folds; checked before arrivals, which at a
+                    # saturating rate never yield otherwise. Waves stay <= 8
+                    # events: every batch pads to the one warmed shape
+                    ev = synthetic.mutation_events(
+                        13, mut_wave, n0, args.items,
+                        n_events=min(8, max(2, n0 // 8)), rerate_frac=0.3,
+                        unrate_frac=0.2, delete_frac=0.5)
+                    mut_wave += 1
+                    sel = alive[ev["users"]]
+                    upd = sel & (ev["kinds"] != 2)
+                    rem = sel & (ev["kinds"] == 2)
+                    if upd.any():
+                        r = eng.submit("update", users=ev["users"][upd],
+                                       rows=ev["rows"][upd])
+                        if r is not None:
+                            reqs.append(r)
+                    if rem.any():
+                        r = eng.submit("remove", users=ev["users"][rem])
+                        if r is not None:
+                            reqs.append(r)
+                            alive[ev["users"][rem]] = False
+                            removed_ids.extend(int(u)
+                                               for u in ev["users"][rem])
+                    next_mut += mut_every
+                    continue
                 if now >= next_arr:
                     m = int(rq.integers(4, 17))
                     uu = rq.integers(0, n0, m)
@@ -785,7 +892,24 @@ def _serve_cf_engine(args):
                     next_arr += rq.exponential(1.0 / rate)
                     continue
                 if now >= next_fold and folds_sent < len(fold_batches):
-                    if o is not None:
+                    if mutations:
+                        # withhold a holdout slice for the drift reservoir;
+                        # logical ids follow append order (the write lane
+                        # is FIFO)
+                        train, hrows, hcols, hvals = _withhold(
+                            rq, fold_batches[folds_sent],
+                            rspec.holdout_frac)
+                        eng.submit("fold", rows=train)
+                        mon = _offer_holdout(mon, rng, mgen, next_start,
+                                             hrows, hcols, hvals,
+                                             rspec.reservoir)
+                        mon = monitor.observe_fold_in(
+                            mon, ops.masked_similarity(
+                                torch.as_tensor(train, device=device),
+                                backend.snapshot()[0].landmarks, spec.d1),
+                            len(train))
+                        next_start += len(train)
+                    elif o is not None:
                         train, hrows, hcols, hvals = _withhold(
                             rq, fold_batches[folds_sent],
                             obs_rspec.holdout_frac)
@@ -851,6 +975,65 @@ def _serve_cf_engine(args):
           f"(+{stats['folded_rows']} users -> gen {stats['generation']}, "
           f"U={backend.n_users}) fold {stats['fold_latency'].brief()} — "
           f"reads never waited on a write")
+    mut = {}
+    if mutations:
+        print(f"write lane: {mut_wave} event waves -> "
+              f"updates={stats['completed']['update']} "
+              f"removes={stats['completed']['remove']} "
+              f"(mutated_rows={stats['mutated_rows']}, "
+              f"repaired_rows={stats['repaired_rows']}, "
+              f"tombstone_frac={stats['tombstone_frac']:.3f})")
+        # the pre-compaction bar: no live row cites a deleted row, and no
+        # generation was published with an unrepaired row
+        mst = backend.snapshot()[0]
+        g = mst.bstate.state.graph
+        tombv = mst.tomb.cpu().numpy()
+        gi, gw = g.indices.cpu().numpy(), g.weights.cpu().numpy()
+        live = (np.arange(len(tombv)) < mst.n_valid) & ~tombv
+        cites_dead = int((tombv[gi] & (gw != 0))[live].sum())
+        dirty = mst.dirty_count()
+        if cites_dead or dirty:
+            raise AssertionError(f"pre-compaction bar: {cites_dead} "
+                                 f"citations of tombstoned rows, {dirty} "
+                                 f"unrepaired rows published")
+        snap = _drift_snapshot()
+        if o is not None:
+            monitor.publish_snapshot(o.registry, snap)
+        if (math.isnan(pol.base_mae)
+                and snap.holdout_count >= rspec.min_holdout):
+            pol.base_mae = snap.mae
+        fire, reasons = policy.decide(pol, rspec, snap)
+        compact = policy.should_compact_tombstones(rspec, snap.tombstone_frac)
+        print(f"drift monitor: mae={snap.mae:.3f} "
+              f"holdout={snap.holdout_count} "
+              f"foldin_frac={snap.foldin_frac:.2f} "
+              f"tombstone_frac={snap.tombstone_frac:.3f} -> fire={fire} "
+              f"({','.join(reasons) if reasons else 'healthy'}) "
+              f"compact={compact}")
+        mut = dict(waves=mut_wave, removed=len(removed_ids),
+                   live_rows_checked=int(live.sum()), cites_dead=cites_dead,
+                   dirty_published=dirty, fire=fire, compact=compact,
+                   write_latency={k: histogram_latency(eng.latencies[k])
+                                  for k in ("update", "remove", "fold")})
+        if fire or compact:
+            if fire:
+                policy.on_fire(pol)
+            n_pre = backend.n_users
+            with eng.exec_lock:
+                gen_new, table = backend.refresh()
+            mon = _remap_reservoir(mon, table)
+            post = _drift_snapshot()
+            if o is not None:
+                monitor.publish_snapshot(o.registry, post)
+            policy.on_swap(pol, gen_new, post.mae, rspec)
+            compacted = int(np.sum(table[:n_pre] < 0))
+            print(f"refresh swap: gen {gen_new}, compacted {compacted} "
+                  f"tombstones, post-swap mae={post.mae:.3f} "
+                  f"tombstone_frac={post.tombstone_frac:.3f}")
+            if backend.tombstone_frac != 0.0:
+                raise AssertionError("compaction left tombstones")
+            mut.update(swap_gen=gen_new, compacted=compacted,
+                       post_tombstone_frac=post.tombstone_frac)
     print(f"bitwise vs solo replay: {checked} requests re-run, "
           f"{bad} mismatches | non-finite predictions: {stats['nonfinite']}")
     caps = sorted(backend.caps_used)
@@ -890,9 +1073,10 @@ def _serve_cf_engine(args):
                 escalations=esc_count, probes=len(recalls))
         else:
             publish_retrieval(o.registry)
-        monitor.publish_snapshot(
-            o.registry, monitor.holdout_snapshot(obs_mon,
-                                                 backend.snapshot()[0]))
+        if not mutations:
+            monitor.publish_snapshot(
+                o.registry, monitor.holdout_snapshot(obs_mon,
+                                                     backend.snapshot()[0]))
         _export_obs(o, args)
     if bad:
         raise AssertionError("micro-batched results diverged from solo "
@@ -907,6 +1091,11 @@ def _serve_cf_engine(args):
                                  f"{ecfg.slo_ms:.0f}ms SLO under load")
         if stats["completed"]["fold"] < 1:
             raise AssertionError("smoke run must exercise the fold lane")
+        if mutations and not (stats["completed"]["update"] >= 1
+                              and stats["completed"]["remove"] >= 1):
+            raise AssertionError("smoke run drained no update or no removal")
+        if mutations and not (removed_ids and stats["tombstone_frac"] > 0):
+            raise AssertionError("mutation stream produced no tombstones")
         if use_ivf and not (recalls
                             and np.mean(recalls) >= IVF_RECALL_SLO):
             raise AssertionError(
@@ -917,7 +1106,7 @@ def _serve_cf_engine(args):
     return dict(stats, qps=sustained_qps, elapsed_s=elapsed,
                 checked=checked, mismatches=bad, geometries=counts,
                 geometry_budget=budget, lane_ids=dict(eng.lane_ids),
-                recalls=recalls)
+                recalls=recalls, mutations=mut)
 
 
 def main(argv=None):
@@ -996,8 +1185,12 @@ def main(argv=None):
     ap.add_argument("--duration", type=float, default=8.0,
                     help="engine: load window in seconds (smoke clamps to 4)")
     ap.add_argument("--mutations", action="store_true",
-                    help="engine: the write path (updates, removals); not "
-                    "in this build — it comes with the mutation slice")
+                    help="engine: open the write path — re-rate, un-rate and "
+                    "delete events ride the write lane beside the fold-ins, "
+                    "an engine-fed drift monitor accumulates holdout, volume "
+                    "and tombstone stats from live traffic, and the "
+                    "lifecycle policy's verdict can fire a "
+                    "tombstone-compacting refresh")
     ap.add_argument("--mesh", default=None,
                     help="sharded serving over a device mesh; not in this "
                     "build — it comes with the multi-GPU slice")
@@ -1022,10 +1215,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.batch is None:
         args.batch = 4 if args.workload == "lm" else 256
-    if args.mutations:
-        raise SystemExit("--mutations (the engine's write lane: updates and "
-                         "removals through a mutable backend) comes with the "
-                         "port's mutation slice; serve --engine without it")
+    if args.mutations and not args.engine:
+        raise SystemExit("--mutations rides the request engine's write "
+                         "lane; add --engine (--workload cf)")
     if args.mesh:
         raise SystemExit("--mesh (sharded serving) comes with the port's "
                          "multi-GPU slice; serve on one device without it")

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 from collections import defaultdict
-from typing import Dict, List, Set, Tuple
+from typing import Dict, List, Optional, Set, Tuple
 
 import torch
 
@@ -140,7 +140,9 @@ def ensure_capacity(bstate: BucketedState, incoming: int,
 
 def fold_in_bucketed(bstate: BucketedState, new_ratings: torch.Tensor,
                      b_valid: int, spec: LandmarkSpec,
-                     backend: str = "auto") -> BucketedState:
+                     backend: str = "auto",
+                     landmarks: Optional[torch.Tensor] = None
+                     ) -> BucketedState:
     """Shape-stable ``fold_in``: fill padded slots instead of growing arrays.
 
     The same math as ``core.landmark_cf.fold_in`` (d1 through the frozen
@@ -148,6 +150,9 @@ def fold_in_bucketed(bstate: BucketedState, new_ratings: torch.Tensor,
     scan and back-patch), restricted to the valid prefix. ``new_ratings``
     is a (bq, P) batch bucket whose rows ``>= b_valid`` are filler. The
     caller guarantees ``n_valid + bq <= capacity`` (:func:`ensure_capacity`).
+    ``landmarks`` (n, P) overrides the projection basis, which is otherwise
+    ``ratings[landmark_idx]`` (``mutation`` passes its frozen snapshot: an
+    update may have rewritten a landmark user's row).
 
     The ratings and representation of ``bstate`` are updated in place (the
     reference donates them): treat the passed-in state as consumed.
@@ -159,7 +164,8 @@ def fold_in_bucketed(bstate: BucketedState, new_ratings: torch.Tensor,
     q_valid = (torch.arange(bq, device=new_ratings.device) < b_valid)[:, None]
     new_ratings = torch.where(q_valid, new_ratings,
                               torch.zeros_like(new_ratings))
-    landmarks = st.ratings[st.landmark_idx]  # (n, P) frozen at fit
+    if landmarks is None:
+        landmarks = st.ratings[st.landmark_idx]  # (n, P) frozen at fit
     new_rep = ops.masked_similarity(new_ratings, landmarks, spec.d1)
     new_rep = torch.where(q_valid, new_rep, torch.zeros_like(new_rep))
     st.ratings[n_valid:n_valid + bq] = new_ratings

@@ -154,34 +154,42 @@ def reservoir_add(mon: MonitorState, generator: torch.Generator,
 
 
 def _holdout_stats(mon: MonitorState, graph, ratings: torch.Tensor,
-                   n_valid: int):
+                   n_valid: int, tomb=None):
     """Reservoir (MAE, RMSE) under the current artifact, padded rows
-    masked through ``n_valid``."""
+    masked through ``n_valid``. ``tomb`` (the write path's tombstone
+    bitmap) drops the triples of deleted users, and their rows from every
+    neighbor list."""
     r = mon.reservoir_size
     dev = ratings.device
     slot_valid = torch.arange(r, device=dev) < mon.res_filled
     users = torch.where(slot_valid, mon.res_users, 0)
+    if tomb is not None:
+        slot_valid = slot_valid & ~tomb[users.long()]
     items = torch.where(slot_valid, mon.res_items, 0)
     preds = knn.predict_pairs_graph(graph, ratings, users, items,
-                                    n_valid=n_valid)
+                                    n_valid=n_valid, tomb=tomb)
     err = (preds - mon.res_ratings) * slot_valid
-    cnt = max(float(mon.res_filled), 1.0)
+    cnt = max(float(slot_valid.sum()), 1.0)
     mae = float(err.abs().sum()) / cnt
     rmse = float((err * err).sum() / cnt) ** 0.5
     return mae, rmse
 
 
-def holdout_snapshot(mon: MonitorState, bstate) -> Snapshot:
+def holdout_snapshot(mon: MonitorState, bstate, tomb=None,
+                     tombstone_frac: float = 0.0) -> Snapshot:
     """Score the reservoir with the current artifact → :class:`Snapshot`.
     The geometry (capacity, reservoir) is recorded with the bucketed
-    steps'."""
+    steps'. ``tomb``/``tombstone_frac`` come from the write path
+    (``mutation.MutableState``): deleted users leave the holdout, and their
+    fraction rides along for the compaction gate."""
     buckets.record_geometry("holdout", bstate.capacity, mon.reservoir_size)
     mae, rmse = _holdout_stats(mon, bstate.state.graph, bstate.state.ratings,
-                               bstate.n_valid)
+                               bstate.n_valid, tomb)
     frac = mon.n_folded / max(mon.n_base + mon.n_folded, 1)
     return Snapshot(mae=mae, rmse=rmse, holdout_count=mon.res_filled,
                     foldin_frac=frac, coverage=mon.coverage,
-                    coverage_ratio=mon.coverage / max(mon.base_coverage, 1e-9))
+                    coverage_ratio=mon.coverage / max(mon.base_coverage, 1e-9),
+                    tombstone_frac=tombstone_frac)
 
 
 def rebase(mon: MonitorState, n_base: int, base_coverage: float

@@ -13,6 +13,7 @@ from .index import (
     grow_capacity,
     place_plan,
     probe_cells,
+    purge,
     quantize_payload,
     recall_at_k,
     resolve_ivf,
@@ -29,7 +30,8 @@ __all__ = [
     "IVFIndex", "IVFSpec", "PAYLOAD_DTYPES", "SCORERS", "ASSIGN_BACKENDS",
     "append", "assign_clusters", "build_index", "dequantize_payload",
     "ensure_index_capacity", "grow_capacity", "init_centroids", "kmeans",
-    "place_plan", "probe_cells", "publish_retrieval", "quantize_payload",
+    "place_plan", "probe_cells", "publish_retrieval", "purge",
+    "quantize_payload",
     "recall_at_k",
     "resolve_assign_backend", "resolve_ivf", "resolve_scorer",
     "score_recall_at_k", "search",

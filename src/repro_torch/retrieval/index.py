@@ -432,7 +432,8 @@ def search(index: IVFIndex, queries: torch.Tensor, k: int, nprobe: int,
 
     ``self_ids`` (b,) names an id each query never lists; ``tomb`` (U,) bool
     masks tombstoned ids (the fused kernel takes no tombstones, so with
-    ``tomb`` the search uses the gathered scorer instead). Queries go in
+    ``tomb`` the ``fused`` scorer gives way to ``kernel``: the gathered
+    scorer at partial probe). Queries go in
     ``qb``-row blocks so the gathered (qb, nprobe·cap, n) candidates stay
     bounded. At ``nprobe == n_clusters`` the ``plain``/``kernel`` scorers
     score one id-sorted candidate matrix (``plain`` with its partial-probe
@@ -454,11 +455,14 @@ def search(index: IVFIndex, queries: torch.Tensor, k: int, nprobe: int,
     slot = torch.arange(cap, device=dev)
     mode = resolve_scorer(scorer, dev)
 
-    if mode == "fused" and tomb is None:
-        probe = probe_cells(index, q, nprobe, measure)
-        return ivf_probe.fused_probe_topk(
-            q, probe, index.lists, index.rows, index.scale, index.fill, k=k,
-            measure=measure, self_ids=sids)
+    if mode == "fused":
+        if tomb is not None:  # the fused kernel takes no tombstones
+            mode = "kernel"
+        else:
+            probe = probe_cells(index, q, nprobe, measure)
+            return ivf_probe.fused_probe_topk(
+                q, probe, index.lists, index.rows, index.scale, index.fill,
+                k=k, measure=measure, self_ids=sids)
 
     out_v, out_i = [], []
     if nprobe >= c:
@@ -510,6 +514,36 @@ def search(index: IVFIndex, queries: torch.Tensor, k: int, nprobe: int,
         return (torch.full((0, k), float("-inf"), device=dev),
                 torch.zeros((0, k), dtype=torch.int32, device=dev))
     return torch.cat(out_v), torch.cat(out_i)
+
+
+def purge(index: IVFIndex, tomb: torch.Tensor) -> IVFIndex:
+    """Drop tombstoned ids ((U,) bool ``tomb``) from every posting list.
+
+    Each cell's survivors slide down in slot order (a stable partition, so
+    arrival order and the positional tie rule are kept), fills shrink by
+    the cell's dead count, and freed slots reset to (id 0, zero payload).
+    Ids are kept as they are: after a compaction of the row space, rebuild
+    or remap the index instead. Between purges, ``search(..., tomb=)``
+    keeps deleted rows out of results."""
+    full = index.to_full() if index.is_compact else index
+    cap = full.capacity
+    slot = torch.arange(cap, device=full.lists.device)
+    valid = slot[None, :] < full.fill[:, None]  # (C, cap)
+    keep = valid & ~tomb[full.lists.long()]
+    order = torch.sort((~keep).to(torch.int8), dim=1, stable=True).indices
+    lists = full.lists.gather(1, order)
+    rows = full.rows.gather(1, order[..., None].expand_as(full.rows))
+    scale = None if full.scale is None else full.scale.gather(1, order)
+    fill = keep.sum(dim=1).to(full.fill.dtype)
+    live = slot[None, :] < fill[:, None]
+    return IVFIndex(
+        full.centroids,
+        torch.where(live, lists, torch.zeros_like(lists)).to(
+            index.lists.dtype),
+        torch.where(live[..., None], rows, torch.zeros_like(rows)),
+        fill,
+        None if scale is None else torch.where(live, scale,
+                                               torch.zeros_like(scale)))
 
 
 def search_early_exit(index: IVFIndex, queries: torch.Tensor, k: int,

@@ -2,16 +2,19 @@
 
 ``serving.stats`` is the shared p50/p95/p99 helper (wave loops + engine),
 ``serving.engine`` the continuous micro-batching core with admission
-control and the async fold lane. ``launch/serve.py --engine`` wires them
+control and the async write lane (folds, and updates and removals on a
+``MutableLocalBackend``). ``launch/serve.py --engine`` wires them
 into the load-generator harness.
 """
-from .engine import EngineConfig, LocalBackend, Request, RequestEngine
+from .engine import (EngineConfig, LocalBackend, MutableLocalBackend,
+                     Request, RequestEngine)
 from .stats import LatencyStats, histogram_latency, latency_stats
 
 __all__ = [
     "EngineConfig",
     "LatencyStats",
     "LocalBackend",
+    "MutableLocalBackend",
     "Request",
     "RequestEngine",
     "histogram_latency",

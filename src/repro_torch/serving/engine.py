@@ -15,12 +15,15 @@ is that server core, host-side and testable without threads:
              Shapes are drawn from ``EngineConfig.batch_shapes()``, so the
              geometries stay bounded at |shapes| x |buckets| per request
              kind — the geometries the lifecycle records.
-  write lane fold-ins go to a separate queue drained by ``pump_folds()`` on
-             its own cadence (its own thread in threaded mode). A fold
-             never runs on the read path; it builds the next-generation
-             state off to the side and swaps it in with one atomic publish,
-             so an in-flight read batch keeps the generation it started
-             with.
+  write lane writes — fold-ins and, on a mutable backend, in-place
+             mutations (``"update"`` rating replacement, ``"remove"`` GDPR
+             deletion, ``mutation``) — go to a separate queue drained by
+             ``pump_folds()`` on its own cadence (its own thread in
+             threaded mode). A write never runs on the read path; it
+             builds the next-generation state off to the side (a mutation
+             also drains its repairs first) and swaps it in with one atomic
+             publish, so an in-flight read batch keeps the generation it
+             started with.
   bit-identity
              per-row kNN math is row-independent: Eq. (1) sums over the
              fixed k axis in a fixed order (``core.knn``), never over the
@@ -30,15 +33,14 @@ is that server core, host-side and testable without threads:
              the live generation.
 
 On the card the two lanes run on two CUDA streams of their own
-(:class:`LocalBackend`): read batches on ``read_stream``, folds (the d1
-and fold-in top-k scan kernels among them) on ``fold_stream``, so a read
-batch never queues on the device behind a fold. A fold is published only
-after its stream has finished.
+(:class:`LocalBackend`): read batches on ``read_stream``, writes (the d1
+and top-k scan kernels among them: fold-in scans and repair rescans) on
+``fold_stream``, so a read batch never queues on the device behind a
+write. A write is published only after its stream has finished.
 
-This module holds the single-device backend. The sharded and mutable
-backends (``ShardedBackend``, ``MutableLocalBackend``,
-``MutableShardedBackend``) and the ``update``/``remove`` write kinds come
-with the mutation and multi-GPU slices.
+This module holds the single-device backends, :class:`LocalBackend` and
+:class:`MutableLocalBackend`; the sharded ones come with the multi-GPU
+slice.
 """
 from __future__ import annotations
 
@@ -59,7 +61,7 @@ from ..obs.registry import Histogram
 from .stats import histogram_latency
 
 READ_KINDS = ("pair", "topn")
-WRITE_KINDS = ("fold",)
+WRITE_KINDS = ("fold", "update", "remove")
 MUTATION_KINDS = ("update", "remove")  # need a mutable backend
 
 
@@ -67,10 +69,11 @@ MUTATION_KINDS = ("update", "remove")  # need a mutable backend
 class Request:
     """One admitted request. ``done`` fires after its batch executes."""
 
-    kind: str                       # "pair" | "topn" | "fold"
-    users: Optional[np.ndarray]     # logical user ids (reads)
+    kind: str                       # "pair" | "topn" | "fold" | "update"
+    #                                 | "remove"
+    users: Optional[np.ndarray]     # logical user ids (reads + mutations)
     items: Optional[np.ndarray]     # item ids (pair reads only)
-    rows: Optional[np.ndarray]      # dense rating rows (folds)
+    rows: Optional[np.ndarray]      # dense rating rows (fold/update)
     deadline: float                 # absolute monotonic seconds
     t_submit: float
     seq: int
@@ -213,25 +216,145 @@ class LocalBackend:
                 bst, torch.as_tensor(users, device=self.device), n=n)
             return ti.cpu().numpy(), ts.cpu().numpy()
 
-    def fold_in(self, rows: np.ndarray, bq: int) -> int:
-        bst, gen = self._pub
+    _state_tensors = staticmethod(_tensors)
+
+    def _write(self, step: Callable) -> int:
+        """Run ``step(published state) -> new state`` on the fold stream
+        (after the read stream's queued work) and publish the result once
+        the stream has finished; returns the new generation."""
+        old, gen = self._pub
         with _on(self.fold_stream):
             if self.fold_stream is not None:
                 self.fold_stream.wait_stream(self.read_stream)
-                for t in _tensors(bst):
+                for t in self._state_tensors(old):
                     t.record_stream(self.fold_stream)
-            new = buckets.fold_in_rows(_clone(bst), rows, bq, self.spec,
-                                       min_bucket=self.min_bucket,
-                                       growth=self.growth)
+            new = step(old)
         if self.fold_stream is not None:
             self.fold_stream.synchronize()
-            for t in _tensors(new):
+            for t in self._state_tensors(new):
                 t.record_stream(self.read_stream)
         if new.capacity not in self.caps_used:
             self._warm((new, gen + 1))
             self.caps_used.add(new.capacity)
         self._pub = (new, gen + 1)
         return gen + 1
+
+    def fold_in(self, rows: np.ndarray, bq: int) -> int:
+        return self._write(lambda bst: buckets.fold_in_rows(
+            _clone(bst), rows, bq, self.spec, min_bucket=self.min_bucket,
+            growth=self.growth))
+
+
+def _mutation_shape(m: int, lo: int = 8) -> int:
+    """Power-of-two mutation batch shapes (floor ``lo``): the write lane's
+    geometries per capacity stay logarithmic in the largest batch."""
+    s = max(1, lo)
+    while s < m:
+        s *= 2
+    return s
+
+
+class MutableLocalBackend(LocalBackend):
+    """:class:`LocalBackend` with the write path open.
+
+    The published cell holds a ``mutation.MutableState`` (frozen landmark
+    basis + tombstone/dirty bitmaps). Reads thread the tombstone mask, so a
+    deleted user is invisible the moment the removal publishes;
+    ``"update"``/``"remove"`` requests ride the write lane, drain their
+    repairs (the rescan: the fold-in scan kernel on the card) and publish
+    the next generation exactly as a fold does — on the fold stream, into
+    fresh tensors. ``refresh()`` is the swap boundary: it compacts the
+    tombstones out and returns the old→new row-id table.
+    """
+
+    def __init__(self, bst: buckets.BucketedState, spec, *,
+                 repair_bq: int = 64, **kw):
+        from .. import mutation
+
+        mst = mutation.from_bucketed(bst)  # before the lanes fork
+        super().__init__(bst, spec, **kw)
+        self._mut = mutation
+        self.repair_bq = repair_bq
+        self.repaired_rows = 0
+        self._pub = (mst, 0)
+
+    @staticmethod
+    def _state_tensors(mst) -> Tuple[torch.Tensor, ...]:
+        return _tensors(mst.bstate) + (mst.landmarks, mst.tomb, mst.dirty)
+
+    @property
+    def tombstone_frac(self) -> float:
+        return self._pub[0].tombstone_frac()
+
+    def tomb(self) -> np.ndarray:
+        """Host view of the live generation's tombstone bitmap."""
+        return self._pub[0].tomb.cpu().numpy()
+
+    def predict_pairs(self, pub, users: np.ndarray,
+                      items: np.ndarray) -> np.ndarray:
+        mst, _ = pub
+        with _on(self.read_stream):
+            out = self._mut.predict_pairs(
+                mst, torch.as_tensor(users, device=self.device),
+                torch.as_tensor(items, device=self.device))
+            return out.cpu().numpy()
+
+    def recommend_topn(self, pub, users: np.ndarray, n: int):
+        mst, _ = pub
+        with _on(self.read_stream):
+            ti, ts = self._mut.recommend_topn(
+                mst, torch.as_tensor(users, device=self.device), n=n)
+            return ti.cpu().numpy(), ts.cpu().numpy()
+
+    def fold_in(self, rows: np.ndarray, bq: int) -> int:
+        return self._write(lambda mst: self._mut.fold_in_rows(
+            mst, rows, bq, self.spec, min_bucket=self.min_bucket,
+            growth=self.growth))
+
+    def _drained(self, mst):
+        self.repaired_rows += mst.dirty_count()
+        return self._mut.drain_repairs(mst, self.spec, self.repair_bq)
+
+    def _padded(self, ids: np.ndarray, rows: Optional[np.ndarray]):
+        """(ids, rows, m): a batch padded to its mutation shape (filler id
+        -1, zero rows)."""
+        m = len(ids)
+        shape = _mutation_shape(m)
+        pid = np.full(shape, -1, np.int64)
+        pid[:m] = ids
+        if rows is None:
+            return pid, None, m
+        prows = np.zeros((shape, rows.shape[1]), np.float32)
+        prows[:m] = rows
+        return pid, prows, m
+
+    def apply_update(self, ids: np.ndarray, rows: np.ndarray) -> int:
+        pid, prows, m = self._padded(np.asarray(ids), np.asarray(rows))
+        return self._write(lambda mst: self._drained(
+            self._mut.update_ratings(mst, pid, prows, m, self.spec)))
+
+    def apply_remove(self, ids: np.ndarray) -> int:
+        pid, _, m = self._padded(np.asarray(ids), None)
+        return self._write(lambda mst: self._drained(
+            self._mut.remove_users(mst, pid, m)))
+
+    def refresh(self) -> Tuple[int, np.ndarray]:
+        """Refresh-boundary compaction: drain outstanding repairs, slide the
+        tombstoned rows out, publish. Returns ``(generation, table)``, where
+        ``table[old_id]`` is the surviving row's new id or -1: the caller
+        remaps its id universe once per swap."""
+        table = None
+
+        def step(mst):
+            nonlocal table
+            mst = self._mut.drain_repairs(mst, self.spec, self.repair_bq)
+            tomb = mst.tomb.cpu().numpy()
+            live = ~tomb[:mst.n_valid]
+            table = np.full(len(tomb), -1, np.int64)
+            table[:mst.n_valid][live] = np.arange(int(live.sum()))
+            return self._mut.compact_tombstones(mst)
+
+        return self._write(step), table
 
 
 class RequestEngine:
@@ -288,6 +411,7 @@ class RequestEngine:
         self.pad_rows = 0
         self.nonfinite = 0
         self.folded_rows = 0
+        self.mutated_rows = 0
         self._verify_ring: List[Tuple[Request, object]] = []
         self._verify_cap = 64
 
@@ -320,13 +444,21 @@ class RequestEngine:
                 req.sampled = True
                 req.trace_id = tr.new_id()
             return req
-        if kind in MUTATION_KINDS:
-            raise ValueError(
-                f"kind {kind!r} needs a mutable backend "
-                "(MutableLocalBackend / MutableShardedBackend)")
         if kind in WRITE_KINDS:
-            req = Request(kind, None, None, np.asarray(rows),
-                          now + slo / 1e3, now, 0)
+            if kind in MUTATION_KINDS and not hasattr(self.backend,
+                                                      "apply_update"):
+                raise ValueError(
+                    f"kind {kind!r} needs a mutable backend "
+                    "(MutableLocalBackend / MutableShardedBackend)")
+            if kind == "fold":
+                req = Request(kind, None, None, np.asarray(rows),
+                              now + slo / 1e3, now, 0)
+            elif kind == "update":
+                req = Request(kind, np.asarray(users, np.int64), None,
+                              np.asarray(rows), now + slo / 1e3, now, 0)
+            else:  # remove
+                req = Request(kind, np.asarray(users, np.int64), None, None,
+                              now + slo / 1e3, now, 0)
             with self._lock:
                 if len(self._folds) >= self.config.fold_queue_cap:
                     self.shed[kind] += 1
@@ -448,8 +580,16 @@ class RequestEngine:
         return n
 
     # ------------------------------------------------------------ write lane
+    def _apply_write(self, req: Request) -> int:
+        if req.kind == "fold":
+            return self.backend.fold_in(req.rows, self.config.fold_bq)
+        if req.kind == "update":
+            return self.backend.apply_update(req.users, req.rows)
+        return self.backend.apply_remove(req.users)
+
     def pump_folds(self, max_folds: Optional[int] = None) -> int:
-        """Drain queued fold-ins now (never called from the read path)."""
+        """Drain queued writes — fold-ins, updates, removals — now (never
+        called from the read path)."""
         n = 0
         tr = self._tracer
         while max_folds is None or n < max_folds:
@@ -462,10 +602,10 @@ class RequestEngine:
             if getattr(self.backend, "serialize_folds", False):
                 with self.exec_lock:
                     t_apply = self.clock() if tr.active else t_pickup
-                    gen = self.backend.fold_in(req.rows, self.config.fold_bq)
+                    gen = self._apply_write(req)
             else:
                 t_apply = t_pickup
-                gen = self.backend.fold_in(req.rows, self.config.fold_bq)
+                gen = self._apply_write(req)
             now = self.clock()
             req.result = gen
             req.generation = gen
@@ -473,7 +613,10 @@ class RequestEngine:
             with self._lock:
                 self.completed[req.kind] += 1
                 self.latencies[req.kind].record((now - req.t_submit) * 1e3)
-                self.folded_rows += len(req.rows)
+                if req.kind == "fold":
+                    self.folded_rows += len(req.rows)
+                else:
+                    self.mutated_rows += len(req.users)
                 self._verify_ring.clear()   # prior generation retired
             req.done.set()
             if tr.active:
@@ -573,6 +716,9 @@ class RequestEngine:
                          max(1, self.pad_rows + self.exec_rows)),
             "nonfinite": self.nonfinite,
             "folded_rows": self.folded_rows,
+            "mutated_rows": self.mutated_rows,
+            "tombstone_frac": getattr(self.backend, "tombstone_frac", 0.0),
+            "repaired_rows": getattr(self.backend, "repaired_rows", 0),
             "generation": self.backend.generation,
             "reads_completed": reads,
         }
@@ -600,6 +746,9 @@ class RequestEngine:
         reg.counter("engine.pad_rows").set(self.pad_rows)
         reg.counter("engine.nonfinite").set(self.nonfinite)
         reg.counter("engine.folded_rows").set(self.folded_rows)
+        reg.counter("engine.mutated_rows").set(self.mutated_rows)
+        reg.counter("engine.repaired_rows").set(
+            getattr(self.backend, "repaired_rows", 0))
         with self._lock:
             queue_rows = self._queued_rows
             write_queue = len(self._folds)
@@ -608,20 +757,23 @@ class RequestEngine:
         reg.gauge("engine.row_occupancy").set(
             self.exec_rows / max(1, self.exec_rows + self.pad_rows))
         reg.gauge("engine.generation").set(float(self.backend.generation))
+        reg.gauge("engine.tombstone_frac").set(
+            float(getattr(self.backend, "tombstone_frac", 0.0)))
 
     def verify_sample(self, limit: int = 16) -> Tuple[int, int]:
-        """Re-run recent completed reads SOLO against their generation and
-        count bitwise mismatches. Only requests still on the live generation
-        are checked (folds clear the ring), so the comparison is exact.
+        """Re-run up to ``limit`` recent completed reads SOLO against their
+        generation and count bitwise mismatches. Only requests still on the
+        live generation are checked (writes clear the ring; a read batch
+        that began before a write may still land in it afterwards), so the
+        comparison is exact.
         """
         pub = self.backend.snapshot()
         gen = pub[-1]
         checked = bad = 0
-        with self._lock:
-            ring = list(self._verify_ring)[:limit]
+        with self._lock:  # a batch that began before a write lands stale
+            ring = [(req, got) for req, got in self._verify_ring
+                    if req.generation == gen][:limit]
         for req, got in ring:
-            if req.generation != gen:
-                continue
             checked += 1
             shape = self.config.pad_shape(req.n_rows)
             users = np.zeros(shape, np.int64)

@@ -526,6 +526,16 @@ def test_engine_cli_asks_for_the_card_by_default():
 @pytest.mark.parametrize("flag,slice_", [(["--mutations"], "mutation"),
                                          (["--mesh", "data=2"], "multi-GPU")])
 def test_engine_cli_refuses_what_later_slices_bring(flag, slice_):
-    with pytest.raises(SystemExit, match=slice_):
-        serve.main(["--workload", "cf", "--engine", "--smoke", "--device",
-                    "cpu"] + flag)
+    """``--mesh`` comes with the multi-GPU slice. ``--mutations`` rides the
+    engine's write lane: without ``--engine`` it is refused with the
+    reference's message."""
+    engine = [] if slice_ == "mutation" else ["--engine"]
+    with pytest.raises(SystemExit, match=slice_) as got:
+        serve.main(["--workload", "cf", "--smoke", "--device", "cpu"]
+                   + engine + flag)
+    if slice_ == "mutation":
+        from repro.launch import serve as jserve
+
+        with pytest.raises(SystemExit) as want:
+            jserve.main(["--workload", "cf", "--smoke"] + flag)
+        assert str(got.value) == str(want.value)

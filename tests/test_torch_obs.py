@@ -386,7 +386,8 @@ def test_per_kind_shed_counters_and_queue_gauges(state):
         assert eng.submit("fold", rows=_ratings(1, P, seed=21)) is not None
     assert eng.submit("fold", rows=_ratings(1, P, seed=22)) is None  # shed
     st = eng.stats()
-    assert st["shed"] == {"pair": 1, "topn": 1, "fold": 1}
+    assert st["shed"] == {"pair": 1, "topn": 1, "fold": 1,
+                          "update": 0, "remove": 0}
     assert st["shed_frac_by_kind"]["pair"] == pytest.approx(1 / 3)
     assert st["shed_frac_by_kind"]["topn"] == pytest.approx(1.0)
     assert st["shed_frac_by_kind"]["fold"] == pytest.approx(1 / 3)
