@@ -20,8 +20,9 @@ non-zero and prints no result. Phases, one line each:
    measure, and for the Lloyd kernel, per register row width, its
    registers, static shared memory and spills;
 3. kernels — each kernel against its plain version on the card, at the
-   main-path shapes, at ragged shapes and on duplicated rows, all three
-   measures; the top-k kernels bitwise (values and ids), or the run fails; d1 on both routes, the tensor-core route bitwise the f32
+   main-path shapes, at ragged shapes, on duplicated rows and (the top-k
+   scan) at the paper tables' widest representation, 100 landmarks, all
+   three measures; the top-k kernels bitwise (values and ids), or the run fails; d1 on both routes, the tensor-core route bitwise the f32
    route, also at the guard's limits (|v| = 8, P = 65535), and off the
    guard (1.1-star steps) the f32 route's result;
 4. main path — MovieLens-1M-shaped synthetic ratings (seed 0), fold 0:
@@ -144,6 +145,26 @@ The mutation slice adds:
     and the tombstone fraction; the kernel table gains each row's launches
     in the full run (``launches_mutations``).
 
+The paper-comparison slice adds:
+
+11. paper comparison — (a) each MF baseline (RSVD, IRSVD, PMF, SVD++), one
+    epoch at the ML-1M fold-0 shape, on the card and on the CPU from the
+    same initial parameters and permutation: the largest parameter
+    difference and the MAE difference, held to ``MF_PARAM_ATOL`` and
+    ``MF_MAE_ATOL``; (b) one BPMF Gibbs sweep there, card against CPU on
+    the same draws, held to ``BPMF_ATOL``; (c) Table 15
+    (``tools/paper_tables_torch.py::tab15_comparative``) on the card, every
+    row (algorithm, MAE, seconds, ×-slower than landmarks), held to the
+    reference's bars (landmark MAE < 1.1, every other row < 1.2, landmark
+    within 0.02 of cosine kNN), d1 and the d2 scan launched; (d) compact
+    serving: the main-path fit's uint16/bf16 graph read against the
+    widened graph within 2e-2 (the uint16 gather bitwise), then ``serve
+    --compact`` at ML-1M width (stored compact) and ``serve --lifecycle
+    --retrieval ivf --smoke --compact-serving`` (a compacted wave, an
+    oracle-exact swap), with d1, the fold-in scan, the Lloyd kernel and
+    the fused probe launched. The kernel table gains each row's launches
+    in (c) and (d) (``launches_paper``).
+
 The last two lines are the kernel table and
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. TF32 is off for
 matmul and cuDNN throughout: the reference scores in full f32.
@@ -188,7 +209,11 @@ from repro_torch.kernels import masked_similarity as ms  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.lifecycle import buckets  # noqa: E402
 from repro_torch import mutation  # noqa: E402
+from repro_torch.baselines import bpmf, mf  # noqa: E402
 from repro_torch.models import transformer as lm  # noqa: E402
+
+sys.path.insert(0, str(ROOT / "tools"))
+import paper_tables_torch as paper  # noqa: E402
 
 DEVICE = "cuda"
 RTOL, ATOL = 1e-5, 1e-6
@@ -248,6 +273,15 @@ DECODE_ATOL = 0.15  # bf16 decode step vs forward (tests/test_archs_smoke.py)
 
 def sync():
     torch.cuda.synchronize()
+
+
+def _counts():
+    """Every wrapper's launches since the last reset, with d1's f32-route
+    launches as ``masked_similarity_f32``."""
+    counts = ops.launch_counts()
+    counts["masked_similarity_f32"] = ms.masked_similarity.route_launches[
+        "f32"]
+    return counts
 
 
 def phase_device():
@@ -487,6 +521,8 @@ def phase_kernels(train):
 
     rep = sim.masked_similarity(train, lm)  # (U, n) as the main path makes it
     rag = sim.masked_similarity(ra[:1001], ra[:20])
+    # the paper tables' widest representation: 100 landmarks
+    wide = sim.masked_similarity(train[:2000], train[:100])
     dup = rep[:300].repeat_interleave(3, dim=0)
     ints = torch.as_tensor(np.random.default_rng(12).integers(
         0, 4, (150, 20)).astype(np.float32), device=DEVICE)
@@ -514,6 +550,14 @@ def phase_kernels(train):
         dp = kernel_rows(dup, measure)
         cases.append(("topk_sim", "duplicated", False, lambda f: f(
             dp, dp, 13, exclude_self=True, measure=measure)))
+        wd = kernel_rows(wide, measure)
+        cases += [
+            ("topk_sim", "n=100", False, lambda f: f(
+                wd, wd, 13, exclude_self=True, measure=measure)),
+            ("foldin_topk", "n=100", False, lambda f: f(
+                wd[-64:].contiguous(), wd, 13, self_offset=2000 - 64,
+                measure=measure)),
+        ]
         for name, tag, main, call in cases:
             plain = ref.topk_sim_ref if name == "topk_sim" else \
                 ref.foldin_topk_ref
@@ -581,9 +625,7 @@ def run_main_path(train, d, test_idx, kernels, sim_fn=None):
     t_fold = time.perf_counter() - t0
     pred_new = predict(st2, new_pairs[0], new_pairs[1], spec)
     sync()
-    counts = ops.launch_counts()
-    counts["masked_similarity_f32"] = ms.masked_similarity.route_launches[
-        "f32"]
+    counts = _counts()
     d1_all = ms.route_results()
     d1 = {"fit": d1_fit, "fold-in": {k: d1_all[k] - d1_fit[k]
                                      for k in d1_all}}
@@ -1322,9 +1364,7 @@ def phase_ivf_path(train, a):
     fv, fi = rt.search(index, rep, 13, nprobe, spec.d2, self_ids=sids,
                        scorer="fused")
     sync()
-    counts = ops.launch_counts()
-    counts["masked_similarity_f32"] = ms.masked_similarity.route_launches[
-        "f32"]
+    counts = _counts()
     d1 = ms.route_results()
     if not all(counts[name] > 0 for name in IVF_KERNELS):
         raise AssertionError(f"an IVF kernel did not launch: {counts}")
@@ -1387,9 +1427,7 @@ def phase_lifecycle():
             serve.main(["--workload", "cf", "--lifecycle", "--retrieval",
                         "ivf", "--early-exit", "--ckpt", str(ckpt)] + argv)
         sync()
-        counts = ops.launch_counts()
-        counts["masked_similarity_f32"] = ms.masked_similarity.route_launches[
-            "f32"]
+        counts = _counts()
         d1 = ms.route_results()
         text = buf.getvalue()
         print(text, end="")
@@ -1764,9 +1802,7 @@ def phase_engine():
         with contextlib.redirect_stdout(buf):
             res = serve.main(["--workload", "cf", "--engine"] + argv)
         sync()
-        counts = ops.launch_counts()
-        counts["masked_similarity_f32"] = ms.masked_similarity.route_launches[
-            "f32"]
+        counts = _counts()
         d1 = ms.route_results()
         text = buf.getvalue()
         print(text, end="")
@@ -2084,9 +2120,7 @@ def phase_mutation(state, card):
             res = serve.main(["--workload", "cf", "--engine", "--mutations"]
                              + argv)
         sync()
-        counts = ops.launch_counts()
-        counts["masked_similarity_f32"] = ms.masked_similarity.route_launches[
-            "f32"]
+        counts = _counts()
         d1 = ms.route_results()
         text = buf.getvalue()
         print(text, end="")
@@ -2145,6 +2179,247 @@ def phase_mutation(state, card):
         out[tag] = counts
     print(f"phase 10: {time.perf_counter() - t0:.1f}s")
     return out["full"]
+
+
+# ------------------------------------------------------ paper comparison
+PAPER_DIR = ROOT / "build" / "phase11"
+# card against CPU from the same initial parameters and permutation, one
+# epoch at the ML-1M fold-0 shape (109 steps): f32 sums in other orders and
+# the card's accumulation order in the gathers' backward, compounded over
+# the steps; parameters are of scale 0.1-1
+MF_PARAM_ATOL = 1e-4  # the largest |difference| of any parameter
+MF_MAE_ATOL = 1e-5  # |MAE(card) - MAE(CPU)| on the fold's test pairs
+# one Gibbs sweep, card against CPU on the same draws: batched Cholesky
+# solves and inverses of other libraries (cuSOLVER / LAPACK), factors of
+# scale ~0.1
+BPMF_ATOL = 1e-4
+# the reference's own bars (tests/test_system.py:56-57): landmark MAE,
+# kNN and model-based MAE, and claim C3 (landmark within 0.02 of cosine kNN)
+LANDMARK_MAE_BAR, BASELINE_MAE_BAR, C3_SLACK = 1.1, 1.2, 0.02
+# compact reads against the widened graph's reads: the reference's bf16
+# tolerance (tests/test_lifecycle.py)
+COMPACT_TOL = 2e-2
+# the kernels each part of phase 11 must launch: every landmark row of
+# Table 15 runs d1 and the d2 scan; the lifecycle under --compact-serving
+# --retrieval ivf folds in (the fold-in scan) and builds and probes its index
+PAPER_KERNELS = {"table 15": ("masked_similarity", "topk_sim"),
+                 "serve": ("masked_similarity", "foldin_topk",
+                           "assign_clusters", "fused_probe_topk")}
+
+
+def _paper_mf(d, tr, te):
+    """11a: each MF configuration, one epoch, on the card and on the CPU
+    from the same initial parameters and permutation."""
+    out = {}
+    users, items, ratings = d.users[tr], d.items[tr], d.ratings[tr]
+    perms = [torch.randperm(len(tr), generator=torch.Generator().manual_seed(
+        1))]
+    for name, cfgf in paper.MF_CONFIGS:
+        cfg_mf = cfgf(d.n_users, d.n_items, epochs=1)
+        init = mf._init(cfg_mf, float(np.mean(ratings, dtype=np.float64)),
+                        "cpu")
+        res, maes = {}, {}
+        for dev in (DEVICE, "cpu"):
+            t0 = time.perf_counter()
+            params, aux = mf.fit_mf(users, items, ratings, cfg_mf, device=dev,
+                                    init=init, perms=perms)
+            preds = mf.predict_mf(params, cfg_mf, d.users[te], d.items[te],
+                                  aux)
+            if dev == DEVICE:
+                sync()
+            res[dev] = (params, time.perf_counter() - t0)
+            maes[dev] = data.mae(np.clip(preds.cpu().numpy(), 1, 5),
+                                 d.ratings[te])
+        diff = max(float((c.cpu() - p).abs().max()) for c, p in
+                   zip(res[DEVICE][0], res["cpu"][0]))
+        # the gathers' backward on the card: the same bits run to run?
+        again, _ = mf.fit_mf(users, items, ratings, cfg_mf, device=DEVICE,
+                             init=init, perms=perms)
+        rerun = all(torch.equal(x, y) for x, y in zip(again, res[DEVICE][0]))
+        dmae = abs(maes[DEVICE] - maes["cpu"])
+        moved = float((res[DEVICE][0].mu.cpu() - init.mu).abs())
+        if not (diff <= MF_PARAM_ATOL and dmae <= MF_MAE_ATOL
+                and all(torch.isfinite(t).all() for t in res[DEVICE][0])):
+            raise AssertionError(f"11a {name}: card vs CPU parameters differ "
+                                 f"by {diff} (bound {MF_PARAM_ATOL}), MAE by "
+                                 f"{dmae} (bound {MF_MAE_ATOL})")
+        if (moved > 0) != cfg_mf.use_bias:
+            raise AssertionError(f"11a {name}: mu moved by {moved}")
+        out[name] = dict(max_param_diff=diff, mae_card=maes[DEVICE],
+                         mae_diff=dmae, mu_moved=moved,
+                         card_rerun_bitwise=rerun,
+                         card_s=res[DEVICE][1], cpu_s=res["cpu"][1])
+    return out
+
+
+def _paper_bpmf(d, tr):
+    """11b: one Gibbs sweep at the ML-1M shape, card against CPU, on the
+    same draws (one seeded CPU generator each)."""
+    bcfg = bpmf.BPMFConfig(d.n_users, d.n_items)
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        draws = bpmf.TorchDraws(bcfg.seed, dev)
+        rc, m, _ = bpmf.centered_block(d.users[tr], d.items[tr],
+                                       d.ratings[tr], bcfg, dev)
+        p0 = draws.normal((bcfg.n_users, bcfg.dim)) * 0.1
+        q0 = draws.normal((bcfg.n_items, bcfg.dim)) * 0.1
+        t0 = time.perf_counter()
+        out[dev] = bpmf.gibbs_step(draws, p0, q0, rc, m, bcfg)
+        if dev == DEVICE:
+            sync()
+        out[dev + "_s"] = time.perf_counter() - t0
+    diff = max(float((c.cpu() - p).abs().max())
+               for c, p in zip(out[DEVICE], out["cpu"]))
+    if not diff <= BPMF_ATOL or not all(torch.isfinite(t).all()
+                                        for t in out[DEVICE]):
+        raise AssertionError(f"11b: a Gibbs sweep, card vs CPU, differs by "
+                             f"{diff} (bound {BPMF_ATOL})")
+    return dict(max_factor_diff=diff, card_s=out[DEVICE + "_s"],
+                cpu_s=out["cpu_s"])
+
+
+def _paper_table(d):
+    """11c: Table 15 on the card, every row, held to the reference's
+    bars."""
+    ops.reset_launches()
+    rows = paper.tab15_comparative("movielens1m", data=d, device=DEVICE)
+    sync()
+    counts = _counts()
+    by = {r["algo"]: r for r in rows}
+    lm_mae = by["Landmarks kNN"]["mae"]
+    bad = [r["algo"] for r in rows[1:] if not r["mae"] < BASELINE_MAE_BAR]
+    if not (lm_mae < LANDMARK_MAE_BAR and not bad
+            and lm_mae <= by["cosine kNN"]["mae"] + C3_SLACK
+            and len(rows) == 9):
+        raise AssertionError(f"11c: Table 15 misses the reference's bars: "
+                             f"landmark {lm_mae}, over {BASELINE_MAE_BAR}: "
+                             f"{bad}, cosine kNN {by['cosine kNN']['mae']}")
+    return rows, counts
+
+
+def _paper_profiles(d, tr):
+    """Where the model-based rows' time goes on the card: the profiler
+    over one RSVD epoch (109 autograd steps) and one BPMF sweep."""
+    cfg_mf = mf.rsvd_config(d.n_users, d.n_items, epochs=1)
+    bcfg = bpmf.BPMFConfig(d.n_users, d.n_items)
+    rc, m, _ = bpmf.centered_block(d.users[tr], d.items[tr], d.ratings[tr],
+                                   bcfg, DEVICE)
+    draws = bpmf.TorchDraws(0, DEVICE)
+    p0 = draws.normal((bcfg.n_users, bcfg.dim)) * 0.1
+    q0 = draws.normal((bcfg.n_items, bcfg.dim)) * 0.1
+    return {
+        "rsvd_epoch": _profile(lambda: mf.fit_mf(
+            d.users[tr], d.items[tr], d.ratings[tr], cfg_mf, device=DEVICE)),
+        "bpmf_sweep": _profile(lambda: bpmf.gibbs_step(draws, p0, q0, rc, m,
+                                                       bcfg))}
+
+
+def _paper_compact(state, pairs):
+    """11d, on the main-path fit: the compact serving graph's reads against
+    the widened graph's, at the reference's bf16 tolerance."""
+    bst = buckets.from_state(state)
+    cst = buckets.compact_state(bst)
+    g, gc = bst.state.graph, cst.state.graph
+    if not (gc.indices.dtype == torch.uint16 and gc.indices.is_cuda
+            and buckets.compact_state(cst) is cst):
+        raise AssertionError(f"11d: compact graph {gc.indices.dtype}")
+    users, items = pairs[0], pairs[1]
+    ids, _ = knn._gathered(gc, users, torch.float32)
+    full_ids, _ = knn._gathered(g, users, torch.float32)
+    got = buckets.predict_pairs(cst, users, items)
+    want = buckets.predict_pairs(bst, users, items)
+    torch.testing.assert_close(got, want, rtol=COMPACT_TOL, atol=COMPACT_TOL)
+    top_c, _ = buckets.recommend_topn(cst, users[:TOPN_USERS])
+    if not torch.equal(ids, full_ids) or (top_c < 0).any():
+        raise AssertionError("11d: the uint16 gather or top-N differs")
+    return dict(pairs=int(users.shape[0]),
+                max_read_diff=float((got - want).abs().max()),
+                resident_kb=(gc.indices.nbytes + gc.weights.nbytes) / 1024,
+                full_kb=(g.indices.nbytes + g.weights.nbytes) / 1024)
+
+
+def _paper_serve():
+    """11d: ``serve --compact`` at ML-1M width, and the lifecycle smoke with
+    ``--compact-serving --retrieval ivf``."""
+    shutil.rmtree(PAPER_DIR, ignore_errors=True)
+    out = {}
+    ops.reset_launches()
+    for tag, argv, want in (
+            ("compact", ["--users", "6040", "--items", "3952", "--waves", "2",
+                         "--foldin", "64", "--compact"], "cf serve: done"),
+            ("compact-serving", ["--lifecycle", "--retrieval", "ivf",
+                                 "--smoke", "--compact-serving"],
+             "cf lifecycle: done")):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            serve.main(["--workload", "cf", "--ckpt", str(PAPER_DIR / tag)]
+                       + argv)
+        sync()
+        text = buf.getvalue()
+        print(text, end="")
+        if not text.rstrip().endswith(want):
+            raise AssertionError(f"11d {tag}: no {want!r}")
+        if tag == "compact":
+            line = next(ln for ln in text.splitlines()
+                        if ln.startswith("loaded "))
+            if "stored compact" not in line:
+                raise AssertionError(f"11d: artifact not stored compact: "
+                                     f"{line}")
+        else:
+            line = next((ln for ln in text.splitlines()
+                         if "serving graph compacted" in ln), None)
+            if line is None or "swap oracle-exact vs from-scratch fit (gen " \
+                    "1): True" not in text:
+                raise AssertionError("11d: no compacted wave or no "
+                                     "oracle-exact swap")
+        out[tag] = dict(line=line, s=time.perf_counter() - t0)
+    sync()
+    return out, _counts()
+
+
+def phase_paper(d, tr, te, a, card):
+    """11: the paper's comparison on the card — (a) the four MF baselines,
+    one epoch, card against CPU; (b) one BPMF Gibbs sweep, card against
+    CPU; (c) Table 15 on the card with the reference's bars; (d) compact
+    serving: reads of the compact main-path graph, ``serve --compact`` and
+    ``serve --lifecycle --retrieval ivf --smoke --compact-serving``.
+    Returns the launches of (c) and (d) together."""
+    t0 = time.perf_counter()
+    t = time.perf_counter()
+    mf_out = _paper_mf(d, tr, te)
+    print(f"phase 11a MF card vs CPU, one epoch (bounds: parameters "
+          f"{MF_PARAM_ATOL}, MAE {MF_MAE_ATOL}): {json.dumps(mf_out)} | "
+          f"{time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    print(f"phase 11b BPMF one Gibbs sweep card vs CPU (bound {BPMF_ATOL}): "
+          f"{json.dumps(_paper_bpmf(d, tr))} | {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    rows, table_counts = _paper_table(d)
+    for r in rows:
+        print(f"phase 11c Table 15 ({card}): {r['algo']:14s} MAE "
+              f"{r['mae']:.4f}  {r['time_s']:.4f}s  {r['rel']:.1f}x")
+    d1 = ms.route_results()
+    _check_d1_routes("phase 11 table 15", table_counts, d1)
+    print(f"phase 11c Table 15 rows: {json.dumps(rows)}, launches "
+          f"{table_counts}, d1 results {d1} | {time.perf_counter() - t:.1f}s")
+    print("phase 11c profile (one RSVD epoch; one BPMF sweep): " + json.dumps(
+        _paper_profiles(d, tr)))
+    t = time.perf_counter()
+    reads = _paper_compact(a["state"], a["fit_pairs"])
+    serve_out, serve_counts = _paper_serve()
+    d1 = ms.route_results()
+    _check_d1_routes("phase 11 serve", serve_counts, d1)
+    print(f"phase 11d compact serving: reads {json.dumps(reads)} (tolerance "
+          f"{COMPACT_TOL}); {json.dumps(serve_out)}; launches {serve_counts}, "
+          f"d1 results {d1} | {time.perf_counter() - t:.1f}s")
+    for part, counts in (("table 15", table_counts), ("serve", serve_counts)):
+        idle = [k for k in PAPER_KERNELS[part] if not counts[k] > 0]
+        if idle:
+            raise AssertionError(f"phase 11 {part}: {idle} never launched "
+                                 f"({counts})")
+    print(f"phase 11: {time.perf_counter() - t0:.1f}s")
+    return {k: table_counts[k] + serve_counts[k] for k in table_counts}
 
 
 def _lm_bound(p, n, s_, d, dtype):
@@ -2282,9 +2557,11 @@ def main():
     # after the kernel times: run after phase 10, phase 6's profiler
     # sessions saw only part of the device events
     mutation_counts = phase_mutation(a["state"], card)
+    paper_counts = phase_paper(d, train_idx, test_idx, a, card)
     for row in table:  # the engine runs' launches, every row
         row["launches_engine"] = engine_counts.get(row["name"], 0)
         row["launches_mutations"] = mutation_counts.get(row["name"], 0)
+        row["launches_paper"] = paper_counts.get(row["name"], 0)
     print(f"card: {card}")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -51,9 +51,15 @@ def _mask_padded_rows(idx: torch.Tensor, w: torch.Tensor,
 
 def _gathered(graph: NeighborGraph, users: torch.Tensor, dtype):
     """(B, k) neighbor ids (int64) and weights for the query rows; compact
-    graphs are widened here."""
-    return (graph.indices[users].to(torch.int64),
-            graph.weights[users].to(dtype))
+    graphs are widened here, after the gather. uint16 has few kernels (the
+    card's advanced indexing refuses it, the CPU's ``index_select`` too),
+    so compact ids are gathered as their int16 bits and masked back."""
+    ids = graph.indices
+    if ids.dtype == torch.uint16:
+        idx = ids.view(torch.int16)[users].to(torch.int64) & 0xFFFF
+    else:
+        idx = ids[users].to(torch.int64)
+    return idx, graph.weights[users].to(dtype)
 
 
 def _center(ratings: torch.Tensor):

@@ -128,6 +128,27 @@ def full_similarity_matrix(ratings: torch.Tensor,
     return s
 
 
+def blocked_masked_similarity(r: torch.Tensor, landmarks: torch.Tensor,
+                              measure: str = "cosine", chunk: int = 4096
+                              ) -> torch.Tensor:
+    """d1 with the kernel's schedule in plain PyTorch: stream item chunks
+    and carry the six (U, n) moment accumulators, so temporaries stay one
+    (U, chunk) tile whatever |P| is. Zero-padded to a whole number of
+    chunks (zero columns add nothing to any moment)."""
+    u, p = r.shape
+    n_chunks = -(-p // chunk)
+    pad = n_chunks * chunk - p
+    if pad:
+        r = torch.nn.functional.pad(r, (0, pad))
+        landmarks = torch.nn.functional.pad(landmarks, (0, pad))
+    acc = [r.new_zeros((u, landmarks.shape[0])) for _ in range(6)]
+    for c0 in range(0, n_chunks * chunk, chunk):
+        moments = corated_moments(r[:, c0:c0 + chunk],
+                                  landmarks[:, c0:c0 + chunk])
+        acc = [a + m for a, m in zip(acc, moments)]
+    return _finalize(measure, *acc)
+
+
 def streaming_knn_graph(rep: torch.Tensor, measure: str = "cosine",
                         k: int = 14, chunk: int = 8192,
                         exclude_self: bool = False):

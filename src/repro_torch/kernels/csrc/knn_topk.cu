@@ -83,6 +83,10 @@ using repro::smem_addr;
 using repro::sq_norm;
 
 constexpr int kPrepThreads = 256;
+// The widest rows (landmark axis n) the scan takes: its ring of STAGES
+// tiles of n + 1 rows fits the 227 KB of shared memory a block may opt
+// into up to n = 109 (variant 0); the paper's tables go to n = 100.
+constexpr int kMaxWidth = 104;
 constexpr int kMergeWarps = 8;
 
 // The norm a kernel keeps of a row: the root of its squared norm
@@ -231,8 +235,8 @@ topk_scan_kernel(const float* __restrict__ q, const float* __restrict__ P,
     for (int d = 0; d < n; ++d) {
       x[d] = row < n_rows ? q[(size_t)row * n + d] : 0.0f;
     }
-    if (M == 1) center<64>(x, n);
-    qn[tid] = M == 0 ? 0.0f : row_norm<64>(x, n, M);
+    if (M == 1) center<kMaxWidth>(x, n);
+    qn[tid] = M == 0 ? 0.0f : row_norm<kMaxWidth>(x, n, M);
   }
   __syncthreads();
 
@@ -381,8 +385,8 @@ auto scan_kernel(int measure) {
 }
 
 bool bad_args(int rows, int C, int n, int k, int measure) {
-  return rows <= 0 || C <= 0 || n <= 0 || n > 64 || k <= 0 || k > 32 ||
-         measure < 0 || measure > 2;
+  return rows <= 0 || C <= 0 || n <= 0 || n > kMaxWidth || k <= 0 ||
+         k > 32 || measure < 0 || measure > 2;
 }
 
 }  // namespace
@@ -397,7 +401,8 @@ extern "C" int topk_scan_blocks_per_sm(int variant, int n, int measure) {
     using T = decltype(tile);
     auto kern = scan_kernel<T>(measure);
     const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::smem(64));
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)T::smem(kMaxWidth));
     if (e != cudaSuccess) return e;
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &blocks, kern, T::kThreads, T::smem(n));
@@ -432,8 +437,11 @@ extern "C" int topk_scan_f32(const void* q, const void* cand, void* prep,
     if (n <= 32) {
       topk_prep_kernel<32><<<pblocks, kPrepThreads, 0, s>>>(
           static_cast<const float*>(cand), p, C, cpad, n, measure);
-    } else {
+    } else if (n <= 64) {
       topk_prep_kernel<64><<<pblocks, kPrepThreads, 0, s>>>(
+          static_cast<const float*>(cand), p, C, cpad, n, measure);
+    } else {
+      topk_prep_kernel<kMaxWidth><<<pblocks, kPrepThreads, 0, s>>>(
           static_cast<const float*>(cand), p, C, cpad, n, measure);
     }
     const cudaError_t e = cudaGetLastError();

@@ -22,7 +22,8 @@ import torch
 
 from . import build, ref
 
-MAX_WIDTH = 64  # landmark axis n: register array size of the kernel
+MAX_WIDTH = 64  # landmark axis n of the IVF kernels' register rows (4-6)
+SCAN_MAX_WIDTH = 104  # landmark axis n of the scan: its ring's shared memory
 MAX_K = 32  # list length: lanes of the warp-wide list
 # (queries, candidates) a block's tile in each scan variant, by the index
 # that csrc/knn_topk.cu's with_tile takes
@@ -78,8 +79,8 @@ def _check(name, rep, cand, k, n_valid, measure):
     n = rep.shape[1]
     if cand.shape[1] != n:
         raise ValueError(f"{name}: widths differ: {rep.shape} vs {cand.shape}")
-    if not 1 <= n <= MAX_WIDTH:
-        raise ValueError(f"{name}: width {n} outside 1..{MAX_WIDTH}")
+    if not 1 <= n <= SCAN_MAX_WIDTH:
+        raise ValueError(f"{name}: width {n} outside 1..{SCAN_MAX_WIDTH}")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"{name}: k={k} outside 1..{MAX_K}")
     if not 0 <= n_valid <= cand.shape[0]:

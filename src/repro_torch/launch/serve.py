@@ -10,12 +10,17 @@
   (fitting and checkpointing one first when the directory holds none),
   then runs waves of Eq. (1) pair predictions and top-N recommendations,
   folding a batch of new users into the state between waves
-  (``core.fold_in``: no refit). ``--workload cf [--smoke]``
+  (``core.fold_in``: no refit). ``--workload cf [--smoke]``;
+  ``--compact`` stores the artifact as uint16 ids + bf16 weights (half the
+  bytes), widened after loading.
 - ``cf --lifecycle``: the continual-serving loop — a drifting arrival stream
   (``data.synthetic.drifting_ratings``) through bucket-padded state
   (``lifecycle.buckets``), drift monitoring (holdout-MAE reservoir, fold-in
   volume, landmark coverage) and a policy-triggered background refresh
-  with a generation-stamped artifact swap.
+  with a generation-stamped artifact swap. ``--compact-serving`` serves
+  (and checkpoints) the uint16/bf16 graph after each swap while the
+  capacity fits uint16 (and the IVF index's uint16 posting lists under
+  ``--retrieval ivf``); the next fold-in or growth widens it.
 - ``cf --lifecycle --retrieval ivf``: the same loop with an IVF index over the
   landmark embedding: fold-in appends arrivals under the frozen quantizer,
   the refresh rebuilds it inside the swap, a list-skew gate repacks it,
@@ -68,8 +73,8 @@ from ..core import RatingMatrix, fit, fold_in, knn
 from ..data import synthetic
 from ..models import transformer as lm_mod
 from ..serving.stats import latency_stats
-from ..train.checkpoint import (latest_step, load_landmark_state,
-                                save_landmark_state)
+from ..train.checkpoint import (landmark_state_meta, latest_step,
+                                load_landmark_state, save_landmark_state)
 
 IVF_RECALL_SLO = 0.95  # serving recall target; nprobe escalates to hold it
 
@@ -191,7 +196,7 @@ def _serve_cf(args):
                  generator=torch.Generator().manual_seed(0))
         _sync(device)
         t_fit = time.perf_counter() - t0
-        save_landmark_state(ckpt_dir, st)
+        save_landmark_state(ckpt_dir, st, compact=args.compact)
         print(f"fit U={args.users} P={args.items} n={spec.n_landmarks} "
               f"k={st.graph.k} on {device}: {t_fit*1e3:.0f}ms -> "
               f"checkpointed {ckpt_dir}")
@@ -334,6 +339,8 @@ def _serve_cf_lifecycle(args):
     # (count-ranked, ties to the incumbents) does not
     spec = dataclasses.replace(spec, selection=args.selection)
     rspec = cfg.SMOKE_REFRESH if args.smoke else cfg.REFRESH
+    if args.compact_serving:
+        rspec = dataclasses.replace(rspec, compact_serving=True)
     if args.smoke:
         _clamp_lifecycle_smoke(args)
     stream = dict(n_waves=args.waves, drift=args.drift)
@@ -391,7 +398,9 @@ def _serve_cf_lifecycle(args):
         retrieval = resolve_serving_ivf(args.users)
         index = rt.build_index(bst.state.representation, retrieval, spec.d2,
                                n_valid=bst.n_valid)
-    manager = RefreshManager(ckpt_dir, spec, ivf=user_ivf, device=device)
+    manager = RefreshManager(ckpt_dir, spec, compact=rspec.compact_serving,
+                             compact_max_rows=rspec.compact_max_rows,
+                             ivf=user_ivf, device=device)
     pending = last_refit = None  # (generation, rows) of a refit
     swap_wave = pre_post = None
     print(f"gen {gen0}: fit U={args.users} P={args.items} "
@@ -479,6 +488,18 @@ def _serve_cf_lifecycle(args):
                 # refreshed landmarks restore cell structure: drop any SLO
                 # escalation back to the default probe budget
                 retrieval = resolve_serving_ivf(bst.n_valid)
+            if policy.should_compact(rspec, bst.capacity):
+                # lifecycle-driven compaction: serve the uint16/bf16 graph
+                # until the next fold-in or growth widens it
+                bst = buckets.compact_state(bst)
+                art_kb = (bst.state.graph.indices.nbytes
+                          + bst.state.graph.weights.nbytes) / 1024
+                if use_ivf:  # --compact-serving covers the index too
+                    index = index.to_compact()
+                    art_kb += (index.lists.nbytes + index.rows.nbytes
+                               + index.centroids.nbytes) / 1024
+                print(f"wave {wave}: serving graph compacted "
+                      f"(uint16/bf16, {art_kb:.0f}KB resident)")
             new_cov = monitor.batch_coverage(
                 st_new.representation, torch.ones(snap_u, device=device))
             mon = monitor.rebase(mon, bst.n_valid, new_cov)
@@ -571,6 +592,8 @@ def _serve_cf_lifecycle(args):
                                   *rows.shape), spec,
                      generator=torch.Generator().manual_seed(gen))
         og = oracle.graph
+        if landmark_state_meta(ckpt_dir, gen)["compact"]:
+            og = og.to_compact().to_full()  # artifact stored uint16/bf16
         exact = (torch.equal(loaded.graph.indices, og.indices)
                  and torch.equal(loaded.graph.weights, og.weights))
         print(f"swap oracle-exact vs from-scratch fit (gen {gen}): {exact}")
@@ -1163,6 +1186,13 @@ def main(argv=None):
                     choices=("random", "dist_ratings", "coresets",
                              "coresets_random", "popularity"),
                     help="lifecycle: landmark selection for fit AND refresh")
+    ap.add_argument("--compact", action="store_true",
+                    help="cf: store the artifact as uint16 ids + bf16 weights")
+    ap.add_argument("--compact-serving", action="store_true",
+                    help="lifecycle: after each refresh swap, serve (and "
+                    "checkpoint) the compact uint16/bf16 graph while the "
+                    "capacity fits uint16; widened back on growth "
+                    "(lifecycle.policy.should_compact)")
     ap.add_argument("--retrieval", default="exact", choices=("exact", "ivf"),
                     help="lifecycle: neighbor retrieval of the serve path; "
                     "'ivf' keeps an IVF index over the landmark embedding "

@@ -217,3 +217,21 @@ def recommend_topn(bstate: BucketedState, users: torch.Tensor, n: int = 10):
     record_geometry("topn", bstate.capacity, users.shape[0])
     return knn.recommend_topn_graph(bstate.state.graph, bstate.state.ratings,
                                     users, n=n, n_valid=bstate.n_valid)
+
+
+def compact_state(bstate: BucketedState) -> BucketedState:
+    """Swap the serving graph to the compact (uint16/bf16) artifact.
+
+    Gated by ``lifecycle.policy.should_compact`` (capacity < 65536): reads
+    widen the gathered rows on the fly (``core.knn._gathered``), and the
+    next capacity growth or bucketed fold-in widens the whole graph back
+    (``_pad_state`` / ``extend_neighbor_graph_bucketed``). A state that is
+    already compact comes back as the same object.
+    """
+    st = bstate.state
+    if st.graph is None or st.graph.is_compact:
+        return bstate
+    return BucketedState(
+        LandmarkState(st.landmark_idx, st.representation, st.ratings,
+                      graph=st.graph.to_compact()),
+        bstate.n_valid)

@@ -43,6 +43,12 @@ class RefreshManager:
     thread; ``poll`` returns ``(generation, state)`` exactly once when a
     refit has committed. Errors in the thread surface on the next ``poll``.
 
+    ``compact`` stores the uint16/bf16 graph, gated by
+    ``compact_max_rows`` — pass ``RefreshSpec.compact_max_rows`` so the
+    checkpoint side agrees with the serving-side ``policy.should_compact``
+    gate (skipped once U outgrows the ceiling). ``poll`` still hands back
+    the full-width fitted state.
+
     ``ivf`` (a ``retrieval.IVFSpec``) also rebuilds the IVF index over the
     refitted representation inside the background swap (the quantizer is
     frozen between refreshes, like the landmarks); ``poll`` then returns
@@ -50,10 +56,13 @@ class RefreshManager:
     the artifact in one call, so it is not checkpointed.
     """
 
-    def __init__(self, ckpt_dir: str, spec: LandmarkSpec, *, ivf=None,
-                 device="cuda"):
+    def __init__(self, ckpt_dir: str, spec: LandmarkSpec, *,
+                 compact: bool = False, compact_max_rows: int = 65536,
+                 ivf=None, device="cuda"):
         self.ckpt_dir = ckpt_dir
         self.spec = spec
+        self.compact = compact
+        self.compact_max_rows = compact_max_rows
         self.ivf = ivf
         self.device = torch.device(device)
         self._thread: Optional[threading.Thread] = None
@@ -96,9 +105,11 @@ class RefreshManager:
                              self.spec,
                              generator=torch.Generator().manual_seed(seed))
                     self._sync()
+                compact = self.compact and r.shape[0] < self.compact_max_rows
                 with obslib.span("refresh.commit", cat="lifecycle",
                                  args={"generation": generation}):
-                    save_landmark_state(self.ckpt_dir, st, step=generation)
+                    save_landmark_state(self.ckpt_dir, st, compact=compact,
+                                        step=generation)
                 o = obslib.current()
                 if o is not None and o.enabled:
                     o.registry.counter("lifecycle.refreshes").inc()

@@ -23,6 +23,13 @@ Tolerances:
   running max and denominator against a dense f32 one (P is split into two
   bf16 terms, f32 q and k into three, to stay inside it);
 - the f32 route's split pass: bitwise equal to the same rounding in torch;
+- the MF baselines on the card against the CPU from the same initial
+  parameters and permutations, and one BPMF Gibbs sweep on the same draws:
+  within atol=1e-4 (f32 sums in other orders; the card's gathers
+  accumulate their backward in an order of their own);
+- compact (uint16/bf16) graph reads against the widened graph's:
+  rtol=atol=2e-2, the reference's bf16 bound; the uint16 gather's ids
+  equal;
 - a landmark-attention forward through the kernel against the same
   forward with the plain summary, bf16: within 5% of the largest logit
   (the kernel's f32 sums in another order, rounded to bf16 on the way
@@ -173,7 +180,8 @@ def test_masked_similarity_off_the_guard_takes_the_f32_result(cuda):
 
 @pytest.mark.parametrize("measure", MEASURES)
 @pytest.mark.parametrize("u,n,k", [(1001, 20, 13), (300, 64, 32), (50, 1, 1),
-                                   (40, 33, 17)])
+                                   (40, 33, 17), (500, 100, 13),
+                                   (130, 104, 32)])
 def test_topk_sim_kernel_matches_plain(cuda, measure, u, n, k):
     rep = kernel_rows(_rep(u, n, cuda, seed=2), measure)
     got = knn_topk.topk_sim(rep, rep, k, exclude_self=True, n_valid=u - 7,
@@ -310,7 +318,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         ops.masked_similarity(r, r.cpu())
     with pytest.raises(ValueError, match="route"):
         ops.masked_similarity(r, r, route="tensor_core")
-    rep = _rep(80, 65, cuda)
+    rep = _rows(80, knn_topk.SCAN_MAX_WIDTH + 1, cuda)
     with pytest.raises(ValueError, match="width"):
         knn_topk.topk_sim(rep, rep, 5)
     with pytest.raises(ValueError, match="k=33"):
@@ -825,3 +833,107 @@ def test_threaded_engine_on_the_card(cuda):
     eng.pump_reads()
     checked, bad = eng.verify_sample()
     assert checked >= 2 and bad == 0
+
+
+# ------------------------------------------------------ baselines, compact
+MF_CARD_ATOL = 1e-4  # MF on the card vs the CPU: parameters, predictions
+BPMF_CARD_ATOL = 1e-4  # one Gibbs sweep on the card vs the CPU, same draws
+COMPACT_TOL = 2e-2  # compact reads vs widened reads (bf16 weights)
+
+
+def _ml100k():
+    from repro_torch.data import ratings as R
+
+    d = R.synthesize("movielens100k", seed=0)
+    return d, *R.kfold_split(d, 0)
+
+
+@pytest.mark.parametrize("name", ["rsvd", "irsvd", "pmf", "svdpp"])
+def test_mf_on_the_card_matches_the_cpu(cuda, name):
+    """Two epochs (11 steps each) from the same initial parameters and
+    permutations: the gathers' backward accumulates in the card's own
+    order, within MF_CARD_ATOL of the CPU's."""
+    from repro_torch.baselines import mf
+
+    d, tr, te = _ml100k()
+    cfg = getattr(mf, f"{name}_config")(d.n_users, d.n_items, epochs=2)
+    init = mf._init(cfg, float(d.ratings[tr].mean()), "cpu")
+    g = torch.Generator().manual_seed(1)
+    perms = [torch.randperm(len(tr), generator=g) for _ in range(2)]
+    out = {}
+    for dev in (cuda, "cpu"):
+        params, aux = mf.fit_mf(d.users[tr], d.items[tr], d.ratings[tr], cfg,
+                                device=dev, init=init, perms=perms)
+        out[str(dev)] = (params, mf.predict_mf(params, cfg, d.users[te],
+                                               d.items[te], aux))
+    (pc, yc), (pp, yp) = out["cuda"], out["cpu"]
+    assert pc.p.is_cuda and yc.is_cuda
+    for field, c, p in zip(mf.MFParams._fields, pc, pp):
+        torch.testing.assert_close(c.cpu(), p, rtol=0, atol=MF_CARD_ATOL,
+                                   msg=field)
+    torch.testing.assert_close(yc.cpu(), yp, rtol=0, atol=MF_CARD_ATOL)
+
+
+def test_bpmf_sweep_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.baselines import bpmf
+
+    d, tr, te = _ml100k()
+    cfg = bpmf.BPMFConfig(d.n_users, d.n_items, burnin=1, n_samples=2)
+    out = {}
+    for dev in (cuda, "cpu"):
+        draws = bpmf.TorchDraws(0, dev)
+        rc, m, _ = bpmf.centered_block(d.users[tr], d.items[tr],
+                                       d.ratings[tr], cfg, dev)
+        p0 = draws.normal((cfg.n_users, cfg.dim)) * 0.1
+        q0 = draws.normal((cfg.n_items, cfg.dim)) * 0.1
+        out[str(dev)] = bpmf.gibbs_step(draws, p0, q0, rc, m, cfg)
+    for c, p in zip(out["cuda"], out["cpu"]):
+        assert c.is_cuda
+        torch.testing.assert_close(c.cpu(), p, rtol=0, atol=BPMF_CARD_ATOL)
+    preds = bpmf.fit_predict_bpmf(d.users[tr], d.items[tr], d.ratings[tr],
+                                  d.users[te], d.items[te], cfg, device=cuda)
+    assert preds.is_cuda and preds.shape == (len(te),)
+    assert torch.isfinite(preds).all() and (preds >= 1).all() \
+        and (preds <= 5).all()
+
+
+def test_compact_graph_reads_on_the_card(cuda, tmp_path):
+    """uint16/bf16 graphs on CUDA tensors: the widening gather, compact
+    reads within the bf16 bound, widening on growth and fold-in, and the
+    compact checkpoint round trip."""
+    from repro_torch.core import knn
+    from repro_torch.lifecycle import buckets
+    from repro_torch.train.checkpoint import (load_landmark_state,
+                                              save_landmark_state)
+
+    spec = T.LandmarkSpec(n_landmarks=16, selection="popularity")
+    r = _ratings(1000, 300, cuda, seed=3)
+    st = T.fit(T.RatingMatrix(r, 1000, 300), spec)
+    bst = buckets.from_state(st, min_bucket=1024)
+    cst = buckets.compact_state(bst)
+    gc = cst.state.graph
+    assert gc.indices.dtype == torch.uint16 and gc.indices.is_cuda
+    assert buckets.compact_state(cst) is cst
+    users = torch.randint(0, 1000, (256,), device=cuda,
+                          generator=torch.Generator(cuda).manual_seed(0))
+    items = torch.randint(0, 300, (256,), device=cuda,
+                          generator=torch.Generator(cuda).manual_seed(1))
+    ids, w = knn._gathered(gc, users, torch.float32)
+    want_ids, want_w = knn._gathered(bst.state.graph, users, torch.float32)
+    assert torch.equal(ids, want_ids)
+    torch.testing.assert_close(w, want_w, rtol=COMPACT_TOL, atol=COMPACT_TOL)
+    torch.testing.assert_close(buckets.predict_pairs(cst, users, items),
+                               buckets.predict_pairs(bst, users, items),
+                               rtol=COMPACT_TOL, atol=COMPACT_TOL)
+    top, _ = buckets.recommend_topn(cst, users[:32])
+    assert top.shape == (32, 10) and (top >= 0).all()
+    grown, grew = buckets.ensure_capacity(cst, 64, min_bucket=1024)
+    assert grew and not grown.state.graph.is_compact
+    folded = buckets.fold_in_rows(buckets.compact_state(bst),
+                                  _ratings(8, 300, cuda, seed=4), 8, spec,
+                                  min_bucket=1024)
+    assert not folded.state.graph.is_compact and folded.n_valid == 1008
+    save_landmark_state(str(tmp_path), st, compact=True)
+    raw = load_landmark_state(str(tmp_path), widen=False, device=cuda)
+    assert raw.graph.indices.dtype == torch.uint16 and raw.graph.is_compact
+    assert torch.equal(raw.graph.to_full().indices, st.graph.indices)

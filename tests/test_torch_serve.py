@@ -52,8 +52,10 @@ def test_serve_cli_refuses_ivf_retrieval_without_lifecycle():
 
 def test_port_sources_never_import_jax_or_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 15
+    files += [ROOT / "chip_smoke.py", ROOT / "tools" / "paper_tables_torch.py"]
+    files += sorted((ROOT / "examples").glob("*_torch.py"))
+    assert len(files) > 15 and (ROOT / "examples" / "quickstart_torch.py"
+                                ) in files
     for f in files:
         hits = FORBIDDEN.findall(f.read_text())
         assert not hits, f"{f.relative_to(ROOT)} imports {hits}"

@@ -114,3 +114,20 @@ def test_unknown_measure_raises():
         tsim.masked_similarity(r, r, "manhattan")
     with pytest.raises(ValueError, match="unknown measure"):
         tsim.dense_similarity(r, r, "manhattan")
+
+
+@pytest.mark.parametrize("measure", MEASURES)
+@pytest.mark.parametrize("p,chunk", [(130, 32), (97, 97), (40, 64)])
+def test_blocked_masked_similarity_matches_reference(measure, p, chunk):
+    """The chunked d1 (P not a multiple of ``chunk``, one chunk, a chunk
+    wider than P) against the reference's, and against the unchunked d1:
+    on integer ratings every moment is exact, so the three agree."""
+    r = _ratings(57, p, seed=5)
+    lm = r[[3, 9, 20, 41]]
+    got_j, got_t = _both(jsim.blocked_masked_similarity,
+                         tsim.blocked_masked_similarity, r, lm,
+                         measure=measure, chunk=chunk)
+    np.testing.assert_allclose(got_t, got_j, rtol=RTOL, atol=ATOL)
+    whole = tsim.masked_similarity(torch.as_tensor(r), torch.as_tensor(lm),
+                                   measure).numpy()
+    np.testing.assert_allclose(got_t, whole, rtol=RTOL, atol=ATOL)
