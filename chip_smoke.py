@@ -165,6 +165,29 @@ The paper-comparison slice adds:
     the fused probe launched. The kernel table gains each row's launches
     in (c) and (d) (``launches_paper``).
 
+The mesh slice adds:
+
+12. sharded lifecycle — ``serve --workload cf --lifecycle --mesh`` on the
+    card, every shard a block of its own on CUDA: once at full width
+    (``--mesh pod=2,data=2``, U=6040, P=3952, 8 waves of 64 arrivals, the
+    stream of 7c, ``--retrieval ivf --early-exit``) and once as the
+    reference's smoke (``--smoke --mesh pod=2,data=4``, U=128, P=64, 6
+    waves of 32), both under ``build/phase12/``. Each run's predictions
+    equal the single-device shadow's bit for bit in every wave, no fold-in
+    tensor has S·C rows, the checkpoint holds ``row_shards`` = S, every
+    state block is on the card; on the mesh path alone (the shadow's and
+    the checks' launches left out) kernels 1-2 launch once a shard a fit,
+    3 and 6 (the back-patch) once a shard a fold-in batch, and 4-5 in the
+    full run; the smoke fires a distributed refresh whose
+    artifact is the one-device fit's (oracle-exact). Then ``search_sharded``
+    at full probe on the main path's representation over the 4-shard mesh,
+    bitwise ``search`` on one device. Prints each run's wall time per wave
+    on the mesh path and beside it, and peak device memory; the kernel
+    table gains each row's mesh-path launches in the two runs
+    (``launches_mesh``). A6 rides on 7a: kernels 4-6 at
+    n = 100 and 104, bitwise their plain versions, with their n = 100
+    times.
+
 The last two lines are the kernel table and
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. TF32 is off for
 matmul and cuDNN throughout: the reference scores in full f32.
@@ -313,6 +336,8 @@ def phase_build():
     print("phase 2 fused probe kernel: " + json.dumps(_ptxas(log, _probe_name)))
     print("phase 2 top-k scan kernel: " + json.dumps(_ptxas(log, _scan_name)))
     print("phase 2 Lloyd kernel: " + json.dumps(_ptxas(log, _lloyd_name)))
+    print("phase 2 scorer kernel: " + json.dumps(_ptxas(
+        log, lambda ln: "n<=104" if "score_kernel" in ln else None)))
 
 
 def _wgmma_name(line):
@@ -1252,12 +1277,156 @@ def phase_ivf_kernels(a):
                  [score_candidates.score_candidates(q, cand, measure)],
                  [ref.score_candidates_ref(q, cand, measure)])
     notes.append("scorer 3/3 bitwise")
+    patch, patch_ms = _check_backpatch(a)
+    notes.append(patch)
+    print("phase 7a back-patch (ms): " + json.dumps(patch_ms))
+    wide, wide_ms = _check_wide()
+    notes.append(wide)
+    print("phase 7a wide rows (n=100, ms): " + json.dumps(wide_ms))
     print(f"phase 7a IVF kernels: index C={index.n_clusters} "
           f"cap={index.capacity} nprobe={spec.nprobe} over U={u} n="
           f"{rep.shape[1]}; " + "; ".join(notes)
           + f" | {time.perf_counter() - t0:.1f}s")
     return dict(index=index, probe=probe, self_ids=self_ids, cand=cand, q=q,
                 all_rows=rep, capacity=capacity)
+
+
+def _check_backpatch(a):
+    """Kernel 6's shared form at the back-patch's shape — the lifecycle's
+    8192-row bucket of the main path's representation against its 64
+    folded rows, n = 20 — bitwise its plain version for every measure.
+    Then, cosine, its time beside the two other ways to score the
+    back-patch: the plain version's left-to-right sums on the card, and the
+    library product of ``dense_similarity`` (whose bits follow the shape);
+    and the wall time (median of 5) of one bucketed fold-in of the 64 rows
+    (``buckets.fold_in_rows``, the lifecycle's and the engine's) with each
+    of the three as ``core/graph.py::backpatch_sims``."""
+    rep, _ = _capacity_rows(a["state"].representation)
+    new = a["folded"].representation[-FOLD_IN:].contiguous()
+    for measure in sim.MEASURES:
+        _bitwise(f"score_candidates shared {measure}",
+                 [score_candidates.score_candidates(rep, new, measure)],
+                 [ref.gathered_sims(rep, new, measure)])
+    c, n = rep.shape
+    bound_ms, bound_by = _bound(4 * (c * n + FOLD_IN * n + c * FOLD_IN),
+                                c * FOLD_IN * (2 * n + 3)
+                                + 2 * n * (c + FOLD_IN))
+    ways = {"kernel": None, "plain": ref.gathered_sims,
+            "library": sim.dense_similarity}
+    out = dict(shape=f"C={c} bq={FOLD_IN} n={n} cosine", bound_ms=bound_ms,
+               bound_by=bound_by)
+    bst = buckets.from_state(a["state"], LIFECYCLE_CAPACITY)
+    rows = a["folded"].ratings[-FOLD_IN:]
+    for way, fn in ways.items():
+        score = fn or score_candidates.score_candidates
+        out[f"{way}_ms"] = _event_ms(lambda: score(rep, new, "cosine"), 20)
+        with contextlib.ExitStack() as stack:
+            if fn is not None:
+                stack.enter_context(mock.patch(
+                    "repro_torch.core.graph.backpatch_sims", fn))
+            out[f"fold_in_{way}_ms"] = 1e3 * _wall_s(
+                lambda: buckets.fold_in_rows(bst, rows, FOLD_IN, cfg.MODEL))
+    return "back-patch scorer 3/3 bitwise (shared form)", out
+
+
+WIDE_WIDTHS = (100, 104)  # kernels 4-6 past n = 64 (ROADMAP A6)
+
+
+def _check_wide():
+    """Kernels 4–6 at n = 100 and 104 against their plain versions, bitwise
+    (every measure; the probe on every payload with masked probes and self
+    ids; the Lloyd kernel at 0 and 8 steps, launched twice), and their
+    times at n = 100 on the IVF build's shape: 6040 rows, C = 78, 8 steps;
+    the graph-build probe at nprobe 19; a 256-query scorer block."""
+    rng = np.random.default_rng(24)
+    g = torch.Generator().manual_seed(25)
+    n_ok, times = 0, {}
+
+    def rows(*shape):
+        return torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+                               device=DEVICE)
+
+    for n in WIDE_WIDTHS:
+        x = rows(2000, n)
+        init = x[torch.as_tensor(rng.permutation(2000)[:40],
+                                 device=DEVICE)].contiguous()
+        for measure in sim.MEASURES:
+            for iters in (0, 8):
+                want = ref.kmeans_lloyd_ref(x, init, iters, None, measure)
+                for _ in range(2):
+                    got = assign_clusters.kmeans_lloyd(x, init, iters, None,
+                                                       measure)
+                    sync()
+                    if not all(torch.equal(_bits(a), _bits(b))
+                               for a, b in zip(got, want)):
+                        raise AssertionError(f"kmeans_lloyd n={n} {measure} "
+                                             f"iters={iters}: not bitwise")
+                    n_ok += 1
+        e = _edge_index(13, 40, n, seed=n)
+        q = torch.randn((300, n), generator=g).to(DEVICE)
+        pr = torch.stack([torch.randperm(13, generator=g)[:5]
+                          for _ in range(300)]).to(torch.int32).to(DEVICE)
+        sid = e.lists[pr[:, 0].long(), 0].contiguous()
+        ok = (torch.rand((300, 5), generator=g) > 0.3).to(torch.int32).to(
+            DEVICE)
+        for payload in rt.PAYLOAD_DTYPES:
+            ee = e if payload == "f32" else _quantized(e, payload)
+            for measure in sim.MEASURES:
+                args = (q, pr, ee.lists, ee.rows, ee.scale, ee.fill)
+                kw = dict(k=13, measure=measure, self_ids=sid, probe_ok=ok)
+                _bitwise(f"fused_probe_topk n={n} {payload} {measure}",
+                         ivf_probe.fused_probe_topk(*args, **kw),
+                         ref.fused_probe_topk_ref(*args, **kw))
+                n_ok += 1
+        cand, qs = rows(64, 300, n), rows(64, n)
+        for measure in sim.MEASURES:
+            _bitwise(f"score_candidates n={n} {measure}",
+                     [score_candidates.score_candidates(qs, cand, measure)],
+                     [ref.score_candidates_ref(qs, cand, measure)])
+            _bitwise(f"score_candidates shared n={n} {measure}",
+                     [score_candidates.score_candidates(cand[0], qs,
+                                                        measure)],
+                     [ref.gathered_sims(cand[0], qs, measure)])
+            n_ok += 2
+    # times at n = 100 on the IVF shapes, beside their bounds (the
+    # operation and byte counts of _ivf_rows)
+    u, n = 6040, 100
+    x = rows(u, n)
+    spec = rt.resolve_ivf(None, u)
+    init = x[torch.as_tensor(rng.permutation(u)[:spec.n_clusters],
+                             device=DEVICE)].contiguous()
+    index = rt.build_index(x, spec, "cosine", centroids=init)
+    c, cap = index.lists.shape
+    probe = rt.probe_cells(index, x, spec.nprobe, "cosine")
+    b, nprobe = probe.shape
+    live = int(index.fill[probe.long()].sum())
+    stored = int(index.fill.sum())
+    sids = torch.arange(u, dtype=torch.int32, device=DEVICE)
+    qb, m = 256, nprobe * cap
+    cand = index.rows[probe[:qb].long()].reshape(qb, m, -1).contiguous()
+    cases = {
+        "assign_clusters": (
+            lambda: assign_clusters.kmeans_lloyd(x, init, spec.iters),
+            4 * (u * n + 2 * c * n + u), (spec.iters + 1) * 2 * u * c * n),
+        "fused_probe_topk": (
+            lambda: ivf_probe.fused_probe_topk(
+                x, probe, index.lists, index.rows, None, index.fill, k=13,
+                self_ids=sids),
+            4 * (b * n + b * nprobe + c * cap + c * cap * n + c + b)
+            + 8 * b * 13, live * (2 * n + 3) + 2 * n * (stored + b)),
+        "score_candidates": (
+            lambda: score_candidates.score_candidates(x[:qb], cand),
+            4 * (qb * n + qb * m * n + qb * m),
+            qb * m * (4 * n + 3) + 2 * n * qb),
+    }
+    for name, (fn, nbytes, flops) in cases.items():
+        bound_ms, bound_by = _bound(nbytes, flops)
+        times[name] = dict(ms=_event_ms(fn, 20), bound_ms=bound_ms,
+                           bound_by=bound_by)
+    times["shape"] = (f"U={u} n={n} C={c} nprobe={nprobe} cap={cap} "
+                      f"{spec.iters} Lloyd steps, {live} live probe pairs, "
+                      f"scorer b={qb} m={m}")
+    return f"n=100/104 {n_ok}/{n_ok} bitwise", times
 
 
 LIFECYCLE_CAPACITY = 8192  # the lifecycle's bucket for 6040 rows
@@ -2422,6 +2591,150 @@ def phase_paper(d, tr, te, a, card):
     return {k: table_counts[k] + serve_counts[k] for k in table_counts}
 
 
+MESH_DIR = ROOT / "build" / "phase12"
+MESH_RUNS = (
+    ("full", ["--mesh", "pod=2,data=2", "--users", "6040", "--items",
+              "3952", "--arrivals", "64", "--foldin", "64", "--waves", "8",
+              "--retrieval", "ivf", "--early-exit"]),
+    ("smoke", ["--smoke", "--mesh", "pod=2,data=4", "--users", "128",
+               "--items", "64", "--waves", "6", "--arrivals", "32",
+               "--requests", "2", "--batch", "32", "--min-bucket", "128"]))
+MESH_KERNELS = {"full": GRAPH_KERNELS + IVF_KERNELS,
+                "smoke": GRAPH_KERNELS + ("score_candidates",)}
+
+
+def _mesh_search(a):
+    """search_sharded at full probe on the main path's representation over
+    a 4-shard mesh against ``search`` on one device: vals and ids bitwise
+    (the fused probe on every shard, the canonical merge)."""
+    from repro_torch.distributed.sharding import cf_shard_count
+    from repro_torch.launch.mesh import make_mesh
+
+    rep = a["state"].representation
+    mesh = make_mesh(("pod", "data"), (2, 2))
+    axes = ("pod", "data")
+    spec = rt.resolve_ivf_sharded(None, rep.shape[0],
+                                  cf_shard_count(mesh, axes))
+    index = rt.build_index(rep, spec, "cosine")
+    sharded = rt.shard_index(index, mesh, axes)
+    q = rep[:512]
+    sids = torch.arange(512, dtype=torch.int32, device=DEVICE)
+    want = rt.search(index, q, 13, spec.n_clusters, "cosine", self_ids=sids)
+    got = rt.search_sharded(sharded, q, 13, spec.n_clusters, "cosine",
+                            self_ids=sids)
+    _bitwise("search_sharded at full probe", got[:2], want)
+    if not bool((got[2] == spec.n_clusters).all()):
+        raise AssertionError("full probe: every cell scored once")
+    return (f"search_sharded full probe C={spec.n_clusters} over 4 shards "
+            f"bitwise search on one device (512 queries)")
+
+
+def _product_bits():
+    """The row counts M at which rows of one f32 product ``A[:M] @ B.T``
+    differ in any bit from the same rows of the M = 8192 product (K the
+    landmark axis, N a fold-in batch): why the back-patch sums left to
+    right (``core/graph.py::backpatch_sims``) rather than through a
+    library product whose kernel follows the shape."""
+    g = torch.Generator().manual_seed(26)
+    out = {}
+    for k, n in ((8, 32), (20, 64)):
+        a = torch.randn((8192, k), generator=g).to(DEVICE)
+        b = torch.randn((n, k), generator=g).to(DEVICE)
+        full = a @ b.T
+        out[f"K={k} N={n}"] = [m for m in (16, 32, 64, 128, 512, 2048)
+                               if not torch.equal((a[:m] @ b.T)[:16],
+                                                  full[:16])]
+    return out
+
+
+def _mesh_launches(counts, res):
+    """The mesh path's own launches in one replay: every launch of the run
+    less those the replay tallied beside it on its thread (the one-device
+    shadow, the oracle fit, the materialization checks). Raises unless
+    kernels 1-2 launched at least once a shard for every fit
+    (``fit_distributed``: d1 and the scan on each shard) and kernels 3 and
+    6 at least once a shard for every fold-in batch (the shard-local scan
+    and back-patch)."""
+    mesh = {k: c - res["side_launches"].get(k, 0) for k, c in counts.items()}
+    s = res["shards"]
+    need = {"masked_similarity": s * res["mesh_fits"],
+            "topk_sim": s * res["mesh_fits"],
+            "foldin_topk": s * res["mesh_fold_batches"],
+            "score_candidates": s * res["mesh_fold_batches"]}
+    short = {k: (mesh[k], n) for k, n in need.items() if mesh[k] < n}
+    if short:
+        raise AssertionError(f"mesh path launched fewer than one a shard "
+                             f"(launched, needed): {short}")
+    return mesh
+
+
+def phase_mesh(a, card):
+    """12: the sharded lifecycle replay at full width and as the reference's
+    smoke, on the card. Returns the two runs' mesh-path launch counts
+    summed (the shadow's and the checks' left out)."""
+    t0 = time.perf_counter()
+    total = {}
+    for tag, argv in MESH_RUNS:
+        ckpt = MESH_DIR / tag
+        shutil.rmtree(ckpt, ignore_errors=True)
+        buf = io.StringIO()
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = serve.main(["--workload", "cf", "--lifecycle", "--ckpt",
+                              str(ckpt)] + argv)
+        sync()
+        seconds = time.perf_counter() - t1
+        counts = _counts()
+        d1 = ms.route_results()
+        text = buf.getvalue()
+        print(text, end="")
+        checks = {
+            "bitwise every wave": res["identical_waves"] == res["waves"],
+            "row shards on disk": res["row_shards"] == res["shards"],
+            "every block on the card": all(
+                d.startswith(DEVICE) for d in res["block_devices"]),
+            "no S·C-row fold-in tensor":
+                "0 full-row materializations" in text,
+        }
+        if tag == "smoke":
+            checks["oracle-exact distributed refresh"] = (
+                res["refreshed"] and "oracle-exact" in text
+                and "launched on the mesh" in text)
+        if "--early-exit" in argv:
+            checks["ivf serve-path check"] = (
+                "0 candidate-tensor materializations" in text)
+        failed = [k for k, ok in checks.items() if not ok]
+        mesh = _mesh_launches(counts, res)
+        idle = [name for name in MESH_KERNELS[tag] if not mesh[name] > 0]
+        if failed or idle:
+            raise AssertionError(f"mesh {tag}: failed {failed}, never "
+                                 f"launched on the mesh {idle} ({mesh})")
+        _check_d1_routes(f"mesh {tag}", counts, d1)
+        for name, c in mesh.items():
+            total[name] = total.get(name, 0) + c
+        swap = (f"swapped in at wave {res['swap_wave']}" if res["refreshed"]
+                else "not fired")
+        print(f"phase 12 mesh lifecycle ({tag}, {card}): {res['mesh']}; "
+              f"{res['identical_waves']}/{res['waves']} waves bitwise the "
+              f"one-device shadow; refresh {swap}; "
+              f"row_shards={res['row_shards']}; blocks on "
+              f"{res['block_devices']}; mesh path ms a wave "
+              f"{[round(x, 1) for x in res['wave_ms']]} (shadow and "
+              f"checks beside it: {[round(x, 1) for x in res['side_ms']]}); "
+              f"peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} "
+              f"MiB; {res['mesh_fits']} fits, {res['mesh_fold_batches']} "
+              f"fold-in batches; mesh launches {mesh}; shadow and checks "
+              f"{res['side_launches']}; {seconds:.1f}s")
+    print(f"phase 12 sharded search: {_mesh_search(a)}")
+    print("phase 12 product bits (rows differing from M=8192 at M): "
+          + json.dumps(_product_bits()))
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    print(f"phase 12: {time.perf_counter() - t0:.1f}s")
+    return total
+
+
 def _lm_bound(p, n, s_, d, dtype):
     """Least time for p problems of softmax(q̃Kᵀ·scale)V with f32 results,
     on the route of the inputs' dtype: the bytes moved, and the bf16
@@ -2558,10 +2871,12 @@ def main():
     # sessions saw only part of the device events
     mutation_counts = phase_mutation(a["state"], card)
     paper_counts = phase_paper(d, train_idx, test_idx, a, card)
+    mesh_counts = phase_mesh(a, card)
     for row in table:  # the engine runs' launches, every row
         row["launches_engine"] = engine_counts.get(row["name"], 0)
         row["launches_mutations"] = mutation_counts.get(row["name"], 0)
         row["launches_paper"] = paper_counts.get(row["name"], 0)
+        row["launches_mesh"] = mesh_counts.get(row["name"], 0)
     print(f"card: {card}")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -45,6 +45,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..kernels import knn_topk
+from ..kernels.score_candidates import score_candidates
 from .similarity import EPS, dense_similarity, streaming_knn_graph
 from .topk import canonical_topk
 from .types import NeighborGraph, round_up
@@ -143,6 +144,21 @@ def filter_self_from_topk(vals: torch.Tensor, idx: torch.Tensor,
                             float("-inf"))
     v, sel = canonical_topk(vals, k)
     return v, idx.gather(1, sel)
+
+
+def backpatch_sims(rep: torch.Tensor, new_rep: torch.Tensor,
+                   measure: str) -> torch.Tensor:
+    """(C, bq) d2 scores of every row of ``rep`` against the batch, for the
+    back-patch of the bucketed and sharded fold-ins: the gathered-candidate
+    scorer's shared form (kernel 6, ``kernels.score_candidates``; its plain
+    version ``kernels.ref.gathered_sims`` on a CPU tensor), the
+    ``dense_similarity`` algebra with every sum over the landmark axis left
+    to right, so a score depends on its two rows alone. A library product
+    picks its kernel, and so its order of additions, by the shape: on the
+    card a shard's (C_s, bq) block and the one-device (C, bq) block round
+    some scores differently."""
+    return score_candidates(rep.float().contiguous(),
+                            new_rep.float().contiguous(), measure)
 
 
 def build_neighbor_graph(rep: torch.Tensor, measure: str = "cosine",
@@ -323,8 +339,9 @@ def extend_neighbor_graph_bucketed(graph: NeighborGraph, rep: torch.Tensor,
        ``self_offset`` are exactly these masks; ``streaming`` (``auto`` on
        a CPU tensor) scans (bq, chunk) tiles with ``dense_similarity``.
        The two round cosine differently and agree under the tie rule.
-    2. **back-patch** — the (C, bq) existing-vs-new block is merged into
-       rows ``< n_valid`` only; filler columns are -inf.
+    2. **back-patch** — the (C, bq) existing-vs-new block
+       (:func:`backpatch_sims`) is merged into rows ``< n_valid`` only;
+       filler columns are -inf.
     """
     if graph.is_compact:
         graph = graph.to_full()
@@ -351,7 +368,7 @@ def extend_neighbor_graph_bucketed(graph: NeighborGraph, rep: torch.Tensor,
     new_w = torch.where(q_valid, new_rows.weights,
                         torch.zeros_like(new_rows.weights))
 
-    back = dense_similarity(rep, new_rep, measure)  # (C, bq)
+    back = backpatch_sims(rep, new_rep, measure)  # (C, bq)
     back = back.masked_fill(~q_valid.T, float("-inf"))
     batch_ids = (n_valid + torch.arange(bq, dtype=torch.int32, device=dev)
                  ).expand(c, bq)
@@ -365,3 +382,99 @@ def extend_neighbor_graph_bucketed(graph: NeighborGraph, rep: torch.Tensor,
     indices[n_valid:n_valid + bq] = new_idx
     weights[n_valid:n_valid + bq] = new_w
     return NeighborGraph(indices, weights)
+
+
+def extend_neighbor_graph_sharded(graphs, reps, new_rep: torch.Tensor,
+                                  n_valid, b_valid: int, target: int, mesh,
+                                  row_rank, measure: str = "cosine", *,
+                                  row_axes=("pod", "data"),
+                                  backend: str = "auto", chunk: int = 4096):
+    """:func:`extend_neighbor_graph_bucketed` on a mesh: the sharded
+    fold-in's graph update. Returns the per-shard graphs (the blocks are
+    updated in place).
+
+    Row ids are block-partitioned: shard s owns ids ``[s*C, (s+1)*C)``;
+    ``graphs``/``reps``/``row_rank`` are the shards' (C, ·) blocks, the
+    batch already written on shard ``target`` at its fill ``n_valid``
+    (the per-shard fills before this extend). ``new_rep`` (bq, n) is the
+    batch, rows ``>= b_valid`` filler. Three shard-local phases, one
+    gather:
+
+    1. **new-vs-all** — each shard scores the batch against its own block
+       (masked by its fill, plus ``b_valid`` on the target, and the target
+       rows' own slots) and keeps a local top-k: the ``kernel`` backend
+       (``auto`` on a CUDA tensor) on the fused top-k scan (kernel 3's
+       work), ``streaming`` on (bq, chunk) tiles. The (bq, k) lists, ids
+       and logical ranks travel to the target shard in linear shard order
+       (O(bq·k·S), never a row of the representation) and merge
+       canonically: weight descending, then logical rank ascending — the
+       order the single-device scan's slot order implies, so duplicate
+       weights cannot make the lists diverge from the single-device ones.
+    2. **back-patch** — each shard merges its (C, bq) existing-vs-new block
+       into rows below its own fill, shard-locally.
+    3. **append** — the target writes the merged rows at its fill; filler
+       rows store (0, 0.0).
+    """
+    from ..distributed.sharding import shard_devices
+
+    axes = tuple(a for a in row_axes if a in mesh.axis_names)
+    devs = shard_devices(mesh, axes)
+    graphs = [g.to_full() if g.is_compact else g for g in graphs]
+    c = reps[0].shape[0]
+    bq = new_rep.shape[0]
+    k = graphs[0].k
+    kk = min(k, c)
+    at = int(n_valid[target])
+    home = devs[target]
+    new_gid = target * c + at + torch.arange(bq, dtype=torch.int32)
+
+    # -- 1. new-vs-all: local candidates, local top-k, gathered merge -------
+    vs, gs, rs = [], [], []
+    for s, dev in enumerate(devs):
+        q = new_rep.to(dev)
+        limit = int(n_valid[s]) + (b_valid if s == target else 0)
+        self_off = at if s == target else None
+        if resolve_backend(backend, dev) == "kernel":
+            v, i = knn_topk.foldin_topk(
+                kernel_rows(q, measure), kernel_rows(reps[s], measure),
+                k=kk, self_offset=self_off, n_valid=limit, measure=measure)
+        else:
+            self_ids = (at + torch.arange(bq, device=dev) if s == target
+                        else torch.full((bq,), -1, device=dev))
+            v, i = _streaming_query_topk(q, reps[s], measure, kk, chunk, 0,
+                                         limit, self_ids=self_ids)
+        vs.append(v.to(home))
+        gs.append((s * c + i.long()).to(torch.int32).to(home))
+        rs.append(row_rank[s][i.long()].to(home))
+    # canonical merge: two stable sorts, by logical rank, then by weight
+    by_rank = torch.sort(torch.cat(rs, 1), dim=1, stable=True).indices
+    v1 = torch.cat(vs, 1).gather(1, by_rank)
+    g1 = torch.cat(gs, 1).gather(1, by_rank)
+    top = torch.sort(v1, dim=1, descending=True, stable=True).indices[:, :k]
+    nv, ni = v1.gather(1, top), g1.gather(1, top)
+    ok = (torch.isfinite(nv)
+          & (torch.arange(bq, device=home) < b_valid)[:, None])
+    new_idx = torch.where(ok, ni, torch.zeros_like(ni))
+    new_w = torch.where(ok, nv, torch.zeros_like(nv))
+
+    # -- 2. back-patch local valid rows with the valid batch columns -------
+    out = []
+    for s, dev in enumerate(devs):
+        g = graphs[s]
+        q = new_rep.to(dev)
+        back = backpatch_sims(reps[s], q, measure)  # (C, bq)
+        back = back.masked_fill(
+            (torch.arange(bq, device=dev) >= b_valid)[None, :], float("-inf"))
+        mv = torch.cat([g.weights, back], dim=1)  # (C, k + bq)
+        mi = torch.cat([g.indices, new_gid.to(dev).expand(c, bq)], dim=1)
+        pv, psel = canonical_topk(mv, k)
+        pi = mi.gather(1, psel)
+        r_valid = (torch.arange(c, device=dev) < int(n_valid[s]))[:, None]
+        gi = torch.where(r_valid, pi, g.indices)
+        gw = torch.where(r_valid, pv, g.weights)
+        # -- 3. append the new rows on the target shard ----------------------
+        if s == target:
+            gi[at:at + bq] = new_idx.to(dev)
+            gw[at:at + bq] = new_w.to(dev)
+        out.append(NeighborGraph(gi, gw))
+    return out

@@ -13,7 +13,9 @@ zeroes both numerator and denominator terms).
   weights (weight 0 contributes nothing).
 
 The graph entry points accept an optional scalar ``n_valid``: rows
-``>= n_valid`` are padding and their weights are forced to 0 before Eq. (1);
+``>= n_valid`` are padding and their weights are forced to 0 before Eq. (1)
+(the ``_sharded`` forms take the (S,) per-shard fills of a block-partitioned
+state, the ``shard_cap`` mask);
 and an optional (capacity,) bool ``tomb``: tombstoned rows (deleted users,
 ``mutation``) contribute nothing either, even before their citations are
 repaired.
@@ -36,17 +38,25 @@ from .types import NeighborGraph
 EPS = 1e-8
 
 
-def _mask_padded_rows(idx: torch.Tensor, w: torch.Tensor,
-                      n_valid: Optional[int],
-                      tomb: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Gathered neighbor weights with padded-row ids (``>= n_valid``) and
-    tombstoned ids (``tomb[idx]``) zeroed. Operates on the (B, k) query
-    slice only."""
+def _mask_padded_rows(idx: torch.Tensor, w: torch.Tensor, n_valid,
+                      tomb: Optional[torch.Tensor] = None, *,
+                      shard_cap: Optional[int] = None) -> torch.Tensor:
+    """Gathered neighbor weights with padded-row ids and tombstoned ids
+    (``tomb[idx]``) zeroed. Operates on the (B, k) query slice only.
+
+    With a scalar ``n_valid`` ids ``>= n_valid`` are padding. With
+    ``shard_cap`` set, ``n_valid`` is the (S,) per-shard fill of a
+    block-partitioned ``ShardedLandmarkState`` and id ``s*C + slot`` is
+    valid iff ``slot < n_valid[s]``."""
     if tomb is not None:
         w = torch.where(tomb[idx], torch.zeros_like(w), w)
     if n_valid is None:
         return w
-    return torch.where(idx < n_valid, w, torch.zeros_like(w))
+    if shard_cap is None:
+        return torch.where(idx < n_valid, w, torch.zeros_like(w))
+    fills = torch.as_tensor(n_valid, device=idx.device)
+    return torch.where(idx % shard_cap < fills[idx // shard_cap], w,
+                       torch.zeros_like(w))
 
 
 def _gathered(graph: NeighborGraph, users: torch.Tensor, dtype):
@@ -88,8 +98,12 @@ def _sum_k(x: torch.Tensor) -> torch.Tensor:
 
 def _block_predict(idx, w, centered, mask, mu):
     """Eq. (1) for one user block given its (block, k) neighbor lists."""
-    nb_centered = centered[idx]  # (block, k, P)
-    nb_mask = mask[idx]
+    return _block_eq1(w, centered[idx], mask[idx], mu)
+
+
+def _block_eq1(w, nb_centered, nb_mask, mu):
+    """Eq. (1) over the (block, k, P) centered rows and masks of the
+    neighbors."""
     num = _sum_k(w[:, :, None] * nb_centered)
     den = _sum_k(w.abs()[:, :, None] * nb_mask)
     return mu[:, None] + num / den.clamp(min=EPS)
@@ -131,11 +145,16 @@ def predict_all_graph(graph: NeighborGraph, ratings: torch.Tensor,
 
 def _pair_predict(idx, w, users, items, ratings, mask, means):
     """Eq. (1) for (B,) pairs given their (B, k) neighbor lists."""
-    r = ratings[idx, items[:, None]]
-    m = mask[idx, items[:, None]]
-    num = _sum_k(w * (r - means[idx]) * m)
+    return _pair_eq1(w, ratings[idx, items[:, None]],
+                     mask[idx, items[:, None]], means[idx], means[users])
+
+
+def _pair_eq1(w, r, m, nb_means, mu):
+    """Eq. (1) for (B,) pairs from the (B, k) neighbors' ratings of the
+    item, their masks and means, and the users' means."""
+    num = _sum_k(w * (r - nb_means) * m)
     den = _sum_k(w.abs() * m)
-    return means[users] + num / den.clamp(min=EPS)
+    return mu + num / den.clamp(min=EPS)
 
 
 def predict_pairs(sims: torch.Tensor, ratings: torch.Tensor,
@@ -181,3 +200,59 @@ def predict_pairs_graph(graph: NeighborGraph, ratings: torch.Tensor,
     idx, w = _gathered(graph, users, ratings.dtype)
     w = _mask_padded_rows(idx, w, n_valid, tomb)
     return _pair_predict(idx, w, users, items, ratings, mask, means)
+
+
+# ----------------------------------------------- block-partitioned (sharded)
+def _sharded_neighbors(graphs, ratings, users, n_valid, shard_cap):
+    """The read path of a block-partitioned state: the query rows' (B, k)
+    neighbor lists (``shard_cap``-masked), the neighbors' rating rows
+    (B, k, P) and the query rows (B, P), each row read from its owner
+    shard (``distributed.sharding.gather_rows``) onto shard 0. No tensor
+    of S·C rows is built."""
+    from ..distributed.sharding import gather_rows
+
+    dst = ratings[0].device
+    idx = gather_rows([g.indices for g in graphs], users, shard_cap,
+                      dst).to(torch.int64)
+    w = gather_rows([g.weights for g in graphs], users, shard_cap, dst)
+    w = _mask_padded_rows(idx, w, n_valid, shard_cap=shard_cap)
+    b, k = idx.shape
+    nb = gather_rows(ratings, idx.reshape(-1), shard_cap, dst)
+    return idx, w, nb.reshape(b, k, -1), gather_rows(ratings, users,
+                                                     shard_cap, dst)
+
+
+def predict_pairs_graph_sharded(graphs, ratings, users: torch.Tensor,
+                                items: torch.Tensor, *, n_valid,
+                                shard_cap: int) -> torch.Tensor:
+    """``predict_pairs_graph`` on per-shard graph and rating blocks: users
+    are sharded row ids, ``n_valid`` the per-shard fills. The arithmetic
+    is the single-device path's, so the predictions are its bits."""
+    _, w, nb, q = _sharded_neighbors(graphs, ratings, users, n_valid,
+                                     shard_cap)
+    b, k, p = nb.shape
+    items = items.to(device=nb.device, dtype=torch.int64)
+    nb_mask, nb_means, _ = _center(nb.reshape(b * k, p))
+    _, mu, _ = _center(q)
+    rows = torch.arange(b * k, device=nb.device)
+    item_k = items.repeat_interleave(k)
+    r = nb.reshape(b * k, p)[rows, item_k].reshape(b, k)
+    m = nb_mask[rows, item_k].reshape(b, k)
+    return _pair_eq1(w.to(nb.dtype), r, m, nb_means.reshape(b, k), mu)
+
+
+def recommend_topn_graph_sharded(graphs, ratings, users: torch.Tensor,
+                                 n: int = 10, *, n_valid, shard_cap: int):
+    """``recommend_topn_graph`` on per-shard blocks (sharded user ids)."""
+    _, w, nb, q = _sharded_neighbors(graphs, ratings, users, n_valid,
+                                     shard_cap)
+    b, k, p = nb.shape
+    nb_mask, _, nb_centered = _center(nb.reshape(b * k, p))
+    q_mask, mu, _ = _center(q)
+    preds = _block_eq1(w.to(nb.dtype), nb_centered.reshape(b, k, p),
+                       nb_mask.reshape(b, k, p), mu)
+    preds = preds.masked_fill(q_mask > 0, float("-inf"))
+    scores, items = canonical_topk(preds, n)
+    items = torch.where(torch.isfinite(scores), items,
+                        torch.full_like(items, -1))
+    return items.to(torch.int32), scores

@@ -17,7 +17,7 @@ in full f32 (callers keep TF32 off), as the reference's
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -179,3 +179,55 @@ def streaming_knn_graph(rep: torch.Tensor, measure: str = "cosine",
         best_v, sel = canonical_topk(mv, k)
         best_i = mi.gather(1, sel)
     return best_v, best_i
+
+
+def streaming_knn_graph_sharded(rep_blocks, mesh, measure: str = "cosine",
+                                k: int = 14, row_axes=("pod", "data"),
+                                exclude_self: bool = False,
+                                n_valid: Optional[int] = None,
+                                backend: str = "auto", chunk: int = 4096):
+    """The kNN graph with rows sharded over ``mesh``: ``rep_blocks`` holds
+    S equal (u_l, n) blocks, block s the rows with global ids
+    ``s*u_l + j`` (the reference's linearization, padding only at the
+    tail). Each shard gathers the candidates (one all-gather of the (U, n)
+    representation, in linear shard order) and scans its own rows against
+    them. Returns per-shard ``(vals, ids)`` lists of (u_l, k) with global
+    candidate ids, in canonical order, empty slots (-inf, 0).
+
+    ``n_valid`` marks global rows ``>= n_valid`` as padding: never a
+    candidate; their own lists are garbage the caller slices off. The
+    ``kernel`` backend (``auto`` on a CUDA tensor) runs the fused top-k
+    scan (kernel 2, ``knn_topk.topk_sim``) on each shard, with the
+    shard's rows the queries at ``row_offset = s*u_l``; the candidates are
+    L2-normalized once as the gathered (U, n) block, so every score is the
+    one the single-device build computes. ``streaming`` (``auto`` on a CPU
+    tensor) scans (u_l, chunk) tiles as ``streaming_knn_graph`` does.
+    """
+    from ..distributed.sharding import all_gather_rows, shard_devices
+    from ..kernels import knn_topk
+    from .graph import _streaming_query_topk, kernel_rows, resolve_backend
+
+    axes = tuple(a for a in row_axes if a in mesh.axis_names)
+    devs = shard_devices(mesh, axes)
+    u_l = rep_blocks[0].shape[0]
+    u_all = u_l * len(rep_blocks)
+    n_valid = u_all if n_valid is None else int(n_valid)
+    vals, ids = [], []
+    for s, dev in enumerate(devs):
+        cand = all_gather_rows(rep_blocks, dev)
+        off = s * u_l
+        if resolve_backend(backend, dev) == "kernel":
+            cq = kernel_rows(cand, measure)
+            v, i = knn_topk.topk_sim(cq[off:off + u_l], cq, k=k,
+                                     exclude_self=exclude_self,
+                                     n_valid=n_valid, measure=measure,
+                                     row_offset=off)
+        else:
+            self_ids = (off + torch.arange(u_l, device=dev) if exclude_self
+                        else torch.full((u_l,), -1, device=dev))
+            v, i = _streaming_query_topk(rep_blocks[s], cand, measure, k,
+                                         chunk, 0, n_valid,
+                                         self_ids=self_ids)
+        vals.append(v)
+        ids.append(i)
+    return vals, ids

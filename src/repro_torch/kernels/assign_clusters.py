@@ -16,7 +16,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import build, ref
-from .knn_topk import MAX_WIDTH
+from .knn_topk import IVF_MAX_WIDTH, check_width
 
 
 def kmeans_lloyd(rep: torch.Tensor, init: torch.Tensor, iters: int = 8,
@@ -43,8 +43,7 @@ def kmeans_lloyd(rep: torch.Tensor, init: torch.Tensor, iters: int = 8,
     if init.shape[1] != n:
         raise ValueError(f"kmeans_lloyd: widths differ: {rep.shape} vs "
                          f"{init.shape}")
-    if not 1 <= n <= MAX_WIDTH:
-        raise ValueError(f"kmeans_lloyd: width {n} outside 1..{MAX_WIDTH}")
+    check_width("kmeans_lloyd", n)
     if c < 1:
         raise ValueError("kmeans_lloyd: no centroids")
     nv = u if n_valid is None else int(n_valid)
@@ -56,15 +55,15 @@ def kmeans_lloyd(rep: torch.Tensor, init: torch.Tensor, iters: int = 8,
     if not u:
         return cent.copy_(init), assign
     # per-call scratch: the rows and the centroids as the scores take them,
-    # each with its epilogue value (a centroid padded to 68 floats at most)
+    # each with its epilogue value (a centroid padded to 108 floats at most)
     prep = torch.empty_like(rep)
     pval = torch.empty((u,), dtype=torch.float32, device=rep.device)
-    cscratch = torch.empty((c * (MAX_WIDTH + 5),), dtype=torch.float32,
+    cscratch = torch.empty((c * (IVF_MAX_WIDTH + 5),), dtype=torch.float32,
                            device=rep.device)
     build.launch("kmeans_lloyd_f32", rep, init, cent, assign, prep, pval,
                  cscratch, u, c, n, iters, nv, build.MEASURE_CODES[measure],
                  int(normalize))
-    assign_clusters.launches += 1
+    build.count_launch(assign_clusters)
     return cent, assign
 
 

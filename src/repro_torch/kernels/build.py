@@ -13,11 +13,13 @@ Nothing here runs at import time: this module imports on machines without
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
 import os
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Tuple
@@ -52,7 +54,7 @@ SIGNATURES = {
     "kmeans_lloyd_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _I, _P),
     # (q, cand, out, B, M, n, measure, stream)
-    "score_candidates_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "score_candidates_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     # (q, probe, probe_ok, order, lists, rows, scale, fill, self_ids, vals,
     #  ids, B, nprobe, C, cap, n, k, measure, payload, group, stream)
     "ivf_probe_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -158,6 +160,33 @@ def check_cuda(name: str, t: torch.Tensor, ndim: int, dtypes,
     if t.dim() != ndim or not t.is_contiguous():
         raise ValueError(f"{name}: inputs must be contiguous {ndim}-D "
                          f"tensors, got shape {tuple(t.shape)}")
+
+
+_TALLIES = threading.local()  # the launch tallies open on each thread
+
+
+def count_launch(wrapper, n: int = 1) -> None:
+    """Add ``n`` launches to ``wrapper.launches`` and to every tally that
+    the calling thread has open (:func:`tally`). A wrapper calls this where
+    it launches its kernel, and nowhere else."""
+    wrapper.launches += n
+    for t in getattr(_TALLIES, "open", ()):
+        t[wrapper.__name__] = t.get(wrapper.__name__, 0) + n
+
+
+@contextlib.contextmanager
+def tally():
+    """Count the launches made on this thread inside the block, by wrapper
+    name, into the dict it yields: a caller separates the launches of one
+    path from those of another thread (a background refit) or of a check
+    running beside it."""
+    counts: dict = {}
+    stack = _TALLIES.__dict__.setdefault("open", [])
+    stack.append(counts)
+    try:
+        yield counts
+    finally:
+        stack.remove(counts)
 
 
 def launch(name: str, *args) -> None:

@@ -45,8 +45,9 @@
 //    no part.
 // Nothing is atomic, so two launches agree bit for bit, and the plain
 // version (kernels/ref.py::kmeans_lloyd_ref) repeats the arithmetic op for
-// op. Row width n <= 64 (register widths 8, 20, 32, 64); the wrapper
-// rejects others.
+// op. Row width n <= 104 (register widths 8, 20, 32, 64, 104); the wrapper
+// rejects others. At 104 the register row takes 104 of the 128 registers a
+// thread has at 512 threads, so the assignment spills: right, and slower.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -457,20 +458,21 @@ cudaError_t launch(const Lloyd& a, cudaStream_t stream) {
 
 // normalize: cosine rows and centroids are L2-normalized here (else by the
 // caller).
-// cscratch holds C·69 floats: the padded centroids (stride <= 68), then
+// cscratch holds C·109 floats: the padded centroids (stride <= 108), then
 // their epilogue values.
 extern "C" int kmeans_lloyd_f32(const void* rep, const void* init,
                                 void* cent, void* assign, void* prep,
                                 void* pval, void* cscratch, int U, int C,
                                 int n, int iters, int n_valid, int measure,
                                 int normalize, void* stream) {
-  if (U <= 0 || C <= 0 || n <= 0 || n > 64 || iters < 0 || n_valid < 0 ||
+  if (U <= 0 || C <= 0 || n <= 0 || n > 104 || iters < 0 || n_valid < 0 ||
       n_valid > U || measure < 0 || measure > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // the register row's width, and the staged centroids' stride: at least
   // that width (float4 reads), ≡ 4 mod 8 (no bank conflicts)
-  const int width = n <= 8 ? 8 : n <= 20 ? 20 : n <= 32 ? 32 : 64;
+  const int width =
+      n <= 8 ? 8 : n <= 20 ? 20 : n <= 32 ? 32 : n <= 64 ? 64 : 104;
   const int cstride = width % 8 ? width : width + 4;
   float* cs = static_cast<float*>(cscratch);
   const Lloyd a{static_cast<const float*>(rep),
@@ -496,8 +498,11 @@ extern "C" int kmeans_lloyd_f32(const void* rep, const void* init,
     case 32:
       err = launch<32>(a, s);
       break;
-    default:
+    case 64:
       err = launch<64>(a, s);
+      break;
+    default:
+      err = launch<104>(a, s);
   }
   return static_cast<int>(err);
 }

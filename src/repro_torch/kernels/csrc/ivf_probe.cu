@@ -50,7 +50,8 @@
 // lies in one list), so values and ids are bitwise the plain version's.
 // Slots at or past the cell's fill and the query's own id are never
 // offered; empty slots come out as (-inf, 0). Any cap and nprobe (probe
-// entries past 1024 a block go in further segments), n <= 64, k <= 32, and
+// entries past 1024 a block go in further segments), n <= 104 (past 64 the
+// rows stage 128 a round and the row array spills), k <= 32, and
 // C <= 32768 for G > 1. The probe table must hold distinct cells per
 // query, as the reference requires.
 #include <cuda_bf16.h>
@@ -58,6 +59,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "device_smem.cuh"
 #include "topk_common.cuh"
 
 namespace {
@@ -67,18 +69,21 @@ using repro::WarpList;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kRows = kThreads;         // staged rows per round: one a thread
 constexpr int kEntries = 1024;          // (query, probe) entries per segment
 constexpr int kPerThread = kEntries / kThreads;
 
 // Row stride in floats: NP rounded so that 8 lanes reading float4s of 8
 // consecutive rows hit 8 distinct 16-byte bank groups (stride = 4 mod 8).
+// ROWS rows are staged a round, one a thread: all 256 threads up to
+// n = 64; past it half of them, so that two rounds of rows (n <= 104:
+// stride 108) stay within the shared memory a block may take.
 template <int NV4>
 struct Width {
   static constexpr int NP = 4 * NV4;
   static constexpr int STR = NP % 8 == 4 ? NP : NP + 4;
+  static constexpr int ROWS = NV4 > 16 ? kThreads / 2 : kThreads;
   static constexpr size_t kSmem =
-      sizeof(float) * 2 * kRows * (STR + 3);  // rows, aux, ids, masks
+      sizeof(float) * 2 * ROWS * (STR + 3);  // rows, aux, ids, masks
 };
 
 // Four payload elements widened to f32 exactly: f32 as they are, bf16 by
@@ -168,6 +173,7 @@ probe_group_kernel(const float* __restrict__ q, const int* __restrict__ probe,
                    int* __restrict__ out_i, int B, int nprobe, int C,
                    int cap, int n, int k, int measure, int payload, int G) {
   constexpr int NP = Width<NV4>::NP, STR = Width<NV4>::STR;
+  constexpr int kRows = Width<NV4>::ROWS;  // staged rows per round
   extern __shared__ float4 dyn[];
   float* s_rows = reinterpret_cast<float*>(dyn);  // [2][kRows][STR]
   float* s_aux = s_rows + 2 * kRows * STR;        // [2][kRows]
@@ -299,6 +305,7 @@ probe_group_kernel(const float* __restrict__ q, const int* __restrict__ probe,
     // pearson, with its norm term; the cursor walks the union forward
     int cur = 0;
     auto stage = [&](int round, int buf) {
+      if (tid >= kRows) return;  // wide rows: half the threads stage
       const int p = round * kRows + tid;
       const bool live = p < n_rows;
       long long slot = 0;
@@ -407,7 +414,6 @@ probe_group_kernel(const float* __restrict__ q, const int* __restrict__ probe,
 // atomics' and may change from call to call; the lists do not.
 constexpr int kOrderThreads = 1024;
 constexpr int kOrderCells = 32768;  // cells the counters hold (128 KB)
-int g_order_smem = 0;  // the order kernel's dynamic shared memory limit
 
 __global__ void __launch_bounds__(kOrderThreads)
 order_kernel(const int* __restrict__ probe, int B, int nprobe, int C,
@@ -483,23 +489,14 @@ cudaError_t launch(const void* q, const void* probe, const void* probe_ok,
                    cudaStream_t stream) {
   const size_t smem =
       Width<NV4>::kSmem + (G > 1 ? sizeof(unsigned) * ((C + 3) / 4) : 0);
-  static size_t sized = 0;  // the dynamic shared memory limit set so far
-  if (smem > sized) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        probe_group_kernel<NV4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    sized = smem;
-  }
+  static size_t sized[repro::kMaxDevices] = {};  // the limit set so far
+  cudaError_t err = repro::allow_smem(probe_group_kernel<NV4>, smem, sized);
+  if (err != cudaSuccess) return err;
   if (G > 1) {
     const int cells_bytes = static_cast<int>(sizeof(int)) * C;
-    if (cells_bytes > g_order_smem) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          order_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          cells_bytes);
-      if (err != cudaSuccess) return err;
-      g_order_smem = cells_bytes;
-    }
+    static size_t order_sized[repro::kMaxDevices] = {};
+    err = repro::allow_smem(order_kernel, cells_bytes, order_sized);
+    if (err != cudaSuccess) return err;
     order_kernel<<<1, kOrderThreads, cells_bytes, stream>>>(
         static_cast<const int*>(probe), B, nprobe, C, static_cast<int*>(order));
   }
@@ -528,7 +525,7 @@ extern "C" int ivf_probe_f32(const void* q, const void* probe,
                              const void* self_ids, void* vals, void* ids,
                              int B, int nprobe, int C, int cap, int n, int k,
                              int measure, int payload, int G, void* stream) {
-  if (B <= 0 || nprobe <= 0 || C <= 0 || cap <= 0 || n <= 0 || n > 64 ||
+  if (B <= 0 || nprobe <= 0 || C <= 0 || cap <= 0 || n <= 0 || n > 104 ||
       k <= 0 || k > 32 || measure < 0 || measure > 2 || payload < 0 ||
       payload > 2 || (payload == 2) != (scale != nullptr) ||
       (G != 1 && G != 2 && G != 4 && G != 8) ||
@@ -547,6 +544,7 @@ extern "C" int ivf_probe_f32(const void* q, const void* probe,
   if (nv4 <= 5) REPRO_PROBE(5);
   if (nv4 <= 8) REPRO_PROBE(8);
   if (nv4 <= 12) REPRO_PROBE(12);
-  REPRO_PROBE(16);
+  if (nv4 <= 16) REPRO_PROBE(16);
+  REPRO_PROBE(26);
 #undef REPRO_PROBE
 }

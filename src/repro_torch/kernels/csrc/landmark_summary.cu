@@ -74,6 +74,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "device_smem.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -489,15 +490,10 @@ int launch_summary(const void* q, const void* k, const void* v, void* out,
       !tensor_map<D>(&vm, v, L::VT * P, S, L::BK)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  static bool ready = false;  // the >48 KB opt-in, once per instantiation
-  if (!ready) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        summary_wgmma_kernel<D, F32>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(L::SMEM));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    ready = true;
-  }
+  static size_t sized[repro::kMaxDevices] = {};  // the >48 KB opt-in
+  const cudaError_t err =
+      repro::allow_smem(summary_wgmma_kernel<D, F32>, L::SMEM, sized);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + L::BQ - 1) / L::BQ, P);
   summary_wgmma_kernel<D, F32><<<grid, L::THREADS, L::SMEM, stream>>>(
       qm, km, vm, static_cast<float*>(out), P, N, S, scale * kLog2e);

@@ -78,6 +78,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_smem.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -536,16 +537,12 @@ template <bool VEC>
 cudaError_t launch_moments(const float* ra, const uint4* planes, float* ws,
                            int* flag, int A, int B, int P, int k_stages,
                            int n_tiles, long long units, cudaStream_t st) {
-  static bool ready = false;  // the >48 KB opt-in, once per instantiation
-  if (!ready) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        moments_wgmma_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kTcSmem));
-    if (err != cudaSuccess) return err;
-    ready = true;
-  }
+  static size_t sized[repro::kMaxDevices] = {};  // the >48 KB opt-in
+  cudaError_t err =
+      repro::allow_smem(moments_wgmma_kernel<VEC>, kTcSmem, sized);
+  if (err != cudaSuccess) return err;
   int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  err = cudaGetDevice(&dev);
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }

@@ -18,7 +18,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import build, ref
-from .knn_topk import MAX_K, MAX_WIDTH
+from .knn_topk import MAX_K, check_width
 
 PAYLOAD_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 GROUPS = (8, 4, 2)  # queries a block may own besides 1 (8 warps a block)
@@ -99,9 +99,7 @@ def fused_probe_topk(q: torch.Tensor, probe: torch.Tensor,
             f"fused_probe_topk: shapes disagree: q {tuple(q.shape)}, probe "
             f"{tuple(probe.shape)}, lists {(c, cap)}, rows "
             f"{tuple(rows.shape)}, fill {tuple(fill.shape)}")
-    if not 1 <= n <= MAX_WIDTH:
-        raise ValueError(f"fused_probe_topk: width {n} outside "
-                         f"1..{MAX_WIDTH}")
+    check_width("fused_probe_topk", n)
     if not 1 <= k <= MAX_K:
         raise ValueError(f"fused_probe_topk: k={k} outside 1..{MAX_K}")
     if measure not in build.MEASURE_CODES:
@@ -127,7 +125,7 @@ def fused_probe_topk(q: torch.Tensor, probe: torch.Tensor,
                      scale, fill, self_ids, vals, ids, b, nprobe, c, cap, n,
                      k, build.MEASURE_CODES[measure],
                      PAYLOAD_CODES[rows.dtype], group)
-        fused_probe_topk.launches += 1
+        build.count_launch(fused_probe_topk)
     else:
         vals.fill_(float("-inf"))
         ids.zero_()

@@ -22,8 +22,8 @@ import torch
 
 from . import build, ref
 
-MAX_WIDTH = 64  # landmark axis n of the IVF kernels' register rows (4-6)
 SCAN_MAX_WIDTH = 104  # landmark axis n of the scan: its ring's shared memory
+IVF_MAX_WIDTH = 104  # landmark axis n of the IVF kernels' register rows (4-6)
 MAX_K = 32  # list length: lanes of the warp-wide list
 # (queries, candidates) a block's tile in each scan variant, by the index
 # that csrc/knn_topk.cu's with_tile takes
@@ -74,13 +74,19 @@ def _occupancy(device: int, variant: int, n: int, measure: str
         device).multi_processor_count, per_sm
 
 
+def check_width(name: str, n: int, limit: int = IVF_MAX_WIDTH) -> None:
+    """Raise unless the landmark axis ``n`` is one a kernel takes: the
+    scan's ``SCAN_MAX_WIDTH`` or kernels 4–6's ``IVF_MAX_WIDTH``."""
+    if not 1 <= n <= limit:
+        raise ValueError(f"{name}: width {n} outside 1..{limit}")
+
+
 def _check(name, rep, cand, k, n_valid, measure):
     build.check_cuda_f32(name, rep, cand)
     n = rep.shape[1]
     if cand.shape[1] != n:
         raise ValueError(f"{name}: widths differ: {rep.shape} vs {cand.shape}")
-    if not 1 <= n <= SCAN_MAX_WIDTH:
-        raise ValueError(f"{name}: width {n} outside 1..{SCAN_MAX_WIDTH}")
+    check_width(name, n, SCAN_MAX_WIDTH)
     if not 1 <= k <= MAX_K:
         raise ValueError(f"{name}: k={k} outside 1..{MAX_K}")
     if not 0 <= n_valid <= cand.shape[0]:
@@ -125,18 +131,23 @@ def _scan(name, rep, cand, k, n_valid, self_offset, measure):
 
 def topk_sim(rep: torch.Tensor, cand: torch.Tensor, k: int = 14,
              exclude_self: bool = False, n_valid: Optional[int] = None,
-             measure: str = "cosine") -> Tuple[torch.Tensor, torch.Tensor]:
+             measure: str = "cosine", row_offset: int = 0
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(vals, ids), each (U, k): every rep row's top-k candidate d2 weights.
 
     Candidates ``>= n_valid`` (default: all valid) are never selected;
-    ``exclude_self`` assumes rep row i is candidate i and masks it. CUDA
-    tensors go through the kernels, CPU tensors take the plain version.
+    ``exclude_self`` assumes rep row i is candidate ``row_offset + i`` and
+    masks it (a shard's rows of a sharded graph build start at its
+    offset). CUDA tensors go through the kernels, CPU tensors take the
+    plain version.
     """
+    self_offset = row_offset if exclude_self else None
     if rep.device.type == "cpu" and cand.device.type == "cpu":
-        return ref.topk_sim_ref(rep, cand, k, exclude_self, n_valid, measure)
+        return ref.foldin_topk_ref(rep, cand, k, self_offset, n_valid,
+                                   measure)
     vals, ids, launched = _scan("topk_sim", rep, cand, k, n_valid,
-                                0 if exclude_self else None, measure)
-    topk_sim.launches += launched
+                                self_offset, measure)
+    build.count_launch(topk_sim, launched)
     return vals, ids
 
 
@@ -154,7 +165,7 @@ def foldin_topk(rep: torch.Tensor, cand: torch.Tensor, k: int = 14,
         return ref.foldin_topk_ref(rep, cand, k, self_offset, n_valid, measure)
     vals, ids, launched = _scan("foldin_topk", rep, cand, k, n_valid,
                                 self_offset, measure)
-    foldin_topk.launches += launched
+    build.count_launch(foldin_topk, launched)
     return vals, ids
 
 

@@ -49,7 +49,7 @@ def bf16_terms(x: torch.Tensor, terms: int) -> torch.Tensor:
                          device=x.device)
     if x.numel():
         build.launch("split_bf16_terms", x, planes, x.numel(), terms)
-        bf16_terms.launches += 1
+        build.count_launch(bf16_terms)
     return planes
 
 
@@ -114,7 +114,7 @@ def landmark_summary(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q, k = bf16_terms(q, QK_TERMS), bf16_terms(k, QK_TERMS)
             v = bf16_terms(v, V_TERMS)
         build.launch(entry, q, k, v, out, p, n, s, d, float(scale))
-        landmark_summary.launches += 1
+        build.count_launch(landmark_summary)
         landmark_summary.route_launches[route] += 1
     return out[0] if single else out
 

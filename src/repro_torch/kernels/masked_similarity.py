@@ -96,7 +96,7 @@ def masked_similarity(r_a: torch.Tensor, r_b: torch.Tensor,
             build.launch("masked_similarity_tc", r_a, r_b, out, ws,
                          _results(r_a.device), a, b, p, code)
             masked_similarity.route_launches["tensor_core"] += 1
-        masked_similarity.launches += 1
+        build.count_launch(masked_similarity)
     return out
 
 

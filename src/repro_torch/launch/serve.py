@@ -57,6 +57,7 @@ and decode times end in a device synchronize.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import math
 import os
@@ -643,6 +644,611 @@ def _export_obs(o, args):
     obslib.uninstall()
 
 
+# ------------------------------------------------------ cf lifecycle, sharded
+def _parse_mesh(arg: str):
+    """``pod=2,data=4`` -> (("pod", "data"), (2, 4))."""
+    names, sizes = [], []
+    for part in arg.split(","):
+        name, _, size = part.partition("=")
+        if not size:
+            raise ValueError(f"--mesh expects name=size pairs, got {part!r}")
+        names.append(name.strip())
+        sizes.append(int(size))
+    return tuple(names), tuple(sizes)
+
+
+def _sync_mesh(mesh) -> None:
+    for dev in set(mesh.devices):
+        _sync(dev)
+
+
+class _SideTally:
+    """The kernel launches and wall ms of the calls made beside the mesh
+    path — the one-device shadow replay, the oracle fit and the
+    materialization checks — so that the mesh path's own are the rest.
+    Launches are tallied on the calling thread only (``kernels.build.tally``):
+    a background refit's, on its own thread, are the mesh path's and never
+    land here. Each block is timed between two syncs of the mesh; a refit
+    shares the default stream, so its queued work may fall in the time."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.launches: dict = {}
+        self.ms = 0.0
+
+    @contextlib.contextmanager
+    def __call__(self):
+        from ..kernels import build
+
+        _sync_mesh(self.mesh)
+        t0 = time.perf_counter()
+        with build.tally() as counts:
+            yield
+            _sync_mesh(self.mesh)
+        self.ms += (time.perf_counter() - t0) * 1e3
+        for name, c in counts.items():
+            self.launches[name] = self.launches.get(name, 0) + c
+
+
+def _materializations(run, is_bad):
+    """Run ``run()`` under a dispatch mode that sees every tensor an aten
+    op returns; ``(n_tensors_scanned, offenders)`` where ``is_bad(shape)``
+    names an offending shape. The kernels' own launches are no aten ops,
+    but every buffer they write is allocated through one."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    seen, bad = [], []
+
+    class Watch(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in tree_leaves(out):
+                if isinstance(t, torch.Tensor):
+                    shp = tuple(t.shape)
+                    seen.append(shp)
+                    if is_bad(shp):
+                        bad.append((str(func), shp))
+            return out
+
+    with Watch():
+        run()
+    return len(seen), bad
+
+
+def _clone_sharded(sst):
+    """A copy of a ShardedLandmarkState whose blocks share no storage."""
+    from ..core.types import NeighborGraph
+
+    clone = lambda blocks: [b.clone() for b in blocks]  # noqa: E731
+    return dataclasses.replace(
+        sst, landmark_idx=sst.landmark_idx.clone(),
+        representation=clone(sst.representation),
+        ratings=clone(sst.ratings),
+        graph=[NeighborGraph(g.indices.clone(), g.weights.clone())
+               for g in sst.graph],
+        row_rank=clone(sst.row_rank))
+
+
+def _foldin_replication_check(sst, bq, spec):
+    """Prove the sharded fold-in keeps the row space sharded: no tensor of
+    rows (two or more dimensions; a kernel's flat scratch buffer is none)
+    that a fold-in of one row builds has S·C rows or more (on a copy of the
+    state). Returns (tensors scanned, offenders, row-sharded outputs)."""
+    from ..core.landmark_cf import fold_in_sharded
+    from ..lifecycle.buckets import ensure_capacity_sharded
+
+    probe, _ = ensure_capacity_sharded(_clone_sharded(sst), 0, bq)
+    rows = probe.shard_count * probe.capacity
+    batch = torch.zeros((bq, sst.ratings[0].shape[1]),
+                        device=sst.devices[0])
+    out = []
+    n, bad = _materializations(
+        lambda: out.append(fold_in_sharded(probe, batch, 1, 0, spec)),
+        lambda shp: probe.shard_count > 1 and len(shp) > 1
+        and shp[0] >= rows)
+    res = out[0]
+    blocks = (res.ratings, res.representation, res.row_rank,
+              [g.indices for g in res.graph], [g.weights for g in res.graph])
+    row_sharded = sum(
+        len(b) == res.shard_count
+        and all(x.shape[0] == res.capacity and x.device == d
+                for x, d in zip(b, res.devices)) for b in blocks)
+    return n, bad, row_sharded
+
+
+def _ivf_materialization_check(index, qb, k, nprobe, measure, budget):
+    """Prove the sharded probe path never builds a per-query candidate
+    tensor of nprobe·cap rows, the (qb, nprobe·cap[, n]) a gather-then-score
+    of every probed cell would. Returns (tensors scanned, offenders)."""
+    from .. import retrieval as rt
+
+    bound = nprobe * index.capacity
+    if bound <= max(index.shard_count * k, k + index.capacity):
+        raise ValueError(  # merge widths would alias the candidate bound
+            f"materialization check is vacuous at nprobe*cap={bound}; "
+            "probe more cells")
+    q = torch.zeros((qb, index.centroids.shape[1]),
+                    device=index.centroids.device)
+    return _materializations(
+        lambda: rt.search_sharded(index, q, k, nprobe, measure,
+                                  local_budget=budget),
+        lambda shp: len(shp) >= 2 and shp[0] == qb and shp[1] >= bound)
+
+
+def _ivf_probe_sample_sharded(index, sst, sharded_ids, n_live, rng, spec,
+                              args):
+    """One wave's probe sample on the mesh: fresh logical query ids, their
+    representation rows gathered from their owner shards, and the
+    full-probe (exact) sharded search as the reference."""
+    from .. import retrieval as rt
+    from ..distributed.sharding import gather_rows
+
+    k = sst.k
+    qids = rng.integers(0, n_live, min(args.batch, n_live)).astype(np.int32)
+    qrep = gather_rows(sst.representation, sharded_ids(qids), sst.capacity,
+                       sst.devices[0])
+    lq = torch.as_tensor(qids, device=sst.devices[0])
+    ve, ie, _ = rt.search_sharded(index, qrep, k, index.n_clusters, spec.d2,
+                                  self_ids=lq)
+    return lq, qrep, k, (ve, ie)
+
+
+def _ivf_probe_recall_sharded(index, probe, nprobe, measure, local_budget):
+    """(recall@k by id, mean probed cells a query) of the serving-nprobe
+    sharded search against the wave's exact reference."""
+    from .. import retrieval as rt
+
+    qids, qrep, k, (ve, ie) = probe
+    va, ia, probed = rt.search_sharded(index, qrep, k, nprobe, measure,
+                                       self_ids=qids,
+                                       local_budget=local_budget)
+    return (rt.recall_at_k(ia, ie, va, ve),
+            float(probed.to(torch.float32).mean()))
+
+
+def _serve_cf_lifecycle_sharded(args):
+    """The lifecycle replay on a mesh: fit_distributed →
+    ShardedLandmarkState serving → shard-local-append fold-in → monitor →
+    distributed refresh → swap, with a single-device shadow replay (same landmarks, same seeds,
+    same arrival stream) that every wave's predictions must equal bit for
+    bit. Returns the replay's stats."""
+    from ..core.landmark_cf import fit_distributed
+    from ..data.synthetic import drifting_ratings
+    from ..distributed.sharding import gather_rows
+    from ..lifecycle import buckets, monitor, policy
+    from ..lifecycle.refresh import RefreshManager
+    from .mesh import make_mesh
+
+    device = torch.device(args.device)
+    names, sizes = _parse_mesh(args.mesh)
+    mesh = make_mesh(names, sizes, device)
+    axes = names
+    n_shards = mesh.size
+    print(f"mesh {mesh.describe()}")
+    spec = cfg.SMOKE if args.smoke else cfg.MODEL
+    spec = dataclasses.replace(spec, selection=args.selection)
+    rspec = cfg.SMOKE_REFRESH if args.smoke else cfg.REFRESH
+    if args.compact_serving:
+        print("--compact-serving is a single-device serving policy; "
+              "ignored under --mesh (the sharded artifact stays f32/int32)")
+    if args.smoke:
+        _clamp_lifecycle_smoke(args)
+    min_shard_bucket = max(8, args.min_bucket // n_shards)
+    stream = dict(n_waves=args.waves, drift=args.drift)
+    ckpt_dir = args.ckpt or tempfile.mkdtemp(prefix="cf_sharded_")
+    rng = np.random.default_rng(0)
+    bq = args.foldin
+    buckets.reset_geometries()
+    o = None
+    if args.trace_dir or args.metrics_json:
+        o = obslib.Observability(sample_rate=args.sample_rate, seed=0)
+        obslib.install(o)
+
+    # ---- base generation: fit_distributed + the single-device shadow -----
+    prev = latest_step(ckpt_dir)
+    gen0 = prev + 1 if prev is not None else 0
+    r0 = torch.as_tensor(drifting_ratings(0, 0, args.users, args.items,
+                                          **stream), device=device)
+    t0 = time.perf_counter()
+    st = fit_distributed(r0, spec, mesh, axes,
+                         generator=torch.Generator().manual_seed(0))
+    _sync_mesh(mesh)
+    t_fit = time.perf_counter() - t0
+    save_landmark_state(ckpt_dir, st, step=gen0, row_shards=n_shards)
+    side = _SideTally(mesh)  # the shadow's and the checks' share
+    mesh_fits, mesh_fold_batches = 1, 0
+    with side():
+        shadow_st = fit(RatingMatrix(r0, args.users, args.items), spec,
+                        generator=torch.Generator().manual_seed(0))
+        bst = buckets.from_state(shadow_st, args.min_bucket, args.growth)
+    sst = buckets.from_state_sharded(st, mesh, axes, min_shard_bucket,
+                                     args.growth)
+    # logical row id -> (shard, slot); slots survive capacity regrowth
+    u_per = -(-args.users // n_shards)
+    id_shard = (np.arange(args.users) // u_per).astype(np.int64)
+    id_slot = (np.arange(args.users) % u_per).astype(np.int64)
+    meta0 = landmark_state_meta(ckpt_dir, gen0)
+    print(f"gen {gen0}: fit_distributed U={args.users} over "
+          f"{'x'.join(f'{a}={s}' for a, s in zip(axes, sizes))} "
+          f"(S={n_shards}, u/shard={u_per}) n={spec.n_landmarks} "
+          f"k={st.graph.k} in {t_fit*1e3:.0f}ms; per-shard bucket "
+          f"C={sst.capacity} (min={min_shard_bucket} x{args.growth:g}); "
+          f"checkpoint row shards: {meta0['row_shards']} -> {ckpt_dir}")
+
+    # ---- one-time proof: a fold-in never builds an S·C-row tensor ---------
+    with side():
+        n_t, offenders, row_sharded = _foldin_replication_check(sst, bq,
+                                                                spec)
+    print(f"fold-in sharding check: {n_t} tensors scanned, "
+          f"{len(offenders)} full-row materializations, "
+          f"{row_sharded} row-sharded outputs")
+    assert not offenders, offenders
+    assert row_sharded >= 4, "rep/ratings/graph outputs must stay row-sharded"
+
+    def sharded_ids(logical):
+        return torch.as_tensor(id_shard[logical] * sst.capacity
+                               + id_slot[logical], device=sst.devices[0])
+
+    def id_map():
+        return id_shard * sst.capacity + id_slot
+
+    use_ivf = args.retrieval == "ivf"
+    index = retrieval = user_ivf = None
+    recalls = []
+    if use_ivf:
+        from .. import retrieval as rt
+
+        user_ivf = rt.IVFSpec(n_clusters=args.clusters or None,
+                              nprobe=args.nprobe or None)
+
+        def resolve_serving_ivf(u):
+            ivf = rt.resolve_ivf_sharded(user_ivf, u, n_shards)
+            if args.smoke and not args.nprobe:
+                # as on one device: k is a large share of U at smoke size,
+                # a quarter of the cells cannot hold recall
+                ivf = dataclasses.replace(
+                    ivf, nprobe=max(ivf.nprobe, ivf.n_clusters // 2))
+            return ivf
+
+        def probe_budget(nprobe):
+            # a hot shard's work bounded to ~2x the even split; at full
+            # probe search_sharded takes C/S whatever this says
+            return min(nprobe, max(1, 2 * (-(-nprobe // n_shards))))
+
+        retrieval = resolve_serving_ivf(args.users)
+        # built on the logical-order representation (the fit's), placed
+        # on the mesh: bitwise the index one device would build
+        index = rt.build_index_sharded(st.representation, retrieval, mesh,
+                                       axes, spec.d2)
+        print(f"retrieval: sharded ivf C={index.n_clusters} "
+              f"({index.cells_per_shard} cells/shard) cap={index.capacity} "
+              f"nprobe={retrieval.nprobe} "
+              f"budget={probe_budget(retrieval.nprobe)}/shard")
+        ck_np = max(2, retrieval.nprobe)
+        with side():
+            n_t, offenders = _ivf_materialization_check(
+                index, min(args.batch, args.users), sst.k, ck_np, spec.d2,
+                probe_budget(ck_np))
+        print(f"ivf serve-path check: {n_t} tensors scanned, "
+              f"{len(offenders)} candidate-tensor materializations")
+        assert not offenders, offenders
+
+    base_cov = monitor.batch_coverage(
+        shadow_st.representation, torch.ones(args.users, device=device))
+    mon = monitor.init_monitor(rspec.reservoir, args.users, base_cov,
+                               sst.devices[0])
+    pol = policy.PolicyState(generation=gen0)
+    manager = RefreshManager(ckpt_dir, spec, ivf=user_ivf, device=device,
+                             mesh=mesh, row_axes=axes)
+    pending = None
+    swap_wave = pre_post = None
+    identical_waves = 0
+    caps_sh, caps_lo = {sst.capacity}, {bst.capacity}
+    wave_ms, side_ms = [], []
+    res_gen = torch.Generator().manual_seed(42)  # reservoir draws
+
+    for wave in range(args.waves):
+        t_wave, side0 = time.perf_counter(), side.ms
+        # ---- bit-identity probe against the single-device shadow --------
+        prng = np.random.default_rng(10_000 + wave)
+        n_live = len(id_shard)
+        pu = prng.integers(0, n_live, args.batch).astype(np.int64)
+        pi = torch.as_tensor(prng.integers(0, args.items, args.batch),
+                             device=device)
+        lo_u = torch.as_tensor(pu, device=device)
+        p_sh = buckets.predict_pairs_sharded(sst, sharded_ids(pu), pi)
+        t_sh, s_sh = buckets.recommend_topn_sharded(sst, sharded_ids(pu),
+                                                    n=args.topn)
+        with side():
+            p_lo = buckets.predict_pairs(bst, lo_u, pi)
+            t_lo, s_lo = buckets.recommend_topn(bst, lo_u, n=args.topn)
+        same = (torch.equal(p_sh.to(device), p_lo)
+                and torch.equal(t_sh.to(device), t_lo)
+                and torch.equal(s_sh.to(device), s_lo))
+        identical_waves += bool(same)
+        assert same, (
+            f"wave {wave}: sharded predictions diverged from the "
+            f"single-device shadow (max |d|="
+            f"{float((p_sh.to(device) - p_lo).abs().max())})")
+
+        # ---- timed requests on the sharded path (the probe warmed it) ----
+        pair_ts, topn_ts = [], []
+        for _ in range(args.requests):
+            qu = sharded_ids(rng.integers(0, n_live, args.batch))
+            qi = torch.as_tensor(rng.integers(0, args.items, args.batch),
+                                 device=sst.devices[0])
+            t0 = time.perf_counter()
+            out = buckets.predict_pairs_sharded(sst, qu, qi)
+            _sync_mesh(mesh)
+            pair_ts.append(time.perf_counter() - t0)
+        if not bool(torch.isfinite(out).all()):
+            raise RuntimeError("non-finite predictions in sharded wave")
+        for _ in range(max(1, args.requests // 4)):
+            qu = sharded_ids(rng.integers(0, n_live, args.batch))
+            t0 = time.perf_counter()
+            buckets.recommend_topn_sharded(sst, qu, n=args.topn)
+            _sync_mesh(mesh)
+            topn_ts.append(time.perf_counter() - t0)
+        ps, ts_ = latency_stats(pair_ts), latency_stats(topn_ts)
+
+        # ---- arrivals: fold into both states; the reservoir keeps logical
+        # ids -------------------------------------------------------------
+        if wave + 1 < args.waves:
+            arr = drifting_ratings(0, wave + 1, args.arrivals, args.items,
+                                   **stream)
+            train, hrows, hcols, hvals = _withhold(rng, arr,
+                                                   rspec.holdout_frac)
+            start_logical = n_live
+            sst, fsh, fsl = buckets.fold_in_rows_sharded(
+                sst, train, bq, spec, min_shard_bucket, args.growth)
+            mesh_fold_batches += -(-len(train) // bq)
+            caps_sh.add(sst.capacity)
+            id_shard = np.concatenate([id_shard, fsh.astype(np.int64)])
+            id_slot = np.concatenate([id_slot, fsl.astype(np.int64)])
+            with side():
+                bst = buckets.fold_in_rows(bst, train, bq, spec,
+                                           args.min_bucket, args.growth)
+            caps_lo.add(bst.capacity)
+            rep_rows = gather_rows(
+                sst.representation,
+                fsh.astype(np.int64) * sst.capacity + fsl, sst.capacity,
+                sst.devices[0])
+            mon = monitor.observe_fold_in(mon, rep_rows, len(train))
+            mon = _offer_holdout(mon, rng, res_gen, start_logical, hrows,
+                                 hcols, hvals, rspec.reservoir)
+            if use_ivf:
+                # plan once, scatter shard-locally: bitwise the
+                # single-device append on the gathered arrays
+                index, _ = rt.ensure_index_capacity_sharded(index,
+                                                            len(train))
+                index = rt.append_sharded(
+                    index, rep_rows,
+                    start_logical + torch.arange(len(train)), spec.d2,
+                    spill_choices=retrieval.spill_choices)
+
+        # ---- drift detection + distributed refresh ------------------------
+        snap = monitor.holdout_snapshot_sharded(mon, sst, id_map())
+        if o is not None:
+            monitor.publish_snapshot(o.registry, snap)
+        if math.isnan(pol.base_mae) and snap.holdout_count >= rspec.min_holdout:
+            pol.base_mae = snap.mae
+        fire, reasons = policy.decide(pol, rspec, snap)
+        if fire:
+            gen = pol.generation + 1
+            rows = gather_rows(sst.ratings, id_map(), sst.capacity,
+                               "cpu").numpy()  # logical row order
+            if manager.request(rows, gen):
+                mesh_fits += 1
+                policy.on_fire(pol)
+                pending = (gen, rows)
+                print(f"wave {wave}: gen {pol.generation} refresh -> gen "
+                      f"{gen} launched on the mesh ({'; '.join(reasons)})")
+
+        # ---- poll; swap both replicas when the refit commits --------------
+        done = manager.poll()
+        if done is None and wave == args.waves - 1 and manager.busy:
+            manager.join()
+            done = manager.poll()
+        if done is not None:
+            if use_ivf:
+                gen, st_new, new_index = done  # on the mesh, rebuilt
+            else:
+                gen, st_new = done
+            mae_pre = snap.mae
+            snap_u = st_new.ratings.shape[0]
+            delta = gather_rows(sst.ratings, id_map()[snap_u:],
+                                sst.capacity, "cpu").numpy()
+            # oracle: the committed sharded artifact == a one-device fit
+            gen_p, rows_p = pending
+            assert gen_p == gen
+            with side():
+                oracle = fit(RatingMatrix(torch.as_tensor(rows_p,
+                                                          device=device),
+                                          *rows_p.shape), spec,
+                             generator=torch.Generator().manual_seed(gen))
+                loaded = load_landmark_state(ckpt_dir, step=gen,
+                                             device=device)
+                exact = (torch.equal(loaded.graph.indices,
+                                     oracle.graph.indices)
+                         and torch.equal(loaded.graph.weights,
+                                         oracle.graph.weights))
+            assert exact, ("distributed refresh artifact diverged from the "
+                           "single-device from-scratch fit")
+            # swap the sharded replica and rebuild the logical id map
+            sst = buckets.from_state_sharded(st_new, mesh, axes,
+                                             min_shard_bucket, args.growth)
+            u_per = -(-snap_u // n_shards)
+            id_shard = (np.arange(snap_u) // u_per).astype(np.int64)
+            id_slot = (np.arange(snap_u) % u_per).astype(np.int64)
+            sst, fsh, fsl = buckets.fold_in_rows_sharded(
+                sst, delta, bq, spec, min_shard_bucket, args.growth)
+            mesh_fold_batches += -(-len(delta) // bq)
+            caps_sh.add(sst.capacity)
+            id_shard = np.concatenate([id_shard, fsh.astype(np.int64)])
+            id_slot = np.concatenate([id_slot, fsl.astype(np.int64)])
+            if use_ivf:
+                # the index with its refreshed quantizer, plus the rows
+                # folded while the refit ran; the nprobe escalation drops
+                if len(delta):
+                    new_index, _ = rt.ensure_index_capacity_sharded(
+                        new_index, len(delta))
+                    drep = gather_rows(
+                        sst.representation,
+                        fsh.astype(np.int64) * sst.capacity + fsl,
+                        sst.capacity, sst.devices[0])
+                    new_index = rt.append_sharded(
+                        new_index, drep, snap_u + torch.arange(len(delta)),
+                        spec.d2, spill_choices=retrieval.spill_choices)
+                index = new_index
+                retrieval = resolve_serving_ivf(len(id_shard))
+            # the shadow swaps through its own one-device fit
+            with side():
+                bst = buckets.from_state(oracle, args.min_bucket,
+                                         args.growth)
+                bst = buckets.fold_in_rows(bst, delta, bq, spec,
+                                           args.min_bucket, args.growth)
+            caps_lo.add(bst.capacity)
+            new_cov = monitor.batch_coverage(
+                st_new.representation, torch.ones(snap_u, device=device))
+            mon = monitor.rebase(mon, len(id_shard), new_cov)
+            snap, reasons = monitor.holdout_snapshot_sharded(
+                mon, sst, id_map()), []
+            mae_post = snap.mae
+            policy.on_swap(pol, gen, mae_post, rspec)
+            pending = None
+            swap_wave, pre_post = wave, (mae_pre, mae_post)
+            print(f"wave {wave}: swapped in gen {gen} on all {n_shards} "
+                  f"shards (U={snap_u}+{len(delta)} delta, oracle-exact, "
+                  f"serving uninterrupted) holdout MAE "
+                  f"{mae_pre:.4f} -> {mae_post:.4f}")
+
+        ivf_note = ""
+        if use_ivf:
+            # the cell-skew gate: a breach re-cells the population in
+            # logical row order (bitwise the same rebuild on any mesh)
+            cskew = monitor.shard_skew(index.fill)
+            if policy.should_rebalance(pol, rspec, cskew):
+                retrieval = resolve_serving_ivf(len(id_shard))
+                rep_log = gather_rows(sst.representation, id_map(),
+                                      sst.capacity, sst.devices[0])
+                index = rt.build_index_sharded(rep_log, retrieval, mesh,
+                                               axes, spec.d2)
+                print(f"wave {wave}: ivf lists rebalanced (cell skew "
+                      f"{cskew:.2f} > {rspec.max_skew:.2f}) -> "
+                      f"C={index.n_clusters} cap={index.capacity}")
+                cskew = monitor.shard_skew(index.fill)
+            # the retrieval health of what the next wave serves, through
+            # the sharded posting lists; probed counts cells scored
+            probe = _ivf_probe_sample_sharded(index, sst, sharded_ids,
+                                              len(id_shard), rng, spec, args)
+            rec, probed_q = _ivf_probe_recall_sharded(
+                index, probe, retrieval.nprobe, spec.d2,
+                probe_budget(retrieval.nprobe))
+            while rec < IVF_RECALL_SLO and retrieval.nprobe < index.n_clusters:
+                esc = min(index.n_clusters, max(retrieval.nprobe + 1,
+                                                (retrieval.nprobe * 3) // 2))
+                retrieval = dataclasses.replace(retrieval, nprobe=esc)
+                rec, probed_q = _ivf_probe_recall_sharded(
+                    index, probe, esc, spec.d2, probe_budget(esc))
+                print(f"wave {wave}: ivf recall below SLO -> nprobe "
+                      f"escalated to {esc}/{index.n_clusters} "
+                      f"(recall {rec:.3f}, probed/q={probed_q:.1f})")
+            ee_note = ""
+            if args.early_exit:
+                qids_p, qrep_p, kk, (ve, ie) = probe
+                va, ia, probed = rt.search_early_exit_sharded(
+                    index, qrep_p, kk, retrieval.nprobe, spec.d2,
+                    self_ids=qids_p,
+                    local_budget=probe_budget(retrieval.nprobe))
+                ee_note = (f" probed/q={float(probed.float().mean()):.1f}/"
+                           f"{retrieval.nprobe} (early-exit recall "
+                           f"{rt.recall_at_k(ia, ie, va, ve):.3f})")
+            recalls.append(rec)
+            ivf_note = (f" | ivf recall@{sst.k}={rec:.3f} "
+                        f"nprobe={retrieval.nprobe} probed/q={probed_q:.1f} "
+                        f"cellskew={cskew:.2f}" + ee_note)
+
+        _sync_mesh(mesh)
+        side_ms.append(side.ms - side0)
+        wave_ms.append((time.perf_counter() - t_wave) * 1e3 - side_ms[-1])
+        fills = sst.n_valid
+        rebal = policy.should_rebalance(pol, rspec, snap.shard_skew)
+        print(f"wave {wave}: gen {pol.generation} U={len(id_shard)} "
+              f"shards[{min(fills)}..{max(fills)}]/cap{sst.capacity} "
+              f"predict {args.requests}x{args.batch} pairs {ps.brief()} | "
+              f"top-{args.topn} {ts_.brief()} | mae={snap.mae:.4f} "
+              f"cov={snap.coverage_ratio:.2f} fold={snap.foldin_frac:.2f} "
+              f"skew={snap.shard_skew:.2f} | bit-identical: {bool(same)}"
+              + ivf_note + f" | wave {wave_ms[-1]:.1f}ms (+{side_ms[-1]:.1f}"
+              "ms shadow and checks)"
+              + (" | shard skew breach: repack at next swap" if rebal else "")
+              + (f" | breach: {'; '.join(reasons)}" if reasons else ""))
+
+    # ---- replay report ---------------------------------------------------
+    counts = buckets.geometry_counts()
+    budget = len(caps_sh) + len(caps_lo)  # sharded + shadow buckets
+    print(f"geometries per request-path family: {counts} (per-shard "
+          f"buckets: {sorted(caps_sh)}, shadow buckets: {sorted(caps_lo)})")
+    assert max(counts.values()) <= budget, (
+        f"geometry count {counts} exceeds bucket budget {budget}: the "
+        "sharded steps must run at one geometry per (capacity, batch)")
+    print(f"predictions bit-identical to the single-device run: "
+          f"{identical_waves}/{args.waves} waves")
+    print(f"launches beside the mesh path (shadow replay, oracle, checks): "
+          f"{dict(sorted(side.launches.items()))} in {side.ms:.1f}ms; "
+          f"mesh path: {mesh_fits} fit(s), {mesh_fold_batches} fold-in "
+          f"batches over {n_shards} shards")
+    assert identical_waves == args.waves
+    if pre_post is not None:
+        mae_pre, mae_post = pre_post
+        print(f"refresh: fired gen {pol.generation} at wave {swap_wave}, "
+              f"holdout MAE {mae_pre:.4f} -> {mae_post:.4f}")
+        assert mae_post <= mae_pre + 1e-6, (
+            "refresh must not degrade holdout MAE on the drifting stream")
+    else:
+        print("refresh: never fired (stream did not drift past thresholds)")
+        if args.smoke:
+            raise AssertionError(
+                "sharded smoke replay must exercise a distributed refresh; "
+                "tune --drift/--waves or the smoke RefreshSpec")
+    if use_ivf:
+        print(f"ivf retrieval (sharded): recall@k per wave "
+              f"{[f'{r:.3f}' for r in recalls]} (mean "
+              f"{np.mean(recalls):.3f}, SLO {IVF_RECALL_SLO}) ending at "
+              f"nprobe={retrieval.nprobe}/{index.n_clusters}")
+        if args.smoke:
+            assert np.mean(recalls) >= IVF_RECALL_SLO, (
+                f"sharded ivf smoke recall {np.mean(recalls):.3f} < "
+                f"{IVF_RECALL_SLO}")
+    if o is not None:
+        from ..retrieval import publish_retrieval
+
+        obslib.publish_compile_counts(o.registry)
+        if use_ivf:
+            publish_retrieval(
+                o.registry, nprobe=retrieval.nprobe,
+                clusters=index.n_clusters,
+                recall=(float(np.mean(recalls)) if recalls
+                        else float("nan")),
+                early_exit=bool(args.early_exit), probes=len(recalls))
+        else:
+            publish_retrieval(o.registry)
+        _export_obs(o, args)
+    blocks = sst.ratings + sst.representation + sst.row_rank + [
+        t for g in sst.graph for t in (g.indices, g.weights)]
+    print("cf sharded lifecycle: done")
+    return dict(
+        mesh=mesh.describe(), shards=n_shards, waves=args.waves,
+        identical_waves=identical_waves, swap_wave=swap_wave,
+        refreshed=pre_post is not None, wave_ms=wave_ms, side_ms=side_ms,
+        side_launches=dict(side.launches), mesh_fits=mesh_fits,
+        mesh_fold_batches=mesh_fold_batches,
+        block_devices=sorted({str(b.device) for b in blocks}),
+        row_shards=landmark_state_meta(ckpt_dir)["row_shards"],
+        ckpt=ckpt_dir, recalls=recalls, geometries=counts)
+
+
 # ------------------------------------------------------------------ cf engine
 def _serve_cf_engine(args):
     """Open-loop serving through the request engine: continuous
@@ -1222,8 +1828,10 @@ def main(argv=None):
                     "lifecycle policy's verdict can fire a "
                     "tombstone-compacting refresh")
     ap.add_argument("--mesh", default=None,
-                    help="sharded serving over a device mesh; not in this "
-                    "build — it comes with the multi-GPU slice")
+                    help="lifecycle: run the replay sharded over this mesh, "
+                    "e.g. pod=2,data=4 (rows block-partitioned over all "
+                    "listed axes; the shards placed round-robin over the "
+                    "visible cards, or all on the CPU with --device cpu)")
     ap.add_argument("--trace-dir", default=None,
                     help="obs: write a Chrome trace-event JSON of the run "
                     "(engine batch/request spans, fold lane, lifecycle "
@@ -1248,9 +1856,14 @@ def main(argv=None):
     if args.mutations and not args.engine:
         raise SystemExit("--mutations rides the request engine's write "
                          "lane; add --engine (--workload cf)")
-    if args.mesh:
-        raise SystemExit("--mesh (sharded serving) comes with the port's "
-                         "multi-GPU slice; serve on one device without it")
+    if args.mesh and args.engine:
+        raise SystemExit("--engine --mesh (the sharded request engine, its "
+                         "query router and sharded mutation) comes with the "
+                         "port's next multi-GPU slice; use --lifecycle "
+                         "--mesh, or --engine on one device")
+    if args.mesh and not args.lifecycle:
+        raise SystemExit("--mesh runs the lifecycle replay: add --lifecycle "
+                         "(--workload cf)")
     if args.retrieval == "ivf" and not (args.lifecycle or args.engine):
         raise SystemExit("--retrieval ivf runs on the lifecycle replay or "
                          "the request engine (--workload cf --lifecycle / "
@@ -1267,6 +1880,8 @@ def main(argv=None):
             _serve_lm(args)
     elif args.engine:
         return _serve_cf_engine(args)
+    elif args.lifecycle and args.mesh:
+        return _serve_cf_lifecycle_sharded(args)
     elif args.lifecycle:
         _serve_cf_lifecycle(args)
     else:

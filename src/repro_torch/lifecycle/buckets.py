@@ -24,6 +24,7 @@ import dataclasses
 from collections import defaultdict
 from typing import Dict, List, Optional, Set, Tuple
 
+import numpy as np
 import torch
 
 from ..core import knn
@@ -235,3 +236,131 @@ def compact_state(bstate: BucketedState) -> BucketedState:
         LandmarkState(st.landmark_idx, st.representation, st.ratings,
                       graph=st.graph.to_compact()),
         bstate.n_valid)
+
+
+# ---------------------------------------------------------------------------
+# Sharded serving: a per-shard capacity schedule and host-side fold drivers
+# for a ShardedLandmarkState (core.landmark_cf). Each shard carries its own
+# capacity-C block and fill count; the geometric schedule bounds the
+# per-shard shapes, so every step runs at one geometry per (C, batch).
+# ---------------------------------------------------------------------------
+
+
+def from_state_sharded(state: LandmarkState, mesh, row_axes=("pod", "data"),
+                       min_bucket: int = 32, growth: float = DEFAULT_GROWTH):
+    """Block-partition a fitted (contiguous) state onto ``mesh``.
+
+    Dense row g lands on shard ``g // u_per`` at slot ``g % u_per``
+    (u_per = ceil(U / S), the ``fit_distributed`` linearization); each
+    block is padded to the smallest per-shard bucket capacity (at least k,
+    so every shard can fill a whole local candidate list), and graph ids
+    and ``landmark_idx`` are remapped into the sharded id space.
+    """
+    from ..core.landmark_cf import ShardedLandmarkState
+    from ..distributed import sharding as shd
+
+    if state.graph is None:
+        raise ValueError("sharded serving needs a graph-backed state; "
+                         "dense-sims states must refit")
+    graph = state.graph.to_full() if state.graph.is_compact else state.graph
+    axes = shd.cf_row_axes(mesh, row_axes)
+    s = shd.cf_shard_count(mesh, axes)
+    devs = shd.shard_devices(mesh, axes)
+    u = state.ratings.shape[0]
+    u_per = -(-u // s)
+    cap = bucket_capacity(max(u_per, graph.k), min_bucket, growth)
+
+    def pack(x):
+        return shd.pack_row_blocks(x, s, u_per, cap, devs)
+
+    def remap(ids):
+        return shd.dense_to_sharded_ids(ids.to(torch.int64), u_per, cap)
+
+    gi = pack(remap(graph.indices).to(torch.int32))
+    gw = pack(graph.weights)
+    fills = tuple(int(min(max(u - i * u_per, 0), u_per)) for i in range(s))
+    return ShardedLandmarkState(
+        remap(state.landmark_idx).to(devs[0]), pack(state.representation),
+        pack(state.ratings), [NeighborGraph(i, w) for i, w in zip(gi, gw)],
+        fills, pack(torch.arange(u, dtype=torch.int32)), mesh, axes)
+
+
+def ensure_capacity_sharded(sstate, target: int, incoming: int,
+                            min_bucket: int = 32,
+                            growth: float = DEFAULT_GROWTH):
+    """Growth check before a sharded fold-in of ``incoming`` rows onto
+    shard ``target``: when the target block would overflow, every block is
+    re-padded to the next capacity on the schedule, on its own device, and
+    graph ids and landmark ids are remapped (the one deliberate change of
+    geometry). Returns ``(sstate, grew)``."""
+    from ..distributed import sharding as shd
+
+    cap = sstate.capacity
+    need = sstate.n_valid[target] + incoming
+    if need <= cap:
+        return sstate, False
+    new_cap = bucket_capacity(need, min_bucket, growth)
+    graphs = [g.to_full() if g.is_compact else g for g in sstate.graph]
+    gi = shd.repack_row_blocks(
+        [shd.remap_block_ids(g.indices, cap, new_cap) for g in graphs],
+        new_cap)
+    gw = shd.repack_row_blocks([g.weights for g in graphs], new_cap)
+    return dataclasses.replace(
+        sstate,
+        landmark_idx=shd.remap_block_ids(sstate.landmark_idx, cap, new_cap),
+        representation=shd.repack_row_blocks(sstate.representation, new_cap),
+        ratings=shd.repack_row_blocks(sstate.ratings, new_cap),
+        graph=[NeighborGraph(i, w) for i, w in zip(gi, gw)],
+        row_rank=shd.repack_row_blocks(sstate.row_rank, new_cap)), True
+
+
+def fold_in_rows_sharded(sstate, rows, bq: int, spec: LandmarkSpec,
+                         min_bucket: int = 32,
+                         growth: float = DEFAULT_GROWTH):
+    """Fold ``rows`` ((N, P), numpy or tensor) in ``bq``-row padded batches,
+    each onto the least-loaded shard (ties to the lowest index, so the
+    placement is reproducible), reserving capacity first. Returns
+    ``(sstate, shards, slots)``: the (shard, slot) landing place of every
+    row, from which callers derive sharded ids as ``shard * capacity +
+    slot`` (slots survive a capacity regrow; ids do not)."""
+    from ..core.landmark_cf import fold_in_sharded
+
+    n = len(rows)
+    p = sstate.ratings[0].shape[1]
+    rows = torch.as_tensor(rows, dtype=torch.float32)
+    shards = np.zeros(n, np.int32)
+    slots = np.zeros(n, np.int32)
+    for lo in range(0, n, bq):
+        chunk = rows[lo:lo + bq]
+        m = chunk.shape[0]
+        fills = sstate.n_valid
+        target = int(np.argmin(fills))
+        sstate, _ = ensure_capacity_sharded(sstate, target, bq, min_bucket,
+                                            growth)
+        shards[lo:lo + m] = target
+        slots[lo:lo + m] = fills[target] + np.arange(m)
+        dev = sstate.devices[target]
+        padded = torch.zeros((bq, p), dtype=torch.float32, device=dev)
+        padded[:m] = chunk.to(dev)
+        record_geometry("fold", sstate.capacity, bq)
+        sstate = fold_in_sharded(sstate, padded, m, target, spec)
+    return sstate, shards, slots
+
+
+def predict_pairs_sharded(sstate, users: torch.Tensor, items: torch.Tensor
+                          ) -> torch.Tensor:
+    """Pair predictions on a ShardedLandmarkState. ``users`` are sharded
+    row ids (``shard * capacity + slot``); the per-shard fills mask padded
+    rows as ``n_valid`` does on one device."""
+    record_geometry("pair", sstate.capacity, users.shape[0])
+    return knn.predict_pairs_graph_sharded(
+        sstate.graph, sstate.ratings, users, items, n_valid=sstate.n_valid,
+        shard_cap=sstate.capacity)
+
+
+def recommend_topn_sharded(sstate, users: torch.Tensor, n: int = 10):
+    """Top-N on a ShardedLandmarkState (sharded user ids, see above)."""
+    record_geometry("topn", sstate.capacity, users.shape[0])
+    return knn.recommend_topn_graph_sharded(
+        sstate.graph, sstate.ratings, users, n=n, n_valid=sstate.n_valid,
+        shard_cap=sstate.capacity)

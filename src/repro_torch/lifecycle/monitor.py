@@ -153,21 +153,32 @@ def reservoir_add(mon: MonitorState, generator: torch.Generator,
                                res_seen=seen)
 
 
-def _holdout_stats(mon: MonitorState, graph, ratings: torch.Tensor,
-                   n_valid: int, tomb=None):
+def _holdout_stats(mon: MonitorState, graph, ratings, n_valid, tomb=None,
+                   *, id_map=None, shard_cap=None):
     """Reservoir (MAE, RMSE) under the current artifact, padded rows
     masked through ``n_valid``. ``tomb`` (the write path's tombstone
     bitmap) drops the triples of deleted users, and their rows from every
-    neighbor list."""
+    neighbor list.
+
+    On the sharded path (``shard_cap`` set) ``graph`` and ``ratings`` are
+    per-shard blocks, ``n_valid`` the per-shard fills, and the reservoir's
+    logical user ids go through ``id_map`` (host array, logical id →
+    sharded row id) first."""
     r = mon.reservoir_size
-    dev = ratings.device
+    dev = mon.res_users.device
     slot_valid = torch.arange(r, device=dev) < mon.res_filled
     users = torch.where(slot_valid, mon.res_users, 0)
     if tomb is not None:
         slot_valid = slot_valid & ~tomb[users.long()]
     items = torch.where(slot_valid, mon.res_items, 0)
-    preds = knn.predict_pairs_graph(graph, ratings, users, items,
-                                    n_valid=n_valid, tomb=tomb)
+    if shard_cap is None:
+        preds = knn.predict_pairs_graph(graph, ratings, users, items,
+                                        n_valid=n_valid, tomb=tomb)
+    else:
+        users = torch.as_tensor(np.asarray(id_map)[users.cpu().numpy()])
+        preds = knn.predict_pairs_graph_sharded(
+            graph, ratings, users, items, n_valid=n_valid,
+            shard_cap=shard_cap).to(dev)
     err = (preds - mon.res_ratings) * slot_valid
     cnt = max(float(slot_valid.sum()), 1.0)
     mae = float(err.abs().sum()) / cnt
@@ -189,6 +200,24 @@ def holdout_snapshot(mon: MonitorState, bstate, tomb=None,
     return Snapshot(mae=mae, rmse=rmse, holdout_count=mon.res_filled,
                     foldin_frac=frac, coverage=mon.coverage,
                     coverage_ratio=mon.coverage / max(mon.base_coverage, 1e-9),
+                    tombstone_frac=tombstone_frac)
+
+
+def holdout_snapshot_sharded(mon: MonitorState, sstate, id_map,
+                             tombstone_frac: float = 0.0) -> Snapshot:
+    """:func:`holdout_snapshot` for a ShardedLandmarkState. ``id_map`` maps
+    the reservoir's logical user ids (stable across capacity regrowth and
+    refresh repacking) to sharded row ids; the snapshot carries the fill
+    skew of the shards (``shard_skew``)."""
+    buckets.record_geometry("holdout", sstate.capacity, mon.reservoir_size)
+    mae, rmse = _holdout_stats(mon, sstate.graph, sstate.ratings,
+                               sstate.n_valid, id_map=id_map,
+                               shard_cap=sstate.capacity)
+    frac = mon.n_folded / max(mon.n_base + mon.n_folded, 1)
+    return Snapshot(mae=mae, rmse=rmse, holdout_count=mon.res_filled,
+                    foldin_frac=frac, coverage=mon.coverage,
+                    coverage_ratio=mon.coverage / max(mon.base_coverage, 1e-9),
+                    shard_skew=shard_skew(sstate.n_valid),
                     tombstone_frac=tombstone_frac)
 
 

@@ -18,6 +18,13 @@ records the spans ``refresh.fit``, ``refresh.commit`` and
 ``refresh.ivf_rebuild`` (each ending after its device work) and bumps
 ``lifecycle.refreshes`` / sets ``lifecycle.refresh_generation`` at commit.
 
+With a ``mesh``, the refit runs ``fit_distributed`` instead (users
+block-partitioned over the mesh's row axes, the kNN step a scan of each
+shard's rows against the gathered candidates) and the committed checkpoint
+stores one file per row shard. ``fit_distributed`` selects the same
+landmarks and computes the same graph as ``fit``, so the oracle property
+below holds on a mesh too.
+
 Oracle property: the swapped artifact equals a from-scratch ``fit`` with a
 generator seeded by the generation on the same accumulated rows — refresh
 is a schedule for refitting, never a different algorithm.
@@ -32,6 +39,7 @@ import torch
 
 from .. import obs as obslib
 from ..core import RatingMatrix, fit
+from ..core.landmark_cf import fit_distributed
 from ..core.types import LandmarkSpec
 from ..train.checkpoint import save_landmark_state
 
@@ -54,16 +62,25 @@ class RefreshManager:
     frozen between refreshes, like the landmarks); ``poll`` then returns
     ``(generation, state, index)``. The index is derived data, rebuilt from
     the artifact in one call, so it is not checkpointed.
+
+    ``mesh`` (+ ``row_axes``) routes the refit through ``fit_distributed``
+    and commits a row-sharded checkpoint; with ``ivf`` the spec then
+    resolves through ``retrieval.resolve_ivf_sharded`` and the index comes
+    back placed on the mesh (``retrieval.shard_index``). The fit runs on
+    ``device`` (with a mesh: the device of its first shard).
     """
 
     def __init__(self, ckpt_dir: str, spec: LandmarkSpec, *,
                  compact: bool = False, compact_max_rows: int = 65536,
-                 ivf=None, device="cuda"):
+                 ivf=None, device="cuda", mesh=None,
+                 row_axes=("pod", "data")):
         self.ckpt_dir = ckpt_dir
         self.spec = spec
         self.compact = compact
         self.compact_max_rows = compact_max_rows
         self.ivf = ivf
+        self.mesh = mesh
+        self.row_axes = row_axes
         self.device = torch.device(device)
         self._thread: Optional[threading.Thread] = None
         self._lock = threading.Lock()
@@ -72,9 +89,24 @@ class RefreshManager:
         self._last_generation = -1
 
     def _sync(self) -> None:
-        """Wait for this thread's device work (its current stream)."""
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+        """Wait for this thread's device work (its current streams, on every
+        device of the mesh)."""
+        devs = {self.device} | set(self.mesh.devices if self.mesh else ())
+        for d in devs:
+            if d.type == "cuda":
+                torch.cuda.current_stream(d).synchronize()
+
+    def _axes(self):
+        from ..distributed.sharding import cf_row_axes
+
+        return cf_row_axes(self.mesh, self.row_axes)
+
+    def _row_shards(self) -> int:
+        if self.mesh is None:
+            return 1
+        from ..distributed.sharding import cf_shard_count
+
+        return cf_shard_count(self.mesh, self._axes())
 
     @property
     def busy(self) -> bool:
@@ -101,15 +133,20 @@ class RefreshManager:
                                  args={"generation": generation,
                                        "rows": int(r.shape[0])}):
                     rt = torch.as_tensor(r, device=self.device)
-                    st = fit(RatingMatrix(rt, r.shape[0], r.shape[1]),
-                             self.spec,
-                             generator=torch.Generator().manual_seed(seed))
+                    gen = torch.Generator().manual_seed(seed)
+                    if self.mesh is not None:
+                        st = fit_distributed(rt, self.spec, self.mesh,
+                                             self.row_axes, generator=gen)
+                    else:
+                        st = fit(RatingMatrix(rt, r.shape[0], r.shape[1]),
+                                 self.spec, generator=gen)
                     self._sync()
                 compact = self.compact and r.shape[0] < self.compact_max_rows
                 with obslib.span("refresh.commit", cat="lifecycle",
                                  args={"generation": generation}):
                     save_landmark_state(self.ckpt_dir, st, compact=compact,
-                                        step=generation)
+                                        step=generation,
+                                        row_shards=self._row_shards())
                 o = obslib.current()
                 if o is not None and o.enabled:
                     o.registry.counter("lifecycle.refreshes").inc()
@@ -118,12 +155,23 @@ class RefreshManager:
                 if self.ivf is not None:
                     from ..retrieval import build_index, resolve_ivf
 
+                    u = st.representation.shape[0]
                     with obslib.span("refresh.ivf_rebuild", cat="lifecycle",
                                      args={"generation": generation}):
-                        cfg = resolve_ivf(self.ivf,
-                                          st.representation.shape[0])
-                        index = build_index(st.representation, cfg,
-                                            self.spec.d2)
+                        if self.mesh is not None:
+                            from ..retrieval import (resolve_ivf_sharded,
+                                                     shard_index)
+
+                            cfg = resolve_ivf_sharded(self.ivf, u,
+                                                      self._row_shards())
+                            index = shard_index(
+                                build_index(st.representation, cfg,
+                                            self.spec.d2),
+                                self.mesh, self._axes())
+                        else:
+                            cfg = resolve_ivf(self.ivf, u)
+                            index = build_index(st.representation, cfg,
+                                                self.spec.d2)
                         self._sync()
                     result = (generation, st, index)
                 else:

@@ -1,13 +1,20 @@
-"""Checkpoints with atomic commit and keep-k garbage collection, one device.
+"""Checkpoints with atomic commit, keep-k garbage collection and row
+shards.
 
 The on-disk layout is the reference's (``repro.train.checkpoint``), so an
 artifact written by either package loads in the other:
 
   <dir>/step_00000100.tmp/          # written first
       manifest.json                 # step, leaf count, shapes, dtypes, shards
-      leaf_0000/shard_0000.npy      # one .npy per leaf (one shard: one device)
+      leaf_0000/shard_0000.npy      # one .npy per (leaf, row shard)
       state.json                    # sidecar (LandmarkState artifacts)
   <dir>/step_00000100/              # atomic rename on success
+
+A leaf saved in row shards (``row_shards`` of :func:`save_checkpoint`)
+stores one file per block of rows, with the block's global index range in
+the manifest, as the reference stores the addressable shards of a
+row-sharded array; a restore reassembles the leaf from the ranges, so the
+shard count on disk need not match the mesh that loads it.
 
 A tree is a dict (or list/tuple) of tensors or arrays, flattened the way
 ``jax.tree_util`` flattens it: dict keys in sorted order, sequences in
@@ -59,12 +66,22 @@ def _to_host(leaf) -> Tuple[np.ndarray, str]:
     return a, str(a.dtype)
 
 
+def _row_blocks(rows: int, n_shards: int):
+    """The [lo, hi) row ranges of ``n_shards`` blocks of ceil(rows/S) rows
+    (the mesh's row linearization); empty trailing blocks are dropped."""
+    per = -(-rows // max(n_shards, 1)) if rows else 0
+    return [(lo, min(lo + per, rows)) for lo in range(0, rows, per)
+            ] if per else [(0, 0)]
+
+
 def save_checkpoint(directory: str, step: int, tree: Any, keep: int = 3,
-                    extra_files: Optional[Dict[str, str]] = None) -> Path:
+                    extra_files: Optional[Dict[str, str]] = None,
+                    row_shards: Optional[Dict[int, int]] = None) -> Path:
     """Write ``tree`` as step ``step``; atomic via a tmp dir + rename, then
     drop all but the newest ``keep`` committed steps. ``extra_files``
     (name → text) land in the tmp dir before the rename, so sidecars commit
-    with the tensors."""
+    with the tensors. ``row_shards`` (leaf position in flatten order →
+    shard count) stores those leaves as blocks of rows, one file each."""
     directory = Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
     final = directory / f"step_{step:08d}"
@@ -79,11 +96,18 @@ def save_checkpoint(directory: str, step: int, tree: Any, keep: int = 3,
         host, dtype = _to_host(leaf)
         leaf_dir = tmp / f"leaf_{i:04d}"
         leaf_dir.mkdir()
-        np.save(leaf_dir / "shard_0000.npy", host)
-        manifest["leaves"].append({
-            "shape": list(host.shape), "dtype": dtype,
-            "shards": [{"file": "shard_0000.npy",
-                        "index": [[0, s] for s in host.shape]}]})
+        blocks = ([(0, host.shape[0] if host.ndim else 0)]
+                  if not host.ndim or i not in (row_shards or {})
+                  else _row_blocks(host.shape[0], row_shards[i]))
+        shards = []
+        for j, (lo, hi) in enumerate(blocks):
+            name = f"shard_{j:04d}.npy"
+            np.save(leaf_dir / name, host[lo:hi] if host.ndim else host)
+            shards.append({"file": name, "index": (
+                [[lo, hi]] + [[0, d] for d in host.shape[1:]]
+                if host.ndim else [])})
+        manifest["leaves"].append({"shape": list(host.shape), "dtype": dtype,
+                                   "shards": shards})
     (tmp / "manifest.json").write_text(json.dumps(manifest))
     for name, text in (extra_files or {}).items():
         (tmp / name).write_text(text)
@@ -152,13 +176,22 @@ def restore_checkpoint(directory: str, tree_like: Any,
 # restore needs no fitted template.
 
 
+ROW_FIELDS = ("graph_indices", "graph_weights", "ratings", "representation",
+              "sims")
+
+
 def save_landmark_state(directory: str, state, *, compact: bool = False,
-                        step: int = 0, keep: int = 3) -> Path:
+                        step: int = 0, keep: int = 3,
+                        row_shards: int = 1) -> Path:
     """Persist a fitted ``LandmarkState`` (graph ids and weights included).
 
     ``compact=True`` stores the graph as uint16 ids + bf16 weights (half the
     artifact bytes; U < 65536). Landmark ids are stored as int32, as the
-    reference stores them."""
+    reference stores them. ``row_shards`` > 1 (a state fitted on a mesh,
+    ``fit_distributed``) stores every row-indexed field as that many
+    blocks of rows, one file each, and records the count in the sidecar;
+    ``load_landmark_state(..., mesh=)`` places the rows onto whatever mesh
+    serves next."""
     graph = state.graph
     if compact and graph is not None:
         graph = graph.to_compact()
@@ -172,10 +205,15 @@ def save_landmark_state(directory: str, state, *, compact: bool = False,
         tree["graph_weights"] = graph.weights
     if state.sims is not None:
         tree["sims"] = state.sims
-    meta = {"kind": "landmark_state", "fields": sorted(tree),
-            "compact": bool(compact and graph is not None), "row_shards": 1}
-    return save_checkpoint(directory, step, tree, keep=keep,
-                           extra_files={"state.json": json.dumps(meta)})
+    fields = sorted(tree)
+    meta = {"kind": "landmark_state", "fields": fields,
+            "compact": bool(compact and graph is not None),
+            "row_shards": int(row_shards)}
+    return save_checkpoint(
+        directory, step, tree, keep=keep,
+        extra_files={"state.json": json.dumps(meta)},
+        row_shards={i: row_shards for i, f in enumerate(fields)
+                    if f in ROW_FIELDS and row_shards > 1})
 
 
 def landmark_state_meta(directory: str, step: Optional[int] = None) -> Dict:
@@ -188,10 +226,17 @@ def landmark_state_meta(directory: str, step: Optional[int] = None) -> Dict:
 
 
 def load_landmark_state(directory: str, step: Optional[int] = None, *,
-                        widen: bool = True, device="cuda"):
+                        widen: bool = True, device="cuda", mesh=None,
+                        row_axes=("pod", "data"), min_bucket: int = 32):
     """Rebuild a ``LandmarkState`` on ``device`` from
     ``save_landmark_state`` output (either package's). ``widen=True``
-    returns the int32/f32 graph even from a compact artifact."""
+    returns the int32/f32 graph even from a compact artifact.
+
+    With ``mesh`` the rows are placed block-partitioned over the mesh's
+    ``row_axes`` instead: a ``ShardedLandmarkState``
+    (``lifecycle.buckets.from_state_sharded``, per-shard buckets from
+    ``min_bucket``). Elastic: the shard count on disk need not match the
+    mesh's, smaller or larger."""
     from ..core.landmark_cf import LandmarkState
     from ..core.types import NeighborGraph
 
@@ -204,6 +249,11 @@ def load_landmark_state(directory: str, step: Optional[int] = None, *,
         graph = NeighborGraph(tree["graph_indices"], tree["graph_weights"])
         if widen and graph.is_compact:
             graph = graph.to_full()
-    return LandmarkState(tree["landmark_idx"].to(torch.int64),
-                         tree["representation"], tree["ratings"],
-                         graph=graph, sims=tree.get("sims"))
+    state = LandmarkState(tree["landmark_idx"].to(torch.int64),
+                          tree["representation"], tree["ratings"],
+                          graph=graph, sims=tree.get("sims"))
+    if mesh is None:
+        return state
+    from ..lifecycle.buckets import from_state_sharded
+
+    return from_state_sharded(state, mesh, row_axes, min_bucket)

@@ -434,6 +434,20 @@ def test_score_candidates_kernel_matches_plain(cuda, measure, b, m, n):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("measure", MEASURES)
+@pytest.mark.parametrize("c,m,n", [(8192, 64, 20), (2048, 64, 20),
+                                   (300, 64, 100), (129, 7, 104), (1, 1, 3)])
+def test_score_candidates_shared_form_matches_plain(cuda, measure, c, m, n):
+    """The shared form (one (m, n) block for every query), the back-patch
+    of the fold-ins: bitwise ``gathered_sims``, and counted once a call."""
+    q, cand = _rows(c, n, cuda, seed=9), _rows(m, n, cuda, seed=10)
+    n0 = score_candidates.score_candidates.launches
+    got = score_candidates.score_candidates(q, cand, measure)
+    torch.cuda.synchronize()
+    assert score_candidates.score_candidates.launches == n0 + 1
+    assert torch.equal(got, ref.gathered_sims(q, cand, measure))
+
+
 def _ivf_layout(device, c, cap, n, seed, payload="f32", empty=(0,)):
     """A posting-list layout: ragged fills (``empty`` cells hold nothing),
     ids a permutation, payload rows from d1 representations."""
@@ -542,9 +556,12 @@ def test_fused_probe_kernel_matches_plain(cuda, measure, payload, b, c, cap,
 def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
     rep = _rows(50, 20, cuda)
     with pytest.raises(ValueError, match="width"):
-        assign_clusters.assign_clusters(_rows(9, 65, cuda), _rows(3, 65, cuda))
+        assign_clusters.assign_clusters(_rows(9, 105, cuda),
+                                        _rows(3, 105, cuda))
     with pytest.raises(ValueError, match="3-D"):
-        score_candidates.score_candidates(rep, rep)
+        score_candidates.score_candidates(rep, rep[0])
+    with pytest.raises(ValueError, match="shapes differ"):
+        score_candidates.score_candidates(rep, _rows(50, 21, cuda))
     lists, rows, scale, fill, _ = _ivf_layout(cuda, 4, 8, 20, seed=1,
                                               payload="int8")
     probe = torch.zeros((50, 1), dtype=torch.int32, device=cuda)
@@ -555,6 +572,87 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="int32"):
         ivf_probe.fused_probe_topk(rep, probe.long(), lists, rows, scale,
                                    fill, k=5)
+
+
+@pytest.mark.parametrize("measure", MEASURES)
+@pytest.mark.parametrize("n", [100, 104])
+def test_ivf_kernels_at_wide_rows_match_plain(cuda, measure, n):
+    """Kernels 4-6 past n = 64 (up to the scan's 104): the Lloyd kernel at
+    0 and 8 steps, the fused probe on every payload with masked probes and
+    self ids, the scorer — bitwise their plain versions."""
+    rep = _rows(900, n, cuda, seed=12)
+    init = rep[torch.randperm(900, device=cuda)[:30]].contiguous()
+    for iters in (0, 8):
+        _lloyd_case(cuda, measure, iters, rep, init)
+    for payload in ("f32", "bf16", "int8"):
+        lists, rows, scale, fill, _ = _ivf_layout(cuda, 13, 40, n, seed=13,
+                                                  payload=payload)
+        g = torch.Generator(device="cpu").manual_seed(14)
+        q = _rows(300, n, cuda, seed=15)
+        probe = torch.stack([torch.randperm(13, generator=g)[:5]
+                             for _ in range(300)]).to(torch.int32).to(cuda)
+        ok = (torch.rand((300, 5), generator=g) > 0.3).to(torch.int32).to(
+            cuda)
+        sid = lists[probe[:, 0].long(), 0].contiguous()
+        args = (q, probe, lists, rows, scale, fill)
+        kw = dict(k=13, measure=measure, self_ids=sid, probe_ok=ok)
+        got = ivf_probe.fused_probe_topk(*args, **kw)
+        want = ref.fused_probe_topk_ref(*args, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    q, cand = _rows(64, n, cuda, seed=16), _rows(64 * 300, n, cuda,
+                                                  seed=17).reshape(64, 300, n)
+    got = score_candidates.score_candidates(q, cand, measure)
+    assert torch.equal(got, ref.score_candidates_ref(q, cand, measure))
+
+
+def test_sharded_fit_and_fold_in_on_the_card_bitwise_one_device(cuda):
+    """A 4-shard mesh on the card: fit_distributed is ``fit`` bit for bit,
+    and after three fold-in waves (a capacity regrow among them) pair
+    predictions and top-N equal the single-device bucketed state's."""
+    from repro_torch.core.landmark_cf import fit_distributed
+    from repro_torch.data.synthetic import drifting_ratings
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.lifecycle import buckets
+
+    mesh = make_mesh(("pod", "data"), (2, 2))
+    axes = ("pod", "data")
+    spec = T.LandmarkSpec(n_landmarks=20, selection="coresets")
+    r0 = torch.as_tensor(drifting_ratings(0, 0, 1501, 400, n_waves=4),
+                         device=cuda)
+    st = fit_distributed(r0, spec, mesh, axes,
+                         generator=torch.Generator().manual_seed(0))
+    one = T.fit(T.RatingMatrix(r0, 1501, 400), spec,
+                generator=torch.Generator().manual_seed(0))
+    assert torch.equal(st.representation, one.representation)
+    assert torch.equal(st.graph.indices, one.graph.indices)
+    assert torch.equal(st.graph.weights, one.graph.weights)
+    ops.reset_launches()
+    sst = buckets.from_state_sharded(st, mesh, axes, 64)
+    bst = buckets.from_state(one, 256)
+    u_per = -(-1501 // 4)
+    shards, slots = np.arange(1501) // u_per, np.arange(1501) % u_per
+    rng = np.random.default_rng(3)
+    for w in range(1, 4):
+        arr = drifting_ratings(0, w, 200, 400, n_waves=4)
+        sst, fsh, fsl = buckets.fold_in_rows_sharded(sst, arr, 64, spec, 64)
+        bst = buckets.fold_in_rows(bst, arr, 64, spec, 256)
+        shards, slots = (np.concatenate([shards, fsh]),
+                         np.concatenate([slots, fsl]))
+        pu = rng.integers(0, len(shards), 256)
+        sid = torch.as_tensor(shards[pu] * sst.capacity + slots[pu],
+                              device=cuda)
+        items = torch.as_tensor(rng.integers(0, 400, 256), device=cuda)
+        assert torch.equal(buckets.predict_pairs_sharded(sst, sid, items),
+                           buckets.predict_pairs(
+                               bst, torch.as_tensor(pu, device=cuda), items))
+        ta, sa = buckets.recommend_topn_sharded(sst, sid, 10)
+        tb, sb = buckets.recommend_topn(bst, torch.as_tensor(pu,
+                                                             device=cuda), 10)
+        assert torch.equal(ta, tb) and torch.equal(sa, sb)
+    counts = ops.launch_counts()
+    assert counts["foldin_topk"] >= 4 * 12 and counts["masked_similarity"]
+    assert all(b.is_cuda for b in sst.ratings + sst.representation)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

@@ -111,6 +111,6 @@ def test_build_paths_stay_in_the_checkout():
         "assign_clusters.cu", "ivf_probe.cu", "knn_topk.cu",
         "landmark_summary.cu", "masked_similarity.cu", "score_candidates.cu"]
     assert sorted(p.name for p in build.CSRC.glob("*.cuh")) == [
-        "sm90.cuh", "topk_common.cuh"]
+        "device_smem.cuh", "sm90.cuh", "topk_common.cuh"]
     assert "sm_90a" in build.ARCH
     assert "--use_fast_math" not in build.NVCC_FLAGS
