@@ -186,7 +186,35 @@ The mesh slice adds:
     table gains each row's mesh-path launches in the two runs
     (``launches_mesh``). A6 rides on 7a: kernels 4-6 at
     n = 100 and 104, bitwise their plain versions, with their n = 100
-    times.
+    times; 7a's back-patch line gives kernel 6's shared form its device
+    time from a profiler trace (``kernel_device_ms``) beside its events
+    time.
+
+The sharded engine slice adds:
+
+13. engine on a mesh — first ``update_ratings``' back-patch block on the
+    card (the main path's fit in the 8192-row bucket, 8, 16 and 64
+    updated users): one launch of kernel 6's shared form, bitwise
+    ``ref.gathered_sims``. Then ``serve --workload cf --engine --mesh``:
+    at full width on 4 shards (``pod=2,data=2``, phase 9's settings with
+    ``--retrieval ivf --early-exit``, and phase 10's with
+    ``--mutations``; the load window cut to 4 s, a profiler capture of
+    it) and the 8-shard smoke with ``--mutations`` (``pod=2,data=4``,
+    whose compacting refresh fires), under ``build/phase13/``. Each run:
+    every shard block on the card, the router's check with 0 offenders,
+    routed reads bitwise the one-device backend's at every warm batch
+    shape, the audit N > 0 with 0 mismatches, every d1 call on the
+    tensor-core route; on the mesh path alone (the router checks' and
+    the one-device shadow's launches left out) kernel 3 once a shard a
+    fold batch, kernels 1 and 6 once a fold batch and an update, kernels
+    4-5 with the sidecar; with ``--mutations`` a sample of up to 256 live
+    users' pairs and top-N bitwise a one-device ``MutableLocalBackend``
+    fed the same writes in the same order, before the compaction and
+    after it. Prints QPS, read p50/p95/p99, the shed fraction, fold
+    p50/p99, write p50/p99 per kind, repaired rows, the device's busy and
+    idle share of the load window and peak memory; the kernel table gains
+    each row's mesh-path launches in the three runs
+    (``launches_engine_mesh``).
 
 The last two lines are the kernel table and
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. TF32 is off for
@@ -1317,6 +1345,9 @@ def _check_backpatch(a):
                bound_by=bound_by)
     bst = buckets.from_state(a["state"], LIFECYCLE_CAPACITY)
     rows = a["folded"].ratings[-FOLD_IN:]
+    out["kernel_device_ms"] = _device_ms(
+        lambda: score_candidates.score_candidates(rep, new, "cosine"),
+        "score_candidates")
     for way, fn in ways.items():
         score = fn or score_candidates.score_candidates
         out[f"{way}_ms"] = _event_ms(lambda: score(rep, new, "cosine"), 20)
@@ -2735,6 +2766,185 @@ def phase_mesh(a, card):
     return total
 
 
+ENGINE_MESH_DIR = ROOT / "build" / "phase13"
+# the engine on a mesh: phase 9's full-width settings with the IVF sidecar
+# and phase 10's with mutations, on 4 shards of the card, and the 8-shard
+# smoke with mutations (whose compacting refresh fires); the full runs'
+# load window is cut from 8 s to 4 s
+ENGINE_MESH_WINDOW_S = 4
+ENGINE_MESH_RUNS = (
+    ("full ivf", ["--mesh", "pod=2,data=2", "--users", "6040", "--items",
+                  "3952", "--batch", "128", "--foldin", "64", "--duration",
+                  str(ENGINE_MESH_WINDOW_S), "--retrieval", "ivf",
+                  "--early-exit"]),
+    ("full mutations", ["--mesh", "pod=2,data=2", "--users", "6040",
+                        "--items", "3952", "--batch", "128", "--foldin",
+                        "64", "--duration", str(ENGINE_MESH_WINDOW_S),
+                        "--mutations"]),
+    ("smoke mutations", ["--smoke", "--mesh", "pod=2,data=4",
+                         "--mutations"]))
+
+
+def _update_backpatch(a):
+    """The update's back-patch block on the card: ``update_ratings`` on the
+    main path's fit in the lifecycle's 8192-row bucket, for 8, 16 and 64
+    updated users; the (8192, b) block it scores must be one launch of
+    kernel 6's shared form and ``ref.gathered_sims`` bit for bit."""
+    from repro_torch.mutation import mutate
+
+    bst = buckets.from_state(a["state"], LIFECYCLE_CAPACITY)
+    mst = mutation.from_bucketed(bst)
+    new_rows = a["folded"].ratings[-FOLD_IN:]
+    out = {}
+    for b in (8, 16, 64):
+        blocks, real = [], mutate.backpatch_sims
+
+        def spy(rep, new_rep, measure):
+            got = real(rep, new_rep, measure)
+            blocks.append((rep, new_rep, measure, got))
+            return got
+
+        ids = (np.arange(b) * 89) % bst.n_valid
+        n0 = score_candidates.score_candidates.launches
+        with mock.patch.object(mutate, "backpatch_sims", spy):
+            mutation.update_ratings(mst, ids, new_rows[:b], b, cfg.MODEL)
+        sync()
+        (rep, new_rep, measure, got), = blocks
+        _bitwise(f"update back-patch b={b}", [got],
+                 [ref.gathered_sims(rep, new_rep, measure)])
+        out[f"b={b}"] = dict(
+            shape=list(got.shape),
+            launches=score_candidates.score_candidates.launches - n0)
+        if out[f"b={b}"]["launches"] != 1:
+            raise AssertionError(f"update back-patch b={b}: {out}")
+    return out
+
+
+def _engine_mesh_launches(counts, m):
+    """The mesh path's own launches in one engine run (every launch less
+    those tallied beside it: the router checks and the one-device shadow).
+    Raises unless kernel 3 launched at least once a shard for every fold
+    batch, and kernel 6 (the back-patch's shared form) and kernel 1 at
+    least once for every fold batch and every update."""
+    mesh = {k: c - m["side_launches"].get(k, 0) for k, c in counts.items()}
+    writes = m["fold_batches"] + m["updates"]
+    need = {"foldin_topk": m["shards"] * m["fold_batches"],
+            "score_candidates": writes, "masked_similarity": writes}
+    short = {k: (mesh[k], n) for k, n in need.items() if mesh[k] < n}
+    if short:
+        raise AssertionError(f"engine mesh path launched too few (launched, "
+                             f"needed): {short}")
+    return mesh
+
+
+def phase_engine_mesh(a, card):
+    """13: ``serve --workload cf --engine --mesh`` on the card (the runs of
+    ``ENGINE_MESH_RUNS``, under ``build/phase13/``, the full ones with a
+    torch.profiler capture of the load window). Each run: every shard
+    block on the card, the router's check with 0 offenders, routed reads
+    bitwise the one-device backend's at every warm batch shape, the audit
+    N > 0 with 0 mismatches, every d1 call on the tensor-core route, and
+    the mesh path's own launches (``_engine_mesh_launches``; kernels 4-5
+    with the sidecar); with ``--mutations`` a sample of live users' reads
+    bitwise a one-device ``MutableLocalBackend`` shadow fed the same writes
+    in the same order, before the compacting refresh and (the smoke) after
+    it, and the pre-compaction bar. Before the runs, the update's
+    back-patch block bitwise ``ref.gathered_sims``. Returns the runs'
+    mesh-path launches summed."""
+    from repro_torch.serving import EngineConfig
+
+    t0 = time.perf_counter()
+    print(f"phase 13 update back-patch ({card}): "
+          f"{json.dumps(_update_backpatch(a))} bitwise ref.gathered_sims")
+    shutil.rmtree(ENGINE_MESH_DIR, ignore_errors=True)
+    total = {}
+    for tag, argv in ENGINE_MESH_RUNS:
+        prof = ENGINE_MESH_DIR / tag.replace(" ", "_")
+        full = tag.startswith("full")
+        extra = ["--torch-profile", str(prof)] if full else []
+        buf = io.StringIO()
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = serve.main(["--workload", "cf", "--engine"] + argv + extra)
+        sync()
+        seconds = time.perf_counter() - t1
+        counts = _counts()
+        d1 = ms.route_results()
+        text = buf.getvalue()
+        print(text, end="")
+        m, mut = res["mesh"], res["mutations"]
+        checks = {
+            "every block on the card": all(
+                d.startswith(DEVICE) for d in m["block_devices"]),
+            "router 0 offenders": (m["router_offenders"] == 0
+                                   and "0 offenders" in text),
+            "routed bitwise at every warm shape": (
+                m["routed_bitwise"] and m["routed_shapes"]
+                == list(EngineConfig(max_batch=128,
+                                     min_shape=32).batch_shapes())),
+            "audit 0 mismatches": (res["checked"] > 0
+                                   and res["mismatches"] == 0
+                                   and res["nonfinite"] == 0),
+            "done": text.rstrip().endswith("cf engine: done"),
+        }
+        if "--mutations" in argv:
+            checks["shadow bitwise before compaction"] = \
+                m["shadow_before"]["bitwise"]
+            checks["pre-compaction bar"] = not (mut["cites_dead"]
+                                                or mut["dirty_published"])
+            if "shadow_after" in m or tag.startswith("smoke"):
+                checks["shadow bitwise after compaction"] = (
+                    "shadow_after" in m and m["shadow_after"]["bitwise"]
+                    and mut.get("post_tombstone_frac") == 0.0)
+        failed = [k for k, ok in checks.items() if not ok]
+        mesh = _engine_mesh_launches(counts, m)
+        need = ("assign_clusters", "fused_probe_topk") if \
+            "--retrieval" in argv else ()
+        idle = [k for k in need if not mesh[k] > 0]
+        if failed or idle:
+            raise AssertionError(f"engine mesh {tag}: failed {failed}, "
+                                 f"never launched {idle} ({mesh})")
+        _check_d1_routes(f"engine mesh {tag}", counts, d1)
+        lanes = {}
+        if full:
+            lanes = _lane_streams(prof / "torch_trace.json", res["lane_ids"])
+        rl, fl = res["read_latency"], res["fold_latency"]
+        wl = {k: f"{v.p50_ms:.3f}/{v.p99_ms:.3f} ms ({v.count})"
+              for k, v in mut.get("write_latency", {}).items()}
+        window = (f"busy {lanes['busy_share']:.4f} idle "
+                  f"{lanes['idle_share']:.4f} of a {lanes['window_ms']:.1f} "
+                  f"ms window, kernels by lane@stream "
+                  f"{lanes['kernels_by_lane_stream']}" if lanes
+                  else "no profiler capture")
+        print(f"phase 13 engine mesh ({tag}, {card}): {m['mesh']}, C="
+              f"{m['capacity']}; sustained {res['qps']:.1f} QPS, read "
+              f"p50/p95/p99 {rl.p50_ms:.3f}/{rl.p95_ms:.3f}/{rl.p99_ms:.3f} "
+              f"ms ({rl.count} reads), shed_frac {res['shed_frac']:.4f}, fold "
+              f"p50/p99 {fl.p50_ms:.3f}/{fl.p99_ms:.3f} ms "
+              f"({res['completed']['fold']} folds)"
+              + (f", write p50/p99 {wl}, repaired_rows "
+                 f"{res['repaired_rows']}, compacted {mut.get('compacted')}"
+                 f", shadow {m.get('shadow_before')} / "
+                 f"{m.get('shadow_after')}" if wl else "")
+              + f"; router {m['router_tensors']} tensors at batch "
+              f"{m['router_batch']}, routed bitwise at {m['routed_shapes']}; "
+              f"audit {res['checked']} re-run 0 mismatches; {window}; peak "
+              f"memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; "
+              f"{m['fold_batches']} fold batches, {m['updates']} updates; "
+              f"mesh launches {mesh}; beside it {m['side_launches']} in "
+              f"{m['side_ms']:.1f} ms; d1 results {d1}; load window "
+              + (f"{ENGINE_MESH_WINDOW_S} s (cut from phase 9's 8 s)"
+                 if full else "the smoke's")
+              + f" | {seconds:.1f}s")
+        for name, c in mesh.items():
+            total[name] = total.get(name, 0) + c
+    shutil.rmtree(ENGINE_MESH_DIR, ignore_errors=True)
+    print(f"phase 13: {time.perf_counter() - t0:.1f}s")
+    return total
+
+
 def _lm_bound(p, n, s_, d, dtype):
     """Least time for p problems of softmax(q̃Kᵀ·scale)V with f32 results,
     on the route of the inputs' dtype: the bytes moved, and the bf16
@@ -2872,11 +3082,13 @@ def main():
     mutation_counts = phase_mutation(a["state"], card)
     paper_counts = phase_paper(d, train_idx, test_idx, a, card)
     mesh_counts = phase_mesh(a, card)
+    engine_mesh_counts = phase_engine_mesh(a, card)
     for row in table:  # the engine runs' launches, every row
         row["launches_engine"] = engine_counts.get(row["name"], 0)
         row["launches_mutations"] = mutation_counts.get(row["name"], 0)
         row["launches_paper"] = paper_counts.get(row["name"], 0)
         row["launches_mesh"] = mesh_counts.get(row["name"], 0)
+        row["launches_engine_mesh"] = engine_mesh_counts.get(row["name"], 0)
     print(f"card: {card}")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -85,12 +85,16 @@ def finalize_topk(vals: torch.Tensor, idx: torch.Tensor) -> NeighborGraph:
 
 
 def merge_canonical_topk(av: torch.Tensor, ai: torch.Tensor,
-                         bv: torch.Tensor, bi: torch.Tensor, k: int
+                         bv: torch.Tensor, bi: torch.Tensor, k: int,
+                         a_rank: Optional[torch.Tensor] = None,
+                         b_rank: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The canonical top-k of two lists that are each canonical already
     ((rows, ka) and (rows, kb), value desc then id asc), without a sort:
     each element's merged position is its own index plus the count of the
-    other list's elements that precede it.
+    other list's elements that precede it. ``a_rank``/``b_rank`` (the
+    lists' shapes) order ties in place of the ids: the logical ranks of
+    sharded ids on a mesh.
 
     Exact when no element of one list ties an element of the other in both
     value and id (the callers' lists are id-disjoint); -inf pads that cannot
@@ -98,11 +102,13 @@ def merge_canonical_topk(av: torch.Tensor, ai: torch.Tensor,
     ka, kb = av.shape[1], bv.shape[1]
     if ka + kb < k:
         raise ValueError(f"merging {ka} + {kb} candidates cannot fill k={k}")
+    ar = ai if a_rank is None else a_rank
+    br = bi if b_rank is None else b_rank
     eq = bv[:, :, None] == av[:, None, :]  # (rows, kb, ka)
     b_before_a = (bv[:, :, None] > av[:, None, :]) | (
-        eq & (bi[:, :, None] < ai[:, None, :]))
+        eq & (br[:, :, None] < ar[:, None, :]))
     a_before_b = (av[:, None, :] > bv[:, :, None]) | (
-        eq & (ai[:, None, :] < bi[:, :, None]))
+        eq & (ar[:, None, :] < br[:, :, None]))
     dev = av.device
     pos = torch.cat([torch.arange(ka, device=dev) + b_before_a.sum(1),
                      torch.arange(kb, device=dev) + a_before_b.sum(2)], 1)
@@ -114,21 +120,26 @@ def merge_canonical_topk(av: torch.Tensor, ai: torch.Tensor,
             torch.cat([ai, bi], 1).gather(1, slot))
 
 
-def evict_neighbors(graph: NeighborGraph, dead: torch.Tensor
+def evict_neighbors(graph: NeighborGraph, dead: torch.Tensor,
+                    row_rank: Optional[torch.Tensor] = None
                     ) -> Tuple[NeighborGraph, torch.Tensor]:
     """Drop every citation of a ``dead`` row id ((capacity,) bool) from all
     neighbor lists. Returns ``(graph, hit)``: the surviving entries keep
     their canonical order and emptied slots become (0, 0.0); ``hit`` marks
     the rows that lost an entry (their k-th neighbor is now unknown, so the
     caller owes them a rescan). Fresh tensors; ``graph`` is not written.
+    ``row_rank`` (indexed like ``dead``) orders ties by logical rank in
+    place of the id: a shard's graph block on a mesh.
 
     The inert (0, 0.0) slot cites id 0, so a dead row 0 hits every row
     holding one — spurious but safe (the rescan restores the slot)."""
-    cited_dead = dead[graph.indices.long()]
+    idx = graph.indices.long()
+    cited_dead = dead[idx]
     hit = cited_dead.any(dim=1)
     v, i = canonical_topk(graph.weights.masked_fill(cited_dead,
                                                     float("-inf")),
-                          graph.k, ids=graph.indices)
+                          graph.k, ids=graph.indices,
+                          rank=None if row_rank is None else row_rank[idx])
     g = finalize_topk(v, i)
     return NeighborGraph(torch.where(hit[:, None], g.indices, graph.indices),
                          torch.where(hit[:, None], g.weights,

@@ -203,19 +203,21 @@ def predict_pairs_graph(graph: NeighborGraph, ratings: torch.Tensor,
 
 
 # ----------------------------------------------- block-partitioned (sharded)
-def _sharded_neighbors(graphs, ratings, users, n_valid, shard_cap):
+def _sharded_neighbors(graphs, ratings, users, n_valid, shard_cap,
+                       tomb=None):
     """The read path of a block-partitioned state: the query rows' (B, k)
-    neighbor lists (``shard_cap``-masked), the neighbors' rating rows
-    (B, k, P) and the query rows (B, P), each row read from its owner
-    shard (``distributed.sharding.gather_rows``) onto shard 0. No tensor
-    of S·C rows is built."""
+    neighbor lists (``tomb``- and ``shard_cap``-masked), the neighbors'
+    rating rows (B, k, P) and the query rows (B, P), each row read from its
+    owner shard (``distributed.sharding.gather_rows``) onto shard 0. No
+    tensor of S·C rows is built: ``tomb`` is the (S·C,) bitmap on shard 0,
+    read at the gathered neighbor ids only."""
     from ..distributed.sharding import gather_rows
 
     dst = ratings[0].device
     idx = gather_rows([g.indices for g in graphs], users, shard_cap,
                       dst).to(torch.int64)
     w = gather_rows([g.weights for g in graphs], users, shard_cap, dst)
-    w = _mask_padded_rows(idx, w, n_valid, shard_cap=shard_cap)
+    w = _mask_padded_rows(idx, w, n_valid, tomb, shard_cap=shard_cap)
     b, k = idx.shape
     nb = gather_rows(ratings, idx.reshape(-1), shard_cap, dst)
     return idx, w, nb.reshape(b, k, -1), gather_rows(ratings, users,
@@ -224,12 +226,16 @@ def _sharded_neighbors(graphs, ratings, users, n_valid, shard_cap):
 
 def predict_pairs_graph_sharded(graphs, ratings, users: torch.Tensor,
                                 items: torch.Tensor, *, n_valid,
-                                shard_cap: int) -> torch.Tensor:
+                                shard_cap: int,
+                                tomb: Optional[torch.Tensor] = None
+                                ) -> torch.Tensor:
     """``predict_pairs_graph`` on per-shard graph and rating blocks: users
-    are sharded row ids, ``n_valid`` the per-shard fills. The arithmetic
-    is the single-device path's, so the predictions are its bits."""
+    are sharded row ids, ``n_valid`` the per-shard fills, ``tomb`` the
+    write path's (S·C,) tombstone bitmap (``mutation.sharded``). The
+    arithmetic is the single-device path's, so the predictions are its
+    bits."""
     _, w, nb, q = _sharded_neighbors(graphs, ratings, users, n_valid,
-                                     shard_cap)
+                                     shard_cap, tomb)
     b, k, p = nb.shape
     items = items.to(device=nb.device, dtype=torch.int64)
     nb_mask, nb_means, _ = _center(nb.reshape(b * k, p))
@@ -242,10 +248,12 @@ def predict_pairs_graph_sharded(graphs, ratings, users: torch.Tensor,
 
 
 def recommend_topn_graph_sharded(graphs, ratings, users: torch.Tensor,
-                                 n: int = 10, *, n_valid, shard_cap: int):
-    """``recommend_topn_graph`` on per-shard blocks (sharded user ids)."""
+                                 n: int = 10, *, n_valid, shard_cap: int,
+                                 tomb: Optional[torch.Tensor] = None):
+    """``recommend_topn_graph`` on per-shard blocks (sharded user ids and
+    ``tomb``, see above)."""
     _, w, nb, q = _sharded_neighbors(graphs, ratings, users, n_valid,
-                                     shard_cap)
+                                     shard_cap, tomb)
     b, k, p = nb.shape
     nb_mask, _, nb_centered = _center(nb.reshape(b * k, p))
     q_mask, mu, _ = _center(q)

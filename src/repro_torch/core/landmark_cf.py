@@ -223,6 +223,20 @@ class ShardedLandmarkState:
     def k(self) -> int:
         return self.graph[0].k
 
+    def clone(self) -> "ShardedLandmarkState":
+        """A copy whose blocks share no storage with this state's (a
+        sharded fold-in writes its blocks in place)."""
+        def copy(blocks):
+            return [b.clone() for b in blocks]
+
+        return dataclasses.replace(
+            self, landmark_idx=self.landmark_idx.clone(),
+            representation=copy(self.representation),
+            ratings=copy(self.ratings),
+            graph=[NeighborGraph(g.indices.clone(), g.weights.clone())
+                   for g in self.graph],
+            row_rank=copy(self.row_rank))
+
     def landmarks(self) -> torch.Tensor:
         """(n, P) landmark rating rows gathered from their owner shards,
         on shard 0."""

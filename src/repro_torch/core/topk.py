@@ -14,7 +14,8 @@ import torch
 
 
 def canonical_topk(values: torch.Tensor, k: int, dim: int = -1,
-                   ids: Optional[torch.Tensor] = None
+                   ids: Optional[torch.Tensor] = None,
+                   rank: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The ``k`` best entries of ``values`` along ``dim``: value descending,
     ties to the lowest id.
@@ -23,13 +24,17 @@ def canonical_topk(values: torch.Tensor, k: int, dim: int = -1,
     position along ``dim`` is the id, and the returned ids are int64
     positions. With ``ids``, a stable sort by id runs first, so that the
     stable descending sort by value that follows leaves equal values in
-    ascending-id order. Returns ``(values, ids)``.
+    ascending-id order. ``rank`` (same shape) breaks the ties in its place:
+    on a mesh, sharded ids do not follow the logical arrival order that
+    the single-device ids do, so ties go to the lowest logical rank there.
+    Returns ``(values, ids)``.
     """
     m = values.shape[dim]
     if k > m:
         raise ValueError(f"k={k} exceeds the {m} candidates along dim {dim}")
     if ids is not None:
-        by_id = torch.sort(ids, dim=dim, stable=True).indices
+        key = ids if rank is None else rank
+        by_id = torch.sort(key, dim=dim, stable=True).indices
         values = values.gather(dim, by_id)
         ids = ids.gather(dim, by_id)
     sel = torch.sort(values, dim=dim, descending=True,

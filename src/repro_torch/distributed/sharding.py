@@ -19,7 +19,7 @@ training paths and wait for them.)
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -154,3 +154,32 @@ def gather_rows(blocks: Blocks, ids, capacity: int, dst) -> torch.Tensor:
             rows = blk[torch.as_tensor(slot[pos], device=blk.device)]
             out[torch.as_tensor(pos, device=out.device)] = rows.to(dst)
     return out
+
+
+def materializations(run: Callable[[], object],
+                     is_bad: Callable[[Tuple[int, ...]], bool]):
+    """Run ``run()`` under a dispatch mode that sees every tensor an aten
+    op returns; ``(n_tensors_scanned, offenders)`` where ``is_bad(shape)``
+    names an offending shape. The proofs that a sharded path never builds
+    a row-space tensor (the fold-in, the query router, the write path) are
+    made with it. The kernels' own launches are no aten ops, but every
+    buffer they write is allocated through one."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    seen, bad = [], []
+
+    class Watch(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in tree_leaves(out):
+                if isinstance(t, torch.Tensor):
+                    shp = tuple(t.shape)
+                    seen.append(shp)
+                    if is_bad(shp):
+                        bad.append((str(func), shp))
+            return out
+
+    with Watch():
+        run()
+    return len(seen), bad

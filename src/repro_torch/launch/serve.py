@@ -72,6 +72,7 @@ from ..configs import landmark_cf as cfg
 from ..configs import registry
 from ..core import RatingMatrix, fit, fold_in, knn
 from ..data import synthetic
+from ..distributed.sharding import materializations
 from ..models import transformer as lm_mod
 from ..serving.stats import latency_stats
 from ..train.checkpoint import (landmark_state_meta, latest_step,
@@ -690,46 +691,6 @@ class _SideTally:
             self.launches[name] = self.launches.get(name, 0) + c
 
 
-def _materializations(run, is_bad):
-    """Run ``run()`` under a dispatch mode that sees every tensor an aten
-    op returns; ``(n_tensors_scanned, offenders)`` where ``is_bad(shape)``
-    names an offending shape. The kernels' own launches are no aten ops,
-    but every buffer they write is allocated through one."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-    from torch.utils._pytree import tree_leaves
-
-    seen, bad = [], []
-
-    class Watch(TorchDispatchMode):
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = func(*args, **(kwargs or {}))
-            for t in tree_leaves(out):
-                if isinstance(t, torch.Tensor):
-                    shp = tuple(t.shape)
-                    seen.append(shp)
-                    if is_bad(shp):
-                        bad.append((str(func), shp))
-            return out
-
-    with Watch():
-        run()
-    return len(seen), bad
-
-
-def _clone_sharded(sst):
-    """A copy of a ShardedLandmarkState whose blocks share no storage."""
-    from ..core.types import NeighborGraph
-
-    clone = lambda blocks: [b.clone() for b in blocks]  # noqa: E731
-    return dataclasses.replace(
-        sst, landmark_idx=sst.landmark_idx.clone(),
-        representation=clone(sst.representation),
-        ratings=clone(sst.ratings),
-        graph=[NeighborGraph(g.indices.clone(), g.weights.clone())
-               for g in sst.graph],
-        row_rank=clone(sst.row_rank))
-
-
 def _foldin_replication_check(sst, bq, spec):
     """Prove the sharded fold-in keeps the row space sharded: no tensor of
     rows (two or more dimensions; a kernel's flat scratch buffer is none)
@@ -738,12 +699,12 @@ def _foldin_replication_check(sst, bq, spec):
     from ..core.landmark_cf import fold_in_sharded
     from ..lifecycle.buckets import ensure_capacity_sharded
 
-    probe, _ = ensure_capacity_sharded(_clone_sharded(sst), 0, bq)
+    probe, _ = ensure_capacity_sharded(sst.clone(), 0, bq)
     rows = probe.shard_count * probe.capacity
     batch = torch.zeros((bq, sst.ratings[0].shape[1]),
                         device=sst.devices[0])
     out = []
-    n, bad = _materializations(
+    n, bad = materializations(
         lambda: out.append(fold_in_sharded(probe, batch, 1, 0, spec)),
         lambda shp: probe.shard_count > 1 and len(shp) > 1
         and shp[0] >= rows)
@@ -770,7 +731,7 @@ def _ivf_materialization_check(index, qb, k, nprobe, measure, budget):
             "probe more cells")
     q = torch.zeros((qb, index.centroids.shape[1]),
                     device=index.centroids.device)
-    return _materializations(
+    return materializations(
         lambda: rt.search_sharded(index, q, k, nprobe, measure,
                                   local_budget=budget),
         lambda shp: len(shp) >= 2 and shp[0] == qb and shp[1] >= bound)
@@ -1249,6 +1210,155 @@ def _serve_cf_lifecycle_sharded(args):
         ckpt=ckpt_dir, recalls=recalls, geometries=counts)
 
 
+# ----------------------------------------------------- cf engine, sharded
+def _log_writes(backend, log) -> None:
+    """Record every write the backend takes, in the order it takes them,
+    as ``(method name, args)``: the write lane is one FIFO thread and the
+    warm-up writes run before it starts, so a one-device shadow fed the
+    log sees the mesh's writes in the mesh's order."""
+    for name in ("fold_in", "apply_update", "apply_remove"):
+        fn = getattr(backend, name, None)
+        if fn is None:
+            continue
+
+        def call(*a, _fn=fn, _name=name):
+            log.append((_name, a))
+            return _fn(*a)
+
+        setattr(backend, name, call)
+
+
+def _router_checks(backend, st, spec, ecfg, args, local_cls):
+    """The router's two one-time checks on the published state: no routed
+    read builds a row-space tensor (``router.materialization_check``), and
+    routed reads at every batch shape are bitwise a one-device backend's
+    (``local_cls``: with ``--mutations`` the mutable read path, whose
+    tombstone operand the routed reads also take)."""
+    from ..lifecycle import buckets
+    from ..serving import router
+
+    pub = backend.snapshot()
+    sst = backend.sharded_state(pub[0])
+    rows = sst.shard_count * sst.capacity
+    b_chk = router.check_batch(sst, ecfg.max_batch)
+    n_t, bad = router.materialization_check(sst, b_chk, args.topn,
+                                            tomb=backend.read_tomb(pub[0]))
+    print(f"router materialization check: {n_t} tensors scanned, "
+          f"{len(bad)} offenders (batch {b_chk}, S*C={rows} rows)")
+    if bad:
+        raise AssertionError(f"the router built row-space tensors: "
+                             f"{bad[:4]}")
+    ref = local_cls(buckets.from_state(st, args.min_bucket, args.growth),
+                    spec, min_bucket=args.min_bucket, growth=args.growth)
+    rpub = ref.snapshot()
+    rng = np.random.default_rng(5)
+    same = True
+    for b in ecfg.batch_shapes():
+        pu = rng.integers(0, args.users, b)
+        pi = rng.integers(0, args.items, b)
+        same &= np.array_equal(backend.predict_pairs(pub, pu, pi),
+                               ref.predict_pairs(rpub, pu, pi))
+        got, want = (backend.recommend_topn(pub, pu, args.topn),
+                     ref.recommend_topn(rpub, pu, args.topn))
+        same &= all(np.array_equal(g, w) for g, w in zip(got, want))
+    shapes = "/".join(str(b) for b in ecfg.batch_shapes())
+    print(f"routed vs single-device reference ({shapes} queries): "
+          f"bit-identical={same}")
+    if not same:
+        raise AssertionError("routed reads diverged from the single-device "
+                             "reference")
+    return dict(router_tensors=n_t, router_offenders=len(bad),
+                router_batch=b_chk, routed_bitwise=bool(same),
+                routed_shapes=list(ecfg.batch_shapes()))
+
+
+def _mesh_citations(msst):
+    """(neighbor entries of live rows that cite a tombstoned or unfilled
+    row with a nonzero weight, live rows checked) of a mutable sharded
+    state."""
+    c = msst.capacity
+    tomb = msst.tomb.cpu().numpy()
+    fill = msst.fill_mask()
+    gone = tomb | ~fill
+    cites = rows = 0
+    for s, g in enumerate(msst.sstate.graph):
+        live = (fill & ~tomb)[s * c:(s + 1) * c]
+        gi = g.indices.cpu().numpy().astype(np.int64)
+        gw = g.weights.cpu().numpy()
+        cites += int((gone[gi] & (gw != 0))[live].sum())
+        rows += int(live.sum())
+    return cites, rows
+
+
+def _shadow_replay(st, spec, args, log):
+    """A one-device ``MutableLocalBackend`` from the same fitted state, fed
+    the mesh backend's logged writes in order."""
+    from ..lifecycle import buckets
+    from ..serving import MutableLocalBackend
+
+    shadow = MutableLocalBackend(
+        buckets.from_state(st, args.min_bucket, args.growth), spec,
+        min_bucket=args.min_bucket, growth=args.growth)
+    for name, a in log:
+        getattr(shadow, name)(*a)
+    return shadow
+
+
+def _shadow_compare(backend, shadow, table, ecfg, args):
+    """Pair predictions and top-N of up to 256 live users (seeded draw) on
+    the mesh backend and on its one-device shadow, bitwise. ``table`` is
+    the shadow's old -> new row-id table after a compacting refresh (the
+    mesh keeps its logical ids), None before one."""
+    n = backend.n_users
+    live = (np.flatnonzero(~backend.tomb()[:n]) if table is None
+            else np.flatnonzero(table[:n] >= 0))
+    rng = np.random.default_rng(23)
+    users = rng.choice(live, size=min(256, len(live)), replace=False)
+    ids = users if table is None else table[users]
+    pub, spub = backend.snapshot(), shadow.snapshot()
+    b = ecfg.max_batch
+    same = True
+    for lo in range(0, len(users), b):
+        m = len(users[lo:lo + b])
+        u, su, it = (np.zeros(b, np.int64) for _ in range(3))
+        u[:m], su[:m] = users[lo:lo + b], ids[lo:lo + b]
+        it[:m] = rng.integers(0, args.items, m)
+        same &= np.array_equal(backend.predict_pairs(pub, u, it)[:m],
+                               shadow.predict_pairs(spub, su, it)[:m])
+        got = backend.recommend_topn(pub, u, args.topn)
+        want = shadow.recommend_topn(spub, su, args.topn)
+        same &= all(np.array_equal(g[:m], w[:m]) for g, w in zip(got, want))
+    return dict(users=int(len(users)), bitwise=bool(same))
+
+
+@contextlib.contextmanager
+def _beside(side):
+    """``side()`` with the recorded read geometries kept as they were
+    before the block: the one-device shadow's reads are not the mesh
+    path's, and the geometry budget holds the mesh path alone."""
+    from ..lifecycle import buckets
+
+    saved = {k: set(v) for k, v in buckets.GEOMETRIES.items()}
+    with side():
+        yield
+    buckets.GEOMETRIES.clear()
+    buckets.GEOMETRIES.update(saved)
+
+
+def _print_shadow(mesh_stats):
+    before = mesh_stats["shadow_before"]
+    after = mesh_stats.get("shadow_after")
+    print(f"mesh vs one-device shadow (the same writes in the same order): "
+          f"{before['users']} live users' pairs and top-N "
+          f"bit-identical={before['bitwise']} before compaction"
+          + (f", {after['users']} after compaction "
+             f"bit-identical={after['bitwise']}" if after
+             else ", no compaction in this run"))
+    if not before["bitwise"] or (after and not after["bitwise"]):
+        raise AssertionError("the mesh's reads diverged from its one-device "
+                             "shadow")
+
+
 # ------------------------------------------------------------------ cf engine
 def _serve_cf_engine(args):
     """Open-loop serving through the request engine: continuous
@@ -1263,14 +1373,33 @@ def _serve_cf_engine(args):
     least one fold, recall >= 0.95 with ``--retrieval ivf``; with
     ``--mutations`` also at least one update and one removal. With
     ``--mutations`` the run also holds the pre-compaction bar (no live row
-    cites a deleted row, no dirty row published). Returns the engine's
-    stats with the run's figures."""
+    cites a deleted row, no dirty row published).
+
+    ``--mesh pod=P,data=D`` serves the same traffic from a sharded state
+    (``ShardedBackend`` / ``MutableShardedBackend``: reads through the query
+    router, writes on the owner shards) with a 2000 ms SLO. It proves the
+    router builds no row-space tensor, holds the routed reads bitwise to the
+    one-device backend's at every batch shape, and, with ``--mutations``,
+    replays the window's writes in order into a one-device
+    ``MutableLocalBackend`` shadow whose reads of a sample of live users
+    must be the mesh's bits before and after the compacting refresh. The
+    shadow's and the checks' kernel launches are tallied apart
+    (``side_launches``). Returns the engine's stats with the run's
+    figures."""
     from ..kernels import ops
     from ..lifecycle import buckets, monitor, policy
     from ..serving import (EngineConfig, LocalBackend, MutableLocalBackend,
-                           RequestEngine, histogram_latency)
+                           MutableShardedBackend, RequestEngine,
+                           ShardedBackend, histogram_latency)
 
     device = torch.device(args.device)
+    sharded = bool(args.mesh)
+    if sharded:
+        from .mesh import make_mesh
+
+        names, sizes = _parse_mesh(args.mesh)
+        mesh = make_mesh(names, sizes, device)
+        print(f"mesh {mesh.describe()}")
     spec = cfg.SMOKE if args.smoke else cfg.MODEL
     spec = dataclasses.replace(spec, selection=args.selection)
     if args.smoke:
@@ -1296,16 +1425,36 @@ def _serve_cf_engine(args):
           f"k={st.graph.k} on {device}: "
           f"{(time.perf_counter() - t0) * 1e3:.0f}ms")
 
+    # a read on the mesh gathers its rows from every shard's blocks on the
+    # host's schedule: its SLO is the reference's mesh SLO
     ecfg = EngineConfig(max_batch=args.batch, min_shape=min(32, args.batch),
                         queue_cap=args.batch * 8, max_wait_ms=2.0,
-                        slo_ms=250.0, fold_bq=args.foldin, topn=args.topn)
-    backend_cls = MutableLocalBackend if mutations else LocalBackend
-    backend = backend_cls(buckets.from_state(st, args.min_bucket,
-                                             args.growth),
-                          spec, min_bucket=args.min_bucket,
-                          growth=args.growth,
-                          warm_shapes=ecfg.batch_shapes(),
-                          warm_topn=args.topn)
+                        slo_ms=2000.0 if sharded else 250.0,
+                        fold_bq=args.foldin, topn=args.topn)
+    local_cls = MutableLocalBackend if mutations else LocalBackend
+    mesh_stats, write_log = {}, []
+    if sharded:
+        side = _SideTally(mesh)  # the checks' and the shadow's share
+        n_shards = mesh.size
+        min_shard_bucket = max(8, args.min_bucket // n_shards)
+        sst = buckets.from_state_sharded(st, mesh, names, min_shard_bucket,
+                                         args.growth)
+        u_per = -(-args.users // n_shards)
+        backend = (MutableShardedBackend if mutations else ShardedBackend)(
+            sst, np.arange(args.users) // u_per, np.arange(args.users) % u_per,
+            spec, min_bucket=min_shard_bucket, growth=args.growth,
+            warm_shapes=ecfg.batch_shapes(), warm_topn=args.topn)
+        _log_writes(backend, write_log)
+        with side():
+            mesh_stats = _router_checks(backend, st, spec, ecfg, args,
+                                        local_cls)
+    else:
+        backend = local_cls(buckets.from_state(st, args.min_bucket,
+                                               args.growth),
+                            spec, min_bucket=args.min_bucket,
+                            growth=args.growth,
+                            warm_shapes=ecfg.batch_shapes(),
+                            warm_topn=args.topn)
     buckets.reset_geometries()  # the run's geometries, warm-up included
 
     # optional IVF sidecar: retrieval health probed while the engine is
@@ -1317,31 +1466,57 @@ def _serve_cf_engine(args):
 
         user_ivf = rt.IVFSpec(n_clusters=args.clusters or None,
                               nprobe=args.nprobe or None)
-        retrieval = rt.resolve_ivf(user_ivf, n0)
+        if sharded:
+            # cells block-partitioned over the shards, probes routed to
+            # their owners, (b, k) lists merged on shard 0
+            retrieval = rt.resolve_ivf_sharded(user_ivf, n0, n_shards)
+        else:
+            retrieval = rt.resolve_ivf(user_ivf, n0)
         if args.smoke and not args.nprobe:
             # the lifecycle replays' smoke-scale bump
             retrieval = dataclasses.replace(
                 retrieval,
                 nprobe=max(retrieval.nprobe, retrieval.n_clusters // 2))
-        index = rt.build_index(st.representation, retrieval, spec.d2)
+        if sharded:
+            index = rt.build_index_sharded(st.representation, retrieval,
+                                           mesh, names, spec.d2)
+        else:
+            index = rt.build_index(st.representation, retrieval, spec.d2)
         kk = st.graph.k
         qids0 = _ids(rng, n0, min(args.batch, n0), device)
         qrep0 = st.representation[qids0.long()]
-        ve, ie = rt.search(index, qrep0, kk, index.n_clusters, spec.d2,
-                           self_ids=qids0)
+        if sharded:
+            ve, ie, _ = rt.search_sharded(index, qrep0, kk, index.n_clusters,
+                                          spec.d2, self_ids=qids0)
+        else:
+            ve, ie = rt.search(index, qrep0, kk, index.n_clusters, spec.d2,
+                               self_ids=qids0)
 
         def recall_probe():
             """(SLO recall, mean probed/q, early-exit recall or None). The
             SLO is judged on the full-budget search; early exit rides atop
-            the escalated budget and is reported, not gated."""
+            the escalated budget and is reported, not gated. On the mesh a
+            shard scores at most 2·ceil(nprobe/S) of its probed cells."""
             np_ = retrieval.nprobe
-            va, ia = rt.search(index, qrep0, kk, np_, spec.d2,
-                               self_ids=qids0)
-            rec = rt.recall_at_k(ia, ie, va, ve)
             ee, probed = None, float(np_)
+            if sharded:
+                lb = min(np_, max(1, 2 * (-(-np_ // n_shards))))
+                va, ia, pq = rt.search_sharded(
+                    index, qrep0, kk, np_, spec.d2, self_ids=qids0,
+                    local_budget=lb)
+                probed = float(pq.float().mean())
+            else:
+                va, ia = rt.search(index, qrep0, kk, np_, spec.d2,
+                                   self_ids=qids0)
+            rec = rt.recall_at_k(ia, ie, va, ve)
             if args.early_exit:
-                ev, ei, pq = rt.search_early_exit(index, qrep0, kk, np_,
-                                                  spec.d2, self_ids=qids0)
+                if sharded:
+                    ev, ei, pq = rt.search_early_exit_sharded(
+                        index, qrep0, kk, np_, spec.d2, self_ids=qids0,
+                        local_budget=lb)
+                else:
+                    ev, ei, pq = rt.search_early_exit(
+                        index, qrep0, kk, np_, spec.d2, self_ids=qids0)
                 ee = rt.recall_at_k(ei, ie, ev, ve)
                 probed = float(pq.float().mean())
             return rec, probed, ee
@@ -1354,8 +1529,9 @@ def _serve_cf_engine(args):
             retrieval = dataclasses.replace(retrieval, nprobe=esc)
             esc_count += 1
             rec0, _pq, _ee = recall_probe()
-        print(f"retrieval: ivf C={index.n_clusters} nprobe={retrieval.nprobe}"
-              f" pre-load recall@{kk}={rec0:.3f}")
+        print(f"retrieval: {'sharded ' if sharded else ''}ivf "
+              f"C={index.n_clusters} nprobe={retrieval.nprobe} "
+              f"pre-load recall@{kk}={rec0:.3f}")
 
     o = None
     if args.trace_dir or args.metrics_json or args.torch_profile:
@@ -1385,6 +1561,11 @@ def _serve_cf_engine(args):
         removed_ids = []
 
         def _drift_snapshot():
+            if sharded:
+                msst, id_shard, id_slot, _ = backend.snapshot()
+                return monitor.holdout_snapshot_sharded(
+                    mon, msst.sstate, id_shard * msst.capacity + id_slot,
+                    tomb=msst.tomb, tombstone_frac=backend.tombstone_frac)
             mst = backend.snapshot()[0]
             return monitor.holdout_snapshot(
                 mon, mst.bstate, tomb=mst.tomb,
@@ -1432,10 +1613,17 @@ def _serve_cf_engine(args):
         # values) runs the update, the repair rescan and the publish, and a
         # zero-valid removal the tombstone scatter
         warm_ids = np.arange(8)
-        backend.apply_update(
-            warm_ids,
-            pub[0].bstate.state.ratings[torch.as_tensor(
-                warm_ids, device=device)].cpu().numpy())
+        if sharded:
+            from ..distributed.sharding import gather_rows
+
+            msst = pub[0]
+            warm_rows = gather_rows(msst.sstate.ratings,
+                                    backend.sharded_ids(pub, warm_ids),
+                                    msst.capacity, msst.home)
+        else:
+            warm_rows = pub[0].bstate.state.ratings[torch.as_tensor(
+                warm_ids, device=device)]
+        backend.apply_update(warm_ids, warm_rows.cpu().numpy())
         backend.apply_remove(np.zeros(0, np.int64))
         pub = backend.snapshot()
 
@@ -1604,6 +1792,12 @@ def _serve_cf_engine(args):
           f"(+{stats['folded_rows']} users -> gen {stats['generation']}, "
           f"U={backend.n_users}) fold {stats['fold_latency'].brief()} — "
           f"reads never waited on a write")
+    if sharded:
+        mesh_stats["fold_batches"] = sum(
+            -(-len(a[0]) // a[1]) for name, a in write_log
+            if name == "fold_in")
+        mesh_stats["updates"] = sum(name == "apply_update"
+                                    for name, _ in write_log)
     mut = {}
     if mutations:
         print(f"write lane: {mut_wave} event waves -> "
@@ -1615,11 +1809,15 @@ def _serve_cf_engine(args):
         # the pre-compaction bar: no live row cites a deleted row, and no
         # generation was published with an unrepaired row
         mst = backend.snapshot()[0]
-        g = mst.bstate.state.graph
-        tombv = mst.tomb.cpu().numpy()
-        gi, gw = g.indices.cpu().numpy(), g.weights.cpu().numpy()
-        live = (np.arange(len(tombv)) < mst.n_valid) & ~tombv
-        cites_dead = int((tombv[gi] & (gw != 0))[live].sum())
+        if sharded:
+            cites_dead, n_live_rows = _mesh_citations(mst)
+        else:
+            g = mst.bstate.state.graph
+            tombv = mst.tomb.cpu().numpy()
+            gi, gw = g.indices.cpu().numpy(), g.weights.cpu().numpy()
+            live = (np.arange(len(tombv)) < mst.n_valid) & ~tombv
+            cites_dead = int((tombv[gi] & (gw != 0))[live].sum())
+            n_live_rows = int(live.sum())
         dirty = mst.dirty_count()
         if cites_dead or dirty:
             raise AssertionError(f"pre-compaction bar: {cites_dead} "
@@ -1639,8 +1837,13 @@ def _serve_cf_engine(args):
               f"tombstone_frac={snap.tombstone_frac:.3f} -> fire={fire} "
               f"({','.join(reasons) if reasons else 'healthy'}) "
               f"compact={compact}")
+        if sharded:
+            with _beside(side):
+                shadow = _shadow_replay(st, spec, args, write_log)
+                mesh_stats["shadow_before"] = _shadow_compare(
+                    backend, shadow, None, ecfg, args)
         mut = dict(waves=mut_wave, removed=len(removed_ids),
-                   live_rows_checked=int(live.sum()), cites_dead=cites_dead,
+                   live_rows_checked=n_live_rows, cites_dead=cites_dead,
                    dirty_published=dirty, fire=fire, compact=compact,
                    write_latency={k: histogram_latency(eng.latencies[k])
                                   for k in ("update", "remove", "fold")})
@@ -1663,6 +1866,17 @@ def _serve_cf_engine(args):
                 raise AssertionError("compaction left tombstones")
             mut.update(swap_gen=gen_new, compacted=compacted,
                        post_tombstone_frac=post.tombstone_frac)
+            if sharded:
+                cites, _ = _mesh_citations(backend.snapshot()[0])
+                if cites:
+                    raise AssertionError(f"after compaction {cites} live "
+                                         f"rows cite a removed row")
+                with _beside(side):
+                    _, shadow_table = shadow.refresh()
+                    mesh_stats["shadow_after"] = _shadow_compare(
+                        backend, shadow, shadow_table, ecfg, args)
+        if sharded:
+            _print_shadow(mesh_stats)
     print(f"bitwise vs solo replay: {checked} requests re-run, "
           f"{bad} mismatches | non-finite predictions: {stats['nonfinite']}")
     caps = sorted(backend.caps_used)
@@ -1703,9 +1917,14 @@ def _serve_cf_engine(args):
         else:
             publish_retrieval(o.registry)
         if not mutations:
-            monitor.publish_snapshot(
-                o.registry, monitor.holdout_snapshot(obs_mon,
-                                                     backend.snapshot()[0]))
+            if sharded:
+                osst, oshard, oslot, _ = backend.snapshot()
+                snap = monitor.holdout_snapshot_sharded(
+                    obs_mon, osst, oshard * osst.capacity + oslot)
+            else:
+                snap = monitor.holdout_snapshot(obs_mon,
+                                                backend.snapshot()[0])
+            monitor.publish_snapshot(o.registry, snap)
         _export_obs(o, args)
     if bad:
         raise AssertionError("micro-batched results diverged from solo "
@@ -1731,11 +1950,20 @@ def _serve_cf_engine(args):
                 f"ivf recall under load "
                 f"{np.mean(recalls) if recalls else float('nan'):.3f} "
                 f"< {IVF_RECALL_SLO}")
+    if sharded:
+        sst_final = backend.sharded_state(backend.snapshot()[0])
+        mesh_stats.update(
+            mesh=mesh.describe(), shards=n_shards,
+            block_devices=sorted({str(b.device) for b in
+                                  sst_final.ratings + sst_final.representation
+                                  + [g.indices for g in sst_final.graph]}),
+            capacity=sst_final.capacity,
+            side_launches=dict(side.launches), side_ms=side.ms)
     print("cf engine: done")
     return dict(stats, qps=sustained_qps, elapsed_s=elapsed,
                 checked=checked, mismatches=bad, geometries=counts,
                 geometry_budget=budget, lane_ids=dict(eng.lane_ids),
-                recalls=recalls, mutations=mut)
+                recalls=recalls, mutations=mut, mesh=mesh_stats)
 
 
 def main(argv=None):
@@ -1828,7 +2056,7 @@ def main(argv=None):
                     "lifecycle policy's verdict can fire a "
                     "tombstone-compacting refresh")
     ap.add_argument("--mesh", default=None,
-                    help="lifecycle: run the replay sharded over this mesh, "
+                    help="lifecycle / engine: serve sharded over this mesh, "
                     "e.g. pod=2,data=4 (rows block-partitioned over all "
                     "listed axes; the shards placed round-robin over the "
                     "visible cards, or all on the CPU with --device cpu)")
@@ -1856,14 +2084,10 @@ def main(argv=None):
     if args.mutations and not args.engine:
         raise SystemExit("--mutations rides the request engine's write "
                          "lane; add --engine (--workload cf)")
-    if args.mesh and args.engine:
-        raise SystemExit("--engine --mesh (the sharded request engine, its "
-                         "query router and sharded mutation) comes with the "
-                         "port's next multi-GPU slice; use --lifecycle "
-                         "--mesh, or --engine on one device")
-    if args.mesh and not args.lifecycle:
-        raise SystemExit("--mesh runs the lifecycle replay: add --lifecycle "
-                         "(--workload cf)")
+    if args.mesh and not (args.lifecycle or args.engine):
+        raise SystemExit("--mesh runs the multi-GPU paths, the lifecycle "
+                         "replay or the request engine: add --lifecycle or "
+                         "--engine (--workload cf)")
     if args.retrieval == "ivf" and not (args.lifecycle or args.engine):
         raise SystemExit("--retrieval ivf runs on the lifecycle replay or "
                          "the request engine (--workload cf --lifecycle / "

@@ -163,22 +163,23 @@ def _holdout_stats(mon: MonitorState, graph, ratings, n_valid, tomb=None,
     On the sharded path (``shard_cap`` set) ``graph`` and ``ratings`` are
     per-shard blocks, ``n_valid`` the per-shard fills, and the reservoir's
     logical user ids go through ``id_map`` (host array, logical id →
-    sharded row id) first."""
+    sharded row id) first; ``tomb`` is then indexed by sharded row id."""
     r = mon.reservoir_size
     dev = mon.res_users.device
     slot_valid = torch.arange(r, device=dev) < mon.res_filled
     users = torch.where(slot_valid, mon.res_users, 0)
+    if shard_cap is not None:
+        users = torch.as_tensor(np.asarray(id_map)[users.cpu().numpy()])
     if tomb is not None:
-        slot_valid = slot_valid & ~tomb[users.long()]
+        slot_valid = slot_valid & ~tomb[users.long().to(tomb.device)].to(dev)
     items = torch.where(slot_valid, mon.res_items, 0)
     if shard_cap is None:
         preds = knn.predict_pairs_graph(graph, ratings, users, items,
                                         n_valid=n_valid, tomb=tomb)
     else:
-        users = torch.as_tensor(np.asarray(id_map)[users.cpu().numpy()])
         preds = knn.predict_pairs_graph_sharded(
             graph, ratings, users, items, n_valid=n_valid,
-            shard_cap=shard_cap).to(dev)
+            shard_cap=shard_cap, tomb=tomb).to(dev)
     err = (preds - mon.res_ratings) * slot_valid
     cnt = max(float(slot_valid.sum()), 1.0)
     mae = float(err.abs().sum()) / cnt
@@ -203,15 +204,16 @@ def holdout_snapshot(mon: MonitorState, bstate, tomb=None,
                     tombstone_frac=tombstone_frac)
 
 
-def holdout_snapshot_sharded(mon: MonitorState, sstate, id_map,
+def holdout_snapshot_sharded(mon: MonitorState, sstate, id_map, tomb=None,
                              tombstone_frac: float = 0.0) -> Snapshot:
     """:func:`holdout_snapshot` for a ShardedLandmarkState. ``id_map`` maps
     the reservoir's logical user ids (stable across capacity regrowth and
-    refresh repacking) to sharded row ids; the snapshot carries the fill
-    skew of the shards (``shard_skew``)."""
+    refresh repacking) to sharded row ids; ``tomb`` is the sharded write
+    path's (S·C,) bitmap (``mutation.sharded``), indexed by sharded row id;
+    the snapshot carries the fill skew of the shards (``shard_skew``)."""
     buckets.record_geometry("holdout", sstate.capacity, mon.reservoir_size)
     mae, rmse = _holdout_stats(mon, sstate.graph, sstate.ratings,
-                               sstate.n_valid, id_map=id_map,
+                               sstate.n_valid, tomb, id_map=id_map,
                                shard_cap=sstate.capacity)
     frac = mon.n_folded / max(mon.n_base + mon.n_folded, 1)
     return Snapshot(mae=mae, rmse=rmse, holdout_count=mon.res_filled,

@@ -11,7 +11,9 @@ deletion, decremental neighbor-graph repair and compaction, on one device.
   landmarks (d1: the kernel on the card), writes ratings and representation,
   marks the changed rows and every row citing one dirty, and merges the
   changed users into every other live row's list: a (capacity, b) block of
-  fresh similarities, its columns in ascending id order so a positional
+  fresh similarities (``core.graph.backpatch_sims``: kernel 6's shared
+  form on the card, so a score depends on its two rows alone, whatever the
+  block's row count), its columns in ascending id order so a positional
   canonical top-k breaks ties by id, then a rank-count merge
   (``core.graph.merge_canonical_topk``).
 - :func:`remove_users` sets tomb bits, zeroes the removed rows' ratings and
@@ -50,11 +52,11 @@ import torch
 
 from .. import obs as obslib
 from ..core import knn
-from ..core.graph import (_streaming_query_topk, evict_neighbors,
-                          filter_self_from_topk, finalize_topk, kernel_rows,
-                          merge_canonical_topk, resolve_backend)
+from ..core.graph import (_streaming_query_topk, backpatch_sims,
+                          evict_neighbors, filter_self_from_topk,
+                          finalize_topk, kernel_rows, merge_canonical_topk,
+                          resolve_backend)
 from ..core.landmark_cf import LandmarkState
-from ..core.similarity import dense_similarity
 from ..core.topk import canonical_topk
 from ..core.types import LandmarkSpec, NeighborGraph
 from ..kernels import knn_topk, ops
@@ -201,7 +203,7 @@ def update_ratings(mst: MutableState, ids, rows, b_valid: int,
 
     # back-patch every clean live row with the changed users' fresh
     # similarities — the (capacity, b) block, columns in ascending id order
-    back = dense_similarity(rep, new_rep, spec.d2)
+    back = backpatch_sims(rep, new_rep, spec.d2)
     col_ok = eff[None, :] & (row[:, None] != safe[None, :])
     back = back.masked_fill(~col_ok, float("-inf"))
     order = torch.sort(safe, stable=True).indices  # effective ids first
@@ -259,6 +261,23 @@ def _rescan_kernel(queries: torch.Tensor, rep: torch.Tensor, measure: str,
     return filter_self_from_topk(vals, ids.to(torch.int32), self_ids, k)
 
 
+def _rescan(queries: torch.Tensor, rep: torch.Tensor, measure: str, k: int,
+            n_valid: int, tomb: torch.Tensor, self_ids: torch.Tensor,
+            mode: str, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each query's top-k over the live rows of ``rep`` (below ``n_valid``,
+    not in ``tomb``), its own id (``self_ids``; -1 names none) left out:
+    through the scan kernel (``kernel``) or in (b, chunk) tiles
+    (``streaming``)."""
+    if mode == "kernel":
+        return _rescan_kernel(queries, rep, measure, k, n_valid, tomb,
+                              self_ids)
+    if mode == "streaming":
+        return _streaming_query_topk(queries, rep, measure, k, chunk, 0,
+                                     n_valid, self_ids=self_ids, dead=tomb)
+    raise ValueError(f"repair rescans with the kernel or streaming "
+                     f"backend, not {mode!r}")
+
+
 def repair(mst: MutableState, bq: int, spec: LandmarkSpec, *,
            chunk: int = 4096, ivf_index=None, nprobe: Optional[int] = None,
            backend: str = "auto") -> Tuple[MutableState, int]:
@@ -295,17 +314,9 @@ def repair(mst: MutableState, bq: int, spec: LandmarkSpec, *,
                                                    float("-inf")), k)
         idx = idx.gather(1, si)
     else:
-        mode = resolve_backend(backend, dev)
-        if mode == "kernel":
-            vals, idx = _rescan_kernel(queries, st.representation, spec.d2,
-                                       k, n_valid, mst.tomb, sel)
-        elif mode == "streaming":
-            vals, idx = _streaming_query_topk(
-                queries, st.representation, spec.d2, k, chunk, 0, n_valid,
-                self_ids=sel, dead=mst.tomb)
-        else:
-            raise ValueError(f"repair rescans with the kernel or streaming "
-                             f"backend, not {mode!r}")
+        vals, idx = _rescan(queries, st.representation, spec.d2, k, n_valid,
+                            mst.tomb, sel, resolve_backend(backend, dev),
+                            chunk)
     fixed = finalize_topk(vals, idx)
     gi, gw, dirty = graph.indices.clone(), graph.weights.clone(), \
         mst.dirty.clone()

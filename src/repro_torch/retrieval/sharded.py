@@ -229,7 +229,8 @@ def _merge(lists, k: int, home) -> Tuple[torch.Tensor, torch.Tensor]:
     return mv, torch.where(torch.isneginf(mv), 0, mi).to(torch.int32)
 
 
-def _shard_exact(q, sids, lists, rows, scale, fill, k, measure, mode):
+def _shard_exact(q, sids, lists, rows, scale, fill, k, measure, mode,
+                 tomb=None):
     """One shard's full-probe top-k with the single-device ``search``'s
     exact path: its cells' live rows as one id-sorted candidate matrix."""
     c_ps, cap = lists.shape
@@ -246,6 +247,8 @@ def _shard_exact(q, sids, lists, rows, scale, fill, k, measure, mode):
     sims = (ref.gathered_sims(q, cmat, measure) if mode == "plain"
             else dense_similarity(q, cmat, measure))
     invalid = (~fvalid)[None, :] | (flat[None, :] == sids[:, None])
+    if tomb is not None:
+        invalid = invalid | (fvalid & tomb[flat.long()])[None, :]
     return _padded_topk(sims.masked_fill(invalid, float("-inf")),
                         flat.expand(q.shape[0], -1), k)
 
@@ -253,7 +256,8 @@ def _shard_exact(q, sids, lists, rows, scale, fill, k, measure, mode):
 def search_sharded(index: ShardedIVFIndex, queries: torch.Tensor, k: int,
                    nprobe: int, measure: str = "cosine", *,
                    self_ids: Optional[torch.Tensor] = None,
-                   scorer: str = "auto", local_budget: Optional[int] = None
+                   scorer: str = "auto", local_budget: Optional[int] = None,
+                   tomb: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Probe-routed search: ``(vals, ids, probed)`` on shard 0.
 
@@ -266,7 +270,11 @@ def search_sharded(index: ShardedIVFIndex, queries: torch.Tensor, k: int,
     the card) is kernel 5 on each shard's cells with the foreign probes
     masked; ``plain``/``kernel`` score the shard's gathered candidates
     (kernel 6 for ``kernel`` at partial probe), never more than
-    (b, local_budget·cap) of them.
+    (b, local_budget·cap) of them. ``tomb`` masks tombstoned ids: a bool
+    table indexed by the ids the posting lists hold, on shard 0 and read
+    by each shard at its own candidates' ids. As on one device, a tomb
+    operand makes ``fused`` give way to ``kernel`` (the fused kernel takes
+    no tombstones).
     """
     c, cap, per = index.n_clusters, index.capacity, index.cells_per_shard
     nprobe = min(nprobe, c)
@@ -288,6 +296,9 @@ def search_sharded(index: ShardedIVFIndex, queries: torch.Tensor, k: int,
         scale = None if index.scale is None else index.scale[s]
         probed.append(ok.sum(1).to(torch.int32))
         mode = resolve_scorer(scorer, dev)
+        tomb_s = None if tomb is None else tomb.to(dev)
+        if mode == "fused" and tomb is not None:
+            mode = "kernel"
         if mode == "fused":
             lists_out.append(ivf_probe.fused_probe_topk(
                 qs, lc.to(torch.int32), lists, rows, scale, fill, k=k,
@@ -295,7 +306,7 @@ def search_sharded(index: ShardedIVFIndex, queries: torch.Tensor, k: int,
             continue
         if full:
             v, i = _shard_exact(qs, ss, lists, rows, scale, fill, k,
-                                measure, mode)
+                                measure, mode, tomb_s)
         else:
             m = budget * cap
             cand = dequantize_payload(
@@ -309,6 +320,8 @@ def search_sharded(index: ShardedIVFIndex, queries: torch.Tensor, k: int,
             sims = (score_candidates(qs, cand, measure) if mode == "kernel"
                     else ref.gathered_sims(qs, cand, measure))
             bad = ~live | (cc == ss[:, None])
+            if tomb_s is not None:
+                bad = bad | tomb_s[cc.long()]
             v, i = _padded_topk(sims.masked_fill(bad, float("-inf")), cc, k)
         lists_out.append((v, i))
     mv, mi = _merge(lists_out, k, home)
@@ -319,7 +332,8 @@ def search_early_exit_sharded(index: ShardedIVFIndex, queries: torch.Tensor,
                               k: int, nprobe: int, measure: str = "cosine",
                               *, self_ids: Optional[torch.Tensor] = None,
                               patience: int = 2,
-                              local_budget: Optional[int] = None
+                              local_budget: Optional[int] = None,
+                              tomb: Optional[torch.Tensor] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
     """Per-query early exit with :func:`search_sharded`'s routing.
@@ -332,7 +346,8 @@ def search_early_exit_sharded(index: ShardedIVFIndex, queries: torch.Tensor,
     cells scored across the shards (a foreign rank is never scored, so it
     never retires a query). The shards' lists merge canonically. With
     ``patience >= nprobe`` the result is that of the single-device
-    ``search_early_exit`` on data without score ties.
+    ``search_early_exit`` on data without score ties. ``tomb`` masks
+    tombstoned ids as in :func:`search_sharded`.
     """
     c, cap, per = index.n_clusters, index.capacity, index.cells_per_shard
     nprobe = min(max(nprobe, 1), c)
@@ -352,6 +367,7 @@ def search_early_exit_sharded(index: ShardedIVFIndex, queries: torch.Tensor,
         fill = index.fill[s * per:(s + 1) * per].to(dev)
         lists, rows = index.lists[s], index.rows[s]
         scale = None if index.scale is None else index.scale[s]
+        tomb_s = None if tomb is None else tomb.to(dev)
         slot = torch.arange(cap, device=dev)
         vals = torch.full((b, k), float("-inf"), device=dev)
         ids = torch.zeros((b, k), dtype=torch.int32, device=dev)
@@ -367,7 +383,9 @@ def search_early_exit_sharded(index: ShardedIVFIndex, queries: torch.Tensor,
             cc = lists[cell]
             live = slot[None, :] < fill[cell][:, None]
             sims = score_candidates(qs, cand, measure)
-            sims = sims.masked_fill(~live | (cc == ss[:, None])
+            dead = (live & tomb_s[cc.long()] if tomb_s is not None
+                    else torch.zeros_like(live))
+            sims = sims.masked_fill(~live | dead | (cc == ss[:, None])
                                     | ~score[:, None], float("-inf"))
             mv, mi = _padded_topk(torch.cat([vals, sims], 1),
                                   torch.cat([ids, cc], 1), k)

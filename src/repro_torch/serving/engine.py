@@ -38,9 +38,11 @@ and top-k scan kernels among them: fold-in scans and repair rescans) on
 ``fold_stream``, so a read batch never queues on the device behind a
 write. A write is published only after its stream has finished.
 
-This module holds the single-device backends, :class:`LocalBackend` and
-:class:`MutableLocalBackend`; the sharded ones come with the multi-GPU
-slice.
+Backends: :class:`LocalBackend` and :class:`MutableLocalBackend` on one
+device; :class:`ShardedBackend` and :class:`MutableShardedBackend` on a
+mesh (``launch.mesh``), whose reads go through the query router
+(``serving.router``) and whose lanes have a stream pair on every shard
+device.
 """
 from __future__ import annotations
 
@@ -353,6 +355,298 @@ class MutableLocalBackend(LocalBackend):
             table = np.full(len(tomb), -1, np.int64)
             table[:mst.n_valid][live] = np.arange(int(live.sum()))
             return self._mut.compact_tombstones(mst)
+
+        return self._write(step), table
+
+
+def _devices(sstate) -> Tuple[torch.device, ...]:
+    """The distinct CUDA devices of a sharded state's blocks."""
+    return tuple(dict.fromkeys(d for d in sstate.devices
+                               if d.type == "cuda"))
+
+
+def _sharded_tensors(sst) -> Tuple[torch.Tensor, ...]:
+    """Every tensor of a ``ShardedLandmarkState``."""
+    out = [sst.landmark_idx]
+    for blocks in (sst.representation, sst.ratings, sst.row_rank):
+        out.extend(blocks)
+    for g in sst.graph:
+        out.extend((g.indices, g.weights))
+    return tuple(out)
+
+
+class ShardedBackend:
+    """Mesh executor: reads go through the query router
+    (``serving.router``), folds through ``buckets.fold_in_rows_sharded`` on
+    a copy of the published state. A request names users by logical id;
+    the published cell ``(state, id_shard, id_slot, generation)`` carries
+    the logical id → (shard, slot) tables that translate them to sharded
+    row ids (``shard * capacity + slot``) at execution time, so a capacity
+    regrow between two publishes never mixes old ids with a new layout.
+    The tables grow with every fold.
+
+    Streams: the lanes need a read stream and a write stream on every
+    device that holds a shard (:class:`LocalBackend` keeps one pair on its
+    one device). A mesh on one card has one pair; round-robin over several
+    cards, one pair a card. A write runs on the write streams after the
+    read streams' queued work and is published once all of them have
+    finished, its tensors marked in use on the read streams.
+
+    ``serialize_folds`` is False: the port's mesh is one process with
+    explicit collectives and no rendezvous, and a write builds its
+    generation in fresh tensors, so folds overlap reads as on one device
+    (``RequestEngine.verify_sample`` re-checks that reads stay bitwise the
+    reads alone). The reference serializes them to avoid a JAX host-mesh
+    deadlock the port cannot have.
+    """
+
+    serialize_folds = False
+
+    def __init__(self, sstate, id_shard: np.ndarray, id_slot: np.ndarray,
+                 spec, *, min_bucket: int = 32, growth: float = 2.0,
+                 warm_shapes: Tuple[int, ...] = (), warm_topn: int = 10):
+        self.spec = spec
+        self.min_bucket = min_bucket
+        self.growth = growth
+        self.warm_shapes = warm_shapes
+        self.warm_topn = warm_topn
+        self._pub = self._cell(sstate, id_shard, id_slot)
+        self.caps_used = {sstate.capacity}
+        self.device = sstate.devices[0]  # where the routed reads gather
+        self.read_streams, self.fold_streams = {}, {}
+        for dev in _devices(sstate):
+            here = torch.cuda.current_stream(dev)
+            for lane in (self.read_streams, self.fold_streams):
+                lane[dev] = torch.cuda.Stream(dev)
+                lane[dev].wait_stream(here)
+
+    @staticmethod
+    def _cell(state, id_shard, id_slot):
+        return (state, np.asarray(id_shard, np.int64),
+                np.asarray(id_slot, np.int64), 0)
+
+    @staticmethod
+    def _on_all(streams: dict):
+        stack = contextlib.ExitStack()
+        for st in streams.values():
+            stack.enter_context(torch.cuda.stream(st))
+        return stack
+
+    def _warm(self, pub) -> None:
+        """Run the reads of a new shard capacity before the publish, on the
+        read streams (the geometries recorded, the pools grown)."""
+        for s in self.warm_shapes:
+            z = np.zeros(s, np.int64)
+            self.predict_pairs(pub, z, z)
+            self.recommend_topn(pub, z, self.warm_topn)
+
+    @property
+    def generation(self) -> int:
+        return self._pub[3]
+
+    @property
+    def n_users(self) -> int:
+        return len(self._pub[1])
+
+    def snapshot(self):
+        return self._pub
+
+    @staticmethod
+    def sharded_state(state):
+        """The ``ShardedLandmarkState`` of a published state."""
+        return state
+
+    def sharded_ids(self, pub, users: np.ndarray) -> torch.Tensor:
+        """Logical ids -> sharded row ids against ``pub``'s tables."""
+        state, id_shard, id_slot, _ = pub
+        users = np.asarray(users, np.int64)
+        cap = self.sharded_state(state).capacity
+        return torch.as_tensor(id_shard[users] * cap + id_slot[users],
+                               device=self.device)
+
+    @staticmethod
+    def read_tomb(state):
+        """The tombstone bitmap a read of ``state`` passes the router."""
+        return None
+
+    def predict_pairs(self, pub, users: np.ndarray,
+                      items: np.ndarray) -> np.ndarray:
+        from .router import predict_pairs_routed
+
+        state = pub[0]
+        with self._on_all(self.read_streams):
+            out = predict_pairs_routed(
+                self.sharded_state(state), self.sharded_ids(pub, users),
+                torch.as_tensor(items, device=self.device),
+                tomb=self.read_tomb(state))
+            return out.cpu().numpy()
+
+    def recommend_topn(self, pub, users: np.ndarray, n: int):
+        from .router import recommend_topn_routed
+
+        state = pub[0]
+        with self._on_all(self.read_streams):
+            ti, ts = recommend_topn_routed(
+                self.sharded_state(state), self.sharded_ids(pub, users), n,
+                tomb=self.read_tomb(state))
+            return ti.cpu().numpy(), ts.cpu().numpy()
+
+    @staticmethod
+    def _state_tensors(state) -> Tuple[torch.Tensor, ...]:
+        return _sharded_tensors(state)
+
+    def _record(self, state, lane: dict) -> None:
+        for t in self._state_tensors(state):
+            if t.device in lane:
+                t.record_stream(lane[t.device])
+
+    def _write(self, step: Callable) -> int:
+        """Run ``step(published cell) -> (state, id_shard, id_slot)`` on the
+        write streams (after the read streams' queued work) and publish the
+        result once they have finished; returns the new generation."""
+        old = self._pub
+        gen = old[3]
+        with self._on_all(self.fold_streams):
+            for dev, st in self.fold_streams.items():
+                st.wait_stream(self.read_streams[dev])
+            self._record(old[0], self.fold_streams)
+            state, id_shard, id_slot = step(old)
+        for st in self.fold_streams.values():
+            st.synchronize()
+        self._record(state, self.read_streams)
+        pub = (state, id_shard, id_slot, gen + 1)
+        cap = self.sharded_state(state).capacity
+        if cap not in self.caps_used:
+            self._warm(pub)
+            self.caps_used.add(cap)
+        self._pub = pub
+        return gen + 1
+
+    def fold_in(self, rows: np.ndarray, bq: int) -> int:
+        def step(pub):
+            sstate, id_shard, id_slot, _ = pub
+            new, shards, slots = buckets.fold_in_rows_sharded(
+                sstate.clone(), rows, bq, self.spec,
+                min_bucket=self.min_bucket, growth=self.growth)
+            return (new, np.concatenate([id_shard, shards]),
+                    np.concatenate([id_slot, slots]))
+
+        return self._write(step)
+
+
+class MutableShardedBackend(ShardedBackend):
+    """:class:`ShardedBackend` with the write path open: the published
+    cell holds a ``mutation.MutableStateSharded``. Reads pass its
+    replicated tombstone bitmap to the router; ``"update"``/``"remove"``
+    requests translate their logical ids to sharded ids against the
+    published tables, pad to the write lane's shapes, apply on the owner
+    shards (``mutation.sharded``), drain their repairs and publish on the
+    write streams, as a fold does. ``refresh()`` compacts every shard (rows
+    never change owner) and renumbers the logical id -> (shard, slot)
+    tables in place; logical ids stay what they were.
+    """
+
+    def __init__(self, sstate, id_shard: np.ndarray, id_slot: np.ndarray,
+                 spec, *, repair_bq: int = 64, **kw):
+        from .. import mutation
+
+        msst = mutation.from_sharded(sstate)  # before the lanes fork
+        super().__init__(sstate, id_shard, id_slot, spec, **kw)
+        self._mut = mutation
+        self.repair_bq = repair_bq
+        self.repaired_rows = 0
+        self._pub = self._cell(msst, id_shard, id_slot)
+
+    @staticmethod
+    def sharded_state(state):
+        return state.sstate
+
+    @staticmethod
+    def read_tomb(state):
+        return state.tomb
+
+    @staticmethod
+    def _state_tensors(msst) -> Tuple[torch.Tensor, ...]:
+        return _sharded_tensors(msst.sstate) + (msst.landmarks, msst.tomb,
+                                                msst.dirty, msst.rank)
+
+    @property
+    def tombstone_frac(self) -> float:
+        return self._pub[0].tombstone_frac()
+
+    def tomb(self) -> np.ndarray:
+        """Host view of the live generation's tombstone bitmap, indexed by
+        logical id."""
+        msst, id_shard, id_slot, _ = self._pub
+        return msst.tomb.cpu().numpy()[id_shard * msst.capacity + id_slot]
+
+    def fold_in(self, rows: np.ndarray, bq: int) -> int:
+        def step(pub):
+            msst, id_shard, id_slot, _ = pub
+            new, shards, slots = self._mut.fold_in_rows_sharded(
+                msst, rows, bq, self.spec, min_bucket=self.min_bucket,
+                growth=self.growth)
+            return (new, np.concatenate([id_shard, shards]),
+                    np.concatenate([id_slot, slots]))
+
+        return self._write(step)
+
+    def _drained(self, msst):
+        self.repaired_rows += msst.dirty_count()
+        return self._mut.drain_repairs_sharded(msst, self.spec,
+                                               self.repair_bq)
+
+    def _batch(self, pub, ids: np.ndarray, rows: Optional[np.ndarray]):
+        """(sharded ids, rows, m): a batch padded to its mutation shape
+        (filler id -1, zero rows)."""
+        m = len(ids)
+        shape = _mutation_shape(m)
+        pid = np.full(shape, -1, np.int64)
+        pid[:m] = self.sharded_ids(pub, ids).cpu().numpy()
+        if rows is None:
+            return pid, None, m
+        prows = np.zeros((shape, rows.shape[1]), np.float32)
+        prows[:m] = rows
+        return pid, prows, m
+
+    def apply_update(self, ids: np.ndarray, rows: np.ndarray) -> int:
+        def step(pub):
+            pid, prows, m = self._batch(pub, np.asarray(ids),
+                                        np.asarray(rows))
+            return (self._drained(self._mut.update_ratings_sharded(
+                pub[0], pid, prows, m, self.spec)), pub[1], pub[2])
+
+        return self._write(step)
+
+    def apply_remove(self, ids: np.ndarray) -> int:
+        def step(pub):
+            pid, _, m = self._batch(pub, np.asarray(ids), None)
+            return (self._drained(self._mut.remove_users_sharded(
+                pub[0], pid, m)), pub[1], pub[2])
+
+        return self._write(step)
+
+    def refresh(self) -> Tuple[int, np.ndarray]:
+        """Refresh-boundary compaction on every shard: drain outstanding
+        repairs, slide the tombstoned rows out, renumber the tables,
+        publish. Returns ``(generation, table)`` over logical ids:
+        ``table[id]`` is ``id`` for a surviving row and -1 for a removed
+        one (whose table entries now point at slot 0 of shard 0)."""
+        table = None
+
+        def step(pub):
+            nonlocal table
+            msst, id_shard, id_slot, _ = pub
+            msst = self._mut.drain_repairs_sharded(msst, self.spec,
+                                                   self.repair_bq)
+            c = msst.capacity
+            moved, _, _ = self._mut.sharded.compact_tables(msst)
+            sid = id_shard * c + id_slot
+            dead = msst.tomb.cpu().numpy()[sid]
+            table = np.where(dead, -1, np.arange(len(sid), dtype=np.int64))
+            return (self._mut.compact_tombstones_sharded(msst),
+                    np.where(dead, 0, id_shard),
+                    np.where(dead, 0, moved[sid] % c))
 
         return self._write(step), table
 

@@ -526,13 +526,13 @@ def test_engine_cli_asks_for_the_card_by_default():
 @pytest.mark.parametrize("flag,slice_", [(["--mutations"], "mutation"),
                                          (["--mesh", "data=2"], "multi-GPU")])
 def test_engine_cli_refuses_what_later_slices_bring(flag, slice_):
-    """``--mesh`` comes with the multi-GPU slice. ``--mutations`` rides the
-    engine's write lane: without ``--engine`` it is refused with the
-    reference's message."""
-    engine = [] if slice_ == "mutation" else ["--engine"]
+    """``--mesh`` runs the multi-GPU paths (the lifecycle replay or the
+    engine, tests/test_torch_engine_mesh.py): alone it is refused.
+    ``--mutations`` rides the engine's write lane: without ``--engine`` it
+    is refused with the reference's message."""
     with pytest.raises(SystemExit, match=slice_) as got:
         serve.main(["--workload", "cf", "--smoke", "--device", "cpu"]
-                   + engine + flag)
+                   + flag)
     if slice_ == "mutation":
         from repro.launch import serve as jserve
 

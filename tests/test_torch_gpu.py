@@ -933,6 +933,91 @@ def test_threaded_engine_on_the_card(cuda):
     assert checked >= 2 and bad == 0
 
 
+# ------------------------------------------------ write path, engine mesh
+@pytest.mark.parametrize("b", [8, 16, 64])
+def test_update_backpatch_block_is_gathered_sims_on_the_card(cuda, b,
+                                                            monkeypatch):
+    """``update_ratings`` scores its (C, b) back-patch block with kernel 6's
+    shared form, one launch: at C = 8192 the block is ``ref.gathered_sims``
+    bit for bit, so a score does not depend on the block's row count (a
+    shard's block on a mesh scores the same)."""
+    from repro_torch import mutation
+    from repro_torch.mutation import mutate
+
+    bst, spec = _engine_state(cuda, min_bucket=8192)
+    assert bst.capacity == 8192
+    mst = mutation.from_bucketed(bst)
+    blocks, real = [], mutate.backpatch_sims
+
+    def spy(rep, new_rep, measure):
+        out = real(rep, new_rep, measure)
+        blocks.append((rep, new_rep, measure, out))
+        return out
+
+    monkeypatch.setattr(mutate, "backpatch_sims", spy)
+    rng = np.random.default_rng(b)
+    ids = rng.choice(bst.n_valid, b, replace=False)
+    rows = _ratings(b, bst.state.ratings.shape[1], cuda, density=0.042,
+                    seed=b).cpu().numpy()
+    ops.reset_launches()
+    mutation.update_ratings(mst, ids, rows, b, spec)
+    assert ops.launch_counts()["score_candidates"] == 1
+    (rep, new_rep, measure, got), = blocks
+    assert tuple(got.shape) == (8192, b) and got.is_cuda
+    assert torch.equal(got, ref.gathered_sims(rep, new_rep, measure))
+    assert torch.equal(got[:2048], ref.gathered_sims(rep[:2048], new_rep,
+                                                     measure))
+
+
+def test_mesh_routed_reads_and_writes_on_the_card_bitwise_one_device(cuda):
+    """A 4-shard mesh on the card (``MutableShardedBackend``): routed reads
+    at every batch shape, then after an update, a removal and a fold on
+    the write streams, are the one-device ``MutableLocalBackend``'s bits;
+    every block stays on the card, and the writes launch kernels 1, 3 and
+    6 on the shards."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.lifecycle import buckets
+    from repro_torch.serving import (EngineConfig, MutableLocalBackend,
+                                     MutableShardedBackend)
+
+    spec = T.LandmarkSpec(n_landmarks=20, k_neighbors=13)
+    st = T.fit(T.RatingMatrix(_ratings(3000, 1000, cuda, density=0.042,
+                                       seed=9), 3000, 1000), spec)
+    cfg = EngineConfig(max_batch=128, min_shape=32)
+    mesh = make_mesh(("pod", "data"), (2, 2))
+    sst = buckets.from_state_sharded(st, mesh, ("pod", "data"), 64)
+    u_per = -(-3000 // 4)
+    shard = MutableShardedBackend(sst, np.arange(3000) // u_per,
+                                  np.arange(3000) % u_per, spec,
+                                  min_bucket=64)
+    local = MutableLocalBackend(buckets.from_state(st, 256), spec)
+    rng = np.random.default_rng(12)
+
+    def same(n_users):
+        for b in cfg.batch_shapes():
+            u, it = rng.integers(0, n_users, b), rng.integers(0, 1000, b)
+            pa, pb = shard.snapshot(), local.snapshot()
+            assert np.array_equal(shard.predict_pairs(pa, u, it),
+                                  local.predict_pairs(pb, u, it)), b
+            got = shard.recommend_topn(pa, u, 10)
+            want = local.recommend_topn(pb, u, 10)
+            assert all(np.array_equal(g, w) for g, w in zip(got, want)), b
+
+    same(3000)
+    ops.reset_launches()
+    for be in (shard, local):
+        be.apply_update(np.array([4, 900, 1700, 2999]),
+                        _ratings(4, 1000, cuda, seed=13).cpu().numpy())
+        be.apply_remove(np.array([5, 901, 2500]))
+        be.fold_in(_ratings(64, 1000, cuda, seed=14).cpu().numpy(), 64)
+    counts = ops.launch_counts()
+    assert counts["score_candidates"] >= 4 + 4 + 2
+    assert counts["foldin_topk"] >= 4 and counts["masked_similarity"] >= 4
+    same(3064)
+    blocks = shard.snapshot()[0].sstate
+    assert all(b.is_cuda for b in blocks.ratings + blocks.representation)
+
+
 # ------------------------------------------------------ baselines, compact
 MF_CARD_ATOL = 1e-4  # MF on the card vs the CPU: parameters, predictions
 BPMF_CARD_ATOL = 1e-4  # one Gibbs sweep on the card vs the CPU, same draws

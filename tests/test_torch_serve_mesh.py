@@ -61,10 +61,12 @@ def test_serve_sharded_lifecycle_one_axis_mesh(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--engine"], "next multi-GPU slice"),
-    (["--engine", "--mutations"], "next multi-GPU slice"),
+    (["--mutations"], "add --engine"),
+    (["--retrieval", "ivf"], "add --lifecycle or --engine"),
 ])
 def test_mesh_with_engine_is_refused(extra, match):
+    """``--engine --mesh`` serves (tests/test_torch_engine_mesh.py); what
+    is still refused on a mesh is an engine flag without the engine."""
     with pytest.raises(SystemExit, match=match):
         serve.main(["--workload", "cf", "--mesh", "data=2", "--smoke",
                     "--device", "cpu"] + extra)

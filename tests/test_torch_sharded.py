@@ -362,7 +362,7 @@ def test_fold_in_never_builds_an_sc_row_tensor():
     assert n > 100 and bad == [] and row_sharded == 5
     # the check sees a replicated (S·C)-row tensor when one is built
     rows = sst.shard_count * sst.capacity
-    _, caught = serve._materializations(
+    _, caught = shd.materializations(
         lambda: torch.zeros((rows, 2)),
         lambda shp: len(shp) > 1 and shp[0] >= rows)
     assert len(caught) == 1

@@ -22,6 +22,7 @@ import torch
 import repro.retrieval as JR
 import repro_torch.retrieval as R
 from repro_torch.core.topk import list_mismatches
+from repro_torch.distributed.sharding import materializations
 from repro_torch.launch import serve
 from repro_torch.launch.mesh import make_mesh
 
@@ -172,7 +173,7 @@ def test_probe_path_builds_no_candidate_tensor():
     assert n > 50 and bad == []
     # without a budget the gathered scorer does build one: the check sees it
     bound = 8 * six.capacity
-    _, caught = serve._materializations(
+    _, caught = materializations(
         lambda: R.search_sharded(six, rep[:64], 13, 8, "cosine",
                                  scorer="plain"),
         lambda shp: len(shp) >= 2 and shp[0] == 64 and shp[1] >= bound)
