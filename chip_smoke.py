@@ -184,11 +184,13 @@ The mesh slice adds:
     bitwise ``search`` on one device. Prints each run's wall time per wave
     on the mesh path and beside it, and peak device memory; the kernel
     table gains each row's mesh-path launches in the two runs
-    (``launches_mesh``). A6 rides on 7a: kernels 4-6 at
-    n = 100 and 104, bitwise their plain versions, with their n = 100
-    times; 7a's back-patch line gives kernel 6's shared form its device
-    time from a profiler trace (``kernel_device_ms``) beside its events
-    time.
+    (``launches_mesh``). 7a's wide-row line holds kernels 2-6 at n = 100,
+    104, 105, 128 and 256 bitwise their plain versions (past 104 their
+    wide routes) and times them at n = 100 and 128 beside their bounds
+    (the kernel rows' ``n=100 ms`` and ``n=128 ms``); 7a's back-patch line
+    gives kernel 6's shared form its device time from a profiler trace
+    (``kernel_device_ms``) beside its events time (row 6's
+    ``shared_form``).
 
 The sharded engine slice adds:
 
@@ -215,6 +217,24 @@ The sharded engine slice adds:
     idle share of the load window and peak memory; the kernel table gains
     each row's mesh-path launches in the three runs
     (``launches_engine_mesh``).
+
+The any-landmark-count slice adds:
+
+14. n = 128 landmarks, the width of the reference registry's ``web_fit``
+    cell, ``LandmarkSpec(128, popularity, cosine, cosine, k=13)``: (a)
+    the main path at the ML-1M shape (fit → fold-in of 64 → 256-pair
+    predict and top-N), kernels 1-3 launched and each result on the path
+    bitwise its plain version on the path's inputs (the representation,
+    the fit's graph, the fold-in rows' lists); (b) ``build_index``, a
+    search at partial probe through ``scorer="kernel"`` and through the
+    fused probe, and one bucketed fold-in whose back-patch runs kernel
+    6's shared form: kernels 4-6 launched (kernel 6 in both forms, by
+    tally) and each bitwise its plain version on those inputs; (c) fit →
+    fold-in at ``web_fit``'s P = 65,536 items and n = 128, U cut from
+    1,048,576 to 32,768 users (dense f32 ratings of all users take 275
+    GB) made on the card from a seeded generator in 4096-row blocks: the
+    cut, fit and fold-in seconds and peak memory printed. The kernel
+    table gains each row's launches in (a) and (b) (``launches_wide``).
 
 The last two lines are the kernel table and
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. TF32 is off for
@@ -364,8 +384,7 @@ def phase_build():
     print("phase 2 fused probe kernel: " + json.dumps(_ptxas(log, _probe_name)))
     print("phase 2 top-k scan kernel: " + json.dumps(_ptxas(log, _scan_name)))
     print("phase 2 Lloyd kernel: " + json.dumps(_ptxas(log, _lloyd_name)))
-    print("phase 2 scorer kernel: " + json.dumps(_ptxas(
-        log, lambda ln: "n<=104" if "score_kernel" in ln else None)))
+    print("phase 2 scorer kernel: " + json.dumps(_ptxas(log, _scorer_name)))
 
 
 def _wgmma_name(line):
@@ -388,20 +407,34 @@ def _d1_name(line):
 
 def _probe_name(line):
     """'n<=20' for a line naming an instantiation of the fused probe
-    kernel (template <int NV4>: rows padded to 4·NV4), else None."""
+    kernel (template <int NV4>: rows padded to 4·NV4), 'wide' for its wide
+    route (n > 104), else None."""
     import re
 
+    if "probe_wide_kernel" in line:
+        return "wide"
     m = re.search(r"probe_group_kernelILi(\d+)E", line)
     return f"n<={4 * int(m.group(1))}" if m else None
 
 
 def _lloyd_name(line):
     """'n<=20' for a line naming an instantiation of the Lloyd kernel
-    (template <int NMAX>: a register row of NMAX floats), else None."""
+    (template <int NMAX>: a register row of NMAX floats), 'wide' for its
+    wide route (n > 104), else None."""
     import re
 
+    if "lloyd_wide_kernel" in line:
+        return "wide"
     m = re.search(r"lloyd_kernelILi(\d+)E", line)
     return f"n<={m.group(1)}" if m else None
+
+
+def _scorer_name(line):
+    """'per-query' / 'shared' for a line naming one of kernel 6's two
+    forms, else None."""
+    if "per_query_kernel" in line:
+        return "per-query"
+    return "shared" if "shared_kernel" in line else None
 
 
 def _scan_name(line):
@@ -410,12 +443,12 @@ def _scan_name(line):
     STAGES, MINB>, M the measure), else None."""
     import re
 
-    m = re.search(r"topk_scan_kernelI\w*?TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)"
-                  r"ELi\d+EEELi(\d)E", line)
+    m = re.search(r"topk_scan_(wide_)?kernelI\w*?TileILi(\d+)ELi(\d+)ELi"
+                  r"(\d+)ELi(\d+)ELi\d+EEELi(\d)E", line)
     if not m:
         return None
-    r, s, w, stages, measure = m.groups()
-    return (f"R={r} S={s} W={w} stages={stages} "
+    wide, r, s, w, stages, measure = m.groups()
+    return (f"{'wide ' if wide else ''}R={r} S={s} W={w} stages={stages} "
             f"{sim.MEASURES[int(measure)]}")
 
 
@@ -822,15 +855,18 @@ DEVICE_FUNCS = {
     # the planes, the moments, the finalize launch)
     "masked_similarity": None,
     "masked_similarity_f32": ("masked_similarity_kernel",),
-    # the prep pass, the scan, and the merge of the candidate splits
-    "topk_sim": ("topk_prep_kernel", "topk_scan_kernel", "topk_merge_kernel"),
+    # the prep pass, the scan, and the merge of the candidate splits (the
+    # wide routes' prep and scan past n = 104)
+    "topk_sim": ("topk_prep_kernel", "topk_scan_kernel", "topk_merge_kernel",
+                 "topk_prep_wide_kernel", "topk_scan_wide_kernel"),
     "foldin_topk": ("topk_prep_kernel", "topk_scan_kernel",
-                    "topk_merge_kernel"),
-    "assign_clusters": ("lloyd_kernel",),
+                    "topk_merge_kernel", "topk_prep_wide_kernel",
+                    "topk_scan_wide_kernel"),
+    "assign_clusters": ("lloyd_kernel", "lloyd_wide_kernel"),
     # None: every kernel of the call (the argsort that groups the queries,
     # then the probe kernel)
     "fused_probe_topk": None,
-    "score_candidates": ("score_kernel",),
+    "score_candidates": ("per_query_kernel", "shared_kernel"),
     "landmark_summary": ("summary_wgmma_kernel",),
     "landmark_summary_f32": ("summary_wgmma_kernel", "split_terms_kernel"),
     "split_terms": ("split_terms_kernel",),  # the f32 route's split pass
@@ -1310,13 +1346,14 @@ def phase_ivf_kernels(a):
     print("phase 7a back-patch (ms): " + json.dumps(patch_ms))
     wide, wide_ms = _check_wide()
     notes.append(wide)
-    print("phase 7a wide rows (n=100, ms): " + json.dumps(wide_ms))
+    print("phase 7a wide rows (ms): " + json.dumps(wide_ms))
     print(f"phase 7a IVF kernels: index C={index.n_clusters} "
           f"cap={index.capacity} nprobe={spec.nprobe} over U={u} n="
           f"{rep.shape[1]}; " + "; ".join(notes)
           + f" | {time.perf_counter() - t0:.1f}s")
     return dict(index=index, probe=probe, self_ids=self_ids, cand=cand, q=q,
-                all_rows=rep, capacity=capacity)
+                all_rows=rep, capacity=capacity, wide_ms=wide_ms,
+                patch_ms=patch_ms)
 
 
 def _check_backpatch(a):
@@ -1360,15 +1397,82 @@ def _check_backpatch(a):
     return "back-patch scorer 3/3 bitwise (shared form)", out
 
 
-WIDE_WIDTHS = (100, 104)  # kernels 4-6 past n = 64 (ROADMAP A6)
+# kernels 2-6 past n = 64: the narrow routes up to 104, the wide routes
+# past it (ROADMAP A6); the times at n = 100 and at web_fit's 128
+WIDE_WIDTHS = (100, 104, 105, 128, 256)
+WIDE_TIMED = (100, 128)
+
+
+def _wide_times(n, rows):
+    """Kernels 2-6 at width n on the IVF build's shape (6040 rows, C = 78,
+    8 Lloyd steps, the graph-build probe at nprobe 19, a 256-query scorer
+    block), the graph build and a 64-row fold-in search over the same rows,
+    and the back-patch's shared form (C = 8192, bq = 64): events ms over 20
+    calls beside each bound (the operation and byte counts of _ivf_rows and
+    phase_times)."""
+    rng = np.random.default_rng(n)
+    u = 6040
+    x = rows(u, n)
+    spec = rt.resolve_ivf(None, u)
+    init = x[torch.as_tensor(rng.permutation(u)[:spec.n_clusters],
+                             device=DEVICE)].contiguous()
+    index = rt.build_index(x, spec, "cosine", centroids=init)
+    c, cap = index.lists.shape
+    probe = rt.probe_cells(index, x, spec.nprobe, "cosine")
+    b, nprobe = probe.shape
+    live = int(index.fill[probe.long()].sum())
+    stored = int(index.fill.sum())
+    sids = torch.arange(u, dtype=torch.int32, device=DEVICE)
+    qb, m = 256, nprobe * cap
+    cand = index.rows[probe[:qb].long()].reshape(qb, m, -1).contiguous()
+    xr = kernel_rows(x, "cosine")
+    new, k = xr[-FOLD_IN:].contiguous(), 13
+    bucket, bq = torch.cat([x, rows(LIFECYCLE_CAPACITY - u, n)]), x[:FOLD_IN]
+    cb = LIFECYCLE_CAPACITY
+    cases = {
+        "topk_sim": (
+            lambda: knn_topk.topk_sim(xr, xr, k, exclude_self=True),
+            4 * (2 * u * n + 2 * u * k), 2 * u * u * n),
+        "foldin_topk": (
+            lambda: knn_topk.foldin_topk(new, xr, k, self_offset=u - FOLD_IN),
+            4 * (FOLD_IN * n + u * n + 2 * FOLD_IN * k), 2 * FOLD_IN * u * n),
+        "assign_clusters": (
+            lambda: assign_clusters.kmeans_lloyd(x, init, spec.iters),
+            4 * (u * n + 2 * c * n + u), (spec.iters + 1) * 2 * u * c * n),
+        "fused_probe_topk": (
+            lambda: ivf_probe.fused_probe_topk(
+                x, probe, index.lists, index.rows, None, index.fill, k=k,
+                self_ids=sids),
+            4 * (b * n + b * nprobe + c * cap + c * cap * n + c + b)
+            + 8 * b * k, live * (2 * n + 3) + 2 * n * (stored + b)),
+        "score_candidates": (
+            lambda: score_candidates.score_candidates(x[:qb], cand),
+            4 * (qb * n + qb * m * n + qb * m),
+            qb * m * (4 * n + 3) + 2 * n * qb),
+        "score_candidates shared": (
+            lambda: score_candidates.score_candidates(bucket, bq),
+            4 * (cb * n + FOLD_IN * n + cb * FOLD_IN),
+            cb * FOLD_IN * (2 * n + 3) + 2 * n * (cb + FOLD_IN)),
+    }
+    times = {}
+    for name, (fn, nbytes, flops) in cases.items():
+        bound_ms, bound_by = _bound(nbytes, flops)
+        times[name] = dict(ms=_event_ms(fn, 20), bound_ms=bound_ms,
+                           bound_by=bound_by)
+    times["shape"] = (f"U={u} n={n} C={c} nprobe={nprobe} cap={cap} "
+                      f"{spec.iters} Lloyd steps, {live} live probe pairs, "
+                      f"scorer b={qb} m={m}, shared C={cb} bq={FOLD_IN}, "
+                      f"top-k U=C={u} and b={FOLD_IN} k={k}")
+    return times
 
 
 def _check_wide():
-    """Kernels 4–6 at n = 100 and 104 against their plain versions, bitwise
-    (every measure; the probe on every payload with masked probes and self
-    ids; the Lloyd kernel at 0 and 8 steps, launched twice), and their
-    times at n = 100 on the IVF build's shape: 6040 rows, C = 78, 8 steps;
-    the graph-build probe at nprobe 19; a 256-query scorer block."""
+    """Kernels 2–6 at n = 100, 104, 105, 128 and 256 against their plain
+    versions, bitwise (every measure; the scan's graph build with a ragged
+    n_valid and a fold-in search; the probe on every payload with masked
+    probes and self ids; the Lloyd kernel at 0 and 8 steps, launched twice;
+    the scorer in both forms), and their times at n = 100 and 128
+    (``_wide_times``)."""
     rng = np.random.default_rng(24)
     g = torch.Generator().manual_seed(25)
     n_ok, times = 0, {}
@@ -1379,6 +1483,18 @@ def _check_wide():
 
     for n in WIDE_WIDTHS:
         x = rows(2000, n)
+        for measure in sim.MEASURES:
+            xr = kernel_rows(x, measure)
+            _bitwise(f"topk_sim n={n} {measure}",
+                     knn_topk.topk_sim(xr, xr, 13, exclude_self=True,
+                                       n_valid=1990, measure=measure),
+                     ref.foldin_topk_ref(xr, xr, 13, 0, 1990, measure))
+            _bitwise(f"foldin_topk n={n} {measure}",
+                     knn_topk.foldin_topk(xr[-64:].contiguous(), xr, 13,
+                                          self_offset=1936, measure=measure),
+                     ref.foldin_topk_ref(xr[-64:].contiguous(), xr, 13, 1936,
+                                         None, measure))
+            n_ok += 2
         init = x[torch.as_tensor(rng.permutation(2000)[:40],
                                  device=DEVICE)].contiguous()
         for measure in sim.MEASURES:
@@ -1419,45 +1535,10 @@ def _check_wide():
                                                         measure)],
                      [ref.gathered_sims(cand[0], qs, measure)])
             n_ok += 2
-    # times at n = 100 on the IVF shapes, beside their bounds (the
-    # operation and byte counts of _ivf_rows)
-    u, n = 6040, 100
-    x = rows(u, n)
-    spec = rt.resolve_ivf(None, u)
-    init = x[torch.as_tensor(rng.permutation(u)[:spec.n_clusters],
-                             device=DEVICE)].contiguous()
-    index = rt.build_index(x, spec, "cosine", centroids=init)
-    c, cap = index.lists.shape
-    probe = rt.probe_cells(index, x, spec.nprobe, "cosine")
-    b, nprobe = probe.shape
-    live = int(index.fill[probe.long()].sum())
-    stored = int(index.fill.sum())
-    sids = torch.arange(u, dtype=torch.int32, device=DEVICE)
-    qb, m = 256, nprobe * cap
-    cand = index.rows[probe[:qb].long()].reshape(qb, m, -1).contiguous()
-    cases = {
-        "assign_clusters": (
-            lambda: assign_clusters.kmeans_lloyd(x, init, spec.iters),
-            4 * (u * n + 2 * c * n + u), (spec.iters + 1) * 2 * u * c * n),
-        "fused_probe_topk": (
-            lambda: ivf_probe.fused_probe_topk(
-                x, probe, index.lists, index.rows, None, index.fill, k=13,
-                self_ids=sids),
-            4 * (b * n + b * nprobe + c * cap + c * cap * n + c + b)
-            + 8 * b * 13, live * (2 * n + 3) + 2 * n * (stored + b)),
-        "score_candidates": (
-            lambda: score_candidates.score_candidates(x[:qb], cand),
-            4 * (qb * n + qb * m * n + qb * m),
-            qb * m * (4 * n + 3) + 2 * n * qb),
-    }
-    for name, (fn, nbytes, flops) in cases.items():
-        bound_ms, bound_by = _bound(nbytes, flops)
-        times[name] = dict(ms=_event_ms(fn, 20), bound_ms=bound_ms,
-                           bound_by=bound_by)
-    times["shape"] = (f"U={u} n={n} C={c} nprobe={nprobe} cap={cap} "
-                      f"{spec.iters} Lloyd steps, {live} live probe pairs, "
-                      f"scorer b={qb} m={m}")
-    return f"n=100/104 {n_ok}/{n_ok} bitwise", times
+    for n in WIDE_TIMED:
+        times[f"n={n}"] = _wide_times(n, rows)
+    return (f"n={'/'.join(map(str, WIDE_WIDTHS))} {n_ok}/{n_ok} bitwise",
+            times)
 
 
 LIFECYCLE_CAPACITY = 8192  # the lifecycle's bucket for 6040 rows
@@ -2945,6 +3026,217 @@ def phase_engine_mesh(a, card):
     return total
 
 
+# ----------------------------------------- any landmark count (phase 14)
+WEB_N = cfg.WEB_FIT["n_landmarks"]  # 128: the registry's web_fit cell
+WIDE_SPEC = dataclasses.replace(cfg.MODEL, n_landmarks=WEB_N)
+WEB_USERS = 32768  # web_fit's 1,048,576 users, cut to what one card holds
+WEB_DENSITY = 0.02  # 1-5 stars on 2% of the (user, item) cells
+WEB_BLOCK = 4096  # rows generated at a time
+
+
+def _web_ratings(u, p, seed=0):
+    """(u, p) f32 star ratings made on the card, WEB_BLOCK rows at a time,
+    each block from its own seeded generator."""
+    r = torch.empty((u, p), device=DEVICE)
+    gen = torch.Generator(device=DEVICE)
+    for b0 in range(0, u, WEB_BLOCK):
+        gen.manual_seed(seed * 1_000_003 + b0)
+        blk = r[b0:b0 + WEB_BLOCK]
+        stars = torch.randint(1, 6, blk.shape, generator=gen, device=DEVICE)
+        keep = torch.rand(blk.shape, generator=gen, device=DEVICE)
+        blk.copy_(stars.float() * (keep < WEB_DENSITY))
+        del stars, keep
+    return r
+
+
+def _wide_main_path(train, d, test_idx):
+    """(a): fit → fold-in of 64 → 256-pair predict and top-N at n = 128 on
+    the ML-1M ratings. Kernels 1-3 must launch; then each kernel's result
+    on the path is held to its plain version on the path's own inputs:
+    d1's representation, the fit's graph (kernel 2), the fold-in rows'
+    lists (kernel 3)."""
+    spec, k = WIDE_SPEC, WIDE_SPEC.k_neighbors
+    u_fit, p = train.shape[0] - FOLD_IN, train.shape[1]
+    r = train[:u_fit]
+    users, items = (x[:256] for x in _pairs(test_idx, d, 0, u_fit)[:2])
+    rec = torch.arange(0, u_fit, u_fit // TOPN_USERS,
+                       device=DEVICE)[:TOPN_USERS]
+    sync()
+    ops.reset_launches()
+    st = fit(RatingMatrix(r, u_fit, p), spec)
+    st2 = fold_in(st, train[u_fit:], spec)
+    pred = predict(st2, users, items, spec)
+    top_i, top_s = knn.recommend_topn_graph(st2.graph, st2.ratings, rec,
+                                            n=10)
+    sync()
+    counts = _counts()
+    if not all(counts[name] > 0 for name in GRAPH_KERNELS):
+        raise AssertionError(f"phase 14a: a kernel did not launch {counts}")
+    rep = st.representation
+    lm = r[st.landmark_idx]
+    repq = kernel_rows(rep, "cosine")
+    new_q = kernel_rows(st2.representation[u_fit:], "cosine")
+    g_fit = finalize_topk(*ref.foldin_topk_ref(repq, repq, k, 0, u_fit,
+                                               "cosine"))
+    g_new = finalize_topk(*ref.foldin_topk_ref(
+        new_q, torch.cat([repq, new_q]), k, u_fit, None, "cosine"))
+    same = {
+        "masked_similarity": torch.equal(
+            _bits(st2.representation), _bits(ref.masked_similarity_ref(
+                train, lm, "cosine"))),
+        "topk_sim": torch.equal(st.graph.indices, g_fit.indices)
+        and torch.equal(_bits(st.graph.weights), _bits(g_fit.weights)),
+        "foldin_topk": torch.equal(st2.graph.indices[u_fit:], g_new.indices)
+        and torch.equal(_bits(st2.graph.weights[u_fit:]),
+                        _bits(g_new.weights)),
+    }
+    if not all(same.values()):
+        raise AssertionError(f"phase 14a: not bitwise the plain versions "
+                             f"{same}")
+    if not (torch.isfinite(pred).all() and pred.shape == users.shape
+            and top_i.shape == (TOPN_USERS, 10) and (top_i >= 0).all()
+            and torch.isfinite(top_s).all()):
+        raise AssertionError("phase 14a: predictions or top-N not finite "
+                             "or misshaped")
+    return st, st2, counts, same
+
+
+def _wide_ivf(st, st2, train):
+    """(b): at the same shape, ``build_index`` (kernel 4), a search at
+    partial probe through ``scorer="kernel"`` (kernel 6's per-query form)
+    and through the fused probe (kernel 5), and one bucketed fold-in of the
+    64 rows (its back-patch on kernel 6's shared form), each tallied; then
+    each kernel on those inputs bitwise its plain version."""
+    spec, k = WIDE_SPEC, 13
+    u_fit = st.representation.shape[0]
+    rep = st.representation
+    ivf = rt.resolve_ivf(None, u_fit)
+    c = ivf.n_clusters
+    sids = torch.arange(u_fit, dtype=torch.int32, device=DEVICE)
+    sync()
+    ops.reset_launches()
+    tallies = {}
+    with build.tally() as t:
+        index = rt.build_index(rep, ivf, "cosine")
+    tallies["build_index"] = dict(t)
+    with build.tally() as t:
+        kv, ki = rt.search(index, rep, k, ivf.nprobe, "cosine",
+                           self_ids=sids, scorer="kernel")
+    tallies["search kernel"] = dict(t)
+    with build.tally() as t:
+        fv, fi = rt.search(index, rep, k, ivf.nprobe, "cosine",
+                           self_ids=sids, scorer="fused")
+    tallies["search fused"] = dict(t)
+    bst = buckets.from_state(st, LIFECYCLE_CAPACITY)
+    with build.tally() as t:
+        folded = buckets.fold_in_rows(bst, train[u_fit:], FOLD_IN, spec)
+    tallies["bucketed fold-in"] = dict(t)
+    sync()
+    counts = _counts()
+    forms = {"per_query": tallies["search kernel"].get("score_candidates", 0),
+             "shared": tallies["bucketed fold-in"].get("score_candidates",
+                                                       0)}
+    if not (all(counts[name] > 0 for name in IVF_KERNELS)
+            and all(forms.values())):
+        raise AssertionError(f"phase 14b: a kernel or a form of kernel 6 "
+                             f"did not launch: {tallies}")
+    if not torch.equal(kv, fv) or list_mismatches(kv, ki, fv, fi, RTOL,
+                                                  ATOL).size:
+        raise AssertionError("phase 14b: kernel and fused scorers disagree")
+    init = rt.init_centroids(torch.Generator().manual_seed(ivf.seed), rep, c)
+    _bitwise("phase 14b kmeans_lloyd",
+             assign_clusters.kmeans_lloyd(rep, init, ivf.iters),
+             ref.kmeans_lloyd_ref(rep, init, ivf.iters))
+    probe = rt.probe_cells(index, rep, ivf.nprobe, "cosine")
+    args = (rep, probe, index.lists, index.rows, index.scale, index.fill)
+    _bitwise("phase 14b fused_probe_topk",
+             ivf_probe.fused_probe_topk(*args, k=k, self_ids=sids),
+             ref.fused_probe_topk_ref(*args, k=k, self_ids=sids))
+    qb, m = 256, ivf.nprobe * index.capacity
+    cand = index.rows[probe[:qb].long()].reshape(qb, m, -1).contiguous()
+    _bitwise("phase 14b score_candidates per-query",
+             [score_candidates.score_candidates(rep[:qb].contiguous(),
+                                                cand)],
+             [ref.score_candidates_ref(rep[:qb].contiguous(), cand)])
+    rows, _ = _capacity_rows(rep)
+    new = st2.representation[u_fit:].contiguous()
+    _bitwise("phase 14b score_candidates shared",
+             [score_candidates.score_candidates(rows, new)],
+             [ref.gathered_sims(rows, new, "cosine")])
+    if folded.n_valid != u_fit + FOLD_IN:
+        raise AssertionError(f"phase 14b: bucketed fold-in holds "
+                             f"{folded.n_valid} rows")
+    return counts, forms, dict(C=c, nprobe=ivf.nprobe, cap=index.capacity,
+                               tallies=tallies)
+
+
+def _web_fit():
+    """(c): fit → fold-in of 64 at web_fit's widths (P = 65536 items, n =
+    128 landmarks) with U cut to WEB_USERS, ratings made on the card."""
+    full_u, p = cfg.WEB_FIT["n_users"], cfg.WEB_FIT["n_items"]
+    u = WEB_USERS
+    t0 = time.perf_counter()
+    r = _web_ratings(u, p)
+    sync()
+    gen_s = time.perf_counter() - t0
+    u_fit = u - FOLD_IN
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    st = fit(RatingMatrix(r[:u_fit], u_fit, p), WIDE_SPEC)
+    sync()
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    st2 = fold_in(st, r[u_fit:], WIDE_SPEC)
+    sync()
+    fold_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = _counts()
+    g = st2.graph
+    if not (st2.representation.shape == (u, WEB_N)
+            and torch.isfinite(st2.representation).all()
+            and g.indices.shape == (u, WIDE_SPEC.k_neighbors)
+            and bool(((g.indices >= 0) & (g.indices < u)).all())
+            and torch.isfinite(g.weights).all()
+            and all(counts[name] > 0 for name in GRAPH_KERNELS)):
+        raise AssertionError(f"phase 14c: the fit or fold-in is not finite "
+                             f"or misshaped, or a kernel did not launch "
+                             f"({counts})")
+    cut = (f"U cut from {full_u} to {u}: dense (U, P) f32 ratings of all "
+           f"{full_u} users take {4 * full_u * p / 1e9:.0f} GB, one card "
+           f"holds 80 GB; U={u} takes {4 * u * p / 1e9:.1f} GB")
+    del r, st, st2
+    return dict(U=u, P=p, n=WEB_N, density=WEB_DENSITY, cut=cut,
+                generate_s=gen_s, fit_s=fit_s, fold_in_s=fold_s,
+                peak_bytes=peak, launches={k: v for k, v in counts.items()
+                                           if v})
+
+
+def phase_wide(train, d, test_idx, card):
+    """14: n = 128 landmarks, the width of the reference registry's
+    web_fit cell (kernels 2-6 on their wide routes): (a) the ML-1M main
+    path, (b) the IVF and lifecycle pieces, (c) fit → fold-in at web_fit's
+    P and n with U cut to one card. Returns (a) and (b)'s launches."""
+    t0 = time.perf_counter()
+    st, st2, counts_a, same = _wide_main_path(train, d, test_idx)
+    print(f"phase 14a wide main path ({card}): U={train.shape[0]} "
+          f"P={train.shape[1]} n={WEB_N} k={WIDE_SPEC.k_neighbors}; "
+          f"launches {json.dumps({k: counts_a[k] for k in GRAPH_KERNELS})}; "
+          f"bitwise the plain versions {json.dumps(same)}")
+    counts_b, forms, info = _wide_ivf(st, st2, train)
+    print(f"phase 14b wide IVF ({card}): C={info['C']} nprobe="
+          f"{info['nprobe']} cap={info['cap']} n={WEB_N}; launches "
+          f"{json.dumps({k: counts_b[k] for k in IVF_KERNELS})}, kernel 6 "
+          f"by form {json.dumps(forms)}; kernels 4-6 bitwise their plain "
+          f"versions; tallies {json.dumps(info['tallies'])}")
+    del st, st2
+    web = _web_fit()
+    print(f"phase 14c web_fit widths ({card}): " + json.dumps(web))
+    print(f"phase 14: {time.perf_counter() - t0:.1f}s")
+    return {k: counts_a.get(k, 0) + counts_b.get(k, 0)
+            for k in set(counts_a) | set(counts_b)}
+
+
 def _lm_bound(p, n, s_, d, dtype):
     """Least time for p problems of softmax(q̃Kᵀ·scale)V with f32 results,
     on the route of the inputs' dtype: the bytes moved, and the bf16
@@ -3083,12 +3375,22 @@ def main():
     paper_counts = phase_paper(d, train_idx, test_idx, a, card)
     mesh_counts = phase_mesh(a, card)
     engine_mesh_counts = phase_engine_mesh(a, card)
+    wide_counts = phase_wide(train, d, test_idx, card)
     for row in table:  # the engine runs' launches, every row
         row["launches_engine"] = engine_counts.get(row["name"], 0)
         row["launches_mutations"] = mutation_counts.get(row["name"], 0)
         row["launches_paper"] = paper_counts.get(row["name"], 0)
         row["launches_mesh"] = mesh_counts.get(row["name"], 0)
         row["launches_engine_mesh"] = engine_mesh_counts.get(row["name"], 0)
+        row["launches_wide"] = wide_counts.get(row["name"], 0)
+        for tag, times in ivf["wide_ms"].items():  # kernels 2-6, 7a
+            if row["name"] in times:
+                row[f"{tag} ms"] = times[row["name"]]
+    # kernel 6's shared form (the back-patch, 7a) beside its per-query row
+    row6 = next(r for r in table if r["name"] == "score_candidates")
+    row6["shared_form"] = {**ivf["patch_ms"], **{
+        tag: times["score_candidates shared"]
+        for tag, times in ivf["wide_ms"].items()}}
     print(f"card: {card}")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

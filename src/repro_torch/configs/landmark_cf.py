@@ -1,8 +1,9 @@
 """Arch config 'landmark_cf': the paper's hyperparameters, the
-MovieLens-1M shapes and the lifecycle's refresh thresholds, as plain
-constants (there is no LM registry here)."""
+reference registry's four CF shapes and the lifecycle's refresh
+thresholds, as plain constants (there is no LM registry here)."""
 from ..core.types import LandmarkSpec
 from ..lifecycle.policy import RefreshSpec
+from .base import ShapeSpec
 
 # the reproduced paper (Lima, Mello, Zimbrão 2017), §4.4
 MODEL = LandmarkSpec(n_landmarks=20, selection="popularity", d1="cosine",
@@ -12,6 +13,18 @@ SMOKE = LandmarkSpec(n_landmarks=8, selection="popularity")
 # paper Table 1: MovieLens-1M users × items
 ML1M_FIT = dict(n_users=6040, n_items=3952)
 ML1M_PREDICT = dict(n_users=6040, n_items=3952, n_pairs=131072)
+# the reference registry's other fit shapes: a Netflix 1M-rating cut, and
+# the pod-scale cell at 1M users and 128 landmarks
+NETFLIX1M_FIT = dict(n_users=8782, n_items=4577)
+WEB_FIT = dict(n_users=1_048_576, n_items=65536, n_landmarks=128)
+SHAPES = (
+    ShapeSpec("ml1m_fit", "cf_fit", ML1M_FIT),
+    ShapeSpec("netflix1m_fit", "cf_fit", NETFLIX1M_FIT),
+    ShapeSpec("web_fit", "cf_fit", WEB_FIT,
+              note="pod-scale cell: the |P|/n collective-payload reduction "
+              "(DESIGN.md §3) at 1M users."),
+    ShapeSpec("ml1m_predict", "cf_predict", ML1M_PREDICT),
+)
 
 # the continual-serving lifecycle: production drift/refresh thresholds, and
 # a twitchy variant sized for the smoke replay (small reservoir, fires

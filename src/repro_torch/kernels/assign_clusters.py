@@ -16,7 +16,17 @@ from typing import Optional, Tuple
 import torch
 
 from . import build, ref
-from .knn_topk import IVF_MAX_WIDTH, check_width
+from .knn_topk import NARROW_WIDTH, check_width
+
+
+def centroid_stride(n: int) -> int:
+    """Floats a prepared centroid takes in the kernel's scratch: up to
+    ``NARROW_WIDTH`` its register width (8, 20, 32, 64 or 104) padded to
+    ≡ 4 mod 8, past it n (the wide route)."""
+    if n > NARROW_WIDTH:
+        return n
+    width = next(w for w in (8, 20, 32, 64, NARROW_WIDTH) if n <= w)
+    return width if width % 8 else width + 4
 
 
 def kmeans_lloyd(rep: torch.Tensor, init: torch.Tensor, iters: int = 8,
@@ -55,11 +65,11 @@ def kmeans_lloyd(rep: torch.Tensor, init: torch.Tensor, iters: int = 8,
     if not u:
         return cent.copy_(init), assign
     # per-call scratch: the rows and the centroids as the scores take them,
-    # each with its epilogue value (a centroid padded to 108 floats at most)
+    # each with its epilogue value
     prep = torch.empty_like(rep)
     pval = torch.empty((u,), dtype=torch.float32, device=rep.device)
-    cscratch = torch.empty((c * (IVF_MAX_WIDTH + 5),), dtype=torch.float32,
-                           device=rep.device)
+    cscratch = torch.empty((c * (centroid_stride(n) + 1),),
+                           dtype=torch.float32, device=rep.device)
     build.launch("kmeans_lloyd_f32", rep, init, cent, assign, prep, pval,
                  cscratch, u, c, n, iters, nv, build.MEASURE_CODES[measure],
                  int(normalize))

@@ -45,9 +45,21 @@
 //    no part.
 // Nothing is atomic, so two launches agree bit for bit, and the plain
 // version (kernels/ref.py::kmeans_lloyd_ref) repeats the arithmetic op for
-// op. Row width n <= 104 (register widths 8, 20, 32, 64, 104); the wrapper
-// rejects others. At 104 the register row takes 104 of the 128 registers a
-// thread has at 512 threads, so the assignment spills: right, and slower.
+// op. Row widths n <= 104 take the register widths 8, 20, 32, 64, 104 (at
+// 104 the register row takes 104 of the 128 registers a thread has at 512
+// threads, so the assignment spills: right, and slower). Wider rows take
+// the wide route (lloyd_wide_kernel), the same phases and grid barriers
+// with no array sized by n:
+// 0. a thread prepares a row (or a centroid) from global memory, its sums
+//    left to right as above; the centroids keep stride n;
+// 1. 64 rows a pass, 8 lanes a row, each lane scoring 8 of a 64-centroid
+//    tile: rows and centroids staged in slices of kWideSlice landmarks, the
+//    8 partial dot products kept in registers across the slices,
+//    ascending in d (exactly n terms: the plain version's sums);
+// 2. a block takes a cell, lists its members in row order per window as
+//    above, and a thread a dim (kThreads dims a pass) adds the members'
+//    values in that order from global memory; thread 0 then takes the new
+//    centroid's mean and norm and the block writes its prepared row.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -65,6 +77,13 @@ constexpr int kWindow = 8192;  // assignments a window (16 a thread)
 constexpr int kGather = 8;     // member values a thread loads at once
 constexpr size_t kSmemBytes =
     sizeof(float) * kStage + sizeof(int) * (kWindow + kWarps);
+constexpr int kNarrowWidth = 104;  // the widest register row
+constexpr int kWideSlice = 32;     // the wide route's landmarks a slice
+constexpr int kWidePitch = kWideSlice + 1;
+constexpr int kWideRows = 64, kWideParts = 8;  // rows a pass, lanes a row
+constexpr int kWideTile = 64;  // centroids a tile (8 a lane)
+static_assert(kWideRows * kWideParts == kThreads &&
+              2 * kWideRows * kWidePitch + kWideTile <= kStage);
 
 struct Lloyd {
   const float* rep;   // (U, n) raw rows
@@ -400,6 +419,240 @@ __device__ void update_cells(const Lloyd& a, float* stage, int* window,
   }
 }
 
+// ---------------------------------------------------------- wide route
+// Prepares `count` rows of src (n floats each) from global memory, a thread
+// a row, into dst (row stride dstride, zero past n) and each row's
+// epilogue value into val: prepare_staged's arithmetic in its order.
+__device__ void prepare_wide(const Lloyd& a, const float* src, int count,
+                             float* dst, int dstride, float* val) {
+  const int n = a.n;
+  const bool divide = a.measure == 0 && a.normalize;
+  for (int r = threadIdx.x; r < count; r += kThreads) {
+    const float* x = src + (size_t)r * n;
+    float mean = 0.0f;
+    if (a.measure == 1) {
+      float sum = 0.0f;
+      for (int d = 0; d < n; ++d) sum = __fadd_rn(sum, __ldg(x + d));
+      mean = __fdiv_rn(sum, static_cast<float>(n));
+    }
+    float sq = 0.0f;
+    for (int d = 0; d < n; ++d) {
+      const float v = a.measure == 1 ? __fsub_rn(__ldg(x + d), mean)
+                                     : __ldg(x + d);
+      sq = __fadd_rn(sq, __fmul_rn(v, v));
+    }
+    const float div = fmaxf(__fsqrt_rn(sq), repro::kEps);
+    val[r] = a.measure == 1 ? __fsqrt_rn(sq) : sq;
+    float* out = dst + (size_t)r * dstride;
+    for (int d = 0; d < dstride; ++d) {
+      float v = 0.0f;
+      if (d < n) {
+        v = a.measure == 1 ? __fsub_rn(__ldg(x + d), mean) : __ldg(x + d);
+        if (divide) v = __fdiv_rn(v, div);
+      }
+      out[d] = v;
+    }
+  }
+}
+
+__device__ void prepare_all_wide(const Lloyd& a) {
+  const int2 rows = block_rows(a.U);
+  prepare_wide(a, a.rep + (size_t)rows.x * a.n, rows.y,
+               a.prep + (size_t)rows.x * a.n, a.n, a.pval + rows.x);
+  const int2 cells = block_rows(a.C);
+  prepare_wide(a, a.init + (size_t)cells.x * a.n, cells.y,
+               a.cprep + (size_t)cells.x * a.cstride, a.cstride,
+               a.cval + cells.x);
+  const int stride = gridDim.x * kThreads;
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < a.C * a.n;
+       i += stride) {
+    a.cent[i] = __ldg(a.init + i);
+  }
+}
+
+// Phase 1 over rows [0, rows), wide: kWideRows rows a pass, kWideParts
+// lanes a row; lane `part` scores centroids part + 8·j of each tile of
+// kWideTile. Rows and centroids are staged a slice at a time and each
+// lane's 8 dot products carry across the slices.
+__device__ void assign_wide(const Lloyd& a, float* stage, int rows) {
+  const int2 own = block_rows(rows);
+  const int tid = threadIdx.x;
+  const int part = tid & (kWideParts - 1), rl = tid / kWideParts;
+  constexpr int kPer = kWideTile / kWideParts;
+  float* sr = stage;                           // [kWideRows][kWidePitch]
+  float* sc = stage + kWideRows * kWidePitch;  // [kWideTile][kWidePitch]
+  float* cv = sc + kWideTile * kWidePitch;     // [kWideTile]
+  for (int i0 = 0; i0 < own.y; i0 += kWideRows) {  // uniform across the block
+    const int rn = min(kWideRows, own.y - i0);
+    const bool active = rl < rn;
+    const size_t row = own.x + i0 + rl;
+    const float qval = active ? __ldcg(a.pval + row) : 0.0f;
+    float best_v = -INFINITY;
+    int best_i = 0;
+    for (int t0 = 0; t0 < a.C; t0 += kWideTile) {
+      const int tn = min(kWideTile, a.C - t0);
+      float z[kPer];
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) z[j] = 0.0f;
+      for (int d0 = 0; d0 < a.n; d0 += kWideSlice) {
+        const int w = min(kWideSlice, a.n - d0);
+        __syncthreads();  // the last slice (and tile values) are read
+        for (int e = tid; e < kWideRows * kWideSlice; e += kThreads) {
+          const int r = e / kWideSlice, d = e % kWideSlice;
+          if (d < w && r < rn) {
+            sr[r * kWidePitch + d] =
+                __ldcg(a.prep + (own.x + i0 + r) * (size_t)a.n + d0 + d);
+          }
+          if (d < w && r < tn) {
+            sc[r * kWidePitch + d] =
+                __ldcg(a.cprep + (size_t)(t0 + r) * a.cstride + d0 + d);
+          }
+        }
+        if (d0 == 0) {
+          for (int r = tid; r < tn; r += kThreads) {
+            cv[r] = __ldcg(a.cval + t0 + r);
+          }
+        }
+        __syncthreads();
+        const float* x = sr + rl * kWidePitch;
+        for (int d = 0; d < w; ++d) {
+          const float u = x[d];
+#pragma unroll
+          for (int j = 0; j < kPer; ++j) {
+            z[j] = __fadd_rn(z[j],
+                             __fmul_rn(u, sc[(part + kWideParts * j) *
+                                                 kWidePitch + d]));
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int c = part + kWideParts * j;
+        if (active && c < tn) {
+          const float v = repro::tile_epilogue_rooted(z[j], qval, cv[c],
+                                                      a.measure);
+          if (repro::better(v, t0 + c, best_v, best_i)) {
+            best_v = v;
+            best_i = t0 + c;
+          }
+        }
+      }
+    }
+    for (int off = kWideParts >> 1; off > 0; off >>= 1) {  // within the row
+      const float ov = __shfl_xor_sync(repro::kFull, best_v, off);
+      const int oi = __shfl_xor_sync(repro::kFull, best_i, off);
+      if (repro::better(ov, oi, best_v, best_i)) {
+        best_v = ov;
+        best_i = oi;
+      }
+    }
+    if (active && part == 0) a.assign[row] = best_i;
+  }
+}
+
+// Phase 2, wide: each cell's mean over its members in ascending row order,
+// a thread a dim. The members are listed per window as update_cells lists
+// them; each pass over kThreads dims lists them again.
+__device__ void update_wide(const Lloyd& a, int* window, int* sums) {
+  __shared__ float s_prep[2];  // the new centroid's mean and divisor
+  const int n = a.n;
+  for (int c = blockIdx.x; c < a.C; c += gridDim.x) {  // uniform
+    int members = 0;
+    for (int dc = 0; dc < n; dc += kThreads) {  // uniform
+      const int d = dc + threadIdx.x;
+      float s = 0.0f;
+      members = 0;
+      for (int w0 = 0; w0 < a.n_valid; w0 += kWindow) {
+        const int wn = min(kWindow, a.n_valid - w0);
+        __syncthreads();  // the previous window is no longer read
+        for (int i = threadIdx.x; i < wn; i += kThreads) {
+          window[i] = __ldcg(a.assign + w0 + i);
+        }
+        __syncthreads();
+        const int run = ((wn + kThreads - 1) / kThreads + 3) & ~3;  // <= 16
+        const int b0 = min(wn, (int)threadIdx.x * run);
+        const int b1 = min(wn, b0 + run);
+        int mine[16];
+#pragma unroll
+        for (int k = 0; k < 16; ++k) {
+          mine[k] = b0 + k < b1 ? window[b0 + k] : -1;
+        }
+        int hits = 0;
+#pragma unroll
+        for (int k = 0; k < 16; ++k) hits += mine[k] == c;
+        int total;
+        int j = block_scan(hits, sums, total);  // syncs: every run is read
+#pragma unroll
+        for (int k = 0; k < 16; ++k) {
+          if (mine[k] == c) window[j++] = w0 + b0 + k;
+        }
+        __syncthreads();  // the members are listed
+        if (d < n) {
+          for (int m = 0; m < total; ++m) {
+            s = __fadd_rn(s, __ldg(a.rep + (size_t)window[m] * n + d));
+          }
+        }
+        members += total;
+      }
+      if (members > 0 && d < n) {
+        a.cent[(size_t)c * n + d] = __fdiv_rn(s, static_cast<float>(members));
+      }
+    }
+    // an empty cell keeps its centroid; else prepare the new one for the
+    // next assignment
+    if (members == 0) continue;
+    __syncthreads();  // the block's writes of the centroid are visible
+    const float* x = a.cent + (size_t)c * n;
+    if (threadIdx.x == 0) {
+      float mean = 0.0f;
+      if (a.measure == 1) {
+        float sum = 0.0f;
+        for (int d = 0; d < n; ++d) sum = __fadd_rn(sum, __ldcg(x + d));
+        mean = __fdiv_rn(sum, static_cast<float>(n));
+      }
+      float sq = 0.0f;
+      for (int d = 0; d < n; ++d) {
+        const float v = a.measure == 1 ? __fsub_rn(__ldcg(x + d), mean)
+                                       : __ldcg(x + d);
+        sq = __fadd_rn(sq, __fmul_rn(v, v));
+      }
+      a.cval[c] = a.measure == 1 ? __fsqrt_rn(sq) : sq;
+      s_prep[0] = mean;
+      s_prep[1] = fmaxf(__fsqrt_rn(sq), repro::kEps);
+    }
+    __syncthreads();
+    const bool divide = a.measure == 0 && a.normalize;
+    for (int d = threadIdx.x; d < a.cstride; d += kThreads) {
+      float v = 0.0f;
+      if (d < n) {
+        v = __ldcg(x + d);
+        if (a.measure == 1) v = __fsub_rn(v, s_prep[0]);
+        if (divide) v = __fdiv_rn(v, s_prep[1]);
+      }
+      a.cprep[(size_t)c * a.cstride + d] = v;
+    }
+    __syncthreads();  // s_prep is read before the next cell writes it
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+lloyd_wide_kernel(const Lloyd a) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ float4 smem4[];
+  float* stage = reinterpret_cast<float*>(smem4);
+  int* window = reinterpret_cast<int*>(stage + kStage);
+  int* sums = window + kWindow;
+  prepare_all_wide(a);
+  grid.sync();
+  for (int step = 0; step < a.iters; ++step) {
+    assign_wide(a, stage, a.n_valid);
+    grid.sync();
+    update_wide(a, window, sums);
+    grid.sync();
+  }
+  assign_wide(a, stage, a.U);
+}
+
 // Every block waits for all the others between phases (grid.sync(): a
 // block's writes before it are visible to every block after it); data
 // another block wrote is read with __ldcg, past the SM's L1.
@@ -421,9 +674,8 @@ __global__ void __launch_bounds__(kThreads, 1) lloyd_kernel(const Lloyd a) {
   assign_rows<NMAX>(a, stage, a.U);
 }
 
-template <int NMAX>
-cudaError_t launch(const Lloyd& a, cudaStream_t stream) {
-  const auto kernel = lloyd_kernel<NMAX>;
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, const Lloyd& a, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
   int dev = 0, sms = 0, per_sm = 0;
@@ -458,16 +710,31 @@ cudaError_t launch(const Lloyd& a, cudaStream_t stream) {
 
 // normalize: cosine rows and centroids are L2-normalized here (else by the
 // caller).
-// cscratch holds C·109 floats: the padded centroids (stride <= 108), then
-// their epilogue values.
+// cscratch holds C·(cstride + 1) floats: the padded centroids, then their
+// epilogue values; cstride is the register width up to n = 104 (≡ 4 mod 8,
+// <= 108) and n past it (kernels/assign_clusters.py::centroid_stride).
 extern "C" int kmeans_lloyd_f32(const void* rep, const void* init,
                                 void* cent, void* assign, void* prep,
                                 void* pval, void* cscratch, int U, int C,
                                 int n, int iters, int n_valid, int measure,
                                 int normalize, void* stream) {
-  if (U <= 0 || C <= 0 || n <= 0 || n > 104 || iters < 0 || n_valid < 0 ||
+  if (U <= 0 || C <= 0 || n <= 0 || iters < 0 || n_valid < 0 ||
       n_valid > U || measure < 0 || measure > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n > kNarrowWidth) {  // the wide route: centroid stride n
+    float* cs = static_cast<float*>(cscratch);
+    const Lloyd a{static_cast<const float*>(rep),
+                  static_cast<const float*>(init),
+                  static_cast<float*>(cent),
+                  static_cast<int*>(assign),
+                  static_cast<float*>(prep),
+                  static_cast<float*>(pval),
+                  cs,
+                  cs + (size_t)C * n,
+                  U, C, n, iters, n_valid, measure, normalize, n, 0, 0};
+    return static_cast<int>(launch(lloyd_wide_kernel, a, s));
   }
   // the register row's width, and the staged centroids' stride: at least
   // that width (float4 reads), ≡ 4 mod 8 (no bank conflicts)
@@ -486,23 +753,22 @@ extern "C" int kmeans_lloyd_f32(const void* rep, const void* init,
                 U, C, n, iters, n_valid, measure, normalize, cstride,
                 kStage / (cstride + 1),
                 (kStage / n - 4) / 8 * 8 + 4};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (width) {
     case 8:
-      err = launch<8>(a, s);
+      err = launch(lloyd_kernel<8>, a, s);
       break;
     case 20:
-      err = launch<20>(a, s);
+      err = launch(lloyd_kernel<20>, a, s);
       break;
     case 32:
-      err = launch<32>(a, s);
+      err = launch(lloyd_kernel<32>, a, s);
       break;
     case 64:
-      err = launch<64>(a, s);
+      err = launch(lloyd_kernel<64>, a, s);
       break;
     default:
-      err = launch<104>(a, s);
+      err = launch(lloyd_kernel<104>, a, s);
   }
   return static_cast<int>(err);
 }

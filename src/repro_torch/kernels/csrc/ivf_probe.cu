@@ -50,10 +50,14 @@
 // lies in one list), so values and ids are bitwise the plain version's.
 // Slots at or past the cell's fill and the query's own id are never
 // offered; empty slots come out as (-inf, 0). Any cap and nprobe (probe
-// entries past 1024 a block go in further segments), n <= 104 (past 64 the
-// rows stage 128 a round and the row array spills), k <= 32, and
+// entries past 1024 a block go in further segments), k <= 32, and
 // C <= 32768 for G > 1. The probe table must hold distinct cells per
-// query, as the reference requires.
+// query, as the reference requires. Any n: up to kNarrowWidth = 104 (past
+// 64 the rows stage 128 a round and the row array spills) as above; past
+// it the wide route (probe_wide_kernel) takes one query a block and stages
+// its union's rows in slices of kWideSlice landmarks, each row's mean and
+// norm taken first over the whole row, each thread's partial dot product
+// kept in a register across the slices, ascending in d.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -71,6 +75,7 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kEntries = 1024;          // (query, probe) entries per segment
 constexpr int kPerThread = kEntries / kThreads;
+constexpr int kNarrowWidth = 104;       // probe_group_kernel's widest rows
 
 // Row stride in floats: NP rounded so that 8 lanes reading float4s of 8
 // consecutive rows hit 8 distinct 16-byte bank groups (stride = 4 mod 8).
@@ -408,6 +413,181 @@ probe_group_kernel(const float* __restrict__ q, const int* __restrict__ probe,
   }
 }
 
+// A payload element widened to f32: int8 times the row's scale (one
+// rounding), as the plain version dequantizes.
+__device__ __forceinline__ float payload_at(const void* rows, int payload,
+                                            size_t at, float sc) {
+  if (payload == 0) return __ldg(static_cast<const float*>(rows) + at);
+  if (payload == 1) return widen(static_cast<const __nv_bfloat16*>(rows)[at]);
+  return __fmul_rn(widen(static_cast<const int8_t*>(rows)[at]), sc);
+}
+
+// The wide route (n > kNarrowWidth): one query a block. The union of its
+// probed cells (probe order) is packed as probe_group_kernel packs it at
+// G = 1, and its live rows go kThreads a round, a thread a row. The block
+// stages the round's rows in slices of kWideSlice landmarks (dequantized;
+// a warp a row, coalesced), the query's centered slice beside them, and
+// each thread adds the slice's terms to its row's dot product and squared
+// norm, left to right; for pearson a first pass over the slices takes each
+// row's mean. Each warp offers its 32 rows to its list; the 8 lists merge
+// at the end.
+constexpr int kWideSlice = 32;
+constexpr int kWidePitch = kWideSlice + 1;  // odd: no bank conflicts
+constexpr size_t kWideSmem = sizeof(float) * kThreads * kWidePitch;
+
+__global__ void __launch_bounds__(kThreads)
+probe_wide_kernel(const float* __restrict__ q, const int* __restrict__ probe,
+                  const int* __restrict__ probe_ok,
+                  const int* __restrict__ lists, const void* __restrict__ rows,
+                  const float* __restrict__ scale,
+                  const int* __restrict__ fill,
+                  const int* __restrict__ self_ids, float* __restrict__ out_v,
+                  int* __restrict__ out_i, int nprobe, int cap, int n, int k,
+                  int measure, int payload) {
+  extern __shared__ float4 dyn[];
+  float* s_rows = reinterpret_cast<float*>(dyn);  // [kThreads][kWidePitch]
+  __shared__ int u_cell[kEntries];
+  __shared__ int u_pre[kEntries + 1];
+  __shared__ long long wsum[kWarps];
+  __shared__ float s_q[kWideSlice];
+  __shared__ float s_qstat[3];  // the query's mean, |q|², and its root
+  __shared__ float s_scale[kThreads];
+  __shared__ long long s_slot[kThreads];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int qi = blockIdx.x;
+  const float* qrow = q + (size_t)qi * n;
+  if (tid == 0) {  // the query's statistics, once
+    float mean = 0.0f;
+    if (measure == 1) {
+      float sum = 0.0f;
+      for (int d = 0; d < n; ++d) sum = __fadd_rn(sum, __ldg(qrow + d));
+      mean = __fdiv_rn(sum, static_cast<float>(n));
+    }
+    float sq = 0.0f;
+    for (int d = 0; d < n; ++d) {
+      const float v = measure == 1 ? __fsub_rn(__ldg(qrow + d), mean)
+                                   : __ldg(qrow + d);
+      sq = __fadd_rn(sq, __fmul_rn(v, v));
+    }
+    s_qstat[0] = mean;
+    s_qstat[1] = sq;
+    s_qstat[2] = __fsqrt_rn(sq);
+  }
+  const int sid = self_ids ? self_ids[qi] : -1;
+
+  WarpList list;
+  for (int j0 = 0; j0 < nprobe; j0 += kEntries) {
+    const int jn = min(kEntries, nprobe - j0);
+    long long mine = 0;
+    int cell[kPerThread], live[kPerThread];
+#pragma unroll
+    for (int i = 0; i < kPerThread; ++i) {
+      const int j = tid * kPerThread + i;
+      cell[i] = 0;
+      live[i] = 0;
+      if (j < jn) {
+        const size_t at = (size_t)qi * nprobe + j0 + j;
+        if (!probe_ok || probe_ok[at]) {
+          cell[i] = probe[at];
+          live[i] = max(min(fill[cell[i]], cap), 0);
+        }
+      }
+      if (live[i] > 0) mine += (1LL << 32) | live[i];
+    }
+    long long total;
+    long long at = block_scan(mine, wsum, total);
+    const int n_rows = static_cast<int>(total & 0xffffffffLL);
+#pragma unroll
+    for (int i = 0; i < kPerThread; ++i) {
+      if (live[i] > 0) {
+        const int u = static_cast<int>(at >> 32);
+        u_cell[u] = cell[i];
+        u_pre[u] = static_cast<int>(at & 0xffffffffLL);
+        at += (1LL << 32) | live[i];
+      }
+    }
+    if (tid == 0) u_pre[total >> 32] = n_rows;
+    __syncthreads();
+
+    int cur = 0;  // the cursor walks the union forward
+    for (int r0 = 0; r0 < n_rows; r0 += kThreads) {  // uniform
+      const int p = r0 + tid;
+      const bool mine_live = p < n_rows;
+      int id = 0;
+      if (mine_live) {  // this thread's row: its slot, id and scale
+        while (u_pre[cur + 1] <= p) ++cur;
+        const long long slot =
+            static_cast<long long>(u_cell[cur]) * cap + (p - u_pre[cur]);
+        id = lists[slot];
+        s_slot[tid] = slot;
+        s_scale[tid] = payload == 2 ? scale[slot] : 1.0f;
+      }
+      const int count = min(kThreads, n_rows - r0);
+      // pearson streams the slices twice: the row's raw sum (its mean),
+      // then the centered sums; the others once
+      float sum = 0.0f, mean = 0.0f, z = 0.0f, sq = 0.0f;
+      for (int pass = measure == 1 ? 0 : 1; pass < 2; ++pass) {
+        for (int d0 = 0; d0 < n; d0 += kWideSlice) {
+          const int w = min(kWideSlice, n - d0);
+          __syncthreads();  // the rows' slots are listed; the last slice read
+          for (int e = tid; e < kThreads * kWideSlice; e += kThreads) {
+            const int r = e / kWideSlice, d = e % kWideSlice;
+            if (r < count && d < w) {
+              s_rows[r * kWidePitch + d] = payload_at(
+                  rows, payload, (size_t)s_slot[r] * n + d0 + d, s_scale[r]);
+            }
+          }
+          if (tid < w) {
+            const float v = __ldg(qrow + d0 + tid);
+            s_q[tid] = measure == 1 ? __fsub_rn(v, s_qstat[0]) : v;
+          }
+          __syncthreads();
+          if (!mine_live) continue;
+          const float* cr = s_rows + tid * kWidePitch;
+          if (pass == 0) {
+            for (int d = 0; d < w; ++d) sum = __fadd_rn(sum, cr[d]);
+            if (d0 + w == n) mean = __fdiv_rn(sum, static_cast<float>(n));
+            continue;
+          }
+          for (int d = 0; d < w; ++d) {
+            const float c = measure == 1 ? __fsub_rn(cr[d], mean) : cr[d];
+            z = __fadd_rn(z, __fmul_rn(s_q[d], c));
+            sq = __fadd_rn(sq, __fmul_rn(c, c));
+          }
+        }
+      }
+      const float aux = measure == 2 ? sq : __fsqrt_rn(sq);
+      float v = -INFINITY;
+      if (measure == 2) {
+        const float d2 = fmaxf(
+            __fadd_rn(__fsub_rn(s_qstat[1], __fmul_rn(2.0f, z)), aux), 0.0f);
+        v = __fdiv_rn(1.0f, __fadd_rn(1.0f, __fsqrt_rn(d2)));
+      } else {
+        v = __fdiv_rn(z, fmaxf(__fmul_rn(s_qstat[2], aux), repro::kEps));
+      }
+      list.offer(mine_live && id != sid, v, id, k);
+    }
+    __syncthreads();  // the union is read no more: the next segment's
+  }
+
+  // the 8 warps' lists merge into warp 0's
+  float* m_v = s_rows;
+  int* m_i = reinterpret_cast<int*>(s_rows + kThreads);
+  m_v[tid] = list.ev;
+  m_i[tid] = list.eid;
+  __syncthreads();
+  if (warp == 0) {
+    for (int t = 1; t < kWarps; ++t) {
+      list.offer(true, m_v[t * 32 + lane], m_i[t * 32 + lane], k);
+    }
+    if (lane < k) {
+      out_v[(size_t)qi * k + lane] = list.ev;
+      out_i[(size_t)qi * k + lane] = list.ev == -INFINITY ? 0 : list.eid;
+    }
+  }
+}
+
 // The queries' order for the groups: a counting sort by first-probed cell
 // in one block — a histogram of the C cells, its exclusive scan, then each
 // query takes the next place of its cell. The order within a cell is the
@@ -525,7 +705,7 @@ extern "C" int ivf_probe_f32(const void* q, const void* probe,
                              const void* self_ids, void* vals, void* ids,
                              int B, int nprobe, int C, int cap, int n, int k,
                              int measure, int payload, int G, void* stream) {
-  if (B <= 0 || nprobe <= 0 || C <= 0 || cap <= 0 || n <= 0 || n > 104 ||
+  if (B <= 0 || nprobe <= 0 || C <= 0 || cap <= 0 || n <= 0 ||
       k <= 0 || k > 32 || measure < 0 || measure > 2 || payload < 0 ||
       payload > 2 || (payload == 2) != (scale != nullptr) ||
       (G != 1 && G != 2 && G != 4 && G != 8) ||
@@ -533,6 +713,19 @@ extern "C" int ivf_probe_f32(const void* q, const void* probe,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n > kNarrowWidth) {  // the wide route: one query a block, G unused
+    static size_t sized[repro::kMaxDevices] = {};
+    const cudaError_t err = repro::allow_smem(probe_wide_kernel, kWideSmem,
+                                              sized);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    probe_wide_kernel<<<B, kThreads, kWideSmem, s>>>(
+        static_cast<const float*>(q), static_cast<const int*>(probe),
+        static_cast<const int*>(probe_ok), static_cast<const int*>(lists),
+        rows, static_cast<const float*>(scale), static_cast<const int*>(fill),
+        static_cast<const int*>(self_ids), static_cast<float*>(vals),
+        static_cast<int*>(ids), nprobe, cap, n, k, measure, payload);
+    return static_cast<int>(cudaGetLastError());
+  }
   const int nv4 = (n + 3) / 4;
 #define REPRO_PROBE(NV4)                                                  \
   return static_cast<int>(launch<NV4>(q, probe, probe_ok, order, lists,  \

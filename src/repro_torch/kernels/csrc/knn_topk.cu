@@ -61,8 +61,16 @@
 // against 0.023–0.027. Scoring alone (every epilogue, no selection) takes
 // 0.094 ms (cosine): selection is the rest — ~55 candidates a query still
 // beat the bar after the first 128, each a shuffle chain in its warp.
-// Empty slots come back as (-inf, 0). Query width n <= 64 and k <= 32; the
-// wrapper rejects others.
+// Empty slots come back as (-inf, 0); k <= 32, the wrapper rejects others.
+// Any query width n: up to kMaxWidth the ring holds whole tiles of n + 1
+// rows (above). Past it the wide route (topk_prep_wide_kernel,
+// topk_scan_wide_kernel) lays the queries out d-major too, and the
+// producer streams each candidate tile, with the block's query rows beside
+// it, in slices of kWideSlice rows of the landmark axis; each lane keeps its
+// R·S partial dot products in registers across the slices, which it takes
+// in ascending d, so every sum is still the plain version's left to right.
+// The prep of either route computes a row's mean and norm the same way, so
+// the two routes' scores are the same bits.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -83,10 +91,12 @@ using repro::smem_addr;
 using repro::sq_norm;
 
 constexpr int kPrepThreads = 256;
-// The widest rows (landmark axis n) the scan takes: its ring of STAGES
-// tiles of n + 1 rows fits the 227 KB of shared memory a block may opt
-// into up to n = 109 (variant 0); the paper's tables go to n = 100.
+// The widest rows (landmark axis n) the scan's ring holds whole: STAGES
+// tiles of n + 1 rows fit the 227 KB of shared memory a block may opt
+// into up to n = 109 (variant 0); the paper's tables go to n = 100. Wider
+// rows take the wide route, in slices of kWideSlice rows.
 constexpr int kMaxWidth = 104;
+constexpr int kWideSlice = 32;
 constexpr int kMergeWarps = 8;
 
 // The norm a kernel keeps of a row: the root of its squared norm
@@ -128,6 +138,35 @@ topk_prep_kernel(const float* __restrict__ cand, float* __restrict__ P,
   if (measure != 0) P[(size_t)n * cpad + c] = row_norm<NMAX>(x, n, measure);
 }
 
+// The wide route's prep (n > kMaxWidth) of candidate or query rows: the
+// layout and values of topk_prep_kernel (the same mean, centering and norm,
+// added left to right), a thread a row, the row read from global memory
+// instead of held in registers.
+__global__ void __launch_bounds__(kPrepThreads)
+topk_prep_wide_kernel(const float* __restrict__ x, float* __restrict__ P,
+                      int C, int cpad, int n, int measure) {
+  const int c = blockIdx.x * kPrepThreads + threadIdx.x;
+  if (c >= cpad) return;
+  const bool live = c < C;
+  const float* row = x + (size_t)(live ? c : 0) * n;
+  float mean = 0.0f;
+  if (measure == 1 && live) {
+    float s = 0.0f;
+    for (int d = 0; d < n; ++d) s = __fadd_rn(s, __ldg(row + d));
+    mean = __fdiv_rn(s, static_cast<float>(n));
+  }
+  float sq = 0.0f;
+  for (int d = 0; d < n; ++d) {
+    const float v = !live ? 0.0f
+                    : measure == 1 ? __fsub_rn(__ldg(row + d), mean)
+                                   : __ldg(row + d);
+    P[(size_t)d * cpad + c] = v;
+    sq = __fadd_rn(sq, __fmul_rn(v, v));
+  }
+  if (measure != 0) P[(size_t)n * cpad + c] = measure == 1 ? __fsqrt_rn(sq)
+                                                            : sq;
+}
+
 // A tile variant: W consumer warps a block, each scoring R queries against
 // a tile of CT = 32·S candidates (S a lane), fed by one producer warp
 // through a ring of STAGES tiles; MINB blocks an SM bound the registers.
@@ -144,6 +183,12 @@ struct Tile {
     return sizeof(uint64_t) * 2 * STAGES +
            sizeof(float) * ((size_t)STAGES * (n + 1) * CT + (size_t)n * QT +
                             QT);
+  }
+
+  // the wide route: barriers | ring [STAGES][kWideSlice][CT + QT], any n
+  static size_t wide_smem() {
+    return sizeof(uint64_t) * 2 * STAGES +
+           sizeof(float) * (size_t)STAGES * kWideSlice * (CT + QT);
   }
 };
 
@@ -188,6 +233,107 @@ struct Cut {
            thr;
   }
 };
+
+// The candidate a lane scores in column slot s of a tile: the columns
+// g·128 + 4·lane + [0, 4) of each 4-wide group g < S / 4, so a slot holds
+// a chunk of 32 candidates, ids ascending with the lane.
+__device__ __forceinline__ int tile_col(int s, int lane) {
+  return (s / 4) * 128 + 4 * lane + s % 4;
+}
+
+// One d step of a lane's R·S sums: its warp's R queries (from `qrow`, the
+// staged d-major query row at the warp's offset) times its S candidates
+// (from `crow`, the staged candidate row), a rounding after each multiply
+// and add.
+template <class T>
+__device__ __forceinline__ void add_step(float (&acc)[T::R][T::S],
+                                         const float* qrow,
+                                         const float* crow, int lane) {
+  constexpr int R = T::R, S = T::S;
+  float qv[R], cv[S];
+  if constexpr (R % 4 == 0) {
+#pragma unroll
+    for (int g = 0; g < R / 4; ++g) {
+      const float4 v = *reinterpret_cast<const float4*>(qrow + 4 * g);
+      qv[4 * g] = v.x;
+      qv[4 * g + 1] = v.y;
+      qv[4 * g + 2] = v.z;
+      qv[4 * g + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) qv[r] = qrow[r];
+  }
+#pragma unroll
+  for (int g = 0; g < S / 4; ++g) {
+    const float4 v =
+        *reinterpret_cast<const float4*>(crow + tile_col(4 * g, lane));
+    cv[4 * g] = v.x;
+    cv[4 * g + 1] = v.y;
+    cv[4 * g + 2] = v.z;
+    cv[4 * g + 3] = v.w;
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      acc[r][s] = __fadd_rn(acc[r][s], __fmul_rn(qv[r], cv[s]));
+    }
+  }
+}
+
+// Offers a finished tile's scores to the warp's R lists: the pairs that
+// may enter (valid, not the query itself, not under the bar) take their
+// epilogue. `t0` is the tile's first candidate, `qg` the warp's first
+// query row, un(r) query r's norm and vn[s] slot s's.
+template <class T, int M, class Norm>
+__device__ __forceinline__ void offer_tile(
+    WarpList (&list)[T::R], const float (&acc)[T::R][T::S],
+    const float (&vn)[T::S], Norm un, int t0, int qg, int self_offset,
+    int n_valid, int k, int lane) {
+  constexpr int R = T::R, S = T::S;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const Cut<M> cut(list[r].tv);
+    const float ur = un(r);
+    const int self = self_offset >= 0 ? self_offset + qg + r : -1;
+    bool need[S];
+    bool some = false;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int gid = t0 + tile_col(s, lane);
+      need[s] = gid < n_valid && gid != self &&
+                !cut.below(acc[r][s], ur, vn[s]);
+      some |= need[s];
+    }
+    if (!__any_sync(kFull, some)) continue;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      float v = acc[r][s];
+      if (M != 0 && __any_sync(kFull, need[s])) {
+        v = repro::tile_epilogue_rooted(v, ur, vn[s], M);
+      }
+      list[r].offer(need[s], v, t0 + tile_col(s, lane), k);
+    }
+  }
+}
+
+// Each warp writes the R lists it kept: row qg + r's slot of this split.
+template <int R>
+__device__ __forceinline__ void write_lists(const WarpList (&list)[R],
+                                            float* out_v, int* out_i,
+                                            int qg, int n_rows, int k,
+                                            int lane) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = qg + r;
+    if (row < n_rows && lane < k) {
+      const size_t slot = ((size_t)row * gridDim.y + blockIdx.y) * k + lane;
+      out_v[slot] = list[r].ev;
+      out_i[slot] = list[r].ev == -INFINITY ? 0 : list[r].eid;
+    }
+  }
+}
 
 // Scores of QT query rows against candidate tiles [t_begin, t_begin + tps)
 // of P, folded into canonical top-k lists. Grid: x over groups of QT query
@@ -256,11 +402,7 @@ topk_scan_kernel(const float* __restrict__ q, const float* __restrict__ P,
     return;
   }
 
-  // lane scores the columns g·128 + 4·lane + [0, 4) of each 4-wide group
-  // g < S / 4: a chunk of 32 candidates a column slot s, ids ascending
-  // with the lane
   const int qw = warp * R;
-  auto col = [&](int s) { return (s / 4) * 128 + 4 * lane + s % 4; };
   WarpList list[R];
 
   for (int i = 0; i < nt; ++i) {
@@ -275,83 +417,126 @@ topk_scan_kernel(const float* __restrict__ q, const float* __restrict__ P,
     }
 #pragma unroll 2
     for (int d = 0; d < n; ++d) {
-      float qv[R], cv[S];
-      if constexpr (R % 4 == 0) {
-#pragma unroll
-        for (int g = 0; g < R / 4; ++g) {
-          const float4 v = *reinterpret_cast<const float4*>(
-              qs + d * QT + qw + 4 * g);
-          qv[4 * g] = v.x;
-          qv[4 * g + 1] = v.y;
-          qv[4 * g + 2] = v.z;
-          qv[4 * g + 3] = v.w;
-        }
-      } else {
-#pragma unroll
-        for (int r = 0; r < R; ++r) qv[r] = qs[d * QT + qw + r];
-      }
-#pragma unroll
-      for (int g = 0; g < S / 4; ++g) {
-        const float4 v =
-            *reinterpret_cast<const float4*>(cs + d * CT + col(4 * g));
-        cv[4 * g] = v.x;
-        cv[4 * g + 1] = v.y;
-        cv[4 * g + 2] = v.z;
-        cv[4 * g + 3] = v.w;
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-#pragma unroll
-        for (int s = 0; s < S; ++s) {
-          acc[r][s] = __fadd_rn(acc[r][s], __fmul_rn(qv[r], cv[s]));
-        }
-      }
+      add_step<T>(acc, qs + d * QT + qw, cs + d * CT, lane);
     }
     float vn[S];
 #pragma unroll
     for (int s = 0; s < S; ++s) {
-      vn[s] = M == 0 ? 0.0f : cs[n * CT + col(s)];
+      vn[s] = M == 0 ? 0.0f : cs[n * CT + tile_col(s, lane)];
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(smem_addr(&empty[slot]));  // slot read
-    const int t0 = (t_begin + i) * CT;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      // the pairs that may enter: valid, and not under the bar
-      const Cut<M> cut(list[r].tv);
-      const float un = qn[qw + r];
-      const int self = self_offset >= 0 ? self_offset + q0 + qw + r : -1;
-      bool need[S];
-      bool some = false;
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        const int gid = t0 + col(s);
-        need[s] = gid < n_valid && gid != self &&
-                  !cut.below(acc[r][s], un, vn[s]);
-        some |= need[s];
-      }
-      if (!__any_sync(kFull, some)) continue;
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        float v = acc[r][s];
-        if (M != 0 && __any_sync(kFull, need[s])) {
-          v = repro::tile_epilogue_rooted(v, un, vn[s], M);
+    offer_tile<T, M>(list, acc, vn, [&](int r) { return qn[qw + r]; },
+                     (t_begin + i) * CT, q0 + qw, self_offset, n_valid, k,
+                     lane);
+  }
+  write_lists(list, out_v, out_i, q0 + qw, n_rows, k, lane);
+}
+
+// The wide route of topk_scan_kernel (n > kMaxWidth): the same grid,
+// warps, lists, bar and epilogue, but the block's queries are not staged
+// whole. Q holds them d-major as P holds the candidates ((n + 1) × qpad,
+// row n their norms). The producer streams unit j = (tile i, slice s) into
+// slot j % STAGES: rows [s·SL, s·SL + SL) of the tile's P columns and of
+// the block's Q columns, by bulk copies counted on the slot's full barrier.
+// A consumer adds the slice's d terms to its R·S partial sums, in
+// ascending d, frees the slot, and after the tile's last slice (which
+// holds the norm row) offers the scores as the narrow kernel does.
+template <class T, int M>
+__global__ void __launch_bounds__(T::kThreads, T::MINB)
+topk_scan_wide_kernel(const float* __restrict__ Q, const float* __restrict__ P,
+                      float* __restrict__ out_v, int* __restrict__ out_i,
+                      int n_rows, int qpad, int cpad, int n, int k,
+                      int n_valid, int self_offset, int tps, int n_tiles) {
+  constexpr int R = T::R, S = T::S, QT = T::QT, CT = T::CT;
+  constexpr int STAGES = T::STAGES, SL = kWideSlice;
+  constexpr int slot_len = SL * (CT + QT);
+  extern __shared__ float4 dyn[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(dyn);
+  uint64_t* empty = full + STAGES;
+  float* ring = reinterpret_cast<float*>(empty + STAGES);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q0 = blockIdx.x * QT;
+  const int t_begin = blockIdx.y * tps;
+  const int nt = min(n_tiles - t_begin, tps);
+  const int rows = M == 0 ? n : n + 1;  // staged rows of P and Q
+  const int slices = (rows + SL - 1) / SL;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(smem_addr(&full[s]), 1);
+      mbar_init(smem_addr(&empty[s]), T::W);
+    }
+    repro::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == T::W) {  // the producer: unit j into slot j % STAGES
+    for (int i = 0, j = 0; i < nt; ++i) {
+      const float* src = P + (size_t)(t_begin + i) * CT;
+      for (int s = 0; s < slices; ++s, ++j) {
+        const int slot = j % STAGES, d0 = s * SL;
+        const int rs = min(SL, rows - d0);
+        const uint32_t fb = smem_addr(&full[slot]);
+        mbar_wait(smem_addr(&empty[slot]), ((j / STAGES) & 1) ^ 1);
+        if (lane == 0) mbar_expect_tx(fb, rs * (CT + QT) * sizeof(float));
+        __syncwarp();
+        float* cs = ring + slot * slot_len;
+        float* qs = cs + SL * CT;
+        for (int d = lane; d < rs; d += 32) {
+          bulk_load(smem_addr(cs + d * CT), src + (size_t)(d0 + d) * cpad,
+                    CT * sizeof(float), fb);
+          bulk_load(smem_addr(qs + d * QT), Q + (size_t)(d0 + d) * qpad + q0,
+                    QT * sizeof(float), fb);
         }
-        list[r].offer(need[s], v, t0 + col(s), k);
       }
     }
+    return;
   }
 
-  // each warp writes the lists it kept
+  const int qw = warp * R;
+  float un[R];  // the queries' norms as Q holds them
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    const int row = q0 + qw + r;
-    if (row < n_rows && lane < k) {
-      const size_t slot = ((size_t)row * gridDim.y + blockIdx.y) * k + lane;
-      out_v[slot] = list[r].ev;
-      out_i[slot] = list[r].ev == -INFINITY ? 0 : list[r].eid;
-    }
+    un[r] = M == 0 ? 0.0f : Q[(size_t)n * qpad + q0 + qw + r];
   }
+  WarpList list[R];
+
+  for (int i = 0, j = 0; i < nt; ++i) {
+    float acc[R][S];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int s = 0; s < S; ++s) acc[r][s] = 0.0f;
+    }
+    float vn[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) vn[s] = 0.0f;
+    for (int sl = 0; sl < slices; ++sl, ++j) {
+      const int slot = j % STAGES, d0 = sl * SL;
+      const int dl = min(SL, n - d0);  // landmark rows of the slice
+      mbar_wait(smem_addr(&full[slot]), (j / STAGES) & 1);
+      const float* cs = ring + slot * slot_len;
+      const float* qs = cs + SL * CT;
+#pragma unroll 2
+      for (int d = 0; d < dl; ++d) {
+        add_step<T>(acc, qs + d * QT + qw, cs + d * CT, lane);
+      }
+      if (M != 0 && n - d0 < SL) {  // the slice that holds the norm row
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          vn[s] = cs[(n - d0) * CT + tile_col(s, lane)];
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(smem_addr(&empty[slot]));  // slot read
+    }
+    offer_tile<T, M>(list, acc, vn, [&](int r) { return un[r]; },
+                     (t_begin + i) * CT, q0 + qw, self_offset, n_valid, k,
+                     lane);
+  }
+  write_lists(list, out_v, out_i, q0 + qw, n_rows, k, lane);
 }
 
 // Merge the m = splits·k partial entries of each row into its canonical
@@ -384,9 +569,16 @@ auto scan_kernel(int measure) {
                         : topk_scan_kernel<T, 2>;
 }
 
+template <class T>
+auto scan_wide_kernel(int measure) {
+  return measure == 0   ? topk_scan_wide_kernel<T, 0>
+         : measure == 1 ? topk_scan_wide_kernel<T, 1>
+                        : topk_scan_wide_kernel<T, 2>;
+}
+
 bool bad_args(int rows, int C, int n, int k, int measure) {
-  return rows <= 0 || C <= 0 || n <= 0 || n > kMaxWidth || k <= 0 ||
-         k > 32 || measure < 0 || measure > 2;
+  return rows <= 0 || C <= 0 || n <= 0 || k <= 0 || k > 32 || measure < 0 ||
+         measure > 2;
 }
 
 }  // namespace
@@ -399,6 +591,15 @@ extern "C" int topk_scan_blocks_per_sm(int variant, int n, int measure) {
   int blocks = 0;
   const cudaError_t err = with_tile(variant, [&](auto tile) {
     using T = decltype(tile);
+    if (n > kMaxWidth) {
+      auto kern = scan_wide_kernel<T>(measure);
+      const cudaError_t e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)T::wide_smem());
+      if (e != cudaSuccess) return e;
+      return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, kern, T::kThreads, T::wide_smem());
+    }
     auto kern = scan_kernel<T>(measure);
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -411,9 +612,11 @@ extern "C" int topk_scan_blocks_per_sm(int variant, int n, int measure) {
 }
 
 // prep, scan and (splits > 1) merge of ``rows`` queries against C
-// candidates. ``prep`` holds (n + 1) × cpad floats, cpad = CT·⌈C / CT⌉;
-// ``part_v`` / ``part_i`` hold rows × splits × k entries (with one split
-// they are ``vals`` / ``ids``). ``qt`` and ``ct`` must be the variant's.
+// candidates. ``prep`` holds (n + 1) × cpad floats, cpad = CT·⌈C / CT⌉,
+// and for n > kMaxWidth (n + 1) × qpad more, qpad = QT·⌈rows / QT⌉: the
+// queries' layout; ``part_v`` / ``part_i`` hold rows × splits × k entries
+// (with one split they are ``vals`` / ``ids``). ``qt`` and ``ct`` must be
+// the variant's.
 extern "C" int topk_scan_f32(const void* q, const void* cand, void* prep,
                              void* part_v, void* part_i, void* vals,
                              void* ids, int rows, int C, int n, int k,
@@ -434,6 +637,23 @@ extern "C" int topk_scan_f32(const void* q, const void* cand, void* prep,
     const int cpad = n_tiles * T::CT;
     float* p = static_cast<float*>(prep);
     const int pblocks = (cpad + kPrepThreads - 1) / kPrepThreads;
+    const dim3 grid((rows + T::QT - 1) / T::QT, splits);
+    if (n > kMaxWidth) {
+      const int qpad = grid.x * T::QT;
+      float* qp = p + (size_t)(n + 1) * cpad;
+      topk_prep_wide_kernel<<<pblocks, kPrepThreads, 0, s>>>(
+          static_cast<const float*>(cand), p, C, cpad, n, measure);
+      topk_prep_wide_kernel<<<(qpad + kPrepThreads - 1) / kPrepThreads,
+                              kPrepThreads, 0, s>>>(
+          static_cast<const float*>(q), qp, rows, qpad, n, measure);
+      const cudaError_t e = cudaGetLastError();
+      if (e != cudaSuccess) return e;
+      const auto wide = scan_wide_kernel<T>(measure);
+      wide<<<grid, T::kThreads, T::wide_smem(), s>>>(
+          qp, p, static_cast<float*>(part_v), static_cast<int*>(part_i), rows,
+          qpad, cpad, n, k, n_valid, self_offset, tps, n_tiles);
+      return cudaGetLastError();
+    }
     if (n <= 32) {
       topk_prep_kernel<32><<<pblocks, kPrepThreads, 0, s>>>(
           static_cast<const float*>(cand), p, C, cpad, n, measure);
@@ -446,7 +666,6 @@ extern "C" int topk_scan_f32(const void* q, const void* cand, void* prep,
     }
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
-    const dim3 grid((rows + T::QT - 1) / T::QT, splits);
     const auto kern = scan_kernel<T>(measure);
     kern<<<grid, T::kThreads, T::smem(n), s>>>(
         static_cast<const float*>(q), p, static_cast<float*>(part_v),

@@ -8,7 +8,9 @@ the queries by their first-probed (nearest) cell on the card and the
 wrapper picks ``G`` from the batch size (:func:`plan_group`), so each cell
 of a group's union is staged once per block. The order and ``G`` change
 which rows a block visits, never the result: the lists are canonical and
-each id lies in one list.
+each id lies in one list. Past ``NARROW_WIDTH`` landmarks the kernel's wide
+route takes one query a block and stages rows in slices of the landmark
+axis.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import build, ref
-from .knn_topk import MAX_K, check_width
+from .knn_topk import MAX_K, NARROW_WIDTH, check_width
 
 PAYLOAD_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 GROUPS = (8, 4, 2)  # queries a block may own besides 1 (8 warps a block)
@@ -117,8 +119,10 @@ def fused_probe_topk(q: torch.Tensor, probe: torch.Tensor,
     vals = torch.empty((b, k), dtype=torch.float32, device=dev)
     ids = torch.empty((b, k), dtype=torch.int32, device=dev)
     if b and nprobe and c and cap:
-        group = plan_group(b, _sms(dev.index if dev.index is not None
-                                   else torch.cuda.current_device()), c)
+        # the wide route (past NARROW_WIDTH) takes one query a block
+        group = 1 if n > NARROW_WIDTH else plan_group(
+            b, _sms(dev.index if dev.index is not None
+                    else torch.cuda.current_device()), c)
         order = (None if group == 1
                  else torch.empty(b, dtype=torch.int32, device=dev))
         build.launch("ivf_probe_f32", q, probe, probe_ok, order, lists, rows,

@@ -5,13 +5,15 @@
   candidates, the (U, C) score matrix never written.
 - :func:`foldin_topk` — the skinny fold-in search of a batch of new rows.
 
-Both run the same three launches: a prep pass lays the candidates out
-d-major (centered and normed once), the scan scores candidate tiles in
-register micro-tiles against a per-query bar, and, when the candidate
-tiles are split across blocks to fill the card, a merge of the splits'
-lists. Both return lists in canonical order (value desc, id asc) with
-empty slots as (-inf, 0). Cosine expects rows L2-normalized by the caller;
-pearson and euclidean take raw representation rows.
+Both run the same launches: a prep pass lays the candidates out d-major
+(centered and normed once), the scan scores candidate tiles in register
+micro-tiles against a per-query bar, and, when the candidate tiles are
+split across blocks to fill the card, a merge of the splits' lists. Past
+``NARROW_WIDTH`` landmarks the wide route preps the queries too and
+streams both in slices of the landmark axis (any n). Both return lists in
+canonical order (value desc, id asc) with empty slots as (-inf, 0). Cosine
+expects rows L2-normalized by the caller; pearson and euclidean take raw
+representation rows.
 """
 from __future__ import annotations
 
@@ -22,8 +24,10 @@ import torch
 
 from . import build, ref
 
-SCAN_MAX_WIDTH = 104  # landmark axis n of the scan: its ring's shared memory
-IVF_MAX_WIDTH = 104  # landmark axis n of the IVF kernels' register rows (4-6)
+# kernels 2-5 take any landmark count n >= 1: up to NARROW_WIDTH whole rows
+# (the scan's ring, the IVF kernels' register rows), past it their wide
+# routes, which stage rows in slices of the landmark axis
+NARROW_WIDTH = 104
 MAX_K = 32  # list length: lanes of the warp-wide list
 # (queries, candidates) a block's tile in each scan variant, by the index
 # that csrc/knn_topk.cu's with_tile takes
@@ -74,11 +78,12 @@ def _occupancy(device: int, variant: int, n: int, measure: str
         device).multi_processor_count, per_sm
 
 
-def check_width(name: str, n: int, limit: int = IVF_MAX_WIDTH) -> None:
-    """Raise unless the landmark axis ``n`` is one a kernel takes: the
-    scan's ``SCAN_MAX_WIDTH`` or kernels 4–6's ``IVF_MAX_WIDTH``."""
-    if not 1 <= n <= limit:
-        raise ValueError(f"{name}: width {n} outside 1..{limit}")
+def check_width(name: str, n: int) -> None:
+    """Raise unless the landmark axis ``n`` is one the kernels take: any
+    n >= 1 (kernels 2–5 switch to their wide routes past
+    ``NARROW_WIDTH``; kernel 6 slices its rows at every n)."""
+    if n < 1:
+        raise ValueError(f"{name}: width {n} outside 1..")
 
 
 def _check(name, rep, cand, k, n_valid, measure):
@@ -86,7 +91,7 @@ def _check(name, rep, cand, k, n_valid, measure):
     n = rep.shape[1]
     if cand.shape[1] != n:
         raise ValueError(f"{name}: widths differ: {rep.shape} vs {cand.shape}")
-    check_width(name, n, SCAN_MAX_WIDTH)
+    check_width(name, n)
     if not 1 <= k <= MAX_K:
         raise ValueError(f"{name}: k={k} outside 1..{MAX_K}")
     if not 0 <= n_valid <= cand.shape[0]:
@@ -114,7 +119,9 @@ def _scan(name, rep, cand, k, n_valid, self_offset, measure):
                             *_occupancy(dev.index, variant, n, measure),
                             MIN_TILES,
                             MAX_SPLITS)
-    prep = torch.empty((n + 1, -(-c // ct) * ct), dtype=torch.float32,
+    # the candidates' d-major layout, and past NARROW_WIDTH the queries'
+    qpad = -(-rows // qt) * qt if n > NARROW_WIDTH else 0
+    prep = torch.empty((n + 1, -(-c // ct) * ct + qpad), dtype=torch.float32,
                        device=dev)
     part_v, part_i = vals, ids
     if splits > 1:

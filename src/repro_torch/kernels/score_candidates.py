@@ -3,7 +3,9 @@
 candidate rows, the ``dense_similarity`` algebra on raw rows. The IVF
 search runs it at partial probe with ``scorer="kernel"``; its shared form
 (one candidate block for every query) scores the back-patch of the
-bucketed and sharded fold-ins (``core/graph.py::backpatch_sims``).
+bucketed and sharded fold-ins and of every update
+(``core/graph.py::backpatch_sims``). The two forms are two kernels of one
+launch each, chosen by ``cand``'s rank; both take any landmark count.
 """
 from __future__ import annotations
 
@@ -11,8 +13,6 @@ import torch
 
 from . import build, ref
 from .knn_topk import check_width
-
-MAX_CANDIDATES = 65535 * 128  # candidate blocks of 128 on the grid's y axis
 
 
 def score_candidates(q: torch.Tensor, cand: torch.Tensor,
@@ -38,9 +38,6 @@ def score_candidates(q: torch.Tensor, cand: torch.Tensor,
                          f"vs {tuple(cand.shape)}")
     check_width("score_candidates", n)
     m = cand.shape[-2]
-    if m > MAX_CANDIDATES:
-        raise ValueError(f"score_candidates: {m} candidates per query "
-                         f"exceed {MAX_CANDIDATES}")
     out = torch.empty((b, m), dtype=torch.float32, device=q.device)
     if b and m:
         build.launch("score_candidates_f32", q, cand, out, b, m, n,

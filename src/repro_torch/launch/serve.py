@@ -79,6 +79,27 @@ from ..train.checkpoint import (landmark_state_meta, latest_step,
                                 load_landmark_state, save_landmark_state)
 
 IVF_RECALL_SLO = 0.95  # serving recall target; nprobe escalates to hold it
+# torch intra-op threads of the request engine on the CPU: its lanes run
+# many small ops, and an op split over a pool waits for the pool's slowest
+# thread, which other processes may keep off a core (the read tail under a
+# loaded CPU); one thread a lane waits on none
+ENGINE_CPU_THREADS = 1
+
+
+@contextlib.contextmanager
+def _engine_cpu_threads(device):
+    """Bound torch's intra-op threads to ``ENGINE_CPU_THREADS`` while the
+    engine serves on the CPU, and restore the count after; on a card
+    nothing changes. Threads the engine starts inside take the bound."""
+    if torch.device(device).type != "cpu":
+        yield
+        return
+    before = torch.get_num_threads()
+    torch.set_num_threads(min(before, ENGINE_CPU_THREADS))
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
 
 
 def _sync(device: torch.device) -> None:
@@ -2103,7 +2124,8 @@ def main(argv=None):
         with torch.inference_mode():
             _serve_lm(args)
     elif args.engine:
-        return _serve_cf_engine(args)
+        with _engine_cpu_threads(args.device):
+            return _serve_cf_engine(args)
     elif args.lifecycle and args.mesh:
         return _serve_cf_lifecycle_sharded(args)
     elif args.lifecycle:

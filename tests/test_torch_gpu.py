@@ -318,9 +318,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         ops.masked_similarity(r, r.cpu())
     with pytest.raises(ValueError, match="route"):
         ops.masked_similarity(r, r, route="tensor_core")
-    rep = _rows(80, knn_topk.SCAN_MAX_WIDTH + 1, cuda)
-    with pytest.raises(ValueError, match="width"):
-        knn_topk.topk_sim(rep, rep, 5)
+    rep = _rows(80, knn_topk.NARROW_WIDTH + 1, cuda)  # the wide route
+    assert knn_topk.topk_sim(rep, rep, 5)[1].shape == (80, 5)
+    empty = torch.empty((80, 0), device=cuda)
+    with pytest.raises(ValueError, match="width 0"):
+        knn_topk.topk_sim(empty, empty, 5)
     with pytest.raises(ValueError, match="k=33"):
         knn_topk.topk_sim(rep[:, :20].contiguous(), rep[:, :20].contiguous(),
                           33)
@@ -555,9 +557,9 @@ def test_fused_probe_kernel_matches_plain(cuda, measure, payload, b, c, cap,
 
 def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
     rep = _rows(50, 20, cuda)
-    with pytest.raises(ValueError, match="width"):
-        assign_clusters.assign_clusters(_rows(9, 105, cuda),
-                                        _rows(3, 105, cuda))
+    with pytest.raises(ValueError, match="width 0"):
+        assign_clusters.assign_clusters(torch.empty((9, 0), device=cuda),
+                                        torch.empty((3, 0), device=cuda))
     with pytest.raises(ValueError, match="3-D"):
         score_candidates.score_candidates(rep, rep[0])
     with pytest.raises(ValueError, match="shapes differ"):
@@ -575,11 +577,12 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
 
 
 @pytest.mark.parametrize("measure", MEASURES)
-@pytest.mark.parametrize("n", [100, 104])
+@pytest.mark.parametrize("n", [100, 104, 105, 128, 256])
 def test_ivf_kernels_at_wide_rows_match_plain(cuda, measure, n):
-    """Kernels 4-6 past n = 64 (up to the scan's 104): the Lloyd kernel at
-    0 and 8 steps, the fused probe on every payload with masked probes and
-    self ids, the scorer — bitwise their plain versions."""
+    """Kernels 4-6 past n = 64, on the narrow routes up to 104 and on the
+    wide routes past it: the Lloyd kernel at 0 and 8 steps, the fused probe
+    on every payload with masked probes and self ids, the scorer — bitwise
+    their plain versions."""
     rep = _rows(900, n, cuda, seed=12)
     init = rep[torch.randperm(900, device=cuda)[:30]].contiguous()
     for iters in (0, 8):
@@ -604,6 +607,52 @@ def test_ivf_kernels_at_wide_rows_match_plain(cuda, measure, n):
                                                   seed=17).reshape(64, 300, n)
     got = score_candidates.score_candidates(q, cand, measure)
     assert torch.equal(got, ref.score_candidates_ref(q, cand, measure))
+
+
+@pytest.mark.parametrize("measure", MEASURES)
+@pytest.mark.parametrize("n", [105, 128, 256])
+def test_scan_wide_route_matches_plain(cuda, measure, n):
+    """Kernels 2-3 past 104 landmarks (the wide route: queries and
+    candidate tiles streamed in slices of the landmark axis): the graph
+    build with a ragged ``n_valid`` and self excluded, over the large
+    variant with split candidate tiles, and a fold-in batch on the small
+    one — values and ids bitwise the plain version's."""
+    rep = kernel_rows(_rows(700, n, cuda, seed=n), measure)
+    got = knn_topk.topk_sim(rep, rep, 13, exclude_self=True, n_valid=690,
+                            measure=measure)
+    want = ref.foldin_topk_ref(rep, rep, 13, 0, 690, measure)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    q = rep[650:].contiguous()
+    got = knn_topk.foldin_topk(q, rep, 7, self_offset=650, measure=measure)
+    want = ref.foldin_topk_ref(q, rep, 7, 650, None, measure)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("measure", MEASURES)
+@pytest.mark.parametrize("n", [1, 20, 100, 104, 105, 128, 256])
+def test_score_candidates_both_forms_any_width(cuda, measure, n):
+    """Kernel 6's two forms at any width, with ragged edges: per-query
+    blocks of m = 1, 129 and 300 candidates; shared blocks of bq = 1, 64
+    and 129 against C = 1, 65 and 1000 rows (not multiples of the 64-row
+    tile) — bitwise ``gathered_sims``, one launch a call."""
+    cases = [(_rows(3, n, cuda, seed=1), _rows(3, n, cuda, seed=2)
+              .reshape(3, 1, n)),
+             (_rows(5, n, cuda, seed=3), _rows(5 * 129, n, cuda, seed=4)
+              .reshape(5, 129, n)),
+             (_rows(2, n, cuda, seed=5), _rows(600, n, cuda, seed=6)
+              .reshape(2, 300, n))]
+    cases += [(_rows(c, n, cuda, seed=c), _rows(bq, n, cuda, seed=bq + 1))
+              for c, bq in ((1, 1), (1000, 1), (65, 64), (1000, 129),
+                            (1, 129))]
+    for q, cand in cases:
+        n0 = score_candidates.score_candidates.launches
+        got = score_candidates.score_candidates(q, cand, measure)
+        torch.cuda.synchronize()
+        assert score_candidates.score_candidates.launches == n0 + 1
+        assert torch.equal(got, ref.gathered_sims(q, cand, measure)), (
+            tuple(q.shape), tuple(cand.shape))
 
 
 def test_sharded_fit_and_fold_in_on_the_card_bitwise_one_device(cuda):

@@ -129,14 +129,13 @@ def test_id_maps_and_block_packing():
 @pytest.mark.parametrize("name", ["kmeans_lloyd", "fused_probe_topk",
                                   "score_candidates"])
 def test_ivf_kernel_width_guard(name):
-    """Kernels 4-6 take the scan's widths: n = 104 passes, n = 105 raises
-    with the scan's message."""
-    assert knn_topk.IVF_MAX_WIDTH == knn_topk.SCAN_MAX_WIDTH == 104
-    knn_topk.check_width(name, 104)
-    knn_topk.check_width(name, 100)
-    with pytest.raises(ValueError, match=f"{name}: width 105 outside 1..104"):
-        knn_topk.check_width(name, 105)
-    with pytest.raises(ValueError, match="width 0 outside"):
+    """Kernels 4-6 take any landmark count, as the scan does: n = 100 and
+    104 on the narrow routes, 105, 128 (``web_fit``'s) and 256 on the wide
+    ones; n = 0 raises with the scan's message."""
+    assert knn_topk.NARROW_WIDTH == 104
+    for n in (100, 104, 105, 128, 256):
+        knn_topk.check_width(name, n)
+    with pytest.raises(ValueError, match=f"{name}: width 0 outside"):
         knn_topk.check_width(name, 0)
 
 
