@@ -84,7 +84,9 @@ The LM slice adds, each with its own time:
     through the same loop) against the plain version (dense f32 softmax) at
     the reference tests' shapes (n, S, D) = (64, 1024, 64),
     (128, 2048, 128), (32, 512, 256), a ragged (16, 777, 32), ragged S and
-    n with P > 1 at D = 128 and 256, S below one key tile, and the
+    n with P > 1 at D = 128 and 256, S below one key tile, phase 15's
+    DeepSeek-MoE-16B shape (32 problems, B=2 × 16 kv heads, of n = 512
+    against S = 4096, D = 128, G = 1), and the
     SmolLM-360M landmark shape: 10 problems (B=2 × 5 kv heads) of
     G·n = 1536 landmark queries against S = 4096, D = 64; rtol=1e-4,
     atol=1e-5 (the reference's kernel-vs-oracle tolerance); and the f32
@@ -236,6 +238,37 @@ The any-landmark-count slice adds:
     cut, fit and fold-in seconds and peak memory printed. The kernel
     table gains each row's launches in (a) and (b) (``launches_wide``).
 
+The MoE slice adds:
+
+15. MoE serving — (a) ``serve --workload lm --arch deepseek-moe-16b``,
+    exact KV and ``--landmark``, at full width and depth (28 layers, 64
+    routed + 2 shared experts, top 6, bf16, random weights from seed 0):
+    the three lines, ms/token beside the exact decode floor (every weight
+    read once at 3.35 TB/s: GShard's single-token decode groups run the
+    expert products over all 64 experts), peak memory; (b) its landmark
+    forward, B = 2, S = 4096, through kernel 7 (28 launches, all on the
+    tensor-core route, at P = 32, n = 512, D = 128) and through the plain
+    B̃V, the kernel forward on the plain one's routing: logits within 5%
+    of the largest, router logits within 5% of the largest and every
+    flipped expert a near-tie (relative probability gap within 2^-3, the
+    gap of ``layers.route_flips``), CE near ln V, a profile
+    (busy/idle, top kernels) and the MoE FFN's share of device time (its
+    calls inside a ``record_function`` range); (c) one exact decode step
+    after an 8-token prefill against the forward's last position:
+    correlation > 0.8 at the config's capacity (the reference's check),
+    and within 0.15 at a capacity where nothing drops, the step routed as
+    the forward routed that token under (b)'s two router checks;
+    ``moe_ffn_ragged`` against
+    ``moe_ffn`` at ample capacity on layer 0's experts (the same routing,
+    outputs within (K + 2)·2^-8 of the largest), with both timed on a
+    group of 512 tokens and at a decode step's 4 tokens; (d)
+    ``dbrx-132b`` at full width with the depth cut from 40 to 2 layers
+    (263 GB of bf16 weights at full depth): the landmark forward (kernel 7
+    at G = 6: 2 launches), the decode checks and the ragged check. The
+    kernel table gains each row's launches in (a), (b) and (d)
+    (``launches_moe``), and row 7 its time, device time, bound, plain
+    time and bf16 SDPA time at the DeepSeek shape (``moe_*``).
+
 The last two lines are the kernel table and
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. TF32 is off for
 matmul and cuDNN throughout: the reference scores in full f32.
@@ -281,6 +314,7 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.lifecycle import buckets  # noqa: E402
 from repro_torch import mutation  # noqa: E402
 from repro_torch.baselines import bpmf, mf  # noqa: E402
+from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import transformer as lm  # noqa: E402
 
 sys.path.insert(0, str(ROOT / "tools"))
@@ -340,6 +374,13 @@ LM_ARCH, LM_BATCH, LM_SEQ = "smollm-360m", 2, 4096
 LM_RTOL, LM_ATOL = 1e-4, 1e-5  # kernel 7 vs its plain version
 LM_LOGIT_REL = 0.05  # bf16 forward, kernel vs plain B̃V, of max |logit|
 DECODE_ATOL = 0.15  # bf16 decode step vs forward (tests/test_archs_smoke.py)
+# an MoE expert flip between two bf16 runs of phase 15 (kernel vs plain
+# B̃V, decode vs forward): the first run's relative probability gap of the
+# two experts. 2^-3 is a router-logit gap of ln(8/7) = 0.134: a near-tie
+# at 28 layers, where the two runs' rounding moves a router logit by up
+# to 0.101 (router_logit_abs of DeepSeek's landmark forward on the H100),
+# so two logits 0.2 apart can cross; the largest gap seen there was 0.108
+ROUTER_TIE_REL = 2 ** -3
 
 
 def sync():
@@ -907,11 +948,13 @@ def _wall_s(fn, reps=5):
     return statistics.median(times)
 
 
-def _profile(run):
+def _profile(run, ranges=()):
     """Device time by kernel and the device's busy share over one run of
     ``run`` under ``torch.profiler`` (CUPTI). The share is the union of
     kernel intervals over the span from the first kernel's start to the
-    last one's end; the profiler's own host cost widens the gaps."""
+    last one's end; the profiler's own host cost widens the gaps. For each
+    ``record_function`` range named in ``ranges``, the device time of the
+    kernels launched inside it and their share of all kernel time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -921,9 +964,12 @@ def _profile(run):
                              ProfilerActivity.CUDA]) as prof:
         run()
         sync()
-    spans, by_name = [], {}
+    spans, by_name, inside = [], {}, dict.fromkeys(ranges, 0.0)
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+        if e.name in inside and e.device_type == DeviceType.CPU:
+            inside[e.name] += e.device_time_total
+        # a range's own span on the device timeline is not a kernel
+        if e.device_type != DeviceType.CUDA or e.name in inside:
             continue
         t0, t1 = e.time_range.start, e.time_range.end
         spans.append((t0, t1))
@@ -939,9 +985,13 @@ def _profile(run):
         end = max(end, t1)
     window = end - spans[0][0]
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    total = sum(by_name.values())
     return {"kernels_launched": len(spans), "device_busy_ms": busy / 1e3,
             "window_ms": window / 1e3, "idle_share": 1 - busy / window,
-            "top_ms": dict(top)}
+            "top_ms": dict(top), **{name: {
+                f"{name}_device_ms": us / 1e3, "device_ms": total,
+                f"{name}_share": us / 1e3 / total}
+                for name, us in inside.items()}}
 
 
 def _d1_bound(a, b, p, tensor_core):
@@ -1759,13 +1809,15 @@ def _lm_model_shape():
 def phase_lm_kernel():
     """8a: both routes of kernel 7 against the plain version, and the f32
     route's split pass bitwise against its plain version at the model
-    shape. Returns the model-shape inputs and the largest error there, per
-    dtype."""
+    shape, and at phase 15's DBRX and DeepSeek shapes. Returns the
+    model-shape inputs and the largest error there, per dtype, and the same
+    at the DeepSeek shape (bf16)."""
     t0 = time.perf_counter()
     notes, model_in, model_err = [], {}, {}
     shapes = [(1, 64, 1024, 64), (1, 128, 2048, 128), (1, 32, 512, 256),
               (1, 16, 777, 32), (2, 130, 300, 128), (2, 200, 777, 256),
-              (1, 100, 60, 256), _lm_model_shape()]
+              (1, 100, 60, 256), _moe_model_shape(DBRX_ARCH),
+              _moe_model_shape(), _lm_model_shape()]
     ops.reset_launches()
     for i, (p, n, s_, d) in enumerate(shapes):
         for dtype in (torch.bfloat16, torch.float32):
@@ -1779,6 +1831,9 @@ def phase_lm_kernel():
             notes.append(f"P={p} n={n} S={s_} D={d} {tag} max|err| {e:.3g}")
             if i == len(shapes) - 1:
                 model_err[dtype], model_in[dtype] = e, (q, k, v)
+            elif (p, n, s_, d) == _moe_model_shape() and dtype == (
+                    torch.bfloat16):
+                moe_err, moe_in = e, (q, k, v)
     routes = dict(lsum.landmark_summary.route_launches)
     if routes != {"tensor_core": len(shapes), "f32_split": len(shapes)}:
         raise AssertionError(f"8a: launches by route {routes}, not "
@@ -1795,7 +1850,7 @@ def phase_lm_kernel():
           f"atol={LM_ATOL}; launches by route {routes}): " + "; ".join(notes)
           + f"; split pass at the model shape bitwise equal | "
           f"{time.perf_counter() - t0:.1f}s")
-    return model_in, model_err
+    return model_in, model_err, moe_in, moe_err
 
 
 def _smollm(**over):
@@ -1807,7 +1862,9 @@ def _smollm(**over):
 def _forward_variants(model, batch, variants):
     """One landmark forward per (tag, summary function): the model's B̃V
     calls ops.landmark_summary, swapped for each function in turn. The
-    counts are read from the timed run alone."""
+    counts are read from the timed run alone. ``ce`` is the loss without
+    its MoE term (``lm_loss`` adds 0.01 · aux; aux is 0 for a dense
+    model)."""
     out = {}
     with torch.inference_mode():
         for tag, fn in variants:
@@ -1818,7 +1875,7 @@ def _forward_variants(model, batch, variants):
                 ops.reset_launches()
                 lsum.bf16_terms.launches = 0
                 t1 = time.perf_counter()
-                logits, _ = lm.lm_forward(model, batch["tokens"])
+                logits, aux = lm.lm_forward(model, batch["tokens"])
                 sync()
                 wall = time.perf_counter() - t1
                 counts = ops.launch_counts()
@@ -1826,7 +1883,8 @@ def _forward_variants(model, batch, variants):
                 splits = lsum.bf16_terms.launches
                 loss = float(lm.lm_loss(model, batch))
             out[tag] = dict(logits=logits, counts=counts, routes=routes,
-                            splits=splits, wall=wall, loss=loss)
+                            splits=splits, wall=wall, loss=loss,
+                            aux=float(aux), ce=loss - 0.01 * float(aux))
     return out
 
 
@@ -1834,8 +1892,8 @@ def _check_forward(out, cfg, route, batch_size, tag_dtype):
     """The kernel forward launched kernel 7 once per layer, all on `route`
     (with three split passes each on the f32_split route); the plain one
     launched nothing; logits finite, shaped, within
-    LM_LOGIT_REL of the plain forward's; both CE near ln V. Returns the
-    relative logit difference."""
+    LM_LOGIT_REL of the plain forward's; both CE (the loss less its MoE
+    term) near ln V. Returns the relative logit difference."""
     ka, pa = out["kernel"], out["plain"]
     want_routes = {r: cfg.n_layers if r == route else 0
                    for r in lsum.landmark_summary.route_launches}
@@ -1860,8 +1918,8 @@ def _check_forward(out, cfg, route, batch_size, tag_dtype):
         raise AssertionError(f"{tag_dtype} landmark forward: kernel vs plain "
                              f"logits differ by {rel:.4f} of max |logit|")
     for tag in ("kernel", "plain"):
-        if not abs(out[tag]["loss"] - np.log(cfg.vocab)) < 2.0:
-            raise AssertionError(f"{tag_dtype} {tag} CE {out[tag]['loss']} "
+        if not abs(out[tag]["ce"] - np.log(cfg.vocab)) < 2.0:
+            raise AssertionError(f"{tag_dtype} {tag} CE {out[tag]['ce']} "
                                  f"is not near uniform "
                                  f"({np.log(cfg.vocab):.3f})")
     return rel
@@ -3237,6 +3295,373 @@ def phase_wide(train, d, test_idx, card):
             for k in set(counts_a) | set(counts_b)}
 
 
+# ---------------------------------------------- MoE serving (phase 15)
+MOE_ARCH, DBRX_ARCH = "deepseek-moe-16b", "dbrx-132b"
+DBRX_LAYERS = 2  # of 40: its bf16 weights take 263 GB at full depth
+# moe_ffn_ragged vs moe_ffn in bf16, of max |out|: the ragged form rounds
+# each of a token's K weighted rows to bf16 and each of its K adds, where
+# the dense combine rounds once, (K + 2) half-ulps with a factor 2 to spare
+def _moe_bf16_rel(top_k):
+    return (top_k + 2) * 2.0 ** -8
+
+
+def _moe_model_shape(arch=MOE_ARCH):
+    """(P, n, S, D) of kernel 7 on phase 15's forward of ``arch``: one
+    problem per (batch, kv head), G·n_landmarks landmark queries each."""
+    cfg = registry.get(arch).model
+    g = cfg.n_heads // cfg.n_kv_heads
+    return (LM_BATCH * cfg.n_kv_heads, g * cfg.n_landmarks, LM_SEQ,
+            cfg.head_dim)
+
+
+def _moe_model(arch, **over):
+    cfg = dataclasses.replace(registry.get(arch).model, **over)
+    return lm.init_lm(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                      DEVICE)
+
+
+def _decode_floor_ms(cfg):
+    """Least time of one exact decode step: every weight read once in bf16
+    at the HBM rate (a GShard decode group of one token still runs the
+    (E, C) expert products over all E experts), but the embedding table,
+    of which a step gathers B rows; the KV cache's few KB left out."""
+    embed = 0 if cfg.tied_embed else cfg.vocab * cfg.d_model
+    return 2 * (cfg.param_count() - embed) / HBM_BYTES_PER_S * 1e3
+
+
+def _annotated(fn, name):
+    """``fn`` inside a ``torch.profiler`` range named ``name``."""
+    def wrapped(*args, **kwargs):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kwargs)
+    return wrapped
+
+
+def _moe_serve(card):
+    """15a: the lm serve CLI on the DeepSeek arch at full width and depth,
+    exact KV and --landmark: its three lines, ms/token beside the decode
+    floor, peak memory and launches."""
+    floor = _decode_floor_ms(registry.get(MOE_ARCH).model)
+    counts = {}
+    for extra in ([], ["--landmark"]):
+        buf = io.StringIO()
+        t1 = time.perf_counter()
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with contextlib.redirect_stdout(buf):
+            serve.main(["--workload", "lm", "--arch", MOE_ARCH] + extra)
+        sync()
+        peak = torch.cuda.max_memory_allocated()
+        lines = buf.getvalue().strip().splitlines()
+        print("\n".join(lines))
+        if not (lines[-3].startswith("prefill 4x32: ")
+                and lines[-2].startswith("decode 16 tokens (")
+                and lines[-1].startswith("sample ids: [")):
+            raise AssertionError(f"moe serve {extra}: unexpected output")
+        ms = float(lines[-2].split(": ")[1].split(" ms/token")[0])
+        run = ops.launch_counts()
+        counts = {k: counts.get(k, 0) + v for k, v in run.items()}
+        print(f"phase 15a moe serve CLI {MOE_ARCH} "
+              f"{' '.join(extra) or '(exact KV)'} ({card}): {lines[-3]} | "
+              f"{ms} ms/token (exact decode floor {floor:.3f} ms: all "
+              f"weights read once, bf16, 3.35 TB/s) | peak {peak} bytes "
+              f"({peak / 2**30:.2f} GiB) | launches {run} | "
+              f"{time.perf_counter() - t1:.1f}s")
+        torch.cuda.empty_cache()
+    return counts
+
+
+# Two runs of one MoE model whose hidden states differ in bf16 rounding
+# (the kernel and the plain B̃V; a decode step and the forward) can route
+# a token whose router holds a near-tie to other experts, and one swapped
+# expert moves the logits by more than the rounding does. So the second
+# run takes the first run's experts (the ROADMAP tie rule, for routing;
+# the plain forward's routing, or the forward's for its last token). The
+# check holds each call's router logits to the first run's within
+# LM_LOGIT_REL of their largest magnitude, and each expert the second run
+# would have chosen instead to a near-tie: the first run's relative
+# probability gap between the two (``layers.route_flips``, the gap the CPU
+# tests hold the port's routing to against the reference's) within
+# ROUTER_TIE_REL.
+def _logging_router(flog, rows=None):
+    """The port's router, appending each call's (router logits, probs,
+    ids) to ``flog``; ``rows`` picks the rows kept (a forward's last
+    token)."""
+    port_router = lm_layers._router
+
+    def router(xt, router_w, top_k):
+        probs, gates, ids = port_router(xt, router_w, top_k)
+        logits = xt.float() @ router_w.float()
+        row = (logits, probs, ids)
+        flog.append(row if rows is None else tuple(rows(t) for t in row))
+        return probs, gates, ids
+
+    return router
+
+
+def _replayed_router(flog, stats):
+    """A router that takes, call by call, the experts another run chose
+    (``flog``: its (router logits, probs, ids) in call order), with this
+    run's own probabilities at them renormalized. Per call it appends to
+    ``stats`` the router logits' largest difference from the other run's,
+    the other run's largest |logit|, the routed (token, k) pairs, and the
+    gap of each flipped expert (``layers.route_flips``)."""
+    port_router = lm_layers._router
+
+    def router(xt, router_w, top_k):
+        probs, _, ids = port_router(xt, router_w, top_k)
+        logits = xt.float() @ router_w.float()
+        fl, fp, fi = flog.pop(0)
+        _, gaps = lm_layers.route_flips(ids, fp, fi)
+        diff = float((logits - fl).abs().max())
+        stats.append((diff, float(fl.abs().max()), ids.numel(),
+                      gaps.tolist()))
+        return probs, lm_layers.replayed_gates(probs, fi), fi
+
+    return router
+
+
+def _replay_summary(stats, tag):
+    """The replayed run's router against the other run's: the largest
+    router-logit difference of any call, relative (held to LM_LOGIT_REL)
+    and absolute, and the flips (count, share of routed pairs, largest
+    gap, held to ROUTER_TIE_REL)."""
+    gaps = [g for *_, call in stats for g in call]
+    pairs = sum(n for _, _, n, _ in stats)
+    out = {"router_calls": len(stats),
+           "router_logit_rel": max((d / m for d, m, _, _ in stats),
+                                   default=0.0),
+           "router_logit_abs": max((d for d, *_ in stats), default=0.0),
+           "flips": len(gaps), "flip_share": len(gaps) / max(pairs, 1),
+           "max_flip_gap": max(gaps, default=0.0)}
+    if not out["router_logit_rel"] <= LM_LOGIT_REL:
+        raise AssertionError(f"{tag}: router logits differ by "
+                             f"{out['router_logit_rel']} of the largest")
+    if not out["max_flip_gap"] <= ROUTER_TIE_REL:
+        raise AssertionError(f"{tag}: an expert flipped at a gap of "
+                             f"{out['max_flip_gap']}, past the near-tie "
+                             f"limit {ROUTER_TIE_REL}; {out}")
+    return out
+
+
+def _moe_decode_vs_forward(model, toks, moe, replay):
+    """One exact decode step after an 8-token prefill against
+    ``lm_forward``'s last position, with ``cfg.moe = moe``. With
+    ``replay`` the step takes the forward's routing of that token (see
+    ``_replayed_router``). Returns (max|Δ logits|, correlation, the
+    replay's per-call stats)."""
+    cfg = model.cfg
+    model.cfg = dataclasses.replace(cfg, moe=moe, attn_backend="full")
+    b, s = toks.shape[0], 9
+    flog, stats = [], []
+
+    def last(t):
+        return t.reshape(b, s, -1)[:, -1]
+
+    with torch.inference_mode():
+        with mock.patch.object(lm_layers, "_router",
+                               _logging_router(flog, last)):
+            full, _ = lm.lm_forward(model, toks[:, :s])
+        logits_pre, cache = lm.lm_prefill(model, toks[:, :8], max_seq=16)
+        router = (_replayed_router(flog, stats) if replay
+                  else lm_layers._router)
+        with mock.patch.object(lm_layers, "_router", router):
+            dec, cache = lm.lm_decode_step(model, cache, toks[:, 8:9])
+    model.cfg = cfg
+    if logits_pre.shape != (b, 1, cfg.vocab) or int(cache["length"]) != s:
+        raise AssertionError("moe decode: prefill logits or cache length")
+    a, f = dec[:, 0].float(), full[:, -1].float()
+    corr = float(torch.corrcoef(torch.stack([a.ravel(), f.ravel()]))[0, 1])
+    return float((a - f).abs().max()), corr, stats
+
+
+def _moe_decode_checks(model, tag):
+    """15c: the decode step against the forward at the config's capacity
+    (correlation > 0.8, the reference's check: the single-token decode
+    group is the known GShard train/serve gap) and at a capacity where no
+    group drops a token (within DECODE_ATOL on the forward's routing,
+    ``_replay_summary``'s router checks held). Returns the figures."""
+    m = model.cfg.moe
+    toks = torch.as_tensor(synthetic.lm_batch(0, 0, 2, 16, model.cfg.vocab)[
+        "tokens"], device=DEVICE)
+    ample = dataclasses.replace(m, capacity_factor=m.n_experts / m.top_k)
+    err_c, corr_c, _ = _moe_decode_vs_forward(model, toks, m, False)
+    err_free, corr_free, _ = _moe_decode_vs_forward(model, toks, ample,
+                                                    False)
+    err, corr, stats = _moe_decode_vs_forward(model, toks, ample, True)
+    replay = _replay_summary(stats, f"{tag} decode vs forward")
+    if not corr_c > 0.8:
+        raise AssertionError(f"{tag} decode vs forward at capacity "
+                             f"{m.capacity_factor}: correlation {corr_c}")
+    if not err < DECODE_ATOL:
+        raise AssertionError(f"{tag} decode vs forward at ample capacity: "
+                             f"max|Δ| {err}, {replay}")
+    return {"capacity": m.capacity_factor, "max_abs": err_c, "corr": corr_c,
+            "ample_capacity": ample.capacity_factor, "ample_max_abs": err,
+            "ample_corr": corr, "replay": replay,
+            "ample_max_abs_own_routing": err_free,
+            "ample_corr_own_routing": corr_free}
+
+
+def _ragged_vs_dense(model, tag):
+    """``moe_ffn_ragged`` against ``moe_ffn`` at a capacity where nothing
+    drops, on layer 0's router and experts at the model's full widths,
+    one group of random bf16 tokens: the same routing, outputs within
+    ``_moe_bf16_rel`` of the largest; the events time of each there and at a
+    decode step's shape (B = 4 tokens, the config's capacity)."""
+    cfg, lp = model.cfg, model.layers[0]
+    m = cfg.moe
+    weights = (lp.router, lp.ew1, lp.ew3, lp.ew2)
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+    x = torch.randn((1, m.group_size, cfg.d_model), generator=g,
+                    device=DEVICE).to(cfg.dtype)
+    ample = m.n_experts / m.top_k
+    with torch.inference_mode():
+        if not lm_layers.moe_route(x, lp.router, m.top_k, ample,
+                                   m.group_size).kept.all():
+            raise AssertionError(f"{tag}: ample capacity dropped a token")
+        dense, aux_d = lm_layers.moe_ffn(x, *weights, m.top_k, ample,
+                                         m.group_size, cfg.act)
+        ragged, aux_r = lm_layers.moe_ffn_ragged(x, *weights, m.top_k,
+                                                 cfg.act)
+        sync()
+        rel = float((ragged.float() - dense.float()).abs().max()
+                    / dense.float().abs().max())
+        if not rel < _moe_bf16_rel(m.top_k) or not torch.isclose(aux_d,
+                                                                 aux_r):
+            raise AssertionError(f"{tag}: ragged vs dense {rel}, aux "
+                                 f"{float(aux_d)} {float(aux_r)}")
+        xd = x[0, :4, None]  # (4, 1, D): a decode step's groups
+        times = {
+            "group_dense_ms": _event_ms(lambda: lm_layers.moe_ffn(
+                x, *weights, m.top_k, ample, m.group_size, cfg.act), 5),
+            "group_ragged_ms": _event_ms(lambda: lm_layers.moe_ffn_ragged(
+                x, *weights, m.top_k, cfg.act), 5),
+            "decode_dense_ms": _event_ms(lambda: lm_layers.moe_ffn(
+                xd, *weights, m.top_k, m.capacity_factor, m.group_size,
+                cfg.act), 5),
+            "decode_ragged_ms": _event_ms(lambda: lm_layers.moe_ffn_ragged(
+                xd, *weights, m.top_k, cfg.act), 5)}
+    return {"tokens": m.group_size, "max_abs_rel": rel,
+            "limit": _moe_bf16_rel(m.top_k), **times}
+
+
+def _moe_forward(model, card, tag):
+    """15b/d: the landmark forward (B = 2, S = 4096) through kernel 7 and
+    through the plain B̃V: kernel 7 once a layer on the tensor-core route,
+    logits within LM_LOGIT_REL, CE near ln V; then a profile (busy/idle,
+    top kernels) and the MoE FFN's share of device time. The two forwards'
+    hidden states differ in bf16 rounding, so a token whose router holds
+    a near-tie may take another expert in each: the kernel forward runs on
+    the plain forward's routing (``_replay_summary``'s router checks held),
+    and the logits of the kernel forward on its own routing are printed
+    beside. Returns the kernel forward's launches."""
+    t0 = time.perf_counter()
+    cfg = model.cfg
+    p, n, s_, d = (LM_BATCH * cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+                   * cfg.n_landmarks, LM_SEQ, cfg.head_dim)
+    batch = {key: torch.as_tensor(val, device=DEVICE) for key, val in
+             synthetic.lm_batch(0, 0, LM_BATCH, LM_SEQ, cfg.vocab).items()}
+    torch.cuda.reset_peak_memory_stats()
+    flog, stats = [], []
+    with mock.patch.object(lm_layers, "_router", _logging_router(flog)):
+        out = _forward_variants(model, batch, (
+            ("plain", ref.landmark_summary_ref),))
+    with mock.patch.object(lm_layers, "_router",
+                           _replayed_router(flog, stats)):
+        out |= _forward_variants(model, batch, (
+            ("kernel", ops.landmark_summary),))
+    if flog:
+        raise AssertionError(f"{tag}: {len(flog)} router calls not replayed")
+    replay = _replay_summary(stats, f"{tag} landmark forward")
+    own = _forward_variants(model, batch, (
+        ("kernel", ops.landmark_summary),))["kernel"]
+    rel = _check_forward(out, cfg, "tensor_core", LM_BATCH, "bf16")
+    ka, pa = out["kernel"], out["plain"]
+    want = pa["logits"]
+    rel_own = float((own["logits"] - want).abs().max() / want.abs().max())
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase 15 {tag} landmark forward ({card}): {cfg.name} "
+          f"L={cfg.n_layers} d={cfg.d_model} E={cfg.moe.n_experts} "
+          f"top-{cfg.moe.top_k} shared={cfg.moe.n_shared} B={LM_BATCH} "
+          f"S={LM_SEQ} n={cfg.n_landmarks} bf16; kernel 7 at P={p} n={n} "
+          f"S={s_} D={d}, launches {ka['counts']} by route {ka['routes']} | "
+          f"CE kernel {ka['ce']:.6f} plain {pa['ce']:.6f} (uniform "
+          f"{np.log(cfg.vocab):.6f}), aux (summed over layers) kernel "
+          f"{ka['aux']:.4f} plain {pa['aux']:.4f}; logits max|Δ|/max|logit| "
+          f"{rel:.5f} on the plain forward's routing (limit {LM_LOGIT_REL}; "
+          f"replay {json.dumps(replay)}), {rel_own:.5f} on its own; "
+          f"forward wall kernel "
+          f"{ka['wall'] * 1e3:.1f} ms, plain {pa['wall'] * 1e3:.1f} ms; "
+          f"peak {peak} bytes | {time.perf_counter() - t0:.1f}s")
+    counts = dict(ka["counts"])
+    del out, ka, pa, own, want
+    with torch.inference_mode():
+        with mock.patch.object(lm, "_ffn", _annotated(lm._ffn, "moe_ffn")):
+            prof = _profile(lambda: lm.lm_forward(model, batch["tokens"]),
+                            ("moe_ffn",))
+    print(f"phase 15 {tag} profile (one landmark forward, kernel path): "
+          + json.dumps(prof))
+    return counts
+
+
+def phase_moe(card):
+    """15: MoE serving — (a) the serve CLI on DeepSeek-MoE-16B at full
+    width and depth, exact KV and --landmark; (b) its landmark forward at
+    B = 2, S = 4096 with kernel 7 once a layer at D = 128, G = 1; (c) an
+    exact decode step against the forward; moe_ffn_ragged against moe_ffn
+    at its full expert widths; (d) DBRX-132B at full width, depth cut to
+    DBRX_LAYERS: the landmark forward (kernel 7 at G = 6), the decode
+    checks and the ragged check. Returns the launches of (a), (b), (d)."""
+    t0 = time.perf_counter()
+    counts = _moe_serve(card)
+    model = _moe_model(MOE_ARCH, attn_backend="landmark")
+    fwd = _moe_forward(model, card, "b")
+    dec = _moe_decode_checks(model, MOE_ARCH)
+    print(f"phase 15c decode vs forward ({card}): {MOE_ARCH} full width "
+          f"and depth, one exact decode step after an 8-token prefill "
+          f"(limit {DECODE_ATOL} at ample capacity on the forward's "
+          f"routing, router logits within {LM_LOGIT_REL}, flips at gaps "
+          f"within {ROUTER_TIE_REL}; correlation > "
+          f"0.8 at the config's capacity): "
+          + json.dumps(dec))
+    cfg = model.cfg
+    model.cfg = dataclasses.replace(cfg, attn_backend="full")
+    with torch.inference_mode():
+        served = lm.make_cache(model.cfg, 4, 48, DEVICE)
+        served["length"].fill_(32)
+        tok = torch.ones((4, 1), dtype=torch.int32, device=DEVICE)
+        print(f"phase 15c profile (one exact decode step, B=4, cache 33/48; "
+              f"floor {_decode_floor_ms(cfg):.3f} ms): " + json.dumps(
+                  _profile(lambda: lm.lm_decode_step(model, dict(
+                      served, length=served["length"].clone()), tok))))
+    model.cfg = cfg
+    del served
+    rag = _ragged_vs_dense(model, MOE_ARCH)
+    print(f"phase 15c moe_ffn_ragged vs moe_ffn ({card}): {MOE_ARCH} "
+          f"layer 0, D={model.cfg.d_model} E={model.cfg.moe.n_experts} "
+          f"F={model.cfg.moe.d_ff_expert}: " + json.dumps(rag))
+    del model
+    torch.cuda.empty_cache()
+
+    t1 = time.perf_counter()
+    model = _moe_model(DBRX_ARCH, n_layers=DBRX_LAYERS,
+                       attn_backend="landmark")
+    fwd_dbrx = _moe_forward(model, card, "d")
+    dec = _moe_decode_checks(model, DBRX_ARCH)
+    rag = _ragged_vs_dense(model, DBRX_ARCH)
+    print(f"phase 15d {DBRX_ARCH} ({card}): full width, L cut from 40 to "
+          f"{DBRX_LAYERS}; decode vs forward " + json.dumps(dec)
+          + "; moe_ffn_ragged vs moe_ffn " + json.dumps(rag)
+          + f" | {time.perf_counter() - t1:.1f}s")
+    del model
+    torch.cuda.empty_cache()
+    for run in (fwd, fwd_dbrx):
+        counts = {k: counts.get(k, 0) + v for k, v in run.items()}
+    print(f"phase 15: launches {counts} | {time.perf_counter() - t0:.1f}s")
+    return counts
+
+
 def _lm_bound(p, n, s_, d, dtype):
     """Least time for p problems of softmax(q̃Kᵀ·scale)V with f32 results,
     on the route of the inputs' dtype: the bytes moved, and the bf16
@@ -3271,13 +3696,49 @@ def _lm_bound_f32_cores(p, n, s_, d):
                   p * (4 * n * s_ * d + n * s_))
 
 
-def _lm_rows(model_in, err, launches, life_counts):
+def _sdpa_ms(q, k, v, dtype):
+    """Events ms of one bf16 or f32 SDPA call on (P, n, D) problems laid
+    out as (B, Hkv, n, D), so its fused backends can run, and the backend
+    it ran."""
+    import torch.nn.functional as F
+
+    p = q.shape[0]
+    q4, k4, v4 = (t.reshape(LM_BATCH, p // LM_BATCH, *t.shape[1:]).to(dtype)
+                  for t in (q, k, v))
+    return (_event_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4),
+                      20), _sdpa_backend(q4, k4, v4))
+
+
+def _moe_shape_row(moe_in, moe_err):
+    """Kernel 7's bf16 route at phase 15's DeepSeek shape: time, device
+    time, bound, plain version and bf16 SDPA, as the ``moe_*`` fields of
+    row 7."""
+    q, k, v = moe_in
+    p, n, d = q.shape
+    s_ = k.shape[1]
+    bound_ms, bound_by = _lm_bound(p, n, s_, d, torch.bfloat16)
+    sdpa, backend = _sdpa_ms(q, k, v, torch.bfloat16)
+    print(f"phase 6 sdpa (bf16 row, DeepSeek shape): (B, Hkv, n, D) = "
+          f"({LM_BATCH}, {p // LM_BATCH}, {n}, {d}) against S={s_}: "
+          f"{sdpa:.4f} ms, backend {backend}")
+    return dict(
+        moe_shape=f"P={p} (B={LM_BATCH} x Hkv) n={n} (G x n_landmarks) "
+        f"S={s_} D={d} bf16", moe_max_abs_err=moe_err,
+        moe_ms=_event_ms(lambda: ops.landmark_summary(q, k, v), 20),
+        moe_device_ms=_device_ms(lambda: ops.landmark_summary(q, k, v),
+                                 "landmark_summary"),
+        moe_plain_ms=_event_ms(lambda: ref.landmark_summary_ref(
+            q, k, v, 1.0 / np.sqrt(d)), 5),
+        moe_bound_ms=bound_ms, moe_bound_by=bound_by, moe_library_ms=sdpa)
+
+
+def _lm_rows(model_in, err, launches, life_counts, moe_in, moe_err):
     """Row 7 of the kernel table at phase 8b's shape, one entry per route:
     bf16 inputs on the tensor-core route (launches on the bf16 landmark
-    forward), f32 inputs on the f32_split route (launches on the f32 one).
-    bf16 and f32 SDPA on the same inputs are the yardsticks, and for the
-    f32 route the f32-rate bound as well; the port never calls them."""
-    import torch.nn.functional as F
+    forward), f32 inputs on the f32_split route (launches on the f32 one);
+    the bf16 entry also at phase 15's DeepSeek shape (``moe_*``). bf16 and
+    f32 SDPA on the same inputs are the yardsticks, and for the f32 route
+    the f32-rate bound as well; the port never calls them."""
 
     rows = []
     for dtype, name, route in (
@@ -3287,24 +3748,19 @@ def _lm_rows(model_in, err, launches, life_counts):
         p, n, d = q.shape
         s_ = k.shape[1]
         bound_ms, bound_by = _lm_bound(p, n, s_, d, dtype)
-        extra = {} if dtype == torch.bfloat16 else dict(
+        extra = _moe_shape_row(moe_in, moe_err) if (
+            dtype == torch.bfloat16) else dict(
             bound_f32_cores_ms=_lm_bound_f32_cores(p, n, s_, d)[0],
             split_device_ms=_device_ms(
                 lambda: ops.landmark_summary(q, k, v), "split_terms"))
-        # SDPA takes (batch, heads, L, D): the problems as (B, Hkv) so its
-        # fused backends can run
-        q4, k4, v4 = (t.reshape(LM_BATCH, p // LM_BATCH, *t.shape[1:])
-                      for t in (q, k, v))
-        bf = [t.bfloat16() for t in (q4, k4, v4)]
-        f32 = [t.float() for t in (q4, k4, v4)]
-        sdpa_bf16 = _event_ms(lambda: F.scaled_dot_product_attention(*bf), 20)
-        sdpa_f32 = _event_ms(lambda: F.scaled_dot_product_attention(*f32), 20)
+        sdpa_bf16, bf16_backend = _sdpa_ms(q, k, v, torch.bfloat16)
+        sdpa_f32, f32_backend = _sdpa_ms(q, k, v, torch.float32)
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
         print(f"phase 6 sdpa ({tag} row): F.scaled_dot_product_attention on "
               f"(B, Hkv, n, D) = ({LM_BATCH}, {p // LM_BATCH}, {n}, {d}) "
               f"against S={s_}: bf16 inputs {sdpa_bf16:.4f} ms, backend "
-              f"{_sdpa_backend(*bf)}; f32 inputs {sdpa_f32:.4f} ms, backend "
-              f"{_sdpa_backend(*f32)}")
+              f"{bf16_backend}; f32 inputs {sdpa_f32:.4f} ms, backend "
+              f"{f32_backend}")
         rows.append(dict(
             name=name, route="cuda", kernel_route=route, **KERNELS[name],
             shape=f"P={p} (B={LM_BATCH} x Hkv) n={n} (G x n_landmarks) "
@@ -3362,13 +3818,14 @@ def main():
     err.update({name: 0.0 for name in IVF_KERNELS})  # bitwise, checked
     ivf_counts = phase_ivf_path(train, a)
     life_counts = phase_lifecycle()
-    model_in, lm_err = phase_lm_kernel()
+    model_in, lm_err, moe_in, moe_err = phase_lm_kernel()
     lm_launches = phase_lm_forward()
     phase_lm_serve()
     engine_counts = phase_engine()
     table = (phase_times(train, a, err, peak, life_counts)
              + _ivf_rows(ivf, ivf_counts, life_counts, err)
-             + _lm_rows(model_in, lm_err, lm_launches, life_counts))
+             + _lm_rows(model_in, lm_err, lm_launches, life_counts,
+                        moe_in, moe_err))
     # after the kernel times: run after phase 10, phase 6's profiler
     # sessions saw only part of the device events
     mutation_counts = phase_mutation(a["state"], card)
@@ -3376,6 +3833,7 @@ def main():
     mesh_counts = phase_mesh(a, card)
     engine_mesh_counts = phase_engine_mesh(a, card)
     wide_counts = phase_wide(train, d, test_idx, card)
+    moe_counts = phase_moe(card)
     for row in table:  # the engine runs' launches, every row
         row["launches_engine"] = engine_counts.get(row["name"], 0)
         row["launches_mutations"] = mutation_counts.get(row["name"], 0)
@@ -3383,6 +3841,9 @@ def main():
         row["launches_mesh"] = mesh_counts.get(row["name"], 0)
         row["launches_engine_mesh"] = engine_mesh_counts.get(row["name"], 0)
         row["launches_wide"] = wide_counts.get(row["name"], 0)
+        # the tensor-core route: phase 15 checks every launch was on it
+        row["launches_moe"] = (0 if row["name"] == "landmark_summary_f32"
+                               else moe_counts.get(row["name"], 0))
         for tag, times in ivf["wide_ms"].items():  # kernels 2-6, 7a
             if row["name"] in times:
                 row[f"{tag} ms"] = times[row["name"]]

@@ -1,12 +1,10 @@
-"""The dense LM architectures, with the reference registry's exact
-hyperparameters and smoke models (sources inline). The MoE entries
-(``deepseek-moe-16b``, ``dbrx-132b``) wait for the MoE FFN (ROADMAP queue
-1 (MoE))."""
+"""The LM architectures, dense and MoE, with the reference registry's
+exact hyperparameters and smoke models (sources inline)."""
 from __future__ import annotations
 
 from typing import Dict
 
-from ..models.transformer import LMConfig
+from ..models.transformer import LMConfig, MoEConfig
 from .base import ArchConfig, lm_shapes
 
 ARCHS: Dict[str, ArchConfig] = {}
@@ -58,6 +56,43 @@ _register(ArchConfig(
         name="gemma-smoke", n_layers=2, d_model=96, n_heads=4, n_kv_heads=4,
         head_dim=32, d_ff=256, vocab=512, act="gelu", tied_embed=True,
         embed_scale=True, n_landmarks=8),
+    shapes=lm_shapes(),
+))
+
+_register(ArchConfig(
+    name="deepseek-moe-16b",
+    family="lm",
+    source="arXiv:2401.06066 (hf tier)",
+    model=LMConfig(
+        name="deepseek-moe-16b", n_layers=28, d_model=2048, n_heads=16,
+        n_kv_heads=16, head_dim=128, d_ff=0, vocab=102400, act="silu",
+        moe=MoEConfig(n_experts=64, top_k=6, d_ff_expert=1408, n_shared=2,
+                      capacity_factor=1.25, group_size=512),
+        n_landmarks=512),
+    smoke_model=LMConfig(
+        name="deepseek-smoke", n_layers=2, d_model=64, n_heads=4,
+        n_kv_heads=4, head_dim=16, d_ff=0, vocab=512, act="silu",
+        moe=MoEConfig(n_experts=8, top_k=2, d_ff_expert=32, n_shared=2,
+                      group_size=16),
+        n_landmarks=8),
+    shapes=lm_shapes(),
+))
+
+_register(ArchConfig(
+    name="dbrx-132b",
+    family="lm",
+    source="hf:databricks/dbrx-base (unverified tier)",
+    model=LMConfig(
+        name="dbrx-132b", n_layers=40, d_model=6144, n_heads=48,
+        n_kv_heads=8, head_dim=128, d_ff=0, vocab=100352, act="silu",
+        moe=MoEConfig(n_experts=16, top_k=4, d_ff_expert=10752, n_shared=0,
+                      capacity_factor=1.25, group_size=512),
+        kv_chunk=1024, n_landmarks=512),
+    smoke_model=LMConfig(
+        name="dbrx-smoke", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+        head_dim=16, d_ff=0, vocab=512, act="silu",
+        moe=MoEConfig(n_experts=4, top_k=2, d_ff_expert=64, group_size=16),
+        n_landmarks=8),
     shapes=lm_shapes(),
 ))
 

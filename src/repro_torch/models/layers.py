@@ -1,6 +1,7 @@
 """Transformer building blocks: RMSNorm, RoPE, grouped-query attention
 (chunked flash recurrence for prefill, cache decode), SwiGLU/GeGLU MLPs,
-and landmark (Nyström) attention with its O(n) decode state.
+mixture-of-experts FFNs (GShard dense dispatch and sort-based ragged
+dispatch), and landmark (Nyström) attention with its O(n) decode state.
 
 Layouts are the reference's: activations (B, S, H, D), grouped scores
 (B, Hkv, G, Sq, Skv). bf16 rounds where the reference's bf16 products
@@ -12,12 +13,13 @@ B̃V term of landmark attention goes through ``kernels.ops.landmark_summary``
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core.topk import canonical_topk
 from ..kernels import ops
 
 
@@ -270,7 +272,180 @@ def landmark_decode(state: LandmarkKVState, q: torch.Tensor,
 def glu_mlp(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
             w2: torch.Tensor, act: str = "silu") -> torch.Tensor:
     """SwiGLU/GeGLU: down(act(x@w1) * (x@w3)); gelu is the tanh form."""
-    a = x @ w1
-    b = x @ w3
-    h = (F.silu(a) if act == "silu" else F.gelu(a, approximate="tanh")) * b
-    return h @ w2
+    return (_act(x @ w1, act) * (x @ w3)) @ w2
+
+
+def _act(a: torch.Tensor, act: str) -> torch.Tensor:
+    return F.silu(a) if act == "silu" else F.gelu(a, approximate="tanh")
+
+
+# ---------------------------------------------------------------------- MoE
+def _router(xt: torch.Tensor, router_w: torch.Tensor, top_k: int):
+    """xt (T, D) -> (probs (T, E) f32, gates (T, K) f32 summing to 1,
+    expert ids (T, K) int64). The product runs in f32, and the top-k is
+    canonical: ties go to the lowest expert id, as ``lax.top_k``'s."""
+    logits = xt.float() @ router_w.float()
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = canonical_topk(probs, top_k)
+    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+    return probs, gates, idx
+
+
+def route_flips(idx: torch.Tensor, other_probs: torch.Tensor,
+                other_idx: torch.Tensor):
+    """Where a router's expert ids ``idx`` (T, K) differ from another
+    run's ``other_idx`` at the same (token, k): the (N, 2) positions, and
+    at each the other run's relative gap between its probabilities of the
+    two experts, |p[other id] − p[own id]| / p[other id] (``other_probs``
+    (T, E)). Two runs whose router inputs differ in rounding may flip an
+    expert only at a near-tie: a gap within the comparison's stated
+    limit."""
+    at = (idx != other_idx).nonzero()
+    t, k = at.unbind(1)
+    a = other_probs[t, other_idx[t, k]]
+    return at, (a - other_probs[t, idx[t, k]]).abs() / a
+
+
+def replayed_gates(probs: torch.Tensor, other_idx: torch.Tensor):
+    """This run's router probabilities (T, E) at another run's experts
+    (T, K), renormalized: the gates of a run routed as the other was."""
+    gates = probs.gather(-1, other_idx)
+    return gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+
+
+@dataclasses.dataclass
+class MoERouting:
+    """GShard routing of (G, S) groups of tokens: per (token, k) its
+    expert, its gate and its slot in that expert's queue; slots at or past
+    ``capacity`` are dropped."""
+
+    probs: torch.Tensor  # (G, S, E) f32 router softmax
+    gates: torch.Tensor  # (G, S, K) f32, renormalized over K
+    expert_idx: torch.Tensor  # (G, S, K) int64
+    onehot: torch.Tensor  # (G, S, K, E) int32
+    pos: torch.Tensor  # (G, S, K) slot in the expert's queue
+    capacity: int
+
+    @property
+    def kept(self) -> torch.Tensor:
+        return self.pos < self.capacity
+
+
+def moe_route(x: torch.Tensor, router_w: torch.Tensor, top_k: int,
+              capacity_factor: float = 1.25, group_size: int = 512
+              ) -> MoERouting:
+    """Group x (B, S, D) along the sequence into ``max(1, S // group_size)``
+    groups a row and route each group: top-k experts a token, capacity
+    ``ceil(gs · top_k · capacity_factor / E)`` a group, and each (token, k)
+    slotted by a running count over the group's (S·K) pairs in token-major
+    order, so the first come keep their slots."""
+    b, s, d = x.shape
+    e = router_w.shape[1]
+    n_sub = max(1, s // group_size)
+    assert s % n_sub == 0, f"seq {s} not divisible into groups of {group_size}"
+    n_groups, gs = b * n_sub, s // n_sub
+    # the router's product on (T, D) rows, as moe_ffn_ragged's: both
+    # functions then route a token alike on every device
+    probs, gates, idx = _router(x.reshape(-1, d), router_w, top_k)
+    cap = int(np.ceil(gs * top_k * capacity_factor / e))
+    onehot = F.one_hot(idx, e).to(torch.int32).reshape(n_groups, gs, top_k, e)
+    # the running count in int32 on (G, E, S·K): the scan runs along the
+    # inner axis
+    flat = onehot.reshape(n_groups, gs * top_k, e).transpose(1, 2).contiguous()
+    pos = ((torch.cumsum(flat, dim=-1, dtype=torch.int32) - 1) * flat).sum(1)
+    return MoERouting(probs.reshape(n_groups, gs, e),
+                      gates.reshape(n_groups, gs, top_k),
+                      idx.reshape(n_groups, gs, top_k), onehot,
+                      pos.reshape(n_groups, gs, top_k), cap)
+
+
+def moe_ffn(
+    x: torch.Tensor,  # (B, S, D)
+    router_w: torch.Tensor,  # (D, E)
+    w1: torch.Tensor,  # (E, D, F)
+    w3: torch.Tensor,
+    w2: torch.Tensor,  # (E, F, D)
+    top_k: int,
+    capacity_factor: float = 1.25,
+    group_size: int = 512,
+    act: str = "silu",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GShard-style dense-dispatch MoE (top-k, capacity-dropped): per group
+    a (S, E, C) one-hot dispatch and a gate-weighted combine, in x's dtype,
+    route tokens into an (E, C, D) buffer; the experts run as one batched
+    product over E. Returns (out (B, S, D), the GShard load-balance aux
+    loss, f32)."""
+    b, s, d = x.shape
+    e = router_w.shape[1]
+    r = moe_route(x, router_w, top_k, capacity_factor, group_size)
+    cap, (n_groups, gs, _) = r.capacity, r.pos.shape
+    xg = x.reshape(n_groups, gs, d)
+    oh_e = r.onehot.to(x.dtype)  # (G, S, K, E)
+    # overflow slots map to the extra column cap, which is cut off
+    oh_c = F.one_hot(torch.where(r.kept, r.pos, cap), cap + 1).to(
+        x.dtype)[..., :cap]  # (G, S, K, C)
+    disp = torch.einsum("gske,gskc->gsec", oh_e, oh_c)
+    combine = torch.einsum("gske,gskc->gsec",
+                           oh_e * r.gates.to(x.dtype)[..., None], oh_c)
+    expert_in = torch.einsum("gsec,gsd->egcd", disp, xg).reshape(
+        e, n_groups * cap, d)
+    h = _act(torch.bmm(expert_in, w1), act) * torch.bmm(expert_in, w3)
+    expert_out = torch.bmm(h, w2).reshape(e, n_groups, cap, d)
+    out = torch.einsum("gsec,egcd->gsd", combine, expert_out)
+
+    density = r.onehot.float().sum(2).mean(1)  # (G, E) fraction routed
+    aux = (density * r.probs.mean(1)).sum(-1).mean() * (e ** 2) / (top_k ** 2)
+    return out.reshape(b, s, d), aux
+
+
+def _ragged_dot(x: torch.Tensor, w: torch.Tensor, sizes: List[int]
+                ) -> torch.Tensor:
+    """``lax.ragged_dot``: rows of x in contiguous runs of ``sizes`` (one
+    run an expert, in expert order), each run times its expert's w[e]."""
+    runs = x.split(sizes)
+    return torch.cat([run @ w[i] for i, run in enumerate(runs)])
+
+
+def moe_ffn_ragged(
+    x: torch.Tensor,  # (B, S, D)
+    router_w: torch.Tensor,  # (D, E)
+    w1: torch.Tensor,  # (E, D, F)
+    w3: torch.Tensor,
+    w2: torch.Tensor,  # (E, F, D)
+    top_k: int,
+    act: str = "silu",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sort-based ragged dispatch (MegaBlocks-style): no capacity drops and
+    no one-hot dispatch products. The (token, k) pairs are sorted stably by
+    expert, each expert's run goes through one product, and each token sums
+    its K weighted rows in sorted order (no atomics: the bits do not depend
+    on the device). Equals :func:`moe_ffn` at ample capacity. Returns
+    (out (B, S, D) in x's dtype, aux f32)."""
+    b, s, d = x.shape
+    e = router_w.shape[1]
+    t = b * s
+    xt = x.reshape(t, d)
+    probs, gate_vals, expert_idx = _router(xt, router_w, top_k)
+
+    eid = expert_idx.reshape(-1)  # (T·K,)
+    order = torch.argsort(eid, stable=True)
+    tok = torch.div(order, top_k, rounding_mode="floor")
+    gates = gate_vals.reshape(-1)[order]
+    xs = xt[tok]  # (T·K, D) expert-sorted
+    sizes = torch.bincount(eid, minlength=e).tolist()
+
+    h = _act(_ragged_dot(xs, w1, sizes), act) * _ragged_dot(xs, w3, sizes)
+    rows = _ragged_dot(h, w2, sizes)  # (T·K, D)
+    rows = rows * gates[:, None].to(rows.dtype)
+    # each token's K rows at their sorted positions, summed in that order
+    # from zero, as the reference's segment sum scatters them
+    at = torch.empty_like(order)
+    at[order] = torch.arange(t * top_k, device=x.device)
+    picked = rows[at.reshape(t, top_k).sort(-1).values]  # (T, K, D)
+    out = torch.zeros_like(picked[:, 0])
+    for j in range(top_k):
+        out = out + picked[:, j]
+
+    density = F.one_hot(expert_idx, e).float().sum(1).mean(0)
+    aux = (density * probs.mean(0)).sum() * (e ** 2) / (top_k ** 2)
+    return out.reshape(b, s, d).to(x.dtype), aux

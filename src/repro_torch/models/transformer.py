@@ -1,5 +1,6 @@
-"""Decoder-only dense LM: GQA, RoPE, SwiGLU/GeGLU, tied or untied vocab,
-chunked flash attention, and the landmark attention backend.
+"""Decoder-only LM: GQA, RoPE, SwiGLU/GeGLU, GShard-style MoE with shared
+experts (DeepSeekMoE, DBRX), tied or untied vocab, chunked flash
+attention, and the landmark attention backend.
 
 The parameters live in an :class:`LM` ``nn.Module`` (a ``ModuleList`` of
 :class:`Block`\\ s) under the reference's names and layouts: weights are
@@ -14,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,19 +23,27 @@ from torch import nn
 
 from .layers import (LandmarkKVState, apply_rope, decode_attention,
                      flash_attention, glu_mlp, landmark_attention,
-                     landmark_decode, landmark_state_append, rms_norm)
+                     landmark_decode, landmark_state_append, moe_ffn,
+                     rms_norm)
 
 INV_127 = float(np.float32(1.0 / 127.0))  # the f32 reciprocal of 127
-MOE_TODO = ("MoE FFN (moe_ffn / moe_ffn_ragged) is not ported yet: "
-            "ROADMAP queue 1 (MoE)")
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared: int = 0
+    capacity_factor: float = 1.25
+    group_size: int = 512
 
 
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
     """The reference's ``LMConfig`` fields that change numbers (sharding,
     remat, scan-unroll and one-hot-embedding switches have no single-device
-    counterpart). ``moe`` is carried so a config can name it; an MoE FFN
-    raises until it is ported."""
+    counterpart)."""
 
     name: str
     n_layers: int
@@ -48,7 +57,7 @@ class LMConfig:
     tied_embed: bool = False
     rope_theta: float = 10000.0
     embed_scale: bool = False  # gemma: x *= sqrt(d_model)
-    moe: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
     dtype: torch.dtype = torch.bfloat16
     kv_chunk: int = 2048
     q_chunk: int = 1 << 30
@@ -65,11 +74,20 @@ class LMConfig:
         return self.n_kv_heads * self.head_dim
 
     def param_count(self) -> int:
+        return self._param_count(self.moe.n_experts if self.moe else 0)
+
+    def active_param_count(self) -> int:
+        """Parameters a token touches: the router, its top_k routed experts
+        and the shared ones in each MoE layer."""
+        return self._param_count(self.moe.top_k if self.moe else 0)
+
+    def _param_count(self, routed: int) -> int:
+        """All parameters, with ``routed`` of an MoE layer's experts."""
         d, l = self.d_model, self.n_layers
         attn = d * self.q_dim * 2 + d * self.kv_dim * 2
         if self.moe:
             m = self.moe
-            ffn = d * m.n_experts + 3 * d * m.d_ff_expert * (m.n_experts
+            ffn = d * m.n_experts + 3 * d * m.d_ff_expert * (routed
                                                              + m.n_shared)
         else:
             ffn = 3 * d * self.d_ff
@@ -79,21 +97,32 @@ class LMConfig:
 
 # --------------------------------------------------------------- parameters
 def _layer_shapes(cfg: LMConfig) -> Dict[str, Tuple[int, ...]]:
-    """One block's parameter shapes, in the reference's key order."""
-    if cfg.moe:
-        raise NotImplementedError(MOE_TODO)
+    """One block's parameter shapes, in the reference's key order: the
+    router (D, E), the routed experts (E, D, F) and (E, F, D), and the
+    shared experts as one GLU of width n_shared · F, for an MoE FFN."""
     d = cfg.d_model
-    return {
+    out = {
         "attn_norm": (d,),
         "mlp_norm": (d,),
         "wq": (d, cfg.q_dim),
         "wk": (d, cfg.kv_dim),
         "wv": (d, cfg.kv_dim),
         "wo": (cfg.q_dim, d),
-        "w1": (d, cfg.d_ff),
-        "w3": (d, cfg.d_ff),
-        "w2": (cfg.d_ff, d),
     }
+    if cfg.moe:
+        m = cfg.moe
+        out |= {
+            "router": (d, m.n_experts),
+            "ew1": (m.n_experts, d, m.d_ff_expert),
+            "ew3": (m.n_experts, d, m.d_ff_expert),
+            "ew2": (m.n_experts, m.d_ff_expert, d),
+        }
+        if m.n_shared:
+            f = m.n_shared * m.d_ff_expert
+            out |= {"sw1": (d, f), "sw3": (d, f), "sw2": (f, d)}
+    else:
+        out |= {"w1": (d, cfg.d_ff), "w3": (d, cfg.d_ff), "w2": (cfg.d_ff, d)}
+    return out
 
 
 class Block(nn.Module):
@@ -107,7 +136,7 @@ class Block(nn.Module):
 
 
 class LM(nn.Module):
-    """The dense LM's parameters: ``embed`` (V, D), ``final_norm`` (D,),
+    """The LM's parameters: ``embed`` (V, D), ``final_norm`` (D,),
     ``layers`` (a ``ModuleList`` of :class:`Block`), ``unembed`` (D, V)
     when the vocab is untied. The functions below apply it."""
 
@@ -170,10 +199,17 @@ def logits_from(model: LM, x: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------------- blocks
 def _ffn(x: torch.Tensor, lp: Block, cfg: LMConfig):
-    """Dense FFN; returns (out, aux_loss)."""
-    if cfg.moe is not None:
-        raise NotImplementedError(MOE_TODO)
-    return glu_mlp(x, lp.w1, lp.w3, lp.w2, cfg.act), 0.0
+    """Dense or MoE FFN (routed experts plus the shared ones); returns
+    (out, aux_loss)."""
+    if cfg.moe is None:
+        return glu_mlp(x, lp.w1, lp.w3, lp.w2, cfg.act), 0.0
+    m = cfg.moe
+    out, aux = moe_ffn(x, lp.router, lp.ew1, lp.ew3, lp.ew2, top_k=m.top_k,
+                       capacity_factor=m.capacity_factor,
+                       group_size=m.group_size, act=cfg.act)
+    if m.n_shared:
+        out = out + glu_mlp(x, lp.sw1, lp.sw3, lp.sw2, cfg.act)
+    return out, aux
 
 
 def _attn_qkv(x: torch.Tensor, lp: Block, cfg: LMConfig,
