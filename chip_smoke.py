@@ -269,6 +269,35 @@ The MoE slice adds:
     (``launches_moe``), and row 7 its time, device time, bound, plain
     time and bf16 SDPA time at the DeepSeek shape (``moe_*``).
 
+The training slice adds:
+
+16. LM training — (a) kernel 7's backward (``landmark_summary_bwd``, two
+    launches a call) against its plain version with TF32 off, within
+    ``BWD_REL`` of max |plain| per gradient, two launches bitwise equal:
+    at the training shape (P = 8 · 5, n = 1536, S = 4096, D = 64, bf16 and
+    f32 inputs), DeepSeek's and DBRX's phase-15 shapes, D = 32 and 256, a
+    ragged S (777) and an n off the 64-row query tile; the autograd
+    ``LandmarkSummary`` (forward kernel, backward kernel) against
+    ``torch.autograd`` through the plain f32 forward; (b) SmolLM-360M at
+    full width and depth trained through ``launch/steps.py::build_cell``
+    and ``train/trainer.py::train_loop`` (train_4k's batch of 256 cut to
+    ``TRAIN_BATCH``; AdamW, remat) for ``TRAIN_STEPS`` steps with full and
+    with landmark attention from seed-0 weights and ``lm_batch`` batches:
+    each landmark step launches kernel 7 2·L times on the tensor-core
+    route (the forward and its remat recompute) and its backward L times,
+    the full-attention steps neither, and no plain version runs; losses
+    finite, the first within 2 of ln V; step ms, tokens/s, peak memory and
+    a profiled step (busy/idle, top kernels) per backend; step 1's
+    gradients through the kernels against the plain B̃V, over the whole
+    model and over each of wq, wk, wv, within ``GRAD_FLOOR_FACTOR`` × the
+    plain path against itself over reversed keys, and each planted fault
+    of the backward (``PLANTED``) outside it; (c) ``launch.train --smoke --steps 6
+    --ckpt-dir build/phase16``, then ``--steps 10``, which resumes at 6.
+    The kernel table gains the backward's row (event and device ms at
+    the training shape, bound, plain ms, bf16 SDPA's backward alone) and
+    each row its launches on the landmark training run
+    (``launches_train``).
+
 The last two lines are the kernel table and
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. TF32 is off for
 matmul and cuDNN throughout: the reference scores in full f32.
@@ -316,6 +345,12 @@ from repro_torch import mutation  # noqa: E402
 from repro_torch.baselines import bpmf, mf  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import transformer as lm  # noqa: E402
+from repro_torch.configs.base import ShapeSpec  # noqa: E402
+from repro_torch.launch import steps as cells  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.train import checkpoint as ckpt_mod  # noqa: E402
+from repro_torch.train import optimizer as topt  # noqa: E402
+from repro_torch.train import trainer  # noqa: E402
 
 sys.path.insert(0, str(ROOT / "tools"))
 import paper_tables_torch as paper  # noqa: E402
@@ -365,6 +400,13 @@ KERNELS = {
     "landmark_summary_f32": dict(
         source="src/repro_torch/kernels/csrc/landmark_summary.cu",
         replaces="src/repro/kernels/landmark_attention.py:51"),
+    # kernel 7's backward (phase 16): no TPU kernel of its own
+    "landmark_summary_bwd": dict(
+        source="src/repro_torch/kernels/csrc/landmark_summary_bwd.cu",
+        replaces="src/repro/kernels/landmark_attention.py:51",
+        replaces_note="the backward of kernel 7's function; the reference "
+        "has no backward kernel (autodiff of plain jnp, "
+        "src/repro/models/layers.py:170)"),
 }
 GRAPH_KERNELS = ("masked_similarity", "topk_sim", "foldin_topk")
 IVF_KERNELS = ("assign_clusters", "fused_probe_topk", "score_candidates")
@@ -911,29 +953,67 @@ DEVICE_FUNCS = {
     "landmark_summary": ("summary_wgmma_kernel",),
     "landmark_summary_f32": ("summary_wgmma_kernel", "split_terms_kernel"),
     "split_terms": ("split_terms_kernel",),  # the f32 route's split pass
+    # kernel 7's backward: the dq pass, then the dk/dv pass
+    "landmark_summary_bwd": ("bwd_dq_kernel", "bwd_dkv_kernel"),
     "repair_drain": None,  # every kernel of a drain (phase 10)
 }
+
+
+# Once a session in the process has traced many kernels, torch.profiler
+# drops the first device records of later sessions (on an H100 up to 40
+# records a session over the whole script; half of ten backward calls
+# after phase 16b). Every session here therefore begins with
+# PROFILE_MARKERS spin kernels and a sync, and counts only when at least
+# one marker survived: the drop is a prefix of the session, so the run's
+# own records are then whole. PROFILE_DROPS keeps the markers lost a
+# session.
+PROFILE_MARKERS = 256
+MARKER = "spin_kernel"
+PROFILE_DROPS = []
+
+
+@contextlib.contextmanager
+def _profiled():
+    """A ``torch.profiler`` session (CPU and CUDA) that opens with the
+    markers."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_MARKERS):
+            torch.cuda._sleep(1)
+        sync()
+        yield prof
+
+
+def _kernels(prof):
+    """The device records of a ``_profiled`` session less its markers, or
+    None when every marker was dropped (and so maybe some of the run's)."""
+    from torch.autograd import DeviceType
+
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    seen = sum(MARKER in e.name for e in dev)
+    PROFILE_DROPS.append(PROFILE_MARKERS - seen)
+    return [e for e in dev if MARKER not in e.name] if seen else None
 
 
 def _device_ms(fn, name, iters=20):
     """Device time per call of ``name``'s own kernels, from a
     ``torch.profiler`` trace of ``iters`` calls (the event time of
     ``_event_ms`` includes the host's launch cost whenever the kernel is
-    shorter than it); None when the trace holds no device events."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    shorter than it); None when the trace holds no device events or the
+    profiler dropped its markers."""
     fn()
     sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _profiled() as prof:
         for _ in range(iters):
             fn()
         sync()
     funcs = DEVICE_FUNCS[name]
-    total = sum(e.time_range.end - e.time_range.start for e in prof.events()
-                if e.device_type == DeviceType.CUDA
-                and (funcs is None or any(f in e.name for f in funcs)))
+    total = sum(e.time_range.end - e.time_range.start
+                for e in _kernels(prof) or ()
+                if funcs is None or any(f in e.name for f in funcs))
     return total / 1e3 / iters if total else None
 
 
@@ -948,31 +1028,42 @@ def _wall_s(fn, reps=5):
     return statistics.median(times)
 
 
-def _profile(run, ranges=()):
+def _profile(run, ranges=(), warm=True, sums=()):
     """Device time by kernel and the device's busy share over one run of
-    ``run`` under ``torch.profiler`` (CUPTI). The share is the union of
-    kernel intervals over the span from the first kernel's start to the
-    last one's end; the profiler's own host cost widens the gaps. For each
-    ``record_function`` range named in ``ranges``, the device time of the
-    kernels launched inside it and their share of all kernel time."""
+    ``run`` under ``torch.profiler`` (CUPTI), after one unprofiled run when
+    ``warm``. The share is the union of kernel intervals over the span
+    from the first kernel's start to the last one's end; the profiler's
+    own host cost widens the gaps. For each ``record_function`` range
+    named in ``ranges``, the device time of the kernels launched inside it
+    and their share of all kernel time; for each name in ``sums``, the
+    device ms and count of the kernels whose name holds it."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    run()
+    if warm:
+        run()
     sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _profiled() as prof:
         run()
         sync()
+    kernels = _kernels(prof)
+    if kernels is None:
+        return {"device_time": "not measured (the profiler dropped the "
+                "session's first records)"}
     spans, by_name, inside = [], {}, dict.fromkeys(ranges, 0.0)
+    summed = {name: [0.0, 0] for name in sums}
     for e in prof.events():
         if e.name in inside and e.device_type == DeviceType.CPU:
             inside[e.name] += e.device_time_total
+    for e in kernels:
         # a range's own span on the device timeline is not a kernel
-        if e.device_type != DeviceType.CUDA or e.name in inside:
+        if e.name in inside:
             continue
         t0, t1 = e.time_range.start, e.time_range.end
         spans.append((t0, t1))
+        for key in summed:
+            if key in e.name:
+                summed[key][0] += (t1 - t0) / 1e3
+                summed[key][1] += 1
         name = e.name.replace("(anonymous namespace)::", "")
         name = name.split("(")[0].removeprefix("void ")[:72]
         by_name[name] = by_name.get(name, 0.0) + (t1 - t0) / 1e3
@@ -988,7 +1079,9 @@ def _profile(run, ranges=()):
     total = sum(by_name.values())
     return {"kernels_launched": len(spans), "device_busy_ms": busy / 1e3,
             "window_ms": window / 1e3, "idle_share": 1 - busy / window,
-            "top_ms": dict(top), **{name: {
+            "top_ms": dict(top), **{f"{key} (ms, launches)": val
+                                    for key, val in summed.items()},
+            **{name: {
                 f"{name}_device_ms": us / 1e3, "device_ms": total,
                 f"{name}_share": us / 1e3 / total}
                 for name, us in inside.items()}}
@@ -1085,18 +1178,14 @@ def _ivf_rows(ivf, ivf_counts, life_counts, err):
 def _device_calls(fn, iters=20):
     """(device ms, device operations) per call of ``fn``: every kernel and
     copy it runs, from a ``torch.profiler`` trace of ``iters`` calls."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
     sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _profiled() as prof:
         for _ in range(iters):
             fn()
         sync()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
+    spans = [e.time_range.end - e.time_range.start
+             for e in _kernels(prof) or ()]
     return (sum(spans) / 1e3 / iters if spans else None), len(spans) / iters
 
 
@@ -3662,6 +3751,471 @@ def phase_moe(card):
     return counts
 
 
+# ---------------------------------------------- LM training (phase 16)
+# of train_4k's 256, the largest power of two the card holds on both
+# backends: B = 8 peaks at 35.8 GiB; at B = 16 the full-attention
+# backward's recomputed block asks for a 7.5 GiB score chunk with 50.7 GiB
+# allocated and 20.9 GiB reserved but free, and runs out of memory
+TRAIN_BATCH = 8
+TRAIN_STEPS = 4
+TRAIN_DIR = ROOT / "build" / "phase16"
+# kernel 7's backward against its plain version, of max |plain| per
+# gradient: f32 FMAs summed in another order (the CPU emulation of its two
+# passes, ref.landmark_summary_bwd_tiled_ref, differs from the plain
+# version by up to 6.5e-7 of it)
+BWD_REL = 1e-4
+# the autograd Function (forward kernel, then backward kernel) against
+# torch.autograd through the plain f32 forward: the forward kernel's own
+# error (within LM_RTOL / LM_ATOL) enters Δ = Σ dO·O as well; bf16 inputs
+# get bf16 gradients, one more rounding of up to 2^-8 of each value
+FN_REL = 1e-3
+FN_BF16_REL = FN_REL + 2 ** -8
+BWD_DEVICE_FUNCS = DEVICE_FUNCS["landmark_summary_bwd"]
+
+
+def _train_shape():
+    """(P, n, S, D) of kernel 7 and its backward in phase 16b: one problem
+    per (batch, kv head), G·n_landmarks landmark queries each."""
+    cfg = registry.get(LM_ARCH).model
+    g = cfg.n_heads // cfg.n_kv_heads
+    return (TRAIN_BATCH * cfg.n_kv_heads, g * cfg.n_landmarks, LM_SEQ,
+            cfg.head_dim)
+
+
+def _bwd_bound(p, n, s_, d, dtype):
+    """Least time of the backward for p problems: q, k, v (the inputs'
+    dtype), out and dout (f32) read once, dq, dk, dv (f32) written once;
+    five products of 2·n·S·D (q kᵀ, dO Vᵀ, Pᵀ dO, dS K, dSᵀ q) at the bf16
+    tensor-core rate beside one exp per score on the special-function
+    units."""
+    el = 2 if dtype == torch.bfloat16 else 4
+    q_el, kv_el = p * n * d, p * s_ * d
+    moved = el * (q_el + 2 * kv_el) + 4 * 2 * q_el + 4 * (q_el + 2 * kv_el)
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = max(p * 5 * 2 * n * s_ * d / BF16_TC_FLOPS * 1e3,
+                p * n * s_ / SFU_PER_S * 1e3)
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _bwd_inputs(p, n, s_, d, dtype, seed):
+    q, k, v = _lm_inputs(p, n, s_, d, dtype, seed)
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    scale = 1.0 / np.sqrt(d)
+    out = ref.landmark_summary_ref(q, k, v, scale)
+    dout = torch.randn(out.shape, generator=g, device=DEVICE)
+    return q, k, v, out, dout, scale
+
+
+def _rel(got, want):
+    return max(float((a - b).abs().max() / b.abs().max())
+               for a, b in zip(got, want))
+
+
+def phase_train_kernel():
+    """16a: kernel 7's backward against its plain version on the card (TF32
+    off) at the training shape (bf16 and f32 inputs), DeepSeek's and DBRX's
+    shapes, D = 32 and 256, a ragged S and an n off the query tile; two
+    launches bitwise equal; the autograd Function against torch.autograd
+    through the plain f32 forward. Returns the training-shape inputs per
+    dtype and the largest absolute error there."""
+    t0 = time.perf_counter()
+    shapes = [(_train_shape(), (torch.bfloat16, torch.float32)),
+              (_moe_model_shape(), (torch.bfloat16,)),
+              (_moe_model_shape(DBRX_ARCH), (torch.bfloat16,)),
+              ((2, 100, 1000, 32), (torch.bfloat16, torch.float32)),
+              ((2, 130, 500, 256), (torch.bfloat16, torch.float32)),
+              ((3, 70, 777, 64), (torch.bfloat16, torch.float32)),
+              ((2, 100, 300, 128), (torch.float32,)),
+              ((1, 33, 777, 256), (torch.bfloat16,))]
+    notes, model_in, model_err = [], {}, {}
+    ops.reset_launches()
+    calls = 0
+    for i, ((p, n, s_, d), dtypes) in enumerate(shapes):
+        for dtype in dtypes:
+            args = _bwd_inputs(p, n, s_, d, dtype, seed=60 + i)
+            got = lsum.landmark_summary_bwd(*args)
+            again = lsum.landmark_summary_bwd(*args)
+            want = ref.landmark_summary_bwd_ref(*args)
+            sync()
+            calls += 2
+            rel = _rel(got, want)
+            if rel > BWD_REL or not all(bool(torch.isfinite(g).all())
+                                        for g in got):
+                raise AssertionError(f"16a: backward at P={p} n={n} S={s_} "
+                                     f"D={d} {dtype}: {rel:.3g} of max "
+                                     f"|plain| (limit {BWD_REL})")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"16a: two backward launches at P={p} "
+                                     f"n={n} S={s_} D={d} differ")
+            tag = "bf16" if dtype == torch.bfloat16 else "f32"
+            err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            notes.append(f"P={p} n={n} S={s_} D={d} {tag} {rel:.3g} "
+                         f"(max|err| {err:.3g})")
+            if i == 0:
+                model_in[dtype], model_err[dtype] = args, err
+            del got, again, want
+    want_launches = calls * lsum.BWD_LAUNCHES
+    if lsum.landmark_summary_bwd.launches != want_launches:
+        raise AssertionError(f"16a: {lsum.landmark_summary_bwd.launches} "
+                             f"backward launches, not {want_launches}")
+    # the autograd Function: kernel forward and kernel backward, against
+    # torch.autograd through the plain f32 forward
+    p, n, s_, d = 4, 1536, 4096, 64
+    q, k, v, _, dout, scale = _bwd_inputs(p, n, s_, d, torch.float32, 90)
+    fn_rel = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        a = [t.to(dtype).requires_grad_() for t in (q, k, v)]
+        b = [t.to(dtype).float().detach().requires_grad_() for t in (q, k, v)]
+        ops.reset_launches()
+        ops.landmark_summary(*a).backward(dout)
+        counts = ops.launch_counts()
+        ref.landmark_summary_ref(*b, scale).backward(dout)
+        sync()
+        if (counts["landmark_summary"], counts["landmark_summary_bwd"]) != (
+                1, lsum.BWD_LAUNCHES) or a[0].grad.dtype != dtype:
+            raise AssertionError(f"16a Function {dtype}: launches {counts}, "
+                                 f"grad dtype {a[0].grad.dtype}")
+        rel = _rel([x.grad.float() for x in a], [y.grad for y in b])
+        limit = FN_REL if dtype == torch.float32 else FN_BF16_REL
+        if rel > limit:
+            raise AssertionError(f"16a Function {dtype}: gradients {rel:.3g}"
+                                 f" of max |autograd| (limit {limit})")
+        fn_rel["bf16" if dtype == torch.bfloat16 else "f32"] = rel
+    print(f"phase 16a landmark summary backward (TF32 off; limit {BWD_REL} "
+          f"of max |plain| per gradient, two launches bitwise equal): "
+          + "; ".join(notes) + f" | Function vs torch.autograd of the plain "
+          f"f32 forward at P={p} n={n} S={s_} D={d}: {fn_rel} (limit "
+          f"{FN_REL}, bf16 {FN_BF16_REL:.5f}) | "
+          f"{time.perf_counter() - t0:.1f}s")
+    return model_in, model_err
+
+
+@contextlib.contextmanager
+def _counting_plain():
+    """Count calls of the plain versions of kernel 7 and its backward."""
+    seen = {"landmark_summary_ref": 0, "landmark_summary_bwd_ref": 0}
+
+    def counted(name):
+        real = getattr(ref, name)
+
+        def fn(*args, **kwargs):
+            seen[name] += 1
+            return real(*args, **kwargs)
+        return fn
+
+    with mock.patch.object(ref, "landmark_summary_ref",
+                           counted("landmark_summary_ref")), \
+            mock.patch.object(ref, "landmark_summary_bwd_ref",
+                              counted("landmark_summary_bwd_ref")):
+        yield seen
+
+
+def _train_arch(backend):
+    base = registry.get(LM_ARCH)
+    return dataclasses.replace(
+        base, model=dataclasses.replace(base.model, attn_backend=backend),
+        shapes=(ShapeSpec("train_4k", "train",
+                          dict(batch=TRAIN_BATCH, seq=LM_SEQ)),))
+
+
+def _train_batches(vocab):
+    step = 0
+    while True:
+        yield synthetic.lm_batch(0, step, TRAIN_BATCH, LM_SEQ, vocab)
+        step += 1
+
+
+def _train_run(backend):
+    """TRAIN_STEPS steps of SmolLM-360M at full width and depth through
+    ``build_cell`` and ``train_loop`` from seed-0 weights; each step timed
+    to its loss (the loop's one sync) with its own launch counts."""
+    arch = _train_arch(backend)
+    cell = cells.build_cell(arch, "train_4k")
+    model = lm.init_lm(arch.model, torch.Generator(device=DEVICE
+                                                   ).manual_seed(0), DEVICE)
+    opt_state = topt.opt_init(model, arch.opt)
+    per_step = []
+
+    def step_fn(model, opt_state, batch):
+        sync()
+        ops.reset_launches()
+        t1 = time.perf_counter()
+        out = cell.fn(model, opt_state, batch)
+        loss = float(out[2]["loss"])
+        per_step.append(dict(ms=(time.perf_counter() - t1) * 1e3, loss=loss,
+                             counts=ops.launch_counts(), routes=dict(
+                                 lsum.landmark_summary.route_launches)))
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    with _counting_plain() as plain:
+        res = trainer.train_loop(
+            step_fn, model, opt_state, trainer.Prefetcher(
+                _train_batches(arch.model.vocab),
+                lambda b: trainer.to_device(b, DEVICE)),
+            trainer.TrainerConfig(total_steps=TRAIN_STEPS, log_every=1000),
+            log=lambda *_: None)
+    peak = torch.cuda.max_memory_allocated()
+    return dict(model=model, opt_state=opt_state, cell=cell, steps=per_step,
+                losses=res["losses"], plain=dict(plain), peak=peak)
+
+
+def _check_train(run, backend, cfg):
+    """Every loss finite, the first within 2 of ln V; on the landmark
+    backend kernel 7 forward at 2·L launches a step (the forward and its
+    recompute under remat), all tensor-core, its backward at L calls of
+    BWD_LAUNCHES launches; none on the full backend; no plain version."""
+    losses = run["losses"]
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"16b {backend}: losses {losses}")
+    if abs(losses[0] - np.log(cfg.vocab)) > 2.0:
+        raise AssertionError(f"16b {backend}: first loss {losses[0]} is not "
+                             f"within 2 of ln V = {np.log(cfg.vocab):.3f}")
+    lmk = backend == "landmark"
+    want = {"landmark_summary": 2 * cfg.n_layers if lmk else 0,
+            "landmark_summary_bwd": (cfg.n_layers * lsum.BWD_LAUNCHES
+                                     if lmk else 0)}
+    for i, st in enumerate(run["steps"]):
+        got = {k: st["counts"][k] for k in want}
+        others = {k: v for k, v in st["counts"].items() if k not in want and v}
+        if (got != want or others or st["routes"]["f32_split"]
+                or st["routes"]["tensor_core"] != want["landmark_summary"]):
+            raise AssertionError(f"16b {backend} step {i}: launches "
+                                 f"{st['counts']} by route {st['routes']}, "
+                                 f"not {want}")
+    if any(run["plain"].values()):
+        raise AssertionError(f"16b {backend}: plain versions called "
+                             f"{run['plain']}")
+
+
+def _grads_of(model, batch, summary=None):
+    """Step 1's loss and gradients (no update), through ``summary`` as the
+    B̃V function when given."""
+    patch = (mock.patch.object(ops, "landmark_summary", summary) if summary
+             else contextlib.nullcontext())
+    with patch:
+        loss, grads = cells.value_and_grad(model, batch)
+    return float(loss), grads
+
+
+def _grad_rel(a, b):
+    """‖a − b‖ / ‖b‖ over each group of GRAD_GROUPS: the whole model, and
+    each attention projection's leaves over every layer."""
+    out = {}
+    for group in GRAD_GROUPS:
+        keys = [k for k in b if group == "all"
+                or k.rsplit(".", 1)[-1] == group]
+        num = sum(float((a[k].float() - b[k].float()).square().sum())
+                  for k in keys)
+        den = sum(float(b[k].float().square().sum()) for k in keys)
+        out[group] = (num / den) ** 0.5
+    return out
+
+
+# step 1's gradients, kernel path against the plain B̃V, bf16 at 32 layers:
+# ‖Δg‖ / ‖g‖ over the whole model and over each of wq, wk, wv (the leaves
+# the summary's dq, dk, dv reach first) within GRAD_FLOOR_FACTOR times the
+# same measure between the plain path and the plain path with its keys
+# reversed (the same sums in another order: the bf16 floor of this check);
+# each fault of PLANTED, put into the backward kernel's results, must fail
+# that check
+GRAD_GROUPS = ("all", "wq", "wk", "wv")
+GRAD_FLOOR_FACTOR = 2.0
+PLANTED = ("dk = 0", "delta = 0", "dk x 0.9")
+
+
+class _PlantedBackward(torch.autograd.Function):
+    """Kernel 7 forward and backward with ``fault`` put into the backward:
+    dk zeroed, Δ = Σ dO·O taken as 0 (``out`` passed as zeros), or dk
+    scaled by 0.9. A negative control of the gradient check only."""
+
+    fault = None
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out = lsum._summary(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        fault = _PlantedBackward.fault
+        if fault == "delta = 0":
+            out = torch.zeros_like(out)
+        dq, dk, dv = lsum.landmark_summary_bwd(
+            q, k, v, out, dout.float().contiguous(), ctx.scale)
+        dk = {"dk = 0": 0.0, "dk x 0.9": 0.9}.get(fault, 1.0) * dk
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None
+
+
+def _planted(fault):
+    def summary(q, k, v, scale):
+        _PlantedBackward.fault = fault
+        return _PlantedBackward.apply(q, k, v, scale)
+    return summary
+
+
+def _grad_check():
+    """Step 1's gradients through the kernels, through the plain B̃V with
+    reversed keys and through each planted fault, against the plain B̃V,
+    from seed-0 weights and batch 0."""
+    arch = _train_arch("landmark")
+    model = lm.init_lm(arch.model, torch.Generator(device=DEVICE
+                                                   ).manual_seed(0), DEVICE)
+    batch = trainer.to_device(synthetic.lm_batch(
+        0, 0, TRAIN_BATCH, LM_SEQ, arch.model.vocab), DEVICE)
+
+    def reversed_keys(q, k, v, scale):  # the same sum, in reverse key order
+        return ref.landmark_summary_ref(q, k.flip(-2), v.flip(-2), scale)
+
+    lp, gp = _grads_of(model, batch, ref.landmark_summary_ref)
+    lk, g = _grads_of(model, batch)
+    kernel = _grad_rel(g, gp)
+    _, g = _grads_of(model, batch, reversed_keys)
+    floor = _grad_rel(g, gp)
+    limit = {k: GRAD_FLOOR_FACTOR * v for k, v in floor.items()}
+    over = [k for k in GRAD_GROUPS if not kernel[k] <= limit[k]]
+    if over:
+        raise AssertionError(f"16b: step-1 gradients kernel vs plain "
+                             f"‖Δg‖/‖g‖ {kernel} over {limit} in {over}")
+    planted = {}
+    for fault in PLANTED:
+        _, g = _grads_of(model, batch, _planted(fault))
+        planted[fault] = _grad_rel(g, gp)
+        if all(planted[fault][k] <= limit[k] for k in GRAD_GROUPS):
+            raise AssertionError(f"16b: the planted fault {fault!r} passes "
+                                 f"the gradient check: {planted[fault]} "
+                                 f"within {limit}")
+    del g, gp, model
+    torch.cuda.empty_cache()
+    return dict(loss_kernel=lk, loss_plain=lp, rel_norm=kernel,
+                floor_rel_norm=floor, limit=limit, planted=planted)
+
+
+def phase_train(card):
+    """16b: SmolLM-360M trained at full width and depth (32 layers, S =
+    4096, batch TRAIN_BATCH) for TRAIN_STEPS steps on each backend from the
+    same weights and batches; launches, losses, step ms, tokens/s, peak
+    memory, a profiled step; step 1's gradients kernel vs plain. Returns
+    the landmark run's launches."""
+    t0 = time.perf_counter()
+    out, landmark_counts = {}, {}
+    for backend in ("full", "landmark"):
+        run = _train_run(backend)
+        cfg = run["model"].cfg
+        _check_train(run, backend, cfg)
+        ms = [st["ms"] for st in run["steps"]]
+        steady = statistics.median(ms[1:])
+        cell, model, opt_state = run["cell"], run["model"], run["opt_state"]
+        batch = trainer.to_device(synthetic.lm_batch(
+            0, 99, TRAIN_BATCH, LM_SEQ, cfg.vocab), DEVICE)
+        prof = _profile(lambda: float(cell.fn(model, opt_state, batch)[2][
+            "loss"]), warm=False, sums=BWD_DEVICE_FUNCS)
+        out[backend] = dict(
+            losses=run["losses"], step_ms=ms, steady_step_ms=steady,
+            tokens_per_s=TRAIN_BATCH * LM_SEQ / steady * 1e3,
+            peak_gib=run["peak"] / 2 ** 30,
+            launches_per_step={k: v for k, v in run["steps"][-1][
+                "counts"].items() if v}, profile=prof)
+        print(f"phase 16b train ({card}): {LM_ARCH} L={cfg.n_layers} "
+              f"d={cfg.d_model} B={TRAIN_BATCH} (train_4k's 256 cut to what "
+              f"one card holds) S={LM_SEQ} {backend} attention, AdamW, "
+              f"remat: " + json.dumps(out[backend]))
+        if backend == "landmark":
+            for st in run["steps"]:
+                for k, v in st["counts"].items():
+                    landmark_counts[k] = landmark_counts.get(k, 0) + v
+        del run, cell, model, opt_state, batch
+        torch.cuda.empty_cache()
+    grads = _grad_check()
+    print(f"phase 16b step-1 gradients, kernel vs plain B̃V ({card}; limit "
+          f"‖Δg‖/‖g‖ ≤ {GRAD_FLOOR_FACTOR} × the plain-vs-reversed-keys "
+          f"floor over each of {GRAD_GROUPS}; every planted fault of the "
+          f"backward exceeds it): " + json.dumps(grads)
+          + f" | {time.perf_counter() - t0:.1f}s")
+    return landmark_counts, out
+
+
+def phase_train_cli(card):
+    """16c: ``launch.train --smoke --steps 6 --ckpt-dir D`` on the card,
+    then ``--steps 10``, which resumes at step 6."""
+    t0 = time.perf_counter()
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    args = ["--arch", LM_ARCH, "--smoke", "--ckpt-dir", str(TRAIN_DIR)]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        first = train_cli.main(args + ["--steps", "6"])
+        second = train_cli.main(args + ["--steps", "10"])
+    lines = buf.getvalue().splitlines()
+    if (len(first["losses"]) != 6 or "resumed from step 6" not in lines
+            or second["last_step"] != 9 or len(second["losses"]) != 4
+            or ckpt_mod.latest_step(TRAIN_DIR) != 10
+            or not all(np.isfinite(first["losses"] + second["losses"]))):
+        raise AssertionError(f"16c: train CLI resume failed: {lines}")
+    print(f"phase 16c train CLI ({card}): --smoke --steps 6, then --steps "
+          f"10 resumed at 6 ({lines[-1]}) | {time.perf_counter() - t0:.1f}s")
+
+
+def _sdpa_bwd_ms(q, k, v):
+    """Events ms of the backward alone of bf16 SDPA on (P, n, D) problems
+    laid out as (B, Hkv, n, D), and the device kernels it ran."""
+    import torch.nn.functional as F
+
+    p = q.shape[0]
+    q4, k4, v4 = (t.reshape(TRAIN_BATCH, p // TRAIN_BATCH, *t.shape[1:])
+                  .to(torch.bfloat16).detach().requires_grad_()
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(q4, k4, v4)
+    dout = torch.randn_like(out)
+    run = lambda: torch.autograd.grad(out, (q4, k4, v4), dout,
+                                      retain_graph=True)
+    prof = _profile(run)
+    return _event_ms(run, 10), (list(prof["top_ms"]) if "top_ms" in prof
+                                else prof["device_time"])
+
+
+def _bwd_row(model_in, err, launches, train_out):
+    """The kernel table's row of kernel 7's backward at the training shape
+    (bf16 inputs, the main path's): launches on the landmark training run,
+    event and device ms, bound, plain ms, and bf16 SDPA's backward."""
+    q, k, v, out, dout, scale = model_in[torch.bfloat16]
+    p, n, d = q.shape
+    s_ = k.shape[1]
+    bound_ms, bound_by = _bwd_bound(p, n, s_, d, torch.bfloat16)
+    run = lambda: lsum.landmark_summary_bwd(q, k, v, out, dout, scale)
+    sdpa, backend = _sdpa_bwd_ms(q, k, v)
+    f32_in = model_in[torch.float32]
+    f32_run = lambda: lsum.landmark_summary_bwd(*f32_in)
+    print(f"phase 16 sdpa backward: F.scaled_dot_product_attention's "
+          f"backward alone on (B, Hkv, n, D) = ({TRAIN_BATCH}, "
+          f"{p // TRAIN_BATCH}, {n}, {d}) against S={s_}, bf16: {sdpa:.4f} "
+          f"ms, backend {backend}")
+    step = train_out["landmark"]["profile"]
+    calls = train_out["landmark"]["launches_per_step"].get(
+        "landmark_summary_bwd", 0) // lsum.BWD_LAUNCHES
+    in_step = sum(step.get(f"{f} (ms, launches)", [0.0])[0]
+                  for f in BWD_DEVICE_FUNCS)
+    return dict(
+        name="landmark_summary_bwd", route="cuda", kernel_route="f32 FMA",
+        **KERNELS["landmark_summary_bwd"],
+        shape=f"P={p} (B={TRAIN_BATCH} x Hkv) n={n} (G x n_landmarks) "
+        f"S={s_} D={d} bf16 in, f32 out", launches=launches,
+        launches_per_landmark_step=train_out["landmark"][
+            "launches_per_step"].get("landmark_summary_bwd", 0),
+        max_abs_err=err[torch.bfloat16], max_err_f32_in=err[torch.float32],
+        ms=_event_ms(run, 5), device_ms=_device_ms(run, "landmark_summary_bwd",
+                                                  10),
+        device_ms_in_step=in_step / calls if calls and in_step else None,
+        f32_in_ms=_event_ms(f32_run, 5),
+        plain_ms=_event_ms(lambda: ref.landmark_summary_bwd_ref(
+            q, k, v, out, dout, scale), 3),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=sdpa,
+        library_note="bf16 F.scaled_dot_product_attention backward alone "
+        "(bf16 out, causal off)")
+
+
 def _lm_bound(p, n, s_, d, dtype):
     """Least time for p problems of softmax(q̃Kᵀ·scale)V with f32 results,
     on the route of the inputs' dtype: the bytes moved, and the bf16
@@ -3781,17 +4335,30 @@ def _lm_rows(model_in, err, launches, life_counts, moe_in, moe_err):
 def _sdpa_backend(q, k, v):
     """The device kernels one SDPA call ran, by name (which backend)."""
     import torch.nn.functional as F
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with _profiled() as prof:
         F.scaled_dot_product_attention(q, k, v)
         sync()
     names = {e.name.split("(")[0].removeprefix("void ")[:80]
-             for e in prof.events() if e.device_type == DeviceType.CUDA}
+             for e in _kernels(prof) or ()}
     keys = ("flash", "fmha", "mem_eff", "attention", "cudnn", "gemm")
     named = sorted(x for x in names if any(k in x.lower() for k in keys))
     return named or sorted(names) or "not measured (no device events)"
+
+
+def phase_training(card):
+    """16: the training slice — (a) kernel 7's backward, (b) SmolLM-360M
+    trained on both backends, (c) the train CLI. Returns the backward's
+    table row and the landmark training run's launches."""
+    t0 = time.perf_counter()
+    bwd_in, bwd_err = phase_train_kernel()
+    train_counts, train_out = phase_train(card)
+    phase_train_cli(card)
+    row = _bwd_row(bwd_in, bwd_err, train_counts.get(
+        "landmark_summary_bwd", 0), train_out)
+    print(f"phase 16: launches {train_counts} | "
+          f"{time.perf_counter() - t0:.1f}s")
+    return row, train_counts
 
 
 def main():
@@ -3834,6 +4401,8 @@ def main():
     engine_mesh_counts = phase_engine_mesh(a, card)
     wide_counts = phase_wide(train, d, test_idx, card)
     moe_counts = phase_moe(card)
+    bwd_row, train_counts = phase_training(card)
+    table.append(bwd_row)
     for row in table:  # the engine runs' launches, every row
         row["launches_engine"] = engine_counts.get(row["name"], 0)
         row["launches_mutations"] = mutation_counts.get(row["name"], 0)
@@ -3844,6 +4413,9 @@ def main():
         # the tensor-core route: phase 15 checks every launch was on it
         row["launches_moe"] = (0 if row["name"] == "landmark_summary_f32"
                                else moe_counts.get(row["name"], 0))
+        # the landmark training run (16b): kernel 7 forward and backward
+        row["launches_train"] = (0 if row["name"] == "landmark_summary_f32"
+                                 else train_counts.get(row["name"], 0))
         for tag, times in ivf["wide_ms"].items():  # kernels 2-6, 7a
             if row["name"] in times:
                 row[f"{tag} ms"] = times[row["name"]]
@@ -3852,6 +4424,11 @@ def main():
     row6["shared_form"] = {**ivf["patch_ms"], **{
         tag: times["score_candidates shared"]
         for tag, times in ivf["wide_ms"].items()}}
+    print(f"profiler: {len(PROFILE_DROPS)} sessions, each opened by "
+          f"{PROFILE_MARKERS} markers; markers dropped: max "
+          f"{max(PROFILE_DROPS)}, in {sum(map(bool, PROFILE_DROPS))} "
+          f"sessions; sessions that lost every marker (not measured): "
+          f"{PROFILE_DROPS.count(PROFILE_MARKERS)}")
     print(f"card: {card}")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

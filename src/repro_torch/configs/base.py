@@ -1,12 +1,14 @@
 """Config schema for the LM family: an ``ArchConfig`` holds one
 architecture's published hyperparameters, a reduced smoke model for CPU
-tests, and its shape set — the reference's schema without the sharding
-rules and optimizer settings, which the single-device serving path does
-not read."""
+tests, its shape set, its optimizer and its gradient accumulation per
+shape — the reference's schema without the sharding rules, which the
+single-device port does not read."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, Tuple
+
+from ..train.optimizer import OptConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,6 +27,15 @@ class ArchConfig:
     smoke_model: Any
     shapes: Tuple[ShapeSpec, ...]
     source: str = ""
+    opt: OptConfig = OptConfig()
+    grad_accum: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+    def shape(self, name: str) -> ShapeSpec:
+        for s in self.shapes:
+            if s.name == name:
+                return s
+        raise KeyError(f"{self.name} has no shape {name!r}; has "
+                       f"{[s.name for s in self.shapes]}")
 
 
 # The four LM shapes shared by every transformer arch.

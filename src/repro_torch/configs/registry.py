@@ -1,10 +1,14 @@
 """The LM architectures, dense and MoE, with the reference registry's
-exact hyperparameters and smoke models (sources inline)."""
+exact hyperparameters, smoke models, optimizers and gradient accumulation
+(sources inline)."""
 from __future__ import annotations
 
 from typing import Dict
 
+import torch
+
 from ..models.transformer import LMConfig, MoEConfig
+from ..train.optimizer import OptConfig
 from .base import ArchConfig, lm_shapes
 
 ARCHS: Dict[str, ArchConfig] = {}
@@ -27,6 +31,8 @@ _register(ArchConfig(
         name="llama3-smoke", n_layers=2, d_model=128, n_heads=8, n_kv_heads=2,
         head_dim=16, d_ff=256, vocab=512, act="silu", n_landmarks=8),
     shapes=lm_shapes(),
+    opt=OptConfig(name="adafactor", state_dtype=torch.bfloat16),
+    grad_accum={"train_4k": 8},
 ))
 
 _register(ArchConfig(
@@ -42,6 +48,8 @@ _register(ArchConfig(
         head_dim=32, d_ff=256, vocab=512, act="silu", tied_embed=True,
         n_landmarks=8),
     shapes=lm_shapes(),
+    opt=OptConfig(name="adamw"),
+    grad_accum={"train_4k": 1},
 ))
 
 _register(ArchConfig(
@@ -57,6 +65,8 @@ _register(ArchConfig(
         head_dim=32, d_ff=256, vocab=512, act="gelu", tied_embed=True,
         embed_scale=True, n_landmarks=8),
     shapes=lm_shapes(),
+    opt=OptConfig(name="adamw"),
+    grad_accum={"train_4k": 2},
 ))
 
 _register(ArchConfig(
@@ -76,6 +86,8 @@ _register(ArchConfig(
                       group_size=16),
         n_landmarks=8),
     shapes=lm_shapes(),
+    opt=OptConfig(name="adamw"),
+    grad_accum={"train_4k": 2},
 ))
 
 _register(ArchConfig(
@@ -94,6 +106,8 @@ _register(ArchConfig(
         moe=MoEConfig(n_experts=4, top_k=2, d_ff_expert=64, group_size=16),
         n_landmarks=8),
     shapes=lm_shapes(),
+    opt=OptConfig(name="adamw", state_dtype=torch.bfloat16),
+    grad_accum={"train_4k": 8},
 ))
 
 

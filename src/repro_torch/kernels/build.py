@@ -65,6 +65,10 @@ SIGNATURES = {
     # cores, q k v as f32 inputs' bf16 planes (3, 3, 2 terms) or bf16 inputs
     "landmark_summary_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     "landmark_summary_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # (q, k, v, out, dout, dq, dk, dv, lse, delta, P, N, S, D, scale,
+    #  stream): kernel 7's backward, two launches (dq pass, then dk/dv)
+    "landmark_summary_bwd_f32": (_P,) * 10 + (_I, _I, _I, _I, _F, _P),
+    "landmark_summary_bwd_bf16": (_P,) * 10 + (_I, _I, _I, _I, _F, _P),
     # (variant, n, measure) -> resident scan blocks an SM holds (no stream)
     "topk_scan_blocks_per_sm": (_I, _I, _I),
 }

@@ -1,14 +1,22 @@
-"""Wrapper of the landmark-summary CUDA kernels
-(``csrc/landmark_summary.cu``): softmax(Q̃ Kᵀ · scale) V streamed over the
-sequence with running (max, denominator, accumulator), the B̃V term of
-landmark attention. See the source's opening note for the design and bound.
+"""Wrappers of the landmark-summary CUDA kernels
+(``csrc/landmark_summary.cu``, ``csrc/landmark_summary_bwd.cu``):
+softmax(Q̃ Kᵀ · scale) V streamed over the sequence with running (max,
+denominator, accumulator), the B̃V term of landmark attention, and its
+backward. See each source's opening note for the design and bound.
 
-The inputs' dtype chooses the route, both on the tensor cores (one TMA +
-wgmma loop, P split into two bf16 terms): bfloat16 inputs go in as they
-are (``tensor_core``); float32 inputs are first split into bf16 planes by
-:func:`bf16_terms`, three terms of q and k and two of v (``f32_split``).
-``landmark_summary.launches`` counts both; ``landmark_summary.route_launches``
-counts each; ``bf16_terms.launches`` counts the split pass.
+The inputs' dtype chooses the forward's route, both on the tensor cores
+(one TMA + wgmma loop, P split into two bf16 terms): bfloat16 inputs go in
+as they are (``tensor_core``); float32 inputs are first split into bf16
+planes by :func:`bf16_terms`, three terms of q and k and two of v
+(``f32_split``). ``landmark_summary.launches`` counts both;
+``landmark_summary.route_launches`` counts each; ``bf16_terms.launches``
+counts the split pass.
+
+:func:`landmark_summary` is differentiable: with grad enabled and an input
+that requires grad it runs through :class:`LandmarkSummary`, the forward
+kernel and then :func:`landmark_summary_bwd`'s kernel (two launches a
+call, counted in ``landmark_summary_bwd.launches``); CPU tensors take the
+plain versions of both.
 """
 from __future__ import annotations
 
@@ -25,6 +33,11 @@ ROUTES = {torch.bfloat16: ("tensor_core", "landmark_summary_bf16"),
           torch.float32: ("f32_split", "landmark_summary_f32")}
 QK_TERMS, V_TERMS = 3, 2  # bf16 terms of f32 q and k, and of f32 v
 MAX_PROBLEMS = 65535  # the grid's y axis
+# dtype → the backward's C entry point; its launches a call (the dq pass,
+# then the dk/dv pass)
+BWD_ENTRIES = {torch.bfloat16: "landmark_summary_bwd_bf16",
+               torch.float32: "landmark_summary_bwd_f32"}
+BWD_LAUNCHES = 2
 # bytes: TMA's base address and row strides, and the split pass's float4
 # loads
 ALIGN = 16
@@ -66,47 +79,28 @@ def landmark_summary(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     float32 or bfloat16.
 
     CUDA tensors go through the kernel of their dtype's route (contiguous,
-    one dtype, on one device, 16-byte aligned, D in
-    :data:`HEAD_DIMS`, no gradient: there is no backward kernel; else
-    ValueError); a failed launch raises RuntimeError. CPU tensors take the
-    plain version.
+    one dtype, on one device, 16-byte aligned, D in :data:`HEAD_DIMS`;
+    else ValueError); a failed launch raises RuntimeError. CPU tensors take
+    the plain version. With grad enabled and an input that requires grad,
+    the call is differentiable (:class:`LandmarkSummary`): its backward is
+    :func:`landmark_summary_bwd`.
     """
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return LandmarkSummary.apply(q, k, v, scale)
+    return _summary(q, k, v, scale)
+
+
+def _summary(q, k, v, scale: float) -> torch.Tensor:
+    """The forward: the kernel for CUDA tensors, the plain version for CPU
+    ones (no autograd)."""
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return ref.landmark_summary_ref(q, k, v, scale)
-    if q.dtype not in ROUTES:
-        raise ValueError(f"landmark_summary: inputs must be float32 or "
-                         f"bfloat16, got {q.dtype}")
-    if q.device.type != "cuda":
-        raise ValueError(f"landmark_summary: all inputs must be on one CUDA "
-                         f"device, got {[str(t.device) for t in (q, k, v)]}")
-    if any(t.requires_grad for t in (q, k, v)):
-        raise ValueError("landmark_summary: no backward kernel; call it "
-                         "under torch.no_grad()")
     single = q.dim() == 2
     if single:
         q, k, v = q[None], k[None], v[None]
-    for t in (q, k, v):
-        build.check_cuda("landmark_summary", t, 3, (q.dtype,), q.device)
-        # TMA reads bf16 tiles and the split pass f32 float4s: the base on
-        # a 16-byte boundary; the row stride, 2·D or 4·D bytes of a
-        # contiguous tensor, is a multiple of 16 for every D in HEAD_DIMS
-        if t.data_ptr() % ALIGN:
-            raise ValueError(f"landmark_summary: inputs must start on a "
-                             f"{ALIGN}-byte boundary (TMA)")
-    p, n, _ = q.shape
-    s = k.shape[1]
-    if k.shape != (p, s, d) or v.shape != k.shape:
-        raise ValueError(f"landmark_summary: shapes differ: q {tuple(q.shape)}"
-                         f", k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"landmark_summary: head dim {d} not in {HEAD_DIMS}")
-    if s < 1:
-        raise ValueError("landmark_summary: no keys")
-    if p > MAX_PROBLEMS:
-        raise ValueError(f"landmark_summary: {p} problems exceed "
-                         f"{MAX_PROBLEMS}")
+    p, n, s, d = _check("landmark_summary", q, k, v)
     out = torch.empty((p, n, d), dtype=torch.float32, device=q.device)
     if p and n:
         route, entry = ROUTES[q.dtype]
@@ -119,5 +113,100 @@ def landmark_summary(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out[0] if single else out
 
 
+def _check(name: str, q, k, v):
+    """Raise unless q (P, n, D), k, v (P, S, D) are contiguous CUDA tensors
+    of one kernel dtype on one device, 16-byte aligned, D in HEAD_DIMS,
+    S ≥ 1, P ≤ MAX_PROBLEMS; returns (P, n, S, D)."""
+    if q.dtype not in ROUTES:
+        raise ValueError(f"{name}: inputs must be float32 or bfloat16, got "
+                         f"{q.dtype}")
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: all inputs must be on one CUDA device, "
+                         f"got {[str(t.device) for t in (q, k, v)]}")
+    for t in (q, k, v):
+        build.check_cuda(name, t, 3, (q.dtype,), q.device)
+        # TMA reads bf16 tiles and the split pass f32 float4s: the base on
+        # a 16-byte boundary; the row stride, 2·D or 4·D bytes of a
+        # contiguous tensor, is a multiple of 16 for every D in HEAD_DIMS
+        if t.data_ptr() % ALIGN:
+            raise ValueError(f"{name}: inputs must start on a {ALIGN}-byte "
+                             f"boundary (TMA)")
+    p, n, d = q.shape
+    s = k.shape[1]
+    if k.shape != (p, s, d) or v.shape != k.shape:
+        raise ValueError(f"{name}: shapes differ: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}")
+    if s < 1:
+        raise ValueError(f"{name}: no keys")
+    if p > MAX_PROBLEMS:
+        raise ValueError(f"{name}: {p} problems exceed {MAX_PROBLEMS}")
+    return p, n, s, d
+
+
 landmark_summary.launches = 0
 landmark_summary.route_launches = {route: 0 for route, _ in ROUTES.values()}
+
+
+def landmark_summary_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         out: torch.Tensor, dout: torch.Tensor, scale: float):
+    """The gradients (dq, dk, dv), float32, of ``out`` = softmax(q kᵀ ·
+    scale) v given ``dout``: the backward of :func:`landmark_summary`, in
+    its shapes (2-D, or P problems).
+
+    CUDA tensors go through the backward kernel (q, k, v as the forward
+    takes them; ``out`` and ``dout`` contiguous float32 of q's shape on the
+    same device; else ValueError), two launches; a failed launch raises
+    RuntimeError. CPU tensors take the plain version,
+    :func:`ref.landmark_summary_bwd_ref`.
+    """
+    if all(t.device.type == "cpu" for t in (q, k, v, out, dout)):
+        return ref.landmark_summary_bwd_ref(q, k, v, out, dout, scale)
+    single = q.dim() == 2
+    if single:
+        q, k, v, out, dout = (t[None] for t in (q, k, v, out, dout))
+    name = "landmark_summary_bwd"
+    p, n, s, d = _check(name, q, k, v)
+    for t in (out, dout):
+        build.check_cuda(name, t, 3, (torch.float32,), q.device)
+        if t.shape != q.shape:
+            raise ValueError(f"{name}: out and dout must be {tuple(q.shape)}"
+                             f", got {tuple(t.shape)}")
+    dq = torch.empty((p, n, d), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((p, s, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    if p and n:
+        lse = torch.empty((p, n), dtype=torch.float32, device=q.device)
+        delta = torch.empty_like(lse)
+        build.launch(BWD_ENTRIES[q.dtype], q, k, v, out, dout, dq, dk, dv,
+                     lse, delta, p, n, s, d, float(scale))
+        build.count_launch(landmark_summary_bwd, BWD_LAUNCHES)
+    if single:
+        return dq[0], dk[0], dv[0]
+    return dq, dk, dv
+
+
+landmark_summary_bwd.launches = 0
+
+
+class LandmarkSummary(torch.autograd.Function):
+    """:func:`landmark_summary` with a gradient: the forward kernel (plain
+    version on the CPU) saves q, k, v and its float32 output; the backward
+    runs :func:`landmark_summary_bwd` and returns the gradients in the
+    inputs' dtypes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out = _summary(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = landmark_summary_bwd(q, k, v, out,
+                                          dout.float().contiguous(),
+                                          ctx.scale)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None

@@ -5,13 +5,14 @@ version (``ref.py``) for CPU tensors.
 ``repro_torch.core.similarity.masked_similarity`` and the default ``sim_fn``
 of ``core.landmark_cf.fit`` / ``build_representation`` / ``fold_in``;
 ``landmark_summary`` computes the B̃V term of
-``models.layers.landmark_attention``.
+``models.layers.landmark_attention`` (differentiable: its backward is
+``landmark_summary_bwd``).
 """
 from __future__ import annotations
 
 from .assign_clusters import assign_clusters
 from .ivf_probe import fused_probe_topk
-from .landmark_attention import landmark_summary
+from .landmark_attention import landmark_summary, landmark_summary_bwd
 from .masked_similarity import masked_similarity
 from .knn_topk import foldin_topk, topk_sim
 from .score_candidates import score_candidates
@@ -20,7 +21,8 @@ from .score_candidates import score_candidates
 # a wrapper with more than one kernel a ``route_launches`` count each, and
 # d1 its card-side count of guarded results (``results``)
 WRAPPERS = (masked_similarity, topk_sim, foldin_topk, assign_clusters,
-            fused_probe_topk, score_candidates, landmark_summary)
+            fused_probe_topk, score_candidates, landmark_summary,
+            landmark_summary_bwd)
 
 
 def reset_launches() -> None:
@@ -38,4 +40,4 @@ def launch_counts() -> dict:
 
 __all__ = ["masked_similarity", "topk_sim", "foldin_topk", "assign_clusters",
            "fused_probe_topk", "score_candidates", "landmark_summary",
-           "WRAPPERS", "reset_launches", "launch_counts"]
+           "landmark_summary_bwd", "WRAPPERS", "reset_launches", "launch_counts"]

@@ -359,6 +359,71 @@ def landmark_summary_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.softmax(s, dim=-1) @ v.float()
 
 
+def landmark_summary_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             dout: torch.Tensor, scale: float):
+    """Oracle for kernels.landmark_summary_bwd: the gradients (dq, dk, dv)
+    of :func:`landmark_summary_ref` at ``out`` = softmax(q kᵀ · scale) v,
+    given ``dout``. Same batching as the forward; float32 throughout:
+
+        P  = softmax(q kᵀ · scale)       (recomputed)
+        Δᵢ = Σ_d dOᵢ_d · Oᵢ_d
+        dV = Pᵀ dO
+        dS = P ∘ (dO Vᵀ − Δ)
+        dQ = scale · dS K,   dK = scale · dSᵀ q
+    """
+    qf, kf, vf = q.float(), k.float(), v.float()
+    do, o = dout.float(), out.float()
+    p = torch.softmax((qf @ kf.transpose(-1, -2)) * scale, dim=-1)
+    delta = (do * o).sum(-1, keepdim=True)
+    dv = p.transpose(-1, -2) @ do
+    ds = p * (do @ vf.transpose(-1, -2) - delta)
+    return (ds @ kf) * scale, (ds.transpose(-1, -2) @ qf) * scale, dv
+
+
+def landmark_summary_bwd_tiled_ref(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, out: torch.Tensor,
+                                   dout: torch.Tensor, scale: float,
+                                   block: int = 64):
+    """The backward kernel's two passes in plain torch, to check its
+    arithmetic on the CPU; never on a model path. Pass 1 sweeps the key
+    tiles of ``block`` keys once with a running max m and denominator l
+    (log2 units, scores times c = scale·log2(e)), rescaling the dQ
+    accumulator by 2^(m_old − m_new), and keeps lse = m + log2 l; pass 2
+    recomputes P = 2^(s·c − lse) tile by tile for dK and dV. Keys past S are
+    never in a tile (the kernel masks them). Returns (dq, dk, dv) float32.
+    """
+    qf, kf, vf = q.float(), k.float(), v.float()
+    do = dout.float()
+    c = torch.tensor(scale, dtype=torch.float32) * torch.tensor(
+        math.log2(math.e), dtype=torch.float32)
+    delta = (do * out.float()).sum(-1, keepdim=True)
+    m = torch.full(qf.shape[:-1] + (1,), float("-inf"))
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    tiles = range(0, kf.shape[-2], block)
+    for k0 in tiles:  # pass 1
+        kt, vt = kf[..., k0:k0 + block, :], vf[..., k0:k0 + block, :]
+        st = (qf @ kt.transpose(-1, -2)) * c
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        alpha = torch.where(m == float("-inf"), torch.zeros_like(m),
+                            torch.exp2(m - m_new))
+        p = torch.exp2(st - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + (p * (do @ vt.transpose(-1, -2) - delta)) @ kt
+        m = m_new
+    dq = acc * (scale / l)
+    lse = m + torch.log2(l)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for k0 in tiles:  # pass 2
+        kt, vt = kf[..., k0:k0 + block, :], vf[..., k0:k0 + block, :]
+        p = torch.exp2((qf @ kt.transpose(-1, -2)) * c - lse)
+        ds = p * (do @ vt.transpose(-1, -2) - delta)
+        dv[..., k0:k0 + block, :] = p.transpose(-1, -2) @ do
+        dk[..., k0:k0 + block, :] = (ds.transpose(-1, -2) @ qf) * scale
+    return dq, dk, dv
+
+
 def bf16_terms(x: torch.Tensor, terms: int) -> torch.Tensor:
     """Oracle for kernels.landmark_attention.bf16_terms: ``x`` as a sum of
     ``terms`` bfloat16 values, (terms, *x.shape). x0 = bf16(x),

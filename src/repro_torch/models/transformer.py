@@ -7,9 +7,13 @@ The parameters live in an :class:`LM` ``nn.Module`` (a ``ModuleList`` of
 (in, out) and applied as ``x @ w``, norm scales are stored as ``scale`` of
 ``x · (1 + scale)``. The functions below mirror the reference's
 ``lm_forward`` / ``lm_prefill`` / ``lm_decode_step`` /
-``lm_landmark_decode_step`` on one device; call them under
-``torch.no_grad()`` (the landmark kernel has no backward). Decode steps
-update their cache's tensors in place and return it with ``length`` + 1.
+``lm_landmark_decode_step`` on one device. ``lm_forward`` and ``lm_loss``
+are differentiable on both attention backends (the landmark kernel's
+backward is ``kernels.landmark_attention.LandmarkSummary``): with grad
+enabled each block is recomputed in the backward
+(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` does;
+serve under ``torch.inference_mode()``. Decode steps update their cache's
+tensors in place and return it with ``length`` + 1.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .layers import (LandmarkKVState, apply_rope, decode_attention,
                      flash_attention, glu_mlp, landmark_attention,
@@ -41,9 +46,9 @@ class MoEConfig:
 
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
-    """The reference's ``LMConfig`` fields that change numbers (sharding,
-    remat, scan-unroll and one-hot-embedding switches have no single-device
-    counterpart)."""
+    """The reference's ``LMConfig`` fields that change numbers or memory
+    (sharding, scan-unroll and one-hot-embedding switches have no
+    single-device counterpart)."""
 
     name: str
     n_layers: int
@@ -247,14 +252,20 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 # -------------------------------------------------------------- full passes
 def lm_forward(model: LM, tokens: torch.Tensor):
-    """Causal forward; returns (logits f32, moe_aux)."""
+    """Causal forward; returns (logits f32, moe_aux). With grad enabled
+    every block runs under ``torch.utils.checkpoint``."""
     cfg = model.cfg
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
     x = embed_tokens(model, tokens)
     aux = 0.0
+    remat = torch.is_grad_enabled()
     for lp in model.layers:
-        x, a = block(x, lp, cfg, positions)
+        if remat:  # keep only each block's input for the backward
+            x, a = checkpoint(block, x, lp, cfg, positions,
+                              use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, a = block(x, lp, cfg, positions)
         aux = aux + a
     x = rms_norm(x, model.final_norm)
     return logits_from(model, x), aux

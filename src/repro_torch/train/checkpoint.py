@@ -16,6 +16,9 @@ the manifest, as the reference stores the addressable shards of a
 row-sharded array; a restore reassembles the leaf from the ranges, so the
 shard count on disk need not match the mesh that loads it.
 
+:class:`AsyncCheckpointer` writes a training checkpoint in a background
+thread after copying it to the host (one write in flight).
+
 A tree is a dict (or list/tuple) of tensors or arrays, flattened the way
 ``jax.tree_util`` flattens it: dict keys in sorted order, sequences in
 order, depth first. bfloat16 leaves are stored as their uint16 bits and
@@ -26,6 +29,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import threading
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -168,6 +172,43 @@ def restore_checkpoint(directory: str, tree_like: Any,
                          meta["dtype"], device)
               for i, meta in enumerate(manifest["leaves"])]
     return _unflatten(tree_like, leaves)
+
+
+def _host_copy(leaf):
+    """A leaf copied to host memory: the caller may update the original in
+    place as soon as this returns."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().to("cpu", copy=True)
+    return np.array(leaf, copy=True)
+
+
+class AsyncCheckpointer:
+    """Overlap checkpoint writes with the next train steps, one write in
+    flight (the reference's ``AsyncCheckpointer``).
+
+    ``save`` waits for the previous write, copies every leaf of ``tree`` to
+    the host in the caller's thread — the port's optimizer updates the
+    parameters and its state in place, so the copy is finished before
+    ``save`` returns — and writes it with :func:`save_checkpoint` in a
+    background thread; ``wait`` joins that thread."""
+
+    def __init__(self, directory: str, keep: int = 3):
+        self.directory = directory
+        self.keep = keep
+        self._thread: Optional[threading.Thread] = None
+
+    def save(self, step: int, tree: Any) -> None:
+        self.wait()
+        host = _unflatten(tree, [_host_copy(x) for x in _flatten(tree)])
+        self._thread = threading.Thread(
+            target=save_checkpoint, args=(self.directory, step, host,
+                                          self.keep), daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
 
 
 # --------------------------------------------------------------- CF artifacts

@@ -23,6 +23,11 @@ Tolerances:
   running max and denominator against a dense f32 one (P is split into two
   bf16 terms, f32 q and k into three, to stay inside it);
 - the f32 route's split pass: bitwise equal to the same rounding in torch;
+- kernel 7's backward: within 1e-4 of each gradient's largest |value| of
+  its plain version (f32 FMAs summed in another order), two calls
+  bitwise equal; through the autograd Function, within 1e-3 of autograd
+  of the plain f32 forward (the forward kernel's error enters Δ), plus
+  2^-8 for bf16 inputs (their gradients are rounded to bf16);
 - the MF baselines on the card against the CPU from the same initial
   parameters and permutations, and one BPMF Gibbs sweep on the same draws:
   within atol=1e-4 (f32 sums in other orders; the card's gathers
@@ -745,8 +750,9 @@ def test_landmark_summary_rejects_what_the_kernel_does_not_take(cuda):
         ops.landmark_summary(x, x.cpu(), x)
     with pytest.raises(ValueError, match="CUDA device"):
         ops.landmark_summary(x.cpu(), x, x)
-    with pytest.raises(ValueError, match="backward"):
-        ops.landmark_summary(x.clone().requires_grad_(), x, x)
+    # an input that requires grad takes the differentiable path
+    assert ops.landmark_summary(x.clone().requires_grad_(), x,
+                                x).grad_fn is not None
     with pytest.raises(ValueError, match="head dim"):
         y = torch.zeros((2, 8, 48), device=cuda)
         ops.landmark_summary(y, y, y)
@@ -852,6 +858,97 @@ def test_landmark_forward_on_the_card_launches_once_per_layer(cuda,
     torch.cuda.synchronize()
     rel = float((got - want).abs().max() / want.abs().max())
     assert rel < 0.05, rel
+
+
+def _bwd_inputs(cuda, dtype, p, n, s, d, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, k, v = (torch.randn((p, rows, d), generator=g, device=cuda).to(dtype)
+               for rows in (n, s, s))
+    scale = 1.0 / np.sqrt(d)
+    out = ref.landmark_summary_ref(q, k, v, scale)
+    dout = torch.randn(out.shape, generator=g, device=cuda)
+    return q, k, v, out, dout, scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("p,n,s,d", [(1, 64, 1024, 64), (3, 100, 777, 32),
+                                     (2, 130, 300, 128), (2, 33, 500, 256),
+                                     (1, 1, 2, 64), (10, 1536, 4096, 64)])
+def test_landmark_summary_bwd_kernel_matches_plain(cuda, dtype, p, n, s, d):
+    """Kernel 7's backward against its plain version, within 1e-4 of each
+    gradient's largest |value| (f32 FMAs summed in another order), at
+    ragged n and S, every head dim and the SmolLM-360M landmark shape; two
+    launches of one call, and two calls bitwise equal; the single-problem
+    form the same launch."""
+    args = _bwd_inputs(cuda, dtype, p, n, s, d, seed=n + s)
+    before = lsum.landmark_summary_bwd.launches
+    got = lsum.landmark_summary_bwd(*args)
+    again = lsum.landmark_summary_bwd(*args)
+    want = ref.landmark_summary_bwd_ref(*args)
+    torch.cuda.synchronize()
+    assert lsum.landmark_summary_bwd.launches == before + 2 * lsum.BWD_LAUNCHES
+    for a, b, w in zip(got, again, want):
+        assert a.dtype == torch.float32 and a.shape == w.shape
+        assert torch.equal(a, b)
+        assert float((a - w).abs().max()) <= 1e-4 * float(w.abs().max())
+    if p == 1:
+        one = lsum.landmark_summary_bwd(*(t[0] for t in args[:5]), args[5])
+        assert all(torch.equal(a, b[0]) for a, b in zip(one, got))
+
+
+def test_landmark_summary_bwd_rejects_what_the_kernel_does_not_take(cuda):
+    q, k, v, out, dout, scale = _bwd_inputs(cuda, torch.float32, 2, 8, 16,
+                                            64, 1)
+    bwd = lsum.landmark_summary_bwd
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        bwd(q.half(), k.half(), v.half(), out, dout, scale)
+    with pytest.raises(ValueError, match="bfloat16"):
+        bwd(q, k.bfloat16(), v, out, dout, scale)
+    with pytest.raises(ValueError, match="on cuda"):
+        bwd(q, k.cpu(), v, out, dout, scale)
+    with pytest.raises(ValueError, match="CUDA device"):
+        bwd(q.cpu(), k, v, out, dout, scale)
+    with pytest.raises(ValueError, match="head dim"):
+        y = torch.zeros((2, 8, 48), device=cuda)
+        bwd(y, y, y, y, y, scale)
+    with pytest.raises(ValueError, match="contiguous"):
+        bwd(q.transpose(1, 2), k, v, out, dout, scale)
+    with pytest.raises(ValueError, match="contiguous"):
+        bwd(q, k, v, out, dout.transpose(1, 2).contiguous().transpose(1, 2),
+            scale)
+    with pytest.raises(ValueError, match="float32"):
+        bwd(q, k, v, out.bfloat16(), dout, scale)
+    with pytest.raises(ValueError, match="out and dout"):
+        bwd(q, k, v, out[:, :4].contiguous(), dout, scale)
+    with pytest.raises(ValueError, match="shapes differ"):
+        bwd(q, k, v[:, :8].contiguous(), out, dout, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_landmark_summary_function_on_the_card(cuda, dtype):
+    """``ops.landmark_summary`` with inputs that require grad: one forward
+    launch, one backward call (two launches), gradients in the inputs'
+    dtype within 1e-3 of autograd through the plain f32 forward (the
+    forward kernel's own error enters Δ), plus a bf16 rounding for bf16
+    inputs."""
+    q, k, v, _, dout, scale = _bwd_inputs(cuda, torch.float32, 2, 200, 700,
+                                          64, 5)
+    a = [t.to(dtype).requires_grad_() for t in (q, k, v)]
+    b = [t.to(dtype).float().requires_grad_() for t in (q, k, v)]
+    ops.reset_launches()
+    ops.landmark_summary(*a).backward(dout)
+    assert ops.launch_counts()["landmark_summary"] == 1
+    assert ops.launch_counts()["landmark_summary_bwd"] == lsum.BWD_LAUNCHES
+    ref.landmark_summary_ref(*b, scale).backward(dout)
+    torch.cuda.synchronize()
+    limit = 1e-3 if dtype == torch.float32 else 1e-3 + 2 ** -8
+    for x, y in zip(a, b):
+        assert x.grad.dtype == dtype
+        rel = float((x.grad.float() - y.grad).abs().max()
+                    / y.grad.abs().max())
+        assert rel <= limit, rel
 
 
 # ------------------------------------------------------------ request engine
