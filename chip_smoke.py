@@ -348,6 +348,7 @@ from repro_torch.models import transformer as lm  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
 from repro_torch.launch import steps as cells  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.obs import profile as obs_profile  # noqa: E402
 from repro_torch.train import checkpoint as ckpt_mod  # noqa: E402
 from repro_torch.train import optimizer as topt  # noqa: E402
 from repro_torch.train import trainer  # noqa: E402
@@ -407,6 +408,13 @@ KERNELS = {
         replaces_note="the backward of kernel 7's function; the reference "
         "has no backward kernel (autodiff of plain jnp, "
         "src/repro/models/layers.py:170)"),
+    # its FMA route (f32 inputs; bf16 at D = 256), a sub-row
+    "landmark_summary_bwd_f32": dict(
+        source="src/repro_torch/kernels/csrc/landmark_summary_bwd.cu",
+        replaces="src/repro/kernels/landmark_attention.py:51",
+        replaces_note="the backward of kernel 7's function; the reference "
+        "has no backward kernel (autodiff of plain jnp, "
+        "src/repro/models/layers.py:170)"),
 }
 GRAPH_KERNELS = ("masked_similarity", "topk_sim", "foldin_topk")
 IVF_KERNELS = ("assign_clusters", "fused_probe_topk", "score_candidates")
@@ -461,6 +469,9 @@ def phase_build():
     print("phase 2 tensor-core kernel: " + json.dumps(_wgmma_report(
         log, "landmark_summary", _wgmma_name, 8,
         "2 routes x 4 head dims")))
+    print("phase 2 backward tensor-core kernels: " + json.dumps(
+        _wgmma_report(log, "landmark_summary_bwd", _bwd_name, 6,
+                      "2 passes x 3 head dims")))
     print("phase 2 d1 tensor-core kernel: " + json.dumps(_wgmma_report(
         log, "masked_similarity", _d1_name, 2,
         "16-byte and 4-byte loads")))
@@ -477,6 +488,15 @@ def _wgmma_name(line):
 
     m = re.search(r"summary_wgmma_kernelILi(\d+)ELb([01])E", line)
     return f"{('bf16', 'f32')[int(m.group(2))]} D={m.group(1)}" if m else None
+
+
+def _bwd_name(line):
+    """'dq D=64' / 'dkv D=64' for a line naming an instantiation of kernel
+    7's backward on the tensor cores (template <int D>), else None."""
+    import re
+
+    m = re.search(r"bwd_(dq|dkv)_wgmma_kernelILi(\d+)E", line)
+    return f"{m.group(1)} D={m.group(2)}" if m else None
 
 
 def _d1_name(line):
@@ -953,49 +973,37 @@ DEVICE_FUNCS = {
     "landmark_summary": ("summary_wgmma_kernel",),
     "landmark_summary_f32": ("summary_wgmma_kernel", "split_terms_kernel"),
     "split_terms": ("split_terms_kernel",),  # the f32 route's split pass
-    # kernel 7's backward: the dq pass, then the dk/dv pass
-    "landmark_summary_bwd": ("bwd_dq_kernel", "bwd_dkv_kernel"),
+    # kernel 7's backward on its tensor-core route (bf16 inputs): dO's
+    # split pass, the dq pass, then the dk/dv pass; on its FMA route (f32
+    # inputs) the two passes of scalar FMAs
+    "landmark_summary_bwd": ("split_terms_kernel", "bwd_dq_wgmma_kernel",
+                             "bwd_dkv_wgmma_kernel"),
+    "landmark_summary_bwd_f32": ("bwd_dq_kernel", "bwd_dkv_kernel"),
     "repair_drain": None,  # every kernel of a drain (phase 10)
 }
 
 
 # Once a session in the process has traced many kernels, torch.profiler
-# drops the first device records of later sessions (on an H100 up to 40
-# records a session over the whole script; half of ten backward calls
-# after phase 16b). Every session here therefore begins with
+# drops the first device records of later sessions (on an H100 up to 87
+# records a session over the whole script). Every session here (obs.profile.profiled, which the
+# engine's --torch-profile trace uses too) therefore begins with
 # PROFILE_MARKERS spin kernels and a sync, and counts only when at least
 # one marker survived: the drop is a prefix of the session, so the run's
 # own records are then whole. PROFILE_DROPS keeps the markers lost a
 # session.
-PROFILE_MARKERS = 256
-MARKER = "spin_kernel"
+PROFILE_MARKERS = obs_profile.PROFILE_MARKERS
 PROFILE_DROPS = []
 
 
-@contextlib.contextmanager
-def _profiled():
-    """A ``torch.profiler`` session (CPU and CUDA) that opens with the
-    markers."""
-    from torch.profiler import ProfilerActivity, profile
-
-    sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_MARKERS):
-            torch.cuda._sleep(1)
-        sync()
-        yield prof
-
-
 def _kernels(prof):
-    """The device records of a ``_profiled`` session less its markers, or
+    """The device records of a ``profiled`` session less its markers, or
     None when every marker was dropped (and so maybe some of the run's)."""
     from torch.autograd import DeviceType
 
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    seen = sum(MARKER in e.name for e in dev)
-    PROFILE_DROPS.append(PROFILE_MARKERS - seen)
-    return [e for e in dev if MARKER not in e.name] if seen else None
+    kept, lost = obs_profile.strip_markers(
+        e for e in prof.events() if e.device_type == DeviceType.CUDA)
+    PROFILE_DROPS.append(lost)
+    return kept
 
 
 def _device_ms(fn, name, iters=20):
@@ -1006,7 +1014,7 @@ def _device_ms(fn, name, iters=20):
     profiler dropped its markers."""
     fn()
     sync()
-    with _profiled() as prof:
+    with obs_profile.profiled() as prof:
         for _ in range(iters):
             fn()
         sync()
@@ -1042,7 +1050,7 @@ def _profile(run, ranges=(), warm=True, sums=()):
     if warm:
         run()
     sync()
-    with _profiled() as prof:
+    with obs_profile.profiled() as prof:
         run()
         sync()
     kernels = _kernels(prof)
@@ -1180,7 +1188,7 @@ def _device_calls(fn, iters=20):
     copy it runs, from a ``torch.profiler`` trace of ``iters`` calls."""
     fn()
     sync()
-    with _profiled() as prof:
+    with obs_profile.profiled() as prof:
         for _ in range(iters):
             fn()
         sync()
@@ -2146,15 +2154,24 @@ def _thread_ids(lane):
 
 
 def _lane_streams(path, lanes):
-    """Read the ``torch.profiler`` Chrome trace of the engine's load window:
-    the streams of the fold lane's d1 and scan kernels and of the kernels
-    the read lane's thread launched (each kernel's launch, by correlation
-    id, names its thread), the launching threads of the fold lane's
-    kernels, kernel counts by (lane, stream), and the device's busy share of
-    the window (the union of kernel, copy and memset intervals over the
-    trace's span)."""
+    """Read the ``torch.profiler`` Chrome trace of the engine's load window
+    (``obs.profile.profile_trace``: it opens with PROFILE_MARKERS spin
+    kernels, dropped here): the streams of the fold lane's d1 and scan
+    kernels and of the kernels the read lane's thread launched (each
+    kernel's launch, by correlation id, names its thread), the launching
+    threads of the fold lane's kernels, kernel counts by (lane, stream), the
+    markers the profiler lost, and, when one survived, the device's busy
+    share of the window (the union of kernel, copy and memset intervals from
+    the last marker's end to the trace's end; None when every marker was
+    lost, since the window's first records may be lost too)."""
     doc = json.loads(Path(path).read_text())
     evs = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    kernel = lambda e: e["name"] if e.get("cat") == "kernel" else ""
+    kept, lost = obs_profile.strip_markers(evs, kernel)
+    # the window opens where the last surviving marker ends
+    opened = None if kept is None else max(
+        e["ts"] + e["dur"] for e in evs if obs_profile.MARKER in kernel(e))
+    evs = evs if kept is None else kept
     launcher = {e["args"]["correlation"]: e["tid"] for e in evs
                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
                 and "correlation" in e.get("args", {})}
@@ -2179,13 +2196,14 @@ def _lane_streams(path, lanes):
                 fold[kind].add(stream)
                 fold_lanes.add(lane)
                 lanes_by_kind[kind].add(lane)
-    t0 = min(e["ts"] for e in evs)
+    t0 = min(e["ts"] for e in evs) if opened is None else opened
     t1 = max(e["ts"] + e["dur"] for e in evs)
     spans.sort()
     busy, end = 0.0, t0
     for a, b in spans:
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
+    share = None if opened is None else busy / (t1 - t0)
     read_streams = sorted({int(k.split("@")[1]) for k in by_lane
                            if k.startswith("engine-reads@")})
     write_streams = sorted({int(k.split("@")[1]) for k in by_lane
@@ -2196,7 +2214,8 @@ def _lane_streams(path, lanes):
                 lanes_by_kind={k: sorted(v) for k, v in
                                lanes_by_kind.items()},
                 kernels_by_lane_stream=by_lane, window_ms=(t1 - t0) / 1e3,
-                busy_share=busy / (t1 - t0), idle_share=1 - busy / (t1 - t0),
+                markers_lost=lost, busy_share=share,
+                idle_share=None if share is None else 1 - share,
                 device_ops=len(spans),
                 trace_mb=Path(path).stat().st_size / 2 ** 20)
 
@@ -3141,11 +3160,16 @@ def phase_engine_mesh(a, card):
         rl, fl = res["read_latency"], res["fold_latency"]
         wl = {k: f"{v.p50_ms:.3f}/{v.p99_ms:.3f} ms ({v.count})"
               for k, v in mut.get("write_latency", {}).items()}
-        window = (f"busy {lanes['busy_share']:.4f} idle "
+        window = ("no profiler capture" if not lanes else
+                  f"busy/idle not measured (the profiler lost all "
+                  f"{PROFILE_MARKERS} markers)" if lanes["busy_share"] is None
+                  else f"busy {lanes['busy_share']:.4f} idle "
                   f"{lanes['idle_share']:.4f} of a {lanes['window_ms']:.1f} "
-                  f"ms window, kernels by lane@stream "
-                  f"{lanes['kernels_by_lane_stream']}" if lanes
-                  else "no profiler capture")
+                  f"ms window")
+        if lanes:
+            window += (f", markers lost {lanes['markers_lost']} of "
+                       f"{PROFILE_MARKERS}, kernels by lane@stream "
+                       f"{lanes['kernels_by_lane_stream']}")
         print(f"phase 13 engine mesh ({tag}, {card}): {m['mesh']}, C="
               f"{m['capacity']}; sustained {res['qps']:.1f} QPS, read "
               f"p50/p95/p99 {rl.p50_ms:.3f}/{rl.p95_ms:.3f}/{rl.p99_ms:.3f} "
@@ -3829,7 +3853,8 @@ def phase_train_kernel():
               ((1, 33, 777, 256), (torch.bfloat16,))]
     notes, model_in, model_err = [], {}, {}
     ops.reset_launches()
-    calls = 0
+    lsum.bf16_terms.launches = 0
+    calls = dict.fromkeys(lsum.landmark_summary_bwd.route_launches, 0)
     for i, ((p, n, s_, d), dtypes) in enumerate(shapes):
         for dtype in dtypes:
             args = _bwd_inputs(p, n, s_, d, dtype, seed=60 + i)
@@ -3837,7 +3862,8 @@ def phase_train_kernel():
             again = lsum.landmark_summary_bwd(*args)
             want = ref.landmark_summary_bwd_ref(*args)
             sync()
-            calls += 2
+            route = lsum.bwd_route(dtype, d)
+            calls[route] += 2
             rel = _rel(got, want)
             if rel > BWD_REL or not all(bool(torch.isfinite(g).all())
                                         for g in got):
@@ -3849,15 +3875,21 @@ def phase_train_kernel():
                                      f"n={n} S={s_} D={d} differ")
             tag = "bf16" if dtype == torch.bfloat16 else "f32"
             err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-            notes.append(f"P={p} n={n} S={s_} D={d} {tag} {rel:.3g} "
-                         f"(max|err| {err:.3g})")
+            notes.append(f"P={p} n={n} S={s_} D={d} {tag} {route} "
+                         f"{rel:.3g} (max|err| {err:.3g})")
             if i == 0:
                 model_in[dtype], model_err[dtype] = args, err
             del got, again, want
-    want_launches = calls * lsum.BWD_LAUNCHES
-    if lsum.landmark_summary_bwd.launches != want_launches:
+    want_routes = {r: c * lsum.BWD_LAUNCHES for r, c in calls.items()}
+    if (lsum.landmark_summary_bwd.launches != sum(want_routes.values())
+            or lsum.landmark_summary_bwd.route_launches != want_routes
+            or lsum.bf16_terms.launches != calls["tensor_core"]):
         raise AssertionError(f"16a: {lsum.landmark_summary_bwd.launches} "
-                             f"backward launches, not {want_launches}")
+                             f"backward launches by route "
+                             f"{lsum.landmark_summary_bwd.route_launches} "
+                             f"with {lsum.bf16_terms.launches} split passes,"
+                             f" not {want_routes} with "
+                             f"{calls['tensor_core']}")
     # the autograd Function: kernel forward and kernel backward, against
     # torch.autograd through the plain f32 forward
     p, n, s_, d = 4, 1536, 4096, 64
@@ -3882,8 +3914,10 @@ def phase_train_kernel():
                                  f" of max |autograd| (limit {limit})")
         fn_rel["bf16" if dtype == torch.bfloat16 else "f32"] = rel
     print(f"phase 16a landmark summary backward (TF32 off; limit {BWD_REL} "
-          f"of max |plain| per gradient, two launches bitwise equal): "
-          + "; ".join(notes) + f" | Function vs torch.autograd of the plain "
+          f"of max |plain| per gradient, two launches bitwise equal; "
+          f"launches by route {want_routes}, {calls['tensor_core']} split "
+          f"passes of dO): " + "; ".join(notes)
+          + f" | Function vs torch.autograd of the plain "
           f"f32 forward at P={p} n={n} S={s_} D={d}: {fn_rel} (limit "
           f"{FN_REL}, bf16 {FN_BF16_REL:.5f}) | "
           f"{time.perf_counter() - t0:.1f}s")
@@ -3939,12 +3973,16 @@ def _train_run(backend):
     def step_fn(model, opt_state, batch):
         sync()
         ops.reset_launches()
+        lsum.bf16_terms.launches = 0
         t1 = time.perf_counter()
         out = cell.fn(model, opt_state, batch)
         loss = float(out[2]["loss"])
         per_step.append(dict(ms=(time.perf_counter() - t1) * 1e3, loss=loss,
                              counts=ops.launch_counts(), routes=dict(
-                                 lsum.landmark_summary.route_launches)))
+                                 lsum.landmark_summary.route_launches),
+                             bwd_routes=dict(
+                                 lsum.landmark_summary_bwd.route_launches),
+                             splits=lsum.bf16_terms.launches))
         return out
 
     torch.cuda.reset_peak_memory_stats()
@@ -3964,7 +4002,8 @@ def _check_train(run, backend, cfg):
     """Every loss finite, the first within 2 of ln V; on the landmark
     backend kernel 7 forward at 2·L launches a step (the forward and its
     recompute under remat), all tensor-core, its backward at L calls of
-    BWD_LAUNCHES launches; none on the full backend; no plain version."""
+    BWD_LAUNCHES launches, all tensor-core, each after one split pass of
+    dO; none on the full backend; no plain version."""
     losses = run["losses"]
     if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
         raise AssertionError(f"16b {backend}: losses {losses}")
@@ -3979,10 +4018,17 @@ def _check_train(run, backend, cfg):
         got = {k: st["counts"][k] for k in want}
         others = {k: v for k, v in st["counts"].items() if k not in want and v}
         if (got != want or others or st["routes"]["f32_split"]
-                or st["routes"]["tensor_core"] != want["landmark_summary"]):
+                or st["routes"]["tensor_core"] != want["landmark_summary"]
+                or st["bwd_routes"]["fma"]
+                or st["bwd_routes"]["tensor_core"]
+                != want["landmark_summary_bwd"]
+                or st["splits"] != want["landmark_summary_bwd"]
+                // lsum.BWD_LAUNCHES):
             raise AssertionError(f"16b {backend} step {i}: launches "
                                  f"{st['counts']} by route {st['routes']}, "
-                                 f"not {want}")
+                                 f"backward by route {st['bwd_routes']} "
+                                 f"with {st['splits']} split passes, not "
+                                 f"{want}")
     if any(run["plain"].values()):
         raise AssertionError(f"16b {backend}: plain versions called "
                              f"{run['plain']}")
@@ -4158,14 +4204,14 @@ def phase_train_cli(card):
           f"10 resumed at 6 ({lines[-1]}) | {time.perf_counter() - t0:.1f}s")
 
 
-def _sdpa_bwd_ms(q, k, v):
-    """Events ms of the backward alone of bf16 SDPA on (P, n, D) problems
-    laid out as (B, Hkv, n, D), and the device kernels it ran."""
+def _sdpa_bwd_ms(q, k, v, dtype=torch.bfloat16):
+    """Events ms of the backward alone of SDPA in ``dtype`` on (P, n, D)
+    problems laid out as (B, Hkv, n, D), and the device kernels it ran."""
     import torch.nn.functional as F
 
     p = q.shape[0]
     q4, k4, v4 = (t.reshape(TRAIN_BATCH, p // TRAIN_BATCH, *t.shape[1:])
-                  .to(torch.bfloat16).detach().requires_grad_()
+                  .to(dtype).detach().requires_grad_()
                   for t in (q, k, v))
     out = F.scaled_dot_product_attention(q4, k4, v4)
     dout = torch.randn_like(out)
@@ -4176,18 +4222,17 @@ def _sdpa_bwd_ms(q, k, v):
                                 else prof["device_time"])
 
 
-def _bwd_row(model_in, err, launches, train_out):
-    """The kernel table's row of kernel 7's backward at the training shape
-    (bf16 inputs, the main path's): launches on the landmark training run,
-    event and device ms, bound, plain ms, and bf16 SDPA's backward."""
+def _bwd_rows(model_in, err, launches, train_out):
+    """The kernel table's rows of kernel 7's backward at the training shape:
+    bf16 inputs (the main path's) on the tensor-core route, with launches
+    on the landmark training run, event and device ms alone and in the
+    profiled step, bound, plain ms and bf16 SDPA's backward; and f32 inputs
+    on the FMA route as its own sub-row (launched on no path)."""
     q, k, v, out, dout, scale = model_in[torch.bfloat16]
     p, n, d = q.shape
     s_ = k.shape[1]
-    bound_ms, bound_by = _bwd_bound(p, n, s_, d, torch.bfloat16)
     run = lambda: lsum.landmark_summary_bwd(q, k, v, out, dout, scale)
     sdpa, backend = _sdpa_bwd_ms(q, k, v)
-    f32_in = model_in[torch.float32]
-    f32_run = lambda: lsum.landmark_summary_bwd(*f32_in)
     print(f"phase 16 sdpa backward: F.scaled_dot_product_attention's "
           f"backward alone on (B, Hkv, n, D) = ({TRAIN_BATCH}, "
           f"{p // TRAIN_BATCH}, {n}, {d}) against S={s_}, bf16: {sdpa:.4f} "
@@ -4197,23 +4242,42 @@ def _bwd_row(model_in, err, launches, train_out):
         "landmark_summary_bwd", 0) // lsum.BWD_LAUNCHES
     in_step = sum(step.get(f"{f} (ms, launches)", [0.0])[0]
                   for f in BWD_DEVICE_FUNCS)
-    return dict(
-        name="landmark_summary_bwd", route="cuda", kernel_route="f32 FMA",
-        **KERNELS["landmark_summary_bwd"],
-        shape=f"P={p} (B={TRAIN_BATCH} x Hkv) n={n} (G x n_landmarks) "
-        f"S={s_} D={d} bf16 in, f32 out", launches=launches,
+    shape = (f"P={p} (B={TRAIN_BATCH} x Hkv) n={n} (G x n_landmarks) "
+             f"S={s_} D={d}")
+    plain_ms = _event_ms(lambda: ref.landmark_summary_bwd_ref(
+        q, k, v, out, dout, scale), 3)
+    bound_ms, bound_by = _bwd_bound(p, n, s_, d, torch.bfloat16)
+    tc = dict(
+        name="landmark_summary_bwd", route="cuda",
+        kernel_route="tensor_core (TMA + wgmma; P, dS and dO in two bf16 "
+        "terms; dO's split pass first)", **KERNELS["landmark_summary_bwd"],
+        shape=f"{shape} bf16 in, f32 out", launches=launches,
         launches_per_landmark_step=train_out["landmark"][
             "launches_per_step"].get("landmark_summary_bwd", 0),
-        max_abs_err=err[torch.bfloat16], max_err_f32_in=err[torch.float32],
-        ms=_event_ms(run, 5), device_ms=_device_ms(run, "landmark_summary_bwd",
-                                                  10),
+        max_abs_err=err[torch.bfloat16], ms=_event_ms(run, 5),
+        device_ms=_device_ms(run, "landmark_summary_bwd", 10),
         device_ms_in_step=in_step / calls if calls and in_step else None,
-        f32_in_ms=_event_ms(f32_run, 5),
-        plain_ms=_event_ms(lambda: ref.landmark_summary_bwd_ref(
-            q, k, v, out, dout, scale), 3),
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=sdpa,
-        library_note="bf16 F.scaled_dot_product_attention backward alone "
-        "(bf16 out, causal off)")
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=sdpa, library_note="bf16 F.scaled_dot_product_attention "
+        "backward alone (bf16 out, causal off)")
+    f32_in = model_in[torch.float32]
+    f32_run = lambda: lsum.landmark_summary_bwd(*f32_in)
+    bound_ms, bound_by = _bwd_bound(p, n, s_, d, torch.float32)
+    sdpa_f32, backend = _sdpa_bwd_ms(*f32_in[:3], torch.float32)
+    print(f"phase 16 sdpa backward, f32: {sdpa_f32:.4f} ms, backend "
+          f"{backend}")
+    fma = dict(
+        name="landmark_summary_bwd_f32", route="cuda",
+        kernel_route="fma (scalar f32 FMAs)",
+        **KERNELS["landmark_summary_bwd_f32"],
+        shape=f"{shape} f32 in, f32 out", launches=0,
+        max_abs_err=err[torch.float32], ms=_event_ms(f32_run, 5),
+        device_ms=_device_ms(f32_run, "landmark_summary_bwd_f32", 10),
+        plain_ms=_event_ms(lambda: ref.landmark_summary_bwd_ref(*f32_in), 3),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=sdpa_f32,
+        library_note="f32 F.scaled_dot_product_attention backward alone "
+        "(causal off)")
+    return [tc, fma]
 
 
 def _lm_bound(p, n, s_, d, dtype):
@@ -4336,7 +4400,7 @@ def _sdpa_backend(q, k, v):
     """The device kernels one SDPA call ran, by name (which backend)."""
     import torch.nn.functional as F
 
-    with _profiled() as prof:
+    with obs_profile.profiled() as prof:
         F.scaled_dot_product_attention(q, k, v)
         sync()
     names = {e.name.split("(")[0].removeprefix("void ")[:80]
@@ -4349,16 +4413,16 @@ def _sdpa_backend(q, k, v):
 def phase_training(card):
     """16: the training slice — (a) kernel 7's backward, (b) SmolLM-360M
     trained on both backends, (c) the train CLI. Returns the backward's
-    table row and the landmark training run's launches."""
+    table rows and the landmark training run's launches."""
     t0 = time.perf_counter()
     bwd_in, bwd_err = phase_train_kernel()
     train_counts, train_out = phase_train(card)
     phase_train_cli(card)
-    row = _bwd_row(bwd_in, bwd_err, train_counts.get(
+    rows = _bwd_rows(bwd_in, bwd_err, train_counts.get(
         "landmark_summary_bwd", 0), train_out)
     print(f"phase 16: launches {train_counts} | "
           f"{time.perf_counter() - t0:.1f}s")
-    return row, train_counts
+    return rows, train_counts
 
 
 def main():
@@ -4401,8 +4465,8 @@ def main():
     engine_mesh_counts = phase_engine_mesh(a, card)
     wide_counts = phase_wide(train, d, test_idx, card)
     moe_counts = phase_moe(card)
-    bwd_row, train_counts = phase_training(card)
-    table.append(bwd_row)
+    bwd_rows, train_counts = phase_training(card)
+    table += bwd_rows
     for row in table:  # the engine runs' launches, every row
         row["launches_engine"] = engine_counts.get(row["name"], 0)
         row["launches_mutations"] = mutation_counts.get(row["name"], 0)

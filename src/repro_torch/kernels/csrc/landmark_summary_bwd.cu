@@ -1,6 +1,5 @@
 // Backward of the landmark summary O = softmax(Q̃ Kᵀ · scale) V for Hopper:
-// (dQ, dK, dV) from (Q, K, V, O, dO), f32 math and outputs, bf16 or f32
-// inputs.
+// (dQ, dK, dV) from (Q, K, V, O, dO), f32 outputs, bf16 or f32 inputs.
 //
 // Replaces no TPU kernel: the reference trains landmark attention by
 // autodiff through plain jnp (src/repro/models/layers.py landmark_attention)
@@ -17,56 +16,95 @@
 // exactly what kernels/ref.py::landmark_summary_bwd_ref computes.
 //
 // What bounds it on an H100 (chip_smoke.py::_bwd_bound): five products of
-// 2·n·S·D a problem (q kᵀ, dO Vᵀ, Pᵀ dO, dS K, dSᵀ q), 0.0204 ms a batch
-// row at SmolLM-360M's landmark shape (P = 5, n = 1536, S = 4096, D = 64)
-// at the bf16 tensor-core rate; the bytes (inputs once, f32 outputs once)
-// take a tenth of that.
+// 2·n·S·D a problem (q kᵀ, dO Vᵀ, Pᵀ dO, dS K, dSᵀ q), 0.163 ms at the
+// training shape of SmolLM-360M (P = 40, n = 1536, S = 4096, D = 64) at the
+// bf16 tensor-core rate; the bytes (inputs once, f32 outputs once) take a
+// tenth of that. Operations bound it, on the tensor cores.
 //
-// The design, simple and deterministic (no atomics; two launches of the
-// same inputs give the same bits), the flash-attention-2 split in two
-// passes, each a loop of scalar f32 FMAs over tiles in shared memory:
-// - pass 1 (bwd_dq_kernel), a block per BQ query rows of one problem: Δ
-//   from O and dO, then one sweep over the key tiles with a running row max
-//   m and denominator l (the forward's online softmax) accumulating
-//   dQ = Σ_j 2^(s_ij·c − m)·(dP_ij − Δᵢ)·K_j in registers, rescaled by
-//   2^(m_old − m_new) as m grows, and divided by l at the end; it writes
-//   each row's log-sum-exp (in log2 units, m + log2 l) and Δ for pass 2;
-// - pass 2 (bwd_dkv_kernel), a block per BK keys of one problem: its K and
-//   V tiles stay in shared memory while it loops over every query tile,
-//   recomputes P = 2^(s·c − lse) and dS, and accumulates dV = Pᵀ dO and
-//   dK = dSᵀ q in registers.
-// The row statistics are recomputed here rather than saved by the forward,
-// so the forward kernel stays as it was measured. Pass 1 does three
-// products and pass 2 four, seven in all against the bound's five.
+// Both routes are the flash-attention-2 backward in two passes, with no
+// atomics (two launches of the same inputs give the same bits):
+// - pass 1, a block per query tile of one problem: Δ from O and dO, then
+//   one sweep over the key tiles with the forward's online softmax (a
+//   running row max m and denominator l in log2 units, scores times
+//   c = scale·log2(e)) accumulating dQ = Σ_j 2^(s_ij·c − m)·(dP_ij − Δᵢ)·K_j,
+//   rescaled by 2^(m_old − m_new) as m grows and divided by l at the end;
+//   it writes each row's log-sum-exp lse = m + log2 l and Δ for pass 2;
+// - pass 2, a block per key tile of one problem: its K and V stay on chip
+//   while it sweeps every query tile, recomputes P = 2^(s·c − lse) and dS,
+//   and accumulates dV = Pᵀ dO and dK = dSᵀ q in registers.
+// The row statistics are recomputed rather than saved by the forward, so
+// the forward kernel stays as it was measured (pass 1 needs q kᵀ for dQ
+// anyway). Keys at or past S are masked (score −inf in pass 1; their rows
+// of dK and dV are not written); queries at or past n take P = 0 in pass 2
+// (lse = +inf): nothing padded enters a softmax.
 //
-// Tiles: 256 threads as a 16 × 16 grid; a thread owns the rows
-// ty + 16·a and the columns tx + 16·b of each product, so the 16 threads of
-// a row are one half-warp and reduce by shuffles (a butterfly: every lane
-// ends with the same bits). Rows of D floats are padded to D + 1 words and
-// score tiles to BK + 16, so the reads of a half-warp fall in distinct
-// banks. BQ = BK = 64 up to D = 128 (pass 2 at D = 128: 174 KB of shared
-// memory), 32 at D = 256. Keys at or past S are masked (score −inf in pass
-// 1; their rows of dK and dV are not written), queries at or past n read
-// as zero and take P = 0 in pass 2 (lse = +inf): nothing is padded into the
-// softmax.
+// Tensor-core route (bf16 inputs, D ∈ {32, 64, 128}: bwd_dq_wgmma_kernel,
+// then bwd_dkv_wgmma_kernel), the forward's TMA + wgmma loop turned to the
+// backward. A producer warp streams tiles by TMA (3-D tensor maps, 128-byte
+// swizzle, 64-byte at D = 32) through a ring of shared-memory stages with
+// full/empty mbarriers; consumer warpgroups of 64 rows run wgmma with f32
+// accumulators in registers. dO arrives as two bf16 planes, hi = bf16(dO)
+// and lo = bf16(dO − hi), from the split pass split_bf16_terms
+// (landmark_summary.cu) that the wrapper runs first; q, k, v are exact in
+// one bf16 term each.
+// - pass 1 (a consumer warpgroup owns 64 query rows; Q and both dO planes
+//   stay in shared memory, K and V tiles stream): S = Q Kᵀ (1 product) and
+//   dP = dO_lo Vᵀ + dO_hi Vᵀ (2) from shared memory; the online softmax in
+//   registers as in the forward (four threads share a row and take its max
+//   by shuffles); dS = 2^(s·c − m)·(dP − Δ) split into ds_hi and ds_lo in
+//   the f32 accumulator layout, which is the register A-fragment layout of
+//   a 16-bit operand (the forward's p_hi/p_lo trick); dQ += ds_hi K +
+//   ds_lo K (2) with K read as the MN-major B operand. 5 products.
+// - pass 2 (a consumer warpgroup owns 64 keys; K and V stay, Q, both dO
+//   planes and the tile's lse and Δ (cp.async.bulk) stream): Sᵀ = K Qᵀ (1),
+//   dPᵀ = V dO_loᵀ + V dO_hiᵀ (2), Pᵀ = 2^(sᵀ·c − lse) and dSᵀ = Pᵀ∘(dPᵀ − Δ)
+//   each split in two in registers; dV += p_hi dO_hi + p_hi dO_lo +
+//   p_lo dO_hi (3; p_lo·dO_lo is ~2^-16 of the sum and dropped) and
+//   dK += ds_hi q + ds_lo q (2), dO and q read as MN-major B operands.
+//   8 products.
+// 13 bf16 products of 2·n·S·D in all against the bound's 5.
+// Why P, dS and dO are split: the bound against the plain version is 1e-4
+// of each gradient's largest |value| (chip_smoke.py::BWD_REL). One bf16
+// term of P and dS gives 1.0e-3 to 4.1e-3 of it on normal bf16 inputs at
+// (P, n, S, D) = (3, 70, 777, 64), (2, 256, 4096, 64), (2, 100, 300, 128),
+// one term of dO 0.9e-3 to 2.4e-3 — 10–40× the bound; two terms of each
+// give 2.2e-6 to 1.0e-5, 2–10% of it (this arithmetic emulated on the CPU:
+// kernels/ref.py::landmark_summary_bwd_split_ref).
+// Tiles (TcTiles below): a 288-thread block (two consumer warpgroups and
+// the producer warp) has 168 registers a thread, enough at D ≤ 64; at
+// D = 128 one consumer warpgroup (160 threads, up to 255 registers) holds
+// dK and dV, 128 registers together, beside the 64 × 64 score tiles.
+// D = 256 (dK and dV alone take 256 registers a thread) stays on the FMA
+// route, chosen by shape in the wrapper.
 //
-// Precision: scalar f32 FMAs on the f32 values of the inputs (no tensor
-// cores), exp2f of scores scaled once by c = scale·log2(e); the sums run in
-// another order than the plain version's, so the bound against it is
-// relative: within 1e-4 of each gradient's largest |value|
-// (chip_smoke.py::BWD_REL; an H100 gave at most 3.5e-6 at every phase-16a
-// shape).
+// FMA route (f32 inputs at every D, bf16 inputs at D = 256: bwd_dq_kernel,
+// then bwd_dkv_kernel): the same two passes as loops of scalar f32 FMAs
+// over tiles in shared memory. 256 threads as a 16 × 16 grid; a thread owns
+// the rows ty + 16·a and the columns tx + 16·b of each product, so the 16
+// threads of a row are one half-warp and reduce by shuffles (a butterfly:
+// every lane ends with the same bits). Rows of D floats are padded to D + 1
+// words and score tiles to BK + 16, so the reads of a half-warp fall in
+// distinct banks. BQ = BK = 64 up to D = 128 (pass 2 at D = 128: 174 KB of
+// shared memory), 32 at D = 256. Pass 1 does three products and pass 2
+// four. Scalar f32 FMAs on the f32 values of the inputs (no tensor cores):
+// the sums run in another order than the plain version's, within 3.5e-6 of
+// max |plain| at every phase-16a shape on an H100, and bound by
+// shared-memory loads (16 for 32 FMAs).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "device_smem.cuh"
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr float kLog2e = 1.4426950408889634f;
+
+// ------------------------------------------------------------- FMA route
+constexpr int kThreads = 256;
 
 template <int D> struct BwdTiles {
   static constexpr int BQ = D == 256 ? 32 : 64;  // query rows a tile
@@ -399,45 +437,647 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, void* dq, void* dk, void* dv, void* lse,
-           void* delta, int P, int N, int S, int D, float scale,
-           void* stream) {
-  if (P <= 0 || N <= 0 || S <= 0 || P > 65535) {
+// ------------------------------------------------------ tensor-core route
+using repro::mbar_arrive;
+using repro::mbar_expect_tx;
+using repro::mbar_init;
+using repro::mbar_wait;
+using repro::pack_bf16;
+using repro::pin;
+using repro::sm90_desc;
+using repro::smem_addr;
+
+// Tiles per head dim: pass 1 has WG1 consumer warpgroups of 64 query rows
+// and streams key tiles of BK1 keys through ST1 stages; pass 2 has WG2
+// consumer warpgroups of 64 keys and streams query tiles of BQ2 rows
+// through ST2 stages. Queries are padded to ROW_PAD rows in the lse and Δ
+// scratch, a multiple of every query tile.
+template <int D> struct TcTiles;
+template <> struct TcTiles<32> {
+  static constexpr int WG1 = 2, BK1 = 64, ST1 = 4, WG2 = 2, BQ2 = 64, ST2 = 4;
+};
+template <> struct TcTiles<64> {
+  static constexpr int WG1 = 2, BK1 = 64, ST1 = 4, WG2 = 2, BQ2 = 64, ST2 = 3;
+};
+template <> struct TcTiles<128> {
+  static constexpr int WG1 = 1, BK1 = 64, ST1 = 3, WG2 = 1, BQ2 = 64, ST2 = 3;
+};
+constexpr int ROW_PAD = 128;
+
+template <int D>
+struct TcLayout {
+  using T = TcTiles<D>;
+  static constexpr int SW = D >= 64 ? 128 : 64;  // swizzle span, bytes
+  static constexpr int AE = SW / 2;              // bf16 per swizzled row
+  static constexpr uint32_t MODE = SW == 128 ? 1 : 2;  // descriptor swizzle
+  // pass 1: Q, dO hi, dO lo tiles of BQ1 rows, then ST1 stages of K and V
+  static constexpr int BQ1 = 64 * T::WG1, BK1 = T::BK1, ST1 = T::ST1;
+  static constexpr int THREADS1 = 128 * T::WG1 + 32;
+  static constexpr int Q1_BYTES = BQ1 * D * 2, KV1_BYTES = BK1 * D * 2;
+  static constexpr size_t SMEM1 =
+      1024 + 3 * Q1_BYTES + static_cast<size_t>(ST1) * 2 * KV1_BYTES;
+  // pass 2: K and V tiles of BK2 keys, then ST2 stages of Q, dO hi, dO lo
+  // (BQ2 rows each) and the rows' lse and Δ, padded to 1024 bytes
+  static constexpr int BK2 = 64 * T::WG2, BQ2 = T::BQ2, ST2 = T::ST2;
+  static constexpr int THREADS2 = 128 * T::WG2 + 32;
+  static constexpr int KV2_BYTES = BK2 * D * 2, Q2_BYTES = BQ2 * D * 2;
+  static constexpr int STAT_BYTES = 2 * BQ2 * 4;
+  static constexpr int STAGE2 = 3 * Q2_BYTES + 1024;
+  static constexpr size_t SMEM2 =
+      1024 + 2 * KV2_BYTES + static_cast<size_t>(ST2) * STAGE2;
+  static_assert(ROW_PAD % BQ1 == 0 && ROW_PAD % BQ2 == 0, "row padding");
+  static_assert(STAT_BYTES <= 1024, "lse and delta fit the stage's pad");
+};
+
+// descriptor of the k16 step kk of a K-major operand: rows [r0, r0 + 64)
+// (an A operand) or all rows (a B operand) of a TMA tile of `rows` rows,
+// stored as D / AE column blocks of rows × SW bytes
+template <int D>
+__device__ __forceinline__ uint64_t k_major(uint32_t tile, int rows, int r0,
+                                            int kk) {
+  using L = TcLayout<D>;
+  const int cb = kk / (L::AE / 16), off = (kk % (L::AE / 16)) * 32;
+  return sm90_desc(tile + (cb * rows + r0) * L::SW + off, 16, 8 * L::SW,
+                   L::MODE);
+}
+
+// descriptor of the k16 step kc of an MN-major B operand: tile rows
+// [16·kc, 16·kc + 16) down the reduction axis, all D columns
+template <int D>
+__device__ __forceinline__ uint64_t mn_major(uint32_t tile, int rows, int kc) {
+  using L = TcLayout<D>;
+  return sm90_desc(tile + kc * 16 * L::SW, rows * L::SW, 8 * L::SW, L::MODE);
+}
+
+// the low and high bf16 halves of a bf16x2 register, as floats
+__device__ __forceinline__ float lo_f32(uint32_t h) {
+  return __uint_as_float(h << 16);
+}
+__device__ __forceinline__ float hi_f32(uint32_t h) {
+  return __uint_as_float(h & 0xffff0000u);
+}
+
+// x (two f32) → hi = bf16(x), lo = bf16(x − hi); x − hi is exact
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = pack_bf16(a, b);
+  lo = pack_bf16(a - lo_f32(hi), b - hi_f32(hi));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// an m64nN f32 accumulator as hi and lo A fragments of k16 chunks: chunk kc
+// takes accumulator blocks 2kc and 2kc + 1
+template <int N>
+__device__ __forceinline__ void fragments(const float (&x)[N / 2],
+                                          uint32_t (&hi)[N / 16][4],
+                                          uint32_t (&lo)[N / 16][4]) {
+#pragma unroll
+  for (int kc = 0; kc < N / 16; ++kc) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      split_bf16(x[8 * kc + 2 * r], x[8 * kc + 2 * r + 1], hi[kc][r],
+                 lo[kc][r]);
+    }
+  }
+}
+
+// pass 1: dQ, and each query row's lse (log2 units) and Δ for rows < NP
+// (rows ≥ n: lse = +inf, Δ = 0)
+template <int D>
+__global__ void __launch_bounds__(TcLayout<D>::THREADS1, 1)
+bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap dmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    const float* __restrict__ o,
+                    const float* __restrict__ dout, float* __restrict__ dq,
+                    float* __restrict__ lse, float* __restrict__ delta, int P,
+                    int N, int NP, int S, float c, float scale) {
+  using L = TcLayout<D>;
+  constexpr int BQ = L::BQ1, BK = L::BK1, STAGES = L::ST1;
+  constexpr int CONSUMERS = BQ * 2;  // 128 threads a 64-row warpgroup
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[STAGES];
+  __shared__ __align__(8) uint64_t empty_bar[STAGES];
+  __shared__ __align__(8) uint64_t q_bar;
+
+  // Q, dO hi, dO lo, then the stages of K and V; 1024-byte aligned tiles
+  const uint32_t q_s = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t kv_s = q_s + 3 * L::Q1_BYTES;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = blockIdx.x * BQ, prob = blockIdx.y;
+  const int tiles = (S + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(smem_addr(&full_bar[s]), 1);
+      mbar_init(smem_addr(&empty_bar[s]), CONSUMERS / 32);
+    }
+    mbar_init(smem_addr(&q_bar), 1);
+    repro::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == CONSUMERS / 32) {
+    // ---------------------------------------------------------- producer
+    // dO plane t of problem `prob` is slice t·P + prob of its map
+    if (lane == 0) {
+      const uint32_t qb = smem_addr(&q_bar);
+      mbar_expect_tx(qb, 3 * L::Q1_BYTES);
+      for (int cb = 0; cb < D / L::AE; ++cb) {
+        const uint32_t at = cb * BQ * L::SW;
+        repro::tma_load_3d(q_s + at, &qmap, qb, cb * L::AE, row0, prob);
+        repro::tma_load_3d(q_s + L::Q1_BYTES + at, &dmap, qb, cb * L::AE,
+                           row0, prob);
+        repro::tma_load_3d(q_s + 2 * L::Q1_BYTES + at, &dmap, qb, cb * L::AE,
+                           row0, P + prob);
+      }
+      for (int t = 0; t < tiles; ++t) {
+        const int st = t % STAGES;
+        mbar_wait(smem_addr(&empty_bar[st]), ((t / STAGES) & 1) ^ 1);
+        const uint32_t fb = smem_addr(&full_bar[st]);
+        const uint32_t stage = kv_s + st * 2 * L::KV1_BYTES;
+        mbar_expect_tx(fb, 2 * L::KV1_BYTES);
+        for (int cb = 0; cb < D / L::AE; ++cb) {
+          const uint32_t at = cb * BK * L::SW;
+          repro::tma_load_3d(stage + at, &kmap, fb, cb * L::AE, t * BK, prob);
+          repro::tma_load_3d(stage + L::KV1_BYTES + at, &vmap, fb,
+                             cb * L::AE, t * BK, prob);
+        }
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------ consumers
+  const int wg = warp >> 2, gid = lane >> 2, tig = lane & 3;
+  // this thread's two rows of the tile and its columns 8j + 2·tig (+1)
+  const int row_a = row0 + wg * 64 + (warp & 3) * 16 + gid;
+  const int row_b = row_a + 8;
+  const size_t qoff = static_cast<size_t>(prob) * N * D;
+
+  // Δ of both rows: this thread's D/4 columns, then the row's four threads
+  // by a butterfly (every lane ends with the same bits)
+  float dlt_a = 0.0f, dlt_b = 0.0f;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * tig;
+    if (row_a < N) {
+      const size_t at = qoff + static_cast<size_t>(row_a) * D + col;
+      const float2 x = *reinterpret_cast<const float2*>(dout + at);
+      const float2 y = *reinterpret_cast<const float2*>(o + at);
+      dlt_a = fmaf(x.x, y.x, dlt_a);
+      dlt_a = fmaf(x.y, y.y, dlt_a);
+    }
+    if (row_b < N) {
+      const size_t at = qoff + static_cast<size_t>(row_b) * D + col;
+      const float2 x = *reinterpret_cast<const float2*>(dout + at);
+      const float2 y = *reinterpret_cast<const float2*>(o + at);
+      dlt_b = fmaf(x.x, y.x, dlt_b);
+      dlt_b = fmaf(x.y, y.y, dlt_b);
+    }
+  }
+#pragma unroll
+  for (int w = 1; w < 4; w <<= 1) {
+    dlt_a += __shfl_xor_sync(0xffffffffu, dlt_a, w);
+    dlt_b += __shfl_xor_sync(0xffffffffu, dlt_b, w);
+  }
+
+  float acc[D / 2];  // m64nD dQ accumulator
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  float m_a = -INFINITY, m_b = -INFINITY;  // running max of s·c
+  float l_a = 0.0f, l_b = 0.0f;            // this thread's share of l
+
+  mbar_wait(smem_addr(&q_bar), 0);
+  for (int t = 0; t < tiles; ++t) {
+    const int st = t % STAGES;
+    mbar_wait(smem_addr(&full_bar[st]), (t / STAGES) & 1);
+    const uint32_t k_t = kv_s + st * 2 * L::KV1_BYTES;
+    const uint32_t v_t = k_t + L::KV1_BYTES;
+    // the A tiles' address opaque to the compiler, so their descriptors are
+    // made again each tile instead of held in registers across the loop
+    uint32_t a_t = q_s;
+    asm volatile("" : "+r"(a_t));
+
+    // S = Q Kᵀ; dP = dO_lo Vᵀ + dO_hi Vᵀ, the small product first
+    float s[BK / 2], dp[BK / 2];
+    repro::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      repro::wgmma_ss<BK>(s, k_major<D>(a_t, BQ, wg * 64, kk),
+                          k_major<D>(k_t, BK, 0, kk), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      repro::wgmma_ss<BK>(dp, k_major<D>(a_t + 2 * L::Q1_BYTES, BQ, wg * 64,
+                                         kk),
+                          k_major<D>(v_t, BK, 0, kk), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      repro::wgmma_ss<BK>(dp, k_major<D>(a_t + L::Q1_BYTES, BQ, wg * 64, kk),
+                          k_major<D>(v_t, BK, 0, kk), 1);
+    }
+    repro::wgmma_commit();
+    repro::wgmma_wait_all();
+    pin(s);
+    pin(dp);
+
+    // scores in log2 units, s·c; keys ≥ S (the ragged last tile) −inf
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] *= c;
+    const int live = S - t * BK;
+    if (live < BK) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        const int col = 8 * j + 2 * tig;
+        if (col >= live) s[4 * j] = s[4 * j + 2] = -INFINITY;
+        if (col + 1 >= live) s[4 * j + 1] = s[4 * j + 3] = -INFINITY;
+      }
+    }
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      mx_a = fmaxf(mx_a, fmaxf(s[4 * j], s[4 * j + 1]));
+      mx_b = fmaxf(mx_b, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+#pragma unroll
+    for (int w = 1; w < 4; w <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, w));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, w));
+    }
+    // finite: every tile holds a live key
+    const float new_a = fmaxf(m_a, mx_a), new_b = fmaxf(m_b, mx_b);
+    const float alpha_a = m_a == -INFINITY ? 0.0f : ex2(m_a - new_a);
+    const float alpha_b = m_b == -INFINITY ? 0.0f : ex2(m_b - new_b);
+    m_a = new_a;
+    m_b = new_b;
+
+    // p = 2^(s·c − m) into l; dS = p·(dP − Δ) in place of s
+    float sum_a = 0.0f, sum_b = 0.0f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const float p0 = ex2(s[4 * j] - new_a), p1 = ex2(s[4 * j + 1] - new_a);
+      const float p2 = ex2(s[4 * j + 2] - new_b);
+      const float p3 = ex2(s[4 * j + 3] - new_b);
+      sum_a += p0 + p1;
+      sum_b += p2 + p3;
+      s[4 * j] = p0 * (dp[4 * j] - dlt_a);
+      s[4 * j + 1] = p1 * (dp[4 * j + 1] - dlt_a);
+      s[4 * j + 2] = p2 * (dp[4 * j + 2] - dlt_b);
+      s[4 * j + 3] = p3 * (dp[4 * j + 3] - dlt_b);
+    }
+    l_a = l_a * alpha_a + sum_a;
+    l_b = l_b * alpha_b + sum_b;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      acc[4 * j] *= alpha_a;
+      acc[4 * j + 1] *= alpha_a;
+      acc[4 * j + 2] *= alpha_b;
+      acc[4 * j + 3] *= alpha_b;
+    }
+
+    // dQ += ds_hi K + ds_lo K, k16 steps of 16 keys down K's rows
+    uint32_t ds_hi[BK / 16][4], ds_lo[BK / 16][4];
+    fragments<BK>(s, ds_hi, ds_lo);
+    pin(acc);
+    pin(ds_hi);
+    pin(ds_lo);
+    repro::wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < BK / 16; ++kc) {
+      const uint64_t kb = mn_major<D>(k_t, BK, kc);
+      repro::wgmma_rs<D>(acc, ds_hi[kc], kb);
+      repro::wgmma_rs<D>(acc, ds_lo[kc], kb);
+    }
+    repro::wgmma_commit();
+    repro::wgmma_wait_all();
+    pin(acc);
+    pin(ds_hi);
+    pin(ds_lo);
+    if (lane == 0) mbar_arrive(smem_addr(&empty_bar[st]));  // K, V read
+  }
+
+#pragma unroll
+  for (int w = 1; w < 4; w <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, w);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, w);
+  }
+  const float inv_a = scale / l_a, inv_b = scale / l_b;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * tig;
+    if (row_a < N) {
+      *reinterpret_cast<float2*>(dq + qoff + static_cast<size_t>(row_a) * D +
+                                 col) =
+          make_float2(acc[4 * j] * inv_a, acc[4 * j + 1] * inv_a);
+    }
+    if (row_b < N) {
+      *reinterpret_cast<float2*>(dq + qoff + static_cast<size_t>(row_b) * D +
+                                 col) =
+          make_float2(acc[4 * j + 2] * inv_b, acc[4 * j + 3] * inv_b);
+    }
+  }
+  if (tig == 0) {
+    const size_t roff = static_cast<size_t>(prob) * NP;
+    if (row_a < NP) {
+      lse[roff + row_a] = row_a < N ? m_a + log2f(l_a) : INFINITY;
+      delta[roff + row_a] = row_a < N ? dlt_a : 0.0f;
+    }
+    if (row_b < NP) {
+      lse[roff + row_b] = row_b < N ? m_b + log2f(l_b) : INFINITY;
+      delta[roff + row_b] = row_b < N ? dlt_b : 0.0f;
+    }
+  }
+}
+
+// pass 2: dK and dV of BK2 keys, over every query tile
+template <int D>
+__global__ void __launch_bounds__(TcLayout<D>::THREADS2, 1)
+bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap dmap,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int P, int N, int NP, int S,
+                     float c, float scale) {
+  using L = TcLayout<D>;
+  constexpr int BK = L::BK2, BQ = L::BQ2, STAGES = L::ST2;
+  constexpr int CONSUMERS = BK * 2;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[STAGES];
+  __shared__ __align__(8) uint64_t empty_bar[STAGES];
+  __shared__ __align__(8) uint64_t kv_bar;
+
+  // K, V, then the stages: Q, dO hi, dO lo, lse and Δ of the tile's rows
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t k_s = (raw + 1023) & ~1023u;
+  const uint32_t st_s = k_s + 2 * L::KV2_BYTES;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int key0 = blockIdx.x * BK, prob = blockIdx.y;
+  const int tiles = (N + BQ - 1) / BQ;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(smem_addr(&full_bar[s]), 1);
+      mbar_init(smem_addr(&empty_bar[s]), CONSUMERS / 32);
+    }
+    mbar_init(smem_addr(&kv_bar), 1);
+    repro::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == CONSUMERS / 32) {
+    // ---------------------------------------------------------- producer
+    if (lane == 0) {
+      const uint32_t kb = smem_addr(&kv_bar);
+      mbar_expect_tx(kb, 2 * L::KV2_BYTES);
+      for (int cb = 0; cb < D / L::AE; ++cb) {
+        const uint32_t at = cb * BK * L::SW;
+        repro::tma_load_3d(k_s + at, &kmap, kb, cb * L::AE, key0, prob);
+        repro::tma_load_3d(k_s + L::KV2_BYTES + at, &vmap, kb, cb * L::AE,
+                           key0, prob);
+      }
+      const float* lse_p = lse + static_cast<size_t>(prob) * NP;
+      const float* dlt_p = delta + static_cast<size_t>(prob) * NP;
+      for (int t = 0; t < tiles; ++t) {
+        const int st = t % STAGES;
+        mbar_wait(smem_addr(&empty_bar[st]), ((t / STAGES) & 1) ^ 1);
+        const uint32_t fb = smem_addr(&full_bar[st]);
+        const uint32_t stage = st_s + st * L::STAGE2;
+        mbar_expect_tx(fb, 3 * L::Q2_BYTES + L::STAT_BYTES);
+        for (int cb = 0; cb < D / L::AE; ++cb) {
+          const uint32_t at = cb * BQ * L::SW;
+          repro::tma_load_3d(stage + at, &qmap, fb, cb * L::AE, t * BQ, prob);
+          repro::tma_load_3d(stage + L::Q2_BYTES + at, &dmap, fb, cb * L::AE,
+                             t * BQ, prob);
+          repro::tma_load_3d(stage + 2 * L::Q2_BYTES + at, &dmap, fb,
+                             cb * L::AE, t * BQ, P + prob);
+        }
+        const uint32_t stat = stage + 3 * L::Q2_BYTES;
+        repro::bulk_load(stat, lse_p + t * BQ, BQ * 4, fb);
+        repro::bulk_load(stat + BQ * 4, dlt_p + t * BQ, BQ * 4, fb);
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------ consumers
+  const int wg = warp >> 2, gid = lane >> 2, tig = lane & 3;
+  // this thread's two keys of the tile and its columns (queries, or D)
+  // 8j + 2·tig (+1)
+  const int key_a = key0 + wg * 64 + (warp & 3) * 16 + gid;
+  const int key_b = key_a + 8;
+
+  float gk[D / 2], gv[D / 2];  // m64nD dK and dV accumulators
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) gk[i] = gv[i] = 0.0f;
+
+  mbar_wait(smem_addr(&kv_bar), 0);
+  for (int t = 0; t < tiles; ++t) {
+    const int st = t % STAGES;
+    mbar_wait(smem_addr(&full_bar[st]), (t / STAGES) & 1);
+    const uint32_t q_t = st_s + st * L::STAGE2;
+    const uint32_t hi_t = q_t + L::Q2_BYTES, lo_t = hi_t + L::Q2_BYTES;
+    const float* stat = reinterpret_cast<const float*>(
+        smem_raw + (lo_t + L::Q2_BYTES - raw));
+    uint32_t a_t = k_s;  // made again each tile, as in pass 1
+    asm volatile("" : "+r"(a_t));
+
+    // Sᵀ = K Qᵀ; dPᵀ = V dO_loᵀ + V dO_hiᵀ
+    float s[BQ / 2], dp[BQ / 2];
+    repro::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      repro::wgmma_ss<BQ>(s, k_major<D>(a_t, BK, wg * 64, kk),
+                          k_major<D>(q_t, BQ, 0, kk), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      repro::wgmma_ss<BQ>(dp, k_major<D>(a_t + L::KV2_BYTES, BK, wg * 64, kk),
+                          k_major<D>(lo_t, BQ, 0, kk), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      repro::wgmma_ss<BQ>(dp, k_major<D>(a_t + L::KV2_BYTES, BK, wg * 64, kk),
+                          k_major<D>(hi_t, BQ, 0, kk), 1);
+    }
+    repro::wgmma_commit();
+    repro::wgmma_wait_all();
+    pin(s);
+    pin(dp);
+
+    // Pᵀ = 2^(sᵀ·c − lse) in place of s, dSᵀ = Pᵀ·(dPᵀ − Δ) in place of
+    // dp; queries ≥ n have lse = +inf, so P = 0
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const int col = 8 * j + 2 * tig;
+      const float2 ls = *reinterpret_cast<const float2*>(stat + col);
+      const float2 dl = *reinterpret_cast<const float2*>(stat + BQ + col);
+      s[4 * j] = ex2(s[4 * j] * c - ls.x);
+      s[4 * j + 1] = ex2(s[4 * j + 1] * c - ls.y);
+      s[4 * j + 2] = ex2(s[4 * j + 2] * c - ls.x);
+      s[4 * j + 3] = ex2(s[4 * j + 3] * c - ls.y);
+      dp[4 * j] = s[4 * j] * (dp[4 * j] - dl.x);
+      dp[4 * j + 1] = s[4 * j + 1] * (dp[4 * j + 1] - dl.y);
+      dp[4 * j + 2] = s[4 * j + 2] * (dp[4 * j + 2] - dl.x);
+      dp[4 * j + 3] = s[4 * j + 3] * (dp[4 * j + 3] - dl.y);
+    }
+    uint32_t p_hi[BQ / 16][4], p_lo[BQ / 16][4];
+    uint32_t ds_hi[BQ / 16][4], ds_lo[BQ / 16][4];
+    fragments<BQ>(s, p_hi, p_lo);
+    fragments<BQ>(dp, ds_hi, ds_lo);
+
+    // dV += p_hi dO_hi + p_hi dO_lo + p_lo dO_hi; dK += ds_hi q + ds_lo q;
+    // k16 steps of 16 queries down the tiles' rows
+    pin(gk);
+    pin(gv);
+    pin(p_hi);
+    pin(p_lo);
+    pin(ds_hi);
+    pin(ds_lo);
+    repro::wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < BQ / 16; ++kc) {
+      const uint64_t dhi = mn_major<D>(hi_t, BQ, kc);
+      repro::wgmma_rs<D>(gv, p_hi[kc], dhi);
+      repro::wgmma_rs<D>(gv, p_hi[kc], mn_major<D>(lo_t, BQ, kc));
+      repro::wgmma_rs<D>(gv, p_lo[kc], dhi);
+      const uint64_t qb = mn_major<D>(q_t, BQ, kc);
+      repro::wgmma_rs<D>(gk, ds_hi[kc], qb);
+      repro::wgmma_rs<D>(gk, ds_lo[kc], qb);
+    }
+    repro::wgmma_commit();
+    repro::wgmma_wait_all();
+    pin(gk);
+    pin(gv);
+    pin(p_hi);
+    pin(p_lo);
+    pin(ds_hi);
+    pin(ds_lo);
+    if (lane == 0) mbar_arrive(smem_addr(&empty_bar[st]));  // stage read
+  }
+
+  const size_t koff = static_cast<size_t>(prob) * S * D;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * tig;
+    if (key_a < S) {
+      const size_t at = koff + static_cast<size_t>(key_a) * D + col;
+      *reinterpret_cast<float2*>(dk + at) =
+          make_float2(gk[4 * j] * scale, gk[4 * j + 1] * scale);
+      *reinterpret_cast<float2*>(dv + at) = make_float2(gv[4 * j],
+                                                        gv[4 * j + 1]);
+    }
+    if (key_b < S) {
+      const size_t at = koff + static_cast<size_t>(key_b) * D + col;
+      *reinterpret_cast<float2*>(dk + at) =
+          make_float2(gk[4 * j + 2] * scale, gk[4 * j + 3] * scale);
+      *reinterpret_cast<float2*>(dv + at) = make_float2(gv[4 * j + 2],
+                                                        gv[4 * j + 3]);
+    }
+  }
+}
+
+template <int D>
+int launch_tc(const void* q, const void* k, const void* v, const void* o,
+              const void* dout, const void* planes, void* dq, void* dk,
+              void* dv, void* lse, void* delta, int P, int N, int NP, int S,
+              float scale, cudaStream_t stream) {
+  using L = TcLayout<D>;
+  CUtensorMap q1, d1, k1, v1, k2, v2, q2, d2;
+  if (!repro::bf16_tensor_map(&q1, q, P, N, D, L::BQ1, L::SW) ||
+      !repro::bf16_tensor_map(&d1, planes, 2 * P, N, D, L::BQ1, L::SW) ||
+      !repro::bf16_tensor_map(&k1, k, P, S, D, L::BK1, L::SW) ||
+      !repro::bf16_tensor_map(&v1, v, P, S, D, L::BK1, L::SW) ||
+      !repro::bf16_tensor_map(&k2, k, P, S, D, L::BK2, L::SW) ||
+      !repro::bf16_tensor_map(&v2, v, P, S, D, L::BK2, L::SW) ||
+      !repro::bf16_tensor_map(&q2, q, P, N, D, L::BQ2, L::SW) ||
+      !repro::bf16_tensor_map(&d2, planes, 2 * P, N, D, L::BQ2, L::SW)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static size_t sized1[repro::kMaxDevices] = {};  // the >48 KB opt-ins
+  static size_t sized2[repro::kMaxDevices] = {};
+  cudaError_t err = repro::allow_smem(bwd_dq_wgmma_kernel<D>, L::SMEM1, sized1);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = repro::allow_smem(bwd_dkv_wgmma_kernel<D>, L::SMEM2, sized2);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float c = scale * kLog2e;
+  bwd_dq_wgmma_kernel<D><<<dim3(NP / L::BQ1, P), L::THREADS1, L::SMEM1,
+                           stream>>>(
+      q1, d1, k1, v1, static_cast<const float*>(o),
+      static_cast<const float*>(dout), static_cast<float*>(dq),
+      static_cast<float*>(lse), static_cast<float*>(delta), P, N, NP, S, c,
+      scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bwd_dkv_wgmma_kernel<D><<<dim3((S + L::BK2 - 1) / L::BK2, P), L::THREADS2,
+                            L::SMEM2, stream>>>(
+      k2, v2, q2, d2, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dk),
+      static_cast<float*>(dv), P, N, NP, S, c, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool valid(int P, int N, int S) {
+  return P > 0 && N > 0 && S > 0 && P <= 65535;
+}
+
+}  // namespace
+
+// bf16 q (P, N, D), k and v (P, S, D), D ∈ {32, 64, 128}; o and dout
+// (P, N, D) f32 and dout's two bf16 planes (2, P, N, D) (split_bf16_terms)
+// → dq (P, N, D), dk and dv (P, S, D) f32; lse and delta (P, NP) f32
+// scratch, NP = N rounded up to a multiple of 128, written by pass 1 and
+// read by pass 2. All 16-byte aligned. Two launches.
+extern "C" int landmark_summary_bwd_tc(const void* q, const void* k,
+                                       const void* v, const void* o,
+                                       const void* dout, const void* planes,
+                                       void* dq, void* dk, void* dv,
+                                       void* lse, void* delta, int P, int N,
+                                       int NP, int S, int D, float scale,
+                                       void* stream) {
+  if (!valid(P, N, S) || NP < N || NP % ROW_PAD) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32:
-      return launch_bwd<32, T>(q, k, v, o, dout, dq, dk, dv, lse, delta, P, N,
-                               S, scale, st);
+      return launch_tc<32>(q, k, v, o, dout, planes, dq, dk, dv, lse, delta,
+                           P, N, NP, S, scale, st);
     case 64:
-      return launch_bwd<64, T>(q, k, v, o, dout, dq, dk, dv, lse, delta, P, N,
-                               S, scale, st);
+      return launch_tc<64>(q, k, v, o, dout, planes, dq, dk, dv, lse, delta,
+                           P, N, NP, S, scale, st);
     case 128:
-      return launch_bwd<128, T>(q, k, v, o, dout, dq, dk, dv, lse, delta, P,
-                                N, S, scale, st);
-    case 256:
-      return launch_bwd<256, T>(q, k, v, o, dout, dq, dk, dv, lse, delta, P,
-                                N, S, scale, st);
+      return launch_tc<128>(q, k, v, o, dout, planes, dq, dk, dv, lse, delta,
+                            P, N, NP, S, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-}  // namespace
-
-// q (P, N, D), k and v (P, S, D) of one dtype; o and dout (P, N, D) f32 →
-// dq (P, N, D), dk and dv (P, S, D) f32; lse and delta (P, N) f32 scratch
-// written by pass 1 and read by pass 2. Two launches.
+// The FMA route: q (P, N, D), k and v (P, S, D) f32 at any D of {32, 64,
+// 128, 256}, or bf16 at D = 256; o and dout (P, N, D) f32 → dq (P, N, D),
+// dk and dv (P, S, D) f32; lse and delta (P, N) f32 scratch written by pass
+// 1 and read by pass 2. Two launches.
 extern "C" int landmark_summary_bwd_bf16(const void* q, const void* k,
                                          const void* v, const void* o,
                                          const void* dout, void* dq, void* dk,
                                          void* dv, void* lse, void* delta,
                                          int P, int N, int S, int D,
                                          float scale, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, lse, delta, P, N,
-                               S, D, scale, stream);
+  if (!valid(P, N, S) || D != 256) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_bwd<256, __nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, lse,
+                                        delta, P, N, S, scale,
+                                        static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int landmark_summary_bwd_f32(const void* q, const void* k,
@@ -446,6 +1086,21 @@ extern "C" int landmark_summary_bwd_f32(const void* q, const void* k,
                                         void* dv, void* lse, void* delta,
                                         int P, int N, int S, int D,
                                         float scale, void* stream) {
-  return launch<float>(q, k, v, o, dout, dq, dk, dv, lse, delta, P, N, S, D,
-                       scale, stream);
+  if (!valid(P, N, S)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32:
+      return launch_bwd<32, float>(q, k, v, o, dout, dq, dk, dv, lse, delta,
+                                   P, N, S, scale, st);
+    case 64:
+      return launch_bwd<64, float>(q, k, v, o, dout, dq, dk, dv, lse, delta,
+                                   P, N, S, scale, st);
+    case 128:
+      return launch_bwd<128, float>(q, k, v, o, dout, dq, dk, dv, lse, delta,
+                                    P, N, S, scale, st);
+    case 256:
+      return launch_bwd<256, float>(q, k, v, o, dout, dq, dk, dv, lse, delta,
+                                    P, N, S, scale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA bulk and
 // tensor loads, and warpgroup matrix multiplies (wgmma) on bf16 operands
-// with f32 accumulators. Used by landmark_summary.cu, masked_similarity.cu
-// and knn_topk.cu; see there for how they fit.
+// with f32 accumulators, and the host's tensor-map encoding. Used by
+// landmark_summary.cu (which keeps its own tensor-map helpers, as it was
+// measured), landmark_summary_bwd.cu, masked_similarity.cu and knn_topk.cu;
+// see there for how they fit.
 //
 // Shared-memory operands are described by wgmma matrix descriptors
 // (sm90_desc). The layouts are the canonical ones TMA writes with a 64- or
@@ -99,6 +101,59 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
       : "memory");
+}
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library links without libcuda; null when the driver has none
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) {
+      return nullptr;
+    }
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a (slices, rows, cols) bf16 tensor, contiguous, as a 3-D map read in
+// (sw / 2, box_rows, 1) boxes with a `sw`-byte swizzle (64 or 128); zeros
+// past each edge
+inline bool bf16_tensor_map(CUtensorMap* map, const void* base, int slices,
+                            int rows, int cols, int box_rows, int sw) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(slices)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 2,
+                                 static_cast<cuuint64_t>(rows) * cols * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(sw / 2),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                          : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // ------------------------------------------------------------------- wgmma

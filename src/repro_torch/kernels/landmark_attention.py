@@ -14,9 +14,13 @@ counts the split pass.
 
 :func:`landmark_summary` is differentiable: with grad enabled and an input
 that requires grad it runs through :class:`LandmarkSummary`, the forward
-kernel and then :func:`landmark_summary_bwd`'s kernel (two launches a
-call, counted in ``landmark_summary_bwd.launches``); CPU tensors take the
-plain versions of both.
+kernel and then :func:`landmark_summary_bwd`'s kernels (two launches a
+call, counted in ``landmark_summary_bwd.launches``, and by route in
+``landmark_summary_bwd.route_launches``); CPU tensors take the plain
+versions of both. The backward's route is chosen by dtype and head dim:
+bfloat16 inputs at D ≤ 128 go through ``tensor_core`` (TMA + wgmma, dO
+split into two bf16 planes by :func:`bf16_terms` first, which counts that
+split pass), float32 inputs and D = 256 through ``fma`` (scalar f32 FMAs).
 """
 from __future__ import annotations
 
@@ -33,11 +37,18 @@ ROUTES = {torch.bfloat16: ("tensor_core", "landmark_summary_bf16"),
           torch.float32: ("f32_split", "landmark_summary_f32")}
 QK_TERMS, V_TERMS = 3, 2  # bf16 terms of f32 q and k, and of f32 v
 MAX_PROBLEMS = 65535  # the grid's y axis
-# dtype → the backward's C entry point; its launches a call (the dq pass,
-# then the dk/dv pass)
-BWD_ENTRIES = {torch.bfloat16: "landmark_summary_bwd_bf16",
-               torch.float32: "landmark_summary_bwd_f32"}
+# the backward's launches a call (the dq pass, then the dk/dv pass); its
+# tensor-core route's head dims (bf16 inputs; D = 256 keeps dK and dV in
+# 256 registers a thread, more than a thread has, so it takes the FMA
+# route); the FMA route's C entry point by dtype
 BWD_LAUNCHES = 2
+BWD_TC_DIMS = (32, 64, 128)
+BWD_FMA_ENTRIES = {torch.bfloat16: "landmark_summary_bwd_bf16",
+                   torch.float32: "landmark_summary_bwd_f32"}
+BWD_DO_TERMS = 2  # bf16 planes of dO on the tensor-core route
+# lse and Δ rows of the tensor-core route: n padded to a multiple of every
+# query tile (ROW_PAD in csrc/landmark_summary_bwd.cu)
+BWD_ROW_PAD = 128
 # bytes: TMA's base address and row strides, and the split pass's float4
 # loads
 ALIGN = 16
@@ -155,9 +166,11 @@ def landmark_summary_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale) v given ``dout``: the backward of :func:`landmark_summary`, in
     its shapes (2-D, or P problems).
 
-    CUDA tensors go through the backward kernel (q, k, v as the forward
-    takes them; ``out`` and ``dout`` contiguous float32 of q's shape on the
-    same device; else ValueError), two launches; a failed launch raises
+    CUDA tensors go through the backward kernels of the route
+    :func:`bwd_route` names (q, k, v as the forward takes them; ``out``
+    and ``dout`` contiguous float32 of q's shape on the same device, 16-byte
+    aligned; else ValueError), two launches, after :func:`bf16_terms` of
+    ``dout`` on the ``tensor_core`` route; a failed launch raises
     RuntimeError. CPU tensors take the plain version,
     :func:`ref.landmark_summary_bwd_ref`.
     """
@@ -173,21 +186,45 @@ def landmark_summary_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.shape != q.shape:
             raise ValueError(f"{name}: out and dout must be {tuple(q.shape)}"
                              f", got {tuple(t.shape)}")
+        if t.data_ptr() % ALIGN:
+            raise ValueError(f"{name}: out and dout must start on a {ALIGN}"
+                             f"-byte boundary")
     dq = torch.empty((p, n, d), dtype=torch.float32, device=q.device)
-    dk = torch.zeros((p, s, d), dtype=torch.float32, device=q.device)
-    dv = torch.zeros_like(dk)
+    # every row of dk and dv is written when there is a query
+    alloc = torch.empty if p and n else torch.zeros
+    dk = alloc((p, s, d), dtype=torch.float32, device=q.device)
+    dv = alloc((p, s, d), dtype=torch.float32, device=q.device)
     if p and n:
-        lse = torch.empty((p, n), dtype=torch.float32, device=q.device)
+        route = bwd_route(q.dtype, d)
+        tc = route == "tensor_core"
+        rows = -(-n // BWD_ROW_PAD) * BWD_ROW_PAD if tc else n
+        lse = torch.empty((p, rows), dtype=torch.float32, device=q.device)
         delta = torch.empty_like(lse)
-        build.launch(BWD_ENTRIES[q.dtype], q, k, v, out, dout, dq, dk, dv,
-                     lse, delta, p, n, s, d, float(scale))
+        if tc:
+            planes = bf16_terms(dout, BWD_DO_TERMS)
+            build.launch("landmark_summary_bwd_tc", q, k, v, out, dout,
+                         planes, dq, dk, dv, lse, delta, p, n, rows, s, d,
+                         float(scale))
+        else:
+            build.launch(BWD_FMA_ENTRIES[q.dtype], q, k, v, out, dout, dq,
+                         dk, dv, lse, delta, p, n, s, d, float(scale))
         build.count_launch(landmark_summary_bwd, BWD_LAUNCHES)
+        landmark_summary_bwd.route_launches[route] += BWD_LAUNCHES
     if single:
         return dq[0], dk[0], dv[0]
     return dq, dk, dv
 
 
+def bwd_route(dtype: torch.dtype, d: int) -> str:
+    """The backward's route for inputs of ``dtype`` and head dim ``d``:
+    ``tensor_core`` for bfloat16 at D in :data:`BWD_TC_DIMS`, else
+    ``fma``."""
+    return ("tensor_core" if dtype == torch.bfloat16 and d in BWD_TC_DIMS
+            else "fma")
+
+
 landmark_summary_bwd.launches = 0
+landmark_summary_bwd.route_launches = {"tensor_core": 0, "fma": 0}
 
 
 class LandmarkSummary(torch.autograd.Function):

@@ -424,6 +424,76 @@ def landmark_summary_bwd_tiled_ref(q: torch.Tensor, k: torch.Tensor,
     return dq, dk, dv
 
 
+def _hi_lo(x: torch.Tensor, split: bool = True):
+    """f32 ``x`` as two bf16 terms hi = bf16(x), lo = bf16(x − hi), each
+    returned as the f32 value it holds (lo = 0 unless ``split``)."""
+    hi = x.bfloat16().float()
+    return hi, (x - hi).bfloat16().float() if split else torch.zeros_like(x)
+
+
+def landmark_summary_bwd_split_ref(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, out: torch.Tensor,
+                                   dout: torch.Tensor, scale: float, *,
+                                   split: bool = True, block_k: int = 64,
+                                   block_q: int = 64):
+    """The backward kernel's tensor-core route (bf16 q, k, v) in plain
+    torch, to check its numerics on the CPU; never on a model path.
+
+    q, k, v are taken as bfloat16 (rounded if they are not), one term
+    each; dO as two bf16 terms, hi and lo (:func:`bf16_terms`); every
+    product is of bf16 values summed in f32, as ``wgmma`` sums them.
+
+    Pass 1 sweeps key tiles of ``block_k`` keys with the forward's online
+    statistics in log2 units (scores times c = scale·log2(e), running max
+    m, alpha = 2^(m_old − m_new), 0 while m_old is −inf, denominator l
+    summed from the f32 p = 2^(s − m_new)): dP = dO_lo Vᵀ + dO_hi Vᵀ,
+    dS = p·(dP − Δ) with Δ = Σ dO·O in f32, split into ds_hi and ds_lo,
+    and dQ accumulates (rescaled by alpha) ds_hi K + ds_lo K; dQ = acc ·
+    scale / l, lse = m + log2 l. Pass 2 sweeps query tiles of ``block_q``
+    rows for each key: Pᵀ = 2^(s·c − lse) and dSᵀ, each split in two, dV
+    += p_hiᵀ dO_hi + p_hiᵀ dO_lo + p_loᵀ dO_hi and dK += ds_hiᵀ q +
+    ds_loᵀ q, then dK times scale. ``split=False`` keeps the hi term
+    alone of P, dS and dO (one bf16 term each, which the 1e-4 bound does
+    not hold). ``block_k`` and ``block_q`` are the kernel's tiles (64 at
+    every head dim). Returns (dq, dk, dv) float32.
+    """
+    qf, kf, vf = (t.to(torch.bfloat16).float() for t in (q, k, v))
+    do_hi, do_lo = _hi_lo(dout.float(), split)
+    c = torch.tensor(scale, dtype=torch.float32) * torch.tensor(
+        math.log2(math.e), dtype=torch.float32)
+    delta = (dout.float() * out.float()).sum(-1, keepdim=True)
+    m = torch.full(qf.shape[:-1] + (1,), float("-inf"))
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    for k0 in range(0, kf.shape[-2], block_k):  # pass 1
+        kt, vt = kf[..., k0:k0 + block_k, :], vf[..., k0:k0 + block_k, :]
+        s = (qf @ kt.transpose(-1, -2)) * c
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.where(m == float("-inf"), torch.zeros_like(m),
+                            torch.exp2(m - m_new))
+        p = torch.exp2(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        dp = do_lo @ vt.transpose(-1, -2) + do_hi @ vt.transpose(-1, -2)
+        ds_hi, ds_lo = _hi_lo(p * (dp - delta), split)
+        acc = acc * alpha + ds_hi @ kt + ds_lo @ kt
+        m = m_new
+    dq = acc * scale / l
+    lse = m + torch.log2(l)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for q0 in range(0, qf.shape[-2], block_q):  # pass 2
+        rows = slice(q0, q0 + block_q)
+        qt, hi, lo = qf[..., rows, :], do_hi[..., rows, :], do_lo[..., rows, :]
+        st = (kf @ qt.transpose(-1, -2)) * c  # (S, rows)
+        pt = torch.exp2(st - lse[..., rows, 0][..., None, :])
+        dpt = vf @ lo.transpose(-1, -2) + vf @ hi.transpose(-1, -2)
+        p_hi, p_lo = _hi_lo(pt, split)
+        ds_hi, ds_lo = _hi_lo(pt * (dpt - delta[..., rows, 0][..., None, :]),
+                              split)
+        dv = dv + p_hi @ hi + p_hi @ lo + p_lo @ hi
+        dk = dk + ds_hi @ qt + ds_lo @ qt
+    return dq, dk * scale, dv
+
+
 def bf16_terms(x: torch.Tensor, terms: int) -> torch.Tensor:
     """Oracle for kernels.landmark_attention.bf16_terms: ``x`` as a sum of
     ``terms`` bfloat16 values, (terms, *x.shape). x0 = bf16(x),

@@ -28,14 +28,16 @@ import os
 import time
 from typing import Optional
 
-from .profile import count_launch, profile_trace, publish_compile_counts
+from .profile import (count_launch, profile_trace, profiled,
+                      publish_compile_counts, strip_markers)
 from .registry import Counter, Gauge, Histogram, MetricsRegistry
 from .trace import Sampler, Tracer
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "Sampler",
     "Tracer", "Observability", "DISABLED", "install", "uninstall",
-    "current", "span", "count_launch", "profile_trace",
+    "current", "span", "count_launch", "profile_trace", "profiled",
+    "strip_markers",
     "publish_compile_counts",
 ]
 

@@ -877,17 +877,22 @@ def _bwd_inputs(cuda, dtype, p, n, s, d, seed):
                                      (1, 1, 2, 64), (10, 1536, 4096, 64)])
 def test_landmark_summary_bwd_kernel_matches_plain(cuda, dtype, p, n, s, d):
     """Kernel 7's backward against its plain version, within 1e-4 of each
-    gradient's largest |value| (f32 FMAs summed in another order), at
-    ragged n and S, every head dim and the SmolLM-360M landmark shape; two
-    launches of one call, and two calls bitwise equal; the single-problem
-    form the same launch."""
+    gradient's largest |value| (the tensor-core route's split terms, or the
+    FMA route's f32 FMAs, summed in another order), at ragged n and S,
+    every head dim and the SmolLM-360M landmark shape; two launches of one
+    call on the route of the dtype and head dim, and two calls bitwise
+    equal; the single-problem form the same launch."""
     args = _bwd_inputs(cuda, dtype, p, n, s, d, seed=n + s)
+    route = lsum.bwd_route(dtype, d)
     before = lsum.landmark_summary_bwd.launches
+    on_route = lsum.landmark_summary_bwd.route_launches[route]
     got = lsum.landmark_summary_bwd(*args)
     again = lsum.landmark_summary_bwd(*args)
     want = ref.landmark_summary_bwd_ref(*args)
     torch.cuda.synchronize()
     assert lsum.landmark_summary_bwd.launches == before + 2 * lsum.BWD_LAUNCHES
+    assert (lsum.landmark_summary_bwd.route_launches[route]
+            == on_route + 2 * lsum.BWD_LAUNCHES)
     for a, b, w in zip(got, again, want):
         assert a.dtype == torch.float32 and a.shape == w.shape
         assert torch.equal(a, b)

@@ -483,6 +483,32 @@ def test_profile_trace_exports_a_chrome_trace(tmp_path):
     assert "aten::matmul" in names or "aten::dot" in names
 
 
+def test_profile_trace_on_the_cpu_opens_with_no_markers(tmp_path):
+    """Without a card the session traces the CPU alone and launches no
+    spin kernel: the trace holds none of the markers."""
+    import torch
+
+    assert not torch.cuda.is_available()
+    with obslib.profile_trace(str(tmp_path / "p")):
+        torch.ones(8) @ torch.ones(8)
+    doc = json.loads((tmp_path / "p" / "torch_trace.json").read_text())
+    assert not any(obslib.profile.MARKER in str(e.get("name"))
+                   for e in doc["traceEvents"])
+
+
+@pytest.mark.parametrize("seen", [256, 200, 1, 0])
+def test_strip_markers_counts_the_markers_lost(seen):
+    """A session's records less its markers, and the markers lost; None
+    when every marker was lost (the run's first records may be too)."""
+    from repro_torch.obs import profile
+
+    run = [{"name": f"void kernel_{i}<64>(float*)"} for i in range(5)]
+    marks = [{"name": f"{profile.MARKER}(long)"}] * seen
+    kept, lost = obslib.strip_markers(marks + run, lambda e: e["name"])
+    assert lost == profile.PROFILE_MARKERS - seen
+    assert kept == (run if seen else None)
+
+
 # ------------------------------------------------------- export + validator
 def test_exports_satisfy_ci_schema_checker(state, tmp_path):
     """Traffic, all three series groups, export, and the reference's checker
