@@ -298,6 +298,34 @@ The training slice adds:
     each row its launches on the landmark training run
     (``launches_train``).
 
+The GNN slice adds:
+
+17. GNN training — (a) the fixed-order segment sum (``segment_sum``,
+    ``csrc/segment_sum.cu``, no TPU kernel: the reference's
+    ``jax.ops.segment_sum``) at the CSRs by destination and by source of
+    ``full_graph_sm``, ``minibatch_lg`` and ``molecule`` (and molecule's
+    by graph id), f32 and bf16: bitwise its plain version, two launches
+    bitwise, empty segments 0, 1024 padded edges at node 0 changing
+    nothing (masked, or live with zero rows); (b) GatedGCN at full width
+    and depth (16 layers, d_hidden 70, f32, seed-0 weights, AdamW, remat)
+    trained ``GNN_STEPS`` steps on each of the three shapes through
+    ``build_cell`` and ``train_loop`` on the shape's own generator: every
+    step launches the kernel 8·L times (+2 for the molecule readout) and
+    nothing else, losses finite; step ms, peak memory and a profiled step
+    (busy/idle, top kernels, the segment sum's device ms); step 1's loss
+    and gradients from the seed-0 weights twice bitwise on the kernel
+    path and within ``GNN_GRAD_REL`` of each leaf's largest |gradient| of
+    the plain path; (c) the mesh form on a single-process mesh (data=2,
+    model=4) on the card: its logits against the one-device forward, at
+    the reference test's configuration and at full width on a
+    dst-partitioned ``full_graph_sm``, within ``MESH_REL`` of the largest
+    |logit| (the absolute error printed beside the reference's 2e-2), and
+    one train step of the ``comm`` cell. The kernel table
+    gains row 8 (events and device ms at minibatch_lg's CSR by
+    destination, bound, plain ms, one ``index_add_`` call and whether it
+    is bitwise) and each row its launches on the GNN runs
+    (``launches_gnn``).
+
 The last two lines are the kernel table and
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. TF32 is off for
 matmul and cuDNN throughout: the reference scores in full f32.
@@ -339,14 +367,17 @@ from repro_torch.configs import registry  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.kernels import landmark_attention as lsum  # noqa: E402
 from repro_torch.kernels import masked_similarity as ms  # noqa: E402
+from repro_torch.kernels import segment_sum as segsum  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.lifecycle import buckets  # noqa: E402
 from repro_torch import mutation  # noqa: E402
 from repro_torch.baselines import bpmf, mf  # noqa: E402
+from repro_torch.models import gnn  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import transformer as lm  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
 from repro_torch.launch import steps as cells  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.obs import profile as obs_profile  # noqa: E402
 from repro_torch.train import checkpoint as ckpt_mod  # noqa: E402
@@ -415,6 +446,12 @@ KERNELS = {
         replaces_note="the backward of kernel 7's function; the reference "
         "has no backward kernel (autodiff of plain jnp, "
         "src/repro/models/layers.py:170)"),
+    # the GNN's message passing (phase 17): no TPU kernel of its own
+    "segment_sum": dict(
+        source="src/repro_torch/kernels/csrc/segment_sum.cu",
+        replaces="src/repro/models/gnn.py:129",
+        replaces_note="no TPU kernel: the reference's jax.ops.segment_sum "
+        "(an XLA scatter-add) at src/repro/models/gnn.py:129,134,144-145"),
 }
 GRAPH_KERNELS = ("masked_similarity", "topk_sim", "foldin_topk")
 IVF_KERNELS = ("assign_clusters", "fused_probe_topk", "score_candidates")
@@ -980,6 +1017,7 @@ DEVICE_FUNCS = {
                              "bwd_dkv_wgmma_kernel"),
     "landmark_summary_bwd_f32": ("bwd_dq_kernel", "bwd_dkv_kernel"),
     "repair_drain": None,  # every kernel of a drain (phase 10)
+    "segment_sum": ("segment_sum_f32_kernel", "segment_sum_bf16_kernel"),
 }
 
 
@@ -4425,6 +4463,358 @@ def phase_training(card):
     return rows, train_counts
 
 
+# ------------------------------------------------------------------ phase 17
+GNN_ARCH = "gatedgcn"
+GNN_RUN_SHAPES = ("full_graph_sm", "minibatch_lg", "molecule")
+GNN_TIMED = "minibatch_lg"  # row 8 is timed at its CSR by destination
+GNN_STEPS = 4
+GNN_PAD = 1024  # padded edges (node 0, mask 0) appended in 17a
+# step 1's gradients, kernel path against the plain segment sum on the
+# card: the plain version adds in the kernel's order, so only a leaf's own
+# f32 products could differ; each leaf within this share of its largest
+# |gradient| (bitwise is expected and printed)
+GNN_GRAD_REL = 1e-6
+# the mesh form against one device: its bf16 wire (h all-gathered and the
+# partial sums added in bf16, 2^-9 relative each) moves the logits by a
+# share of their scale, not by a fixed amount: 2^-7 of the largest |logit|
+# (the CPU at 3 layers of width 16: up to 3.7e-3 of it over 8 seeds; at
+# full width on full_graph_sm 1.8e-3, 0.036 against logits up to 19.7).
+# The reference's own bound, 2e-2 absolute at 3 layers of width 16
+# (tests/test_distributed.py, where its logits reach 5.4), is printed
+# beside it
+MESH_REL = 2 ** -7
+MESH_ATOL = 2e-2
+
+
+def _gnn_launches(cfg):
+    """Kernel launches of one train step: each layer 2 sums in its forward,
+    2 again in its remat recompute and 4 in its backward (the gathers of hv
+    and he by source, of hd and the denominator by destination); the
+    molecule readout 2 more (pooled sums and counts)."""
+    return 8 * cfg.n_layers + (2 if cfg.task == "graph" else 0)
+
+
+def _gnn_batch(cell, step=0):
+    gen = train_cli._gnn_batches(cell.shape)
+    for _ in range(step):
+        next(gen)
+    return next(gen)
+
+
+def _segsum_bound(x, csr):
+    """Least time of one segment sum: every live edge's row of x read once,
+    the (N, H) output written once, perm and indptr read once; one add per
+    element read at the f32 rate."""
+    h, live = x.shape[1], csr.perm.numel()
+    moved = (x.element_size() * h * (live + csr.n) + 4 * live
+             + 4 * (csr.n + 1))
+    return _bound(moved, live * h)
+
+
+def _segsum_checks(name, key, idx, mask, n, gen):
+    """17a at one index: f32 and bf16, the kernel bitwise its plain version
+    and itself, empty segments 0, padded edges changing nothing."""
+    csr = segsum.build_csr(idx, n, mask)
+    counts = csr.indptr[1:] - csr.indptr[:-1]
+    e = idx.shape[0]
+    pad_idx = torch.cat([idx, torch.zeros(GNN_PAD, dtype=idx.dtype,
+                                          device=DEVICE)])
+    pad_mask = torch.cat([mask, torch.zeros(GNN_PAD, device=DEVICE)])
+    masked = segsum.build_csr(pad_idx, n, pad_mask)
+    as_live = segsum.build_csr(pad_idx, n, torch.cat([
+        mask, torch.ones(GNN_PAD, device=DEVICE)]))
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((e, 70), generator=gen, device=DEVICE).to(dtype)
+        got = segsum.segment_sum(x, csr)
+        again = segsum.segment_sum(x, csr)
+        want = ref.segment_sum_ref(x, csr.perm, csr.indptr)
+        noise = torch.randn((GNN_PAD, 70), generator=gen, device=DEVICE
+                            ).to(dtype)
+        pad_masked = segsum.segment_sum(torch.cat([x, noise]), masked)
+        pad_live = segsum.segment_sum(torch.cat([x, torch.zeros_like(noise)]),
+                                      as_live)
+        sync()
+        tag = f"17a {name} by {key} {dtype}"
+        _bitwise(f"{tag}: kernel vs plain", (got,), (want,))
+        _bitwise(f"{tag}: two launches", (again,), (got,))
+        _bitwise(f"{tag}: masked padded edges", (pad_masked,), (got,))
+        _bitwise(f"{tag}: live zero-row padded edges", (pad_live,), (got,))
+        if got[counts == 0].any():
+            raise AssertionError(f"{tag}: an empty segment is not 0")
+        out[str(dtype).removeprefix("torch.")] = float(
+            (got.float() - want.float()).abs().max())
+    return csr, dict(edges=e, live=int(csr.perm.numel()),
+                     max_degree=int(counts.max()),
+                     empty_segments=int((counts == 0).sum()), max_abs_err=out)
+
+
+def phase_gnn_kernel():
+    """17a: the segment-sum kernel at each trained shape's CSRs (by
+    destination and by source; molecule's by graph id too), f32 and bf16.
+    Returns the timed CSR's inputs and the table's error."""
+    t0 = time.perf_counter()
+    arch = registry.get(GNN_ARCH)
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    notes, timed, err = {}, None, 0.0
+    ops.reset_launches()
+    for name in GNN_RUN_SHAPES:
+        cell = cells.build_cell(arch, name)
+        b = trainer.to_device(_gnn_batch(cell), DEVICE)
+        n = b["node_feats"].shape[0]
+        keys = ["edge_dst", "edge_src"] + (["graph_ids"] if name == "molecule"
+                                           else [])
+        for key in keys:
+            idx = b[key]
+            mask = (b["edge_mask"] if key != "graph_ids"
+                    else torch.ones(idx.shape[0], device=DEVICE))
+            segs = cell.shape.dims["batch"] if key == "graph_ids" else n
+            csr, notes[f"{name} by {key}"] = _segsum_checks(
+                name, key, idx, mask, segs, gen)
+            err = max(err, *notes[f"{name} by {key}"]["max_abs_err"].values())
+            if name == GNN_TIMED and key == "edge_dst":
+                timed = (torch.randn((idx.shape[0], 70), generator=gen,
+                                     device=DEVICE), csr)
+    print(f"phase 17a segment sum (bitwise its plain version and itself, "
+          f"f32 and bf16; empty segments 0; {GNN_PAD} padded edges at node "
+          f"0 change nothing, masked or live with zero rows): "
+          + json.dumps(notes) + f" | launches {ops.launch_counts()['segment_sum']}"
+          f" | {time.perf_counter() - t0:.1f}s")
+    return timed, err
+
+
+def _gnn_grads(cell, model, batch, plain=False):
+    """Step 1's loss and gradients (no update), through the segment sum's
+    plain version when ``plain``, with the kernel's launches."""
+    patch = (mock.patch.object(segsum, "segment_sum", lambda x, csr:
+                               ref.segment_sum_ref(x, csr.perm, csr.indptr))
+             if plain else contextlib.nullcontext())
+    ops.reset_launches()
+    with patch:
+        loss, grads = cells.value_and_grad(model, batch, gnn.gnn_loss)
+    sync()
+    return float(loss), grads, ops.launch_counts()["segment_sum"]
+
+
+def _gnn_grad_check(name, cell):
+    """Step 1 from seed-0 weights on batch 0: two kernel-path runs bitwise
+    equal; the kernel path against the plain one within GNN_GRAD_REL of
+    each leaf's largest |gradient|."""
+    cfg = cell.arch.model
+    model = gnn.init_gnn(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                         DEVICE)
+    batch = trainer.to_device(_gnn_batch(cell), DEVICE)
+    lk, gk, nk = _gnn_grads(cell, model, batch)
+    lk2, gk2, _ = _gnn_grads(cell, model, batch)
+    lp, gp, np_ = _gnn_grads(cell, model, batch, plain=True)
+    if lk2 != lk or not all(torch.equal(gk[k], gk2[k]) for k in gk):
+        raise AssertionError(f"17b {name}: two kernel-path runs of step 1 "
+                             f"differ (loss {lk} vs {lk2})")
+    if nk != _gnn_launches(cfg) or np_:
+        raise AssertionError(f"17b {name}: {nk} launches on the kernel path "
+                             f"(want {_gnn_launches(cfg)}), {np_} on the "
+                             f"plain one")
+    rel = max(float((gk[k] - gp[k]).abs().max())
+              / max(float(gp[k].abs().max()), 1e-30) for k in gp)
+    if not rel <= GNN_GRAD_REL or abs(lk - lp) > GNN_GRAD_REL * abs(lp):
+        raise AssertionError(f"17b {name}: step-1 gradients kernel vs plain "
+                             f"{rel:.3g} of a leaf's max (limit "
+                             f"{GNN_GRAD_REL}); loss {lk} vs {lp}")
+    return dict(loss_kernel=lk, loss_plain=lp, max_leaf_rel=rel,
+                bitwise_plain=lk == lp and all(torch.equal(gk[k], gp[k])
+                                               for k in gp),
+                bitwise_twice=True)
+
+
+def _gnn_run(name):
+    """GNN_STEPS steps of GatedGCN at full width and depth through
+    ``build_cell`` and ``train_loop`` from seed-0 weights on the shape's
+    own generator; each step timed to its loss with its launches."""
+    arch = registry.get(GNN_ARCH)
+    cell = cells.build_cell(arch, name)
+    model = gnn.init_gnn(cell.arch.model, torch.Generator(
+        device=DEVICE).manual_seed(0), DEVICE)
+    opt_state = topt.opt_init(model, arch.opt)
+    per_step = []
+
+    def step_fn(model, opt_state, batch):
+        sync()
+        ops.reset_launches()
+        t1 = time.perf_counter()
+        out = cell.fn(model, opt_state, batch)
+        loss = float(out[2]["loss"])
+        per_step.append(dict(ms=(time.perf_counter() - t1) * 1e3, loss=loss,
+                             counts=ops.launch_counts()))
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    res = trainer.train_loop(
+        step_fn, model, opt_state, trainer.Prefetcher(
+            train_cli._gnn_batches(cell.shape),
+            lambda b: trainer.to_device(b, DEVICE)),
+        trainer.TrainerConfig(total_steps=GNN_STEPS, log_every=1000),
+        log=lambda *_: None)
+    return dict(cell=cell, model=model, opt_state=opt_state, steps=per_step,
+                losses=res["losses"], peak=torch.cuda.max_memory_allocated())
+
+
+def phase_gnn_train(card):
+    """17b: GatedGCN trained at full width and depth (16 layers, d_hidden
+    70, f32, AdamW, remat) on full_graph_sm, minibatch_lg and molecule;
+    per-step launches, losses, step ms, peak memory, a profiled step; step
+    1's gradients kernel vs plain and twice. Returns the kernel path's
+    launches."""
+    t0 = time.perf_counter()
+    counts = {}
+    for name in GNN_RUN_SHAPES:
+        run = _gnn_run(name)
+        cell, model, opt_state = run["cell"], run["model"], run["opt_state"]
+        cfg = cell.arch.model
+        losses = run["losses"]
+        if len(losses) != GNN_STEPS or not all(np.isfinite(losses)):
+            raise AssertionError(f"17b {name}: losses {losses}")
+        for i, st in enumerate(run["steps"]):
+            others = {k: v for k, v in st["counts"].items()
+                      if k != "segment_sum" and v}
+            if st["counts"]["segment_sum"] != _gnn_launches(cfg) or others:
+                raise AssertionError(f"17b {name} step {i}: launches "
+                                     f"{st['counts']}, want segment_sum "
+                                     f"{_gnn_launches(cfg)} and no other")
+            for k, v in st["counts"].items():
+                counts[k] = counts.get(k, 0) + v
+        batch = trainer.to_device(_gnn_batch(cell, GNN_STEPS), DEVICE)
+        prof = _profile(lambda: float(cell.fn(model, opt_state, batch)[2][
+            "loss"]), warm=False, sums=("segment_sum",))
+        del model, opt_state, batch
+        grads = _gnn_grad_check(name, cell)
+        ms = [st["ms"] for st in run["steps"]]
+        out = dict(
+            layers=cfg.n_layers, d_hidden=cfg.d_hidden, d_feat=cfg.d_feat,
+            n_classes=cfg.n_classes, task=cfg.task,
+            nodes=tuple(cell.args[2]["node_feats"].shape)[0],
+            edges=tuple(cell.args[2]["edge_src"].shape)[0], losses=losses,
+            step_ms=ms, steady_step_ms=statistics.median(ms[1:]),
+            peak_gib=run["peak"] / 2 ** 30,
+            segment_sum_launches_per_step=run["steps"][-1]["counts"][
+                "segment_sum"], profile=prof, step1=grads)
+        print(f"phase 17b train ({card}): {GNN_ARCH} {name} f32, AdamW, "
+              f"remat: " + json.dumps(out))
+        del run
+        torch.cuda.empty_cache()
+    print(f"phase 17b: launches {counts} | {time.perf_counter() - t0:.1f}s")
+    return counts
+
+
+def _mesh_check(model, raw, mesh):
+    b = trainer.to_device(raw, DEVICE)
+    args = (b["node_feats"], b["edge_src"], b["edge_dst"], b["edge_mask"])
+    ops.reset_launches()
+    with torch.no_grad():
+        sharded = gnn.gnn_forward_sharded(model, *args, mesh)
+        sync()
+        launches = ops.launch_counts()["segment_sum"]
+        one = gnn.gnn_forward(model, *args)
+    err = float((sharded - one).abs().max())
+    scale = float(one.abs().max())
+    limit = MESH_REL * scale
+    if not err <= limit or not bool(torch.isfinite(sharded).all()):
+        raise AssertionError(f"17c: mesh form vs one device {err:.4g} "
+                             f"(limit {limit:.4g}, max |logit| {scale:.4g})")
+    return dict(max_abs_diff=err, max_abs_logit=scale, limit=limit,
+                within_2e_2=err <= MESH_ATOL, forward_launches=launches)
+
+
+def phase_gnn_mesh(card):
+    """17c: the comm variant (the mesh form) on a single-process mesh
+    (data=2, model=4, the reference's debug mesh) on the card: its logits
+    against the one-device forward, at the reference test's configuration
+    and at full width on full_graph_sm; one train step of the comm cell."""
+    t0 = time.perf_counter()
+    mesh = make_mesh(*cells.COMM_MESH, DEVICE)
+    if any(d.type != torch.device(DEVICE).type for d in mesh.devices):
+        raise AssertionError(f"17c: mesh devices {mesh.describe()}")
+    small = gnn.GNNConfig("g", n_layers=3, d_hidden=16, d_feat=8,
+                          n_classes=5)
+    rng = np.random.default_rng(0)
+    feats = rng.normal(size=(64, 8)).astype(np.float32)
+    src = rng.integers(0, 64, 256).astype(np.int32)
+    dst = rng.integers(0, 64, 256).astype(np.int32)
+    raw = gnn.dst_partition({"node_feats": feats, "edge_src": src,
+                             "edge_dst": dst,
+                             "edge_mask": np.ones(256, np.float32)}, 2, 4)
+    ref_cfg = _mesh_check(gnn.init_gnn(small, torch.Generator(
+        device=DEVICE).manual_seed(0), DEVICE), raw, mesh)
+    cell = cells.build_cell(registry.get(GNN_ARCH), "full_graph_sm", "comm")
+    model = gnn.init_gnn(cell.arch.model, torch.Generator(
+        device=DEVICE).manual_seed(0), DEVICE)
+    raw = gnn.dst_partition(_gnn_batch(cell), 2, 4)
+    full = _mesh_check(model, raw, mesh)
+    opt_state = topt.opt_init(model, cell.arch.opt)
+    batch = trainer.to_device(raw, DEVICE)
+    ops.reset_launches()
+    sync()
+    t1 = time.perf_counter()
+    loss = float(cell.fn(model, opt_state, batch)[2]["loss"])
+    step_ms = (time.perf_counter() - t1) * 1e3
+    launches = ops.launch_counts()["segment_sum"]
+    if not np.isfinite(loss) or launches != 8 * _gnn_launches(
+            cell.arch.model):
+        raise AssertionError(f"17c: comm step loss {loss}, {launches} "
+                             f"launches (want 8 edge shards x "
+                             f"{_gnn_launches(cell.arch.model)})")
+    print(f"phase 17c mesh form ({card}; {mesh.describe()}; limit "
+          f"{MESH_REL} x max |logit|): the reference test's configuration (3 "
+          f"layers, d 16, N=64, E=256 dst-partitioned): "
+          + json.dumps(ref_cfg) + "; full_graph_sm at full width: "
+          + json.dumps(full) + f"; one comm train step: loss {loss:.4f}, "
+          f"{step_ms:.1f} ms, {launches} launches | "
+          f"{time.perf_counter() - t0:.1f}s")
+
+
+def _gnn_row(timed, err, counts):
+    """Row 8 of the kernel table: the segment sum at minibatch_lg's CSR by
+    destination (f32), with its launches on the GNN training runs (17b),
+    events and device ms, bound, plain ms, and one index_add_ call (CUDA
+    atomics) on the same live edges as the yardstick."""
+    x, csr = timed
+    run = lambda: segsum.segment_sum(x, csr)
+    live = csr.perm.long()
+    idx_live, x_live = csr.index[live], x[live]
+    library = lambda: torch.zeros((csr.n, x.shape[1]), device=DEVICE
+                                  ).index_add_(0, idx_live, x_live)
+    got, lib1, lib2 = run(), library(), library()
+    sync()
+    bound_ms, bound_by = _segsum_bound(x, csr)
+    return dict(
+        name="segment_sum", route="cuda", **KERNELS["segment_sum"],
+        shape=f"minibatch_lg by destination: N={csr.n} E={csr.n_edges} "
+        f"(live {live.numel()}) H={x.shape[1]} f32",
+        launches=counts.get("segment_sum", 0),
+        launches_gnn=counts.get("segment_sum", 0), max_abs_err=err,
+        ms=_event_ms(run, 20), device_ms=_device_ms(run, "segment_sum"),
+        plain_ms=_event_ms(lambda: ref.segment_sum_ref(x, csr.perm,
+                                                       csr.indptr), 5),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=_event_ms(library, 20),
+        library_note="torch.zeros(N, H).index_add_(0, index, x) on the live "
+        "edges (CUDA atomics; the port never calls it)",
+        library_bitwise_kernel=bool(torch.equal(lib1, got)),
+        library_bitwise_itself=bool(torch.equal(lib1, lib2)))
+
+
+def phase_gnn(card):
+    """17: the GNN slice — (a) the segment-sum kernel, (b) GatedGCN trained
+    at full width on three shapes, (c) the mesh form. Returns row 8 and
+    the GNN training runs' launches."""
+    t0 = time.perf_counter()
+    timed, err = phase_gnn_kernel()
+    counts = phase_gnn_train(card)
+    phase_gnn_mesh(card)
+    row = _gnn_row(timed, err, counts)
+    print(f"phase 17: row 8 {json.dumps(row)} | "
+          f"{time.perf_counter() - t0:.1f}s")
+    return row, counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port never falls back to the "
@@ -4466,7 +4856,8 @@ def main():
     wide_counts = phase_wide(train, d, test_idx, card)
     moe_counts = phase_moe(card)
     bwd_rows, train_counts = phase_training(card)
-    table += bwd_rows
+    gnn_row, gnn_counts = phase_gnn(card)
+    table += bwd_rows + [gnn_row]
     for row in table:  # the engine runs' launches, every row
         row["launches_engine"] = engine_counts.get(row["name"], 0)
         row["launches_mutations"] = mutation_counts.get(row["name"], 0)
@@ -4480,6 +4871,8 @@ def main():
         # the landmark training run (16b): kernel 7 forward and backward
         row["launches_train"] = (0 if row["name"] == "landmark_summary_f32"
                                  else train_counts.get(row["name"], 0))
+        # the GNN training runs (17b)
+        row["launches_gnn"] = gnn_counts.get(row["name"], 0)
         for tag, times in ivf["wide_ms"].items():  # kernels 2-6, 7a
             if row["name"] in times:
                 row[f"{tag} ms"] = times[row["name"]]

@@ -1,4 +1,4 @@
-"""Config schema for the LM family: an ``ArchConfig`` holds one
+"""Config schema for the LM and GNN families: an ``ArchConfig`` holds one
 architecture's published hyperparameters, a reduced smoke model for CPU
 tests, its shape set, its optimizer and its gradient accumulation per
 shape — the reference's schema without the sharding rules, which the
@@ -14,7 +14,7 @@ from ..train.optimizer import OptConfig
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:
     name: str
-    kind: str  # train | prefill | decode
+    kind: str  # train | prefill | decode | train_graph
     dims: Dict[str, Any]
     note: str = ""
 
@@ -22,7 +22,7 @@ class ShapeSpec:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # lm
+    family: str  # lm | gnn
     model: Any
     smoke_model: Any
     shapes: Tuple[ShapeSpec, ...]
@@ -51,3 +51,24 @@ def lm_shapes() -> Tuple[ShapeSpec, ...]:
             "exact cache (O(S)/token); the landmark variant decodes through "
             "landmark summaries at O(n)/token."),
     )
+
+
+# The GNN shapes (the reference's ``GNN_SHAPES``, dims unchanged).
+GNN_SHAPES = (
+    ShapeSpec(
+        "full_graph_sm", "train_graph",
+        dict(n_nodes=2708, n_edges=10556, d_feat=1433, n_classes=7)),
+    ShapeSpec(
+        "minibatch_lg", "train_graph",
+        dict(n_total_nodes=232965, n_total_edges=114615892, batch_nodes=1024,
+             fanouts=(15, 10), d_feat=602, n_classes=41,
+             pad_nodes=170496, pad_edges=169984),
+        note="sampled-training: the dry-run cell is the sampled block "
+        "(1024 seeds × fanout 15·10); the host NeighborSampler feeds it."),
+    ShapeSpec(
+        "ogb_products", "train_graph",
+        dict(n_nodes=2449029, n_edges=61859140, d_feat=100, n_classes=47)),
+    ShapeSpec(
+        "molecule", "train_graph",
+        dict(batch=128, n_nodes=30, n_edges=64, d_feat=28, n_classes=1)),
+)

@@ -1,15 +1,16 @@
-"""The LM architectures, dense and MoE, with the reference registry's
-exact hyperparameters, smoke models, optimizers and gradient accumulation
-(sources inline)."""
+"""The LM architectures, dense and MoE, and the GNN, with the reference
+registry's exact hyperparameters, smoke models, optimizers and gradient
+accumulation (sources inline)."""
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
 
+from ..models.gnn import GNNConfig
 from ..models.transformer import LMConfig, MoEConfig
 from ..train.optimizer import OptConfig
-from .base import ArchConfig, lm_shapes
+from .base import GNN_SHAPES, ArchConfig, lm_shapes
 
 ARCHS: Dict[str, ArchConfig] = {}
 
@@ -108,6 +109,20 @@ _register(ArchConfig(
     shapes=lm_shapes(),
     opt=OptConfig(name="adamw", state_dtype=torch.bfloat16),
     grad_accum={"train_4k": 8},
+))
+
+# ===================================================================== GNN
+# The paper's landmark technique does not apply to message passing; the
+# GNN runs without it, as the reference's.
+_register(ArchConfig(
+    name="gatedgcn",
+    family="gnn",
+    source="arXiv:2003.00982 (paper tier)",
+    model=GNNConfig(name="gatedgcn", n_layers=16, d_hidden=70),
+    smoke_model=GNNConfig(name="gatedgcn-smoke", n_layers=3, d_hidden=16,
+                          d_feat=32, n_classes=5),
+    shapes=GNN_SHAPES,
+    opt=OptConfig(name="adamw", lr=1e-3),
 ))
 
 

@@ -1,13 +1,15 @@
-"""Synthetic inputs: LM token batches, the CF lifecycle's arrival stream
-and the write path's mutation events.
+"""Synthetic inputs: LM token batches, GNN graphs, the CF lifecycle's
+arrival stream and the write path's mutation events.
 
-Numpy copies of the reference's ``lm_batch``, ``drifting_ratings`` and
-``mutation_events``: deterministic in ``(seed, step)`` / ``(seed, wave)``,
-so one seed gives byte-identical arrays in both packages.
+Numpy copies of the reference's ``lm_batch``, ``random_graph``,
+``NeighborSampler``, ``sampled_block``, ``molecule_batch``,
+``drifting_ratings`` and ``mutation_events``: deterministic in
+``(seed, step)`` / ``(seed, wave)``, so one seed gives byte-identical
+arrays in both packages.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -23,6 +25,145 @@ def lm_batch(seed: int, step: int, batch: int, seq_len: int, vocab: int
     return {
         "tokens": toks[:, :-1].astype(np.int32),
         "labels": toks[:, 1:].astype(np.int32),
+    }
+
+
+# ------------------------------------------------------------------------ GNN
+def random_graph(
+    seed: int,
+    n_nodes: int,
+    n_edges: int,
+    d_feat: int,
+    n_classes: int,
+    pad_edges_to: Optional[int] = None,
+) -> Dict[str, np.ndarray]:
+    """Power-law graph (preferential-attachment-ish degree distribution)."""
+    rng = np.random.default_rng(seed)
+    w = 1.0 / np.arange(1, n_nodes + 1) ** 0.7
+    w /= w.sum()
+    src = rng.choice(n_nodes, size=n_edges, p=w).astype(np.int32)
+    dst = rng.integers(0, n_nodes, size=n_edges).astype(np.int32)
+    e_pad = pad_edges_to or n_edges
+    mask = np.zeros(e_pad, np.float32)
+    mask[:n_edges] = 1.0
+    pad = e_pad - n_edges
+    return {
+        "node_feats": rng.normal(0, 1, (n_nodes, d_feat)).astype(np.float32),
+        "edge_src": np.pad(src, (0, pad)),
+        "edge_dst": np.pad(dst, (0, pad)),
+        "edge_mask": mask,
+        "labels": rng.integers(0, n_classes, n_nodes).astype(np.int32),
+    }
+
+
+class NeighborSampler:
+    """Uniform fanout sampler over a CSR adjacency (GraphSAGE-style).
+
+    Produces the sampled block for ``minibatch_lg``: seed nodes + their k-hop
+    sampled neighborhood as a padded edge list over *local* node ids."""
+
+    def __init__(self, src: np.ndarray, dst: np.ndarray, n_nodes: int):
+        order = np.argsort(dst, kind="stable")
+        self.sorted_src = src[order]
+        self.indptr = np.zeros(n_nodes + 1, np.int64)
+        counts = np.bincount(dst, minlength=n_nodes)
+        self.indptr[1:] = np.cumsum(counts)
+        self.n_nodes = n_nodes
+
+    def sample(
+        self, seed_nodes: np.ndarray, fanouts: Tuple[int, ...], rng: np.random.Generator
+    ) -> Dict[str, np.ndarray]:
+        """Returns local-id edge arrays + the global ids of every local node."""
+        nodes = list(seed_nodes)
+        local = {int(n): i for i, n in enumerate(seed_nodes)}
+        srcs, dsts = [], []
+        frontier = seed_nodes
+        for fan in fanouts:
+            nxt = []
+            for nd in frontier:
+                lo, hi = self.indptr[nd], self.indptr[nd + 1]
+                deg = hi - lo
+                if deg == 0:
+                    continue
+                take = rng.integers(lo, hi, size=min(fan, deg))
+                for s in self.sorted_src[take]:
+                    s = int(s)
+                    if s not in local:
+                        local[s] = len(nodes)
+                        nodes.append(s)
+                        nxt.append(s)
+                    srcs.append(local[s])
+                    dsts.append(local[int(nd)])
+            frontier = np.asarray(nxt, np.int64) if nxt else np.empty(0, np.int64)
+        return {
+            "global_ids": np.asarray(nodes, np.int64),
+            "edge_src": np.asarray(srcs, np.int32),
+            "edge_dst": np.asarray(dsts, np.int32),
+        }
+
+
+def sampled_block(
+    seed: int,
+    step: int,
+    n_total_nodes: int,
+    batch_nodes: int,
+    fanouts: Tuple[int, ...],
+    d_feat: int,
+    n_classes: int,
+    pad_nodes: int,
+    pad_edges: int,
+) -> Dict[str, np.ndarray]:
+    """Shape-stable sampled subgraph batch (padded to fixed sizes for jit)."""
+    rng = np.random.default_rng(np.random.SeedSequence([seed, step]))
+    # Synthetic power-law neighborhood sizes (a real deployment would hold the
+    # CSR in host RAM; see NeighborSampler above, exercised in tests).
+    n_sub = batch_nodes
+    srcs, dsts = [], []
+    frontier = np.arange(batch_nodes)
+    for fan in fanouts:
+        deg = rng.integers(1, fan + 1, size=len(frontier))
+        new = np.arange(n_sub, n_sub + int(deg.sum()))
+        rep = np.repeat(frontier, deg)
+        srcs.append(new)
+        dsts.append(rep)
+        n_sub += len(new)
+        frontier = new
+        if n_sub > pad_nodes - batch_nodes * fan:
+            break
+    src = np.concatenate(srcs)[: pad_edges]
+    dst = np.concatenate(dsts)[: pad_edges]
+    n_edges = len(src)
+    n_sub = min(n_sub, pad_nodes)
+    mask = np.zeros(pad_edges, np.float32)
+    mask[:n_edges] = 1.0
+    labels = np.full(pad_nodes, -1, np.int32)
+    labels[:batch_nodes] = rng.integers(0, n_classes, batch_nodes)
+    return {
+        "node_feats": rng.normal(0, 1, (pad_nodes, d_feat)).astype(np.float32),
+        "edge_src": np.pad(src, (0, pad_edges - n_edges)).astype(np.int32),
+        "edge_dst": np.pad(dst, (0, pad_edges - n_edges)).astype(np.int32),
+        "edge_mask": mask,
+        "labels": labels,
+    }
+
+
+def molecule_batch(
+    seed: int, step: int, batch: int, n_nodes: int, n_edges: int, d_feat: int
+) -> Dict[str, np.ndarray]:
+    """Batched small graphs as one block-diagonal graph + graph_ids pooling."""
+    rng = np.random.default_rng(np.random.SeedSequence([seed, step]))
+    total_n, total_e = batch * n_nodes, batch * n_edges
+    offs = np.repeat(np.arange(batch) * n_nodes, n_edges)
+    src = (rng.integers(0, n_nodes, total_e) + offs).astype(np.int32)
+    dst = (rng.integers(0, n_nodes, total_e) + offs).astype(np.int32)
+    return {
+        "node_feats": rng.normal(0, 1, (total_n, d_feat)).astype(np.float32),
+        "edge_src": src,
+        "edge_dst": dst,
+        "edge_mask": np.ones(total_e, np.float32),
+        "graph_ids": np.repeat(np.arange(batch), n_nodes).astype(np.int32),
+        "n_graphs": batch,
+        "targets": rng.normal(0, 1, batch).astype(np.float32),
     }
 
 

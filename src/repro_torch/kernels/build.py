@@ -73,6 +73,9 @@ SIGNATURES = {
     #  stream): its FMA route (f32 inputs; bf16 at D = 256), two launches
     "landmark_summary_bwd_f32": (_P,) * 10 + (_I, _I, _I, _I, _F, _P),
     "landmark_summary_bwd_bf16": (_P,) * 10 + (_I, _I, _I, _I, _F, _P),
+    # (x, perm, indptr, out, N, H, stream): the fixed-order CSR segment sum
+    "segment_sum_f32": (_P, _P, _P, _P, _L, _I, _P),
+    "segment_sum_bf16": (_P, _P, _P, _P, _L, _I, _P),
     # (variant, n, measure) -> resident scan blocks an SM holds (no stream)
     "topk_scan_blocks_per_sm": (_I, _I, _I),
 }

@@ -6,7 +6,8 @@ version (``ref.py``) for CPU tensors.
 of ``core.landmark_cf.fit`` / ``build_representation`` / ``fold_in``;
 ``landmark_summary`` computes the B̃V term of
 ``models.layers.landmark_attention`` (differentiable: its backward is
-``landmark_summary_bwd``).
+``landmark_summary_bwd``); ``segment_sum`` sums the GNN's messages in a
+fixed order (``kernels/segment_sum.py``).
 """
 from __future__ import annotations
 
@@ -16,13 +17,14 @@ from .landmark_attention import landmark_summary, landmark_summary_bwd
 from .masked_similarity import masked_similarity
 from .knn_topk import foldin_topk, topk_sim
 from .score_candidates import score_candidates
+from .segment_sum import segment_sum
 
 # every kernel wrapper of the package; each carries a ``launches`` count,
 # a wrapper with more than one kernel a ``route_launches`` count each, and
 # d1 its card-side count of guarded results (``results``)
 WRAPPERS = (masked_similarity, topk_sim, foldin_topk, assign_clusters,
             fused_probe_topk, score_candidates, landmark_summary,
-            landmark_summary_bwd)
+            landmark_summary_bwd, segment_sum)
 
 
 def reset_launches() -> None:
@@ -40,4 +42,4 @@ def launch_counts() -> dict:
 
 __all__ = ["masked_similarity", "topk_sim", "foldin_topk", "assign_clusters",
            "fused_probe_topk", "score_candidates", "landmark_summary",
-           "landmark_summary_bwd", "WRAPPERS", "reset_launches", "launch_counts"]
+           "landmark_summary_bwd", "segment_sum", "WRAPPERS", "reset_launches", "launch_counts"]

@@ -237,6 +237,30 @@ def cell_sums_ref(rows: torch.Tensor, seg: torch.Tensor, c: int):
     return sums, counts
 
 
+def segment_sum_ref(x: torch.Tensor, perm: torch.Tensor,
+                    indptr: torch.Tensor) -> torch.Tensor:
+    """Oracle for kernels.segment_sum: ``(N, H)`` in ``x``'s dtype, row n
+    the sum of ``x[perm[j]]`` for j in ``indptr[n] .. indptr[n + 1]``,
+    added one after another from 0 in that order (in ``x``'s dtype, so a
+    bf16 sum rounds after every add) — index order when ``perm`` is a
+    stable argsort of the index: CPU ``index_add_``'s f32 sums and
+    ``jax.ops.segment_sum``'s f32 and bf16 sums on the CPU, bit for bit.
+
+    Slot t adds every segment's t-th member where it has one (a masked
+    add), vectorised over segments: max degree steps, no atomics, the same
+    order on any device.
+    """
+    counts = (indptr[1:] - indptr[:-1]).long()
+    starts = indptr[:-1].long()
+    out = torch.zeros((counts.shape[0], x.shape[1]), dtype=x.dtype,
+                      device=x.device)
+    last = max(perm.shape[0] - 1, 0)
+    for t in range(int(counts.max()) if perm.shape[0] else 0):
+        member = x[perm[(starts + t).clamp(max=last)].long()]
+        out = torch.where((counts > t)[:, None], out + member, out)
+    return out
+
+
 def kmeans_lloyd_ref(rep: torch.Tensor, init: torch.Tensor, iters: int = 8,
                      n_valid: Optional[int] = None, measure: str = "cosine",
                      normalize: bool = True):

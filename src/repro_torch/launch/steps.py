@@ -1,5 +1,6 @@
 """Cells: one step function per (architecture × input shape), the
-reference's ``repro.launch.steps`` for the LM family on one device.
+reference's ``repro.launch.steps`` for the LM and GNN families on one
+device (the GNN's ``comm`` variant on the port's single-process mesh).
 
 ``build_cell(arch, shape_name)`` returns a :class:`Cell`: the step
 function and example inputs on the ``meta`` device (shapes and dtypes, no
@@ -17,16 +18,19 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from ..configs.base import ArchConfig, ShapeSpec
+from ..models import gnn as gnn_mod
 from ..models import transformer as lm_mod
 from ..train.optimizer import opt_init, opt_update
+from .mesh import make_mesh
 
 # where the other families wait (ROADMAP queue 1)
 WAITING = {
-    "gnn": "models/gnn.py waits (ROADMAP queue 1, item 2.3)",
-    "recsys": "models/recsys.py waits (ROADMAP queue 1, item 2.3)",
+    "recsys": "models/recsys.py waits (ROADMAP queue 1, item 1)",
     "cf": "the CF cells wait with launch/dryrun.py (ROADMAP queue 1, item "
-          "2.5); fit and serve CF through launch/serve.py",
+          "3); fit and serve CF through launch/serve.py",
 }
+# the GNN's comm variant runs on the reference's debug mesh
+COMM_MESH = (("data", "model"), (2, 4))
 
 
 @dataclasses.dataclass
@@ -41,12 +45,17 @@ def _meta_model(cfg) -> lm_mod.LM:
     return lm_mod.LM(cfg, device="meta")
 
 
-def value_and_grad(model: lm_mod.LM, batch: Dict[str, torch.Tensor]):
-    """(loss, {parameter name: gradient}) of ``lm_loss`` at ``batch``,
-    through ``torch.autograd.grad`` (nothing accumulates in ``.grad``)."""
+def value_and_grad(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
+                   loss_fn: Callable = lm_mod.lm_loss):
+    """(loss, {parameter name: gradient}) of ``loss_fn(model, batch)``
+    (default ``lm_loss``), through ``torch.autograd.grad`` (nothing
+    accumulates in ``.grad``). A parameter the loss does not reach gets a
+    zero gradient, as under ``jax.grad`` (the GNN's last ``ln_e`` only
+    updates edge states that nothing reads)."""
     names, params = zip(*model.named_parameters())
-    loss = lm_mod.lm_loss(model, batch)
-    grads = torch.autograd.grad(loss, params)
+    loss = loss_fn(model, batch)
+    grads = torch.autograd.grad(loss, params, allow_unused=True,
+                                materialize_grads=True)
     return loss.detach(), dict(zip(names, grads))
 
 
@@ -115,13 +124,79 @@ def _lm_decode_cell(arch: ArchConfig, shape: ShapeSpec,
     return Cell(arch, shape, step, (_meta_model(cfg), cache, token))
 
 
+def _gnn_sizes(shape: ShapeSpec, node_shards: int, edge_shards: int):
+    """(nodes, edges) of a GNN shape's batch, as the reference's
+    ``_gnn_batch_sds`` sizes it: a whole graph padded to split evenly over
+    the node and edge shards."""
+    d = shape.dims
+    if shape.name == "molecule":
+        return d["batch"] * d["n_nodes"], d["batch"] * d["n_edges"]
+    if "pad_nodes" in d:
+        return d["pad_nodes"], d["pad_edges"]
+    edges = d.get("pad_edges", d["n_edges"])
+    return (-(-d["n_nodes"] // node_shards) * node_shards,
+            -(-edges // edge_shards) * edge_shards)
+
+
+def _gnn_train_cell(arch: ArchConfig, shape: ShapeSpec,
+                    variant: str = "base") -> Cell:
+    """The GNN's train step at ``shape``: ``d_feat``, ``n_classes`` and the
+    task (``molecule`` is graph regression) from the shape; the cell's
+    ``arch.model`` is that config. ``variant="comm"`` runs the mesh form
+    (``gnn_loss_sharded``) on the reference's debug mesh (data=2,
+    model=4) over the parameters' device."""
+    d = shape.dims
+    task = "graph" if shape.name == "molecule" else "node"
+    cfg = dataclasses.replace(arch.model, d_feat=d["d_feat"],
+                              n_classes=d["n_classes"], task=task)
+    if variant not in ("base", "comm"):
+        raise ValueError(f"unknown GNN variant {variant!r}")
+    if variant == "comm" and task == "graph":
+        raise ValueError("the comm variant serves the node task")
+    data, model = COMM_MESH[1] if variant == "comm" else (1, 1)
+    n_nodes, n_edges = _gnn_sizes(shape, data, data * model)
+
+    def meta(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    batch = {"node_feats": meta((n_nodes, d["d_feat"]), torch.float32),
+             "edge_src": meta((n_edges,), torch.int32),
+             "edge_dst": meta((n_edges,), torch.int32),
+             "edge_mask": meta((n_edges,), torch.float32)}
+    if task == "graph":
+        batch["graph_ids"] = meta((n_nodes,), torch.int32)
+        batch["targets"] = meta((d["batch"],), torch.float32)
+    else:
+        batch["labels"] = meta((n_nodes,), torch.int32)
+
+    def step(model, opt_state, batch):
+        if task == "graph":
+            batch = dict(batch, n_graphs=d["batch"])
+        if variant == "comm":
+            mesh = make_mesh(*COMM_MESH, next(model.parameters()).device)
+            loss, grads = value_and_grad(
+                model, batch, lambda mdl, b: gnn_mod.gnn_loss_sharded(
+                    mdl, b, mesh))
+        else:
+            loss, grads = value_and_grad(model, batch, gnn_mod.gnn_loss)
+        opt_update(model, grads, opt_state, arch.opt)
+        return model, opt_state, {"loss": loss}
+
+    model = gnn_mod.GatedGCN(cfg, device="meta")
+    return Cell(dataclasses.replace(arch, model=cfg), shape, step,
+                (model, opt_init(model, arch.opt), batch))
+
+
 def build_cell(arch: ArchConfig, shape_name: str,
                variant: str = "base") -> Cell:
     """The cell of ``arch`` at its shape ``shape_name``. ``variant``, for a
     decode shape: ``landmark`` (O(n) landmark decode) or ``kv_int8`` (the
-    int8 KV cache). Families other than the LM raise NotImplementedError,
+    int8 KV cache); for a GNN shape: ``comm`` (the mesh form).
+    Families other than the LM and the GNN raise NotImplementedError,
     naming where they wait."""
     shape = arch.shape(shape_name)
+    if arch.family == "gnn":
+        return _gnn_train_cell(arch, shape, variant)
     if arch.family != "lm":
         raise NotImplementedError(
             f"build_cell: the {arch.family!r} family is not ported: "

@@ -1,13 +1,21 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch smollm-360m
-[--shape train_4k] [--steps N] [--smoke] [--ckpt-dir D] [--device cpu]``.
+[--shape train_4k] [--steps N] [--smoke] [--ckpt-dir D] [--device cpu]``,
+or ``--arch gatedgcn [--shape full_graph_sm|minibatch_lg|molecule]``.
 
-The reference's ``repro.launch.train`` for the LM family, on one device:
-builds the arch's train cell (``launch/steps.py``), random weights from
-``torch.Generator`` seed 0, the arch's optimizer, and runs
-``train/trainer.py::train_loop`` on ``data/synthetic.py::lm_batch``
-batches, checkpointing every ``steps // 2`` steps and resuming from the
-latest checkpoint in ``--ckpt-dir``. ``--smoke`` swaps in the arch's smoke
-model, a (4, 128) batch and no gradient accumulation, as the reference's.
+The reference's ``repro.launch.train`` for the LM and GNN families, on one
+device: builds the arch's train cell (``launch/steps.py``), random weights
+from ``torch.Generator`` seed 0, the arch's optimizer, and runs
+``train/trainer.py::train_loop``, checkpointing every ``steps // 2`` steps
+and resuming from the latest checkpoint in ``--ckpt-dir``. The LM trains
+on ``data/synthetic.py::lm_batch`` batches; the GNN on each shape's own
+generator: ``random_graph`` for ``full_graph_sm``, ``sampled_block`` for
+``minibatch_lg``, ``molecule_batch`` for ``molecule`` (the reference feeds
+its 200-node smoke graph at every shape, with full_graph_sm's dims:
+ROADMAP B10). ``ogb_products`` does not fit one card and raises.
+``--smoke`` swaps in the arch's smoke model, as the reference's: for the LM
+a (4, 128) batch and no gradient accumulation, for the GNN the
+reference's ``random_graph(step, 200, 800, d_feat, n_classes,
+pad_edges_to=1024)`` (``molecule``: 4 molecules of 10 nodes and 20 edges).
 Runs on the card unless ``--device cpu`` is given; without a card it
 raises (it never falls back). The reference's ``--production-mesh`` and
 ``--multi-pod`` wait for the multi-process launcher (ROADMAP queue 1).
@@ -22,20 +30,65 @@ import torch
 from ..configs import registry
 from ..configs.base import ShapeSpec
 from ..data import synthetic as S
+from ..models import gnn as gnn_mod
 from ..models import transformer as lm_mod
 from ..train.optimizer import opt_init
 from ..train.trainer import Prefetcher, TrainerConfig, to_device, train_loop
 from .steps import build_cell
 
 SMOKE_BATCH, SMOKE_SEQ = 4, 128
+SMOKE_GRAPH = (200, 800, 1024)  # nodes, edges, edges padded to
+SMOKE_MOLECULES = (4, 10, 20)  # molecules, nodes and edges a molecule
+OGB_WAITS = (
+    "launch.train: ogb_products (2,449,029 nodes, 61,859,140 edges) does "
+    "not fit one card: one (E, 70) f32 edge tensor is 61.86 M x 70 x 4 B = "
+    "17.3 GB, a layer's forward holds about six live (~104 GB), and "
+    "per-layer remat keeps 16 carries of e (277 GB). It trains "
+    "edge-sharded over a mesh and waits for the multi-process launcher "
+    "(ROADMAP queue 1, item 4).")
 
 
-def _batches(cfg, shape: ShapeSpec):
+def _lm_batches(cfg, shape: ShapeSpec):
     b, s = shape.dims["batch"], shape.dims["seq"]
     step = 0
     while True:
         yield S.lm_batch(0, step, b, s, cfg.vocab)
         step += 1
+
+
+def _gnn_batches(shape: ShapeSpec):
+    """Each GNN shape's own generator, deterministic in the step."""
+    d = shape.dims
+    step = 0
+    while True:
+        if shape.name == "molecule":
+            yield S.molecule_batch(0, step, d["batch"], d["n_nodes"],
+                                   d["n_edges"], d["d_feat"])
+        elif "pad_nodes" in d:
+            yield S.sampled_block(0, step, d["n_total_nodes"],
+                                  d["batch_nodes"], d["fanouts"], d["d_feat"],
+                                  d["n_classes"], d["pad_nodes"],
+                                  d["pad_edges"])
+        else:
+            yield S.random_graph(step, d["n_nodes"], d["n_edges"],
+                                 d["d_feat"], d["n_classes"],
+                                 pad_edges_to=d.get("pad_edges"))
+        step += 1
+
+
+def _smoke_shape(arch, shape_name: str) -> ShapeSpec:
+    cfg = arch.smoke_model
+    if arch.family == "lm":
+        return ShapeSpec(shape_name, "train",
+                         dict(batch=SMOKE_BATCH, seq=SMOKE_SEQ))
+    if shape_name == "molecule":
+        b, n, e = SMOKE_MOLECULES
+        return ShapeSpec(shape_name, "train_graph", dict(
+            batch=b, n_nodes=n, n_edges=e, d_feat=cfg.d_feat, n_classes=1))
+    n, e, pad = SMOKE_GRAPH
+    return ShapeSpec(shape_name, "train_graph", dict(
+        n_nodes=n, n_edges=e, pad_edges=pad, d_feat=cfg.d_feat,
+        n_classes=cfg.n_classes))
 
 
 def main(argv=None):
@@ -56,24 +109,27 @@ def main(argv=None):
         raise RuntimeError("launch.train: no CUDA device; pass --device cpu "
                            "to train on the CPU")
     arch = registry.get(args.arch)
-    if arch.family != "lm":
-        raise NotImplementedError(f"launch.train: only the LM family is "
-                                  f"ported, not {arch.family!r}")
+    if arch.family not in ("lm", "gnn"):
+        raise NotImplementedError(f"launch.train: only the LM and GNN "
+                                  f"families are ported, not "
+                                  f"{arch.family!r}")
     shape_name = args.shape or arch.shapes[0].name
+    if arch.family == "gnn" and shape_name == "ogb_products":
+        raise NotImplementedError(OGB_WAITS)
     if args.smoke:
-        arch = dataclasses.replace(arch, model=arch.smoke_model, grad_accum={})
-        shape = ShapeSpec(shape_name, "train",
-                          dict(batch=SMOKE_BATCH, seq=SMOKE_SEQ))
-        arch = dataclasses.replace(arch, shapes=(shape,))
+        arch = dataclasses.replace(arch, model=arch.smoke_model, grad_accum={},
+                                   shapes=(_smoke_shape(arch, shape_name),))
 
     cell = build_cell(arch, shape_name)
-    model = lm_mod.init_lm(arch.model, torch.Generator(device).manual_seed(0),
-                           device)
+    lm = arch.family == "lm"
+    model = (lm_mod.init_lm if lm else gnn_mod.init_gnn)(
+        cell.arch.model, torch.Generator(device).manual_seed(0), device)
     opt_state = opt_init(model, arch.opt)
+    batches = (_lm_batches(arch.model, cell.shape) if lm
+               else _gnn_batches(cell.shape))
     out = train_loop(
         cell.fn, model, opt_state,
-        Prefetcher(_batches(arch.model, cell.shape),
-                   lambda b: to_device(b, device)),
+        Prefetcher(batches, lambda b: to_device(b, device)),
         TrainerConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
                       ckpt_every=max(args.steps // 2, 1), log_every=10),
     )

@@ -1,14 +1,16 @@
-"""Carry LM parameters and optimizer state across frameworks.
+"""Carry LM and GNN parameters and optimizer state across frameworks.
 
 The reference's ``init_lm`` returns a dict ``{"embed", "final_norm",
-"layers": {name: (L, ...) stacked}, "unembed"?}``; the tests convert it
-with ``numpy.asarray`` and load it here, so both packages run the same
-weights (``torch.Generator`` cannot reproduce ``jax.random``). Values pass
-through float32, which holds every bfloat16 exactly. The optimizer state
-is the reference's ``{"step", "leaves"}`` tree in both packages
-(``train.optimizer``); :func:`lm_tree` gives the parameters in the
-reference's tree as tensors, so a training checkpoint
-``(lm_tree(model), opt_state)`` restores in either package.
+"layers": {name: (L, ...) stacked}, "unembed"?}``, its ``init_gnn``
+``{"embed_w", "embed_b", "layers": {U, V, C, D, E, ln_h, ln_e stacked},
+"head_w", "head_b"}``; the tests convert them with ``numpy.asarray`` and
+load them here, so both packages run the same weights (``torch.Generator``
+cannot reproduce ``jax.random``). Values pass through float32, which holds
+every bfloat16 exactly. The optimizer state is the reference's ``{"step",
+"leaves"}`` tree in both packages (``train.optimizer``); :func:`param_tree`
+gives a model's parameters in the reference's tree as tensors, so a
+training checkpoint ``(param_tree(model), opt_state)`` restores in either
+package.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from ..train.optimizer import OptConfig, opt_init
+from .gnn import LAYER_MATS, LAYER_NORMS, GatedGCN, GNNConfig
 from .transformer import LM, LMConfig
 
 
@@ -72,19 +75,70 @@ def load_lm_tree(model: LM, tree: Dict) -> LM:
     """Copy a parameter tree in the reference's layout (tensors or numpy
     arrays, e.g. a restored checkpoint) into ``model`` in place."""
 
-    def put(dst: torch.Tensor, src) -> None:
-        src = (src if isinstance(src, torch.Tensor)
-               else tensor_from_numpy(src, dst.dtype, dst.device))
-        dst.copy_(src)
-
-    put(model.embed, tree["embed"])
-    put(model.final_norm, tree["final_norm"])
+    _put(model.embed, tree["embed"])
+    _put(model.final_norm, tree["final_norm"])
     if not model.cfg.tied_embed:
-        put(model.unembed, tree["unembed"])
+        _put(model.unembed, tree["unembed"])
     for name, stacked in tree["layers"].items():
         for i, blk in enumerate(model.layers):
-            put(getattr(blk, name), stacked[i])
+            _put(getattr(blk, name), stacked[i])
     return model
+
+
+def _put(dst: torch.Tensor, src) -> None:
+    src = (src if isinstance(src, torch.Tensor)
+           else tensor_from_numpy(src, dst.dtype, dst.device))
+    dst.copy_(src)
+
+
+def gnn_tree(model: GatedGCN) -> Dict:
+    """The GNN's parameters in the reference's tree, as tensors in the
+    model's dtype on its device (the layers stacked: a copy)."""
+    out = {name: getattr(model, name).detach()
+           for name in ("embed_w", "embed_b", "head_w", "head_b")}
+    out["layers"] = {name: torch.stack([getattr(lp, name).detach()
+                                        for lp in model.layers])
+                     for name in LAYER_MATS + LAYER_NORMS}
+    return out
+
+
+@torch.no_grad()
+def load_gnn_tree(model: GatedGCN, tree: Dict) -> GatedGCN:
+    """Copy a parameter tree in the reference's layout (tensors or numpy
+    arrays) into ``model`` in place."""
+    for name in ("embed_w", "embed_b", "head_w", "head_b"):
+        _put(getattr(model, name), tree[name])
+    for name, stacked in tree["layers"].items():
+        for i, lp in enumerate(model.layers):
+            _put(getattr(lp, name), stacked[i])
+    return model
+
+
+def gnn_from_numpy(params: Dict, cfg: GNNConfig, device="cuda") -> GatedGCN:
+    """A :class:`GatedGCN` on ``device`` holding the reference's
+    parameters."""
+    return load_gnn_tree(GatedGCN(cfg, device), params)
+
+
+def gnn_to_numpy(model: GatedGCN) -> Dict:
+    """The reference's parameter tree as float32 numpy arrays."""
+    tree = gnn_tree(model)
+    return {key: ({k: v.float().cpu().numpy() for k, v in val.items()}
+                  if isinstance(val, dict) else val.float().cpu().numpy())
+            for key, val in tree.items()}
+
+
+def param_tree(model) -> Dict:
+    """The model's parameters in the reference's tree (:func:`lm_tree` or
+    :func:`gnn_tree`): a training checkpoint's parameter half."""
+    return gnn_tree(model) if isinstance(model, GatedGCN) else lm_tree(model)
+
+
+def load_param_tree(model, tree: Dict):
+    """Load a :func:`param_tree` into ``model`` in place."""
+    if isinstance(model, GatedGCN):
+        return load_gnn_tree(model, tree)
+    return load_lm_tree(model, tree)
 
 
 def opt_state_from_numpy(ref_state: Dict, model: LM, opt_cfg: OptConfig

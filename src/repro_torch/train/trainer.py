@@ -5,8 +5,9 @@ one device.
 The step function updates the model and the optimizer state in place and
 returns them with its metrics; the loop reads the loss once a step
 (``float``), which is its one host sync. A checkpoint is
-``(lm_tree(model), opt_state)``, the reference's ``(params, opt_state)``
-tree, so either package resumes from the other's.
+``(param_tree(model), opt_state)``, the reference's ``(params,
+opt_state)`` tree (the LM's or the GNN's), so either package resumes from
+the other's.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from typing import Any, Callable, Dict, Iterator, Optional
 import numpy as np
 import torch
 
-from ..models.convert import lm_tree, load_lm_tree
+from ..models.convert import load_param_tree, param_tree
 from .checkpoint import (AsyncCheckpointer, _flatten, latest_step,
                          restore_checkpoint)
 
@@ -115,10 +116,10 @@ def train_loop(
     ckpt = AsyncCheckpointer(cfg.ckpt_dir, cfg.keep) if cfg.ckpt_dir else None
     if cfg.ckpt_dir and latest_step(cfg.ckpt_dir) is not None:
         start_step = latest_step(cfg.ckpt_dir)
-        params, opt = restore_checkpoint(cfg.ckpt_dir,
-                                         (lm_tree(model), opt_state),
-                                         device=model.embed.device)
-        load_lm_tree(model, params)
+        params, opt = restore_checkpoint(
+            cfg.ckpt_dir, (param_tree(model), opt_state),
+            device=next(model.parameters()).device)
+        load_param_tree(model, params)
         _copy_into(opt_state, opt)
         log(f"resumed from step {start_step}")
 
@@ -148,11 +149,11 @@ def train_loop(
                 log(f"step {step:5d} loss {losses[-1]:.4f} {dt*1e3:.0f}ms"
                     + (" [straggler]" if slow else ""))
             if ckpt and (step + 1) % cfg.ckpt_every == 0:
-                ckpt.save(step + 1, (lm_tree(model), opt_state))
+                ckpt.save(step + 1, (param_tree(model), opt_state))
             if interrupted["flag"]:
                 log(f"SIGTERM at step {step}: emergency checkpoint")
                 if ckpt:
-                    ckpt.save(step + 1, (lm_tree(model), opt_state))
+                    ckpt.save(step + 1, (param_tree(model), opt_state))
                 break
     finally:
         if ckpt:

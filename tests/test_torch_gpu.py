@@ -35,6 +35,9 @@ Tolerances:
 - compact (uint16/bf16) graph reads against the widened graph's:
   rtol=atol=2e-2, the reference's bf16 bound; the uint16 gather's ids
   equal;
+- the segment sum (the GNN's message passing), f32 and bf16: bitwise its
+  plain version (the same adds in the same order) and two launches
+  bitwise; a GatedGCN train step's loss and gradients twice bitwise;
 - a landmark-attention forward through the kernel against the same
   forward with the plain summary, bf16: within 5% of the largest logit
   (the kernel's f32 sums in another order, rounded to bf16 on the way
@@ -51,6 +54,7 @@ from repro_torch.kernels import (assign_clusters, ivf_probe, knn_topk, ops,
                                  ref, score_candidates)
 from repro_torch.kernels import landmark_attention as lsum
 from repro_torch.kernels import masked_similarity as ms
+from repro_torch.kernels import segment_sum as segsum
 
 pytestmark = pytest.mark.gpu
 RTOL, ATOL = 1e-5, 1e-6
@@ -1271,3 +1275,81 @@ def test_compact_graph_reads_on_the_card(cuda, tmp_path):
     raw = load_landmark_state(str(tmp_path), widen=False, device=cuda)
     assert raw.graph.indices.dtype == torch.uint16 and raw.graph.is_compact
     assert torch.equal(raw.graph.to_full().indices, st.graph.indices)
+
+
+def _segment_index(kind, e, n, device, seed=0):
+    """(index, mask) on ``device``: uniform, power-law (the GNN's source
+    degrees), padded (half the edges at node 0 with mask 0) or with every
+    other segment empty."""
+    rng = np.random.default_rng(seed)
+    mask = np.ones(e, np.float32)
+    if kind == "power_law":
+        w = 1.0 / np.arange(1, n + 1) ** 0.7
+        idx = rng.choice(n, size=e, p=w / w.sum())
+    else:
+        idx = rng.integers(0, n, e)
+    if kind == "padded":
+        idx[e // 2:] = 0
+        mask[e // 2:] = 0
+    if kind == "empty":
+        idx = 2 * (idx // 2)
+    return (torch.as_tensor(idx.astype(np.int32), device=device),
+            torch.as_tensor(mask, device=device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["random", "power_law", "padded", "empty"])
+def test_segment_sum_kernel_matches_plain(cuda, kind, dtype):
+    idx, mask = _segment_index(kind, 20000, 3000, cuda)
+    csr = segsum.build_csr(idx, 3000, mask)
+    x = torch.randn((20000, 70), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(1)).to(dtype)
+    ops.reset_launches()
+    got = segsum.segment_sum(x, csr)
+    again = segsum.segment_sum(x, csr)
+    want = ref.segment_sum_ref(x, csr.perm, csr.indptr)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["segment_sum"] == 2
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert torch.equal(again, got)
+    counts = csr.indptr[1:] - csr.indptr[:-1]
+    assert not got[counts == 0].any()
+
+
+def test_segment_sum_rejects_what_the_kernel_does_not_take(cuda):
+    idx, mask = _segment_index("random", 100, 10, cuda)
+    csr = segsum.build_csr(idx, 10, mask)
+    x = torch.randn((100, 8), device=cuda)
+    with pytest.raises(ValueError):
+        segsum.segment_sum(x.half(), csr)
+    with pytest.raises(ValueError):
+        segsum.segment_sum(torch.randn((8, 100), device=cuda).T, csr)
+    with pytest.raises(ValueError):
+        segsum.segment_sum(x[:99], csr)
+    with pytest.raises(ValueError):
+        segsum.segment_sum(x, segsum.build_csr(idx.cpu(), 10, mask.cpu()))
+
+
+def test_gnn_train_step_on_the_card_is_bitwise_reproducible(cuda):
+    """A GatedGCN loss and its gradients twice, the segment sums all on the
+    kernel: 8 launches a layer (forward, recompute, backward)."""
+    from repro_torch.data import synthetic
+    from repro_torch.launch import steps
+    from repro_torch.models import gnn
+
+    cfg = gnn.GNNConfig("g", n_layers=3, d_hidden=70, d_feat=64,
+                        n_classes=7)
+    model = gnn.init_gnn(cfg, torch.Generator(cuda).manual_seed(0), cuda)
+    batch = {k: torch.as_tensor(v, device=cuda) for k, v in
+             synthetic.random_graph(0, 2000, 9000, 64, 7,
+                                    pad_edges_to=10000).items()}
+    runs = []
+    for _ in range(2):
+        ops.reset_launches()
+        loss, grads = steps.value_and_grad(model, batch, gnn.gnn_loss)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["segment_sum"] == 8 * cfg.n_layers
+        runs.append((loss, grads))
+    (l1, g1), (l2, g2) = runs
+    assert torch.equal(l1, l2) and bool(torch.isfinite(l1))
+    assert all(torch.equal(g1[k], g2[k]) for k in g1)

@@ -77,7 +77,8 @@ def test_wrappers_never_launch_for_cpu_tensors():
                                    "fused_probe_topk": 0,
                                    "score_candidates": 0,
                                    "landmark_summary": 0,
-                                   "landmark_summary_bwd": 0}
+                                   "landmark_summary_bwd": 0,
+                                   "segment_sum": 0}
 
 
 def test_resolve_backend_follows_the_tensor_device():
@@ -111,7 +112,7 @@ def test_build_paths_stay_in_the_checkout():
     assert sorted(p.name for p in build.CSRC.glob("*.cu")) == [
         "assign_clusters.cu", "ivf_probe.cu", "knn_topk.cu",
         "landmark_summary.cu", "landmark_summary_bwd.cu",
-        "masked_similarity.cu", "score_candidates.cu"]
+        "masked_similarity.cu", "score_candidates.cu", "segment_sum.cu"]
     assert sorted(p.name for p in build.CSRC.glob("*.cuh")) == [
         "device_smem.cuh", "sm90.cuh", "topk_common.cuh"]
     assert "sm_90a" in build.ARCH
