@@ -306,7 +306,13 @@ The GNN slice adds:
     ``full_graph_sm``, ``minibatch_lg`` and ``molecule`` (and molecule's
     by graph id), f32 and bf16: bitwise its plain version, two launches
     bitwise, empty segments 0, 1024 padded edges at node 0 changing
-    nothing (masked, or live with zero rows); (b) GatedGCN at full width
+    nothing (masked, or live with zero rows); one line a CSR with its live
+    edges, largest segment, heavy segments (more than ``segsum.HEAVY``
+    members) and, in f32 (bf16 too at minibatch_lg), the kernel's event
+    and device ms, its bound and one ``index_add_`` call's ms; the same
+    checks at the card tests' schedule cases (each width class H = 1, 31,
+    32, 33, 128, a segment of 5,000, degrees at the heavy threshold −1, 0,
+    +1, every edge masked, no edge); (b) GatedGCN at full width
     and depth (16 layers, d_hidden 70, f32, seed-0 weights, AdamW, remat)
     trained ``GNN_STEPS`` steps on each of the three shapes through
     ``build_cell`` and ``train_loop`` on the shape's own generator: every
@@ -323,8 +329,8 @@ The GNN slice adds:
     one train step of the ``comm`` cell. The kernel table
     gains row 8 (events and device ms at minibatch_lg's CSR by
     destination, bound, plain ms, one ``index_add_`` call and whether it
-    is bitwise) and each row its launches on the GNN runs
-    (``launches_gnn``).
+    is bitwise, and 17a's times at every CSR as ``per_csr``) and each row
+    its launches on the GNN runs (``launches_gnn``).
 
 The last two lines are the kernel table and
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. TF32 is off for
@@ -1017,7 +1023,7 @@ DEVICE_FUNCS = {
                              "bwd_dkv_wgmma_kernel"),
     "landmark_summary_bwd_f32": ("bwd_dq_kernel", "bwd_dkv_kernel"),
     "repair_drain": None,  # every kernel of a drain (phase 10)
-    "segment_sum": ("segment_sum_f32_kernel", "segment_sum_bf16_kernel"),
+    "segment_sum": ("segment_sum_kernel",),
 }
 
 
@@ -4511,9 +4517,25 @@ def _segsum_bound(x, csr):
     return _bound(moved, live * h)
 
 
-def _segsum_checks(name, key, idx, mask, n, gen):
+def _segsum_times(x, csr):
+    """One CSR's timing: the kernel's event and device ms, its bound, and
+    one ``index_add_`` call on the same live edges (the yardstick)."""
+    run = lambda: segsum.segment_sum(x, csr)
+    live = csr.perm.long()
+    idx_live, x_live = csr.index[live], x[live]
+    library = lambda: torch.zeros((csr.n, x.shape[1]), dtype=x.dtype,
+                                  device=DEVICE).index_add_(0, idx_live,
+                                                            x_live)
+    bound_ms, bound_by = _segsum_bound(x, csr)
+    return dict(events_ms=_event_ms(run, 50),
+                device_ms=_device_ms(run, "segment_sum"), bound_ms=bound_ms,
+                bound_by=bound_by, index_add_ms=_event_ms(library, 50))
+
+
+def _segsum_checks(name, key, idx, mask, n, gen, h=70, times=()):
     """17a at one index: f32 and bf16, the kernel bitwise its plain version
-    and itself, empty segments 0, padded edges changing nothing."""
+    and itself, empty segments 0, padded edges changing nothing; timed in
+    each dtype of ``times``."""
     csr = segsum.build_csr(idx, n, mask)
     counts = csr.indptr[1:] - csr.indptr[:-1]
     e = idx.shape[0]
@@ -4523,13 +4545,13 @@ def _segsum_checks(name, key, idx, mask, n, gen):
     masked = segsum.build_csr(pad_idx, n, pad_mask)
     as_live = segsum.build_csr(pad_idx, n, torch.cat([
         mask, torch.ones(GNN_PAD, device=DEVICE)]))
-    out = {}
+    out, timed = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
-        x = torch.randn((e, 70), generator=gen, device=DEVICE).to(dtype)
+        x = torch.randn((e, h), generator=gen, device=DEVICE).to(dtype)
         got = segsum.segment_sum(x, csr)
         again = segsum.segment_sum(x, csr)
         want = ref.segment_sum_ref(x, csr.perm, csr.indptr)
-        noise = torch.randn((GNN_PAD, 70), generator=gen, device=DEVICE
+        noise = torch.randn((GNN_PAD, h), generator=gen, device=DEVICE
                             ).to(dtype)
         pad_masked = segsum.segment_sum(torch.cat([x, noise]), masked)
         pad_live = segsum.segment_sum(torch.cat([x, torch.zeros_like(noise)]),
@@ -4542,17 +4564,57 @@ def _segsum_checks(name, key, idx, mask, n, gen):
         _bitwise(f"{tag}: live zero-row padded edges", (pad_live,), (got,))
         if got[counts == 0].any():
             raise AssertionError(f"{tag}: an empty segment is not 0")
-        out[str(dtype).removeprefix("torch.")] = float(
-            (got.float() - want.float()).abs().max())
+        short = str(dtype).removeprefix("torch.")
+        out[short] = float((got.float() - want.float()).abs().max())
+        if dtype in times:
+            timed[short] = _segsum_times(x, csr)
     return csr, dict(edges=e, live=int(csr.perm.numel()),
-                     max_degree=int(counts.max()),
-                     empty_segments=int((counts == 0).sum()), max_abs_err=out)
+                     max_degree=int(counts.max()) if n else 0,
+                     heavy_segments=int((counts > segsum.HEAVY).sum()),
+                     empty_segments=int((counts == 0).sum()), max_abs_err=out,
+                     **timed)
+
+
+def _segsum_case(case):
+    """(index, mask, N, H) of the card tests' schedule cases
+    (``tests/test_torch_gpu.py::_segment_case``): power-law degrees at
+    each width class H = 1, 31, 32, 33, 128; one segment of 5,000 members;
+    segments of HEAVY - 1, HEAVY and HEAVY + 1 members among light ones;
+    a large CSR (N = 140,000); every edge masked; no edge. N = 3000
+    otherwise."""
+    rng = np.random.default_rng(3)
+    n, h = 3000, 70
+    if case.startswith("h"):
+        w = 1.0 / np.arange(1, n + 1) ** 0.7
+        idx, h = rng.choice(n, size=20000, p=w / w.sum()), int(case[1:])
+    elif case == "one_5000":
+        idx = np.concatenate([np.full(5000, 7), rng.integers(0, n, 3000)])
+    elif case == "large":  # a dense head, then empty rows: chunks of 32
+        n = 140000
+        idx = rng.integers(0, 9000, 20000)
+    elif case.startswith("deg"):
+        idx = rng.integers(0, n, 20000)
+        idx = np.concatenate([idx[(idx != 1) & (idx != 40) & (idx != 41)],
+                              np.repeat([1, 40, 41],
+                                        segsum.HEAVY + int(case[3:]))])
+    else:  # "all_empty", "no_edges"
+        idx = rng.integers(0, n, 0 if case == "no_edges" else 20000)
+    mask = np.full(idx.shape[0], 0.0 if case == "all_empty" else 1.0,
+                   np.float32)
+    return (torch.as_tensor(idx.astype(np.int32), device=DEVICE),
+            torch.as_tensor(mask, device=DEVICE), n, h)
+
+
+SEGSUM_CASES = ("h1", "h31", "h32", "h33", "h128", "one_5000", "deg-1",
+                "deg+0", "deg+1", "large", "all_empty", "no_edges")
 
 
 def phase_gnn_kernel():
     """17a: the segment-sum kernel at each trained shape's CSRs (by
-    destination and by source; molecule's by graph id too), f32 and bf16.
-    Returns the timed CSR's inputs and the table's error."""
+    destination and by source; molecule's by graph id too), f32 and bf16,
+    each CSR timed in f32 (and bf16 at GNN_TIMED); then at the schedule's
+    cases. Returns the timed CSR's inputs, the table's error and the
+    per-CSR notes."""
     t0 = time.perf_counter()
     arch = registry.get(GNN_ARCH)
     gen = torch.Generator(device=DEVICE).manual_seed(17)
@@ -4569,18 +4631,31 @@ def phase_gnn_kernel():
             mask = (b["edge_mask"] if key != "graph_ids"
                     else torch.ones(idx.shape[0], device=DEVICE))
             segs = cell.shape.dims["batch"] if key == "graph_ids" else n
+            times = ((torch.float32, torch.bfloat16) if name == GNN_TIMED
+                     else (torch.float32,))
             csr, notes[f"{name} by {key}"] = _segsum_checks(
-                name, key, idx, mask, segs, gen)
+                name, key, idx, mask, segs, gen, times=times)
             err = max(err, *notes[f"{name} by {key}"]["max_abs_err"].values())
+            print(f"phase 17a {name} by {key}: "
+                  + json.dumps(notes[f"{name} by {key}"]))
             if name == GNN_TIMED and key == "edge_dst":
                 timed = (torch.randn((idx.shape[0], 70), generator=gen,
                                      device=DEVICE), csr)
+    cases = {}
+    for case in SEGSUM_CASES:
+        idx, mask, n, h = _segsum_case(case)
+        _, note = _segsum_checks("case", case, idx, mask, n, gen, h=h)
+        cases[case] = {k: note[k] for k in ("live", "max_degree",
+                                            "heavy_segments")}
+    print(f"phase 17a schedule cases (bitwise as above): "
+          + json.dumps(cases))
     print(f"phase 17a segment sum (bitwise its plain version and itself, "
           f"f32 and bf16; empty segments 0; {GNN_PAD} padded edges at node "
-          f"0 change nothing, masked or live with zero rows): "
-          + json.dumps(notes) + f" | launches {ops.launch_counts()['segment_sum']}"
-          f" | {time.perf_counter() - t0:.1f}s")
-    return timed, err
+          f"0 change nothing, masked or live with zero rows) at "
+          f"{len(notes)} CSRs and {len(cases)} cases | launches "
+          f"{ops.launch_counts()['segment_sum']} | "
+          f"{time.perf_counter() - t0:.1f}s")
+    return timed, err, notes
 
 
 def _gnn_grads(cell, model, batch, plain=False):
@@ -4771,7 +4846,7 @@ def phase_gnn_mesh(card):
           f"{time.perf_counter() - t0:.1f}s")
 
 
-def _gnn_row(timed, err, counts):
+def _gnn_row(timed, err, counts, notes):
     """Row 8 of the kernel table: the segment sum at minibatch_lg's CSR by
     destination (f32), with its launches on the GNN training runs (17b),
     events and device ms, bound, plain ms, and one index_add_ call (CUDA
@@ -4798,7 +4873,10 @@ def _gnn_row(timed, err, counts):
         library_note="torch.zeros(N, H).index_add_(0, index, x) on the live "
         "edges (CUDA atomics; the port never calls it)",
         library_bitwise_kernel=bool(torch.equal(lib1, got)),
-        library_bitwise_itself=bool(torch.equal(lib1, lib2)))
+        library_bitwise_itself=bool(torch.equal(lib1, lib2)),
+        per_csr={k: {t: v[t] for t in ("live", "max_degree", "float32",
+                                       "bfloat16") if t in v}
+                 for k, v in notes.items()})
 
 
 def phase_gnn(card):
@@ -4806,10 +4884,10 @@ def phase_gnn(card):
     at full width on three shapes, (c) the mesh form. Returns row 8 and
     the GNN training runs' launches."""
     t0 = time.perf_counter()
-    timed, err = phase_gnn_kernel()
+    timed, err, notes = phase_gnn_kernel()
     counts = phase_gnn_train(card)
     phase_gnn_mesh(card)
-    row = _gnn_row(timed, err, counts)
+    row = _gnn_row(timed, err, counts, notes)
     print(f"phase 17: row 8 {json.dumps(row)} | "
           f"{time.perf_counter() - t0:.1f}s")
     return row, counts

@@ -261,6 +261,94 @@ def segment_sum_ref(x: torch.Tensor, perm: torch.Tensor,
     return out
 
 
+# csrc/segment_sum.cu's schedule: rows whose bounds a warp loads at once,
+# edges whose rows it loads before adding any, a heavy stage's buffer
+# (floats) and most members
+SEG_RUN, SEG_INFLIGHT = 32, 8
+SEG_STAGE_ELEMS, SEG_STAGE_ROWS = 16 * 256, 64
+
+
+def segment_sum_sched_ref(x: torch.Tensor, perm: torch.Tensor,
+                          indptr: torch.Tensor, chunk_rows: torch.Tensor,
+                          heavy_rows: torch.Tensor, heavy: int
+                          ) -> torch.Tensor:
+    """The segment-sum kernel's schedule step by step (a plain emulation
+    of ``csrc/segment_sum.cu``): what :func:`segment_sum_ref` computes,
+    through the kernel's chunks, runs, load groups, channel slices and
+    heavy stages, bitwise equal to it when the schedule adds each
+    segment's members in j order and stores every output element once.
+
+    Warp c walks rows ``chunk_rows[c]:chunk_rows[c + 1]`` in runs of
+    SEG_RUN rows, each channel slice of 32·M (M = min(4, ⌈H/32⌉)) in
+    turn: between the run's heavy rows (more than ``heavy`` members, which
+    it skips) a flat walk of the edges, SEG_INFLIGHT rows loaded, then
+    added in j order, a row stored when the walk passes its end (an empty
+    one as 0). Each heavy row (``heavy_rows`` up to its first entry ≥ N)
+    goes by the same channel slices in stages of min(SEG_STAGE_ROWS,
+    SEG_STAGE_ELEMS // slice width) members, staged, then added in order.
+    Raises AssertionError if an element is stored twice or never.
+    """
+    n, h = indptr.numel() - 1, x.shape[1]
+    ip, pm = indptr.tolist(), perm.tolist()
+    out = torch.zeros((n, h), dtype=x.dtype)
+    stores = torch.zeros((n, h), dtype=torch.int32)
+    width = 32 * min(4, -(-h // 32))
+
+    def store(row, c0, acc):
+        out[row, c0:c0 + acc.numel()] = acc
+        stores[row, c0:c0 + acc.numel()] += 1
+
+    bounds = chunk_rows.tolist()
+    for rs, re in zip(bounds[:-1], bounds[1:]):
+        for c0 in range(0, h, width):
+            cols = slice(c0, min(h, c0 + width))
+            zero = torch.zeros(cols.stop - c0, dtype=x.dtype)
+            for rb in range(rs, re, SEG_RUN):
+                nr = min(SEG_RUN, re - rb)
+                ends = ip[rb + 1:rb + nr + 1]
+                heavy_at = [t for t in range(nr)
+                            if ends[t] - ip[rb + t] > heavy]
+                t, j, acc = 0, ip[rb], zero
+                while t < nr:
+                    stop = next((r for r in heavy_at if r >= t), nr)
+                    b = ip[rb + stop]
+                    for jb in range(j, b, 32):  # one coalesced perm load
+                        cnt = min(32, b - jb)
+                        for k in range(0, cnt, SEG_INFLIGHT):
+                            group = range(jb + k,
+                                          jb + min(cnt, k + SEG_INFLIGHT))
+                            loaded = [x[pm[e], cols] for e in group]
+                            for e, v in zip(group, loaded):
+                                while e >= ends[t]:
+                                    store(rb + t, c0, acc)
+                                    acc, t = zero, t + 1
+                                acc = acc + v
+                    while t < stop:
+                        store(rb + t, c0, acc)
+                        acc, t = zero, t + 1
+                    if stop < nr:  # skip the heavy row
+                        j, t = ends[stop], stop + 1
+    for row in heavy_rows.tolist():
+        if row >= n:
+            break
+        lo, hi = ip[row], ip[row + 1]
+        for c0 in range(0, h, width):
+            cw = min(width, h - c0)
+            rows = min(SEG_STAGE_ROWS, SEG_STAGE_ELEMS // cw)
+            acc = torch.zeros(cw, dtype=x.dtype)
+            for first in range(lo, hi, rows):
+                stage = x[perm[first:min(hi, first + rows)].long(),
+                          c0:c0 + cw]
+                for v in stage:
+                    acc = acc + v
+            store(row, c0, acc)
+    if not bool((stores == 1).all()):
+        bad = (stores != 1).nonzero()[0].tolist()
+        raise AssertionError(f"segment_sum schedule: element {bad} stored "
+                             f"{int(stores[bad[0], bad[1]])} times")
+    return out
+
+
 def kmeans_lloyd_ref(rep: torch.Tensor, init: torch.Tensor, iters: int = 8,
                      n_valid: Optional[int] = None, measure: str = "cosine",
                      normalize: bool = True):

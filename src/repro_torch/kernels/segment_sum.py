@@ -4,7 +4,10 @@ passing runs on.
 
 A :class:`CSR` lists the live edges of one index (``edge_dst``,
 ``edge_src`` or ``graph_ids``) grouped by segment: ``perm`` a stable
-argsort of the index over the live edges, ``indptr`` the segments' bounds.
+argsort of the index over the live edges, ``indptr`` the segments' bounds,
+and the kernel's schedule (``chunk_rows``: the rows each warp walks,
+about :func:`chunk_size` rows + edges a chunk; ``heavy_rows``: the
+segments of more than ``HEAVY`` members, each summed by a whole block).
 It is built once per batch and reused by every layer and the backward.
 Edges whose mask is 0 belong to no segment: the GNN multiplies every
 message of a padded edge by its mask, so its terms are exact zeros, and a
@@ -39,6 +42,25 @@ import torch
 from . import build, ref
 
 DTYPES = {torch.float32: "segment_sum_f32", torch.bfloat16: "segment_sum_bf16"}
+# the kernel's schedule (csrc/segment_sum.cu): a warp walks a chunk of
+# rows holding about `chunk_size` rows + edges; a segment of more than
+# HEAVY members is left to a whole block
+HEAVY = 64
+# CHUNK rows + edges a chunk while that leaves SPREAD chunks or more, else
+# halved down to CHUNK_MIN: a small CSR spreads over more, shorter chunks
+# (NVIDIA H100 80GB HBM3, 700.00 W, tools/time_segment_sum.py, f32: the
+# molecule CSR by destination 0.0059 ms device at 32, 0.0044 at 8;
+# minibatch_lg's 0.0263 at 32, 0.0334 at 8)
+CHUNK, CHUNK_MIN, SPREAD = 32, 8, 4096
+
+
+def chunk_size(n: int, n_live: int) -> int:
+    """Rows + edges a warp's chunk holds for a CSR of ``n`` segments and
+    ``n_live`` edges."""
+    chunk = CHUNK
+    while chunk > CHUNK_MIN and n + n_live < chunk * SPREAD:
+        chunk //= 2
+    return chunk
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +72,11 @@ class CSR:
     perm: torch.Tensor  # (E_live,) int32: live edges by segment, stable
     indptr: torch.Tensor  # (N + 1,) int32: segment n is perm[indptr[n]:…]
     n: int  # segments
+    # (n_chunks + 1,) int32: warp c walks rows chunk_rows[c]:chunk_rows[c+1]
+    chunk_rows: torch.Tensor
+    # (n_live // (HEAVY + 1),) int32: the segments of more than HEAVY
+    # members in order, then n for every unused slot
+    heavy_rows: torch.Tensor
 
     @property
     def n_edges(self) -> int:
@@ -60,7 +87,14 @@ def build_csr(index: torch.Tensor, n: int,
               mask: Optional[torch.Tensor] = None) -> CSR:
     """The CSR of ``index`` (E,) over ``n`` segments, on its device; edges
     where ``mask`` (E,) is 0 are left out. Every index of a live edge must
-    lie in [0, n). One host sync (whether any edge is masked)."""
+    lie in [0, n). One host sync (whether any edge is masked); the
+    schedule's sizes are bounds the host knows from it.
+
+    The schedule: a row costs 1, plus its members unless it is heavy (more
+    than HEAVY members); with w = :func:`chunk_size`, warp c takes the rows
+    whose cost prefix lies in [c·w, (c + 1)·w), so at most w rows and
+    w + HEAVY edges. ``heavy_rows`` has n_live // (HEAVY + 1) slots, at
+    least one for each heavy row."""
     idx = index.long()
     if idx.numel() >= 2 ** 31:
         raise ValueError(f"build_csr: {idx.numel()} edges overflow the "
@@ -75,8 +109,18 @@ def build_csr(index: torch.Tensor, n: int,
     counts = torch.bincount(key, minlength=n + 1)[:n]
     indptr = torch.zeros(n + 1, dtype=torch.int32, device=idx.device)
     indptr[1:] = torch.cumsum(counts, 0)
+    heavy = counts > HEAVY
+    prefix = torch.zeros(n + 1, dtype=torch.int64, device=idx.device)
+    prefix[1:] = torch.cumsum(torch.where(heavy, 1, counts + 1), 0)
+    chunk = chunk_size(n, n_live)
+    n_chunks = -(-(n + n_live) // chunk)
+    bounds = torch.arange(n_chunks + 1, device=idx.device) * chunk
+    chunk_rows = torch.searchsorted(prefix, bounds).clamp_(max=n)
+    slots = torch.arange(1, n_live // (HEAVY + 1) + 1, device=idx.device)
+    heavy_rows = torch.searchsorted(torch.cumsum(heavy, 0), slots)
     return CSR(idx, live, perm[:n_live].to(torch.int32).contiguous(),
-               indptr, n)
+               indptr, n, chunk_rows.to(torch.int32),
+               heavy_rows.to(torch.int32))
 
 
 def segment_sum(x: torch.Tensor, csr: CSR) -> torch.Tensor:
@@ -88,7 +132,9 @@ def segment_sum(x: torch.Tensor, csr: CSR) -> torch.Tensor:
     if x.device.type == "cpu":
         return ref.segment_sum_ref(x, csr.perm, csr.indptr)
     build.check_cuda("segment_sum", x, 2, tuple(DTYPES), x.device)
-    for name, t in (("perm", csr.perm), ("indptr", csr.indptr)):
+    for name, t in (("perm", csr.perm), ("indptr", csr.indptr),
+                    ("chunk_rows", csr.chunk_rows),
+                    ("heavy_rows", csr.heavy_rows)):
         build.check_cuda(f"segment_sum {name}", t, 1, (torch.int32,),
                          x.device)
     if x.shape[0] != csr.n_edges:
@@ -97,7 +143,10 @@ def segment_sum(x: torch.Tensor, csr: CSR) -> torch.Tensor:
     h = x.shape[1]
     out = torch.empty((csr.n, h), dtype=x.dtype, device=x.device)
     if csr.n and h:
-        build.launch(DTYPES[x.dtype], x, csr.perm, csr.indptr, out, csr.n, h)
+        build.launch(DTYPES[x.dtype], x, csr.perm, csr.indptr,
+                     csr.chunk_rows, csr.heavy_rows, out, csr.n, h,
+                     csr.chunk_rows.numel() - 1, csr.heavy_rows.numel(),
+                     HEAVY)
         build.count_launch(segment_sum)
     return out
 

@@ -37,7 +37,10 @@ Tolerances:
   equal;
 - the segment sum (the GNN's message passing), f32 and bf16: bitwise its
   plain version (the same adds in the same order) and two launches
-  bitwise; a GatedGCN train step's loss and gradients twice bitwise;
+  bitwise, at the four index kinds and the schedule's cases (each width
+  class of H, a 5,000-member segment, degrees at the heavy threshold,
+  every edge masked, no edge); a GatedGCN train step's loss and gradients
+  twice bitwise;
 - a landmark-attention forward through the kernel against the same
   forward with the plain summary, bf16: within 5% of the largest logit
   (the kernel's f32 sums in another order, rounded to bf16 on the way
@@ -1297,12 +1300,51 @@ def _segment_index(kind, e, n, device, seed=0):
             torch.as_tensor(mask, device=device))
 
 
+def _segment_case(case, device):
+    """(index, mask, N, H) of one of the schedule's cases
+    (``tests/test_torch_segment_sum_sched.py``): the four index kinds at
+    E = 20,000, N = 3000, H = 70; power-law degrees at each width class
+    H = 1, 31, 32, 33, 70, 128; one segment of 5,000 members; segments of
+    HEAVY - 1, HEAVY and HEAVY + 1 members among light ones; a large CSR
+    (N = 140,000: chunks of CHUNK, every other case CHUNK_MIN); every edge
+    masked; no edge."""
+    heavy = segsum.HEAVY
+    if case in ("random", "power_law", "padded", "empty"):
+        return (*_segment_index(case, 20000, 3000, device), 3000, 70)
+    if case.startswith("h"):
+        return (*_segment_index("power_law", 20000, 3000, device), 3000,
+                int(case[1:]))
+    rng = np.random.default_rng(3)
+    n = 3000
+    if case == "one_5000":
+        idx = np.concatenate([np.full(5000, 7), rng.integers(0, n, 3000)])
+    elif case == "large":  # a dense head, then empty rows: chunks of 32
+        n = 140000
+        idx = rng.integers(0, 9000, 20000)
+    elif case.startswith("deg"):
+        d = heavy + int(case[3:])
+        idx = rng.integers(0, n, 20000)
+        idx = idx[(idx != 1) & (idx != 40) & (idx != 41)]
+        idx = np.concatenate([idx, np.repeat([1, 40, 41], d)])
+    else:  # "all_empty", "no_edges"
+        idx = rng.integers(0, n, 0 if case == "no_edges" else 20000)
+    mask = np.full(idx.shape[0], 0.0 if case == "all_empty" else 1.0,
+                   np.float32)
+    return (torch.as_tensor(idx.astype(np.int32), device=device),
+            torch.as_tensor(mask, device=device), n, 70)
+
+
+SEGMENT_CASES = ("random", "power_law", "padded", "empty", "h1", "h31",
+                 "h32", "h33", "h70", "h128", "one_5000", "deg-1", "deg+0",
+                 "deg+1", "large", "all_empty", "no_edges")
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kind", ["random", "power_law", "padded", "empty"])
+@pytest.mark.parametrize("kind", SEGMENT_CASES)
 def test_segment_sum_kernel_matches_plain(cuda, kind, dtype):
-    idx, mask = _segment_index(kind, 20000, 3000, cuda)
-    csr = segsum.build_csr(idx, 3000, mask)
-    x = torch.randn((20000, 70), device=cuda,
+    idx, mask, n, h = _segment_case(kind, cuda)
+    csr = segsum.build_csr(idx, n, mask)
+    x = torch.randn((idx.shape[0], h), device=cuda,
                     generator=torch.Generator(cuda).manual_seed(1)).to(dtype)
     ops.reset_launches()
     got = segsum.segment_sum(x, csr)
