@@ -292,11 +292,26 @@ The training slice adds:
     model and over each of wq, wk, wv, within ``GRAD_FLOOR_FACTOR`` × the
     plain path against itself over reversed keys, and each planted fault
     of the backward (``PLANTED``) outside it; (c) ``launch.train --smoke --steps 6
-    --ckpt-dir build/phase16``, then ``--steps 10``, which resumes at 6.
-    The kernel table gains the backward's row (event and device ms at
-    the training shape, bound, plain ms, bf16 SDPA's backward alone) and
-    each row its launches on the landmark training run
-    (``launches_train``).
+    --ckpt-dir build/phase16``, then ``--steps 10``, which resumes at 6;
+    (d) SmolLM-360M at full width with the depth cut to 2 layers, f32
+    weights, landmark attention, B = ``TRAIN_BATCH``, S = 4096, AdamW,
+    remat, ``F32_TRAIN_STEPS`` steps through ``build_cell`` and
+    ``train_loop``: each step launches kernel 7 2·L times and its backward
+    L times, all on ``f32_split`` (four split passes a backward call,
+    three a forward), none on ``fma``; step ms, peak memory, a profiled
+    step with the backward's device ms in it; step 1's gradients by the
+    rule of (b), the backward isolated (kernel forward and backward
+    against the kernel forward and the plain backward), with the whole
+    path against the plain forward and backward printed beside it. 16a
+    counts the backward's three routes and its split passes (one a call
+    on ``tensor_core``, four on ``f32_split``). The kernel table gains
+    the backward's rows: bf16 inputs on ``tensor_core`` (event and device
+    ms at the training shape, bound, plain ms, bf16 SDPA's backward
+    alone), f32 inputs on ``f32_split`` (the same with the split passes'
+    share, the 27-product floor and f32 SDPA's backward, launches from
+    16d) and the FMA route at D = 256 (16a's (2, 130, 500, 256)); each
+    row its launches on the landmark training run (``launches_train``)
+    and on 16d (``launches_train_f32``).
 
 The GNN slice adds:
 
@@ -445,8 +460,15 @@ KERNELS = {
         replaces_note="the backward of kernel 7's function; the reference "
         "has no backward kernel (autodiff of plain jnp, "
         "src/repro/models/layers.py:170)"),
-    # its FMA route (f32 inputs; bf16 at D = 256), a sub-row
+    # its f32_split route (f32 inputs at D <= 128) and its FMA route
+    # (D = 256), sub-rows
     "landmark_summary_bwd_f32": dict(
+        source="src/repro_torch/kernels/csrc/landmark_summary_bwd.cu",
+        replaces="src/repro/kernels/landmark_attention.py:51",
+        replaces_note="the backward of kernel 7's function; the reference "
+        "has no backward kernel (autodiff of plain jnp, "
+        "src/repro/models/layers.py:170)"),
+    "landmark_summary_bwd_fma": dict(
         source="src/repro_torch/kernels/csrc/landmark_summary_bwd.cu",
         replaces="src/repro/kernels/landmark_attention.py:51",
         replaces_note="the backward of kernel 7's function; the reference "
@@ -513,8 +535,8 @@ def phase_build():
         log, "landmark_summary", _wgmma_name, 8,
         "2 routes x 4 head dims")))
     print("phase 2 backward tensor-core kernels: " + json.dumps(
-        _wgmma_report(log, "landmark_summary_bwd", _bwd_name, 6,
-                      "2 passes x 3 head dims")))
+        _wgmma_report(log, "landmark_summary_bwd", _bwd_name, 12,
+                      "2 forms x 2 passes x 3 head dims")))
     print("phase 2 d1 tensor-core kernel: " + json.dumps(_wgmma_report(
         log, "masked_similarity", _d1_name, 2,
         "16-byte and 4-byte loads")))
@@ -534,12 +556,14 @@ def _wgmma_name(line):
 
 
 def _bwd_name(line):
-    """'dq D=64' / 'dkv D=64' for a line naming an instantiation of kernel
-    7's backward on the tensor cores (template <int D>), else None."""
+    """'bf16 dq D=64' / 'f32 dkv D=64' for a line naming an instantiation
+    of kernel 7's backward on the tensor cores (template <int D, bool F32>),
+    else None."""
     import re
 
-    m = re.search(r"bwd_(dq|dkv)_wgmma_kernelILi(\d+)E", line)
-    return f"{m.group(1)} D={m.group(2)}" if m else None
+    m = re.search(r"bwd_(dq|dkv)_wgmma_kernelILi(\d+)ELb([01])E", line)
+    return (f"{('bf16', 'f32')[int(m.group(3))]} {m.group(1)} "
+            f"D={m.group(2)}" if m else None)
 
 
 def _d1_name(line):
@@ -1016,12 +1040,14 @@ DEVICE_FUNCS = {
     "landmark_summary": ("summary_wgmma_kernel",),
     "landmark_summary_f32": ("summary_wgmma_kernel", "split_terms_kernel"),
     "split_terms": ("split_terms_kernel",),  # the f32 route's split pass
-    # kernel 7's backward on its tensor-core route (bf16 inputs): dO's
-    # split pass, the dq pass, then the dk/dv pass; on its FMA route (f32
-    # inputs) the two passes of scalar FMAs
+    # kernel 7's backward on its tensor-core routes: the split passes (dO;
+    # and q, k, v on f32_split), the dq pass, then the dk/dv pass; on its
+    # FMA route (D = 256) the two passes of scalar FMAs
     "landmark_summary_bwd": ("split_terms_kernel", "bwd_dq_wgmma_kernel",
                              "bwd_dkv_wgmma_kernel"),
-    "landmark_summary_bwd_f32": ("bwd_dq_kernel", "bwd_dkv_kernel"),
+    "landmark_summary_bwd_f32": ("split_terms_kernel", "bwd_dq_wgmma_kernel",
+                                 "bwd_dkv_wgmma_kernel"),
+    "landmark_summary_bwd_fma": ("bwd_dq_kernel", "bwd_dkv_kernel"),
     "repair_drain": None,  # every kernel of a drain (phase 10)
     "segment_sum": ("segment_sum_kernel",),
 }
@@ -3839,6 +3865,10 @@ BWD_REL = 1e-4
 FN_REL = 1e-3
 FN_BF16_REL = FN_REL + 2 ** -8
 BWD_DEVICE_FUNCS = DEVICE_FUNCS["landmark_summary_bwd"]
+# split passes a backward call by route: dO's on the tensor-core routes,
+# and q's, k's and v's too on f32_split
+BWD_SPLITS = {"tensor_core": 1, "f32_split": 4, "fma": 0}
+FMA_SHAPE = (2, 130, 500, 256)  # the FMA route's row (16a's D = 256)
 
 
 def _train_shape():
@@ -3883,15 +3913,17 @@ def phase_train_kernel():
     """16a: kernel 7's backward against its plain version on the card (TF32
     off) at the training shape (bf16 and f32 inputs), DeepSeek's and DBRX's
     shapes, D = 32 and 256, a ragged S and an n off the query tile; two
-    launches bitwise equal; the autograd Function against torch.autograd
-    through the plain f32 forward. Returns the training-shape inputs per
-    dtype and the largest absolute error there."""
+    launches bitwise equal; launches by route and split passes counted;
+    the autograd Function against torch.autograd through the plain f32
+    forward. Returns the training-shape inputs per dtype and the largest
+    absolute error there, and the same for the f32 inputs at FMA_SHAPE
+    (key ``"fma"``)."""
     t0 = time.perf_counter()
     shapes = [(_train_shape(), (torch.bfloat16, torch.float32)),
-              (_moe_model_shape(), (torch.bfloat16,)),
+              (_moe_model_shape(), (torch.bfloat16, torch.float32)),
               (_moe_model_shape(DBRX_ARCH), (torch.bfloat16,)),
               ((2, 100, 1000, 32), (torch.bfloat16, torch.float32)),
-              ((2, 130, 500, 256), (torch.bfloat16, torch.float32)),
+              (FMA_SHAPE, (torch.bfloat16, torch.float32)),
               ((3, 70, 777, 64), (torch.bfloat16, torch.float32)),
               ((2, 100, 300, 128), (torch.float32,)),
               ((1, 33, 777, 256), (torch.bfloat16,))]
@@ -3923,17 +3955,19 @@ def phase_train_kernel():
                          f"{rel:.3g} (max|err| {err:.3g})")
             if i == 0:
                 model_in[dtype], model_err[dtype] = args, err
+            elif (p, n, s_, d) == FMA_SHAPE and dtype == torch.float32:
+                model_in["fma"], model_err["fma"] = args, err
             del got, again, want
     want_routes = {r: c * lsum.BWD_LAUNCHES for r, c in calls.items()}
+    splits = sum(c * BWD_SPLITS[r] for r, c in calls.items())
     if (lsum.landmark_summary_bwd.launches != sum(want_routes.values())
             or lsum.landmark_summary_bwd.route_launches != want_routes
-            or lsum.bf16_terms.launches != calls["tensor_core"]):
+            or lsum.bf16_terms.launches != splits):
         raise AssertionError(f"16a: {lsum.landmark_summary_bwd.launches} "
                              f"backward launches by route "
                              f"{lsum.landmark_summary_bwd.route_launches} "
                              f"with {lsum.bf16_terms.launches} split passes,"
-                             f" not {want_routes} with "
-                             f"{calls['tensor_core']}")
+                             f" not {want_routes} with {splits}")
     # the autograd Function: kernel forward and kernel backward, against
     # torch.autograd through the plain f32 forward
     p, n, s_, d = 4, 1536, 4096, 64
@@ -3959,8 +3993,8 @@ def phase_train_kernel():
         fn_rel["bf16" if dtype == torch.bfloat16 else "f32"] = rel
     print(f"phase 16a landmark summary backward (TF32 off; limit {BWD_REL} "
           f"of max |plain| per gradient, two launches bitwise equal; "
-          f"launches by route {want_routes}, {calls['tensor_core']} split "
-          f"passes of dO): " + "; ".join(notes)
+          f"launches by route {want_routes}, {splits} split passes "
+          f"({BWD_SPLITS} a call)): " + "; ".join(notes)
           + f" | Function vs torch.autograd of the plain "
           f"f32 forward at P={p} n={n} S={s_} D={d}: {fn_rel} (limit "
           f"{FN_REL}, bf16 {FN_BF16_REL:.5f}) | "
@@ -3988,10 +4022,13 @@ def _counting_plain():
         yield seen
 
 
-def _train_arch(backend):
+def _train_arch(backend, **over):
+    """SmolLM-360M on ``backend``, its model changed by ``over``, with one
+    train_4k shape of TRAIN_BATCH sequences."""
     base = registry.get(LM_ARCH)
     return dataclasses.replace(
-        base, model=dataclasses.replace(base.model, attn_backend=backend),
+        base, model=dataclasses.replace(base.model, attn_backend=backend,
+                                        **over),
         shapes=(ShapeSpec("train_4k", "train",
                           dict(batch=TRAIN_BATCH, seq=LM_SEQ)),))
 
@@ -4003,11 +4040,10 @@ def _train_batches(vocab):
         step += 1
 
 
-def _train_run(backend):
-    """TRAIN_STEPS steps of SmolLM-360M at full width and depth through
-    ``build_cell`` and ``train_loop`` from seed-0 weights; each step timed
-    to its loss (the loop's one sync) with its own launch counts."""
-    arch = _train_arch(backend)
+def _train_run(arch, steps=TRAIN_STEPS):
+    """``steps`` steps of ``arch`` (``_train_arch``) through ``build_cell``
+    and ``train_loop`` from seed-0 weights; each step timed to its loss
+    (the loop's one sync) with its own launch counts."""
     cell = cells.build_cell(arch, "train_4k")
     model = lm.init_lm(arch.model, torch.Generator(device=DEVICE
                                                    ).manual_seed(0), DEVICE)
@@ -4035,46 +4071,52 @@ def _train_run(backend):
             step_fn, model, opt_state, trainer.Prefetcher(
                 _train_batches(arch.model.vocab),
                 lambda b: trainer.to_device(b, DEVICE)),
-            trainer.TrainerConfig(total_steps=TRAIN_STEPS, log_every=1000),
+            trainer.TrainerConfig(total_steps=steps, log_every=1000),
             log=lambda *_: None)
     peak = torch.cuda.max_memory_allocated()
     return dict(model=model, opt_state=opt_state, cell=cell, steps=per_step,
                 losses=res["losses"], plain=dict(plain), peak=peak)
 
 
-def _check_train(run, backend, cfg):
+def _check_train(run, backend, cfg, tag="16b", route="tensor_core",
+                 steps=TRAIN_STEPS):
     """Every loss finite, the first within 2 of ln V; on the landmark
     backend kernel 7 forward at 2·L launches a step (the forward and its
-    recompute under remat), all tensor-core, its backward at L calls of
-    BWD_LAUNCHES launches, all tensor-core, each after one split pass of
-    dO; none on the full backend; no plain version."""
+    recompute under remat) and its backward at L calls of BWD_LAUNCHES
+    launches, all on ``route``, with the route's split passes (three a
+    forward launch on f32_split, BWD_SPLITS a backward call); none on the
+    full backend; no plain version."""
     losses = run["losses"]
-    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
-        raise AssertionError(f"16b {backend}: losses {losses}")
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"{tag} {backend}: losses {losses}")
     if abs(losses[0] - np.log(cfg.vocab)) > 2.0:
-        raise AssertionError(f"16b {backend}: first loss {losses[0]} is not "
-                             f"within 2 of ln V = {np.log(cfg.vocab):.3f}")
-    lmk = backend == "landmark"
-    want = {"landmark_summary": 2 * cfg.n_layers if lmk else 0,
-            "landmark_summary_bwd": (cfg.n_layers * lsum.BWD_LAUNCHES
-                                     if lmk else 0)}
+        raise AssertionError(f"{tag} {backend}: first loss {losses[0]} is "
+                             f"not within 2 of ln V = "
+                             f"{np.log(cfg.vocab):.3f}")
+    lmk = backend != "full"
+    calls = cfg.n_layers if lmk else 0
+    want = {"landmark_summary": 2 * calls,
+            "landmark_summary_bwd": calls * lsum.BWD_LAUNCHES}
+    want_routes = {r: want["landmark_summary"] if r == route else 0
+                   for r in lsum.landmark_summary.route_launches}
+    want_bwd = {r: want["landmark_summary_bwd"] if r == route else 0
+                for r in lsum.landmark_summary_bwd.route_launches}
+    fwd_splits = 3 if route == "f32_split" else 0
+    want_splits = (fwd_splits * want["landmark_summary"]
+                   + BWD_SPLITS[route] * calls)
     for i, st in enumerate(run["steps"]):
         got = {k: st["counts"][k] for k in want}
         others = {k: v for k, v in st["counts"].items() if k not in want and v}
-        if (got != want or others or st["routes"]["f32_split"]
-                or st["routes"]["tensor_core"] != want["landmark_summary"]
-                or st["bwd_routes"]["fma"]
-                or st["bwd_routes"]["tensor_core"]
-                != want["landmark_summary_bwd"]
-                or st["splits"] != want["landmark_summary_bwd"]
-                // lsum.BWD_LAUNCHES):
-            raise AssertionError(f"16b {backend} step {i}: launches "
+        if (got != want or others or st["routes"] != want_routes
+                or st["bwd_routes"] != want_bwd
+                or st["splits"] != want_splits):
+            raise AssertionError(f"{tag} {backend} step {i}: launches "
                                  f"{st['counts']} by route {st['routes']}, "
                                  f"backward by route {st['bwd_routes']} "
                                  f"with {st['splits']} split passes, not "
-                                 f"{want}")
+                                 f"{want} on {route} with {want_splits}")
     if any(run["plain"].values()):
-        raise AssertionError(f"16b {backend}: plain versions called "
+        raise AssertionError(f"{tag} {backend}: plain versions called "
                              f"{run['plain']}")
 
 
@@ -4114,74 +4156,101 @@ GRAD_FLOOR_FACTOR = 2.0
 PLANTED = ("dk = 0", "delta = 0", "dk x 0.9")
 
 
-class _PlantedBackward(torch.autograd.Function):
-    """Kernel 7 forward and backward with ``fault`` put into the backward:
-    dk zeroed, Δ = Σ dO·O taken as 0 (``out`` passed as zeros), or dk
-    scaled by 0.9. A negative control of the gradient check only."""
+def _with_backward(forward, backward):
+    """A B̃V function: ``forward(q, k, v, scale)``, with
+    ``backward(q, k, v, out, dout, scale)`` as its gradient (in the inputs'
+    dtypes)."""
 
-    fault = None
+    class Summary(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, scale):
+            out = forward(q, k, v, scale)
+            ctx.save_for_backward(q, k, v, out)
+            ctx.scale = scale
+            return out
 
-    @staticmethod
-    def forward(ctx, q, k, v, scale):
-        out = lsum._summary(q, k, v, scale)
-        ctx.save_for_backward(q, k, v, out)
-        ctx.scale = scale
-        return out
+        @staticmethod
+        def backward(ctx, dout):
+            q, k, v, out = ctx.saved_tensors
+            dq, dk, dv = backward(q, k, v, out, dout.float().contiguous(),
+                                  ctx.scale)
+            return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None
 
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        fault = _PlantedBackward.fault
+    return Summary.apply
+
+
+def _planted(fault, forward):
+    """Kernel 7's backward with ``fault`` put into its results, behind
+    ``forward``: dk zeroed, Δ = Σ dO·O taken as 0 (``out`` passed as
+    zeros), or dk scaled by 0.9. A negative control of the gradient check
+    only."""
+
+    def backward(q, k, v, out, dout, scale):
         if fault == "delta = 0":
             out = torch.zeros_like(out)
-        dq, dk, dv = lsum.landmark_summary_bwd(
-            q, k, v, out, dout.float().contiguous(), ctx.scale)
-        dk = {"dk = 0": 0.0, "dk x 0.9": 0.9}.get(fault, 1.0) * dk
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None
+        dq, dk, dv = lsum.landmark_summary_bwd(q, k, v, out, dout, scale)
+        return dq, {"dk = 0": 0.0, "dk x 0.9": 0.9}.get(fault, 1.0) * dk, dv
+
+    return _with_backward(forward, backward)
 
 
-def _planted(fault):
-    def summary(q, k, v, scale):
-        _PlantedBackward.fault = fault
-        return _PlantedBackward.apply(q, k, v, scale)
-    return summary
-
-
-def _grad_check():
-    """Step 1's gradients through the kernels, through the plain B̃V with
-    reversed keys and through each planted fault, against the plain B̃V,
-    from seed-0 weights and batch 0."""
-    arch = _train_arch("landmark")
+def _grad_check(arch, tag, isolate=False):
+    """Step 1's gradients of ``arch`` through the kernels, from seed-0
+    weights and batch 0, against a reference, by one rule: ‖Δg‖/‖g‖ within
+    GRAD_FLOOR_FACTOR × the floor (the reference against itself over
+    reversed keys) over each of GRAD_GROUPS, and each planted fault of the
+    backward outside it. 16b: the kernel path (forward and backward
+    kernels) against the plain B̃V under autograd. With ``isolate`` (16d):
+    the reference is the plain pair (the plain forward with the plain
+    backward, ``ref.landmark_summary_bwd_ref``) and the path held to the
+    rule is the plain forward with the backward kernel, so that only the
+    backward differs; the whole kernel path and the kernel forward alone
+    (with the plain backward) are measured against the plain pair beside
+    it (``whole_rel_norm``, ``forward_alone_rel_norm``), not held to the
+    limit."""
     model = lm.init_lm(arch.model, torch.Generator(device=DEVICE
                                                    ).manual_seed(0), DEVICE)
     batch = trainer.to_device(synthetic.lm_batch(
         0, 0, TRAIN_BATCH, LM_SEQ, arch.model.vocab), DEVICE)
+    if isolate:
+        forward = ref.landmark_summary_ref
+        plain = _with_backward(forward, ref.landmark_summary_bwd_ref)
+        checked = _with_backward(forward, lsum.landmark_summary_bwd)
+    else:
+        forward, plain, checked = lsum._summary, ref.landmark_summary_ref, None
 
     def reversed_keys(q, k, v, scale):  # the same sum, in reverse key order
-        return ref.landmark_summary_ref(q, k.flip(-2), v.flip(-2), scale)
+        return plain(q, k.flip(-2), v.flip(-2), scale)
 
-    lp, gp = _grads_of(model, batch, ref.landmark_summary_ref)
-    lk, g = _grads_of(model, batch)
-    kernel = _grad_rel(g, gp)
+    lp, gp = _grads_of(model, batch, plain)
     _, g = _grads_of(model, batch, reversed_keys)
     floor = _grad_rel(g, gp)
     limit = {k: GRAD_FLOOR_FACTOR * v for k, v in floor.items()}
+    lk, g = _grads_of(model, batch)
+    out = dict(loss_plain=lp, loss_kernel=lk, floor_rel_norm=floor,
+               limit=limit)
+    if isolate:
+        out["whole_rel_norm"] = _grad_rel(g, gp)
+        _, g = _grads_of(model, batch, _with_backward(
+            lsum._summary, ref.landmark_summary_bwd_ref))
+        out["forward_alone_rel_norm"] = _grad_rel(g, gp)
+        _, g = _grads_of(model, batch, checked)
+    kernel = _grad_rel(g, gp)
     over = [k for k in GRAD_GROUPS if not kernel[k] <= limit[k]]
     if over:
-        raise AssertionError(f"16b: step-1 gradients kernel vs plain "
+        raise AssertionError(f"{tag}: step-1 gradients kernel vs reference "
                              f"‖Δg‖/‖g‖ {kernel} over {limit} in {over}")
     planted = {}
     for fault in PLANTED:
-        _, g = _grads_of(model, batch, _planted(fault))
+        _, g = _grads_of(model, batch, _planted(fault, forward))
         planted[fault] = _grad_rel(g, gp)
         if all(planted[fault][k] <= limit[k] for k in GRAD_GROUPS):
-            raise AssertionError(f"16b: the planted fault {fault!r} passes "
-                                 f"the gradient check: {planted[fault]} "
-                                 f"within {limit}")
+            raise AssertionError(f"{tag}: the planted fault {fault!r} "
+                                 f"passes the gradient check: "
+                                 f"{planted[fault]} within {limit}")
     del g, gp, model
     torch.cuda.empty_cache()
-    return dict(loss_kernel=lk, loss_plain=lp, rel_norm=kernel,
-                floor_rel_norm=floor, limit=limit, planted=planted)
+    return dict(out, rel_norm=kernel, planted=planted)
 
 
 def phase_train(card):
@@ -4193,7 +4262,7 @@ def phase_train(card):
     t0 = time.perf_counter()
     out, landmark_counts = {}, {}
     for backend in ("full", "landmark"):
-        run = _train_run(backend)
+        run = _train_run(_train_arch(backend))
         cfg = run["model"].cfg
         _check_train(run, backend, cfg)
         ms = [st["ms"] for st in run["steps"]]
@@ -4219,7 +4288,7 @@ def phase_train(card):
                     landmark_counts[k] = landmark_counts.get(k, 0) + v
         del run, cell, model, opt_state, batch
         torch.cuda.empty_cache()
-    grads = _grad_check()
+    grads = _grad_check(_train_arch("landmark"), "16b")
     print(f"phase 16b step-1 gradients, kernel vs plain B̃V ({card}; limit "
           f"‖Δg‖/‖g‖ ≤ {GRAD_FLOOR_FACTOR} × the plain-vs-reversed-keys "
           f"floor over each of {GRAD_GROUPS}; every planted fault of the "
@@ -4248,13 +4317,82 @@ def phase_train_cli(card):
           f"10 resumed at 6 ({lines[-1]}) | {time.perf_counter() - t0:.1f}s")
 
 
-def _sdpa_bwd_ms(q, k, v, dtype=torch.bfloat16):
+# 16d: f32 landmark training, SmolLM-360M at full width with the depth cut
+# as phase 8b's f32 forward is
+F32_TRAIN_LAYERS = 2
+F32_TRAIN_STEPS = 2
+
+
+def phase_train_f32(card):
+    """16d: SmolLM-360M at full width, F32_TRAIN_LAYERS layers, f32 weights
+    and landmark attention, trained F32_TRAIN_STEPS steps at B =
+    TRAIN_BATCH, S = LM_SEQ (AdamW, remat) through ``build_cell`` and
+    ``train_loop``: kernel 7 and its backward on ``f32_split`` at every
+    launch, none on ``fma``; step ms, peak memory, a profiled step with the
+    backward's device ms; step 1's gradients by the rule of 16b with the
+    backward isolated (``_grad_check(..., isolate=True)``). Returns the
+    run's launches of kernel 7 and its backward under the f32 rows' names,
+    and its numbers."""
+    t0 = time.perf_counter()
+    arch = _train_arch("landmark", dtype=torch.float32,
+                       n_layers=F32_TRAIN_LAYERS)
+    run = _train_run(arch, F32_TRAIN_STEPS)
+    cfg = run["model"].cfg
+    _check_train(run, "landmark f32", cfg, tag="16d", route="f32_split",
+                 steps=F32_TRAIN_STEPS)
+    cell, model, opt_state = run["cell"], run["model"], run["opt_state"]
+    batch = trainer.to_device(synthetic.lm_batch(
+        0, 99, TRAIN_BATCH, LM_SEQ, cfg.vocab), DEVICE)
+    prof = _profile(lambda: float(cell.fn(model, opt_state, batch)[2][
+        "loss"]), warm=False, sums=BWD_DEVICE_FUNCS)
+    # the step's split passes serve the forward (three a launch) as well:
+    # the backward's own device ms a call are its two wgmma passes
+    passes = [prof.get(f"{f} (ms, launches)", [None])[0]
+              for f in ("bwd_dq_wgmma_kernel", "bwd_dkv_wgmma_kernel")]
+    calls = cfg.n_layers
+    out = dict(
+        losses=run["losses"], step_ms=[st["ms"] for st in run["steps"]],
+        peak_gib=run["peak"] / 2 ** 30,
+        launches_per_step={k: v for k, v in run["steps"][-1][
+            "counts"].items() if v},
+        routes_per_step=run["steps"][-1]["routes"],
+        bwd_routes_per_step=run["steps"][-1]["bwd_routes"],
+        split_passes_per_step=run["steps"][-1]["splits"],
+        backward_passes_ms_a_call_in_step=(
+            sum(passes) / calls if None not in passes else None),
+        profile=prof)
+    print(f"phase 16d f32 train ({card}): {LM_ARCH} full width, L cut to "
+          f"{cfg.n_layers}, d={cfg.d_model} B={TRAIN_BATCH} S={LM_SEQ} f32 "
+          f"landmark attention, AdamW, remat: " + json.dumps(out))
+    counts = {"landmark_summary_f32": sum(
+        st["counts"]["landmark_summary"] for st in run["steps"]),
+              "landmark_summary_bwd_f32": sum(
+        st["counts"]["landmark_summary_bwd"] for st in run["steps"])}
+    del run, cell, model, opt_state, batch
+    torch.cuda.empty_cache()
+    grads = _grad_check(arch, "16d", isolate=True)
+    print(f"phase 16d step-1 gradients ({card}; limit ‖Δg‖/‖g‖ ≤ "
+          f"{GRAD_FLOOR_FACTOR} × the floor of the plain forward and "
+          f"backward against themselves over reversed keys, over each of "
+          f"{GRAD_GROUPS}): the backward kernel behind the plain forward "
+          f"vs the plain pair (rel_norm), every planted fault of the "
+          f"backward past the limit; beside it, not held to the limit, the "
+          f"whole kernel path (whole_rel_norm) and the f32 forward kernel "
+          f"with the plain backward (forward_alone_rel_norm): "
+          + json.dumps(grads) + f" | {time.perf_counter() - t0:.1f}s")
+    out["grads"] = grads
+    return counts, out
+
+
+def _sdpa_bwd_ms(q, k, v, dtype=torch.bfloat16, batch=None):
     """Events ms of the backward alone of SDPA in ``dtype`` on (P, n, D)
-    problems laid out as (B, Hkv, n, D), and the device kernels it ran."""
+    problems laid out as (batch, P / batch, n, D) (batch: TRAIN_BATCH by
+    default), and the device kernels it ran."""
     import torch.nn.functional as F
 
     p = q.shape[0]
-    q4, k4, v4 = (t.reshape(TRAIN_BATCH, p // TRAIN_BATCH, *t.shape[1:])
+    batch = batch or TRAIN_BATCH
+    q4, k4, v4 = (t.reshape(batch, p // batch, *t.shape[1:])
                   .to(dtype).detach().requires_grad_()
                   for t in (q, k, v))
     out = F.scaled_dot_product_attention(q4, k4, v4)
@@ -4266,12 +4404,20 @@ def _sdpa_bwd_ms(q, k, v, dtype=torch.bfloat16):
                                 else prof["device_time"])
 
 
-def _bwd_rows(model_in, err, launches, train_out):
-    """The kernel table's rows of kernel 7's backward at the training shape:
-    bf16 inputs (the main path's) on the tensor-core route, with launches
-    on the landmark training run, event and device ms alone and in the
-    profiled step, bound, plain ms and bf16 SDPA's backward; and f32 inputs
-    on the FMA route as its own sub-row (launched on no path)."""
+def _bwd_split_floor(p, n, s_, d):
+    """The f32_split route's own floor: its 27 bf16 products of 2·n·S·D at
+    the tensor cores' peak (ms)."""
+    return p * 27 * 2 * n * s_ * d / BF16_TC_FLOPS * 1e3
+
+
+def _bwd_rows(model_in, err, launches, train_out, f32_counts, f32_out):
+    """The kernel table's rows of kernel 7's backward: at the training
+    shape, bf16 inputs (16b's) on the tensor-core route, with launches on
+    the landmark training run, event and device ms alone and in the
+    profiled step, bound, plain ms and bf16 SDPA's backward; f32 inputs
+    (16d's) on the f32_split route, the same with the split passes' share,
+    the 27-product floor and f32 SDPA's backward; and the FMA route at
+    FMA_SHAPE (f32 inputs, launched on no path)."""
     q, k, v, out, dout, scale = model_in[torch.bfloat16]
     p, n, d = q.shape
     s_ = k.shape[1]
@@ -4310,18 +4456,46 @@ def _bwd_rows(model_in, err, launches, train_out):
     sdpa_f32, backend = _sdpa_bwd_ms(*f32_in[:3], torch.float32)
     print(f"phase 16 sdpa backward, f32: {sdpa_f32:.4f} ms, backend "
           f"{backend}")
-    fma = dict(
+    device = _device_ms(f32_run, "landmark_summary_bwd_f32", 10)
+    split = _device_ms(f32_run, "split_terms", 10)
+    f32 = dict(
         name="landmark_summary_bwd_f32", route="cuda",
-        kernel_route="fma (scalar f32 FMAs)",
-        **KERNELS["landmark_summary_bwd_f32"],
-        shape=f"{shape} f32 in, f32 out", launches=0,
+        kernel_route="f32_split (TMA + wgmma; q, k in three bf16 planes, v "
+        "and dO in two, P and dS in two; 27 products; four split passes "
+        "first)", **KERNELS["landmark_summary_bwd_f32"],
+        shape=f"{shape} f32 in, f32 out",
+        launches=f32_counts["landmark_summary_bwd_f32"],
+        launches_per_f32_step=f32_out["launches_per_step"].get(
+            "landmark_summary_bwd", 0),
         max_abs_err=err[torch.float32], ms=_event_ms(f32_run, 5),
-        device_ms=_device_ms(f32_run, "landmark_summary_bwd_f32", 10),
+        device_ms=device, split_device_ms=split,
+        split_share=split / device if split and device else None,
+        passes_device_ms_in_step=f32_out["backward_passes_ms_a_call_in_step"],
         plain_ms=_event_ms(lambda: ref.landmark_summary_bwd_ref(*f32_in), 3),
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=sdpa_f32,
-        library_note="f32 F.scaled_dot_product_attention backward alone "
-        "(causal off)")
-    return [tc, fma]
+        bound_ms=bound_ms, bound_by=bound_by,
+        floor_27_products_ms=_bwd_split_floor(p, n, s_, d),
+        library_ms=sdpa_f32, library_note="f32 F.scaled_dot_product_attention "
+        "backward alone (causal off)")
+    fma_in = model_in["fma"]
+    fma_run = lambda: lsum.landmark_summary_bwd(*fma_in)
+    p, n, d = fma_in[0].shape
+    s_ = fma_in[1].shape[1]
+    bound_ms, bound_by = _bwd_bound(p, n, s_, d, torch.float32)
+    sdpa_fma, backend = _sdpa_bwd_ms(*fma_in[:3], torch.float32, batch=p)
+    print(f"phase 16 sdpa backward, f32 at P={p} n={n} S={s_} D={d}: "
+          f"{sdpa_fma:.4f} ms, backend {backend}")
+    fma = dict(
+        name="landmark_summary_bwd_fma", route="cuda",
+        kernel_route="fma (scalar f32 FMAs; D = 256, bf16 or f32 inputs)",
+        **KERNELS["landmark_summary_bwd_fma"],
+        shape=f"P={p} n={n} S={s_} D={d} f32 in, f32 out (phase 16a)",
+        launches=0, max_abs_err=err["fma"], ms=_event_ms(fma_run, 5),
+        device_ms=_device_ms(fma_run, "landmark_summary_bwd_fma", 10),
+        plain_ms=_event_ms(lambda: ref.landmark_summary_bwd_ref(*fma_in), 3),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=sdpa_fma,
+        library_note="f32 F.scaled_dot_product_attention backward alone on "
+        f"({p}, 1, {n}, {d}) (causal off)")
+    return [tc, f32, fma]
 
 
 def _lm_bound(p, n, s_, d, dtype):
@@ -4456,17 +4630,19 @@ def _sdpa_backend(q, k, v):
 
 def phase_training(card):
     """16: the training slice — (a) kernel 7's backward, (b) SmolLM-360M
-    trained on both backends, (c) the train CLI. Returns the backward's
-    table rows and the landmark training run's launches."""
+    trained on both backends, (c) the train CLI, (d) f32 landmark training
+    at 2 layers. Returns the backward's table rows and the launches of the
+    landmark training run (b) and of the f32 one (d)."""
     t0 = time.perf_counter()
     bwd_in, bwd_err = phase_train_kernel()
     train_counts, train_out = phase_train(card)
     phase_train_cli(card)
+    f32_counts, f32_out = phase_train_f32(card)
     rows = _bwd_rows(bwd_in, bwd_err, train_counts.get(
-        "landmark_summary_bwd", 0), train_out)
-    print(f"phase 16: launches {train_counts} | "
+        "landmark_summary_bwd", 0), train_out, f32_counts, f32_out)
+    print(f"phase 16: launches {train_counts}, f32 (16d) {f32_counts} | "
           f"{time.perf_counter() - t0:.1f}s")
-    return rows, train_counts
+    return rows, train_counts, f32_counts
 
 
 # ------------------------------------------------------------------ phase 17
@@ -4933,7 +5109,7 @@ def main():
     engine_mesh_counts = phase_engine_mesh(a, card)
     wide_counts = phase_wide(train, d, test_idx, card)
     moe_counts = phase_moe(card)
-    bwd_rows, train_counts = phase_training(card)
+    bwd_rows, train_counts, f32_counts = phase_training(card)
     gnn_row, gnn_counts = phase_gnn(card)
     table += bwd_rows + [gnn_row]
     for row in table:  # the engine runs' launches, every row
@@ -4949,6 +5125,9 @@ def main():
         # the landmark training run (16b): kernel 7 forward and backward
         row["launches_train"] = (0 if row["name"] == "landmark_summary_f32"
                                  else train_counts.get(row["name"], 0))
+        # the f32 landmark training run (16d): the f32 rows of kernel 7
+        # and its backward
+        row["launches_train_f32"] = f32_counts.get(row["name"], 0)
         # the GNN training runs (17b)
         row["launches_gnn"] = gnn_counts.get(row["name"], 0)
         for tag, times in ivf["wide_ms"].items():  # kernels 2-6, 7a

@@ -66,11 +66,13 @@ SIGNATURES = {
     "landmark_summary_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     "landmark_summary_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     # (q, k, v, out, dout, dout_planes, dq, dk, dv, lse, delta, P, N, NP,
-    #  S, D, scale, stream): kernel 7's backward on the tensor cores (bf16
-    #  inputs), two launches (dq pass, then dk/dv)
+    #  S, D, scale, stream): kernel 7's backward on the tensor cores, bf16
+    #  inputs or f32 inputs' bf16 planes (3, 3, 2 terms), two launches (dq
+    #  pass, then dk/dv)
     "landmark_summary_bwd_tc": (_P,) * 11 + (_I, _I, _I, _I, _I, _F, _P),
+    "landmark_summary_bwd_tc_f32": (_P,) * 11 + (_I, _I, _I, _I, _I, _F, _P),
     # (q, k, v, out, dout, dq, dk, dv, lse, delta, P, N, S, D, scale,
-    #  stream): its FMA route (f32 inputs; bf16 at D = 256), two launches
+    #  stream): its FMA route (D = 256, f32 or bf16 inputs), two launches
     "landmark_summary_bwd_f32": (_P,) * 10 + (_I, _I, _I, _I, _F, _P),
     "landmark_summary_bwd_bf16": (_P,) * 10 + (_I, _I, _I, _I, _F, _P),
     # (x, perm, indptr, chunk_rows, heavy_rows, out, N, H, n_chunks,

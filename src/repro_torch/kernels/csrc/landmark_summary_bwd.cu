@@ -21,7 +21,7 @@
 // bf16 tensor-core rate; the bytes (inputs once, f32 outputs once) take a
 // tenth of that. Operations bound it, on the tensor cores.
 //
-// Both routes are the flash-attention-2 backward in two passes, with no
+// Every route is the flash-attention-2 backward in two passes, with no
 // atomics (two launches of the same inputs give the same bits):
 // - pass 1, a block per query tile of one problem: Δ from O and dO, then
 //   one sweep over the key tiles with the forward's online softmax (a
@@ -38,58 +38,94 @@
 // of dK and dV are not written); queries at or past n take P = 0 in pass 2
 // (lse = +inf): nothing padded enters a softmax.
 //
-// Tensor-core route (bf16 inputs, D ∈ {32, 64, 128}: bwd_dq_wgmma_kernel,
-// then bwd_dkv_wgmma_kernel), the forward's TMA + wgmma loop turned to the
-// backward. A producer warp streams tiles by TMA (3-D tensor maps, 128-byte
+// Tensor-core routes (D ∈ {32, 64, 128}: bwd_dq_wgmma_kernel<D, F32>, then
+// bwd_dkv_wgmma_kernel<D, F32>), the forward's TMA + wgmma loop turned to
+// the backward, one template for both forms of the inputs. A producer warp
+// streams tiles by TMA (3-D tensor maps (D, rows, terms·P), 128-byte
 // swizzle, 64-byte at D = 32) through a ring of shared-memory stages with
 // full/empty mbarriers; consumer warpgroups of 64 rows run wgmma with f32
-// accumulators in registers. dO arrives as two bf16 planes, hi = bf16(dO)
-// and lo = bf16(dO − hi), from the split pass split_bf16_terms
-// (landmark_summary.cu) that the wrapper runs first; q, k, v are exact in
-// one bf16 term each.
-// - pass 1 (a consumer warpgroup owns 64 query rows; Q and both dO planes
-//   stay in shared memory, K and V tiles stream): S = Q Kᵀ (1 product) and
-//   dP = dO_lo Vᵀ + dO_hi Vᵀ (2) from shared memory; the online softmax in
+// accumulators in registers. Every operand is a sum of bf16 planes, from
+// the split pass split_bf16_terms (landmark_summary.cu) that the wrapper
+// runs first: dO always as two, hi = bf16(dO) and lo = bf16(dO − hi);
+// bf16 q, k, v as they are (one plane each, F32 = false, `tensor_core`);
+// f32 q and k as three planes and v as two, x0 = bf16(x),
+// x1 = bf16(x − x0), x2 = bf16(x − x0 − x1) (F32 = true, `f32_split`,
+// four split passes a call). P and dS are split into hi and lo in
+// registers, in the f32 accumulator layout, which is the register
+// A-fragment layout of a 16-bit operand (the forward's p_hi/p_lo trick).
+// - pass 1 (a consumer warpgroup owns 64 query rows; the Q planes and both
+//   dO planes stay in shared memory, the K and V planes stream): S = Σ q_a
+//   k_bᵀ over a + b < terms, the small products first and q0 k0 last
+//   (q2k0, q1k1, q0k2, q1k0, q0k1, q0k0, as the forward's f32 loop issues
+//   them); dP = dO_lo V0ᵀ (+ dO_hi V1ᵀ) + dO_hi V0ᵀ; the online softmax in
 //   registers as in the forward (four threads share a row and take its max
-//   by shuffles); dS = 2^(s·c − m)·(dP − Δ) split into ds_hi and ds_lo in
-//   the f32 accumulator layout, which is the register A-fragment layout of
-//   a 16-bit operand (the forward's p_hi/p_lo trick); dQ += ds_hi K +
-//   ds_lo K (2) with K read as the MN-major B operand. 5 products.
-// - pass 2 (a consumer warpgroup owns 64 keys; K and V stay, Q, both dO
-//   planes and the tile's lse and Δ (cp.async.bulk) stream): Sᵀ = K Qᵀ (1),
-//   dPᵀ = V dO_loᵀ + V dO_hiᵀ (2), Pᵀ = 2^(sᵀ·c − lse) and dSᵀ = Pᵀ∘(dPᵀ − Δ)
-//   each split in two in registers; dV += p_hi dO_hi + p_hi dO_lo +
-//   p_lo dO_hi (3; p_lo·dO_lo is ~2^-16 of the sum and dropped) and
-//   dK += ds_hi q + ds_lo q (2), dO and q read as MN-major B operands.
-//   8 products.
-// 13 bf16 products of 2·n·S·D in all against the bound's 5.
-// Why P, dS and dO are split: the bound against the plain version is 1e-4
-// of each gradient's largest |value| (chip_smoke.py::BWD_REL). One bf16
-// term of P and dS gives 1.0e-3 to 4.1e-3 of it on normal bf16 inputs at
+//   by shuffles); dS = 2^(s·c − m)·(dP − Δ) split into ds_hi and ds_lo;
+//   dQ += ds_hi K0 + ds_lo K0 (+ ds_hi K1), K read as the MN-major B
+//   operand. bf16: 1 + 2 + 2 = 5 products; f32: 6 + 3 + 3 = 12.
+// - pass 2 (a consumer warpgroup owns 64 keys; the K and V planes stay,
+//   the Q planes, both dO planes and the tile's lse and Δ (cp.async.bulk)
+//   stream): Sᵀ = Σ k_b q_aᵀ in the same order, dPᵀ = V0 dO_loᵀ
+//   (+ V1 dO_hiᵀ) + V0 dO_hiᵀ, Pᵀ = 2^(sᵀ·c − lse) and dSᵀ = Pᵀ∘(dPᵀ − Δ)
+//   each split in two; dV += p_hi dO_hi + p_hi dO_lo + p_lo dO_hi
+//   (p_lo·dO_lo is ~2^-16 of the sum and dropped) and dK += ds_hi q0 +
+//   ds_lo q0 (+ ds_hi q1), dO and q read as MN-major B operands.
+//   bf16: 1 + 2 + 3 + 2 = 8 products; f32: 6 + 3 + 3 + 3 = 15.
+// 13 bf16 products of 2·n·S·D in all on bf16 inputs, 27 on f32 inputs,
+// against the bound's 5; 27 at the bf16 peak take 0.88 ms at the training
+// shape.
+// Why the terms: the bound against the plain version is 1e-4 of each
+// gradient's largest |value| (chip_smoke.py::BWD_REL). On bf16 inputs, one
+// bf16 term of P and dS gives 1.0e-3 to 4.1e-3 of it on normal inputs at
 // (P, n, S, D) = (3, 70, 777, 64), (2, 256, 4096, 64), (2, 100, 300, 128),
 // one term of dO 0.9e-3 to 2.4e-3 — 10–40× the bound; two terms of each
-// give 2.2e-6 to 1.0e-5, 2–10% of it (this arithmetic emulated on the CPU:
-// kernels/ref.py::landmark_summary_bwd_split_ref).
+// give 2.2e-6 to 1.0e-5, 2–10% of it (kernels/ref.py::
+// landmark_summary_bwd_split_ref). On f32 inputs the 27 products give
+// 7.4e-6 to 1.5e-5 of each gradient's max |value| against an f64 oracle,
+// 7–15% of the bound, at (n, S, D) = (70, 777, 64), (256, 2048, 64),
+// (100, 300, 128) and at 4× scaled q and k (128, 1024, 64); leaving out
+// K1 in dQ or q1 in dK gives 1.8e-3 to 2.6e-3, leaving out V1 in dP and
+// dPᵀ 1.5e-3 to 5.5e-3, 15–55× the bound, so each second term stays
+// (kernels/ref.py::landmark_summary_bwd_f32_split_ref, tests/
+// test_torch_landmark_bwd_f32.py). The third terms of q and k enter only
+// the scores, as in the forward.
+// Tile sums (f32 form): a wgmma adds its products into the f32
+// accumulator it is given, and over a long chain of them that sum comes
+// out less exact than rounded f32 adds: a first version of the f32 form
+// that ran dQ through one chain of 768 wgmma (pass 1, S = 4096) and dK, dV
+// through 288 (pass 2, n = 1536) matched its plain-torch emulation on
+// random inputs, but on the inputs of phase 16d's model its step-1
+// gradients failed chip_smoke.py's rule (2× the plain pair's reversed-keys
+// floor) in every group, where the emulation passed. So on f32 inputs each
+// tile's products go into a fresh accumulator (12 wgmma a tile at D = 64),
+// added to dQ (as acc·alpha + tile, one FMA), dK and dV in f32: the
+// gradients then match the emulation's, inside the rule
+// (tools/landmark_bwd_grad_error.py prints the breakdown). It costs D/2
+// registers a thread, no spill. The bf16 form keeps its one chain, as it
+// was measured: its two-term inputs and products bound it well above that.
 // Tiles (TcTiles below): a 288-thread block (two consumer warpgroups and
 // the producer warp) has 168 registers a thread, enough at D ≤ 64; at
 // D = 128 one consumer warpgroup (160 threads, up to 255 registers) holds
-// dK and dV, 128 registers together, beside the 64 × 64 score tiles.
-// D = 256 (dK and dV alone take 256 registers a thread) stays on the FMA
-// route, chosen by shape in the wrapper.
+// dK and dV, 128 registers together, beside the score tiles. The f32
+// planes take 2.5× the bf16 route's shared memory: 5 planes of the
+// resident tile and 5 of each stage, so at D = 64 pass 1 keeps 128 query
+// rows (80 KB) and streams three 64-key stages (40 KB each), pass 2 keeps
+// 128 keys (80 KB) and streams three 64-row stages (41 KB with lse and Δ);
+// at D = 128 pass 1 streams 32-key stages and pass 2 32-row stages (m64n32
+// score tiles, dK and dV over two k16 steps a stage). Every form stays
+// under 227 KB.
 //
-// FMA route (f32 inputs at every D, bf16 inputs at D = 256: bwd_dq_kernel,
-// then bwd_dkv_kernel): the same two passes as loops of scalar f32 FMAs
-// over tiles in shared memory. 256 threads as a 16 × 16 grid; a thread owns
-// the rows ty + 16·a and the columns tx + 16·b of each product, so the 16
-// threads of a row are one half-warp and reduce by shuffles (a butterfly:
-// every lane ends with the same bits). Rows of D floats are padded to D + 1
-// words and score tiles to BK + 16, so the reads of a half-warp fall in
-// distinct banks. BQ = BK = 64 up to D = 128 (pass 2 at D = 128: 174 KB of
-// shared memory), 32 at D = 256. Pass 1 does three products and pass 2
-// four. Scalar f32 FMAs on the f32 values of the inputs (no tensor cores):
-// the sums run in another order than the plain version's, within 3.5e-6 of
-// max |plain| at every phase-16a shape on an H100, and bound by
-// shared-memory loads (16 for 32 FMAs).
+// FMA route (D = 256, bf16 and f32 inputs: bwd_dq_kernel, then
+// bwd_dkv_kernel): at D = 256 dK and dV alone would take 256 registers a
+// thread on the tensor cores, more than a thread has, so the same two
+// passes run as loops of scalar f32 FMAs over tiles in shared memory. 256
+// threads as a 16 × 16 grid; a thread owns the rows ty + 16·a and the
+// columns tx + 16·b of each product, so the 16 threads of a row are one
+// half-warp and reduce by shuffles (a butterfly: every lane ends with the
+// same bits). Rows of D floats are padded to D + 1 words and score tiles
+// to BK + 16, so the reads of a half-warp fall in distinct banks;
+// BQ = BK = 32. Pass 1 does three products and pass 2 four, on the f32
+// values of the inputs: the sums run in another order than the plain
+// version's, and shared-memory loads (16 for 32 FMAs) bound it.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -107,7 +143,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kThreads = 256;
 
 template <int D> struct BwdTiles {
-  static constexpr int BQ = D == 256 ? 32 : 64;  // query rows a tile
+  static_assert(D == 256, "the FMA route runs D = 256 only");
+  static constexpr int BQ = 32;                  // query rows a tile
   static constexpr int BK = BQ;                  // keys a tile
   static constexpr int LD = D + 1;               // padded row of D floats
   static constexpr int LDS = BK + 16;            // padded score row
@@ -447,46 +484,70 @@ using repro::pin;
 using repro::sm90_desc;
 using repro::smem_addr;
 
-// Tiles per head dim: pass 1 has WG1 consumer warpgroups of 64 query rows
-// and streams key tiles of BK1 keys through ST1 stages; pass 2 has WG2
+// Tiles per head dim and form of the inputs (F32: f32 inputs as 3/3/2
+// bf16 planes of q/k/v): pass 1 has WG1 consumer warpgroups of 64 query
+// rows and streams key tiles of BK1 keys through ST1 stages; pass 2 has WG2
 // consumer warpgroups of 64 keys and streams query tiles of BQ2 rows
 // through ST2 stages. Queries are padded to ROW_PAD rows in the lse and Δ
 // scratch, a multiple of every query tile.
-template <int D> struct TcTiles;
-template <> struct TcTiles<32> {
+template <int D, bool F32> struct TcTiles;
+template <> struct TcTiles<32, false> {
   static constexpr int WG1 = 2, BK1 = 64, ST1 = 4, WG2 = 2, BQ2 = 64, ST2 = 4;
 };
-template <> struct TcTiles<64> {
+template <> struct TcTiles<64, false> {
   static constexpr int WG1 = 2, BK1 = 64, ST1 = 4, WG2 = 2, BQ2 = 64, ST2 = 3;
 };
-template <> struct TcTiles<128> {
+template <> struct TcTiles<128, false> {
   static constexpr int WG1 = 1, BK1 = 64, ST1 = 3, WG2 = 1, BQ2 = 64, ST2 = 3;
 };
+template <> struct TcTiles<32, true> {
+  static constexpr int WG1 = 2, BK1 = 64, ST1 = 4, WG2 = 2, BQ2 = 64, ST2 = 4;
+};
+template <> struct TcTiles<64, true> {
+  static constexpr int WG1 = 2, BK1 = 64, ST1 = 3, WG2 = 2, BQ2 = 64, ST2 = 3;
+};
+template <> struct TcTiles<128, true> {
+  static constexpr int WG1 = 1, BK1 = 32, ST1 = 3, WG2 = 1, BQ2 = 32, ST2 = 3;
+};
 constexpr int ROW_PAD = 128;
+constexpr size_t SMEM_MAX = 227 * 1024;  // a block's shared memory, bytes
 
+// the swizzled shared-memory rows of a head dim, as TMA writes them
 template <int D>
-struct TcLayout {
-  using T = TcTiles<D>;
+struct Swizzle {
   static constexpr int SW = D >= 64 ? 128 : 64;  // swizzle span, bytes
   static constexpr int AE = SW / 2;              // bf16 per swizzled row
   static constexpr uint32_t MODE = SW == 128 ? 1 : 2;  // descriptor swizzle
-  // pass 1: Q, dO hi, dO lo tiles of BQ1 rows, then ST1 stages of K and V
+};
+
+template <int D, bool F32>
+struct TcLayout : Swizzle<D> {
+  using T = TcTiles<D, F32>;
+  static constexpr int QT = F32 ? 3 : 1;  // bf16 planes of q and of k
+  static constexpr int VT = F32 ? 2 : 1;  // bf16 planes of v
+  // pass 1: QT Q planes, dO hi, dO lo (BQ1 rows each), then ST1 stages of
+  // QT K and VT V planes (BK1 rows each)
   static constexpr int BQ1 = 64 * T::WG1, BK1 = T::BK1, ST1 = T::ST1;
   static constexpr int THREADS1 = 128 * T::WG1 + 32;
   static constexpr int Q1_BYTES = BQ1 * D * 2, KV1_BYTES = BK1 * D * 2;
+  static constexpr int STAGE1 = (QT + VT) * KV1_BYTES;
   static constexpr size_t SMEM1 =
-      1024 + 3 * Q1_BYTES + static_cast<size_t>(ST1) * 2 * KV1_BYTES;
-  // pass 2: K and V tiles of BK2 keys, then ST2 stages of Q, dO hi, dO lo
-  // (BQ2 rows each) and the rows' lse and Δ, padded to 1024 bytes
+      1024 + (QT + 2) * Q1_BYTES + static_cast<size_t>(ST1) * STAGE1;
+  // pass 2: QT K and VT V planes (BK2 rows each), then ST2 stages of QT Q
+  // planes, dO hi, dO lo (BQ2 rows each) and the rows' lse and Δ, padded
+  // to 1024 bytes
   static constexpr int BK2 = 64 * T::WG2, BQ2 = T::BQ2, ST2 = T::ST2;
   static constexpr int THREADS2 = 128 * T::WG2 + 32;
   static constexpr int KV2_BYTES = BK2 * D * 2, Q2_BYTES = BQ2 * D * 2;
   static constexpr int STAT_BYTES = 2 * BQ2 * 4;
-  static constexpr int STAGE2 = 3 * Q2_BYTES + 1024;
+  static constexpr int STAGE2 = (QT + 2) * Q2_BYTES + 1024;
   static constexpr size_t SMEM2 =
-      1024 + 2 * KV2_BYTES + static_cast<size_t>(ST2) * STAGE2;
+      1024 + (QT + VT) * KV2_BYTES + static_cast<size_t>(ST2) * STAGE2;
   static_assert(ROW_PAD % BQ1 == 0 && ROW_PAD % BQ2 == 0, "row padding");
   static_assert(STAT_BYTES <= 1024, "lse and delta fit the stage's pad");
+  // and the barriers' few static bytes
+  static_assert(SMEM1 <= SMEM_MAX - 256 && SMEM2 <= SMEM_MAX - 256,
+                "a block's shared memory");
 };
 
 // descriptor of the k16 step kk of a K-major operand: rows [r0, r0 + 64)
@@ -495,18 +556,18 @@ struct TcLayout {
 template <int D>
 __device__ __forceinline__ uint64_t k_major(uint32_t tile, int rows, int r0,
                                             int kk) {
-  using L = TcLayout<D>;
-  const int cb = kk / (L::AE / 16), off = (kk % (L::AE / 16)) * 32;
-  return sm90_desc(tile + (cb * rows + r0) * L::SW + off, 16, 8 * L::SW,
-                   L::MODE);
+  using W = Swizzle<D>;
+  const int cb = kk / (W::AE / 16), off = (kk % (W::AE / 16)) * 32;
+  return sm90_desc(tile + (cb * rows + r0) * W::SW + off, 16, 8 * W::SW,
+                   W::MODE);
 }
 
 // descriptor of the k16 step kc of an MN-major B operand: tile rows
 // [16·kc, 16·kc + 16) down the reduction axis, all D columns
 template <int D>
 __device__ __forceinline__ uint64_t mn_major(uint32_t tile, int rows, int kc) {
-  using L = TcLayout<D>;
-  return sm90_desc(tile + kc * 16 * L::SW, rows * L::SW, 8 * L::SW, L::MODE);
+  using W = Swizzle<D>;
+  return sm90_desc(tile + kc * 16 * W::SW, rows * W::SW, 8 * W::SW, W::MODE);
 }
 
 // the low and high bf16 halves of a bf16x2 register, as floats
@@ -546,10 +607,60 @@ __device__ __forceinline__ void fragments(const float (&x)[N / 2],
   }
 }
 
+// acc (=) Σ a_i b_jᵀ over i + j < TERMS, the small products first and
+// a_0 b_0 last: wgmma m64nN with both operands K-major in shared memory,
+// plane i of A at a + i·A_PLANE (rows [r0, r0 + 64) of A_ROWS), plane j of
+// B at b + j·B_PLANE (N rows)
+template <int D, int N, int TERMS, int A_ROWS, int A_PLANE, int B_PLANE>
+__device__ __forceinline__ void term_scores(float (&acc)[N / 2], uint32_t a,
+                                            int r0, uint32_t b) {
+#pragma unroll
+  for (int sum = TERMS - 1; sum >= 0; --sum) {
+#pragma unroll
+    for (int i = sum; i >= 0; --i) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        repro::wgmma_ss<N>(acc, k_major<D>(a + i * A_PLANE, A_ROWS, r0, kk),
+                           k_major<D>(b + (sum - i) * B_PLANE, N, 0, kk),
+                           sum < TERMS - 1 || i < sum || kk > 0);
+      }
+    }
+  }
+}
+
+// acc += Σ_kc ds_hi[kc] B0 + ds_lo[kc] B0 (+ ds_hi[kc] B1): the register
+// A fragments of dS (m64 × ROWS) against the MN-major planes of a B tile
+// of ROWS rows down the reduction axis (K in pass 1, q in pass 2), plane
+// t at b + t·B_PLANE; one committed group, waited for
+template <int D, int ROWS, int TERMS, int B_PLANE>
+__device__ __forceinline__ void ds_products(float (&acc)[D / 2],
+                                            uint32_t (&hi)[ROWS / 16][4],
+                                            uint32_t (&lo)[ROWS / 16][4],
+                                            uint32_t b) {
+  pin(acc);
+  pin(hi);
+  pin(lo);
+  repro::wgmma_fence();
+#pragma unroll
+  for (int kc = 0; kc < ROWS / 16; ++kc) {
+    const uint64_t b0 = mn_major<D>(b, ROWS, kc);
+    repro::wgmma_rs<D>(acc, hi[kc], b0);
+    repro::wgmma_rs<D>(acc, lo[kc], b0);
+    if constexpr (TERMS > 1) {
+      repro::wgmma_rs<D>(acc, hi[kc], mn_major<D>(b + B_PLANE, ROWS, kc));
+    }
+  }
+  repro::wgmma_commit();
+  repro::wgmma_wait_all();
+  pin(acc);
+  pin(hi);
+  pin(lo);
+}
+
 // pass 1: dQ, and each query row's lse (log2 units) and Δ for rows < NP
 // (rows ≥ n: lse = +inf, Δ = 0)
-template <int D>
-__global__ void __launch_bounds__(TcLayout<D>::THREADS1, 1)
+template <int D, bool F32>
+__global__ void __launch_bounds__(TcLayout<D, F32>::THREADS1, 1)
 bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap dmap,
                     const __grid_constant__ CUtensorMap kmap,
@@ -558,17 +669,19 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                     const float* __restrict__ dout, float* __restrict__ dq,
                     float* __restrict__ lse, float* __restrict__ delta, int P,
                     int N, int NP, int S, float c, float scale) {
-  using L = TcLayout<D>;
-  constexpr int BQ = L::BQ1, BK = L::BK1, STAGES = L::ST1;
+  using L = TcLayout<D, F32>;
+  constexpr int BQ = L::BQ1, BK = L::BK1, STAGES = L::ST1, QT = L::QT,
+                VT = L::VT;
   constexpr int CONSUMERS = BQ * 2;  // 128 threads a 64-row warpgroup
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full_bar[STAGES];
   __shared__ __align__(8) uint64_t empty_bar[STAGES];
   __shared__ __align__(8) uint64_t q_bar;
 
-  // Q, dO hi, dO lo, then the stages of K and V; 1024-byte aligned tiles
+  // the Q planes, dO hi, dO lo, then the stages of K and V planes;
+  // 1024-byte aligned tiles
   const uint32_t q_s = (smem_addr(smem_raw) + 1023) & ~1023u;
-  const uint32_t kv_s = q_s + 3 * L::Q1_BYTES;
+  const uint32_t kv_s = q_s + (QT + 2) * L::Q1_BYTES;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row0 = blockIdx.x * BQ, prob = blockIdx.y;
   const int tiles = (S + BK - 1) / BK;
@@ -585,29 +698,37 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
   if (warp == CONSUMERS / 32) {
     // ---------------------------------------------------------- producer
-    // dO plane t of problem `prob` is slice t·P + prob of its map
+    // plane t of problem `prob` is slice t·P + prob of its map
     if (lane == 0) {
       const uint32_t qb = smem_addr(&q_bar);
-      mbar_expect_tx(qb, 3 * L::Q1_BYTES);
+      mbar_expect_tx(qb, (QT + 2) * L::Q1_BYTES);
       for (int cb = 0; cb < D / L::AE; ++cb) {
         const uint32_t at = cb * BQ * L::SW;
-        repro::tma_load_3d(q_s + at, &qmap, qb, cb * L::AE, row0, prob);
-        repro::tma_load_3d(q_s + L::Q1_BYTES + at, &dmap, qb, cb * L::AE,
-                           row0, prob);
-        repro::tma_load_3d(q_s + 2 * L::Q1_BYTES + at, &dmap, qb, cb * L::AE,
-                           row0, P + prob);
+        for (int a = 0; a < QT; ++a) {
+          repro::tma_load_3d(q_s + a * L::Q1_BYTES + at, &qmap, qb,
+                             cb * L::AE, row0, a * P + prob);
+        }
+        repro::tma_load_3d(q_s + QT * L::Q1_BYTES + at, &dmap, qb,
+                           cb * L::AE, row0, prob);
+        repro::tma_load_3d(q_s + (QT + 1) * L::Q1_BYTES + at, &dmap, qb,
+                           cb * L::AE, row0, P + prob);
       }
       for (int t = 0; t < tiles; ++t) {
         const int st = t % STAGES;
         mbar_wait(smem_addr(&empty_bar[st]), ((t / STAGES) & 1) ^ 1);
         const uint32_t fb = smem_addr(&full_bar[st]);
-        const uint32_t stage = kv_s + st * 2 * L::KV1_BYTES;
-        mbar_expect_tx(fb, 2 * L::KV1_BYTES);
+        const uint32_t stage = kv_s + st * L::STAGE1;
+        mbar_expect_tx(fb, L::STAGE1);
         for (int cb = 0; cb < D / L::AE; ++cb) {
           const uint32_t at = cb * BK * L::SW;
-          repro::tma_load_3d(stage + at, &kmap, fb, cb * L::AE, t * BK, prob);
-          repro::tma_load_3d(stage + L::KV1_BYTES + at, &vmap, fb,
-                             cb * L::AE, t * BK, prob);
+          for (int b = 0; b < QT; ++b) {
+            repro::tma_load_3d(stage + b * L::KV1_BYTES + at, &kmap, fb,
+                               cb * L::AE, t * BK, b * P + prob);
+          }
+          for (int b = 0; b < VT; ++b) {
+            repro::tma_load_3d(stage + (QT + b) * L::KV1_BYTES + at, &vmap,
+                               fb, cb * L::AE, t * BK, b * P + prob);
+          }
         }
       }
     }
@@ -658,30 +779,35 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   for (int t = 0; t < tiles; ++t) {
     const int st = t % STAGES;
     mbar_wait(smem_addr(&full_bar[st]), (t / STAGES) & 1);
-    const uint32_t k_t = kv_s + st * 2 * L::KV1_BYTES;
-    const uint32_t v_t = k_t + L::KV1_BYTES;
+    const uint32_t k_t = kv_s + st * L::STAGE1;
+    const uint32_t v_t = k_t + QT * L::KV1_BYTES;
     // the A tiles' address opaque to the compiler, so their descriptors are
     // made again each tile instead of held in registers across the loop
     uint32_t a_t = q_s;
     asm volatile("" : "+r"(a_t));
+    const uint32_t hi_t = a_t + QT * L::Q1_BYTES, lo_t = hi_t + L::Q1_BYTES;
 
-    // S = Q Kᵀ; dP = dO_lo Vᵀ + dO_hi Vᵀ, the small product first
+    // S = Σ q_a k_bᵀ; dP = dO_lo V0ᵀ (+ dO_hi V1ᵀ) + dO_hi V0ᵀ, the small
+    // products first
     float s[BK / 2], dp[BK / 2];
     repro::wgmma_fence();
+    term_scores<D, BK, QT, BQ, L::Q1_BYTES, L::KV1_BYTES>(s, a_t, wg * 64,
+                                                         k_t);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      repro::wgmma_ss<BK>(s, k_major<D>(a_t, BQ, wg * 64, kk),
-                          k_major<D>(k_t, BK, 0, kk), kk > 0);
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      repro::wgmma_ss<BK>(dp, k_major<D>(a_t + 2 * L::Q1_BYTES, BQ, wg * 64,
-                                         kk),
+      repro::wgmma_ss<BK>(dp, k_major<D>(lo_t, BQ, wg * 64, kk),
                           k_major<D>(v_t, BK, 0, kk), kk > 0);
     }
+    if constexpr (VT == 2) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        repro::wgmma_ss<BK>(dp, k_major<D>(hi_t, BQ, wg * 64, kk),
+                            k_major<D>(v_t + L::KV1_BYTES, BK, 0, kk), 1);
+      }
+    }
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      repro::wgmma_ss<BK>(dp, k_major<D>(a_t + L::Q1_BYTES, BQ, wg * 64, kk),
+      repro::wgmma_ss<BK>(dp, k_major<D>(hi_t, BQ, wg * 64, kk),
                           k_major<D>(v_t, BK, 0, kk), 1);
     }
     repro::wgmma_commit();
@@ -735,33 +861,36 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     }
     l_a = l_a * alpha_a + sum_a;
     l_b = l_b * alpha_b + sum_b;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      acc[4 * j] *= alpha_a;
-      acc[4 * j + 1] *= alpha_a;
-      acc[4 * j + 2] *= alpha_b;
-      acc[4 * j + 3] *= alpha_b;
-    }
 
-    // dQ += ds_hi K + ds_lo K, k16 steps of 16 keys down K's rows
+    // dQ += ds_hi K0 + ds_lo K0 (+ ds_hi K1): bf16, into acc (rescaled
+    // first); f32, into this tile's own sum, then acc = acc·alpha + tile
+    // in f32 FMAs (Tile sums, in the opening note)
     uint32_t ds_hi[BK / 16][4], ds_lo[BK / 16][4];
     fragments<BK>(s, ds_hi, ds_lo);
-    pin(acc);
-    pin(ds_hi);
-    pin(ds_lo);
-    repro::wgmma_fence();
+    if constexpr (F32) {
+      float tile[D / 2];
 #pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-      const uint64_t kb = mn_major<D>(k_t, BK, kc);
-      repro::wgmma_rs<D>(acc, ds_hi[kc], kb);
-      repro::wgmma_rs<D>(acc, ds_lo[kc], kb);
+      for (int i = 0; i < D / 2; ++i) tile[i] = 0.0f;
+      ds_products<D, BK, QT, L::KV1_BYTES>(tile, ds_hi, ds_lo, k_t);
+      if (lane == 0) mbar_arrive(smem_addr(&empty_bar[st]));  // K, V read
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[4 * j] = fmaf(acc[4 * j], alpha_a, tile[4 * j]);
+        acc[4 * j + 1] = fmaf(acc[4 * j + 1], alpha_a, tile[4 * j + 1]);
+        acc[4 * j + 2] = fmaf(acc[4 * j + 2], alpha_b, tile[4 * j + 2]);
+        acc[4 * j + 3] = fmaf(acc[4 * j + 3], alpha_b, tile[4 * j + 3]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[4 * j] *= alpha_a;
+        acc[4 * j + 1] *= alpha_a;
+        acc[4 * j + 2] *= alpha_b;
+        acc[4 * j + 3] *= alpha_b;
+      }
+      ds_products<D, BK, QT, L::KV1_BYTES>(acc, ds_hi, ds_lo, k_t);
+      if (lane == 0) mbar_arrive(smem_addr(&empty_bar[st]));  // K, V read
     }
-    repro::wgmma_commit();
-    repro::wgmma_wait_all();
-    pin(acc);
-    pin(ds_hi);
-    pin(ds_lo);
-    if (lane == 0) mbar_arrive(smem_addr(&empty_bar[st]));  // K, V read
   }
 
 #pragma unroll
@@ -798,8 +927,8 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 // pass 2: dK and dV of BK2 keys, over every query tile
-template <int D>
-__global__ void __launch_bounds__(TcLayout<D>::THREADS2, 1)
+template <int D, bool F32>
+__global__ void __launch_bounds__(TcLayout<D, F32>::THREADS2, 1)
 bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
                      const __grid_constant__ CUtensorMap vmap,
                      const __grid_constant__ CUtensorMap qmap,
@@ -808,18 +937,20 @@ bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
                      const float* __restrict__ delta, float* __restrict__ dk,
                      float* __restrict__ dv, int P, int N, int NP, int S,
                      float c, float scale) {
-  using L = TcLayout<D>;
-  constexpr int BK = L::BK2, BQ = L::BQ2, STAGES = L::ST2;
+  using L = TcLayout<D, F32>;
+  constexpr int BK = L::BK2, BQ = L::BQ2, STAGES = L::ST2, QT = L::QT,
+                VT = L::VT;
   constexpr int CONSUMERS = BK * 2;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full_bar[STAGES];
   __shared__ __align__(8) uint64_t empty_bar[STAGES];
   __shared__ __align__(8) uint64_t kv_bar;
 
-  // K, V, then the stages: Q, dO hi, dO lo, lse and Δ of the tile's rows
+  // the K and V planes, then the stages: the Q planes, dO hi, dO lo, lse
+  // and Δ of the tile's rows
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t k_s = (raw + 1023) & ~1023u;
-  const uint32_t st_s = k_s + 2 * L::KV2_BYTES;
+  const uint32_t st_s = k_s + (QT + VT) * L::KV2_BYTES;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int key0 = blockIdx.x * BK, prob = blockIdx.y;
   const int tiles = (N + BQ - 1) / BQ;
@@ -838,12 +969,17 @@ bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
     // ---------------------------------------------------------- producer
     if (lane == 0) {
       const uint32_t kb = smem_addr(&kv_bar);
-      mbar_expect_tx(kb, 2 * L::KV2_BYTES);
+      mbar_expect_tx(kb, (QT + VT) * L::KV2_BYTES);
       for (int cb = 0; cb < D / L::AE; ++cb) {
         const uint32_t at = cb * BK * L::SW;
-        repro::tma_load_3d(k_s + at, &kmap, kb, cb * L::AE, key0, prob);
-        repro::tma_load_3d(k_s + L::KV2_BYTES + at, &vmap, kb, cb * L::AE,
-                           key0, prob);
+        for (int b = 0; b < QT; ++b) {
+          repro::tma_load_3d(k_s + b * L::KV2_BYTES + at, &kmap, kb,
+                             cb * L::AE, key0, b * P + prob);
+        }
+        for (int b = 0; b < VT; ++b) {
+          repro::tma_load_3d(k_s + (QT + b) * L::KV2_BYTES + at, &vmap, kb,
+                             cb * L::AE, key0, b * P + prob);
+        }
       }
       const float* lse_p = lse + static_cast<size_t>(prob) * NP;
       const float* dlt_p = delta + static_cast<size_t>(prob) * NP;
@@ -852,16 +988,19 @@ bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
         mbar_wait(smem_addr(&empty_bar[st]), ((t / STAGES) & 1) ^ 1);
         const uint32_t fb = smem_addr(&full_bar[st]);
         const uint32_t stage = st_s + st * L::STAGE2;
-        mbar_expect_tx(fb, 3 * L::Q2_BYTES + L::STAT_BYTES);
+        mbar_expect_tx(fb, (QT + 2) * L::Q2_BYTES + L::STAT_BYTES);
         for (int cb = 0; cb < D / L::AE; ++cb) {
           const uint32_t at = cb * BQ * L::SW;
-          repro::tma_load_3d(stage + at, &qmap, fb, cb * L::AE, t * BQ, prob);
-          repro::tma_load_3d(stage + L::Q2_BYTES + at, &dmap, fb, cb * L::AE,
-                             t * BQ, prob);
-          repro::tma_load_3d(stage + 2 * L::Q2_BYTES + at, &dmap, fb,
+          for (int a = 0; a < QT; ++a) {
+            repro::tma_load_3d(stage + a * L::Q2_BYTES + at, &qmap, fb,
+                               cb * L::AE, t * BQ, a * P + prob);
+          }
+          repro::tma_load_3d(stage + QT * L::Q2_BYTES + at, &dmap, fb,
+                             cb * L::AE, t * BQ, prob);
+          repro::tma_load_3d(stage + (QT + 1) * L::Q2_BYTES + at, &dmap, fb,
                              cb * L::AE, t * BQ, P + prob);
         }
-        const uint32_t stat = stage + 3 * L::Q2_BYTES;
+        const uint32_t stat = stage + (QT + 2) * L::Q2_BYTES;
         repro::bulk_load(stat, lse_p + t * BQ, BQ * 4, fb);
         repro::bulk_load(stat + BQ * 4, dlt_p + t * BQ, BQ * 4, fb);
       }
@@ -885,28 +1024,34 @@ bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
     const int st = t % STAGES;
     mbar_wait(smem_addr(&full_bar[st]), (t / STAGES) & 1);
     const uint32_t q_t = st_s + st * L::STAGE2;
-    const uint32_t hi_t = q_t + L::Q2_BYTES, lo_t = hi_t + L::Q2_BYTES;
+    const uint32_t hi_t = q_t + QT * L::Q2_BYTES, lo_t = hi_t + L::Q2_BYTES;
     const float* stat = reinterpret_cast<const float*>(
         smem_raw + (lo_t + L::Q2_BYTES - raw));
     uint32_t a_t = k_s;  // made again each tile, as in pass 1
     asm volatile("" : "+r"(a_t));
+    const uint32_t v_a = a_t + QT * L::KV2_BYTES;
 
-    // Sᵀ = K Qᵀ; dPᵀ = V dO_loᵀ + V dO_hiᵀ
+    // Sᵀ = Σ k_b q_aᵀ; dPᵀ = V0 dO_loᵀ (+ V1 dO_hiᵀ) + V0 dO_hiᵀ
     float s[BQ / 2], dp[BQ / 2];
     repro::wgmma_fence();
+    term_scores<D, BQ, QT, BK, L::KV2_BYTES, L::Q2_BYTES>(s, a_t, wg * 64,
+                                                         q_t);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      repro::wgmma_ss<BQ>(s, k_major<D>(a_t, BK, wg * 64, kk),
-                          k_major<D>(q_t, BQ, 0, kk), kk > 0);
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      repro::wgmma_ss<BQ>(dp, k_major<D>(a_t + L::KV2_BYTES, BK, wg * 64, kk),
+      repro::wgmma_ss<BQ>(dp, k_major<D>(v_a, BK, wg * 64, kk),
                           k_major<D>(lo_t, BQ, 0, kk), kk > 0);
     }
+    if constexpr (VT == 2) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        repro::wgmma_ss<BQ>(dp,
+                            k_major<D>(v_a + L::KV2_BYTES, BK, wg * 64, kk),
+                            k_major<D>(hi_t, BQ, 0, kk), 1);
+      }
+    }
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      repro::wgmma_ss<BQ>(dp, k_major<D>(a_t + L::KV2_BYTES, BK, wg * 64, kk),
+      repro::wgmma_ss<BQ>(dp, k_major<D>(v_a, BK, wg * 64, kk),
                           k_major<D>(hi_t, BQ, 0, kk), 1);
     }
     repro::wgmma_commit();
@@ -935,34 +1080,67 @@ bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
     fragments<BQ>(s, p_hi, p_lo);
     fragments<BQ>(dp, ds_hi, ds_lo);
 
-    // dV += p_hi dO_hi + p_hi dO_lo + p_lo dO_hi; dK += ds_hi q + ds_lo q;
-    // k16 steps of 16 queries down the tiles' rows
-    pin(gk);
-    pin(gv);
-    pin(p_hi);
-    pin(p_lo);
-    pin(ds_hi);
-    pin(ds_lo);
-    repro::wgmma_fence();
+    // dV += p_hi dO_hi + p_hi dO_lo + p_lo dO_hi; dK += ds_hi q0 + ds_lo q0
+    // (+ ds_hi q1); k16 steps of 16 queries down the tiles' rows. bf16:
+    // into gv and gk, one group; f32: each into this tile's own sum, then
+    // added to gv and gk in f32 (Tile sums, in the opening note)
+    if constexpr (F32) {
+      float tile[D / 2];
 #pragma unroll
-    for (int kc = 0; kc < BQ / 16; ++kc) {
-      const uint64_t dhi = mn_major<D>(hi_t, BQ, kc);
-      repro::wgmma_rs<D>(gv, p_hi[kc], dhi);
-      repro::wgmma_rs<D>(gv, p_hi[kc], mn_major<D>(lo_t, BQ, kc));
-      repro::wgmma_rs<D>(gv, p_lo[kc], dhi);
-      const uint64_t qb = mn_major<D>(q_t, BQ, kc);
-      repro::wgmma_rs<D>(gk, ds_hi[kc], qb);
-      repro::wgmma_rs<D>(gk, ds_lo[kc], qb);
+      for (int i = 0; i < D / 2; ++i) tile[i] = 0.0f;
+      pin(tile);
+      pin(p_hi);
+      pin(p_lo);
+      repro::wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < BQ / 16; ++kc) {
+        const uint64_t dhi = mn_major<D>(hi_t, BQ, kc);
+        repro::wgmma_rs<D>(tile, p_hi[kc], dhi);
+        repro::wgmma_rs<D>(tile, p_hi[kc], mn_major<D>(lo_t, BQ, kc));
+        repro::wgmma_rs<D>(tile, p_lo[kc], dhi);
+      }
+      repro::wgmma_commit();
+      repro::wgmma_wait_all();
+      pin(tile);
+      pin(p_hi);
+      pin(p_lo);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) {
+        gv[i] += tile[i];
+        tile[i] = 0.0f;
+      }
+      ds_products<D, BQ, QT, L::Q2_BYTES>(tile, ds_hi, ds_lo, q_t);
+      if (lane == 0) mbar_arrive(smem_addr(&empty_bar[st]));  // stage read
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) gk[i] += tile[i];
+    } else {
+      pin(gk);
+      pin(gv);
+      pin(p_hi);
+      pin(p_lo);
+      pin(ds_hi);
+      pin(ds_lo);
+      repro::wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < BQ / 16; ++kc) {
+        const uint64_t dhi = mn_major<D>(hi_t, BQ, kc);
+        repro::wgmma_rs<D>(gv, p_hi[kc], dhi);
+        repro::wgmma_rs<D>(gv, p_hi[kc], mn_major<D>(lo_t, BQ, kc));
+        repro::wgmma_rs<D>(gv, p_lo[kc], dhi);
+        const uint64_t qb = mn_major<D>(q_t, BQ, kc);
+        repro::wgmma_rs<D>(gk, ds_hi[kc], qb);
+        repro::wgmma_rs<D>(gk, ds_lo[kc], qb);
+      }
+      repro::wgmma_commit();
+      repro::wgmma_wait_all();
+      pin(gk);
+      pin(gv);
+      pin(p_hi);
+      pin(p_lo);
+      pin(ds_hi);
+      pin(ds_lo);
+      if (lane == 0) mbar_arrive(smem_addr(&empty_bar[st]));  // stage read
     }
-    repro::wgmma_commit();
-    repro::wgmma_wait_all();
-    pin(gk);
-    pin(gv);
-    pin(p_hi);
-    pin(p_lo);
-    pin(ds_hi);
-    pin(ds_lo);
-    if (lane == 0) mbar_arrive(smem_addr(&empty_bar[st]));  // stage read
   }
 
   const size_t koff = static_cast<size_t>(prob) * S * D;
@@ -986,40 +1164,43 @@ bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
   }
 }
 
-template <int D>
+// q, k (QT·P slices of N or S rows) and v (VT·P slices) as bf16 planes,
+// dout's two planes (2·P slices)
+template <int D, bool F32>
 int launch_tc(const void* q, const void* k, const void* v, const void* o,
               const void* dout, const void* planes, void* dq, void* dk,
               void* dv, void* lse, void* delta, int P, int N, int NP, int S,
               float scale, cudaStream_t stream) {
-  using L = TcLayout<D>;
+  using L = TcLayout<D, F32>;
   CUtensorMap q1, d1, k1, v1, k2, v2, q2, d2;
-  if (!repro::bf16_tensor_map(&q1, q, P, N, D, L::BQ1, L::SW) ||
+  if (!repro::bf16_tensor_map(&q1, q, L::QT * P, N, D, L::BQ1, L::SW) ||
       !repro::bf16_tensor_map(&d1, planes, 2 * P, N, D, L::BQ1, L::SW) ||
-      !repro::bf16_tensor_map(&k1, k, P, S, D, L::BK1, L::SW) ||
-      !repro::bf16_tensor_map(&v1, v, P, S, D, L::BK1, L::SW) ||
-      !repro::bf16_tensor_map(&k2, k, P, S, D, L::BK2, L::SW) ||
-      !repro::bf16_tensor_map(&v2, v, P, S, D, L::BK2, L::SW) ||
-      !repro::bf16_tensor_map(&q2, q, P, N, D, L::BQ2, L::SW) ||
+      !repro::bf16_tensor_map(&k1, k, L::QT * P, S, D, L::BK1, L::SW) ||
+      !repro::bf16_tensor_map(&v1, v, L::VT * P, S, D, L::BK1, L::SW) ||
+      !repro::bf16_tensor_map(&k2, k, L::QT * P, S, D, L::BK2, L::SW) ||
+      !repro::bf16_tensor_map(&v2, v, L::VT * P, S, D, L::BK2, L::SW) ||
+      !repro::bf16_tensor_map(&q2, q, L::QT * P, N, D, L::BQ2, L::SW) ||
       !repro::bf16_tensor_map(&d2, planes, 2 * P, N, D, L::BQ2, L::SW)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   static size_t sized1[repro::kMaxDevices] = {};  // the >48 KB opt-ins
   static size_t sized2[repro::kMaxDevices] = {};
-  cudaError_t err = repro::allow_smem(bwd_dq_wgmma_kernel<D>, L::SMEM1, sized1);
+  cudaError_t err =
+      repro::allow_smem(bwd_dq_wgmma_kernel<D, F32>, L::SMEM1, sized1);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = repro::allow_smem(bwd_dkv_wgmma_kernel<D>, L::SMEM2, sized2);
+  err = repro::allow_smem(bwd_dkv_wgmma_kernel<D, F32>, L::SMEM2, sized2);
   if (err != cudaSuccess) return static_cast<int>(err);
   const float c = scale * kLog2e;
-  bwd_dq_wgmma_kernel<D><<<dim3(NP / L::BQ1, P), L::THREADS1, L::SMEM1,
-                           stream>>>(
+  bwd_dq_wgmma_kernel<D, F32><<<dim3(NP / L::BQ1, P), L::THREADS1, L::SMEM1,
+                                stream>>>(
       q1, d1, k1, v1, static_cast<const float*>(o),
       static_cast<const float*>(dout), static_cast<float*>(dq),
       static_cast<float*>(lse), static_cast<float*>(delta), P, N, NP, S, c,
       scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_dkv_wgmma_kernel<D><<<dim3((S + L::BK2 - 1) / L::BK2, P), L::THREADS2,
-                            L::SMEM2, stream>>>(
+  bwd_dkv_wgmma_kernel<D, F32><<<dim3((S + L::BK2 - 1) / L::BK2, P),
+                                 L::THREADS2, L::SMEM2, stream>>>(
       k2, v2, q2, d2, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<float*>(dk),
       static_cast<float*>(dv), P, N, NP, S, c, scale);
@@ -1028,6 +1209,29 @@ int launch_tc(const void* q, const void* k, const void* v, const void* o,
 
 bool valid(int P, int N, int S) {
   return P > 0 && N > 0 && S > 0 && P <= 65535;
+}
+
+template <bool F32>
+int launch_tc_dim(const void* q, const void* k, const void* v, const void* o,
+                  const void* dout, const void* planes, void* dq, void* dk,
+                  void* dv, void* lse, void* delta, int P, int N, int NP,
+                  int S, int D, float scale, void* stream) {
+  if (!valid(P, N, S) || NP < N || NP % ROW_PAD) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32:
+      return launch_tc<32, F32>(q, k, v, o, dout, planes, dq, dk, dv, lse,
+                                delta, P, N, NP, S, scale, st);
+    case 64:
+      return launch_tc<64, F32>(q, k, v, o, dout, planes, dq, dk, dv, lse,
+                                delta, P, N, NP, S, scale, st);
+    case 128:
+      return launch_tc<128, F32>(q, k, v, o, dout, planes, dq, dk, dv, lse,
+                                 delta, P, N, NP, S, scale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -1044,28 +1248,28 @@ extern "C" int landmark_summary_bwd_tc(const void* q, const void* k,
                                        void* lse, void* delta, int P, int N,
                                        int NP, int S, int D, float scale,
                                        void* stream) {
-  if (!valid(P, N, S) || NP < N || NP % ROW_PAD) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32:
-      return launch_tc<32>(q, k, v, o, dout, planes, dq, dk, dv, lse, delta,
-                           P, N, NP, S, scale, st);
-    case 64:
-      return launch_tc<64>(q, k, v, o, dout, planes, dq, dk, dv, lse, delta,
-                           P, N, NP, S, scale, st);
-    case 128:
-      return launch_tc<128>(q, k, v, o, dout, planes, dq, dk, dv, lse, delta,
-                            P, N, NP, S, scale, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch_tc_dim<false>(q, k, v, o, dout, planes, dq, dk, dv, lse,
+                              delta, P, N, NP, S, D, scale, stream);
 }
 
-// The FMA route: q (P, N, D), k and v (P, S, D) f32 at any D of {32, 64,
-// 128, 256}, or bf16 at D = 256; o and dout (P, N, D) f32 → dq (P, N, D),
-// dk and dv (P, S, D) f32; lse and delta (P, N) f32 scratch written by pass
-// 1 and read by pass 2. Two launches.
+// The f32_split route: f32 inputs as bf16 planes from split_bf16_terms, q
+// (3, P, N, D), k (3, P, S, D), v (2, P, S, D), D ∈ {32, 64, 128}; the rest
+// as landmark_summary_bwd_tc. Two launches.
+extern "C" int landmark_summary_bwd_tc_f32(const void* q, const void* k,
+                                           const void* v, const void* o,
+                                           const void* dout,
+                                           const void* planes, void* dq,
+                                           void* dk, void* dv, void* lse,
+                                           void* delta, int P, int N, int NP,
+                                           int S, int D, float scale,
+                                           void* stream) {
+  return launch_tc_dim<true>(q, k, v, o, dout, planes, dq, dk, dv, lse,
+                             delta, P, N, NP, S, D, scale, stream);
+}
+
+// The FMA route, D = 256: q (P, N, D), k and v (P, S, D) bf16 or f32; o and
+// dout (P, N, D) f32 → dq (P, N, D), dk and dv (P, S, D) f32; lse and delta
+// (P, N) f32 scratch written by pass 1 and read by pass 2. Two launches.
 extern "C" int landmark_summary_bwd_bf16(const void* q, const void* k,
                                          const void* v, const void* o,
                                          const void* dout, void* dq, void* dk,
@@ -1086,21 +1290,10 @@ extern "C" int landmark_summary_bwd_f32(const void* q, const void* k,
                                         void* dv, void* lse, void* delta,
                                         int P, int N, int S, int D,
                                         float scale, void* stream) {
-  if (!valid(P, N, S)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32:
-      return launch_bwd<32, float>(q, k, v, o, dout, dq, dk, dv, lse, delta,
-                                   P, N, S, scale, st);
-    case 64:
-      return launch_bwd<64, float>(q, k, v, o, dout, dq, dk, dv, lse, delta,
-                                   P, N, S, scale, st);
-    case 128:
-      return launch_bwd<128, float>(q, k, v, o, dout, dq, dk, dv, lse, delta,
-                                    P, N, S, scale, st);
-    case 256:
-      return launch_bwd<256, float>(q, k, v, o, dout, dq, dk, dv, lse, delta,
-                                    P, N, S, scale, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid(P, N, S) || D != 256) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  return launch_bwd<256, float>(q, k, v, o, dout, dq, dk, dv, lse, delta, P,
+                                N, S, scale,
+                                static_cast<cudaStream_t>(stream));
 }

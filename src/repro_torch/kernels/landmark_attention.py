@@ -17,10 +17,12 @@ that requires grad it runs through :class:`LandmarkSummary`, the forward
 kernel and then :func:`landmark_summary_bwd`'s kernels (two launches a
 call, counted in ``landmark_summary_bwd.launches``, and by route in
 ``landmark_summary_bwd.route_launches``); CPU tensors take the plain
-versions of both. The backward's route is chosen by dtype and head dim:
-bfloat16 inputs at D ≤ 128 go through ``tensor_core`` (TMA + wgmma, dO
-split into two bf16 planes by :func:`bf16_terms` first, which counts that
-split pass), float32 inputs and D = 256 through ``fma`` (scalar f32 FMAs).
+versions of both. The backward's route is chosen by dtype and head dim; at
+D ≤ 128 both forms run one TMA + wgmma loop on bf16 planes, dO split into
+two by :func:`bf16_terms` first: bfloat16 inputs go in as they are
+(``tensor_core``, one split pass a call), float32 inputs are split into
+three planes of q and k and two of v as well (``f32_split``, four split
+passes a call). D = 256 takes ``fma`` (scalar f32 FMAs) at either dtype.
 """
 from __future__ import annotations
 
@@ -37,15 +39,18 @@ ROUTES = {torch.bfloat16: ("tensor_core", "landmark_summary_bf16"),
           torch.float32: ("f32_split", "landmark_summary_f32")}
 QK_TERMS, V_TERMS = 3, 2  # bf16 terms of f32 q and k, and of f32 v
 MAX_PROBLEMS = 65535  # the grid's y axis
-# the backward's launches a call (the dq pass, then the dk/dv pass); its
-# tensor-core route's head dims (bf16 inputs; D = 256 keeps dK and dV in
-# 256 registers a thread, more than a thread has, so it takes the FMA
-# route); the FMA route's C entry point by dtype
+# the backward's launches a call (the dq pass, then the dk/dv pass); the
+# head dims of its tensor-core routes (D = 256 keeps dK and dV in 256
+# registers a thread, more than a thread has, so it takes the FMA route);
+# the C entry points by dtype of the tensor-core routes (D ≤ 128) and of
+# the FMA route (D = 256)
 BWD_LAUNCHES = 2
 BWD_TC_DIMS = (32, 64, 128)
+BWD_TC_ENTRIES = {torch.bfloat16: "landmark_summary_bwd_tc",
+                  torch.float32: "landmark_summary_bwd_tc_f32"}
 BWD_FMA_ENTRIES = {torch.bfloat16: "landmark_summary_bwd_bf16",
                    torch.float32: "landmark_summary_bwd_f32"}
-BWD_DO_TERMS = 2  # bf16 planes of dO on the tensor-core route
+BWD_DO_TERMS = 2  # bf16 planes of dO on the tensor-core routes
 # lse and Δ rows of the tensor-core route: n padded to a multiple of every
 # query tile (ROW_PAD in csrc/landmark_summary_bwd.cu)
 BWD_ROW_PAD = 128
@@ -170,9 +175,9 @@ def landmark_summary_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`bwd_route` names (q, k, v as the forward takes them; ``out``
     and ``dout`` contiguous float32 of q's shape on the same device, 16-byte
     aligned; else ValueError), two launches, after :func:`bf16_terms` of
-    ``dout`` on the ``tensor_core`` route; a failed launch raises
-    RuntimeError. CPU tensors take the plain version,
-    :func:`ref.landmark_summary_bwd_ref`.
+    ``dout`` on the tensor-core routes (and of q, k, v on ``f32_split``); a
+    failed launch raises RuntimeError, with no other route to fall back to.
+    CPU tensors take the plain version, :func:`ref.landmark_summary_bwd_ref`.
     """
     if all(t.device.type == "cpu" for t in (q, k, v, out, dout)):
         return ref.landmark_summary_bwd_ref(q, k, v, out, dout, scale)
@@ -196,18 +201,21 @@ def landmark_summary_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = alloc((p, s, d), dtype=torch.float32, device=q.device)
     if p and n:
         route = bwd_route(q.dtype, d)
-        tc = route == "tensor_core"
+        tc = route != "fma"
+        entry = (BWD_TC_ENTRIES if tc else BWD_FMA_ENTRIES)[q.dtype]
         rows = -(-n // BWD_ROW_PAD) * BWD_ROW_PAD if tc else n
         lse = torch.empty((p, rows), dtype=torch.float32, device=q.device)
         delta = torch.empty_like(lse)
         if tc:
             planes = bf16_terms(dout, BWD_DO_TERMS)
-            build.launch("landmark_summary_bwd_tc", q, k, v, out, dout,
-                         planes, dq, dk, dv, lse, delta, p, n, rows, s, d,
-                         float(scale))
+            if route == "f32_split":
+                q, k = bf16_terms(q, QK_TERMS), bf16_terms(k, QK_TERMS)
+                v = bf16_terms(v, V_TERMS)
+            build.launch(entry, q, k, v, out, dout, planes, dq, dk, dv, lse,
+                         delta, p, n, rows, s, d, float(scale))
         else:
-            build.launch(BWD_FMA_ENTRIES[q.dtype], q, k, v, out, dout, dq,
-                         dk, dv, lse, delta, p, n, s, d, float(scale))
+            build.launch(entry, q, k, v, out, dout, dq, dk, dv, lse, delta,
+                         p, n, s, d, float(scale))
         build.count_launch(landmark_summary_bwd, BWD_LAUNCHES)
         landmark_summary_bwd.route_launches[route] += BWD_LAUNCHES
     if single:
@@ -216,15 +224,17 @@ def landmark_summary_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def bwd_route(dtype: torch.dtype, d: int) -> str:
-    """The backward's route for inputs of ``dtype`` and head dim ``d``:
-    ``tensor_core`` for bfloat16 at D in :data:`BWD_TC_DIMS`, else
-    ``fma``."""
-    return ("tensor_core" if dtype == torch.bfloat16 and d in BWD_TC_DIMS
-            else "fma")
+    """The backward's route for inputs of ``dtype`` and head dim ``d``: at
+    D in :data:`BWD_TC_DIMS`, ``tensor_core`` for bfloat16 and
+    ``f32_split`` for float32; else ``fma``."""
+    if d not in BWD_TC_DIMS:
+        return "fma"
+    return "tensor_core" if dtype == torch.bfloat16 else "f32_split"
 
 
 landmark_summary_bwd.launches = 0
-landmark_summary_bwd.route_launches = {"tensor_core": 0, "fma": 0}
+landmark_summary_bwd.route_launches = {"tensor_core": 0, "f32_split": 0,
+                                       "fma": 0}
 
 
 class LandmarkSummary(torch.autograd.Function):

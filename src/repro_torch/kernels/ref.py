@@ -569,40 +569,116 @@ def landmark_summary_bwd_split_ref(q: torch.Tensor, k: torch.Tensor,
     not hold). ``block_k`` and ``block_q`` are the kernel's tiles (64 at
     every head dim). Returns (dq, dk, dv) float32.
     """
-    qf, kf, vf = (t.to(torch.bfloat16).float() for t in (q, k, v))
-    do_hi, do_lo = _hi_lo(dout.float(), split)
+    terms = [bf16_terms(t.to(torch.bfloat16), 1).float() for t in (q, k, v)]
+    return _split_bwd(*terms, out, dout, scale, split, block_k, block_q, ())
+
+
+# the second-term products of the f32_split backward that
+# landmark_summary_bwd_f32_split_ref can leave out: K1 in dQ, q1 in dK, V1
+# in dP and dPᵀ
+F32_BWD_SECOND_TERMS = ("k1", "q1", "v1")
+
+
+def landmark_summary_bwd_f32_split_ref(q: torch.Tensor, k: torch.Tensor,
+                                       v: torch.Tensor, out: torch.Tensor,
+                                       dout: torch.Tensor, scale: float, *,
+                                       block_k: int = 64, block_q: int = 64,
+                                       drop=()):
+    """The backward kernel's ``f32_split`` route (float32 q, k, v) in plain
+    torch, to check its numerics on the CPU; never on a model path.
+
+    q and k become three bf16 terms each and v two (:func:`bf16_terms`),
+    dO two (hi, lo); every product is of bf16 values summed in f32. The
+    loop is that of :func:`landmark_summary_bwd_split_ref`, 27 products of
+    2·n·S·D in all. Pass 1: S takes the six q_a k_bᵀ with a + b < 3, the
+    small ones first and q0 k0 last (q2k0, q1k1, q0k2, q1k0, q0k1, q0k0),
+    as the forward's f32 route issues them; dP = dO_lo V0ᵀ + dO_hi V1ᵀ +
+    dO_hi V0ᵀ; dQ += ds_hi K0 + ds_lo K0 + ds_hi K1. Pass 2: Sᵀ the six
+    k_a q_bᵀ (k2q0, k1q1, k0q2, k1q0, k0q1, k0q0), dPᵀ = V0 dO_loᵀ + V1
+    dO_hiᵀ + V0 dO_hiᵀ, dV += p_hi dO_hi + p_hi dO_lo + p_lo dO_hi,
+    dK += ds_hi q0 + ds_lo q0 + ds_hi q1. ``drop`` leaves out the named
+    second-term products (:data:`F32_BWD_SECOND_TERMS`), each of which the
+    1e-4 bound needs. ``block_k`` is pass 1's key tile (64 keys at D ≤ 64,
+    32 at D = 128), ``block_q`` pass 2's query tile (64 rows at D ≤ 64, 32
+    at D = 128). Returns (dq, dk, dv) float32.
+    """
+    unknown = set(drop) - set(F32_BWD_SECOND_TERMS)
+    if unknown:
+        raise ValueError(f"drop: unknown terms {sorted(unknown)}")
+    terms = [bf16_terms(t, n).float()
+             for t, n in ((q, 3), (k, 3), (v, 2))]
+    return _split_bwd(*terms, out, dout, scale, True, block_k, block_q,
+                      tuple(drop))
+
+
+def _split_bwd(qt, kt, vt, out, dout, scale: float, split: bool,
+               block_k: int, block_q: int, drop):
+    """The tensor-core backward's two passes on bf16 terms: ``qt``, ``kt``
+    (terms, ..., rows, D) and ``vt`` (v_terms, ..., S, D) as f32 values of
+    bf16 numbers; one term each for bf16 inputs, 3/3/2 for f32 inputs.
+    Products are issued in the kernel's order; with one term each it is
+    the bf16 route's 13 products."""
     c = torch.tensor(scale, dtype=torch.float32) * torch.tensor(
         math.log2(math.e), dtype=torch.float32)
+    n_terms = qt.shape[0]
+    pairs = [(a, s - a) for s in range(n_terms - 1, -1, -1)
+             for a in range(s, -1, -1)]
+    q0, k0_, v0 = qt[0], kt[0], vt[0]
+    q1 = qt[1] if n_terms > 1 and "q1" not in drop else None
+    k1 = kt[1] if n_terms > 1 and "k1" not in drop else None
+    v1 = vt[1] if vt.shape[0] > 1 and "v1" not in drop else None
+    do_hi, do_lo = _hi_lo(dout.float(), split)
     delta = (dout.float() * out.float()).sum(-1, keepdim=True)
-    m = torch.full(qf.shape[:-1] + (1,), float("-inf"))
+    m = torch.full(q0.shape[:-1] + (1,), float("-inf"), device=q0.device)
     l = torch.zeros_like(m)
-    acc = torch.zeros_like(qf)
-    for k0 in range(0, kf.shape[-2], block_k):  # pass 1
-        kt, vt = kf[..., k0:k0 + block_k, :], vf[..., k0:k0 + block_k, :]
-        s = (qf @ kt.transpose(-1, -2)) * c
+    acc = torch.zeros_like(q0)
+    t = lambda x: x.transpose(-1, -2)  # noqa: E731
+    for j in range(0, kt.shape[-2], block_k):  # pass 1
+        keys = slice(j, j + block_k)
+        s = torch.zeros((), device=q0.device)
+        for a, b in pairs:
+            s = s + qt[a] @ t(kt[b][..., keys, :])
+        s = s * c
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         alpha = torch.where(m == float("-inf"), torch.zeros_like(m),
                             torch.exp2(m - m_new))
         p = torch.exp2(s - m_new)
         l = l * alpha + p.sum(-1, keepdim=True)
-        dp = do_lo @ vt.transpose(-1, -2) + do_hi @ vt.transpose(-1, -2)
+        vk = v0[..., keys, :]
+        dp = do_lo @ t(vk)
+        if v1 is not None:
+            dp = dp + do_hi @ t(v1[..., keys, :])
+        dp = dp + do_hi @ t(vk)
         ds_hi, ds_lo = _hi_lo(p * (dp - delta), split)
-        acc = acc * alpha + ds_hi @ kt + ds_lo @ kt
+        kk = k0_[..., keys, :]
+        tile = ds_hi @ kk + ds_lo @ kk
+        if k1 is not None:
+            tile = tile + ds_hi @ k1[..., keys, :]
+        acc = acc * alpha + tile  # the f32 form's tile sum
         m = m_new
     dq = acc * scale / l
     lse = m + torch.log2(l)
-    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
-    for q0 in range(0, qf.shape[-2], block_q):  # pass 2
-        rows = slice(q0, q0 + block_q)
-        qt, hi, lo = qf[..., rows, :], do_hi[..., rows, :], do_lo[..., rows, :]
-        st = (kf @ qt.transpose(-1, -2)) * c  # (S, rows)
-        pt = torch.exp2(st - lse[..., rows, 0][..., None, :])
-        dpt = vf @ lo.transpose(-1, -2) + vf @ hi.transpose(-1, -2)
+    dk, dv = torch.zeros_like(k0_), torch.zeros_like(v0)
+    for i in range(0, qt.shape[-2], block_q):  # pass 2
+        rows = slice(i, i + block_q)
+        hi, lo = do_hi[..., rows, :], do_lo[..., rows, :]
+        st = torch.zeros((), device=q0.device)
+        for a, b in pairs:  # k_a q_bᵀ: the kernel's A operand is K
+            st = st + kt[a] @ t(qt[b][..., rows, :])  # (S, rows)
+        pt = torch.exp2(st * c - lse[..., rows, 0][..., None, :])
+        dpt = v0 @ t(lo)
+        if v1 is not None:
+            dpt = dpt + v1 @ t(hi)
+        dpt = dpt + v0 @ t(hi)
         p_hi, p_lo = _hi_lo(pt, split)
         ds_hi, ds_lo = _hi_lo(pt * (dpt - delta[..., rows, 0][..., None, :]),
                               split)
-        dv = dv + p_hi @ hi + p_hi @ lo + p_lo @ hi
-        dk = dk + ds_hi @ qt + ds_lo @ qt
+        dv = dv + (p_hi @ hi + p_hi @ lo + p_lo @ hi)
+        qr = q0[..., rows, :]
+        tile = ds_hi @ qr + ds_lo @ qr
+        if q1 is not None:
+            tile = tile + ds_hi @ q1[..., rows, :]
+        dk = dk + tile
     return dq, dk * scale, dv
 
 

@@ -887,12 +887,14 @@ def test_landmark_summary_bwd_kernel_matches_plain(cuda, dtype, p, n, s, d):
     gradient's largest |value| (the tensor-core route's split terms, or the
     FMA route's f32 FMAs, summed in another order), at ragged n and S,
     every head dim and the SmolLM-360M landmark shape; two launches of one
-    call on the route of the dtype and head dim, and two calls bitwise
-    equal; the single-problem form the same launch."""
+    call on the route of the dtype and head dim, after its split passes
+    (dO on ``tensor_core``; dO, q, k, v on ``f32_split``; none on ``fma``),
+    and two calls bitwise equal; the single-problem form the same launch."""
     args = _bwd_inputs(cuda, dtype, p, n, s, d, seed=n + s)
     route = lsum.bwd_route(dtype, d)
     before = lsum.landmark_summary_bwd.launches
     on_route = lsum.landmark_summary_bwd.route_launches[route]
+    splits = lsum.bf16_terms.launches
     got = lsum.landmark_summary_bwd(*args)
     again = lsum.landmark_summary_bwd(*args)
     want = ref.landmark_summary_bwd_ref(*args)
@@ -900,6 +902,8 @@ def test_landmark_summary_bwd_kernel_matches_plain(cuda, dtype, p, n, s, d):
     assert lsum.landmark_summary_bwd.launches == before + 2 * lsum.BWD_LAUNCHES
     assert (lsum.landmark_summary_bwd.route_launches[route]
             == on_route + 2 * lsum.BWD_LAUNCHES)
+    per_call = {"tensor_core": 1, "f32_split": 4, "fma": 0}[route]
+    assert lsum.bf16_terms.launches == splits + 2 * per_call
     for a, b, w in zip(got, again, want):
         assert a.dtype == torch.float32 and a.shape == w.shape
         assert torch.equal(a, b)

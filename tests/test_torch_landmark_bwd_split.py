@@ -135,7 +135,8 @@ def test_split_backward_any_tiling(block):
 @pytest.mark.parametrize("dtype,d,route", [
     (torch.bfloat16, 32, "tensor_core"), (torch.bfloat16, 64, "tensor_core"),
     (torch.bfloat16, 128, "tensor_core"), (torch.bfloat16, 256, "fma"),
-    (torch.float32, 64, "fma"), (torch.float32, 256, "fma")])
+    (torch.float32, 64, "f32_split"), (torch.float32, 256, "fma"),
+    (torch.float32, 32, "f32_split"), (torch.float32, 128, "f32_split")])
 def test_backward_route_by_dtype_and_head_dim(dtype, d, route):
     assert lsum.bwd_route(dtype, d) == route
 

@@ -2,7 +2,8 @@
 """Time the backward of the landmark-summary kernel (kernel 7) of one
 checkout on the card, at the training shape of ``chip_smoke.py`` phase 16
 (SmolLM-360M at B = 8: P = 40 problems, n = 1536 queries, S = 4096 keys,
-D = 64), bf16 inputs (the training path's) and f32 inputs.
+D = 64), bf16 inputs (the training path's, ``tensor_core``) and f32
+inputs (``f32_split`` on this tree; the FMA route before it).
 
     python3 tools/time_landmark_summary_bwd.py [TREE ...] [--reps 2]
 
@@ -16,9 +17,12 @@ against the plain version relative to max |plain| per gradient, whether
 two calls gave the same bits, CUDA-event ms per call over 20 calls after
 warm-up (host launch cost included), the call's own device ms from a
 ``torch.profiler`` trace of 10 calls (every kernel of the call, a split
-pass of dO included; null when the profiler lost the session's opening
-markers) with the ms by kernel, and the plain version's event ms. Needs a
-CUDA card and ``nvcc``.
+pass of dO, and of q, k, v on f32 inputs, included; null when the
+profiler lost the session's opening markers) with the ms by kernel, the
+plain version's event ms, and the event ms of the backward alone of
+``F.scaled_dot_product_attention`` in the same dtype on the same inputs laid
+out as (B = 8, 5 kv heads, n, D), the library call for the same function
+(timed only, never used by the port). Needs a CUDA card and ``nvcc``.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ import sys
 from pathlib import Path
 
 SHAPE = (40, 1536, 4096, 64)  # (P, n, S, D)
+BATCH = 8  # P = B · 5 kv heads
 MARKERS = 256  # spin kernels that open each profiler session
 
 
@@ -37,6 +42,8 @@ def _one(tree: str) -> None:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref  # noqa: F401 (import order)
     from repro_torch.kernels import landmark_attention as lsum
@@ -80,6 +87,15 @@ def _one(tree: str) -> None:
                 e.time_range.end - e.time_range.start) / 1e3 / iters
         return sum(by_name.values()), by_name
 
+    def sdpa_bwd_ms(q, k, v):
+        """event ms of SDPA's backward alone on (B, P / B, rows, D)"""
+        q4, k4, v4 = (t.reshape(BATCH, -1, *t.shape[1:]).detach()
+                      .requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(q4, k4, v4)
+        dout = torch.randn_like(out)
+        return event_ms(lambda: torch.autograd.grad(
+            out, (q4, k4, v4), dout, retain_graph=True), 10)
+
     p, n, s, d = SHAPE
     g = torch.Generator(device="cuda").manual_seed(61)
     base = [torch.randn((p, rows, d), generator=g, device="cuda")
@@ -105,7 +121,8 @@ def _one(tree: str) -> None:
             "events_ms": event_ms(run, 20), "device_ms": dev,
             "device_ms_by_kernel": by_kernel,
             "plain_ms": event_ms(lambda: ref.landmark_summary_bwd_ref(
-                q, k, v, out, dout, scale), 3)}), flush=True)
+                q, k, v, out, dout, scale), 3),
+            "sdpa_bwd_ms": sdpa_bwd_ms(q, k, v)}), flush=True)
 
 
 def main() -> int:
