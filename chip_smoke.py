@@ -347,6 +347,29 @@ The GNN slice adds:
     is bitwise, and 17a's times at every CSR as ``per_csr``) and each row
     its launches on the GNN runs (``launches_gnn``).
 
+The recsys slice adds:
+
+18. recsys — (b) FM, BERT4Rec, MIND and DIEN at full width (f32,
+    seed-0 weights, AdamW) through ``build_cell`` and ``train_loop`` for
+    ``REC_STEPS`` steps at train_batch or, where one forward and backward
+    runs out of memory, the largest power of two below it (the batches
+    that ran out printed), each lookup's backward on the segment-sum
+    kernel: launches a step, step ms, peak memory, a profiled step (no
+    atomic scatter kernel, ``REC_ATOMIC``), step 1's gradients and updated
+    parameters twice bitwise and its gradients bitwise the plain sum's;
+    (a) the segment sum at FM's CSR by field id (train_batch, 41,689,088
+    segments, H = 10 and 1) and BERT4Rec's by item id (18b's batch, the
+    Zipf head), bitwise its plain version and itself, with event and
+    device ms, bound and ``index_add_``; the lookup's mesh form
+    (model = 4 row shards) bitwise the plain form; (c) the scores cells
+    at serve_p99 and serve_bulk (or a printed cut) and the retrieval cell
+    at retrieval_cand: ms a call, peak memory, the top-100 ids equal to a
+    CPU run of the port under the tie rule; (d) the landmark-retrieval
+    example's kernels (d1 over the item × user matrix, kernel 7's
+    ``f32_split`` route) against their plain versions at its shapes, then
+    the example. Row 8 gains the two CSRs in ``per_csr`` and each row its
+    launches on 18b–18d (``launches_recsys``).
+
 The last two lines are the kernel table and
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. TF32 is off for
 matmul and cuDNN throughout: the reference scores in full f32.
@@ -355,6 +378,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
+import importlib.util
 import io
 import json
 import shutil
@@ -393,7 +418,10 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.lifecycle import buckets  # noqa: E402
 from repro_torch import mutation  # noqa: E402
 from repro_torch.baselines import bpmf, mf  # noqa: E402
+from repro_torch.distributed import embedding  # noqa: E402
+from repro_torch.models import convert  # noqa: E402
 from repro_torch.models import gnn  # noqa: E402
+from repro_torch.models import recsys  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import transformer as lm  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
@@ -407,6 +435,12 @@ from repro_torch.train import trainer  # noqa: E402
 
 sys.path.insert(0, str(ROOT / "tools"))
 import paper_tables_torch as paper  # noqa: E402
+
+_spec = importlib.util.spec_from_file_location(
+    "landmark_retrieval_torch",
+    ROOT / "examples" / "landmark_retrieval_torch.py")
+ex_retrieval = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(ex_retrieval)
 
 DEVICE = "cuda"
 RTOL, ATOL = 1e-5, 1e-6
@@ -5068,6 +5102,417 @@ def phase_gnn(card):
           f"{time.perf_counter() - t0:.1f}s")
     return row, counts
 
+# ------------------------------------------------------------------ phase 18
+REC_ARCHS = ("fm", "bert4rec", "mind", "dien")
+REC_STEPS = 3
+REC_SERVE = ("serve_p99", "serve_bulk", "retrieval_cand")
+# kernels whose names mark an atomic scatter-add (index_add_, which
+# index_select's backward runs; scatter_add_ and torch.gather's backward,
+# the scatter-like instantiation of the scatter/gather kernel): a recsys
+# train step must launch none of them (the gather-like one, <false, …>, is
+# a copy)
+REC_ATOMIC = ("indexFunc", "scatter_gather_internal_kernel<true")
+REC_MESH = 4  # 18a's mesh lookup: model = 4 row shards of one table
+
+
+def _atomic_probe():
+    """REC_ATOMIC against the library's own scatter-adds: the backward of
+    ``index_select`` (``index_add_``) and of ``torch.gather`` (a
+    scatter-like ``scatter_add_``) must each launch a kernel that one of
+    its names matches, or 18b's check would pass vacuously."""
+    gen = torch.Generator(device=DEVICE).manual_seed(181)
+    idx = torch.randint(0, 512, (4096,), generator=gen, device=DEVICE)
+    hits = {}
+    for name, use in (
+            ("index_select", lambda t: t.index_select(0, idx)),
+            ("gather", lambda t: torch.gather(t, 0, idx[:, None].expand(
+                -1, t.shape[1])))):
+        t = torch.randn((512, 16), generator=gen, device=DEVICE,
+                        requires_grad=True)
+
+        def run():
+            use(t).sum().backward()
+
+        prof = _profile(run, sums=REC_ATOMIC)
+        hits[name] = sum(prof.get(f"{k} (ms, launches)", [0, 0])[1]
+                         for k in REC_ATOMIC)
+        if "device_time" not in prof and not hits[name]:
+            raise AssertionError(f"18b: REC_ATOMIC sees no kernel of "
+                                 f"{name}'s backward")
+    return hits
+
+
+def _rec_inputs(cfg, meta, step=0, rows=None):
+    """A batch for a recsys cell's ``meta`` inputs at ``rows`` rows (the
+    meta batch when None), on the card: what the reference's generators
+    (``fm_train_batch``, ``seq_rec_batch``) make, seeded uniform ids for
+    the rest (candidates)."""
+    rows = rows or next(iter(meta.values())).shape[0]
+    n_mask = (meta["mask_positions"].shape[1] if "mask_positions" in meta
+              else 0)
+    n_neg = meta["negatives"].shape[0] if "negatives" in meta else 0
+    if isinstance(cfg, recsys.FMConfig):
+        raw = synthetic.fm_train_batch(0, step, rows, cfg.field_vocabs)
+        hi = cfg.total_rows
+    else:
+        raw = synthetic.seq_rec_batch(0, step, rows, cfg.seq_len,
+                                      cfg.n_items, n_mask, n_neg)
+        hi = cfg.n_items
+    rng = np.random.default_rng([18, step])
+    out = {}
+    for key, t in meta.items():
+        shape = (tuple(t.shape) if key in ("negatives", "cand_ids")
+                 else (rows,) + tuple(t.shape[1:]))
+        out[key] = (raw[key] if key in raw
+                    else rng.integers(0, hi, shape).astype(np.int32))
+        assert out[key].shape == shape, (key, out[key].shape, shape)
+    return trainer.to_device(out, DEVICE)
+
+
+def _oom_search(try_rows, rows):
+    """The largest power-of-two batch from ``rows`` down at which
+    ``try_rows(rows)`` runs, halving on CUDA out-of-memory; (rows, the
+    batches that ran out of memory)."""
+    ooms = []
+    while True:
+        try:
+            try_rows(rows)
+            sync()
+            return rows, ooms
+        except torch.OutOfMemoryError:
+            ooms.append(rows)
+        gc.collect()
+        torch.cuda.empty_cache()
+        rows //= 2
+        if rows < 1:
+            raise AssertionError("18: no batch fits the card")
+
+
+def _rec_csr(tag, ids, n, widths, gen):
+    """18a at one lookup CSR: f32 rows of each width through the kernel,
+    bitwise its plain version and itself, timed (events, device, bound,
+    ``index_add_``); the CSR's shape."""
+    csr = embedding.lookup_csr(ids, n)
+    counts = (csr.indptr[1:] - csr.indptr[:-1])
+    note = dict(segments=n, edges=csr.n_edges, live=int(csr.perm.numel()),
+                max_degree=int(counts.max()),
+                head_share=float(counts.max()) / max(csr.perm.numel(), 1),
+                heavy_segments=int((counts > segsum.HEAVY).sum()))
+    for h in widths:
+        x = torch.randn((csr.n_edges, h), generator=gen, device=DEVICE)
+        got, again = segsum.segment_sum(x, csr), segsum.segment_sum(x, csr)
+        t1 = time.perf_counter()
+        want = ref.segment_sum_ref(x, csr.perm, csr.indptr)
+        sync()
+        plain_s = time.perf_counter() - t1
+        _bitwise(f"18a {tag} H={h}: kernel vs plain", (got,), (want,))
+        _bitwise(f"18a {tag} H={h}: two launches", (again,), (got,))
+        note[f"H={h}"] = dict(_segsum_times(x, csr), plain_s=plain_s)
+        del x, got, again, want
+    return note
+
+
+def _rec_mesh_check(gen):
+    """18a: the lookup's mesh form (model = REC_MESH row shards on the
+    card) bitwise the plain form, values and the table's gradient, on
+    Zipf ids with padding."""
+    mesh = make_mesh(("model",), (REC_MESH,), DEVICE)
+    table = torch.randn((4096, 16), generator=gen, device=DEVICE)
+    ids = torch.as_tensor(synthetic.seq_rec_batch(0, 0, 64, 50, 4096)[
+        "item_ids"], device=DEVICE)
+    ids[:8, :5] = -1
+    cot = torch.randn(tuple(ids.shape) + (16,), generator=gen, device=DEVICE)
+    out = []
+    for m in (None, mesh):
+        t = table.clone().requires_grad_()
+        val = embedding.embedding_lookup(t, ids, m)
+        (val * cot).sum().backward()
+        out.append((val.detach(), t.grad))
+    sync()
+    _bitwise("18a mesh lookup (model=4) vs plain", out[1], out[0])
+    return dict(table=(4096, 16), ids=tuple(ids.shape), shards=REC_MESH,
+                bitwise_values_and_grad=True)
+
+
+def phase_rec_kernel(b4r_rows):
+    """18a: row 8 at the two recsys CSRs — FM's by field id at train_batch
+    (v at H = 10 and w at H = 1 share it) and BERT4Rec's by item id at its
+    18b batch, with the Zipf head — then the mesh lookup."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(18)
+    fm = registry.get("fm")
+    rows = fm.shape("train_batch").dims["batch"]
+    ids = torch.as_tensor(synthetic.fm_train_batch(
+        0, 0, rows, fm.model.field_vocabs)["field_ids"], device=DEVICE)
+    notes = {f"fm train_batch by field id (B={rows})": _rec_csr(
+        "fm", ids, fm.model.table_rows, (10, 1), gen)}
+    b4r = registry.get("bert4rec").model
+    ids = torch.as_tensor(synthetic.seq_rec_batch(
+        0, 0, b4r_rows, b4r.seq_len, b4r.n_items)["item_ids"], device=DEVICE)
+    notes[f"bert4rec by item id (B={b4r_rows})"] = _rec_csr(
+        "bert4rec", ids, b4r.table_rows, (b4r.embed_dim,), gen)
+    mesh = _rec_mesh_check(gen)
+    for key, note in notes.items():
+        print(f"phase 18a {key}: " + json.dumps(note))
+    print(f"phase 18a segment sum at the recsys CSRs (bitwise its plain "
+          f"version and itself, f32); mesh lookup {json.dumps(mesh)} | "
+          f"{time.perf_counter() - t0:.1f}s")
+    return notes
+
+
+def _rec_step1(arch, rows, plain=False):
+    """Step 1 from seed-0 weights on batch 0 at ``rows`` rows: the loss,
+    the gradients, the parameters after the update and the launches;
+    through the plain segment sum when ``plain``."""
+    cell = cells.build_cell(arch, "train_batch")
+    model = recsys.init_recsys(arch.model, torch.Generator(
+        device=DEVICE).manual_seed(0), DEVICE)
+    state = topt.opt_init(model, arch.opt)
+    batch = _rec_inputs(arch.model, cell.args[2], 0, rows)
+    patch = (mock.patch.object(segsum, "segment_sum", lambda x, csr:
+                               ref.segment_sum_ref(x, csr.perm, csr.indptr))
+             if plain else contextlib.nullcontext())
+    ops.reset_launches()
+    with patch:
+        loss, grads = cells.value_and_grad(model, batch, recsys.family(
+            arch.model).loss)
+        topt.opt_update(model, grads, state, arch.opt)
+    sync()
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    return float(loss), grads, params, ops.launch_counts()["segment_sum"]
+
+
+def _rec_step1_check(arch, rows):
+    """Two kernel-path runs of step 1: gradients and updated parameters
+    bitwise equal; the plain-sum run's gradients bitwise the kernel's."""
+    lk, gk, pk, nk = _rec_step1(arch, rows)
+    lk2, gk2, pk2, _ = _rec_step1(arch, rows)
+    for tag, a, b in (("gradients", gk, gk2), ("parameters", pk, pk2)):
+        if lk != lk2 or not all(torch.equal(a[k], b[k]) for k in a):
+            raise AssertionError(f"18b {arch.name}: step-1 {tag} differ "
+                                 f"between two runs")
+    del gk2, pk2, pk
+    lp, gp, _, np_ = _rec_step1(arch, rows, plain=True)
+    same = lp == lk and all(torch.equal(gk[k], gp[k]) for k in gk)
+    if not same or np_:
+        raise AssertionError(f"18b {arch.name}: step-1 gradients with the "
+                             f"plain sum differ from the kernel's (loss {lk} "
+                             f"vs {lp}; plain-path launches {np_})")
+    return dict(loss=lk, launches=nk, bitwise_twice=True,
+                bitwise_plain=True)
+
+
+def _rec_train(name, card):
+    """18b for one arch at full width: the largest power-of-two batch up
+    to train_batch that one forward and backward fits (the next power of
+    two ran out of memory), REC_STEPS AdamW steps through ``build_cell``
+    and ``train_loop``, a profiled step, step 1 twice and with the plain
+    sum."""
+    arch = registry.get(name)
+    cell = cells.build_cell(arch, "train_batch")
+    full = cell.shape.dims["batch"]
+    model = recsys.init_recsys(arch.model, torch.Generator(
+        device=DEVICE).manual_seed(0), DEVICE)
+    loss_fn = recsys.family(arch.model).loss
+
+    def fits(rows):
+        batch = _rec_inputs(arch.model, cell.args[2], 0, rows)
+        cells.value_and_grad(model, batch, loss_fn)
+
+    rows, ooms = _oom_search(fits, full)
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt_state = topt.opt_init(model, arch.opt)
+    per_step = []
+
+    def step_fn(model, opt_state, batch):
+        sync()
+        ops.reset_launches()
+        t1 = time.perf_counter()
+        out = cell.fn(model, opt_state, batch)
+        loss = float(out[2]["loss"])
+        per_step.append(dict(ms=(time.perf_counter() - t1) * 1e3, loss=loss,
+                             counts=ops.launch_counts()))
+        return out
+
+    def batches():
+        step = 0
+        while True:
+            yield _rec_inputs(arch.model, cell.args[2], step, rows)
+            step += 1
+
+    torch.cuda.reset_peak_memory_stats()
+    res = trainer.train_loop(
+        step_fn, model, opt_state, batches(),
+        trainer.TrainerConfig(total_steps=REC_STEPS, log_every=1000),
+        log=lambda *_: None)
+    peak = torch.cuda.max_memory_allocated()
+    losses = res["losses"]
+    if len(losses) != REC_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"18b {name}: losses {losses}")
+    counts = {}
+    for i, st in enumerate(per_step):
+        others = {k: v for k, v in st["counts"].items()
+                  if k != "segment_sum" and v}
+        if not st["counts"]["segment_sum"] or others:
+            raise AssertionError(f"18b {name} step {i}: launches "
+                                 f"{st['counts']}")
+        for k, v in st["counts"].items():
+            counts[k] = counts.get(k, 0) + v
+    batch = _rec_inputs(arch.model, cell.args[2], REC_STEPS, rows)
+    prof = _profile(lambda: float(cell.fn(model, opt_state, batch)[2][
+        "loss"]), warm=False, sums=("segment_sum",) + REC_ATOMIC)
+    atomics = {k: prof.get(f"{k} (ms, launches)", [0, 0])[1]
+               for k in REC_ATOMIC}
+    if any(atomics.values()):
+        raise AssertionError(f"18b {name}: atomic scatter kernels in a step "
+                             f"{atomics}")
+    del model, opt_state, batch, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    step1 = _rec_step1_check(arch, rows)
+    ms_ = [st["ms"] for st in per_step]
+    out = dict(
+        config={f.name: getattr(arch.model, f.name)
+                for f in dataclasses.fields(arch.model)
+                if f.name not in ("dtype", "field_vocabs")},
+        table_rows=arch.model.table_rows, batch=rows, train_batch=full,
+        ran_out_of_memory_at=ooms, losses=losses, step_ms=ms_,
+        steady_step_ms=statistics.median(ms_[1:]), peak_gib=peak / 2 ** 30,
+        segment_sum_launches_per_step=per_step[-1]["counts"]["segment_sum"],
+        atomic_scatter_kernels=atomics, profile=prof, step1=step1)
+    print(f"phase 18b train ({card}): {name} full width f32, AdamW: "
+          + json.dumps(out))
+    return rows, counts
+
+
+def _rec_serve(name, card):
+    """18c for one arch: the scores cells at serve_p99 and serve_bulk (or
+    the largest power-of-two batch that fits) and the retrieval cell at
+    retrieval_cand, ms a call and peak memory; the card's top-100 ids
+    against a CPU run of the port on the same parameters and inputs,
+    under the tie rule."""
+    arch = registry.get(name)
+    model = recsys.init_recsys(arch.model, torch.Generator(
+        device=DEVICE).manual_seed(0), DEVICE)
+    out, counts = {}, {}
+    for shape in REC_SERVE:
+        cell = cells.build_cell(arch, shape)
+        full = cell.shape.dims["batch"]
+
+        def call(rows):
+            cell.fn(model, _rec_inputs(arch.model, cell.args[1], 1, rows))
+
+        rows, ooms = _oom_search(call, full)
+        gc.collect()
+        torch.cuda.empty_cache()
+        batch = _rec_inputs(arch.model, cell.args[1], 1, rows)
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        got = cell.fn(model, batch)
+        sync()
+        peak = torch.cuda.max_memory_allocated()
+        for k, v in ops.launch_counts().items():
+            counts[k] = counts.get(k, 0) + v
+        rec = dict(batch=rows, ran_out_of_memory_at=ooms,
+                   ms=_event_ms(lambda: cell.fn(model, batch), 3),
+                   peak_gib=peak / 2 ** 30)
+        if shape == "retrieval_cand":
+            cpu = recsys.family(arch.model).cls(arch.model, "cpu")
+            convert.load_recsys_tree(cpu, convert.recsys_tree(model))
+            wv, wi = cell.fn(cpu, {k: v.cpu() for k, v in batch.items()})
+            bad = list_mismatches(wv, wi, got[0], got[1])
+            if bad.size or got[1].shape != (1, 100):
+                raise AssertionError(f"18c {name}: top-100 ids differ from "
+                                     f"the CPU's beyond the tie rule")
+            rec.update(ids_equal=bool(torch.equal(wi, got[1].cpu())),
+                       tie_rule_mismatches=0, top_id=int(got[1][0, 0]))
+            del cpu
+        elif not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"18c {name} {shape}: non-finite scores")
+        out[shape] = rec
+        del batch, got
+        torch.cuda.empty_cache()
+    print(f"phase 18c serve ({card}): {name}: " + json.dumps(out))
+    return counts
+
+
+def phase_rec_example(d):
+    """18d: the landmark-retrieval example's kernels at its shapes — d1
+    over the item × user matrix (A = B = 3952 and B = 64 landmarks, P =
+    6040, pearson), the tensor-core route bitwise the f32 route and within
+    RTOL/ATOL of the plain version; kernel 7's f32_split route at P = 4,
+    n = 64 and 256, S = 2048, D = 64 within LM_RTOL/LM_ATOL — then the
+    example itself. Returns its launches (d1; kernel 7 by route)."""
+    t0 = time.perf_counter()
+    inter = d.to_matrix(device=DEVICE).ratings.T.contiguous()
+    counts = (inter != 0).sum(dim=1)
+    lms = inter[torch.argsort(-counts, stable=True)[:64]].contiguous()
+    errs = {}
+    for tag, b in (("item-item", inter), ("64 landmarks", lms)):
+        got = ops.masked_similarity(inter, b, "pearson")
+        f32 = ops.masked_similarity(inter, b, "pearson", route="f32")
+        want = ref.masked_similarity_ref(inter, b, "pearson")
+        sync()
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+        if not torch.equal(got, f32):
+            raise AssertionError(f"18d d1 {tag}: the tensor-core route is "
+                                 f"not bitwise the f32 route")
+        errs[f"d1 {tag}"] = float((got - want).abs().max())
+        del got, f32, want
+    p, s_, dd = 4, ex_retrieval.ATTN_SHAPE[1], ex_retrieval.ATTN_SHAPE[3]
+    for i, n in enumerate(ex_retrieval.ATTN_LANDMARKS):
+        q, k, v = _lm_inputs(p, n, s_, dd, torch.float32, seed=180 + i)
+        got = ops.landmark_summary(q, k, v)
+        want = ref.landmark_summary_ref(q, k, v, 1.0 / np.sqrt(dd))
+        sync()
+        torch.testing.assert_close(got, want, rtol=LM_RTOL, atol=LM_ATOL)
+        errs[f"kernel 7 f32 P={p} n={n} S={s_}"] = float(
+            (got - want).abs().max())
+    ops.reset_launches()
+    res = ex_retrieval.main(["--device", DEVICE])
+    sync()
+    launches = dict(ops.launch_counts(), landmark_summary_f32=dict(
+        lsum.landmark_summary.route_launches)["f32_split"])
+    if launches["masked_similarity"] != 2 or launches[
+            "landmark_summary_f32"] != 2:
+        raise AssertionError(f"18d: example launches {launches}")
+    print(f"phase 18d landmark retrieval example (rtol={RTOL} atol={ATOL}; "
+          f"kernel 7 rtol={LM_RTOL} atol={LM_ATOL}): {json.dumps(errs)}; "
+          f"example {json.dumps(res)} | launches masked_similarity "
+          f"{launches['masked_similarity']}, landmark_summary f32_split "
+          f"{launches['landmark_summary_f32']} | "
+          f"{time.perf_counter() - t0:.1f}s")
+    return {k: v for k, v in launches.items()
+            if k in ("masked_similarity", "landmark_summary_f32")}
+
+
+def phase_recsys(d, card):
+    """18: the recsys slice — (b) each arch trained at full width, (a) row
+    8 at the recsys CSRs (BERT4Rec's at 18b's batch), (c) serving, (d) the
+    landmark-retrieval example's kernels. Returns the CSR notes and the
+    launches of 18b–18d by kernel row."""
+    t0 = time.perf_counter()
+    print(f"phase 18b atomic scatter-add kernels seen by REC_ATOMIC in the "
+          f"library's backwards: {json.dumps(_atomic_probe())}")
+    counts, rows = {}, {}
+    for name in REC_ARCHS:
+        rows[name], c = _rec_train(name, card)
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+        gc.collect()
+        torch.cuda.empty_cache()
+    notes = phase_rec_kernel(rows["bert4rec"])
+    for name in REC_ARCHS:
+        for k, v in _rec_serve(name, card).items():
+            counts[k] = counts.get(k, 0) + v
+        gc.collect()
+        torch.cuda.empty_cache()
+    counts.update(phase_rec_example(d))
+    print(f"phase 18: batches {rows}, launches {counts} | "
+          f"{time.perf_counter() - t0:.1f}s")
+    return notes, counts
+
 
 def main():
     if not torch.cuda.is_available():
@@ -5111,6 +5556,10 @@ def main():
     moe_counts = phase_moe(card)
     bwd_rows, train_counts, f32_counts = phase_training(card)
     gnn_row, gnn_counts = phase_gnn(card)
+    rec_notes, rec_counts = phase_recsys(d, card)
+    gnn_row["per_csr"].update({key: {t: v[t] for t in v if t.startswith(
+        ("live", "max_degree", "head_share", "H="))}
+        for key, v in rec_notes.items()})
     table += bwd_rows + [gnn_row]
     for row in table:  # the engine runs' launches, every row
         row["launches_engine"] = engine_counts.get(row["name"], 0)
@@ -5130,6 +5579,8 @@ def main():
         row["launches_train_f32"] = f32_counts.get(row["name"], 0)
         # the GNN training runs (17b)
         row["launches_gnn"] = gnn_counts.get(row["name"], 0)
+        # the recsys runs (18b, 18c) and the landmark-retrieval example (18d)
+        row["launches_recsys"] = rec_counts.get(row["name"], 0)
         for tag, times in ivf["wide_ms"].items():  # kernels 2-6, 7a
             if row["name"] in times:
                 row[f"{tag} ms"] = times[row["name"]]

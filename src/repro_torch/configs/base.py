@@ -1,7 +1,7 @@
-"""Config schema for the LM and GNN families: an ``ArchConfig`` holds one
-architecture's published hyperparameters, a reduced smoke model for CPU
-tests, its shape set, its optimizer and its gradient accumulation per
-shape — the reference's schema without the sharding rules, which the
+"""Config schema for the LM, GNN and recsys families: an ``ArchConfig``
+holds one architecture's published hyperparameters, a reduced smoke model
+for CPU tests, its shape set, its optimizer and its gradient accumulation
+per shape — the reference's schema without the sharding rules, which the
 single-device port does not read."""
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ from ..train.optimizer import OptConfig
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:
     name: str
-    kind: str  # train | prefill | decode | train_graph
+    kind: str  # train | prefill | decode | train_graph | scores | retrieval
     dims: Dict[str, Any]
     note: str = ""
 
@@ -22,7 +22,7 @@ class ShapeSpec:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # lm | gnn
+    family: str  # lm | gnn | recsys
     model: Any
     smoke_model: Any
     shapes: Tuple[ShapeSpec, ...]
@@ -71,4 +71,15 @@ GNN_SHAPES = (
     ShapeSpec(
         "molecule", "train_graph",
         dict(batch=128, n_nodes=30, n_edges=64, d_feat=28, n_classes=1)),
+)
+
+
+# The recsys shapes (the reference's ``RECSYS_SHAPES``, dims unchanged),
+# shared by FM, BERT4Rec, MIND and DIEN.
+RECSYS_SHAPES = (
+    ShapeSpec("train_batch", "train", dict(batch=65536)),
+    ShapeSpec("serve_p99", "scores", dict(batch=512, n_candidates=512)),
+    ShapeSpec("serve_bulk", "scores", dict(batch=262144, n_candidates=16)),
+    ShapeSpec("retrieval_cand", "retrieval",
+              dict(batch=1, n_candidates=1_000_000)),
 )

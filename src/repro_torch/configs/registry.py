@@ -1,6 +1,6 @@
-"""The LM architectures, dense and MoE, and the GNN, with the reference
-registry's exact hyperparameters, smoke models, optimizers and gradient
-accumulation (sources inline)."""
+"""The LM architectures, dense and MoE, the GNN and the four recsys
+architectures, with the reference registry's exact hyperparameters, smoke
+models, optimizers and gradient accumulation (sources inline)."""
 from __future__ import annotations
 
 from typing import Dict
@@ -8,9 +8,10 @@ from typing import Dict
 import torch
 
 from ..models.gnn import GNNConfig
+from ..models.recsys import Bert4RecConfig, DIENConfig, FMConfig, MINDConfig
 from ..models.transformer import LMConfig, MoEConfig
 from ..train.optimizer import OptConfig
-from .base import GNN_SHAPES, ArchConfig, lm_shapes
+from .base import GNN_SHAPES, RECSYS_SHAPES, ArchConfig, lm_shapes
 
 ARCHS: Dict[str, ArchConfig] = {}
 
@@ -122,6 +123,71 @@ _register(ArchConfig(
     smoke_model=GNNConfig(name="gatedgcn-smoke", n_layers=3, d_hidden=16,
                           d_feat=32, n_classes=5),
     shapes=GNN_SHAPES,
+    opt=OptConfig(name="adamw", lr=1e-3),
+))
+
+# ==================================================================== recsys
+# FM field vocabularies: a criteo-like long-tail mix, 39 fields, 41,688,900
+# rows (41,689,088 once padded to a multiple of 512).
+_FM_VOCABS = tuple(
+    [20_000_000, 10_000_000, 5_000_000, 2_000_000]
+    + [1_000_000] * 4
+    + [100_000] * 6
+    + [10_000] * 8
+    + [1_000] * 8
+    + [100] * 9
+)
+assert len(_FM_VOCABS) == 39
+
+_register(ArchConfig(
+    name="fm",
+    family="recsys",
+    source="ICDM'10 Rendle (paper tier)",
+    model=FMConfig(name="fm", n_fields=39, embed_dim=10,
+                   field_vocabs=_FM_VOCABS),
+    smoke_model=FMConfig(name="fm-smoke", n_fields=5, embed_dim=8,
+                         field_vocabs=(100, 50, 20, 10, 5)),
+    shapes=RECSYS_SHAPES,
+    opt=OptConfig(name="adamw", lr=1e-3),
+))
+
+_register(ArchConfig(
+    name="bert4rec",
+    family="recsys",
+    source="arXiv:1904.06690 (paper tier)",
+    model=Bert4RecConfig(name="bert4rec", n_items=1_000_000, embed_dim=64,
+                         n_blocks=2, n_heads=2, seq_len=200,
+                         n_negatives=511),
+    smoke_model=Bert4RecConfig(name="bert4rec-smoke", n_items=1000,
+                               embed_dim=32, n_blocks=2, n_heads=2,
+                               seq_len=20, n_negatives=32),
+    shapes=RECSYS_SHAPES,
+    opt=OptConfig(name="adamw", lr=1e-3),
+))
+
+_register(ArchConfig(
+    name="mind",
+    family="recsys",
+    source="arXiv:1904.08030 (unverified tier)",
+    model=MINDConfig(name="mind", n_items=1_000_000, embed_dim=64,
+                     n_interests=4, capsule_iters=3, seq_len=50,
+                     n_negatives=511),
+    smoke_model=MINDConfig(name="mind-smoke", n_items=1000, embed_dim=32,
+                           n_interests=4, capsule_iters=3, seq_len=20,
+                           n_negatives=32),
+    shapes=RECSYS_SHAPES,
+    opt=OptConfig(name="adamw", lr=1e-3),
+))
+
+_register(ArchConfig(
+    name="dien",
+    family="recsys",
+    source="arXiv:1809.03672 (unverified tier)",
+    model=DIENConfig(name="dien", n_items=1_000_000, embed_dim=18,
+                     seq_len=100, gru_dim=108, mlp_dims=(200, 80)),
+    smoke_model=DIENConfig(name="dien-smoke", n_items=1000, embed_dim=8,
+                           seq_len=20, gru_dim=16, mlp_dims=(32, 16)),
+    shapes=RECSYS_SHAPES,
     opt=OptConfig(name="adamw", lr=1e-3),
 ))
 

@@ -1,9 +1,10 @@
-"""Synthetic inputs: LM token batches, GNN graphs, the CF lifecycle's
-arrival stream and the write path's mutation events.
+"""Synthetic inputs: LM token batches, GNN graphs, recsys batches, the CF
+lifecycle's arrival stream and the write path's mutation events.
 
 Numpy copies of the reference's ``lm_batch``, ``random_graph``,
 ``NeighborSampler``, ``sampled_block``, ``molecule_batch``,
-``drifting_ratings`` and ``mutation_events``: deterministic in
+``fm_train_batch``, ``seq_rec_batch``, ``drifting_ratings`` and
+``mutation_events``: deterministic in
 ``(seed, step)`` / ``(seed, wave)``, so one seed gives byte-identical
 arrays in both packages.
 """
@@ -250,3 +251,39 @@ def mutation_events(
     rows[kinds == 1] *= thin[kinds == 1]
     rows[kinds == 2] = 0.0
     return {"kinds": kinds, "users": users, "rows": rows}
+
+
+# --------------------------------------------------------------------- recsys
+def fm_train_batch(seed, step, batch, field_vocabs) -> Dict[str, np.ndarray]:
+    """FM click batch: one id per field (uniform in the field, offset into
+    the shared table) and a 0/1 label."""
+    rng = np.random.default_rng(np.random.SeedSequence([seed, step]))
+    offsets = np.concatenate([[0], np.cumsum(field_vocabs)[:-1]])
+    ids = np.stack(
+        [rng.integers(0, v, batch) + o for v, o in zip(field_vocabs, offsets)],
+        axis=1).astype(np.int32)
+    return {"field_ids": ids,
+            "labels": rng.integers(0, 2, batch).astype(np.int32)}
+
+
+def seq_rec_batch(seed, step, batch, seq_len, n_items, n_mask=0,
+                  n_negatives=0) -> Dict[str, np.ndarray]:
+    """History batch for BERT4Rec/MIND/DIEN (Zipf item popularity: item
+    ⌊u^(-1/1.2) - 1⌋, so item 0 takes 56.5% of the ids)."""
+    rng = np.random.default_rng(np.random.SeedSequence([seed, step]))
+    u = rng.random((batch, seq_len))
+    items = (np.minimum(u ** (-1.0 / 1.2) - 1.0, n_items - 1) % n_items
+             ).astype(np.int32)
+    out: Dict[str, np.ndarray] = {"item_ids": items}
+    out["targets"] = rng.integers(0, n_items, batch).astype(np.int32)
+    out["labels"] = rng.integers(0, 2, batch).astype(np.int32)
+    if n_mask:
+        out["mask_positions"] = np.sort(
+            rng.integers(0, seq_len, (batch, n_mask)), axis=1
+        ).astype(np.int32)
+        out["targets"] = rng.integers(0, n_items, (batch, n_mask)
+                                      ).astype(np.int32)
+    if n_negatives:
+        out["negatives"] = rng.integers(0, n_items, n_negatives
+                                        ).astype(np.int32)
+    return out

@@ -15,7 +15,9 @@ tensor of S·C rows. The two collectives are explicit and ordered, so their
 results do not depend on where the shards live: :func:`all_gather_rows`
 concatenates blocks in linear shard order, :func:`ordered_sum` adds in
 that order. (The reference's GSPMD logical-axis rules serve its LM and
-training paths and wait for them.)
+training paths and wait for them.) :func:`constrain` and
+:func:`shard_batch_full`, the recsys models' sharding annotations, are
+identities here.
 """
 from __future__ import annotations
 
@@ -154,6 +156,25 @@ def gather_rows(blocks: Blocks, ids, capacity: int, dst) -> torch.Tensor:
             rows = blk[torch.as_tensor(slot[pos], device=blk.device)]
             out[torch.as_tensor(pos, device=out.device)] = rows.to(dst)
     return out
+
+
+def constrain(x: torch.Tensor, logical=None, rules=None, mesh=None
+              ) -> torch.Tensor:
+    """The reference's ``with_sharding_constraint`` by logical axes. It is
+    a no-op outside a mesh context there; the port places every tensor of a
+    model on its one device and has no such context, so ``x`` is returned
+    as it is. The logical-axis layer waits for the multi-process launcher
+    (ROADMAP queue 1, item 4)."""
+    return x
+
+
+def shard_batch_full(x: torch.Tensor, mesh=None, axis: int = 0
+                     ) -> torch.Tensor:
+    """The reference's constraint of dim ``axis`` over every mesh axis (a
+    recsys batch split over all chips). A sharding constraint moves no
+    value, and the port's recsys models run on one device, so ``x`` is
+    returned as it is."""
+    return x
 
 
 def materializations(run: Callable[[], object],

@@ -10,6 +10,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..core.similarity import EPS, _finalize, _sqrt, corated_moments
@@ -237,6 +238,11 @@ def cell_sums_ref(rows: torch.Tensor, seg: torch.Tensor, c: int):
     return sums, counts
 
 
+# slots segment_sum_ref takes on the tensor's device; a float segment with
+# more members finishes its chain on the host
+SEG_REF_SLOTS = 64
+
+
 def segment_sum_ref(x: torch.Tensor, perm: torch.Tensor,
                     indptr: torch.Tensor) -> torch.Tensor:
     """Oracle for kernels.segment_sum: ``(N, H)`` in ``x``'s dtype, row n
@@ -247,17 +253,41 @@ def segment_sum_ref(x: torch.Tensor, perm: torch.Tensor,
     ``jax.ops.segment_sum``'s f32 and bf16 sums on the CPU, bit for bit.
 
     Slot t adds every segment's t-th member where it has one (a masked
-    add), vectorised over segments: max degree steps, no atomics, the same
-    order on any device.
+    add), vectorised over segments: no atomics, the same order on any
+    device. In f32 and f64 the slots stop at ``SEG_REF_SLOTS``, and each
+    longer segment (a recsys batch's Zipf head holds half its ids) goes on
+    adding its remaining members to its partial sum one after another on
+    the host (``numpy.add.accumulate``, a left fold in the array's dtype),
+    so the work is the members' rows, not max degree times N rows; other
+    dtypes take every slot on the device.
     """
     counts = (indptr[1:] - indptr[:-1]).long()
     starts = indptr[:-1].long()
     out = torch.zeros((counts.shape[0], x.shape[1]), dtype=x.dtype,
                       device=x.device)
-    last = max(perm.shape[0] - 1, 0)
-    for t in range(int(counts.max()) if perm.shape[0] else 0):
+    if not perm.shape[0]:
+        return out
+    last = perm.shape[0] - 1
+    on_host = x.dtype in (torch.float32, torch.float64)
+    degree = int(counts.max())
+    for t in range(min(degree, SEG_REF_SLOTS) if on_host else degree):
         member = x[perm[(starts + t).clamp(max=last)].long()]
         out = torch.where((counts > t)[:, None], out + member, out)
+    if on_host and degree > SEG_REF_SLOTS:
+        rows = torch.nonzero(counts > SEG_REF_SLOTS).flatten()
+        lo = (starts[rows] + SEG_REF_SLOTS).cpu().numpy()
+        hi = (starts[rows] + counts[rows]).cpu().numpy()
+        at = np.concatenate([np.arange(a, b) for a, b in zip(lo, hi)])
+        tail = x[perm[torch.as_tensor(at, device=perm.device)].long()]
+        tail = tail.cpu().numpy()
+        acc = out[rows].cpu().numpy()
+        edges = np.concatenate([[0], np.cumsum(hi - lo)])
+        for i in range(len(lo)):
+            # channels as rows: each channel's chain is contiguous
+            chain = np.concatenate([acc[i:i + 1],
+                                    tail[edges[i]:edges[i + 1]]]).T.copy()
+            acc[i] = np.add.accumulate(chain, axis=1)[:, -1]
+        out[rows] = torch.from_numpy(acc).to(out.device)
     return out
 
 

@@ -1,6 +1,7 @@
 """Cells: one step function per (architecture × input shape), the
-reference's ``repro.launch.steps`` for the LM and GNN families on one
-device (the GNN's ``comm`` variant on the port's single-process mesh).
+reference's ``repro.launch.steps`` for the LM, GNN and recsys families on
+one device (the GNN's ``comm`` variant on the port's single-process
+mesh).
 
 ``build_cell(arch, shape_name)`` returns a :class:`Cell`: the step
 function and example inputs on the ``meta`` device (shapes and dtypes, no
@@ -19,13 +20,13 @@ import torch
 
 from ..configs.base import ArchConfig, ShapeSpec
 from ..models import gnn as gnn_mod
+from ..models import recsys as rec_mod
 from ..models import transformer as lm_mod
 from ..train.optimizer import opt_init, opt_update
 from .mesh import make_mesh
 
 # where the other families wait (ROADMAP queue 1)
 WAITING = {
-    "recsys": "models/recsys.py waits (ROADMAP queue 1, item 1)",
     "cf": "the CF cells wait with launch/dryrun.py (ROADMAP queue 1, item "
           "3); fit and serve CF through launch/serve.py",
 }
@@ -39,6 +40,10 @@ class Cell:
     shape: ShapeSpec
     fn: Callable
     args: Tuple[Any, ...]  # example inputs on the meta device
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
 
 
 def _meta_model(cfg) -> lm_mod.LM:
@@ -156,18 +161,15 @@ def _gnn_train_cell(arch: ArchConfig, shape: ShapeSpec,
     data, model = COMM_MESH[1] if variant == "comm" else (1, 1)
     n_nodes, n_edges = _gnn_sizes(shape, data, data * model)
 
-    def meta(shp, dtype):
-        return torch.empty(shp, dtype=dtype, device="meta")
-
-    batch = {"node_feats": meta((n_nodes, d["d_feat"]), torch.float32),
-             "edge_src": meta((n_edges,), torch.int32),
-             "edge_dst": meta((n_edges,), torch.int32),
-             "edge_mask": meta((n_edges,), torch.float32)}
+    batch = {"node_feats": _meta((n_nodes, d["d_feat"]), torch.float32),
+             "edge_src": _meta((n_edges,), torch.int32),
+             "edge_dst": _meta((n_edges,), torch.int32),
+             "edge_mask": _meta((n_edges,), torch.float32)}
     if task == "graph":
-        batch["graph_ids"] = meta((n_nodes,), torch.int32)
-        batch["targets"] = meta((d["batch"],), torch.float32)
+        batch["graph_ids"] = _meta((n_nodes,), torch.int32)
+        batch["targets"] = _meta((d["batch"],), torch.float32)
     else:
-        batch["labels"] = meta((n_nodes,), torch.int32)
+        batch["labels"] = _meta((n_nodes,), torch.int32)
 
     def step(model, opt_state, batch):
         if task == "graph":
@@ -187,16 +189,84 @@ def _gnn_train_cell(arch: ArchConfig, shape: ShapeSpec,
                 (model, opt_init(model, arch.opt), batch))
 
 
+def _rec_batch_sds(arch: ArchConfig, shape: ShapeSpec, kind: str
+                   ) -> Dict[str, torch.Tensor]:
+    """A recsys cell's inputs on the ``meta`` device, in the reference's
+    shapes and dtypes (``_rec_batch_sds``; one device, so no shardings)."""
+    cfg = arch.model
+    b = shape.dims["batch"]
+    i32 = torch.int32
+    out: Dict[str, torch.Tensor] = {}
+    if isinstance(cfg, rec_mod.FMConfig):
+        out["field_ids"] = _meta((b, cfg.n_fields), i32)
+        if kind == "train":
+            out["labels"] = _meta((b,), i32)
+    else:
+        out["item_ids"] = _meta((b, cfg.seq_len), i32)
+        if kind == "train":
+            if isinstance(cfg, rec_mod.Bert4RecConfig):
+                n_mask = cfg.seq_len // 5
+                out["mask_positions"] = _meta((b, n_mask), i32)
+                out["targets"] = _meta((b, n_mask), i32)
+                out["negatives"] = _meta((cfg.n_negatives,), i32)
+            elif isinstance(cfg, rec_mod.MINDConfig):
+                out["targets"] = _meta((b,), i32)
+                out["negatives"] = _meta((cfg.n_negatives,), i32)
+            else:  # DIEN
+                out["targets"] = _meta((b,), i32)
+                out["labels"] = _meta((b,), i32)
+    if kind == "scores":
+        c = shape.dims.get("n_candidates", 16)
+        if isinstance(cfg, (rec_mod.Bert4RecConfig, rec_mod.MINDConfig)):
+            out["candidates"] = _meta((b, c), i32)
+        elif isinstance(cfg, rec_mod.DIENConfig):
+            out["targets"] = _meta((b,), i32)
+    if kind == "retrieval":
+        out["cand_ids"] = _meta((shape.dims["n_candidates"],), i32)
+    return out
+
+
+def _rec_cell(arch: ArchConfig, shape: ShapeSpec) -> Cell:
+    """A recsys cell: ``train`` (loss and gradients, then the arch's
+    optimizer), ``scores`` (the model's scores of a batch) or
+    ``retrieval`` (the top 100 over every item; FM over ``cand_ids``)."""
+    fam = rec_mod.family(arch.model)
+    kind = shape.kind
+    model = fam.cls(arch.model, device="meta")
+    batch = _rec_batch_sds(arch, shape, kind)
+    if kind == "train":
+        def step(model, opt_state, batch):
+            loss, grads = value_and_grad(model, batch, fam.loss)
+            opt_update(model, grads, opt_state, arch.opt)
+            return model, opt_state, {"loss": loss}
+
+        return Cell(arch, shape, step, (model, opt_init(model, arch.opt),
+                                        batch))
+    if kind == "scores":
+        def step(model, batch):
+            with torch.inference_mode():
+                return fam.scores(model, batch)
+    elif kind == "retrieval":
+        def step(model, batch):
+            with torch.inference_mode():
+                return fam.retrieval(model, batch, k=100)
+    else:
+        raise ValueError(f"unknown recsys shape kind {kind!r}")
+    return Cell(arch, shape, step, (model, batch))
+
+
 def build_cell(arch: ArchConfig, shape_name: str,
                variant: str = "base") -> Cell:
     """The cell of ``arch`` at its shape ``shape_name``. ``variant``, for a
     decode shape: ``landmark`` (O(n) landmark decode) or ``kv_int8`` (the
     int8 KV cache); for a GNN shape: ``comm`` (the mesh form).
-    Families other than the LM and the GNN raise NotImplementedError,
-    naming where they wait."""
+    Families other than the LM, the GNN and recsys raise
+    NotImplementedError, naming where they wait."""
     shape = arch.shape(shape_name)
     if arch.family == "gnn":
         return _gnn_train_cell(arch, shape, variant)
+    if arch.family == "recsys":
+        return _rec_cell(arch, shape)
     if arch.family != "lm":
         raise NotImplementedError(
             f"build_cell: the {arch.family!r} family is not ported: "

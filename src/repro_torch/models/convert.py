@@ -1,10 +1,13 @@
-"""Carry LM and GNN parameters and optimizer state across frameworks.
+"""Carry LM, GNN and recsys parameters and optimizer state across
+frameworks.
 
 The reference's ``init_lm`` returns a dict ``{"embed", "final_norm",
 "layers": {name: (L, ...) stacked}, "unembed"?}``, its ``init_gnn``
 ``{"embed_w", "embed_b", "layers": {U, V, C, D, E, ln_h, ln_e stacked},
-"head_w", "head_b"}``; the tests convert them with ``numpy.asarray`` and
-load them here, so both packages run the same weights (``torch.Generator``
+"head_w", "head_b"}``, its recsys inits the module's parameter names as
+``train.optimizer.stacks`` nests them (BERT4Rec's ``layers`` stacked,
+DIEN's ``gru1``/``gru2`` dicts); the tests convert them with
+``numpy.asarray`` and load them here, so both packages run the same weights (``torch.Generator``
 cannot reproduce ``jax.random``). Values pass through float32, which holds
 every bfloat16 exactly. The optimizer state is the reference's ``{"step",
 "leaves"}`` tree in both packages (``train.optimizer``); :func:`param_tree`
@@ -19,7 +22,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..train.optimizer import OptConfig, opt_init
+from ..train.optimizer import OptConfig, opt_init, stacks
+from . import recsys
 from .gnn import LAYER_MATS, LAYER_NORMS, GatedGCN, GNNConfig
 from .transformer import LM, LMConfig
 
@@ -128,16 +132,77 @@ def gnn_to_numpy(model: GatedGCN) -> Dict:
             for key, val in tree.items()}
 
 
+def recsys_tree(model) -> Dict:
+    """A recsys model's parameters in the reference's tree, as tensors in
+    the model's dtype on its device (BERT4Rec's blocks stacked: a
+    copy)."""
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {key: conv(val) for key, val in node.items()}
+        if isinstance(node, list):
+            return torch.stack([p.detach() for p in node])
+        return node.detach()
+
+    return conv(stacks(model))
+
+
+@torch.no_grad()
+def load_recsys_tree(model, tree: Dict):
+    """Copy a recsys parameter tree in the reference's layout (tensors or
+    numpy arrays) into ``model`` in place; the keys must match."""
+
+    def fill(dst: Dict, src: Dict) -> None:
+        if set(dst) != set(src):
+            raise ValueError(f"recsys tree keys differ: {sorted(dst)} vs "
+                             f"{sorted(src)}")
+        for key, val in dst.items():
+            if isinstance(val, dict):
+                fill(val, src[key])
+            elif isinstance(val, list):
+                for i, p in enumerate(val):
+                    _put(p, src[key][i])
+            else:
+                _put(val, src[key])
+
+    fill(stacks(model), tree)
+    return model
+
+
+def recsys_from_numpy(params: Dict, cfg, device="cuda"):
+    """The recsys module of ``cfg`` on ``device`` holding the reference's
+    parameters."""
+    return load_recsys_tree(recsys.family(cfg).cls(cfg, device), params)
+
+
+def recsys_to_numpy(model) -> Dict:
+    """The reference's parameter tree as float32 numpy arrays."""
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {key: conv(val) for key, val in node.items()}
+        return node.float().cpu().numpy()
+
+    return conv(recsys_tree(model))
+
+
 def param_tree(model) -> Dict:
-    """The model's parameters in the reference's tree (:func:`lm_tree` or
-    :func:`gnn_tree`): a training checkpoint's parameter half."""
-    return gnn_tree(model) if isinstance(model, GatedGCN) else lm_tree(model)
+    """The model's parameters in the reference's tree (:func:`lm_tree`,
+    :func:`gnn_tree` or :func:`recsys_tree`): a training checkpoint's
+    parameter half."""
+    if isinstance(model, GatedGCN):
+        return gnn_tree(model)
+    if isinstance(model, recsys.MODELS):
+        return recsys_tree(model)
+    return lm_tree(model)
 
 
 def load_param_tree(model, tree: Dict):
     """Load a :func:`param_tree` into ``model`` in place."""
     if isinstance(model, GatedGCN):
         return load_gnn_tree(model, tree)
+    if isinstance(model, recsys.MODELS):
+        return load_recsys_tree(model, tree)
     return load_lm_tree(model, tree)
 
 

@@ -58,7 +58,8 @@ EPS1 = 1e-30
 def stacks(model: nn.Module) -> Dict:
     """The model's parameters in the reference's tree: ``layers.{i}.{name}``
     gathered into ``tree["layers"][name]`` as a list over i (one stacked
-    leaf), every other parameter a leaf under its own name."""
+    leaf), a submodule's parameter ``a.b`` at ``tree["a"]["b"]`` (DIEN's
+    ``gru1.wx``), every other parameter a leaf under its own name."""
     tree: Dict = {}
     layers: Dict[str, List[Tuple[int, nn.Parameter]]] = {}
     for name, p in model.named_parameters():
@@ -66,7 +67,7 @@ def stacks(model: nn.Module) -> Dict:
         if hit:
             layers.setdefault(hit.group(2), []).append((int(hit.group(1)), p))
         else:
-            tree[name] = p
+            _set(tree, tuple(name.split(".")), p)
     if layers:
         tree["layers"] = {name: [p for _, p in sorted(ps, key=lambda t: t[0])]
                           for name, ps in layers.items()}

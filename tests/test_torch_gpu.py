@@ -40,7 +40,9 @@ Tolerances:
   bitwise, at the four index kinds and the schedule's cases (each width
   class of H, a 5,000-member segment, degrees at the heavy threshold,
   every edge masked, no edge); a GatedGCN train step's loss and gradients
-  twice bitwise;
+  twice bitwise; a recsys lookup's backward (the segment sum over a CSR of
+  its ids) bitwise its plain version and itself at a small FM and BERT4Rec
+  CSR, and a recsys train step twice bitwise;
 - a landmark-attention forward through the kernel against the same
   forward with the plain summary, bf16: within 5% of the largest logit
   (the kernel's f32 sums in another order, rounded to bf16 on the way
@@ -1399,3 +1401,80 @@ def test_gnn_train_step_on_the_card_is_bitwise_reproducible(cuda):
     (l1, g1), (l2, g2) = runs
     assert torch.equal(l1, l2) and bool(torch.isfinite(l1))
     assert all(torch.equal(g1[k], g2[k]) for k in g1)
+
+
+def _lookup_grad(table, ids, cot):
+    """The table's gradient of sum(lookup(table, ids) * cot), with the
+    segment-sum launches it took."""
+    from repro_torch.distributed import embedding
+
+    t = table.clone().requires_grad_()
+    ops.reset_launches()
+    (embedding.embedding_lookup(t, ids) * cot).sum().backward()
+    torch.cuda.synchronize()
+    return t.grad, ops.launch_counts()["segment_sum"]
+
+
+@pytest.mark.parametrize("arch", ["fm", "bert4rec"])
+def test_recsys_lookup_backward_is_bitwise_plain_and_itself(cuda, arch):
+    """FM's CSR by field id (uniform ids per field, ~655-member segments
+    in the 100-row fields) and BERT4Rec's by item id (the Zipf head, over
+    half the ids in one segment) at small tables: the lookup's gradient
+    twice bitwise and bitwise the plain version's sum on the card."""
+    from repro_torch.configs import registry
+    from repro_torch.data import synthetic
+    from repro_torch.distributed import embedding
+
+    gen = torch.Generator(cuda).manual_seed(2)
+    if arch == "fm":
+        vocabs = (100,) * 9 + (1000, 5000)
+        ids = synthetic.fm_train_batch(0, 0, 4096, vocabs)["field_ids"]
+        rows, dim = sum(vocabs), 10
+    else:
+        cfg = registry.get("bert4rec").model
+        ids = synthetic.seq_rec_batch(0, 0, 256, cfg.seq_len, 20000)[
+            "item_ids"]
+        ids[:4, :7] = -1
+        rows, dim = 20480, cfg.embed_dim
+    ids = torch.as_tensor(ids, device=cuda)
+    table = torch.randn((rows, dim), generator=gen, device=cuda)
+    cot = torch.randn(tuple(ids.shape) + (dim,), generator=gen, device=cuda)
+    g1, n1 = _lookup_grad(table, ids, cot)
+    g2, _ = _lookup_grad(table, ids, cot)
+    csr = embedding.lookup_csr(ids, rows)
+    want = ref.segment_sum_ref(cot.reshape(-1, dim), csr.perm, csr.indptr)
+    assert n1 == 1
+    assert torch.equal(g1, g2) and torch.equal(g1, want)
+
+
+@pytest.mark.parametrize("arch", ["fm", "bert4rec", "mind", "dien"])
+def test_recsys_train_step_on_the_card_is_bitwise_reproducible(cuda, arch):
+    """A recsys smoke model's train step (loss, gradients, AdamW) twice from
+    the same weights: every lookup's backward on the segment-sum kernel,
+    the losses, gradients and updated parameters bit for bit."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import steps
+    from repro_torch.launch import train
+    from repro_torch.models import recsys
+    from repro_torch.train import optimizer as topt
+
+    spec = registry.get(arch)
+    cfg = spec.smoke_model
+    raw = next(train._rec_batches(cfg))
+    batch = {k: torch.as_tensor(v, device=cuda) for k, v in raw.items()}
+    runs = []
+    for _ in range(2):
+        model = recsys.init_recsys(cfg, torch.Generator(cuda).manual_seed(0),
+                                   cuda)
+        state = topt.opt_init(model, spec.opt)
+        ops.reset_launches()
+        loss, grads = steps.value_and_grad(model, batch,
+                                           recsys.family(cfg).loss)
+        topt.opt_update(model, grads, state, spec.opt)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["segment_sum"] >= 2
+        runs.append((loss, grads, dict(model.named_parameters())))
+    (l1, g1, p1), (l2, g2, p2) = runs
+    assert torch.equal(l1, l2) and bool(torch.isfinite(l1))
+    assert all(torch.equal(g1[k], g2[k]) for k in g1)
+    assert all(torch.equal(p1[k], p2[k]) for k in p1)

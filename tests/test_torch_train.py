@@ -445,11 +445,13 @@ def test_build_cell_cells_and_waiting_families():
     assert steps.build_cell(arch, "decode_32k", "kv_int8").args[1][
         "k"].dtype == torch.int8
     assert "q_lm" in steps.build_cell(arch, "long_500k", "landmark").args[1]
-    for family, item in (("recsys", "1"), ("cf", "3")):
-        other = ArchConfig(name="x", family=family, model=None,
-                           smoke_model=None, shapes=arch.shapes)
-        with pytest.raises(NotImplementedError, match=rf"item {item}\)"):
-            steps.build_cell(other, "train_4k")
+    other = ArchConfig(name="x", family="cf", model=None, smoke_model=None,
+                       shapes=arch.shapes)
+    with pytest.raises(NotImplementedError, match=r"item 3\)"):
+        steps.build_cell(other, "train_4k")
+    rec = steps.build_cell(registry.get("bert4rec"), "train_batch")
+    assert rec.args[2]["mask_positions"].shape == (65536, 40)
+    assert rec.args[1]["leaves"]["layers"]["w1"]["m"].shape == (2, 64, 256)
     gnn = steps.build_cell(registry.get("gatedgcn"), "full_graph_sm")
     assert gnn.args[2]["node_feats"].shape == (2708, 1433)
     with pytest.raises(KeyError):
