@@ -435,6 +435,7 @@ from repro_torch.train import trainer  # noqa: E402
 
 sys.path.insert(0, str(ROOT / "tools"))
 import paper_tables_torch as paper  # noqa: E402
+import time_segment_sum as segsum_tool  # noqa: E402
 
 _spec = importlib.util.spec_from_file_location(
     "landmark_retrieval_torch",
@@ -4788,17 +4789,18 @@ def _segsum_checks(name, key, idx, mask, n, gen, h=70, times=()):
 def _segsum_case(case):
     """(index, mask, N, H) of the card tests' schedule cases
     (``tests/test_torch_gpu.py::_segment_case``): power-law degrees at
-    each width class H = 1, 31, 32, 33, 128; one segment of 5,000 members;
-    segments of HEAVY - 1, HEAVY and HEAVY + 1 members among light ones;
-    a large CSR (N = 140,000); every edge masked; no edge. N = 3000
-    otherwise."""
+    each width class H = 1, 31, 32, 33, 128; one segment of 5,000 members
+    at H = 70 and 33; segments of HEAVY - 1, HEAVY and HEAVY + 1 members
+    among light ones; a large CSR (N = 140,000); every edge masked; no
+    edge. N = 3000 otherwise."""
     rng = np.random.default_rng(3)
     n, h = 3000, 70
     if case.startswith("h"):
         w = 1.0 / np.arange(1, n + 1) ** 0.7
         idx, h = rng.choice(n, size=20000, p=w / w.sum()), int(case[1:])
-    elif case == "one_5000":
+    elif case.startswith("one_5000"):
         idx = np.concatenate([np.full(5000, 7), rng.integers(0, n, 3000)])
+        h = 33 if case == "one_5000_h33" else h
     elif case == "large":  # a dense head, then empty rows: chunks of 32
         n = 140000
         idx = rng.integers(0, 9000, 20000)
@@ -4815,8 +4817,9 @@ def _segsum_case(case):
             torch.as_tensor(mask, device=DEVICE), n, h)
 
 
-SEGSUM_CASES = ("h1", "h31", "h32", "h33", "h128", "one_5000", "deg-1",
-                "deg+0", "deg+1", "large", "all_empty", "no_edges")
+SEGSUM_CASES = ("h1", "h31", "h32", "h33", "h128", "one_5000",
+                "one_5000_h33", "deg-1", "deg+0", "deg+1", "large",
+                "all_empty", "no_edges")
 
 
 def phase_gnn_kernel():
@@ -5191,13 +5194,18 @@ def _oom_search(try_rows, rows):
 def _rec_csr(tag, ids, n, widths, gen):
     """18a at one lookup CSR: f32 rows of each width through the kernel,
     bitwise its plain version and itself, timed (events, device, bound,
-    ``index_add_``); the CSR's shape."""
+    ``index_add_``) with the heavy/light split (CUDA-event ms of the launch
+    with every heavy slot unused, the light walk alone, and with no chunk,
+    the heavy units alone); the CSR's shape and schedule."""
     csr = embedding.lookup_csr(ids, n)
     counts = (csr.indptr[1:] - csr.indptr[:-1])
+    light, heavy = segsum_tool.split(csr)
     note = dict(segments=n, edges=csr.n_edges, live=int(csr.perm.numel()),
                 max_degree=int(counts.max()),
                 head_share=float(counts.max()) / max(csr.perm.numel(), 1),
-                heavy_segments=int((counts > segsum.HEAVY).sum()))
+                heavy_segments=int((counts > segsum.HEAVY).sum()),
+                chunks=csr.chunk_rows.numel() - 1,
+                chunk_size=segsum.chunk_size(n, csr.perm.numel()))
     for h in widths:
         x = torch.randn((csr.n_edges, h), generator=gen, device=DEVICE)
         got, again = segsum.segment_sum(x, csr), segsum.segment_sum(x, csr)
@@ -5207,9 +5215,35 @@ def _rec_csr(tag, ids, n, widths, gen):
         plain_s = time.perf_counter() - t1
         _bitwise(f"18a {tag} H={h}: kernel vs plain", (got,), (want,))
         _bitwise(f"18a {tag} H={h}: two launches", (again,), (got,))
-        note[f"H={h}"] = dict(_segsum_times(x, csr), plain_s=plain_s)
+        note[f"H={h}"] = dict(
+            _segsum_times(x, csr), plain_s=plain_s,
+            light_alone_ms=_event_ms(lambda: segsum.segment_sum(x, light),
+                                     20),
+            heavy_alone_ms=_event_ms(lambda: segsum.segment_sum(x, heavy),
+                                     20))
         del x, got, again, want
     return note
+
+
+def _rec_like_cases(gen):
+    """18a: the card tests' recsys-like CSRs
+    (``tools/time_segment_sum.py::rec_like_case``), f32, bitwise the plain
+    version and across two launches."""
+    out = {}
+    for kind in ("fm_like_h1", "fm_like_h10", "zipf_head"):
+        idx, n, h = segsum_tool.rec_like_case(kind, DEVICE)
+        csr = segsum.build_csr(idx, n, torch.ones(idx.shape[0],
+                                                  device=DEVICE))
+        x = torch.randn((idx.shape[0], h), generator=gen, device=DEVICE)
+        got, again = segsum.segment_sum(x, csr), segsum.segment_sum(x, csr)
+        want = ref.segment_sum_ref(x, csr.perm, csr.indptr)
+        sync()
+        _bitwise(f"18a {kind}: kernel vs plain", (got,), (want,))
+        _bitwise(f"18a {kind}: two launches", (again,), (got,))
+        counts = csr.indptr[1:] - csr.indptr[:-1]
+        out[kind] = dict(rows=n, max_degree=int(counts.max()),
+                         heavy_segments=int((counts > segsum.HEAVY).sum()))
+    return out
 
 
 def _rec_mesh_check(gen):
@@ -5240,20 +5274,15 @@ def phase_rec_kernel(b4r_rows):
     18b batch, with the Zipf head — then the mesh lookup."""
     t0 = time.perf_counter()
     gen = torch.Generator(device=DEVICE).manual_seed(18)
-    fm = registry.get("fm")
-    rows = fm.shape("train_batch").dims["batch"]
-    ids = torch.as_tensor(synthetic.fm_train_batch(
-        0, 0, rows, fm.model.field_vocabs)["field_ids"], device=DEVICE)
-    notes = {f"fm train_batch by field id (B={rows})": _rec_csr(
-        "fm", ids, fm.model.table_rows, (10, 1), gen)}
-    b4r = registry.get("bert4rec").model
-    ids = torch.as_tensor(synthetic.seq_rec_batch(
-        0, 0, b4r_rows, b4r.seq_len, b4r.n_items)["item_ids"], device=DEVICE)
-    notes[f"bert4rec by item id (B={b4r_rows})"] = _rec_csr(
-        "bert4rec", ids, b4r.table_rows, (b4r.embed_dim,), gen)
+    notes = {key: _rec_csr(key.split()[0], ids, n, widths, gen)
+             for key, ids, n, widths in segsum_tool.recsys_inputs(
+                 DEVICE, b4r_rows)}
+    cases = _rec_like_cases(gen)
     mesh = _rec_mesh_check(gen)
     for key, note in notes.items():
         print(f"phase 18a {key}: " + json.dumps(note))
+    print(f"phase 18a recsys-like cases (bitwise as above): "
+          + json.dumps(cases))
     print(f"phase 18a segment sum at the recsys CSRs (bitwise its plain "
           f"version and itself, f32); mesh lookup {json.dumps(mesh)} | "
           f"{time.perf_counter() - t0:.1f}s")

@@ -75,10 +75,10 @@ SIGNATURES = {
     #  stream): its FMA route (D = 256, f32 or bf16 inputs), two launches
     "landmark_summary_bwd_f32": (_P,) * 10 + (_I, _I, _I, _I, _F, _P),
     "landmark_summary_bwd_bf16": (_P,) * 10 + (_I, _I, _I, _I, _F, _P),
-    # (x, perm, indptr, chunk_rows, heavy_rows, out, N, H, n_chunks,
-    #  n_heavy, heavy, stream): the fixed-order CSR segment sum
-    "segment_sum_f32": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
-    "segment_sum_bf16": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
+    # (x, perm, indptr, chunk_rows, heavy_rows, n_huge, out, N, E_live, H,
+    #  n_chunks, n_heavy, heavy, stream): the fixed-order CSR segment sum
+    "segment_sum_f32": (_P,) * 7 + (_L, _I, _I, _I, _I, _I, _P),
+    "segment_sum_bf16": (_P,) * 7 + (_L, _I, _I, _I, _I, _I, _P),
     # (variant, n, measure) -> resident scan blocks an SM holds (no stream)
     "topk_scan_blocks_per_sm": (_I, _I, _I),
 }

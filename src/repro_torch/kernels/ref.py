@@ -292,10 +292,62 @@ def segment_sum_ref(x: torch.Tensor, perm: torch.Tensor,
 
 
 # csrc/segment_sum.cu's schedule: rows whose bounds a warp loads at once,
-# edges whose rows it loads before adding any, a heavy stage's buffer
-# (floats) and most members
-SEG_RUN, SEG_INFLIGHT = 32, 8
-SEG_STAGE_ELEMS, SEG_STAGE_ROWS = 16 * 256, 64
+# edges whose rows it loads before adding any, the widest H whose runs go
+# through a tile; a heavy unit's slice (bytes; a segment of more than
+# SEG_HUGE members SEG_SLOT_HUGE), stage (bytes of slices) and ring
+# (stages)
+SEG_RUN, SEG_INFLIGHT, SEG_NARROW = 32, 8, 32
+SEG_SLOT, SEG_SLOT_HUGE, SEG_HUGE = 16, 4, 4096
+SEG_STAGE_BYTES, SEG_RING = 1024, 4
+
+
+def _fold(acc: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``acc + rows[0] + rows[1] + ...`` one add after another in the
+    tensors' dtype (f32: numpy's left fold, a plain IEEE add each)."""
+    if acc.dtype == torch.float32 and rows.shape[0]:
+        chain = np.concatenate([acc.numpy()[None], rows.numpy()]).T.copy()
+        return torch.from_numpy(np.add.accumulate(chain, axis=1)[:, -1])
+    for v in rows:
+        acc = acc + v
+    return acc
+
+
+def _heavy_unit_sched(lo, hi, stage):
+    """The members that one heavy unit of csrc/segment_sum.cu adds, in the
+    order it adds them, iteration by iteration: members lo .. hi - 1 in
+    stages of ``stage`` through a ring of SEG_RING slots, their perm
+    entries in SEG_RING slots of their own, SEG_RING - 1 stages ahead.
+    Iteration i waits until all but the newest SEG_RING - 2 groups of
+    copies are complete, copies stage i's perm entries and stage
+    i - SEG_RING + 1's slices, commits them as group i, and adds stage
+    i - 2 SEG_RING + 2; raises if a stage is read from a slot that does
+    not hold it, or before the wait that covers its copy. (The order does
+    not depend on the unit's channels: every unit of a segment adds its
+    members alike.)"""
+    stages = -(-(hi - lo) // stage)
+    pslots, xslots = [None] * SEG_RING, [None] * SEG_RING
+    order = []
+
+    def read(slots, s, done):  # groups up to `done` are complete
+        tag, group, data = slots[s % SEG_RING]
+        if tag != s or group > done:
+            raise AssertionError(f"segment_sum ring: stage {s} read from a "
+                                 f"slot holding stage {tag} of group "
+                                 f"{group}, groups up to {done} done")
+        return data
+
+    for i in range(stages + 2 * SEG_RING - 2):
+        done = i - SEG_RING + 1
+        if i < stages:
+            pslots[i % SEG_RING] = (
+                i, i, range(lo + i * stage, min(hi, lo + (i + 1) * stage)))
+        sx = i - SEG_RING + 1
+        if 0 <= sx < stages:
+            xslots[sx % SEG_RING] = (sx, i, read(pslots, sx, done))
+        s = i - 2 * SEG_RING + 2
+        if s >= 0:
+            order.extend(read(xslots, s, done))
+    return order
 
 
 def segment_sum_sched_ref(x: torch.Tensor, perm: torch.Tensor,
@@ -304,22 +356,30 @@ def segment_sum_sched_ref(x: torch.Tensor, perm: torch.Tensor,
                           ) -> torch.Tensor:
     """The segment-sum kernel's schedule step by step (a plain emulation
     of ``csrc/segment_sum.cu``): what :func:`segment_sum_ref` computes,
-    through the kernel's chunks, runs, load groups, channel slices and
-    heavy stages, bitwise equal to it when the schedule adds each
+    through the kernel's chunks, runs, load groups, tiles, channel slices
+    and heavy units, bitwise equal to it when the schedule adds each
     segment's members in j order and stores every output element once.
 
     Warp c walks rows ``chunk_rows[c]:chunk_rows[c + 1]`` in runs of
-    SEG_RUN rows, each channel slice of 32·M (M = min(4, ⌈H/32⌉)) in
-    turn: between the run's heavy rows (more than ``heavy`` members, which
-    it skips) a flat walk of the edges, SEG_INFLIGHT rows loaded, then
-    added in j order, a row stored when the walk passes its end (an empty
-    one as 0). Each heavy row (``heavy_rows`` up to its first entry ≥ N)
-    goes by the same channel slices in stages of min(SEG_STAGE_ROWS,
-    SEG_STAGE_ELEMS // slice width) members, staged, then added in order.
-    Raises AssertionError if an element is stored twice or never.
+    SEG_RUN rows, skipping the heavy rows (more than ``heavy`` members).
+    At H > SEG_NARROW, each channel slice of 32·M (M = min(4, ⌈H/32⌉)) in
+    turn: between the run's heavy rows a flat walk of the edges,
+    SEG_INFLIGHT rows loaded, then added in j order, a row stored when the
+    walk passes its end (an empty one as 0). At H ≤ SEG_NARROW a run
+    without edges stores its (rows × H) span of zeros (the kernel stores a
+    stretch of such runs at once); any other run
+    walks its edges the same way into a zeroed tile, a row's sum written
+    when the walk passes its end and an empty row passed over, then stores
+    the span of each stretch of light rows between heavy ones. Each heavy
+    row (``heavy_rows`` up to its first entry ≥ N) is cut into units of
+    SEG_SLOT bytes of channels (SEG_SLOT_HUGE past SEG_HUGE members), each
+    summed through the ring in stages of SEG_STAGE_BYTES of slices
+    (:func:`_heavy_unit_sched`). Raises AssertionError if an element is
+    stored twice or never, or a ring slot is read out of turn.
     """
     n, h = indptr.numel() - 1, x.shape[1]
-    ip, pm = indptr.tolist(), perm.tolist()
+    ip, pm = indptr.tolist(), perm.long()
+    pl = pm.tolist()
     out = torch.zeros((n, h), dtype=x.dtype)
     stores = torch.zeros((n, h), dtype=torch.int32)
     width = 32 * min(4, -(-h // 32))
@@ -328,50 +388,79 @@ def segment_sum_sched_ref(x: torch.Tensor, perm: torch.Tensor,
         out[row, c0:c0 + acc.numel()] = acc
         stores[row, c0:c0 + acc.numel()] += 1
 
+    def store_span(r0, r1, tile):  # rows r0 .. r1 - 1, every channel
+        out[r0:r1] = tile
+        stores[r0:r1] += 1
+
+    def walk(rb, ends, j, b, t, stop, cols, put):
+        """The flat walk of edges [j, b) over rows t .. stop - 1 of the run
+        at rb: ``put(t, acc)`` for each row as the walk passes its end."""
+        acc = torch.zeros(cols.stop - cols.start, dtype=x.dtype)
+        for jb in range(j, b, 32):  # one coalesced perm load
+            cnt = min(32, b - jb)
+            for k in range(0, cnt, SEG_INFLIGHT):
+                group = range(jb + k, jb + min(cnt, k + SEG_INFLIGHT))
+                loaded = [x[pl[e], cols] for e in group]
+                for e, v in zip(group, loaded):
+                    while e >= ends[t]:
+                        put(t, acc)
+                        acc, t = torch.zeros_like(acc), t + 1
+                    acc = acc + v
+        while t < stop:
+            put(t, acc)
+            acc, t = torch.zeros_like(acc), t + 1
+
     bounds = chunk_rows.tolist()
     for rs, re in zip(bounds[:-1], bounds[1:]):
-        for c0 in range(0, h, width):
-            cols = slice(c0, min(h, c0 + width))
-            zero = torch.zeros(cols.stop - c0, dtype=x.dtype)
+        for c0 in range(0, h, width) if h > SEG_NARROW else [None]:
             for rb in range(rs, re, SEG_RUN):
                 nr = min(SEG_RUN, re - rb)
                 ends = ip[rb + 1:rb + nr + 1]
+                first = ip[rb]
                 heavy_at = [t for t in range(nr)
                             if ends[t] - ip[rb + t] > heavy]
-                t, j, acc = 0, ip[rb], zero
+                if c0 is None and ends[-1] == first:  # the zeros' span
+                    store_span(rb, rb + nr, torch.zeros((nr, h),
+                                                         dtype=x.dtype))
+                    continue
+                if c0 is None:
+                    cols = slice(0, h)
+                    tile = torch.zeros((nr, h), dtype=x.dtype)
+
+                    def put(t, acc, tile=tile, ends=ends, rb=rb):
+                        if ends[t] > ip[rb + t]:  # an empty row stays +0
+                            tile[t] = acc
+                else:
+                    cols = slice(c0, min(h, c0 + width))
+
+                    def put(t, acc, rb=rb, c0=c0):
+                        store(rb + t, c0, acc)
+                t, j = 0, first
                 while t < nr:
                     stop = next((r for r in heavy_at if r >= t), nr)
-                    b = ip[rb + stop]
-                    for jb in range(j, b, 32):  # one coalesced perm load
-                        cnt = min(32, b - jb)
-                        for k in range(0, cnt, SEG_INFLIGHT):
-                            group = range(jb + k,
-                                          jb + min(cnt, k + SEG_INFLIGHT))
-                            loaded = [x[pm[e], cols] for e in group]
-                            for e, v in zip(group, loaded):
-                                while e >= ends[t]:
-                                    store(rb + t, c0, acc)
-                                    acc, t = zero, t + 1
-                                acc = acc + v
-                    while t < stop:
-                        store(rb + t, c0, acc)
-                        acc, t = zero, t + 1
+                    walk(rb, ends, j, ip[rb + stop], t, stop, cols, put)
                     if stop < nr:  # skip the heavy row
-                        j, t = ends[stop], stop + 1
+                        j = ends[stop]
+                    t = stop + 1
+                if c0 is None:
+                    t = 0
+                    while t < nr:
+                        stop = next((r for r in heavy_at if r >= t), nr)
+                        if stop > t:
+                            store_span(rb + t, rb + stop, tile[t:stop])
+                        t = stop + 1
     for row in heavy_rows.tolist():
         if row >= n:
             break
-        lo, hi = ip[row], ip[row + 1]
-        for c0 in range(0, h, width):
-            cw = min(width, h - c0)
-            rows = min(SEG_STAGE_ROWS, SEG_STAGE_ELEMS // cw)
-            acc = torch.zeros(cw, dtype=x.dtype)
-            for first in range(lo, hi, rows):
-                stage = x[perm[first:min(hi, first + rows)].long(),
-                          c0:c0 + cw]
-                for v in stage:
-                    acc = acc + v
-            store(row, c0, acc)
+        nbytes = (SEG_SLOT_HUGE if ip[row + 1] - ip[row] > SEG_HUGE
+                  else SEG_SLOT)
+        order = _heavy_unit_sched(ip[row], ip[row + 1],
+                                  SEG_STAGE_BYTES // nbytes)
+        # each unit's chain, all units' channels at once
+        acc = _fold(torch.zeros(h, dtype=x.dtype), x[pm[order]])
+        slot = nbytes // x.element_size()
+        for c0 in range(0, h, slot):
+            store(row, c0, acc[c0:c0 + slot])
     if not bool((stores == 1).all()):
         bad = (stores != 1).nonzero()[0].tolist()
         raise AssertionError(f"segment_sum schedule: element {bad} stored "

@@ -7,7 +7,9 @@ A :class:`CSR` lists the live edges of one index (``edge_dst``,
 argsort of the index over the live edges, ``indptr`` the segments' bounds,
 and the kernel's schedule (``chunk_rows``: the rows each warp walks,
 about :func:`chunk_size` rows + edges a chunk; ``heavy_rows``: the
-segments of more than ``HEAVY`` members, each summed by a whole block).
+segments of more than ``HEAVY`` members, longest first, each cut into
+units of a 16-byte slice of channels, or 4 bytes past ``HUGE`` members,
+a warp a unit).
 It is built once per batch and reused by every layer and the backward.
 Edges whose mask is 0 belong to no segment: the GNN multiplies every
 message of a padded edge by its mask, so its terms are exact zeros, and a
@@ -44,14 +46,21 @@ from . import build, ref
 DTYPES = {torch.float32: "segment_sum_f32", torch.bfloat16: "segment_sum_bf16"}
 # the kernel's schedule (csrc/segment_sum.cu): a warp walks a chunk of
 # rows holding about `chunk_size` rows + edges; a segment of more than
-# HEAVY members is left to a whole block
+# HEAVY members is left to its heavy units, a 16-byte slice of its
+# channels each (csrc kSlot), 4 bytes (kSlotHuge) for a segment of more
+# than HUGE members
 HEAVY = 64
+HUGE = 4096
 # CHUNK rows + edges a chunk while that leaves SPREAD chunks or more, else
 # halved down to CHUNK_MIN: a small CSR spreads over more, shorter chunks
 # (NVIDIA H100 80GB HBM3, 700.00 W, tools/time_segment_sum.py, f32: the
 # molecule CSR by destination 0.0059 ms device at 32, 0.0044 at 8;
-# minibatch_lg's 0.0263 at 32, 0.0334 at 8)
+# minibatch_lg's 0.0263 at 32, 0.0334 at 8); doubled up to CHUNK_MAX while
+# that still leaves 2 · FILL chunks or more: a CSR of millions of rows
+# (FM's by field id, 41.7 M) gives each warp a window of rows whose bounds
+# it loads at once, instead of a warp for every 32 rows
 CHUNK, CHUNK_MIN, SPREAD = 32, 8, 4096
+CHUNK_MAX, FILL = 1024, 32768
 
 
 def chunk_size(n: int, n_live: int) -> int:
@@ -60,6 +69,8 @@ def chunk_size(n: int, n_live: int) -> int:
     chunk = CHUNK
     while chunk > CHUNK_MIN and n + n_live < chunk * SPREAD:
         chunk //= 2
+    while chunk < CHUNK_MAX and n + n_live >= 2 * chunk * FILL:
+        chunk *= 2
     return chunk
 
 
@@ -75,8 +86,11 @@ class CSR:
     # (n_chunks + 1,) int32: warp c walks rows chunk_rows[c]:chunk_rows[c+1]
     chunk_rows: torch.Tensor
     # (n_live // (HEAVY + 1),) int32: the segments of more than HEAVY
-    # members in order, then n for every unused slot
+    # members, longest first (ties by index), then n for every unused slot
     heavy_rows: torch.Tensor
+    # (1,) int32: how many of them have more than HUGE members (on the
+    # device: the kernel reads it, the host never does)
+    n_huge: torch.Tensor
 
     @property
     def n_edges(self) -> int:
@@ -94,7 +108,8 @@ def build_csr(index: torch.Tensor, n: int,
     than HEAVY members); with w = :func:`chunk_size`, warp c takes the rows
     whose cost prefix lies in [c·w, (c + 1)·w), so at most w rows and
     w + HEAVY edges. ``heavy_rows`` has n_live // (HEAVY + 1) slots, at
-    least one for each heavy row."""
+    least one for each heavy row, the longest first: their units start at
+    the launch's start, the chains that set its length."""
     idx = index.long()
     if idx.numel() >= 2 ** 31:
         raise ValueError(f"build_csr: {idx.numel()} edges overflow the "
@@ -118,9 +133,14 @@ def build_csr(index: torch.Tensor, n: int,
     chunk_rows = torch.searchsorted(prefix, bounds).clamp_(max=n)
     slots = torch.arange(1, n_live // (HEAVY + 1) + 1, device=idx.device)
     heavy_rows = torch.searchsorted(torch.cumsum(heavy, 0), slots)
+    members = torch.where(heavy_rows < n,
+                          counts[heavy_rows.clamp(max=max(n - 1, 0))], -1)
+    heavy_rows = heavy_rows[torch.sort(members, descending=True,
+                                       stable=True).indices]
+    n_huge = (counts > HUGE).sum().reshape(1).to(torch.int32)
     return CSR(idx, live, perm[:n_live].to(torch.int32).contiguous(),
                indptr, n, chunk_rows.to(torch.int32),
-               heavy_rows.to(torch.int32))
+               heavy_rows.to(torch.int32), n_huge)
 
 
 def segment_sum(x: torch.Tensor, csr: CSR) -> torch.Tensor:
@@ -134,7 +154,7 @@ def segment_sum(x: torch.Tensor, csr: CSR) -> torch.Tensor:
     build.check_cuda("segment_sum", x, 2, tuple(DTYPES), x.device)
     for name, t in (("perm", csr.perm), ("indptr", csr.indptr),
                     ("chunk_rows", csr.chunk_rows),
-                    ("heavy_rows", csr.heavy_rows)):
+                    ("heavy_rows", csr.heavy_rows), ("n_huge", csr.n_huge)):
         build.check_cuda(f"segment_sum {name}", t, 1, (torch.int32,),
                          x.device)
     if x.shape[0] != csr.n_edges:
@@ -144,9 +164,9 @@ def segment_sum(x: torch.Tensor, csr: CSR) -> torch.Tensor:
     out = torch.empty((csr.n, h), dtype=x.dtype, device=x.device)
     if csr.n and h:
         build.launch(DTYPES[x.dtype], x, csr.perm, csr.indptr,
-                     csr.chunk_rows, csr.heavy_rows, out, csr.n, h,
-                     csr.chunk_rows.numel() - 1, csr.heavy_rows.numel(),
-                     HEAVY)
+                     csr.chunk_rows, csr.heavy_rows, csr.n_huge, out, csr.n,
+                     csr.perm.numel(), h, csr.chunk_rows.numel() - 1,
+                     csr.heavy_rows.numel(), HEAVY)
         build.count_launch(segment_sum)
     return out
 

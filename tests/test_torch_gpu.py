@@ -48,6 +48,9 @@ Tolerances:
   (the kernel's f32 sums in another order, rounded to bf16 on the way
   out, then two layers of bf16 products).
 """
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -63,6 +66,11 @@ from repro_torch.kernels import segment_sum as segsum
 
 pytestmark = pytest.mark.gpu
 RTOL, ATOL = 1e-5, 1e-6
+_spec = importlib.util.spec_from_file_location(
+    "time_segment_sum",
+    Path(__file__).resolve().parents[1] / "tools" / "time_segment_sum.py")
+segsum_tool = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(segsum_tool)
 MEASURES = sim.MEASURES
 
 
@@ -1310,20 +1318,31 @@ def _segment_case(case, device):
     """(index, mask, N, H) of one of the schedule's cases
     (``tests/test_torch_segment_sum_sched.py``): the four index kinds at
     E = 20,000, N = 3000, H = 70; power-law degrees at each width class
-    H = 1, 31, 32, 33, 70, 128; one segment of 5,000 members; segments of
-    HEAVY - 1, HEAVY and HEAVY + 1 members among light ones; a large CSR
-    (N = 140,000: chunks of CHUNK, every other case CHUNK_MIN); every edge
-    masked; no edge."""
+    H = 1, 31, 32, 33, 70, 128; one segment of 5,000 members (past HUGE:
+    4-byte channel slices), at H = 70 and at H = 33 ("one_5000_h33": a
+    bf16 row at odd H is 2-byte aligned, so its slices are copied through
+    registers); segments of HEAVY - 1, HEAVY and HEAVY + 1 members among
+    light ones; a large CSR (N = 140,000: chunks of CHUNK, every other
+    case CHUNK_MIN); every edge masked; no edge. And the recsys-like CSRs
+    of ``tools/time_segment_sum.py::rec_like_case``
+    (``tests/test_torch_segment_sum_heavy.py`` at card size):
+    "fm_like_h1" and "fm_like_h10", 3000 heavy segments among 4,000,000
+    mostly empty rows (chunks past CHUNK); "zipf_head", a head of 565,000
+    members at H = 64."""
     heavy = segsum.HEAVY
+    if case.startswith(("fm_like", "zipf_head")):
+        idx, n, h = segsum_tool.rec_like_case(case, device)
+        return idx, torch.ones(idx.shape[0], device=device), n, h
     if case in ("random", "power_law", "padded", "empty"):
         return (*_segment_index(case, 20000, 3000, device), 3000, 70)
     if case.startswith("h"):
         return (*_segment_index("power_law", 20000, 3000, device), 3000,
                 int(case[1:]))
     rng = np.random.default_rng(3)
-    n = 3000
-    if case == "one_5000":
+    n, h = 3000, 70
+    if case.startswith("one_5000"):
         idx = np.concatenate([np.full(5000, 7), rng.integers(0, n, 3000)])
+        h = 33 if case == "one_5000_h33" else h
     elif case == "large":  # a dense head, then empty rows: chunks of 32
         n = 140000
         idx = rng.integers(0, 9000, 20000)
@@ -1337,12 +1356,13 @@ def _segment_case(case, device):
     mask = np.full(idx.shape[0], 0.0 if case == "all_empty" else 1.0,
                    np.float32)
     return (torch.as_tensor(idx.astype(np.int32), device=device),
-            torch.as_tensor(mask, device=device), n, 70)
+            torch.as_tensor(mask, device=device), n, h)
 
 
 SEGMENT_CASES = ("random", "power_law", "padded", "empty", "h1", "h31",
-                 "h32", "h33", "h70", "h128", "one_5000", "deg-1", "deg+0",
-                 "deg+1", "large", "all_empty", "no_edges")
+                 "h32", "h33", "h70", "h128", "one_5000", "one_5000_h33",
+                 "deg-1", "deg+0", "deg+1", "large", "all_empty",
+                 "no_edges")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1362,6 +1382,53 @@ def test_segment_sum_kernel_matches_plain(cuda, kind, dtype):
     assert torch.equal(again, got)
     counts = csr.indptr[1:] - csr.indptr[:-1]
     assert not got[counts == 0].any()
+
+
+@pytest.mark.parametrize("kind", ["fm_like_h1", "fm_like_h10", "zipf_head"])
+def test_segment_sum_kernel_at_recsys_like_csrs(cuda, kind):
+    """Thousands of heavy segments among millions of empty rows, and a
+    Zipf head of 565,000 members, f32 (the recsys tables'): bitwise the
+    plain version and across two launches; every heavy unit and the
+    light walk's big chunks run."""
+    idx, mask, n, h = _segment_case(kind, cuda)
+    csr = segsum.build_csr(idx, n, mask)
+    counts = csr.indptr[1:] - csr.indptr[:-1]
+    if kind == "zipf_head":
+        assert int(counts.max()) >= 500_000
+    else:
+        assert int((counts > segsum.HEAVY).sum()) > 2000
+        assert segsum.chunk_size(n, csr.perm.numel()) > segsum.CHUNK
+    x = torch.randn((idx.shape[0], h), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(2))
+    ops.reset_launches()
+    got = segsum.segment_sum(x, csr)
+    again = segsum.segment_sum(x, csr)
+    want = ref.segment_sum_ref(x, csr.perm, csr.indptr)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["segment_sum"] == 2
+    assert torch.equal(got, want) and torch.equal(again, got)
+    assert not got[counts == 0].any()
+
+
+@pytest.mark.parametrize("kind", ["one_5000", "h33", "fm_like_h10"])
+def test_segment_sum_kernel_on_every_card(cuda, kind):
+    """The kernel takes more than 48 KB of shared memory, an opt-in that
+    each card needs its own of: a launch on every visible card (as a mesh
+    placed round robin over them makes), after one on cuda:0, is bitwise
+    the plain version there."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards or more")
+    idx, mask, n, h = _segment_case(kind, cuda)
+    x = torch.randn((idx.shape[0], h), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(3))
+    for d in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", d)
+        csr = segsum.build_csr(idx.to(dev), n, mask.to(dev))
+        xd = x.to(dev)
+        got = segsum.segment_sum(xd, csr)
+        want = ref.segment_sum_ref(xd, csr.perm, csr.indptr)
+        torch.cuda.synchronize(dev)
+        assert got.device == dev and torch.equal(got, want), d
 
 
 def test_segment_sum_rejects_what_the_kernel_does_not_take(cuda):

@@ -70,6 +70,54 @@ def _local_backend(state):
                         min_bucket=U)
 
 
+# how long a write-lane apply waits for a read batch to run inside it
+HOLD_S = 10.0
+
+
+@pytest.fixture
+def folds_overlap_reads(monkeypatch):
+    """The read/fold overlap that ``check_obs --require-overlap`` asks
+    for, by construction: each write-lane apply (the engine's
+    ``_apply_write``, inside its ``apply[...]`` span) stays open after its
+    fold until a read batch's backend call (inside its ``execute[...]``
+    span) has returned while it was open, or HOLD_S has passed. That
+    moment lies in both spans. A small fold at U = 64 is short, and on a
+    CPU shared with other workers the two lanes did not always meet
+    (ROADMAP A9). Returns the list of holds that timed out."""
+    lock = threading.Lock()
+    open_holds = []
+    missed = []
+    apply_write = RequestEngine._apply_write
+
+    def held_apply(self, req):
+        seen = threading.Event()
+        with lock:
+            open_holds.append(seen)
+        try:
+            out = apply_write(self, req)
+            if not seen.wait(HOLD_S):
+                missed.append(req.kind)
+            return out
+        finally:
+            with lock:
+                open_holds.remove(seen)
+
+    def signalling(read):
+        def call(self, *args, **kw):
+            out = read(self, *args, **kw)
+            with lock:
+                for seen in open_holds:
+                    seen.set()
+            return out
+        return call
+
+    monkeypatch.setattr(RequestEngine, "_apply_write", held_apply)
+    for name in ("predict_pairs", "recommend_topn"):
+        monkeypatch.setattr(LocalBackend, name,
+                            signalling(getattr(LocalBackend, name)))
+    return missed
+
+
 # --------------------------------------------------------------- histogram
 def test_histogram_bucket_boundary_exactness():
     """Bucket i covers (edges[i-1], edges[i]]: a value equal to an edge
@@ -510,9 +558,12 @@ def test_strip_markers_counts_the_markers_lost(seen):
 
 
 # ------------------------------------------------------- export + validator
-def test_exports_satisfy_ci_schema_checker(state, tmp_path):
+def test_exports_satisfy_ci_schema_checker(state, tmp_path,
+                                           folds_overlap_reads):
     """Traffic, all three series groups, export, and the reference's checker
-    with the read/fold-overlap requirement."""
+    with the read/fold-overlap requirement. Four readers keep reads queued
+    through every fold, and each fold stays open until a read has run
+    inside it (``folds_overlap_reads``)."""
     cfg = EngineConfig(max_batch=16, min_shape=4, queue_cap=4096,
                        max_wait_ms=0.5, slo_ms=500.0, fold_bq=8, topn=5)
     o = Observability(sample_rate=1.0, seed=0)
@@ -520,25 +571,29 @@ def test_exports_satisfy_ci_schema_checker(state, tmp_path):
     eng.start()
     stop = threading.Event()
 
-    def read_load():
-        rng = np.random.default_rng(6)
+    def read_load(seed):
+        rng = np.random.default_rng(seed)
         while not stop.is_set():
             r = eng.submit("pair", users=rng.integers(0, U, 4),
                            items=rng.integers(0, P, 4))
             if r is not None:
                 r.done.wait(5.0)
 
-    t = threading.Thread(target=read_load)
-    t.start()
+    readers = [threading.Thread(target=read_load, args=(6 + i,))
+               for i in range(4)]
+    for t in readers:
+        t.start()
     try:
         for i in range(3):
             fr = eng.submit("fold", rows=_ratings(6, P, seed=30 + i))
-            assert fr is not None and fr.done.wait(10.0)
+            assert fr is not None and fr.done.wait(HOLD_S + 10.0)
     finally:
         stop.set()
-        t.join(timeout=30.0)
+        for t in readers:
+            t.join(timeout=30.0)
         eng.stop()
-    assert not t.is_alive()
+    assert not any(t.is_alive() for t in readers)
+    assert folds_overlap_reads == []
     eng.publish_metrics()
     publish_retrieval(o.registry)
     o.registry.gauge("lifecycle.mae").set(float("nan"))
@@ -554,11 +609,14 @@ def test_exports_satisfy_ci_schema_checker(state, tmp_path):
     assert "execute[pair]" in names and "apply[fold]" in names
 
 
-def test_engine_cli_exports_pass_the_checker(capsys, tmp_path):
+def test_engine_cli_exports_pass_the_checker(capsys, tmp_path,
+                                             folds_overlap_reads):
     """``serve --engine --smoke --device cpu`` with the obs flags: its trace
     and metrics pass ``check_obs`` with ``require_overlap``; the profiler
     hook writes its Chrome trace. A fixed 500 requests/s, as in
-    ``test_torch_engine.py``'s CLI tests."""
+    ``test_torch_engine.py``'s CLI tests; each fold stays open until a
+    read has run inside it (``folds_overlap_reads``), so at least one
+    fold of the window meets a read."""
     t, m, p = tmp_path / "t", tmp_path / "m.json", tmp_path / "p"
     serve.main(["--workload", "cf", "--engine", "--smoke", "--device", "cpu",
                 "--duration", "2", "--rate", "500", "--trace-dir", str(t),

@@ -38,8 +38,9 @@ def _case(name, rng):
         h = int(name[1:])
         w = 1.0 / np.arange(1, n + 1) ** 0.7
         idx = rng.choice(n, size=e, p=w / w.sum())
-    elif name == "one_5000":
-        e, n = 5000, 3
+    elif name.startswith("one_5000"):  # past HUGE; a bf16 row at H = 33
+        e, n = 5000, 3                   # is 2-byte aligned
+        h = 33 if name == "one_5000_h33" else h
         idx = np.full(e, 1)
         mask = np.ones(e, np.float32)
     elif name.startswith("deg"):  # segments of T-1, T, T+1 members
@@ -75,9 +76,9 @@ def _case(name, rng):
     return idx.astype(np.int32), mask, n, h
 
 
-CASES = ("h1", "h31", "h32", "h33", "h70", "h128", "one_5000", "deg-1",
-         "deg+0", "deg+1", "large", "all_empty", "no_edges", "random",
-         "power_law", "padded", "empty")
+CASES = ("h1", "h31", "h32", "h33", "h70", "h128", "one_5000",
+         "one_5000_h33", "deg-1", "deg+0", "deg+1", "large", "all_empty",
+         "no_edges", "random", "power_law", "padded", "empty")
 
 
 def _sched(x, csr):
@@ -113,13 +114,14 @@ def test_schedule_is_the_plain_version_and_jax_segment_sum(case, dtype):
 @pytest.mark.parametrize("case", CASES)
 def test_build_csr_schedule(case):
     """heavy_rows lists exactly the segments of more than HEAVY members,
-    then N; the chunks partition [0, N), each at most CHUNK rows and
-    CHUNK + HEAVY light edges."""
+    longest first (ties by index), then N; the chunks partition [0, N),
+    each at most CHUNK rows and CHUNK + HEAVY light edges."""
     idx, mask, n, _ = _case(case, np.random.default_rng(CASES.index(case)))
     csr = ss.build_csr(torch.as_tensor(idx), n, torch.as_tensor(mask))
     counts = (csr.indptr[1:] - csr.indptr[:-1]).long()
     n_live = csr.perm.numel()
-    heavy = (counts > T).nonzero().flatten().tolist()
+    heavy = sorted((counts > T).nonzero().flatten().tolist(),
+                   key=lambda r: (-int(counts[r]), r))
     slots = csr.heavy_rows.tolist()
     assert len(slots) == n_live // (T + 1)
     assert slots == heavy + [n] * (len(slots) - len(heavy))
