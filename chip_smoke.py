@@ -344,7 +344,8 @@ The GNN slice adds:
     one train step of the ``comm`` cell. The kernel table
     gains row 8 (events and device ms at minibatch_lg's CSR by
     destination, bound, plain ms, one ``index_add_`` call and whether it
-    is bitwise, and 17a's times at every CSR as ``per_csr``) and each row
+    is bitwise, and 17a's times at every CSR, the plain version's too,
+    as ``per_csr``) and each row
     its launches on the GNN runs (``launches_gnn``).
 
 The recsys slice adds:
@@ -369,6 +370,32 @@ The recsys slice adds:
     ``f32_split`` route) against their plain versions at its shapes, then
     the example. Row 8 gains the two CSRs in ``per_csr`` and each row its
     launches on 18b–18d (``launches_recsys``).
+
+The cells slice adds:
+
+19. cells — (a) the registry's ``landmark_cf`` cells
+    (``launch/steps.py::_cf_cell``) on the card: ``ml1m_fit`` and
+    ``netflix1m_fit`` on ``data.synthesize("movielens1m"/"netflix1m")``
+    (every rating; users padded to 8), ``ml1m_predict``'s 131,072 pairs
+    over the ml1m_fit graph, and ``web_fit`` with U cut to the most one
+    card holds (the largest multiple of ``WEB_STEP`` whose dry-run
+    argument and temp bytes fit ``WEB_HEADROOM`` of the card; ratings
+    made on the card as 14c's): kernels 1 and 2 launched in each fit, the
+    outputs equal to the plain path's (popularity landmarks, the plain d1,
+    the streaming graph; web_fit on ``CF_SAMPLE`` rows) under the tie
+    rule, the predictions to a CPU run's within the parity tolerance;
+    times printed; (b) ``launch.dryrun --all`` on meta, a line per cell,
+    then the CF cells and four smoke cells (SmolLM's with full and with
+    landmark attention, GatedGCN's, FM's) counted on the card by
+    ``launch/step_costs.py::measure``: FLOPs and kernel calls equal to the
+    dry run's count of the same cell, and the card's peak allocated bytes
+    beyond what it held within ``TEMP_REL`` of the dry run's temp bytes
+    plus ``TEMP_ABS``; (c) ``distributed/compression.py`` on the card: the
+    quantizers, error feedback and ``tree_compress`` bitwise the CPU's
+    over 3 steps, ``psum_compressed`` on ``make_debug_mesh()`` (8
+    positions round robin on one card) bitwise the CPU mesh's and within
+    the reference test's bound. The kernel table gains each row's
+    launches in (a) (``launches_cells``).
 
 The last two lines are the kernel table and
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. TF32 is off for
@@ -411,6 +438,7 @@ from repro_torch.kernels import (assign_clusters, build, ivf_probe,  # noqa: E40
                                  knn_topk, ops, ref, score_candidates)
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
+from repro_torch.kernels import cost as kcost  # noqa: E402
 from repro_torch.kernels import landmark_attention as lsum  # noqa: E402
 from repro_torch.kernels import masked_similarity as ms  # noqa: E402
 from repro_torch.kernels import segment_sum as segsum  # noqa: E402
@@ -426,7 +454,9 @@ from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import transformer as lm  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
 from repro_torch.launch import steps as cells  # noqa: E402
-from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.launch.mesh import make_debug_mesh, make_mesh  # noqa: E402
+from repro_torch.launch import dryrun, step_costs  # noqa: E402
+from repro_torch.distributed import compression  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.obs import profile as obs_profile  # noqa: E402
 from repro_torch.train import checkpoint as ckpt_mod  # noqa: E402
@@ -447,14 +477,8 @@ DEVICE = "cuda"
 RTOL, ATOL = 1e-5, 1e-6
 FOLD_IN = 64  # users held out of the fit and folded in
 TOPN_USERS = 256
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s
-# outside the tensor cores, dense bf16 FLOP/s on the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
-BF16_TC_FLOPS = 989e12
-# exp2 results/s of the special-function units: 132 SMs x 16 a clock
-# (compute capability 9.0) x 1.83 GHz, the clock behind the 989 TFLOP/s
-SFU_PER_S = 132 * 16 * 1.83e9
+# the H100's published peaks and each kernel's operations and bytes: one
+# formula a kernel in kernels/cost.py (kcost), which the dry run counts too
 
 KERNELS = {
     # d1's two routes: bf16 wgmma moments (exact on ratings, guarded), and
@@ -1200,23 +1224,11 @@ def _profile(run, ranges=(), warm=True, sums=()):
                 for name, us in inside.items()}}
 
 
-def _d1_bound(a, b, p, tensor_core):
-    """(least ms, what sets it) for d1 on (a, p) against (b, p): r_a and
-    r_b read once, the (a, b) output written once; the tensor-core route's
-    bf16 products, 2·a·p·(24 + 48 + 64) per N tile of 21 landmarks, at the
-    tensor cores' rate, or the f32 route's 12·a·b·p FMA work at the f32
-    rate."""
-    nbytes = 4 * (a * p + b * p + a * b)
-    if not tensor_core:
-        return _bound(nbytes, 12 * a * b * p)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * a * p * 136 * -(-b // 21) / BF16_TC_FLOPS * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
 def _bound(bytes_moved, flops):
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    """(least ms, what sets it) of a yardstick that is no kernel's: bytes
+    at the HBM rate, operations at the f32 rate."""
+    t_bytes = bytes_moved / kcost.HBM_BYTES_PER_S * 1e3
+    t_ops = flops / kcost.F32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1239,7 +1251,6 @@ def _ivf_rows(ivf, ivf_counts, life_counts, err):
     spec = rt.resolve_ivf(None, u)
     init = rt.init_centroids(torch.Generator().manual_seed(spec.seed),
                              rows_all, c)
-    steps = spec.iters + 1  # assignments a k-means
     live = int(index.fill[probe.long()].sum())  # (query, live slot) pairs
     stored = int(index.fill.sum())  # live rows in the index
     b, nprobe = probe.shape
@@ -1252,15 +1263,14 @@ def _ivf_rows(ivf, ivf_counts, life_counts, err):
             lambda: rt.kmeans(rows_all, c, "cosine", iters=spec.iters,
                               init=init),
             lambda: ref.kmeans_lloyd_ref(rows_all, init, spec.iters),
-            None, 4 * (u * n + 2 * c * n + u), steps * 2 * u * c * n,
+            None, kcost.kmeans(u, c, n, spec.iters),
             f"kmeans() U={u} C={c} n={n} {spec.iters} steps, cosine, from "
             f"given centroids: the whole call"),
         "fused_probe_topk": (
             lambda: ivf_probe.fused_probe_topk(*args, **kw),
             lambda: ref.fused_probe_topk_ref(*args, **kw),
             None,
-            4 * (b * n + b * nprobe + c * cap + c * cap * n + c + b)
-            + 8 * b * 13, live * (2 * n + 3) + 2 * n * (stored + b),
+            kcost.fused_probe(b, nprobe, c, cap, n, 13, live, stored),
             f"b={b} nprobe={nprobe} C={c} cap={cap} n={n} k=13 f32, "
             f"{live} live (query, slot) pairs"),
         "score_candidates": (
@@ -1268,13 +1278,12 @@ def _ivf_rows(ivf, ivf_counts, life_counts, err):
             lambda: ref.score_candidates_ref(q, cand),
             lambda: F.cosine_similarity(q[:, None, :], cand, dim=-1),
             # every gathered candidate is a row of its own: its norm too
-            4 * (qb * n + qb * m * n + qb * m),
-            qb * m * (4 * n + 3) + 2 * n * qb,
+            kcost.score_candidates(qb, m, n, False),
             f"b={qb} m={m} n={n}"),
     }
     table = []
-    for name, (kern, plain, lib, nbytes, flops, shape) in calls.items():
-        bound_ms, bound_by = _bound(nbytes, flops)
+    for name, (kern, plain, lib, work, shape) in calls.items():
+        bound_ms, bound_by = work.bound()
         table.append(dict(
             name=name, route="cuda", **KERNELS[name], shape=shape,
             launches=ivf_counts[name], launches_lifecycle=life_counts[name],
@@ -1397,32 +1406,28 @@ def phase_times(train, a, err, peak, life_counts):
         "masked_similarity": (
             lambda: ops.masked_similarity(st.ratings, lm),
             lambda: ref.masked_similarity_ref(st.ratings, lm),
-            *_d1_bound(u_fit, n, p, True),
+            *kcost.masked_similarity(u_fit, n, p, True).bound(),
             f"A={u_fit} B={n} P={p} (fit), tensor-core route; every kernel "
             f"of the call (workspace memset, planes, moments, finalize)"),
         "masked_similarity_f32": (
             lambda: _d1_f32(st.ratings, lm),
             lambda: ref.masked_similarity_ref(st.ratings, lm),
-            *_d1_bound(u_fit, n, p, False),
+            *kcost.masked_similarity(u_fit, n, p, False).bound(),
             f"A={u_fit} B={n} P={p} (fit), f32 route forced"),
         "topk_sim": (
             lambda: knn_topk.topk_sim(rows, rows, k, exclude_self=True),
             lambda: ref.topk_sim_ref(rows, rows, k, exclude_self=True),
-            4 * (2 * u_fit * n + 2 * u_fit * k), 2 * u_fit * u_fit * n,
+            *kcost.topk(u_fit, u_fit, n, k).bound(),
             f"U=C={u_fit} n={n} k={k}"),
         "foldin_topk": (
             lambda: knn_topk.foldin_topk(new, cand, k, self_offset=u_fit),
             lambda: ref.foldin_topk_ref(new, cand, k, self_offset=u_fit),
-            4 * (b * n + c * n + 2 * b * k), 2 * b * c * n,
+            *kcost.topk(b, c, n, k).bound(),
             f"b={b} C={c} n={n} k={k}"),
     }
     launches = a["counts"]
     table = []
-    for name, (kern, plain, nbytes, flops, shape) in calls.items():
-        if name.startswith("masked_similarity"):
-            bound_ms, bound_by = nbytes, flops
-        else:
-            bound_ms, bound_by = _bound(nbytes, flops)
+    for name, (kern, plain, bound_ms, bound_by, shape) in calls.items():
         table.append(dict(
             name=name, route="cuda", **KERNELS[name], shape=shape,
             launches=launches[name], launches_lifecycle=life_counts[name],
@@ -1434,15 +1439,15 @@ def phase_times(train, a, err, peak, life_counts):
     # rounded on its own (bitwise the plain version), 2n instructions a
     # pair at one instruction a lane a clock
     for row, pairs in zip(table[2:4], (u_fit * u_fit, b * c)):
-        row["no_fma_floor_ms"] = pairs * 2 * n / (F32_FLOPS / 2) * 1e3
+        row["no_fma_floor_ms"] = pairs * 2 * n / (kcost.F32_FLOPS / 2) * 1e3
     # d1 at the fold-in shape, both routes, beside rows 1 and 1′
     for row, fn in zip(table[:2], (ops.masked_similarity, _d1_f32)):
         call = lambda fn=fn: fn(new_r, lm)
         row.update(foldin_shape=f"A={b} B={n} P={p}",
                    foldin_ms=_event_ms(call, 50),
                    foldin_device_ms=_device_ms(call, row["name"]),
-                   foldin_bound_ms=_d1_bound(b, n, p, row["name"] ==
-                                             "masked_similarity")[0])
+                   foldin_bound_ms=kcost.masked_similarity(
+                       b, n, p, row["name"] == "masked_similarity").bound()[0])
     spec = cfg.MODEL
     users, items = (x[:256] for x in a["fit_pairs"][:2])
     print("phase 6 profile: " + json.dumps(_profile(
@@ -1625,9 +1630,7 @@ def _check_backpatch(a):
                  [score_candidates.score_candidates(rep, new, measure)],
                  [ref.gathered_sims(rep, new, measure)])
     c, n = rep.shape
-    bound_ms, bound_by = _bound(4 * (c * n + FOLD_IN * n + c * FOLD_IN),
-                                c * FOLD_IN * (2 * n + 3)
-                                + 2 * n * (c + FOLD_IN))
+    bound_ms, bound_by = kcost.score_candidates(c, FOLD_IN, n, True).bound()
     ways = {"kernel": None, "plain": ref.gathered_sims,
             "library": sim.dense_similarity}
     out = dict(shape=f"C={c} bq={FOLD_IN} n={n} cosine", bound_ms=bound_ms,
@@ -1684,31 +1687,28 @@ def _wide_times(n, rows):
     cases = {
         "topk_sim": (
             lambda: knn_topk.topk_sim(xr, xr, k, exclude_self=True),
-            4 * (2 * u * n + 2 * u * k), 2 * u * u * n),
+            kcost.topk(u, u, n, k)),
         "foldin_topk": (
             lambda: knn_topk.foldin_topk(new, xr, k, self_offset=u - FOLD_IN),
-            4 * (FOLD_IN * n + u * n + 2 * FOLD_IN * k), 2 * FOLD_IN * u * n),
+            kcost.topk(FOLD_IN, u, n, k)),
         "assign_clusters": (
             lambda: assign_clusters.kmeans_lloyd(x, init, spec.iters),
-            4 * (u * n + 2 * c * n + u), (spec.iters + 1) * 2 * u * c * n),
+            kcost.kmeans(u, c, n, spec.iters)),
         "fused_probe_topk": (
             lambda: ivf_probe.fused_probe_topk(
                 x, probe, index.lists, index.rows, None, index.fill, k=k,
                 self_ids=sids),
-            4 * (b * n + b * nprobe + c * cap + c * cap * n + c + b)
-            + 8 * b * k, live * (2 * n + 3) + 2 * n * (stored + b)),
+            kcost.fused_probe(b, nprobe, c, cap, n, k, live, stored)),
         "score_candidates": (
             lambda: score_candidates.score_candidates(x[:qb], cand),
-            4 * (qb * n + qb * m * n + qb * m),
-            qb * m * (4 * n + 3) + 2 * n * qb),
+            kcost.score_candidates(qb, m, n, False)),
         "score_candidates shared": (
             lambda: score_candidates.score_candidates(bucket, bq),
-            4 * (cb * n + FOLD_IN * n + cb * FOLD_IN),
-            cb * FOLD_IN * (2 * n + 3) + 2 * n * (cb + FOLD_IN)),
+            kcost.score_candidates(cb, FOLD_IN, n, True)),
     }
     times = {}
-    for name, (fn, nbytes, flops) in cases.items():
-        bound_ms, bound_by = _bound(nbytes, flops)
+    for name, (fn, work) in cases.items():
+        bound_ms, bound_by = work.bound()
         times[name] = dict(ms=_event_ms(fn, 20), bound_ms=bound_ms,
                            bound_by=bound_by)
     times["shape"] = (f"U={u} n={n} C={c} nprobe={nprobe} cap={cap} "
@@ -3544,7 +3544,7 @@ def _decode_floor_ms(cfg):
     (E, C) expert products over all E experts), but the embedding table,
     of which a step gathers B rows; the KV cache's few KB left out."""
     embed = 0 if cfg.tied_embed else cfg.vocab * cfg.d_model
-    return 2 * (cfg.param_count() - embed) / HBM_BYTES_PER_S * 1e3
+    return 2 * (cfg.param_count() - embed) / kcost.HBM_BYTES_PER_S * 1e3
 
 
 def _annotated(fn, name):
@@ -3916,18 +3916,10 @@ def _train_shape():
 
 
 def _bwd_bound(p, n, s_, d, dtype):
-    """Least time of the backward for p problems: q, k, v (the inputs'
-    dtype), out and dout (f32) read once, dq, dk, dv (f32) written once;
-    five products of 2·n·S·D (q kᵀ, dO Vᵀ, Pᵀ dO, dS K, dSᵀ q) at the bf16
-    tensor-core rate beside one exp per score on the special-function
-    units."""
-    el = 2 if dtype == torch.bfloat16 else 4
-    q_el, kv_el = p * n * d, p * s_ * d
-    moved = el * (q_el + 2 * kv_el) + 4 * 2 * q_el + 4 * (q_el + 2 * kv_el)
-    t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = max(p * 5 * 2 * n * s_ * d / BF16_TC_FLOPS * 1e3,
-                p * n * s_ / SFU_PER_S * 1e3)
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    """Least time of the backward for p problems:
+    ``kernels/cost.py::landmark_summary_bwd``."""
+    return kcost.landmark_summary_bwd(p, n, s_, d,
+                                      dtype == torch.bfloat16).bound()
 
 
 def _bwd_inputs(p, n, s_, d, dtype, seed):
@@ -4442,7 +4434,7 @@ def _sdpa_bwd_ms(q, k, v, dtype=torch.bfloat16, batch=None):
 def _bwd_split_floor(p, n, s_, d):
     """The f32_split route's own floor: its 27 bf16 products of 2·n·S·D at
     the tensor cores' peak (ms)."""
-    return p * 27 * 2 * n * s_ * d / BF16_TC_FLOPS * 1e3
+    return p * 27 * 2 * n * s_ * d / kcost.BF16_TC_FLOPS * 1e3
 
 
 def _bwd_rows(model_in, err, launches, train_out, f32_counts, f32_out):
@@ -4535,27 +4527,10 @@ def _bwd_rows(model_in, err, launches, train_out, f32_counts, f32_out):
 
 def _lm_bound(p, n, s_, d, dtype):
     """Least time for p problems of softmax(q̃Kᵀ·scale)V with f32 results,
-    on the route of the inputs' dtype: the bytes moved, and the bf16
-    products on the tensor cores (exact products, f32 sums) beside one exp
-    per score on the special-function units, which run beside them.
-
-    bf16 inputs: q, k, v read once, the f32 output written once; q̃Kᵀ, and
-    PV with the f32 probabilities split into two bf16 terms (16 bits of
-    mantissa, well inside the 1e-4 bound): 3 products of 2·n·S·D.
-    f32 inputs: q, k, v (f32) read once, their bf16 planes (three terms of
-    q and k, two of v) written once and read once, the output written
-    once; six products for q̃Kᵀ and three for PV: 9 of 2·n·S·D."""
-    q_el, kv_el = p * n * d, p * s_ * d
-    if dtype == torch.bfloat16:
-        moved, products = 2 * (q_el + 2 * kv_el), 3
-    else:
-        planes = 3 * q_el + 3 * kv_el + 2 * kv_el
-        moved, products = 4 * (q_el + 2 * kv_el) + 2 * 2 * planes, 9
-    t_bytes = (moved + 4 * q_el) / HBM_BYTES_PER_S * 1e3
-    t_tc = p * products * (2 * n * s_ * d) / BF16_TC_FLOPS * 1e3
-    t_exp = p * n * s_ / SFU_PER_S * 1e3
-    t_ops = max(t_tc, t_exp)
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    on the route of the inputs' dtype:
+    ``kernels/cost.py::landmark_summary``."""
+    return kcost.landmark_summary(p, n, s_, d,
+                                  dtype == torch.bfloat16).bound()
 
 
 def _lm_bound_f32_cores(p, n, s_, d):
@@ -4719,13 +4694,10 @@ def _gnn_batch(cell, step=0):
 
 
 def _segsum_bound(x, csr):
-    """Least time of one segment sum: every live edge's row of x read once,
-    the (N, H) output written once, perm and indptr read once; one add per
-    element read at the f32 rate."""
-    h, live = x.shape[1], csr.perm.numel()
-    moved = (x.element_size() * h * (live + csr.n) + 4 * live
-             + 4 * (csr.n + 1))
-    return _bound(moved, live * h)
+    """Least time of one segment sum:
+    ``kernels/cost.py::segment_sum``."""
+    return kcost.segment_sum(x.shape[1], csr.perm.numel(), csr.n,
+                             x.element_size()).bound()
 
 
 def _segsum_times(x, csr):
@@ -4779,6 +4751,8 @@ def _segsum_checks(name, key, idx, mask, n, gen, h=70, times=()):
         out[short] = float((got.float() - want.float()).abs().max())
         if dtype in times:
             timed[short] = _segsum_times(x, csr)
+            timed[short]["plain_ms"] = _event_ms(
+                lambda: ref.segment_sum_ref(x, csr.perm, csr.indptr), 3)
     return csr, dict(edges=e, live=int(csr.perm.numel()),
                      max_degree=int(counts.max()) if n else 0,
                      heavy_segments=int((counts > segsum.HEAVY).sum()),
@@ -5542,6 +5516,307 @@ def phase_recsys(d, card):
           f"{time.perf_counter() - t0:.1f}s")
     return notes, counts
 
+# --------------------------------------- CF cells, dry run, compression (19)
+CF_ARCH = "landmark_cf"
+CF_DATA = {"ml1m_fit": "movielens1m", "netflix1m_fit": "netflix1m"}
+WEB_STEP = 16384  # web_fit's users are cut to a multiple of this
+# of the card's memory that the dry run's argument and temp bytes of the
+# cut web_fit may fill
+WEB_HEADROOM = 0.8
+CF_SAMPLE = 2048  # web_fit's rows held to the plain path
+# the card's peak bytes allocated in a step beyond what it held before,
+# against the dry run's temp bytes: within TEMP_REL of them plus TEMP_ABS
+# (the caching allocator's rounding, the top-k scan's split lists)
+TEMP_REL, TEMP_ABS = 0.10, 64 << 20
+
+
+def _cf_arch(**dims):
+    """landmark_cf with its web_fit shape's dims replaced by ``dims``."""
+    arch = registry.get(CF_ARCH)
+    return dataclasses.replace(arch, shapes=tuple(
+        dataclasses.replace(s, dims={**s.dims, **dims})
+        if s.name == "web_fit" else s for s in arch.shapes))
+
+
+def _web_users(total):
+    """The most web_fit users one card holds: the largest multiple of
+    WEB_STEP whose dry-run argument and temp bytes fit WEB_HEADROOM of the
+    card's ``total`` bytes."""
+    def need(u):
+        c = dryrun.count_cell(_cf_arch(n_users=u), "web_fit")[0].memory
+        return c["argument_size_in_bytes"] + c["temp_size_in_bytes"]
+    u = WEB_STEP
+    while need(u + WEB_STEP) <= WEB_HEADROOM * total:
+        u += WEB_STEP
+    return u, need(u)
+
+
+def _cf_inputs(name, cell):
+    """A CF cell's ratings on the card: the synthetic dataset of its shape
+    (all of its ratings) padded to the cell's rows, or web_fit's made on
+    the card (phase 14c's generator)."""
+    rows, p = cell.args[1].shape
+    if name == "web_fit":
+        return _web_ratings(rows, p)
+    d = data.synthesize(CF_DATA[name], seed=0)
+    r = torch.zeros((rows, p), device=DEVICE)
+    r[:d.n_users] = d.to_matrix(device=DEVICE).ratings
+    return r
+
+
+def _cf_fit_cell(name, arch, card):
+    """19a: one cf_fit cell on the card (kernels 1 and 2 counted) against
+    the plain path on the same ratings: popularity landmarks, the plain
+    d1 and the streaming graph (web_fit: CF_SAMPLE rows, the plain top-k
+    of those rows over the kernel's representation)."""
+    cell = cells.build_cell(arch, name)
+    spec = arch.model
+    n_lm = cell.shape.dims.get("n_landmarks", spec.n_landmarks)
+    k = spec.k_neighbors
+    r = _cf_inputs(name, cell)
+    u = r.shape[0]
+    sync()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    idx, rep, w, nb = cell.fn(None, r)
+    sync()
+    first_s = time.perf_counter() - t0
+    counts = _counts()
+    if name == "web_fit":  # seconds a call: one more, on the host clock
+        t0 = time.perf_counter()
+        cell.fn(None, r)
+        sync()
+        ms_ = (time.perf_counter() - t0) * 1e3
+    else:
+        ms_ = _event_ms(lambda: cell.fn(None, r), 5)
+    if counts["masked_similarity"] < 1 or counts["topk_sim"] < 1:
+        raise AssertionError(f"phase 19a {name}: kernels 1 and 2 must "
+                             f"launch, got {counts}")
+    p_idx = popularity_landmarks(r, n_lm)
+    rows = (torch.arange(u, device=DEVICE) if name != "web_fit" else
+            torch.linspace(0, u - 1, CF_SAMPLE, device=DEVICE).long())
+    p_rep = ref.masked_similarity_ref(r[rows], r[p_idx], spec.d1)
+    if name == "web_fit":
+        # self excluded: each sampled row's own id dropped from k + 1
+        repq = kernel_rows(rep, spec.d2)
+        pv, pi = filter_self_from_topk(*ref.foldin_topk_ref(
+            repq[rows], repq, k + 1, None, None, spec.d2), rows, k)
+        plain = finalize_topk(pv, pi)
+    else:
+        plain = build_neighbor_graph(p_rep, spec.d2, k, "streaming")
+    rep_err = float((rep[rows] - p_rep).abs().max())
+    bad = list_mismatches(plain.weights, plain.indices, w[rows], nb[rows],
+                          RTOL, ATOL)
+    ok = (torch.equal(idx, p_idx) and bad.size == 0
+          and torch.allclose(rep[rows], p_rep, rtol=RTOL, atol=ATOL)
+          and torch.isfinite(w).all() and nb.shape == (u, k))
+    if not ok:
+        raise AssertionError(f"phase 19a {name}: the cell differs from the "
+                             f"plain path: landmarks equal "
+                             f"{torch.equal(idx, p_idx)}, d1 max err "
+                             f"{rep_err}, rows beyond the tie rule "
+                             f"{bad[:10].tolist()}")
+    out = dict(U=u, P=r.shape[1], n=n_lm, ms=ms_, first_call_s=first_s,
+               launches={k_: v for k_, v in counts.items() if v},
+               d1_max_abs_err=rep_err, rows_compared=int(rows.numel()))
+    print(f"phase 19a {CF_ARCH}/{name} ({card}): " + json.dumps(out))
+    return r, (w, nb), counts
+
+
+def _cf_predict_cell(arch, r, graph, card):
+    """19a: ml1m_predict's 131,072 pairs over the ml1m_fit graph on the
+    card, against the same step on the CPU (no kernel: Eq. (1) in plain
+    torch)."""
+    cell = cells.build_cell(arch, "ml1m_predict")
+    pairs = cell.shape.dims["n_pairs"]
+    rng = np.random.default_rng(19)
+    users = torch.as_tensor(rng.integers(0, r.shape[0], pairs),
+                            dtype=torch.int32, device=DEVICE)
+    items = torch.as_tensor(rng.integers(0, r.shape[1], pairs),
+                            dtype=torch.int32, device=DEVICE)
+    args = (*graph, r, users, items)
+    ops.reset_launches()
+    got = cell.fn(*args)
+    sync()
+    counts = _counts()
+    ms_ = _event_ms(lambda: cell.fn(*args), 5)
+    want = cell.fn(*(a.cpu() for a in args))
+    err = float((got.cpu() - want).abs().max())
+    if not (got.shape == (pairs,) and torch.isfinite(got).all()
+            and torch.allclose(got.cpu(), want, rtol=RTOL, atol=ATOL)):
+        raise AssertionError(f"phase 19a ml1m_predict: card vs CPU max err "
+                             f"{err}")
+    print(f"phase 19a {CF_ARCH}/ml1m_predict ({card}): " + json.dumps(dict(
+        pairs=pairs, ms=ms_, max_abs_err_vs_cpu=err,
+        launches={k_: v for k_, v in counts.items() if v})))
+    return args
+
+
+def _smoke_cells():
+    """(tag, arch, shape name, the step's inputs on the card) of the smoke
+    cells whose counts the card and the dry run compare: SmolLM's smoke
+    model trained at B = 4, S = 128 with full and with landmark attention
+    (kernel 7 and its backward), the GNN's smoke model on a 200-node graph
+    with no padded edge (every edge live, as the meta CSR counts) and FM's
+    smoke model on 256 rows."""
+    gen = torch.Generator(DEVICE).manual_seed(0)
+    out = []
+    lm_cfg = registry.get("smollm-360m").smoke_model
+    for backend in ("full", "landmark"):
+        cfg = dataclasses.replace(lm_cfg, attn_backend=backend)
+        arch = dataclasses.replace(
+            registry.get("smollm-360m"), model=cfg, grad_accum={},
+            shapes=(ShapeSpec("train_4k", "train", dict(batch=4, seq=128)),))
+        model = lm.init_lm(cfg, gen, DEVICE)
+        batch = trainer.to_device(synthetic.lm_batch(0, 0, 4, 128, cfg.vocab),
+                                  DEVICE)
+        out.append((f"smollm-smoke/train/{backend}", arch, "train_4k",
+                    (model, topt.opt_init(model, arch.opt), batch)))
+    gcfg = registry.get("gatedgcn").smoke_model
+    dims = dict(n_nodes=200, n_edges=800, d_feat=gcfg.d_feat,
+                n_classes=gcfg.n_classes)
+    arch = dataclasses.replace(registry.get("gatedgcn"), model=gcfg, shapes=(
+        ShapeSpec("full_graph_sm", "train_graph", dims),))
+    model = gnn.init_gnn(gcfg, gen, DEVICE)
+    batch = trainer.to_device(synthetic.random_graph(0, 200, 800, gcfg.d_feat,
+                                                     gcfg.n_classes), DEVICE)
+    out.append(("gatedgcn-smoke/full_graph_sm", arch, "full_graph_sm",
+                (model, topt.opt_init(model, arch.opt), batch)))
+    fcfg = registry.get("fm").smoke_model
+    arch = dataclasses.replace(registry.get("fm"), model=fcfg, shapes=(
+        ShapeSpec("train_batch", "train", dict(batch=256)),))
+    model = recsys.init_recsys(fcfg, gen, DEVICE)
+    batch = trainer.to_device(synthetic.fm_train_batch(0, 0, 256,
+                                                       fcfg.field_vocabs),
+                              DEVICE)
+    out.append(("fm-smoke/train_batch", arch, "train_batch",
+                (model, topt.opt_init(model, arch.opt), batch)))
+    return out
+
+
+def _card_vs_meta(tag, arch, shape_name, args, card):
+    """19b: one cell's step counted on the card (after a warm-up call, so
+    the library's workspaces are held before) against the dry run's count
+    of the same cell on meta: FLOPs equal, the card's peak allocated bytes
+    beyond what it held before within the stated margin of the temp
+    bytes."""
+    meta = dryrun.count_cell(arch, shape_name)[0]
+    cell = cells.build_cell(arch, shape_name)
+    cell.fn(*args)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    out, got = step_costs.measure(cell.fn, args)
+    sync()
+    peak = torch.cuda.max_memory_allocated() - held
+    temp = meta.memory["temp_size_in_bytes"]
+    row = dict(flops_card=got.flops, flops_meta=meta.flops,
+               kernel_ops_card=got.kernel_ops, kernel_ops_meta=meta.kernel_ops,
+               max_memory_allocated_beyond_held=peak, temp_bytes_meta=temp,
+               temp_bytes_card_traced=got.memory["temp_size_in_bytes"],
+               kernels_card={k_: v["calls"] for k_, v in got.kernels.items()},
+               kernels_meta={k_: v["calls"] for k_, v in meta.kernels.items()})
+    print(f"phase 19b card vs dry run {tag} ({card}): " + json.dumps(row))
+    if got.flops != meta.flops or row["kernels_card"] != row["kernels_meta"]:
+        raise AssertionError(f"phase 19b {tag}: the card counted "
+                             f"{got.flops} FLOPs and kernels "
+                             f"{row['kernels_card']}, the dry run "
+                             f"{meta.flops} and {row['kernels_meta']}")
+    if abs(peak - temp) > TEMP_REL * temp + TEMP_ABS:
+        raise AssertionError(f"phase 19b {tag}: peak {peak} B on the card "
+                             f"against temp {temp} B of the dry run, beyond "
+                             f"{TEMP_REL} of it + {TEMP_ABS} B")
+    del out
+    return row
+
+
+def _compression_on_card(card):
+    """19c: the quantizers on the card bitwise the CPU's on the same
+    inputs; psum_compressed on make_debug_mesh() (8 positions round robin
+    on one card) bitwise the CPU mesh's and within the reference test's
+    bound (n · max|x| / 127 + 1e-5 of the exact sum)."""
+    rng = np.random.default_rng(19)
+    grads = {name: rng.standard_normal(shape).astype(np.float32) * scale
+             for name, shape, scale in (("w", (512, 256), 1.0),
+                                        ("b", (256,), 1e-3),
+                                        ("e", (1000, 10), 30.0))}
+    cpu = {k: torch.as_tensor(v) for k, v in grads.items()}
+    gpu = {k: v.to(DEVICE) for k, v in cpu.items()}
+    bufs_c, bufs_g = (compression.init_error_buffers(g) for g in (cpu, gpu))
+    for step in range(3):
+        (qc, sc), bufs_c, dc = compression.tree_compress(cpu, bufs_c)
+        (qg, sg), bufs_g, dg = compression.tree_compress(gpu, bufs_g)
+        for k_ in grads:
+            for a, b in ((qc, qg), (sc, sg), (bufs_c, bufs_g), (dc, dg)):
+                if not torch.equal(_bits(a[k_]), _bits(b[k_].cpu())):
+                    raise AssertionError(f"phase 19c: {k_} step {step} "
+                                         f"differs from the CPU's")
+    res = {}
+    for multi_pod, axis in ((False, "data"), (False, "model"), (True, "pod")):
+        mesh = make_debug_mesh(multi_pod=multi_pod)
+        x = torch.as_tensor(rng.normal(size=(32, 32)).astype(np.float32))
+        n = mesh.shape[axis]
+        got = compression.psum_compressed(x.to(DEVICE), mesh, axis)
+        want = compression.psum_compressed(
+            x, make_debug_mesh(multi_pod=multi_pod, device="cpu"), axis)
+        err = float((got.cpu() - n * x).abs().max())
+        bound = n * float(x.abs().max()) / 127.0 + 1e-5
+        if not (torch.equal(_bits(got.cpu()), _bits(want)) and err <= bound
+                and all(d.type == "cuda" for d in mesh.devices)):
+            raise AssertionError(f"phase 19c psum over {axis}: err {err} "
+                                 f"bound {bound}")
+        res[f"{mesh.describe()} over {axis}"] = dict(max_abs_err=err,
+                                                      bound=bound)
+    print(f"phase 19c compression ({card}): quantizers, error feedback and "
+          f"tree_compress bitwise the CPU's over 3 steps; psum_compressed "
+          + json.dumps(res))
+
+
+def phase_cells(card):
+    """19: (a) the CF cells at full size on the card, (b) the dry run on
+    meta and the card's counts against it, (c) compression on the card.
+    Returns the launches of 19a's cells by kernel row."""
+    t0 = time.perf_counter()
+    launches = {}
+    arch = registry.get(CF_ARCH)
+    fits = {}
+    for name in ("ml1m_fit", "netflix1m_fit"):
+        r, graph, counts = _cf_fit_cell(name, arch, card)
+        for k_, v in counts.items():
+            launches[k_] = launches.get(k_, 0) + v
+        fits[name] = (r, graph)
+    pargs = _cf_predict_cell(arch, *fits["ml1m_fit"], card)
+    full_u = arch.shape("web_fit").dims["n_users"]
+    total = torch.cuda.get_device_properties(0).total_memory
+    web_u, need = _web_users(total)
+    web = _cf_arch(n_users=web_u)
+    print(f"phase 19a web_fit cut ({card}): U from {full_u} to {web_u}, the "
+          f"most whose dry-run argument + temp bytes ({need}) fit "
+          f"{WEB_HEADROOM} of the card's {total} B; P and n as registered")
+    wr, _, counts = _cf_fit_cell("web_fit", web, card)
+    for k_, v in counts.items():
+        launches[k_] = launches.get(k_, 0) + v
+    t_b = time.perf_counter()
+    records = dryrun.main(["--all"])
+    print(f"phase 19b dry run: {len(records)} cells on meta in "
+          f"{time.perf_counter() - t_b:.1f}s")
+    for name, (r, _) in fits.items():
+        _card_vs_meta(f"{CF_ARCH}/{name}", arch, name, (None, r), card)
+    _card_vs_meta(f"{CF_ARCH}/ml1m_predict", arch, "ml1m_predict", pargs,
+                  card)
+    del fits, pargs
+    _card_vs_meta(f"{CF_ARCH}/web_fit U={web_u}", web, "web_fit", (None, wr),
+                  card)
+    del wr
+    gc.collect()
+    torch.cuda.empty_cache()
+    for tag, a, shape_name, args in _smoke_cells():
+        _card_vs_meta(tag, a, shape_name, args, card)
+        del args
+    _compression_on_card(card)
+    print(f"phase 19: {time.perf_counter() - t0:.1f}s")
+    return launches
+
 
 def main():
     if not torch.cuda.is_available():
@@ -5586,6 +5861,7 @@ def main():
     bwd_rows, train_counts, f32_counts = phase_training(card)
     gnn_row, gnn_counts = phase_gnn(card)
     rec_notes, rec_counts = phase_recsys(d, card)
+    cell_counts = phase_cells(card)
     gnn_row["per_csr"].update({key: {t: v[t] for t in v if t.startswith(
         ("live", "max_degree", "head_share", "H="))}
         for key, v in rec_notes.items()})
@@ -5610,6 +5886,8 @@ def main():
         row["launches_gnn"] = gnn_counts.get(row["name"], 0)
         # the recsys runs (18b, 18c) and the landmark-retrieval example (18d)
         row["launches_recsys"] = rec_counts.get(row["name"], 0)
+        # the CF cells (19a)
+        row["launches_cells"] = cell_counts.get(row["name"], 0)
         for tag, times in ivf["wide_ms"].items():  # kernels 2-6, 7a
             if row["name"] in times:
                 row[f"{tag} ms"] = times[row["name"]]

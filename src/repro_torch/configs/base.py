@@ -1,4 +1,4 @@
-"""Config schema for the LM, GNN and recsys families: an ``ArchConfig``
+"""Config schema for the LM, GNN, recsys and CF families: an ``ArchConfig``
 holds one architecture's published hyperparameters, a reduced smoke model
 for CPU tests, its shape set, its optimizer and its gradient accumulation
 per shape — the reference's schema without the sharding rules, which the
@@ -14,7 +14,9 @@ from ..train.optimizer import OptConfig
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:
     name: str
-    kind: str  # train | prefill | decode | train_graph | scores | retrieval
+    # train | prefill | decode | train_graph | scores | retrieval |
+    # cf_fit | cf_predict
+    kind: str
     dims: Dict[str, Any]
     note: str = ""
 
@@ -22,7 +24,7 @@ class ShapeSpec:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # lm | gnn | recsys
+    family: str  # lm | gnn | recsys | cf
     model: Any
     smoke_model: Any
     shapes: Tuple[ShapeSpec, ...]

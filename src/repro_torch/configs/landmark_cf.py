@@ -1,6 +1,8 @@
 """Arch config 'landmark_cf': the paper's hyperparameters, the
 reference registry's four CF shapes and the lifecycle's refresh
-thresholds, as plain constants (there is no LM registry here)."""
+thresholds, as plain constants. ``configs/registry.py`` registers the
+arch from ``MODEL``, ``SMOKE`` and ``SHAPES`` (this module imports no
+registry, so the core and the lifecycle can read it on their own)."""
 from ..core.types import LandmarkSpec
 from ..lifecycle.policy import RefreshSpec
 from .base import ShapeSpec

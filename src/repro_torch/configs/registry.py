@@ -1,6 +1,7 @@
-"""The LM architectures, dense and MoE, the GNN and the four recsys
-architectures, with the reference registry's exact hyperparameters, smoke
-models, optimizers and gradient accumulation (sources inline)."""
+"""The LM architectures, dense and MoE, the GNN, the four recsys
+architectures and the paper's landmark CF, with the reference registry's
+exact hyperparameters, smoke models, optimizers and gradient accumulation
+(sources inline)."""
 from __future__ import annotations
 
 from typing import Dict
@@ -11,6 +12,7 @@ from ..models.gnn import GNNConfig
 from ..models.recsys import Bert4RecConfig, DIENConfig, FMConfig, MINDConfig
 from ..models.transformer import LMConfig, MoEConfig
 from ..train.optimizer import OptConfig
+from . import landmark_cf
 from .base import GNN_SHAPES, RECSYS_SHAPES, ArchConfig, lm_shapes
 
 ARCHS: Dict[str, ArchConfig] = {}
@@ -189,6 +191,19 @@ _register(ArchConfig(
                            seq_len=20, gru_dim=16, mlp_dims=(32, 16)),
     shapes=RECSYS_SHAPES,
     opt=OptConfig(name="adamw", lr=1e-3),
+))
+
+# ======================================= paper-native: landmark CF as an arch
+# its spec and four shapes live in configs/landmark_cf.py beside the
+# lifecycle's thresholds
+_register(ArchConfig(
+    name="landmark_cf",
+    family="cf",
+    source="the reproduced paper (Lima, Mello, Zimbrão 2017)",
+    model=landmark_cf.MODEL,
+    smoke_model=landmark_cf.SMOKE,
+    shapes=landmark_cf.SHAPES,
+    opt=OptConfig(),
 ))
 
 

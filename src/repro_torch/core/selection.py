@@ -19,10 +19,18 @@ import torch
 from .topk import canonical_topk
 
 STRATEGIES = ("random", "dist_ratings", "coresets", "coresets_random", "popularity")
+# cells a block of the rating count holds: on the card a bool sum runs
+# through an int64 copy of its whole input (96 GiB at 196,608 × 65,536),
+# so the rows are counted in f32 a block at a time
+COUNT_CELLS = 1 << 26
 
 
 def _counts(ratings: torch.Tensor) -> torch.Tensor:
-    return (ratings != 0).sum(dim=1).to(torch.float32)
+    """Per-row count of rated items, f32 (exact: a row has < 2^24 items),
+    over blocks of rows of at most COUNT_CELLS cells."""
+    rows = max(1, COUNT_CELLS // max(ratings.shape[1], 1))
+    return torch.cat([(blk != 0).to(torch.float32).sum(dim=1)
+                      for blk in ratings.split(rows)])
 
 
 def _default(generator: Optional[torch.Generator]) -> torch.Generator:

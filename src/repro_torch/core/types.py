@@ -43,6 +43,10 @@ class RatingMatrix:
         return torch.where(cnt > 0, self.ratings.sum(dim=1) / cnt.clamp(min=1),
                            torch.zeros_like(cnt))
 
+    def rating_counts(self) -> torch.Tensor:
+        """Per-user count of rated items, in the ratings' dtype."""
+        return self.mask.sum(dim=1)
+
     @staticmethod
     def from_coo(
         users: np.ndarray,

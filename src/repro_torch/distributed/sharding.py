@@ -14,7 +14,8 @@ tensor on ``shard_devices(mesh, axes)[s]``. No function here builds a
 tensor of S·C rows. The two collectives are explicit and ordered, so their
 results do not depend on where the shards live: :func:`all_gather_rows`
 concatenates blocks in linear shard order, :func:`ordered_sum` adds in
-that order. (The reference's GSPMD logical-axis rules serve its LM and
+that order. Each, and :func:`gather_rows`, adds its bytes to the open cost
+tallies (``kernels/cost.py::collective``): the dry run's collectives. (The reference's GSPMD logical-axis rules serve its LM and
 training paths and wait for them.) :func:`constrain` and
 :func:`shard_batch_full`, the recsys models' sharding annotations, are
 identities here.
@@ -25,6 +26,8 @@ from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..kernels import cost
 
 Blocks = List[torch.Tensor]
 
@@ -123,9 +126,14 @@ def shard_local_append(blocks: Blocks, rows: torch.Tensor,
     return blocks
 
 
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 def all_gather_rows(blocks: Blocks, dst) -> torch.Tensor:
     """The all-gather: every block's rows concatenated on ``dst`` in linear
     shard order."""
+    cost.collective("all-gather", sum(map(_nbytes, blocks)))
     return torch.cat([b.to(dst) for b in blocks])
 
 
@@ -133,6 +141,7 @@ def ordered_sum(values: Sequence[torch.Tensor], dst) -> torch.Tensor:
     """The reduction: the shards' values added on ``dst`` in linear shard
     order (a fixed order, so the result is the same bits wherever the
     shards live)."""
+    cost.collective("all-reduce", _nbytes(values[0]))
     total = values[0].to(dst)
     for v in values[1:]:
         total = total + v.to(dst)
@@ -150,6 +159,7 @@ def gather_rows(blocks: Blocks, ids, capacity: int, dst) -> torch.Tensor:
                          f"capacity {capacity}")
     out = blocks[0].new_empty((len(ids_h),) + tuple(blocks[0].shape[1:]),
                               device=dst)
+    cost.collective("all-to-all", _nbytes(out))
     for s, blk in enumerate(blocks):
         pos = np.nonzero(owner == s)[0]
         if len(pos):

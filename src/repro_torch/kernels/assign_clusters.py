@@ -15,7 +15,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import build, ref
+from . import build, cost, ref
 from .knn_topk import NARROW_WIDTH, check_width
 
 
@@ -40,11 +40,14 @@ def kmeans_lloyd(rep: torch.Tensor, init: torch.Tensor, iters: int = 8,
 
     CUDA tensors go through the kernel in one cooperative launch
     (contiguous float32 on one device, else ValueError; a launch the card
-    refuses raises RuntimeError); CPU tensors take the plain version.
+    refuses raises RuntimeError); CPU tensors take the plain version;
+    meta tensors the meta route (outputs and scratch on ``meta``, the cost
+    charged, no launch).
     """
     if rep.device.type == "cpu" and init.device.type == "cpu":
         return ref.kmeans_lloyd_ref(rep, init, iters, n_valid, measure,
                                     normalize)
+    meta = build.on_meta("kmeans_lloyd", rep, init)
     build.check_cuda_f32("kmeans_lloyd", rep, init)
     if measure not in build.MEASURE_CODES:
         raise ValueError(f"unknown measure {measure!r}")
@@ -70,10 +73,12 @@ def kmeans_lloyd(rep: torch.Tensor, init: torch.Tensor, iters: int = 8,
     pval = torch.empty((u,), dtype=torch.float32, device=rep.device)
     cscratch = torch.empty((c * (centroid_stride(n) + 1),),
                            dtype=torch.float32, device=rep.device)
-    build.launch("kmeans_lloyd_f32", rep, init, cent, assign, prep, pval,
-                 cscratch, u, c, n, iters, nv, build.MEASURE_CODES[measure],
-                 int(normalize))
-    build.count_launch(assign_clusters)
+    cost.charge("assign_clusters", lambda: cost.kmeans(u, c, n, iters))
+    if not meta:
+        build.launch("kmeans_lloyd_f32", rep, init, cent, assign, prep, pval,
+                     cscratch, u, c, n, iters, nv,
+                     build.MEASURE_CODES[measure], int(normalize))
+        build.count_launch(assign_clusters)
     return cent, assign
 
 

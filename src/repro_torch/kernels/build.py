@@ -147,12 +147,27 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+def on_meta(name: str, *tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on the ``meta`` device: the wrapper then
+    returns outputs of the right shapes on ``meta`` and charges its cost
+    (``kernels/cost.py``), with neither a launch nor its plain version.
+    False when none does; raises when only some do, so a CUDA tensor never
+    takes the meta route."""
+    metas = [t.device.type == "meta" for t in tensors
+             if isinstance(t, torch.Tensor)]
+    if any(metas) and not all(metas):
+        raise ValueError(f"{name}: meta and real tensors mixed: "
+                         f"{[str(t.device) for t in tensors if isinstance(t, torch.Tensor)]}")
+    return bool(metas) and all(metas)
+
+
 def check_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
     """Raise unless every tensor is a contiguous 2-D float32 tensor on one
-    CUDA device — the only input the kernels take."""
+    CUDA device — the only input the kernels take (or, on the meta route,
+    on ``meta``)."""
     dev = tensors[0].device
     for t in tensors:
-        if t.device.type != "cuda" or t.device != dev:
+        if t.device.type not in ("cuda", "meta") or t.device != dev:
             raise ValueError(f"{name}: all inputs must be on one CUDA device, "
                              f"got {[str(x.device) for x in tensors]}")
         if t.dtype != torch.float32:

@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import build, ref
+from . import build, cost, ref
 from .knn_topk import MAX_K, NARROW_WIDTH, check_width
 
 PAYLOAD_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -68,12 +68,14 @@ def fused_probe_topk(q: torch.Tensor, probe: torch.Tensor,
     live slots per cell; ``self_ids (b,)`` an id each query never lists (-1:
     none); ``probe_ok (b, nprobe)``, False/0 skips that probe. CUDA tensors
     go through the kernel (else ValueError); CPU tensors take the plain
-    version.
+    version; meta tensors the meta route (the lists on ``meta``, the cost
+    charged, no launch).
     """
     if all(t.device.type == "cpu" for t in (q, probe, lists, rows, fill)):
         return ref.fused_probe_topk_ref(
             q, probe, lists, rows, scale, fill, k=k, measure=measure,
             self_ids=self_ids, probe_ok=probe_ok)
+    meta = build.on_meta("fused_probe_topk", q, probe, lists, rows, fill)
     build.check_cuda_f32("fused_probe_topk", q)
     dev = q.device
     b, n = q.shape
@@ -119,6 +121,10 @@ def fused_probe_topk(q: torch.Tensor, probe: torch.Tensor,
     vals = torch.empty((b, k), dtype=torch.float32, device=dev)
     ids = torch.empty((b, k), dtype=torch.int32, device=dev)
     if b and nprobe and c and cap:
+        cost.charge("fused_probe_topk", lambda: _cost(
+            probe, fill, cap, n, k, rows.element_size(), meta))
+        if meta:
+            return vals, ids
         # the wide route (past NARROW_WIDTH) takes one query a block
         group = 1 if n > NARROW_WIDTH else plan_group(
             b, _sms(dev.index if dev.index is not None
@@ -134,6 +140,20 @@ def fused_probe_topk(q: torch.Tensor, probe: torch.Tensor,
         vals.fill_(float("-inf"))
         ids.zero_()
     return vals, ids
+
+
+def _cost(probe, fill, cap, n, k, row_bytes, meta):
+    """The call's cost (``kernels/cost.py``): its (query, live slot) pairs
+    and the index's live rows read from the card (a sync), or on ``meta``
+    their bounds: every probed slot and every slot live."""
+    b, nprobe = probe.shape
+    c = fill.shape[0]
+    if meta:
+        live, stored = b * nprobe * cap, c * cap
+    else:
+        live = int(fill[probe.long()].sum())
+        stored = int(fill.sum())
+    return cost.fused_probe(b, nprobe, c, cap, n, k, live, stored, row_bytes)
 
 
 fused_probe_topk.launches = 0

@@ -22,7 +22,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import build, ref
+from . import build, cost, ref
 
 # kernels 2-5 take any landmark count n >= 1: up to NARROW_WIDTH whole rows
 # (the scan's ring, the IVF kernels' register rows), past it their wide
@@ -101,8 +101,11 @@ def _check(name, rep, cand, k, n_valid, measure):
 
 
 def _scan(name, rep, cand, k, n_valid, self_offset, measure):
-    """The kernels' call: prep, scan and merge on CUDA tensors."""
+    """The kernels' call: prep, scan and merge on CUDA tensors; on meta
+    tensors the outputs and the prep scratch, the call charged and
+    nothing launched."""
     n_valid = cand.shape[0] if n_valid is None else n_valid
+    meta = build.on_meta(name, rep, cand)
     _check(name, rep, cand, k, n_valid, measure)
     rows, n = rep.shape
     c = cand.shape[0]
@@ -113,16 +116,19 @@ def _scan(name, rep, cand, k, n_valid, self_offset, measure):
         vals.fill_(float("-inf"))
         ids.zero_()
         return vals, ids, False
+    cost.charge(name, lambda: cost.topk(rows, c, n, k))
     variant = LARGE_VARIANT if rows > SMALL_ROWS else SMALL_VARIANT
     qt, ct = SCAN_VARIANTS[variant]
-    splits, tps = plan_scan(rows, c, variant,
-                            *_occupancy(dev.index, variant, n, measure),
-                            MIN_TILES,
-                            MAX_SPLITS)
     # the candidates' d-major layout, and past NARROW_WIDTH the queries'
     qpad = -(-rows // qt) * qt if n > NARROW_WIDTH else 0
     prep = torch.empty((n + 1, -(-c // ct) * ct + qpad), dtype=torch.float32,
                        device=dev)
+    if meta:  # the splits' lists depend on the card's occupancy: left out
+        return vals, ids, False
+    splits, tps = plan_scan(rows, c, variant,
+                            *_occupancy(dev.index, variant, n, measure),
+                            MIN_TILES,
+                            MAX_SPLITS)
     part_v, part_i = vals, ids
     if splits > 1:
         part_v = torch.empty((rows, splits, k), dtype=torch.float32,
@@ -146,7 +152,8 @@ def topk_sim(rep: torch.Tensor, cand: torch.Tensor, k: int = 14,
     ``exclude_self`` assumes rep row i is candidate ``row_offset + i`` and
     masks it (a shard's rows of a sharded graph build start at its
     offset). CUDA tensors go through the kernels, CPU tensors take the
-    plain version.
+    plain version, meta tensors the meta route (outputs on ``meta``, the
+    cost charged, no launch).
     """
     self_offset = row_offset if exclude_self else None
     if rep.device.type == "cpu" and cand.device.type == "cpu":
@@ -166,7 +173,8 @@ def foldin_topk(rep: torch.Tensor, cand: torch.Tensor, k: int = 14,
 
     Query i is candidate ``self_offset + i`` and never lists itself (None:
     the queries are not among the candidates). CUDA tensors go through the
-    kernels, CPU tensors take the plain version.
+    kernels, CPU tensors take the plain version, meta tensors the meta
+    route.
     """
     if rep.device.type == "cpu" and cand.device.type == "cpu":
         return ref.foldin_topk_ref(rep, cand, k, self_offset, n_valid, measure)

@@ -17,7 +17,9 @@ that requires grad it runs through :class:`LandmarkSummary`, the forward
 kernel and then :func:`landmark_summary_bwd`'s kernels (two launches a
 call, counted in ``landmark_summary_bwd.launches``, and by route in
 ``landmark_summary_bwd.route_launches``); CPU tensors take the plain
-versions of both. The backward's route is chosen by dtype and head dim; at
+versions of both; meta tensors take neither (the outputs and scratch on
+``meta``, each call's cost charged to ``kernels/cost.py``'s tallies, no
+launch). The backward's route is chosen by dtype and head dim; at
 D ≤ 128 both forms run one TMA + wgmma loop on bf16 planes, dO split into
 two by :func:`bf16_terms` first: bfloat16 inputs go in as they are
 (``tensor_core``, one split pass a call), float32 inputs are split into
@@ -31,7 +33,7 @@ from typing import Optional
 
 import torch
 
-from . import build, ref
+from . import build, cost, ref
 
 HEAD_DIMS = (32, 64, 128, 256)
 # dtype → (route, C entry point)
@@ -70,13 +72,14 @@ def bf16_terms(x: torch.Tensor, terms: int) -> torch.Tensor:
     """
     if x.device.type == "cpu":
         return ref.bf16_terms(x, terms)
+    meta = build.on_meta("bf16_terms", x)
     build.check_cuda("bf16_terms", x, x.dim(), (torch.float32,), x.device)
     if x.data_ptr() % ALIGN or x.numel() % 4 or not 1 <= terms <= 3:
         raise ValueError(f"bf16_terms: needs a {ALIGN}-byte aligned base, "
                          f"a multiple of 4 elements and 1-3 terms")
     planes = torch.empty((terms, *x.shape), dtype=torch.bfloat16,
                          device=x.device)
-    if x.numel():
+    if x.numel() and not meta:
         build.launch("split_bf16_terms", x, planes, x.numel(), terms)
         build.count_launch(bf16_terms)
     return planes
@@ -113,6 +116,7 @@ def _summary(q, k, v, scale: float) -> torch.Tensor:
     ones (no autograd)."""
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return ref.landmark_summary_ref(q, k, v, scale)
+    meta = build.on_meta("landmark_summary", q, k, v)
     single = q.dim() == 2
     if single:
         q, k, v = q[None], k[None], v[None]
@@ -120,12 +124,16 @@ def _summary(q, k, v, scale: float) -> torch.Tensor:
     out = torch.empty((p, n, d), dtype=torch.float32, device=q.device)
     if p and n:
         route, entry = ROUTES[q.dtype]
+        bf16 = q.dtype == torch.bfloat16
+        cost.charge("landmark_summary",
+                    lambda: cost.landmark_summary(p, n, s, d, bf16))
         if route == "f32_split":
             q, k = bf16_terms(q, QK_TERMS), bf16_terms(k, QK_TERMS)
             v = bf16_terms(v, V_TERMS)
-        build.launch(entry, q, k, v, out, p, n, s, d, float(scale))
-        build.count_launch(landmark_summary)
-        landmark_summary.route_launches[route] += 1
+        if not meta:
+            build.launch(entry, q, k, v, out, p, n, s, d, float(scale))
+            build.count_launch(landmark_summary)
+            landmark_summary.route_launches[route] += 1
     return out[0] if single else out
 
 
@@ -136,7 +144,7 @@ def _check(name: str, q, k, v):
     if q.dtype not in ROUTES:
         raise ValueError(f"{name}: inputs must be float32 or bfloat16, got "
                          f"{q.dtype}")
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"{name}: all inputs must be on one CUDA device, "
                          f"got {[str(t.device) for t in (q, k, v)]}")
     for t in (q, k, v):
@@ -181,6 +189,7 @@ def landmark_summary_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     if all(t.device.type == "cpu" for t in (q, k, v, out, dout)):
         return ref.landmark_summary_bwd_ref(q, k, v, out, dout, scale)
+    meta = build.on_meta("landmark_summary_bwd", q, k, v, out, dout)
     single = q.dim() == 2
     if single:
         q, k, v, out, dout = (t[None] for t in (q, k, v, out, dout))
@@ -206,18 +215,23 @@ def landmark_summary_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         rows = -(-n // BWD_ROW_PAD) * BWD_ROW_PAD if tc else n
         lse = torch.empty((p, rows), dtype=torch.float32, device=q.device)
         delta = torch.empty_like(lse)
+        bf16 = q.dtype == torch.bfloat16
+        cost.charge("landmark_summary_bwd",
+                    lambda: cost.landmark_summary_bwd(p, n, s, d, bf16))
         if tc:
             planes = bf16_terms(dout, BWD_DO_TERMS)
             if route == "f32_split":
                 q, k = bf16_terms(q, QK_TERMS), bf16_terms(k, QK_TERMS)
                 v = bf16_terms(v, V_TERMS)
+        if tc and not meta:
             build.launch(entry, q, k, v, out, dout, planes, dq, dk, dv, lse,
                          delta, p, n, rows, s, d, float(scale))
-        else:
+        elif not meta:
             build.launch(entry, q, k, v, out, dout, dq, dk, dv, lse, delta,
                          p, n, s, d, float(scale))
-        build.count_launch(landmark_summary_bwd, BWD_LAUNCHES)
-        landmark_summary_bwd.route_launches[route] += BWD_LAUNCHES
+        if not meta:
+            build.count_launch(landmark_summary_bwd, BWD_LAUNCHES)
+            landmark_summary_bwd.route_launches[route] += BWD_LAUNCHES
     if single:
         return dq[0], dk[0], dv[0]
     return dq, dk, dv

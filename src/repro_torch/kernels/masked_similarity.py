@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from . import build, ref
+from . import build, cost, ref
 
 ROUTES = ("auto", "f32")
 # the tensor-core route's bound on P (ref.D1_MAX_ITEMS: sums stay below 2^22)
@@ -69,13 +69,16 @@ def masked_similarity(r_a: torch.Tensor, r_b: torch.Tensor,
     CUDA tensors go through the kernels (contiguous float32 on one device,
     else ValueError): ``route`` "auto" (the tensor-core route while
     P <= :data:`MAX_ITEMS`, else the f32 route) or "f32". CPU tensors take
-    the plain version.
+    the plain version. Meta tensors take neither: the output (and the
+    route's scratch) on ``meta``, the call's cost charged
+    (``kernels/cost.py``).
     """
     if route not in ROUTES:
         raise ValueError(f"masked_similarity: route {route!r} not in "
                          f"{ROUTES}")
     if r_a.device.type == "cpu" and r_b.device.type == "cpu":
         return ref.masked_similarity_ref(r_a, r_b, measure)
+    meta = build.on_meta("masked_similarity", r_a, r_b)
     build.check_cuda_f32("masked_similarity", r_a, r_b)
     if measure not in build.MEASURE_CODES:
         raise ValueError(f"unknown measure {measure!r}")
@@ -86,17 +89,22 @@ def masked_similarity(r_a: torch.Tensor, r_b: torch.Tensor,
     out = torch.empty((a, b), dtype=torch.float32, device=r_a.device)
     if a and b:
         code = build.MEASURE_CODES[measure]
-        if route == "f32" or p > MAX_ITEMS:
-            build.launch("masked_similarity_f32", r_a, r_b, out, a, b, p,
-                         code)
-            masked_similarity.route_launches["f32"] += 1
-        else:
+        tc = route != "f32" and p <= MAX_ITEMS
+        if tc:
             ws = torch.empty(_workspace_bytes(a, b, p), dtype=torch.uint8,
                              device=r_a.device)
+        if tc and not meta:
             build.launch("masked_similarity_tc", r_a, r_b, out, ws,
                          _results(r_a.device), a, b, p, code)
-            masked_similarity.route_launches["tensor_core"] += 1
-        build.count_launch(masked_similarity)
+        elif not meta:
+            build.launch("masked_similarity_f32", r_a, r_b, out, a, b, p,
+                         code)
+        if not meta:
+            masked_similarity.route_launches[
+                "tensor_core" if tc else "f32"] += 1
+            build.count_launch(masked_similarity)
+        cost.charge("masked_similarity",
+                    lambda: cost.masked_similarity(a, b, p, tc))
     return out
 
 

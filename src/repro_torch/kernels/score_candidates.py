@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from . import build, ref
+from . import build, cost, ref
 from .knn_topk import check_width
 
 
@@ -22,10 +22,12 @@ def score_candidates(q: torch.Tensor, cand: torch.Tensor,
     every query.
 
     CUDA tensors go through the kernel (contiguous float32 on one device,
-    else ValueError); CPU tensors take the plain version.
+    else ValueError); CPU tensors take the plain version; meta tensors the
+    meta route (the output on ``meta``, the cost charged, no launch).
     """
     if q.device.type == "cpu" and cand.device.type == "cpu":
         return ref.score_candidates_ref(q, cand, measure)
+    meta = build.on_meta("score_candidates", q, cand)
     build.check_cuda_f32("score_candidates", q)
     shared = cand.dim() == 2
     build.check_cuda("score_candidates", cand, 2 if shared else 3,
@@ -40,9 +42,12 @@ def score_candidates(q: torch.Tensor, cand: torch.Tensor,
     m = cand.shape[-2]
     out = torch.empty((b, m), dtype=torch.float32, device=q.device)
     if b and m:
-        build.launch("score_candidates_f32", q, cand, out, b, m, n,
-                     build.MEASURE_CODES[measure], int(shared))
-        build.count_launch(score_candidates)
+        cost.charge("score_candidates",
+                    lambda: cost.score_candidates(b, m, n, shared))
+        if not meta:
+            build.launch("score_candidates_f32", q, cand, out, b, m, n,
+                         build.MEASURE_CODES[measure], int(shared))
+            build.count_launch(score_candidates)
     return out
 
 

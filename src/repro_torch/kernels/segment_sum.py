@@ -41,7 +41,7 @@ from typing import Optional
 
 import torch
 
-from . import build, ref
+from . import build, cost, ref
 
 DTYPES = {torch.float32: "segment_sum_f32", torch.bfloat16: "segment_sum_bf16"}
 # the kernel's schedule (csrc/segment_sum.cu): a warp walks a chunk of
@@ -109,11 +109,14 @@ def build_csr(index: torch.Tensor, n: int,
     whose cost prefix lies in [c·w, (c + 1)·w), so at most w rows and
     w + HEAVY edges. ``heavy_rows`` has n_live // (HEAVY + 1) slots, at
     least one for each heavy row, the longest first: their units start at
-    the launch's start, the chains that set its length."""
+    the launch's start, the chains that set its length. A ``meta`` index
+    gets tables of those sizes with every edge live (:func:`_meta_csr`)."""
     idx = index.long()
     if idx.numel() >= 2 ** 31:
         raise ValueError(f"build_csr: {idx.numel()} edges overflow the "
                          f"kernel's int32 edge ids")
+    if idx.device.type == "meta":
+        return _meta_csr(idx, n, mask)
     live = None if mask is None else mask != 0
     n_live = idx.numel() if live is None else int(live.sum())
     if n_live == idx.numel():
@@ -143,14 +146,32 @@ def build_csr(index: torch.Tensor, n: int,
                heavy_rows.to(torch.int32), n_huge)
 
 
+def _meta_csr(idx: torch.Tensor, n: int, mask: Optional[torch.Tensor]
+              ) -> CSR:
+    """The CSR of a ``meta`` index, sized with every edge live (which edges
+    the mask leaves out is data): the tables of the sizes the card's
+    :func:`build_csr` gives such an index, on ``meta``, with no host
+    sync."""
+    e = idx.numel()
+    i32 = dict(dtype=torch.int32, device=idx.device)
+    n_chunks = -(-(n + e) // chunk_size(n, e))
+    return CSR(idx, None if mask is None else mask != 0,
+               torch.empty(e, **i32), torch.empty(n + 1, **i32), n,
+               torch.empty(n_chunks + 1, **i32),
+               torch.empty(e // (HEAVY + 1), **i32), torch.empty(1, **i32))
+
+
 def segment_sum(x: torch.Tensor, csr: CSR) -> torch.Tensor:
     """(N, H) segment sums of ``x (E, H)`` in the CSR's fixed order.
 
     CUDA tensors go through the kernel (contiguous 2-D f32 or bf16 on the
-    CSR's device, else ValueError); CPU tensors take the plain version.
+    CSR's device, else ValueError); CPU tensors take the plain version;
+    meta tensors the meta route (the output on ``meta``, the cost charged,
+    no launch).
     """
     if x.device.type == "cpu":
         return ref.segment_sum_ref(x, csr.perm, csr.indptr)
+    meta = build.on_meta("segment_sum", x, csr.perm, csr.indptr)
     build.check_cuda("segment_sum", x, 2, tuple(DTYPES), x.device)
     for name, t in (("perm", csr.perm), ("indptr", csr.indptr),
                     ("chunk_rows", csr.chunk_rows),
@@ -163,11 +184,15 @@ def segment_sum(x: torch.Tensor, csr: CSR) -> torch.Tensor:
     h = x.shape[1]
     out = torch.empty((csr.n, h), dtype=x.dtype, device=x.device)
     if csr.n and h:
-        build.launch(DTYPES[x.dtype], x, csr.perm, csr.indptr,
-                     csr.chunk_rows, csr.heavy_rows, csr.n_huge, out, csr.n,
-                     csr.perm.numel(), h, csr.chunk_rows.numel() - 1,
-                     csr.heavy_rows.numel(), HEAVY)
-        build.count_launch(segment_sum)
+        cost.charge("segment_sum", lambda: cost.segment_sum(
+            h, csr.perm.numel(), csr.n, x.element_size()))
+        if not meta:
+            build.launch(DTYPES[x.dtype], x, csr.perm, csr.indptr,
+                         csr.chunk_rows, csr.heavy_rows, csr.n_huge, out,
+                         csr.n, csr.perm.numel(), h,
+                         csr.chunk_rows.numel() - 1, csr.heavy_rows.numel(),
+                         HEAVY)
+            build.count_launch(segment_sum)
     return out
 
 

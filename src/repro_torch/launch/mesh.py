@@ -15,6 +15,11 @@ blocks and kernel launches of its own: this shows the sharded algorithm's
 correctness and per-shard cost, not cross-card bandwidth. On the CPU every
 position is ``cpu``.
 
+The reference's three named meshes come as functions of the same name
+(:func:`make_production_mesh`, :func:`make_debug_mesh`,
+:func:`make_host_mesh`), each placing its positions on ``device`` as
+:func:`make_mesh` does; the dry run places them on ``meta``.
+
 Functions, not module constants: importing this module touches no device.
 """
 from __future__ import annotations
@@ -86,3 +91,24 @@ def make_mesh(names: Sequence[str], sizes: Sequence[int],
         n *= s
     return Mesh(names, sizes, mesh_devices(n, device))
 
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda") -> Mesh:
+    """The reference's production mesh: one 16×16 pod (data, model), or
+    with ``multi_pod`` two of them (pod=2, data=16, model=16)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(axes, shape, device)
+
+
+def make_debug_mesh(*, multi_pod: bool = False, device="cuda") -> Mesh:
+    """The reference's small mesh for fast iteration, 8 positions:
+    data=2, model=4, or with ``multi_pod`` pod=2, data=2, model=2."""
+    shape = (2, 2, 2) if multi_pod else (2, 4)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(axes, shape, device)
+
+
+def make_host_mesh(device="cuda") -> Mesh:
+    """One position, every axis of size 1 (data=1, model=1)."""
+    return make_mesh(("data", "model"), (1, 1), device)

@@ -1,7 +1,7 @@
 """Cells: one step function per (architecture × input shape), the
-reference's ``repro.launch.steps`` for the LM, GNN and recsys families on
-one device (the GNN's ``comm`` variant on the port's single-process
-mesh).
+reference's ``repro.launch.steps`` for the LM, GNN, recsys and CF
+families on one device (the GNN's ``comm`` variant on the port's
+single-process mesh).
 
 ``build_cell(arch, shape_name)`` returns a :class:`Cell`: the step
 function and example inputs on the ``meta`` device (shapes and dtypes, no
@@ -19,17 +19,17 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from ..configs.base import ArchConfig, ShapeSpec
+from ..core import knn as core_knn
+from ..core.graph import build_neighbor_graph
+from ..core.selection import select_landmarks
+from ..core.types import NeighborGraph, round_up
+from ..kernels import ops
 from ..models import gnn as gnn_mod
 from ..models import recsys as rec_mod
 from ..models import transformer as lm_mod
 from ..train.optimizer import opt_init, opt_update
 from .mesh import make_mesh
 
-# where the other families wait (ROADMAP queue 1)
-WAITING = {
-    "cf": "the CF cells wait with launch/dryrun.py (ROADMAP queue 1, item "
-          "3); fit and serve CF through launch/serve.py",
-}
 # the GNN's comm variant runs on the reference's debug mesh
 COMM_MESH = (("data", "model"), (2, 4))
 
@@ -255,22 +255,79 @@ def _rec_cell(arch: ArchConfig, shape: ShapeSpec) -> Cell:
     return Cell(arch, shape, step, (model, batch))
 
 
+def _cf_cell(arch: ArchConfig, shape: ShapeSpec,
+             variant: str = "base") -> Cell:
+    """Landmark CF at ``shape`` (the reference's ``_cf_cell``), on the
+    device of the ratings it is given.
+
+    ``cf_fit``: ``step(generator, ratings)`` selects the landmarks (the
+    random strategies draw from the ``torch.Generator``, the reference's
+    ``key``; the registry's popularity needs none, so the cell's example
+    passes None), computes d1 through ``kernels/ops.py::masked_similarity``
+    (kernel 1, ``masked_similarity.cu``, on CUDA tensors) and the (U, k)
+    graph through ``core/graph.py::build_neighbor_graph`` (kernel 2,
+    ``knn_topk.cu``'s scan, the ``kernel`` backend, on CUDA tensors; the
+    plain d1 and the streaming graph on CPU ones), and returns
+    ``(landmark ids, representation, weights, neighbor ids)``; the (U, U)
+    matrix never exists. ``cf_predict``: ``step(weights, neighbor ids,
+    ratings, users, items)`` runs ``core/knn.py::predict_pairs_graph``
+    over the ``NeighborGraph``.
+
+    The reference holds the ratings in bf16 past 100,000 users; kernel 1
+    reads f32, so the port holds them in f32 at every size (4 bytes a
+    rating: 275 GB at ``web_fit``'s 1,048,576 × 65,536, against the
+    reference's 137 GB), and the dry run counts what it holds. Users are
+    padded to a multiple of 8, as the reference's one-shard mesh pads
+    them. The reference's ``fused`` variant is its pod-scale route
+    through ``topk_sim_kernel`` under ``shard_map``; on one card the
+    ``kernel`` backend is that route, so ``fused`` builds this same step.
+    """
+    if variant not in ("base", "fused"):
+        raise ValueError(f"unknown CF variant {variant!r}")
+    spec = arch.model
+    d = shape.dims
+    u = round_up(d["n_users"], 8)
+    n_lm = d.get("n_landmarks", spec.n_landmarks)
+    ratings = _meta((u, d["n_items"]), torch.float32)
+    if shape.kind == "cf_fit":
+        def step(generator, r):
+            idx = select_landmarks(r, n_lm, spec.selection, generator)
+            rep = ops.masked_similarity(r, r[idx], spec.d1)
+            backend = "streaming" if r.device.type == "cpu" else "kernel"
+            graph = build_neighbor_graph(rep, spec.d2, spec.k_neighbors,
+                                         backend)
+            return idx, rep, graph.weights, graph.indices
+
+        return Cell(arch, shape, step, (None, ratings))
+    if shape.kind != "cf_predict":
+        raise ValueError(f"unknown CF shape kind {shape.kind!r}")
+    pairs = d["n_pairs"]
+
+    def step(nbr_w, nbr_i, r, users, items):
+        return core_knn.predict_pairs_graph(NeighborGraph(nbr_i, nbr_w), r,
+                                            users, items)
+
+    k = spec.k_neighbors
+    return Cell(arch, shape, step, (
+        _meta((u, k), torch.float32), _meta((u, k), torch.int32), ratings,
+        _meta((pairs,), torch.int32), _meta((pairs,), torch.int32)))
+
+
 def build_cell(arch: ArchConfig, shape_name: str,
                variant: str = "base") -> Cell:
     """The cell of ``arch`` at its shape ``shape_name``. ``variant``, for a
     decode shape: ``landmark`` (O(n) landmark decode) or ``kv_int8`` (the
-    int8 KV cache); for a GNN shape: ``comm`` (the mesh form).
-    Families other than the LM, the GNN and recsys raise
-    NotImplementedError, naming where they wait."""
+    int8 KV cache); for a GNN shape: ``comm`` (the mesh form); for a CF
+    fit: ``fused`` (the same step on one card)."""
     shape = arch.shape(shape_name)
     if arch.family == "gnn":
         return _gnn_train_cell(arch, shape, variant)
     if arch.family == "recsys":
         return _rec_cell(arch, shape)
+    if arch.family == "cf":
+        return _cf_cell(arch, shape, variant)
     if arch.family != "lm":
-        raise NotImplementedError(
-            f"build_cell: the {arch.family!r} family is not ported: "
-            + WAITING.get(arch.family, "unknown family"))
+        raise ValueError(f"build_cell: unknown family {arch.family!r}")
     if shape.kind == "train":
         return _lm_train_cell(arch, shape)
     if shape.kind == "prefill":

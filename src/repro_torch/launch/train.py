@@ -143,6 +143,10 @@ def main(argv=None):
         raise RuntimeError("launch.train: no CUDA device; pass --device cpu "
                            "to train on the CPU")
     arch = registry.get(args.arch)
+    if arch.family == "cf":
+        raise ValueError(f"launch.train: {args.arch!r} fits rather than "
+                         f"trains: serve it with launch.serve --workload cf, "
+                         f"or run its cf_fit cell (launch/steps.py)")
     shape_name = args.shape or arch.shapes[0].name
     if arch.family == "gnn" and shape_name == "ogb_products":
         raise NotImplementedError(OGB_WAITS)

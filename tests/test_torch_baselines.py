@@ -14,6 +14,7 @@ rows accumulates in another order), for BPMF's samplers and for a
 2 + 2-sweep chain (batched Cholesky solves and inverses of LAPACK builds of
 their own); ``_hist_table``: equal arrays.
 """
+import torch_thread_cap  # noqa: F401 (torch threads per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

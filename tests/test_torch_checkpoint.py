@@ -4,6 +4,7 @@ package loads in the other, bit for bit, plain and compact (uint16 ids,
 bf16 weights), and the commit protocol (tmp dir + rename, manifest
 required, keep-3) behaves the same.
 """
+import torch_thread_cap  # noqa: F401 (torch threads per xdist worker)
 import json
 
 import jax

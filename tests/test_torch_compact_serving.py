@@ -10,6 +10,7 @@ Tolerances:
   reference's bf16 bound (``tests/test_lifecycle.py``);
 - the CLIs' artifact-size and compaction lines: equal text.
 """
+import torch_thread_cap  # noqa: F401 (torch threads per xdist worker)
 import re
 
 import jax

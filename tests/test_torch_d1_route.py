@@ -19,6 +19,7 @@ Tolerances:
 - on 0.1-step values the emulation is *not* the plain version: the guard
   is needed.
 """
+import torch_thread_cap  # noqa: F401 (torch threads per xdist worker)
 import numpy as np
 import pytest
 import torch

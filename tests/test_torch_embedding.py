@@ -18,6 +18,7 @@ Tolerances:
   bitwise ``jax.ops.segment_sum``;
 - the generators: byte-identical arrays.
 """
+import torch_thread_cap  # noqa: F401 (torch threads per xdist worker)
 import numpy as np
 import pytest
 import torch

@@ -13,6 +13,7 @@ Tolerances (``ROADMAP.md``'s parity rule):
 
 Every wait on a thread has a timeout.
 """
+import torch_thread_cap  # noqa: F401 (torch threads per xdist worker)
 import threading
 import time
 

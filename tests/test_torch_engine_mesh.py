@@ -11,6 +11,7 @@ predictions within rtol=1e-5, atol=1e-6. The CLI runs at ``--smoke`` under
 the mesh's 2000 ms read SLO with ``--rate 500``; no other wall-clock bound
 is asserted.
 """
+import torch_thread_cap  # noqa: F401 (torch threads per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -9,6 +9,7 @@ rtol=1e-5, atol=1e-6 of the reference's; the port's engine against itself
 (micro-batched against solo) bitwise; generations and counters exactly.
 Every wait on a thread has a timeout.
 """
+import torch_thread_cap  # noqa: F401 (torch threads per xdist worker)
 import threading
 
 import jax

@@ -31,6 +31,7 @@ Tolerances:
   sign) and within 0.01·lr where |g| ≥ 1e-3·max|g|;
 - checkpoints across packages: bitwise.
 """
+import torch_thread_cap  # noqa: F401 (torch threads per xdist worker)
 import dataclasses
 
 import numpy as np

@@ -48,6 +48,7 @@ Tolerances:
   (the kernel's f32 sums in another order, rounded to bf16 on the way
   out, then two layers of bf16 products).
 """
+import torch_thread_cap  # noqa: F401 (torch threads per xdist worker)
 import importlib.util
 from pathlib import Path
 

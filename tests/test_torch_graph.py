@@ -15,6 +15,7 @@ Tolerances:
   reference's |u|² − 2z + |v|² leaves a rounding residual there that the
   square root magnifies to ~1e-3.
 """
+import torch_thread_cap  # noqa: F401 (torch threads per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -10,6 +10,7 @@ Tolerances:
   at the cut (``core.topk.list_mismatches``); empty slots are (-inf, 0) in
   both.
 """
+import torch_thread_cap  # noqa: F401 (torch threads per xdist worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -15,6 +15,7 @@ exact count. Only the cosine normalization differs in order (left to
 right here, as the kernel adds), which could move an assignment at a near
 tie; the inputs below have none.
 """
+import torch_thread_cap  # noqa: F401 (torch threads per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

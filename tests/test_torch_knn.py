@@ -7,6 +7,7 @@ Both packages serve from the same fitted state: the reference fits, and
 - top-N item ids: equal, except where the reference's own scores tie
   within that tolerance at the cut-off (``core.topk.list_mismatches``).
 """
+import torch_thread_cap  # noqa: F401 (torch threads per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

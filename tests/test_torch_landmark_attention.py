@@ -22,6 +22,7 @@ Tolerances:
   version;
 - the split into bf16 terms: exact (three terms hold a normal f32 value).
 """
+import torch_thread_cap  # noqa: F401 (torch threads per xdist worker)
 import numpy as np
 import pytest
 import torch

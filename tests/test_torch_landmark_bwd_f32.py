@@ -20,6 +20,7 @@ log2 units and hi/lo roundings. It is held here
 and leaving out each second-term product (K1 in dQ, q1 in dK, V1 in dP and
 dPᵀ) is shown to break the bound, which is why the kernel issues all 27.
 """
+import torch_thread_cap  # noqa: F401 (torch threads per xdist worker)
 import numpy as np
 import pytest
 import torch

@@ -18,6 +18,7 @@ and hi/lo roundings. It is held here
 and one bf16 term of P, dS and dO (``split=False``) is shown to break the
 bound, which is why the kernel splits them.
 """
+import torch_thread_cap  # noqa: F401 (torch threads per xdist worker)
 import numpy as np
 import pytest
 import torch

@@ -15,6 +15,7 @@ their plain versions on CPU tensors. Tolerances:
   differ must be few (the d2 cosines cluster near 1.0, ~1e-7 apart);
 - synthetic data: byte-identical (the same numpy generator and seed).
 """
+import torch_thread_cap  # noqa: F401 (torch threads per xdist worker)
 import dataclasses
 
 import jax

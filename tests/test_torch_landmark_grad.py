@@ -25,6 +25,7 @@ Tolerances:
   routing of the forward must be equal (f32), as in
   ``tests/test_torch_lm.py``.
 """
+import torch_thread_cap  # noqa: F401 (torch threads per xdist worker)
 import dataclasses
 from unittest import mock
 

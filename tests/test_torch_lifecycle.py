@@ -13,6 +13,7 @@ Tolerances:
   to their contracts (distinct in-range ids, determinism per seed, the
   reservoir's fill and offer counts), not to the reference's picks.
 """
+import torch_thread_cap  # noqa: F401 (torch threads per xdist worker)
 import math
 
 import jax

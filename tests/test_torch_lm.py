@@ -54,6 +54,7 @@ show it: up to 8 ids a test differ, at relative gaps of 0.0005–0.017
 (full attention) and up to 0.031 (landmark); without the replay such a
 flip moves logits by up to 0.56. f32 shows none.
 """
+import torch_thread_cap  # noqa: F401 (torch threads per xdist worker)
 import collections
 import contextlib
 import dataclasses

@@ -16,6 +16,7 @@ Tolerances:
   bf16 ulp, 0.0078 at magnitude ~2, 0.4%); expert ids, slots and the
   dropped set equal, since the router runs in f32 on the same bf16 inputs.
 """
+import torch_thread_cap  # noqa: F401 (torch threads per xdist worker)
 import dataclasses
 
 import numpy as np

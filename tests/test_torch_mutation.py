@@ -11,6 +11,7 @@ graph lists within rtol=1e-5, atol=1e-6 with ids equal except where the
 reference's weights tie within that tolerance at the cut
 (``core.topk.list_mismatches``).
 """
+import torch_thread_cap  # noqa: F401 (torch threads per xdist worker)
 import dataclasses
 
 import jax

@@ -11,6 +11,7 @@ imported, not edited).
 Exact equality throughout: the registry, sampler and publishers are the
 same pure-Python arithmetic in both packages.
 """
+import torch_thread_cap  # noqa: F401 (torch threads per xdist worker)
 import dataclasses
 import json
 import math

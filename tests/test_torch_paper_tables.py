@@ -5,6 +5,7 @@ reference's ``benchmarks.paper_tables._eval_landmark`` and
 (rtol=1e-5, atol=1e-6); the model-based rows on their contracts (finite
 MAE, positive times, the ratio to the landmark row).
 """
+import torch_thread_cap  # noqa: F401 (torch threads per xdist worker)
 import importlib.util
 import runpy
 import sys

@@ -23,6 +23,7 @@ Tolerances:
 - FM's sum-square trick against the pairwise sum in the port: rtol 1e-5,
   atol 1e-6.
 """
+import torch_thread_cap  # noqa: F401 (torch threads per xdist worker)
 import numpy as np
 import pytest
 import torch

@@ -16,6 +16,7 @@ Tolerances:
   top-10 overlap and neighbor quality within 1e-5 of the reference
   example's, its attention errors within rtol 1e-4.
 """
+import torch_thread_cap  # noqa: F401 (torch threads per xdist worker)
 import dataclasses
 import importlib.util
 from pathlib import Path

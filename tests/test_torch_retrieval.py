@@ -19,6 +19,7 @@ Tolerances:
   members in ascending row order, as ``jax.ops.segment_sum`` does) and
   assignments equal.
 """
+import torch_thread_cap  # noqa: F401 (torch threads per xdist worker)
 import dataclasses
 
 import jax

@@ -12,6 +12,7 @@ The reference's sharded functions are not used (ROADMAP B1). So:
 
 Meshes: ``pod=2,data=4`` (8 shards) and the one-axis ``data=4``.
 """
+import torch_thread_cap  # noqa: F401 (torch threads per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -18,6 +18,7 @@ the kernel's numbering of its units (:func:`_heavy_units`) give every
 (heavy segment, slice) once, longest first, unused slots past N; a unit
 or a span dropped or stored twice makes the emulation raise.
 """
+import torch_thread_cap  # noqa: F401 (torch threads per xdist worker)
 import dataclasses
 
 import numpy as np

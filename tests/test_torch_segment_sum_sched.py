@@ -13,6 +13,7 @@ other case takes ``CHUNK_MIN``), every segment empty, zero live edges and
 the four index kinds of ``tests/test_torch_gnn.py``. A schedule that drops a
 heavy segment or overlaps two chunks makes the emulation raise.
 """
+import torch_thread_cap  # noqa: F401 (torch threads per xdist worker)
 import dataclasses
 
 import numpy as np

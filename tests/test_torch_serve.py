@@ -1,6 +1,7 @@
 """The port's serve CLI and its rules, on the CPU: the CLI runs end to end,
 no source of the port imports JAX or the JAX package, the kernel wrappers
 never launch for CPU tensors, and the card is the default device."""
+import torch_thread_cap  # noqa: F401 (torch threads per xdist worker)
 import re
 from pathlib import Path
 

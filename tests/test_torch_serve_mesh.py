@@ -8,6 +8,7 @@ Inside the replay every wave's predictions and top-N are asserted bitwise
 against a single-device shadow replay of the same stream, and the swapped
 artifact against a one-device fit from scratch.
 """
+import torch_thread_cap  # noqa: F401 (torch threads per xdist worker)
 import pytest
 import torch
 

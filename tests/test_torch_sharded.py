@@ -15,6 +15,7 @@ from run to run on the forced 8-device host platform (ROADMAP B1). So:
 
 Meshes: ``pod=2,data=4`` (8 shards) and the 1-axis ``data=3``.
 """
+import torch_thread_cap  # noqa: F401 (torch threads per xdist worker)
 import dataclasses
 
 import jax

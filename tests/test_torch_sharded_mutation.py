@@ -14,6 +14,7 @@ path, not to the reference's sharded functions (ROADMAP B1):
 
 Meshes: ``pod=2,data=4`` (8 shards) and the one-axis ``data=4``.
 """
+import torch_thread_cap  # noqa: F401 (torch threads per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

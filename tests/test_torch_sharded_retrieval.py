@@ -13,6 +13,7 @@ one-device ``build_index`` / ``search``.
 The reference's sharded retrieval is not used: its tests fail from run to
 run (ROADMAP B1).
 """
+import torch_thread_cap  # noqa: F401 (torch threads per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -8,6 +8,7 @@ Tolerances:
   moment is an exact integer in f32 (P·25 < 2^24), and the cosine
   epilogue is the same IEEE operations in the same order.
 """
+import torch_thread_cap  # noqa: F401 (torch threads per xdist worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -13,6 +13,7 @@ and the selection must not change which of two equal scores is kept.
 ``knn_topk.plan_scan``, which sizes the kernel's splits, is checked for
 covering every tile once.
 """
+import torch_thread_cap  # noqa: F401 (torch threads per xdist worker)
 import numpy as np
 import pytest
 import torch

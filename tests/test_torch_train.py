@@ -28,6 +28,7 @@ Tolerances:
 - the trainer in bf16 (the smoke model's own dtype): losses within rtol
   1e-2 of the reference's, the bf16 loss bound of ``test_torch_lm.py``.
 """
+import torch_thread_cap  # noqa: F401 (torch threads per xdist worker)
 import dataclasses
 import importlib.util
 import os
@@ -445,10 +446,12 @@ def test_build_cell_cells_and_waiting_families():
     assert steps.build_cell(arch, "decode_32k", "kv_int8").args[1][
         "k"].dtype == torch.int8
     assert "q_lm" in steps.build_cell(arch, "long_500k", "landmark").args[1]
-    other = ArchConfig(name="x", family="cf", model=None, smoke_model=None,
+    other = ArchConfig(name="x", family="x", model=None, smoke_model=None,
                        shapes=arch.shapes)
-    with pytest.raises(NotImplementedError, match=r"item 3\)"):
+    with pytest.raises(ValueError, match="unknown family 'x'"):
         steps.build_cell(other, "train_4k")
+    cf = steps.build_cell(registry.get("landmark_cf"), "ml1m_fit")
+    assert cf.args[0] is None and cf.args[1].shape == (6040, 3952)
     rec = steps.build_cell(registry.get("bert4rec"), "train_batch")
     assert rec.args[2]["mask_positions"].shape == (65536, 40)
     assert rec.args[1]["leaves"]["layers"]["w1"]["m"].shape == (2, 64, 256)

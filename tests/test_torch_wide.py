@@ -17,6 +17,7 @@ Tolerances:
   predictions within the score tolerance (``test_torch_landmark_cf.py``'s
   rule).
 """
+import torch_thread_cap  # noqa: F401 (torch threads per xdist worker)
 import dataclasses
 
 import jax
