@@ -22,9 +22,12 @@ non-zero and prints no result. Phases, one line each:
 3. kernels — each kernel against its plain version on the card, at the
    main-path shapes, at ragged shapes, on duplicated rows and (the top-k
    scan) at the paper tables' widest representation, 100 landmarks, all
-   three measures; the top-k kernels bitwise (values and ids), or the run fails; d1 on both routes, the tensor-core route bitwise the f32
-   route, also at the guard's limits (|v| = 8, P = 65535), and off the
-   guard (1.1-star steps) the f32 route's result;
+   three measures; the top-k kernels bitwise (values and ids), or the
+   run fails; d1 on both routes, the tensor-core route bitwise the f32
+   route, also at 128 landmarks (the cluster kernel) and at the guard's
+   limits (|v| = 8: half stars at P = 65,535, integers at P = 262,140),
+   and off the guard (1.1-star steps; half stars at P = 65,536) the f32
+   route's result;
 4. main path — MovieLens-1M-shaped synthetic ratings (seed 0), fold 0:
    fit on all users but the last 64, predict the test pairs, top-10 for
    256 users, fold in the last 64 users and predict theirs; run (a) with
@@ -234,9 +237,10 @@ The any-landmark-count slice adds:
     tally) and each bitwise its plain version on those inputs; (c) fit →
     fold-in at ``web_fit``'s P = 65,536 items and n = 128, U cut from
     1,048,576 to 32,768 users (dense f32 ratings of all users take 275
-    GB) made on the card from a seeded generator in 4096-row blocks: the
-    cut, fit and fold-in seconds and peak memory printed. The kernel
-    table gains each row's launches in (a) and (b) (``launches_wide``).
+    GB) made on the card from a seeded generator in 4096-row blocks:
+    every d1 call on the tensor-core route with its result kept; the cut,
+    fit and fold-in seconds and peak memory printed. The kernel table
+    gains each row's launches in (a) and (b) (``launches_wide``).
 
 The MoE slice adds:
 
@@ -378,24 +382,29 @@ The cells slice adds:
     ``netflix1m_fit`` on ``data.synthesize("movielens1m"/"netflix1m")``
     (every rating; users padded to 8), ``ml1m_predict``'s 131,072 pairs
     over the ml1m_fit graph, and ``web_fit`` with U cut to the most one
-    card holds (the largest multiple of ``WEB_STEP`` whose dry-run
-    argument and temp bytes fit ``WEB_HEADROOM`` of the card; ratings
-    made on the card as 14c's): kernels 1 and 2 launched in each fit, the
-    outputs equal to the plain path's (popularity landmarks, the plain d1,
-    the streaming graph; web_fit on ``CF_SAMPLE`` rows) under the tie
-    rule, the predictions to a CPU run's within the parity tolerance;
-    times printed; (b) ``launch.dryrun --all`` on meta, a line per cell,
-    then the CF cells and four smoke cells (SmolLM's with full and with
-    landmark attention, GatedGCN's, FM's) counted on the card by
+    card holds (``tools/profile_web_fit.py::web_users``: the largest
+    multiple of ``WEB_STEP`` whose dry-run argument and temp bytes fit
+    ``WEB_HEADROOM`` of the card; ratings made on the card as 14c's):
+    kernels 1 and 2 launched in each fit, d1 once on its tensor-core route
+    with its result kept (web_fit's past 65,535 items on the cluster
+    kernel), bitwise ``route="f32"`` on the same rows, cosine bitwise the
+    plain version, the outputs equal to the plain path's (popularity
+    landmarks, the plain d1, the streaming graph; web_fit on ``CF_SAMPLE``
+    rows) under the tie rule, the predictions to a CPU run's within the
+    parity tolerance; times printed, and web_fit's step split by kernel
+    from a profiled step (d1, kernel 2's wide prep and scan, the popularity
+    count, everything else); (b) ``launch.dryrun --all`` on meta, a line
+    per cell, then the CF cells and four smoke cells (SmolLM's with full
+    and with landmark attention, GatedGCN's, FM's) counted on the card by
     ``launch/step_costs.py::measure``: FLOPs and kernel calls equal to the
     dry run's count of the same cell, and the card's peak allocated bytes
     beyond what it held within ``TEMP_REL`` of the dry run's temp bytes
     plus ``TEMP_ABS``; (c) ``distributed/compression.py`` on the card: the
-    quantizers, error feedback and ``tree_compress`` bitwise the CPU's
-    over 3 steps, ``psum_compressed`` on ``make_debug_mesh()`` (8
-    positions round robin on one card) bitwise the CPU mesh's and within
-    the reference test's bound. The kernel table gains each row's
-    launches in (a) (``launches_cells``).
+    quantizers, error feedback and ``tree_compress`` bitwise the CPU's over
+    3 steps, ``psum_compressed`` on ``make_debug_mesh()`` (8 positions
+    round robin on one card) bitwise the CPU mesh's and within the
+    reference test's bound. The kernel table gains each row's launches in
+    (a) (``launches_cells``).
 
 The last two lines are the kernel table and
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. TF32 is off for
@@ -429,6 +438,7 @@ from repro_torch.core import (RatingMatrix, fit, fold_in, knn,  # noqa: E402
 from repro_torch.core import similarity as sim  # noqa: E402
 from repro_torch.core.graph import (build_neighbor_graph,  # noqa: E402
                                     filter_self_from_topk, kernel_rows)
+from repro_torch.core import selection  # noqa: E402
 from repro_torch.core.selection import popularity_landmarks  # noqa: E402
 from repro_torch.core.topk import canonical_topk, list_mismatches  # noqa: E402
 from repro_torch.data import ratings as data  # noqa: E402
@@ -466,6 +476,7 @@ from repro_torch.train import trainer  # noqa: E402
 sys.path.insert(0, str(ROOT / "tools"))
 import paper_tables_torch as paper  # noqa: E402
 import time_segment_sum as segsum_tool  # noqa: E402
+import profile_web_fit as web_tool  # noqa: E402
 
 _spec = importlib.util.spec_from_file_location(
     "landmark_retrieval_torch",
@@ -597,8 +608,9 @@ def phase_build():
         _wgmma_report(log, "landmark_summary_bwd", _bwd_name, 12,
                       "2 forms x 2 passes x 3 head dims")))
     print("phase 2 d1 tensor-core kernel: " + json.dumps(_wgmma_report(
-        log, "masked_similarity", _d1_name, 2,
-        "16-byte and 4-byte loads")))
+        log, "masked_similarity", _d1_name, 6,
+        "16-byte and 4-byte loads and the cluster kernel, each for half "
+        "stars and for integers")))
     print("phase 2 fused probe kernel: " + json.dumps(_ptxas(log, _probe_name)))
     print("phase 2 top-k scan kernel: " + json.dumps(_ptxas(log, _scan_name)))
     print("phase 2 Lloyd kernel: " + json.dumps(_ptxas(log, _lloyd_name)))
@@ -626,12 +638,20 @@ def _bwd_name(line):
 
 
 def _d1_name(line):
-    """'16-byte loads' / '4-byte loads' for a line naming an instantiation
-    of d1's tensor-core moments kernel (template <bool VEC>), else None."""
+    """'16-byte loads, half stars' / '4-byte loads, integers' / 'cluster,
+    half stars' ... for a line naming an instantiation of d1's tensor-core
+    moments kernel (template <bool VEC, bool HALF>) or of its cluster
+    kernel (22..128 landmarks, TMA multicast; template <bool HALF>), else
+    None."""
     import re
 
-    m = re.search(r"moments_wgmma_kernelILb([01])E", line)
-    return f"{(4, 16)[int(m.group(1))]}-byte loads" if m else None
+    values = ("integers", "half stars")
+    m = re.search(r"moments_cluster_kernelILb([01])E", line)
+    if m:
+        return f"cluster, {values[int(m.group(1))]}"
+    m = re.search(r"moments_wgmma_kernelILb([01])ELb([01])E", line)
+    return (f"{(4, 16)[int(m.group(1))]}-byte loads, "
+            f"{values[int(m.group(2))]}" if m else None)
 
 
 def _probe_name(line):
@@ -807,17 +827,33 @@ def phase_kernels(train):
     d1("fit", fit_r, lm, True)
     d1("fold-in", new_r, lm, True)
     d1("ragged", ra[:1000], ra[1000:], False)
+    # the cluster kernel at 4 N tiles of 32 (128 landmarks) and at 3 (80:
+    # ranks multicast 3, 3 and 2 of a stage's 8 boxes, and guard uneven
+    # shares of its chunks)
+    for n in (WEB_N, 80):
+        d1(f"n={n}", fit_r, fit_r[popularity_landmarks(fit_r, n)], False)
     # the guard's limits: ±8, ±7.5 and ½ at the largest P the route takes
-    # (every x and y up to 64·P, just under 2^22), bitwise the f32 route
+    # half stars at (every x and y up to 64·P, just under 2^22); ±8 and 5
+    # integers at the largest P it takes with 16-byte loads (64·P just
+    # under 2^24; the cluster kernel at B = 128), bitwise the f32 route
     rng = np.random.default_rng(13)
-    big = rng.choice([-8.0, -7.5, 0.5, 7.5, 8.0], (155, ref.D1_MAX_ITEMS))
-    big *= rng.random(big.shape) < 0.7
-    big[:3] = 8.0
-    big = torch.as_tensor(big.astype(np.float32), device=DEVICE)
-    d1("guard limits", big[:130], big[130:], False)
+    for tag, vals, p, b in (
+            ("half-star limit", [-8.0, -7.5, 0.5, 7.5, 8.0],
+             ref.D1_HALF_ITEMS, 25),
+            ("integer limit", [-8.0, -5.0, 5.0, 8.0], ref.D1_MAX_ITEMS - 3,
+             128)):
+        big = rng.choice(vals, (130 + b, p))
+        big *= rng.random(big.shape) < 0.7
+        big[:3] = 8.0
+        big[130:133] = -8.0
+        big = torch.as_tensor(big.astype(np.float32), device=DEVICE)
+        if not ref.d1_guard_ref(big):
+            raise AssertionError(f"d1 {tag}: the values fail the guard")
+        d1(tag, big[:130], big[130:], False)
+        del big
     results = ms.route_results()
-    if results != {"tensor_core": 12, "f32_fallback": 0}:
-        raise AssertionError(f"d1 on ratings: results {results}, not 12 "
+    if results != {"tensor_core": 21, "f32_fallback": 0}:
+        raise AssertionError(f"d1 on ratings: results {results}, not 21 "
                              f"tensor-core results")
     # off the guard (1.1-star steps): the f32 route's result, bitwise
     off = ra[:1000] * 1.1
@@ -828,11 +864,24 @@ def phase_kernels(train):
         if not torch.equal(got, want):
             raise AssertionError("d1 off the guard: not the f32 route's "
                                  "result")
+    # half stars past the half-star limit: the f32 result, counted
+    rng = np.random.default_rng(16)
+    half = rng.integers(1, 11, (300, ref.D1_HALF_ITEMS + 1)) / 2
+    half *= rng.random(half.shape) < 0.05
+    half = torch.as_tensor(half.astype(np.float32), device=DEVICE)
+    got = ops.masked_similarity(half[:172], half[172:])
+    want = ops.masked_similarity(half[:172], half[172:], route="f32")
+    sync()
+    if not torch.equal(got, want):
+        raise AssertionError("d1 half stars at P = 65,536: not the f32 "
+                             "route's result")
     results = ms.route_results()
-    if results != {"tensor_core": 12, "f32_fallback": 3}:
+    if results != {"tensor_core": 21, "f32_fallback": 4}:
         raise AssertionError(f"d1 off the guard: results {results}")
-    notes.append(f"d1 guard: P={ref.D1_MAX_ITEMS} at |v| <= 8 bitwise; "
-                 f"1.1-steps take the f32 result ({results})")
+    notes.append(f"d1 guard: P={ref.D1_HALF_ITEMS} at |v| <= 8 and "
+                 f"P={ref.D1_MAX_ITEMS - 3} on integers bitwise; 1.1-steps "
+                 f"and half stars at P={ref.D1_HALF_ITEMS + 1} take the f32 "
+                 f"result ({results})")
 
     rep = sim.masked_similarity(train, lm)  # (U, n) as the main path makes it
     rag = sim.masked_similarity(ra[:1001], ra[:20])
@@ -3306,25 +3355,6 @@ def phase_engine_mesh(a, card):
 WEB_N = cfg.WEB_FIT["n_landmarks"]  # 128: the registry's web_fit cell
 WIDE_SPEC = dataclasses.replace(cfg.MODEL, n_landmarks=WEB_N)
 WEB_USERS = 32768  # web_fit's 1,048,576 users, cut to what one card holds
-WEB_DENSITY = 0.02  # 1-5 stars on 2% of the (user, item) cells
-WEB_BLOCK = 4096  # rows generated at a time
-
-
-def _web_ratings(u, p, seed=0):
-    """(u, p) f32 star ratings made on the card, WEB_BLOCK rows at a time,
-    each block from its own seeded generator."""
-    r = torch.empty((u, p), device=DEVICE)
-    gen = torch.Generator(device=DEVICE)
-    for b0 in range(0, u, WEB_BLOCK):
-        gen.manual_seed(seed * 1_000_003 + b0)
-        blk = r[b0:b0 + WEB_BLOCK]
-        stars = torch.randint(1, 6, blk.shape, generator=gen, device=DEVICE)
-        keep = torch.rand(blk.shape, generator=gen, device=DEVICE)
-        blk.copy_(stars.float() * (keep < WEB_DENSITY))
-        del stars, keep
-    return r
-
-
 def _wide_main_path(train, d, test_idx):
     """(a): fit → fold-in of 64 → 256-pair predict and top-N at n = 128 on
     the ML-1M ratings. Kernels 1-3 must launch; then each kernel's result
@@ -3452,7 +3482,7 @@ def _web_fit():
     full_u, p = cfg.WEB_FIT["n_users"], cfg.WEB_FIT["n_items"]
     u = WEB_USERS
     t0 = time.perf_counter()
-    r = _web_ratings(u, p)
+    r = web_tool.web_ratings(u, p, DEVICE)
     sync()
     gen_s = time.perf_counter() - t0
     u_fit = u - FOLD_IN
@@ -3468,6 +3498,9 @@ def _web_fit():
     fold_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     counts = _counts()
+    # P = 65,536 whole stars: d1 on the tensor-core route, its result kept
+    d1 = ms.route_results()
+    _check_d1_routes("phase 14c", counts, d1)
     g = st2.graph
     if not (st2.representation.shape == (u, WEB_N)
             and torch.isfinite(st2.representation).all()
@@ -3482,10 +3515,10 @@ def _web_fit():
            f"{full_u} users take {4 * full_u * p / 1e9:.0f} GB, one card "
            f"holds 80 GB; U={u} takes {4 * u * p / 1e9:.1f} GB")
     del r, st, st2
-    return dict(U=u, P=p, n=WEB_N, density=WEB_DENSITY, cut=cut,
+    return dict(U=u, P=p, n=WEB_N, density=web_tool.WEB_DENSITY, cut=cut,
                 generate_s=gen_s, fit_s=fit_s, fold_in_s=fold_s,
                 peak_bytes=peak, launches={k: v for k, v in counts.items()
-                                           if v})
+                                           if v}, d1_results=d1)
 
 
 def phase_wide(train, d, test_idx, card):
@@ -5519,36 +5552,12 @@ def phase_recsys(d, card):
 # --------------------------------------- CF cells, dry run, compression (19)
 CF_ARCH = "landmark_cf"
 CF_DATA = {"ml1m_fit": "movielens1m", "netflix1m_fit": "netflix1m"}
-WEB_STEP = 16384  # web_fit's users are cut to a multiple of this
-# of the card's memory that the dry run's argument and temp bytes of the
-# cut web_fit may fill
-WEB_HEADROOM = 0.8
 CF_SAMPLE = 2048  # web_fit's rows held to the plain path
+CF_BLOCK = 256  # of them at a time through the plain top-k
 # the card's peak bytes allocated in a step beyond what it held before,
 # against the dry run's temp bytes: within TEMP_REL of them plus TEMP_ABS
 # (the caching allocator's rounding, the top-k scan's split lists)
 TEMP_REL, TEMP_ABS = 0.10, 64 << 20
-
-
-def _cf_arch(**dims):
-    """landmark_cf with its web_fit shape's dims replaced by ``dims``."""
-    arch = registry.get(CF_ARCH)
-    return dataclasses.replace(arch, shapes=tuple(
-        dataclasses.replace(s, dims={**s.dims, **dims})
-        if s.name == "web_fit" else s for s in arch.shapes))
-
-
-def _web_users(total):
-    """The most web_fit users one card holds: the largest multiple of
-    WEB_STEP whose dry-run argument and temp bytes fit WEB_HEADROOM of the
-    card's ``total`` bytes."""
-    def need(u):
-        c = dryrun.count_cell(_cf_arch(n_users=u), "web_fit")[0].memory
-        return c["argument_size_in_bytes"] + c["temp_size_in_bytes"]
-    u = WEB_STEP
-    while need(u + WEB_STEP) <= WEB_HEADROOM * total:
-        u += WEB_STEP
-    return u, need(u)
 
 
 def _cf_inputs(name, cell):
@@ -5557,7 +5566,7 @@ def _cf_inputs(name, cell):
     the card (phase 14c's generator)."""
     rows, p = cell.args[1].shape
     if name == "web_fit":
-        return _web_ratings(rows, p)
+        return web_tool.web_ratings(rows, p, DEVICE)
     d = data.synthesize(CF_DATA[name], seed=0)
     r = torch.zeros((rows, p), device=DEVICE)
     r[:d.n_users] = d.to_matrix(device=DEVICE).ratings
@@ -5582,44 +5591,67 @@ def _cf_fit_cell(name, arch, card):
     sync()
     first_s = time.perf_counter() - t0
     counts = _counts()
+    # whole stars: one d1 call, on the tensor-core route, its result kept
+    d1 = ms.route_results()
+    _check_d1_routes(f"phase 19a {name}", counts, d1)
+    split = None
     if name == "web_fit":  # seconds a call: one more, on the host clock
         t0 = time.perf_counter()
         cell.fn(None, r)
         sync()
         ms_ = (time.perf_counter() - t0) * 1e3
+        split = web_tool.web_split(lambda: cell.fn(None, r))
+        PROFILE_DROPS.append(split["markers_lost"])
     else:
         ms_ = _event_ms(lambda: cell.fn(None, r), 5)
-    if counts["masked_similarity"] < 1 or counts["topk_sim"] < 1:
-        raise AssertionError(f"phase 19a {name}: kernels 1 and 2 must "
-                             f"launch, got {counts}")
+    if counts["masked_similarity"] != 1 or counts["topk_sim"] < 1:
+        raise AssertionError(f"phase 19a {name}: kernel 1 must launch once "
+                             f"and kernel 2, got {counts}")
     p_idx = popularity_landmarks(r, n_lm)
     rows = (torch.arange(u, device=DEVICE) if name != "web_fit" else
             torch.linspace(0, u - 1, CF_SAMPLE, device=DEVICE).long())
     p_rep = ref.masked_similarity_ref(r[rows], r[p_idx], spec.d1)
     if name == "web_fit":
-        # self excluded: each sampled row's own id dropped from k + 1
+        # self excluded: each sampled row's own id dropped from k + 1; the
+        # plain top-k a block of CF_BLOCK rows at a time (the scores and
+        # sort of all CF_SAMPLE rows against U take ~8 GB at once)
         repq = kernel_rows(rep, spec.d2)
-        pv, pi = filter_self_from_topk(*ref.foldin_topk_ref(
-            repq[rows], repq, k + 1, None, None, spec.d2), rows, k)
+        parts = [ref.foldin_topk_ref(repq[blk], repq, k + 1, None, None,
+                                     spec.d2) for blk in rows.split(CF_BLOCK)]
+        pv, pi = filter_self_from_topk(torch.cat([v for v, _ in parts]),
+                                       torch.cat([i for _, i in parts]),
+                                       rows, k)
+        del parts
         plain = finalize_topk(pv, pi)
     else:
         plain = build_neighbor_graph(p_rep, spec.d2, k, "streaming")
     rep_err = float((rep[rows] - p_rep).abs().max())
     bad = list_mismatches(plain.weights, plain.indices, w[rows], nb[rows],
                           RTOL, ATOL)
-    ok = (torch.equal(idx, p_idx) and bad.size == 0
+    # the tensor-core route's rows bitwise the f32 route's on the card,
+    # and cosine bitwise the plain version
+    f32_same = torch.equal(rep[rows], _d1_f32(r[rows], r[p_idx], spec.d1))
+    plain_same = spec.d1 != "cosine" or torch.equal(rep[rows], p_rep)
+    ok = (torch.equal(idx, p_idx) and bad.size == 0 and f32_same
+          and plain_same
           and torch.allclose(rep[rows], p_rep, rtol=RTOL, atol=ATOL)
           and torch.isfinite(w).all() and nb.shape == (u, k))
     if not ok:
         raise AssertionError(f"phase 19a {name}: the cell differs from the "
                              f"plain path: landmarks equal "
                              f"{torch.equal(idx, p_idx)}, d1 max err "
-                             f"{rep_err}, rows beyond the tie rule "
+                             f"{rep_err}, bitwise the f32 route {f32_same}, "
+                             f"cosine bitwise the plain version "
+                             f"{plain_same}, rows beyond the tie rule "
                              f"{bad[:10].tolist()}")
     out = dict(U=u, P=r.shape[1], n=n_lm, ms=ms_, first_call_s=first_s,
                launches={k_: v for k_, v in counts.items() if v},
-               d1_max_abs_err=rep_err, rows_compared=int(rows.numel()))
+               d1_results=d1, d1_max_abs_err=rep_err,
+               d1_bitwise_f32_route=f32_same, rows_compared=int(rows.numel()))
     print(f"phase 19a {CF_ARCH}/{name} ({card}): " + json.dumps(out))
+    if split is not None:
+        print(f"phase 19a {CF_ARCH}/{name} step split ({card}): "
+              + json.dumps(dict(U=u, step_ms=ms_, **split)))
     return r, (w, nb), counts
 
 
@@ -5788,11 +5820,12 @@ def phase_cells(card):
     pargs = _cf_predict_cell(arch, *fits["ml1m_fit"], card)
     full_u = arch.shape("web_fit").dims["n_users"]
     total = torch.cuda.get_device_properties(0).total_memory
-    web_u, need = _web_users(total)
-    web = _cf_arch(n_users=web_u)
+    web_u, need = web_tool.web_users(total)
+    web = web_tool.web_arch(n_users=web_u)
     print(f"phase 19a web_fit cut ({card}): U from {full_u} to {web_u}, the "
           f"most whose dry-run argument + temp bytes ({need}) fit "
-          f"{WEB_HEADROOM} of the card's {total} B; P and n as registered")
+          f"{web_tool.WEB_HEADROOM} of the card's {total} B; P and n as "
+          f"registered")
     wr, _, counts = _cf_fit_cell("web_fit", web, card)
     for k_, v in counts.items():
         launches[k_] = launches.get(k_, 0) + v

@@ -41,9 +41,10 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 SIGNATURES = {
     # (a, b, out, A, B, P, measure, stream)
     "masked_similarity_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
-    # (a, b, out, ws, results, A, B, P, measure, stream): bf16 wgmma
-    # moments, then the finalize launch (the f32 route when the guard fails)
-    "masked_similarity_tc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # (a, b, out, ws, results, A, B, P, measure, lm, stream): bf16 wgmma
+    # moments in N tiles of lm landmarks, then the finalize launch (the f32
+    # route when the guard fails)
+    "masked_similarity_tc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # (q, cand, prep, part_vals, part_ids, vals, ids, rows, C, n, k, n_valid,
     #  self_offset, measure, variant, qt, ct, splits, tiles_per_split,
     #  stream): prep, scan and (splits > 1) merge

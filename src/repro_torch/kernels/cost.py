@@ -33,9 +33,12 @@ BF16_TC_FLOPS = 989e12
 SFU_PER_S = 132 * 16 * 1.83e9
 RATES = {"f32": F32_FLOPS, "bf16_tc": BF16_TC_FLOPS}
 
-# d1's tensor-core route: one N tile holds 21 landmarks, and a tile's
-# products per (row, item) are 2 · (24 + 48 + 64) (the moments' planes)
-D1_N_TILE, D1_TILE_PRODUCTS = 21, 136
+# d1's tensor-core route: an N tile holds 21 landmarks, its products per
+# (row, item) 2 · (24 + 48 + 64) (the moments' planes); in the cluster
+# kernel (22..128 landmarks, rows on 16 bytes: at most 4 N tiles) 32
+# landmarks and 2 · (32 + 64 + 96), the 6·B columns a row needs
+D1_N_TILE, D1_CLUSTER_N_TILE, D1_CLUSTER_TILES = 21, 32, 4
+D1_TILE_COLUMNS = {D1_N_TILE: 136, D1_CLUSTER_N_TILE: 192}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,15 +61,28 @@ class Cost:
                                      else "operations")
 
 
-def masked_similarity(a: int, b: int, p: int, tensor_core: bool) -> Cost:
+def d1_n_tile(b: int, p: int, aligned: bool = True) -> int:
+    """Landmarks an N tile of d1's tensor-core route at B = ``b``, P =
+    ``p``: 32 (the cluster kernel) from 22 to 128 landmarks when r_a's
+    rows sit on 16 bytes (P % 4 == 0 and ``aligned``), else 21."""
+    if (D1_N_TILE < b <= D1_CLUSTER_N_TILE * D1_CLUSTER_TILES
+            and p % 4 == 0 and aligned):
+        return D1_CLUSTER_N_TILE
+    return D1_N_TILE
+
+
+def masked_similarity(a: int, b: int, p: int, tensor_core: bool,
+                      aligned: bool = True) -> Cost:
     """d1 on (a, p) against (b, p): r_a and r_b read once, the (a, b)
-    output written once; the tensor-core route's bf16 products,
-    2·a·p·136 per N tile of 21 landmarks, at the tensor cores' rate, or
-    the f32 route's 12·a·b·p FMA work at the f32 rate."""
+    output written once; the tensor-core route's bf16 products, per N tile
+    (:func:`d1_n_tile`) 2·a·p·136 at 21 landmarks or 2·a·p·192 at 32, at
+    the tensor cores' rate, or the f32 route's 12·a·b·p FMA work at the
+    f32 rate."""
     nbytes = 4 * (a * p + b * p + a * b)
     if not tensor_core:
         return Cost(12 * a * b * p, nbytes)
-    return Cost(2 * a * p * D1_TILE_PRODUCTS * -(-b // D1_N_TILE), nbytes,
+    lm = d1_n_tile(b, p, aligned)
+    return Cost(2 * a * p * D1_TILE_COLUMNS[lm] * -(-b // lm), nbytes,
                 "bf16_tc")
 
 

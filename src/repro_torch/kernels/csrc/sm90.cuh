@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA bulk and
-// tensor loads, and warpgroup matrix multiplies (wgmma) on bf16 operands
-// with f32 accumulators, and the host's tensor-map encoding. Used by
+// tensor loads, thread-block clusters (ranks, barriers, remote arrivals,
+// multicast tensor loads), and warpgroup matrix multiplies (wgmma) on bf16
+// operands with f32 accumulators, and the host's tensor-map encoding. Used by
 // landmark_summary.cu (which keeps its own tensor-map helpers, as it was
 // measured), landmark_summary_bwd.cu, masked_similarity.cu and knn_topk.cu;
 // see there for how they fit.
@@ -153,6 +154,99 @@ inline bool bf16_tensor_map(CUtensorMap* map, const void* base, int slices,
                 sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                           : CU_TENSOR_MAP_SWIZZLE_64B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// ----------------------------------------------------------------- clusters
+// this block's rank in its thread-block cluster, and the cluster's size
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+__device__ __forceinline__ int cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return static_cast<int>(n);
+}
+
+// every thread of every block of the cluster arrives, then waits (release
+// and acquire at cluster scope)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n" :::
+                   "memory");
+}
+
+// one arrival on the mbarrier at `bar` (a shared::cta address) of the
+// cluster's block `cta`
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar, int cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(bar),
+      "r"(cta)
+      : "memory");
+}
+
+// L2 policies for the bulk copies: data read once, data read again
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(p));
+  return p;
+}
+__device__ __forceinline__ uint64_t l2_evict_last() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
+               : "=l"(p));
+  return p;
+}
+
+// bulk_load with an L2 policy
+__device__ __forceinline__ void bulk_load_hint(uint32_t dst, const void* src,
+                                               uint32_t bytes, uint32_t bar,
+                                               uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "l"(policy)
+      : "memory");
+}
+
+// box at (c0, c1) of a 2-D tensor map into the same shared-memory offset
+// of every block of the cluster in `mask`, each one's mbarrier at `bar`
+// counting the bytes; elements outside the tensor arrive as zeros
+__device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst,
+                                                      const CUtensorMap* map,
+                                                      uint32_t bar, int c0,
+                                                      int c1, uint16_t mask,
+                                                      uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster.L2::cache_hint [%0], [%1, {%3, %4}], [%2], "
+      "%5, %6;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "h"(mask), "l"(policy)
+      : "memory");
+}
+
+// a (rows, cols) f32 tensor, contiguous (cols % 4 == 0, 16-byte aligned),
+// as a 2-D map read in (box_cols, box_rows) boxes (box_cols · 4 <= 128)
+// with a 128-byte swizzle; zeros past each edge
+inline bool f32_tensor_map(CUtensorMap* map, const void* base, long long rows,
+                           long long cols, int box_rows, int box_cols) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 4};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -333,6 +427,31 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d(64×96) += a(64×16, registers) · b(16×96, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47 "
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d(64×128) += a(64×16, registers) · b(16×128, smem, MN-major)
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
                                               const uint32_t (&a)[4],
@@ -425,13 +544,14 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t db) {
-  static_assert(N == 24 || N == 32 || N == 48 || N == 64 || N == 128 ||
-                    N == 256,
-                "wgmma_rs: N in {24, 32, 48, 64, 128, 256}");
+  static_assert(N == 24 || N == 32 || N == 48 || N == 64 || N == 96 ||
+                    N == 128 || N == 256,
+                "wgmma_rs: N in {24, 32, 48, 64, 96, 128, 256}");
   if constexpr (N == 24) wgmma_rs_n24(d, a, db);
   else if constexpr (N == 32) wgmma_rs_n32(d, a, db);
   else if constexpr (N == 48) wgmma_rs_n48(d, a, db);
   else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else if constexpr (N == 96) wgmma_rs_n96(d, a, db);
   else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
   else wgmma_rs_n256(d, a, db);
 }

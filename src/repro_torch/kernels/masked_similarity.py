@@ -5,15 +5,19 @@ the item axis, then the measure epilogue; see the source's opening note for
 the design and bound. Two routes:
 
 - ``tensor_core``: bf16 ``wgmma`` with f32 sums, exact on values that are
-  multiples of ½ with |v| ≤ 8 (ratings 1..5 and 0 for missing, half stars
-  too) while P < 65536. The kernel checks every value on the device; the
-  finalize launch that follows computes the f32 route instead when one
-  fails, with no host sync. So its output is the f32 route's, bit for bit,
-  on every input;
+  multiples of ½ with |v| ≤ 8 while P ≤ 65,535 (ratings 1..5 and 0 for
+  missing, half stars too), and on integers with |v| ≤ 8 while
+  P ≤ 262,143 (whole stars). The kernels check every value on the device;
+  the finalize launch that follows computes the f32 route instead when one
+  fails (half stars past 65,535 items, say), with no host sync. So its
+  output is the f32 route's, bit for bit, on every input. From 22 to 128
+  landmarks on 16-byte rows (P % 4 == 0) it runs as a cluster of one
+  block per 32 landmarks that reads R once; otherwise one block per 21
+  landmarks at a time;
 - ``f32``: f32 FMAs on the CUDA cores.
 
-``route="auto"`` takes the tensor-core route whenever P allows it,
-``route="f32"`` the f32 route.
+``route="auto"`` takes the tensor-core route whenever P allows it
+(P ≤ :data:`MAX_ITEMS`), ``route="f32"`` the f32 route.
 ``masked_similarity.launches`` counts calls that launched, and
 ``masked_similarity.route_launches`` the route each launched;
 :func:`route_results` reads from the card how many tensor-core calls kept
@@ -26,19 +30,22 @@ import torch
 from . import build, cost, ref
 
 ROUTES = ("auto", "f32")
-# the tensor-core route's bound on P (ref.D1_MAX_ITEMS: sums stay below 2^22)
-MAX_ITEMS = 65535
-# the route's landmark planes, as the source lays them out: one 8 KB bf16
-# tile per 21 landmarks and 64 items
-N_TILE, STAGE_ITEMS, PLANE_TILE_BYTES = 21, 64, 8192
+# the tensor-core route's bound on P (ref.D1_MAX_ITEMS: integer sums stay
+# below 2^24; half stars are held past ref.D1_HALF_ITEMS by the guard)
+MAX_ITEMS = ref.D1_MAX_ITEMS
+# the landmark planes, as the source lays them out: per N tile
+# (cost.d1_n_tile landmarks) and 64 items one 8 KB bf16 atom for each 64
+# of its 3·lm columns
+STAGE_ITEMS, PLANE_ATOM_BYTES = 64, 8192
 
 
-def _workspace_bytes(a: int, b: int, p: int) -> int:
+def _workspace_bytes(a: int, b: int, p: int, lm: int) -> int:
     """The tensor-core route's scratch: the (6, B, A) f32 moments and the
-    guard flag, then on a 16-byte boundary the landmark planes."""
+    guard flag, then on a 16-byte boundary the landmark planes of N tiles
+    of ``lm`` landmarks."""
     head = -(-(6 * a * b * 4 + 16) // 16) * 16
-    tiles = -(-b // N_TILE) * -(-p // STAGE_ITEMS)
-    return head + tiles * PLANE_TILE_BYTES
+    tiles = -(-b // lm) * -(-p // STAGE_ITEMS)
+    return head + tiles * -(-3 * lm // 64) * PLANE_ATOM_BYTES
 
 
 def _results(device: torch.device) -> torch.Tensor:
@@ -90,12 +97,14 @@ def masked_similarity(r_a: torch.Tensor, r_b: torch.Tensor,
     if a and b:
         code = build.MEASURE_CODES[measure]
         tc = route != "f32" and p <= MAX_ITEMS
+        aligned = meta or r_a.data_ptr() % 16 == 0
+        lm = cost.d1_n_tile(b, p, aligned)
         if tc:
-            ws = torch.empty(_workspace_bytes(a, b, p), dtype=torch.uint8,
-                             device=r_a.device)
+            ws = torch.empty(_workspace_bytes(a, b, p, lm),
+                             dtype=torch.uint8, device=r_a.device)
         if tc and not meta:
             build.launch("masked_similarity_tc", r_a, r_b, out, ws,
-                         _results(r_a.device), a, b, p, code)
+                         _results(r_a.device), a, b, p, code, lm)
         elif not meta:
             build.launch("masked_similarity_f32", r_a, r_b, out, a, b, p,
                          code)
@@ -104,7 +113,7 @@ def masked_similarity(r_a: torch.Tensor, r_b: torch.Tensor,
                 "tensor_core" if tc else "f32"] += 1
             build.count_launch(masked_similarity)
         cost.charge("masked_similarity",
-                    lambda: cost.masked_similarity(a, b, p, tc))
+                    lambda: cost.masked_similarity(a, b, p, tc, aligned))
     return out
 
 

@@ -23,19 +23,36 @@ def masked_similarity_ref(r_a: torch.Tensor, r_b: torch.Tensor,
     return _finalize(measure, *corated_moments(r_a.float(), r_b.float()))
 
 
-# d1's tensor-core route holds values that are multiples of ½ with
-# |v| <= 8, over fewer than 2^16 items: then v, v² and the masks are exact
-# in bf16, every product is a multiple of ¼, and every sum of them stays
-# below 64·P < 2^22, exact in f32 in any order
+# d1's tensor-core route holds values with |v| <= 8 that are multiples of
+# ½ over at most D1_HALF_ITEMS items, or integers over at most
+# D1_MAX_ITEMS: then v, v² and the masks are exact in bf16, every product
+# is a multiple of ¼ (an integer), and every sum of them stays below
+# 64·P < 2^22 (64·P < 2^24), exact in f32 in any order. Past D1_MAX_ITEMS
+# the host takes the f32 route.
 D1_GUARD_MAX = 8.0
-D1_MAX_ITEMS = 65535
+D1_HALF_ITEMS = 65535
+D1_MAX_ITEMS = 262143
 
 
-def d1_guard_ref(r: torch.Tensor) -> bool:
-    """The guard of d1's tensor-core route on one operand: True when every
-    value is a multiple of ½ with |v| <= 8 (NaN and ±inf fail)."""
+def d1_guard_step(items: int) -> Optional[float]:
+    """The spacing of the values d1's tensor-core route holds over
+    ``items`` items: ½ up to D1_HALF_ITEMS, 1 up to D1_MAX_ITEMS, None
+    past it (no value: the f32 route)."""
+    if items <= D1_HALF_ITEMS:
+        return 0.5
+    return 1.0 if items <= D1_MAX_ITEMS else None
+
+
+def d1_guard_ref(r: torch.Tensor, items: Optional[int] = None) -> bool:
+    """The guard of d1's tensor-core route on one operand of a call over
+    ``items`` items (default: its last axis): True when every value is a
+    multiple of :func:`d1_guard_step` with |v| <= 8 (NaN and ±inf fail;
+    past D1_MAX_ITEMS nothing passes)."""
+    step = d1_guard_step(r.shape[-1] if items is None else items)
+    if step is None:
+        return False
     r = r.float()
-    t = r * 2.0
+    t = r / step
     return bool(((r.abs() <= D1_GUARD_MAX) & (t == torch.round(t))).all())
 
 
@@ -48,7 +65,10 @@ def masked_similarity_tc_ref(r_a: torch.Tensor, r_b: torch.Tensor,
     square, rounded) of r_a, and the stacked planes [b ; [b≠0] ; b²] of
     r_b. Three products with f32 sums — a·planes (z, sx),
     [a≠0]·planes (sy, c, y), a²·planes (x) — give the six moments, then
-    :func:`_finalize`. On values :func:`d1_guard_ref` admits this equals
+    :func:`_finalize`. How the kernels pack the planes into N tiles (21
+    landmarks, or 32 in the cluster kernel) and in which order they add
+    does not matter on the values :func:`d1_guard_ref` admits at this P:
+    every partial sum is exact, and this equals
     :func:`masked_similarity_ref` bit for bit.
     """
     a, b = r_a.float(), r_b.float()

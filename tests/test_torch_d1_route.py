@@ -5,8 +5,9 @@ The route itself runs only on the card (``tests/test_torch_gpu.py``). Its
 arithmetic is ``kernels/ref.py::masked_similarity_tc_ref``: operands
 rounded to bf16 (a, [a≠0], a², and the stacked landmark planes), three
 products with f32 sums, then the shared epilogue. Its guard is
-``ref.d1_guard_ref``: every value a multiple of ½ with |v| <= 8, and
-P <= ``ref.D1_MAX_ITEMS``.
+``ref.d1_guard_ref``: every value a multiple of ½ with |v| <= 8 while
+P <= ``ref.D1_HALF_ITEMS``, an integer with |v| <= 8 while
+P <= ``ref.D1_MAX_ITEMS`` (``tests/test_torch_d1_items.py``).
 
 Tolerances:
 - the emulation against ``masked_similarity_ref`` on values the guard
@@ -74,9 +75,9 @@ def test_tc_route_arithmetic_is_bitwise_the_plain_version(kind, shape,
 
 @pytest.mark.parametrize("measure", MEASURES)
 def test_tc_route_arithmetic_is_exact_at_the_guards_limits(measure):
-    """Every value ±8, P at the bound: x and y reach 64·P = 4,194,240, just
-    under 2^22; the sums stay exact."""
-    p = ref.D1_MAX_ITEMS
+    """Every value ±8, P at the half-star bound: x and y reach
+    64·P = 4,194,240, just under 2^22; the sums stay exact."""
+    p = ref.D1_HALF_ITEMS
     rng = np.random.default_rng(2)
     r = torch.as_tensor(rng.choice([-8.0, 8.0], (6, p)).astype(np.float32))
     r[0, :] = 8.0
@@ -124,14 +125,18 @@ def test_guard_rejects_tenths_and_admits_its_extremes():
 
 def test_guard_bounds_are_where_bf16_stops_being_exact():
     """Every multiple of ½ in [-8, 8] and its square are bf16 values; 8.5²
-    is not. 64·P stays below 2^22 up to D1_MAX_ITEMS and reaches it one
-    item later."""
+    is not. 64·P stays below 2^22 up to D1_HALF_ITEMS and reaches it one
+    item later; below 2^24 (where f32 stops holding every integer) up to
+    D1_MAX_ITEMS, and reaches it one item later."""
     v = torch.arange(-16, 17, dtype=torch.float32) / 2
     for x in (v, v * v):
         assert torch.equal(x.bfloat16().float(), x)
     big = torch.tensor([8.5])
     assert not torch.equal((big * big).bfloat16().float(), big * big)
-    assert 64 * ref.D1_MAX_ITEMS < 2 ** 22 == 64 * (ref.D1_MAX_ITEMS + 1)
+    assert 64 * ref.D1_HALF_ITEMS < 2 ** 22 == 64 * (ref.D1_HALF_ITEMS + 1)
+    assert 64 * ref.D1_MAX_ITEMS < 2 ** 24 == 64 * (ref.D1_MAX_ITEMS + 1)
+    top = torch.tensor([2.0 ** 24 - 1, 2.0 ** 24 + 1])
+    assert float(top[0]) == 2 ** 24 - 1 and float(top[1]) != 2 ** 24 + 1
     assert d1.MAX_ITEMS == ref.D1_MAX_ITEMS
 
 

@@ -153,6 +153,15 @@ PERF_ROWS = {
                      "0.00040", "bytes"),
     "1' d1 f32": (cost.masked_similarity, (5976, 20, 3952, False), "0.0846",
                   "operations"),
+    # the cluster kernel (4 N tiles of 32 landmarks) at phase 14a's wide
+    # fit and at web_fit's cut shape, and the f32 route there
+    "1 d1 n=128": (cost.masked_similarity, (5976, 128, 3952, True),
+                   "0.0367", "operations"),
+    "1 d1 web_fit": (cost.masked_similarity, (245_760, 128, 65_536, True),
+                     "25.0", "operations"),
+    "1' d1 f32 web_fit": (cost.masked_similarity,
+                          (245_760, 128, 65_536, False), "369.2",
+                          "operations"),
     "2 topk_sim": (cost.topk, (5976, 5976, 20, 13), "0.0213", "operations"),
     "3 foldin_topk": (cost.topk, (64, 6040, 20, 13), "0.00023",
                       "operations"),

@@ -132,13 +132,19 @@ def _d1_routes(r_a, r_b, measure):
 @pytest.mark.parametrize("measure", MEASURES)
 @pytest.mark.parametrize("shape", [(5976, 20, 3952), (64, 20, 3952),
                                    (1000, 130, 777), (300, 20, 777),
-                                   (200, 7, 1), (65, 20, 3952)])
+                                   (200, 7, 1), (65, 20, 3952),
+                                   (5976, 128, 3952), (64, 128, 3952),
+                                   (333, 33, 3952), (333, 80, 3952)])
 def test_masked_similarity_tc_route_is_bitwise_the_f32_route(cuda, measure,
                                                              shape):
     """On ratings the tensor-core route's moments are exact: every measure
     bitwise the f32 route's, and cosine bitwise the plain version — at the
     ML-1M fit and fold-in shapes, B over seven N tiles, P % 16 != 0,
-    P = 1, A = 65 (a second row tile of one row)."""
+    P = 1, A = 65 (a second row tile of one row), and the cluster kernel's
+    (22..128 landmarks on 16-byte rows): 128 landmarks at the fit and
+    fold-in shapes, 33 (a second, ragged N tile of 32), 80 (a cluster of
+    3: its ranks multicast 3, 3 and 2 of a stage's 8 boxes and guard
+    uneven shares of its chunks)."""
     a, b, p = shape
     r = _ratings(a + b, p, cuda, density=0.08 if a > 1000 else 0.3, seed=8)
     got, want = _d1_routes(r[:a], r[a:], measure)
@@ -150,12 +156,13 @@ def test_masked_similarity_tc_route_is_bitwise_the_f32_route(cuda, measure,
 
 
 @pytest.mark.parametrize("measure", MEASURES)
-@pytest.mark.parametrize("p", [ref.D1_MAX_ITEMS - 3, ref.D1_MAX_ITEMS])
+@pytest.mark.parametrize("p", [ref.D1_HALF_ITEMS - 3, ref.D1_HALF_ITEMS])
 def test_masked_similarity_tc_route_is_exact_at_the_guards_limits(cuda,
                                                                   measure, p):
-    """Values ±8, ±7.5 and ½ at the largest P the route takes (16-byte and
-    4-byte loads): x and y reach 64·P, just under 2^22, and the tensor
-    cores' f32 sums must stay exact — bitwise the f32 route."""
+    """Values ±8, ±7.5 and ½ at the largest P the route takes half stars
+    at (16-byte and 4-byte loads): x and y reach 64·P, just under 2^22,
+    and the tensor cores' f32 sums must stay exact — bitwise the f32
+    route."""
     rng = np.random.default_rng(9)
     vals = rng.choice([-8.0, -7.5, 0.5, 7.5, 8.0], (130 + 25, p))
     vals *= rng.random(vals.shape) < 0.7
@@ -171,8 +178,10 @@ def test_masked_similarity_tc_route_is_exact_at_the_guards_limits(cuda,
 def test_masked_similarity_off_the_guard_takes_the_f32_result(cuda):
     """Values the route cannot hold (0.1 steps in r_a; one 0.3 or NaN in
     the landmarks): the f32 route's output replaces the tensor-core
-    route's, with no host sync, and the card counts the replacement. Past
-    D1_MAX_ITEMS items the host sends the call to the f32 route."""
+    route's, with no host sync, and the card counts the replacement. At
+    D1_HALF_ITEMS + 1 items whole stars stay on the tensor-core route and
+    keep its result; past D1_MAX_ITEMS the host sends the call to the f32
+    route."""
     r = _ratings(300, 777, cuda, seed=10)
     tenths = r[:280] * 1.1  # 1.1, 2.2, ...: off the guard
     lm = r[280:].clone()
@@ -192,6 +201,13 @@ def test_masked_similarity_off_the_guard_takes_the_f32_result(cuda):
     assert ms.masked_similarity.route_launches == {"tensor_core": 9,
                                                    "f32": 9}
     assert ms.route_results() == {"tensor_core": 0, "f32_fallback": 9}
+    ints = _ratings(3, ref.D1_HALF_ITEMS + 1, cuda, seed=11)
+    ops.reset_launches()
+    got = ops.masked_similarity(ints[:2], ints[2:])
+    assert ms.masked_similarity.route_launches == {"tensor_core": 1,
+                                                   "f32": 0}
+    assert ms.route_results() == {"tensor_core": 1, "f32_fallback": 0}
+    assert torch.equal(got, ref.masked_similarity_ref(ints[:2], ints[2:]))
     wide = _ratings(3, ref.D1_MAX_ITEMS + 1, cuda, seed=11)
     ops.reset_launches()
     got = ops.masked_similarity(wide[:2], wide[2:])
@@ -199,6 +215,51 @@ def test_masked_similarity_off_the_guard_takes_the_f32_result(cuda):
                                                    "f32": 1}
     assert ms.route_results() == {"tensor_core": 0, "f32_fallback": 0}
     assert torch.equal(got, ref.masked_similarity_ref(wide[:2], wide[2:]))
+
+
+@pytest.mark.parametrize("measure", MEASURES)
+@pytest.mark.parametrize("b", [128, 20])
+@pytest.mark.parametrize("p", [ref.D1_HALF_ITEMS + 1, ref.D1_MAX_ITEMS - 3,
+                               ref.D1_MAX_ITEMS])
+def test_masked_similarity_tc_route_is_exact_past_the_half_star_limit(
+        cuda, measure, b, p):
+    """Integers ±8, -3 and 5 with 30% missing past 65,535 items, and
+    three rows of each operand with no zero (x, y and |z| reach 64·P,
+    just under 2^24 at P = 262,143): bitwise the f32 route, the result
+    kept. P = 65,536 and 262,140 take 16-byte loads (B = 128: the cluster
+    kernel, 4 N tiles of 32 landmarks), 262,143 4-byte loads (7 N tiles of
+    21); B = 20 one N tile of 21."""
+    rng = np.random.default_rng(14)
+    vals = rng.choice([-8.0, -3.0, 5.0, 8.0], (130 + b, p))
+    vals *= rng.random(vals.shape) < 0.7
+    vals[:3] = 8.0
+    vals[130:133] = -8.0
+    r = torch.as_tensor(vals.astype(np.float32), device=cuda)
+    assert ref.d1_guard_ref(r)
+    got, want = _d1_routes(r[:130], r[130:], measure)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b", [128, 20])
+def test_masked_similarity_half_stars_past_65535_items_take_the_f32_result(
+        cuda, b):
+    """Half stars at P = 65,536 fail the guard on the card: the finalize
+    launch computes the f32 route, bitwise, and the card counts the
+    replacement."""
+    rng = np.random.default_rng(15)
+    vals = rng.integers(1, 11, (300 + b, ref.D1_HALF_ITEMS + 1)) / 2
+    vals *= rng.random(vals.shape) < 0.05
+    r = torch.as_tensor(vals.astype(np.float32), device=cuda)
+    ops.reset_launches()
+    for measure in MEASURES:
+        got = ops.masked_similarity(r[:300], r[300:], measure)
+        want = ops.masked_similarity(r[:300], r[300:], measure, route="f32")
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert ms.masked_similarity.route_launches == {"tensor_core": 3,
+                                                   "f32": 3}
+    assert ms.route_results() == {"tensor_core": 0, "f32_fallback": 3}
 
 
 @pytest.mark.parametrize("measure", MEASURES)

@@ -3,9 +3,14 @@
 card, at three shapes of MovieLens-1M-shaped synthetic ratings (seed 0,
 fold 0) against their 20 popularity landmarks: the fit (A = 5976 users
 but the last 64, B = 20, P = 3952), the fold-in (the last 64 users), and a
-lifecycle coresets round (all 6040 users against 2 candidates).
+lifecycle coresets round (all 6040 users against 2 candidates); the fit
+against 128 popularity landmarks (``chip_smoke.py`` phase 14a's wide
+path); and web_fit's (A = U users, B = 128 popularity landmarks,
+P = 65,536 items; ratings and U from ``tools/profile_web_fit.py``, the
+generator and the cut of phases 14c and 19a, U worked out once with this
+checkout's dry run).
 
-    python3 tools/time_masked_similarity.py [TREE ...] [--reps 2]
+    python3 tools/time_masked_similarity.py [TREE ...] [--reps 2] [--no-web]
 
 Each TREE is the root of a checkout (default: this one); every tree runs in
 a process of its own, importing only its own ``src`` and building its own
@@ -16,16 +21,18 @@ prints one JSON line: CUDA-event ms per call over 50 calls after warm-up
 (host launch cost included), and the device ms per call of every kernel
 the call launches (a memset included), in all and by kernel, from a
 ``torch.profiler`` trace of 20 calls (null when the trace holds no device
-events). The route is the tree's default, and ``f32`` too where the
-wrapper takes a ``route``. Every tree writes its outputs (all three
-measures) under ``build/time_masked_similarity/``; the last line says
-whether every tree's and route's outputs are bitwise the first tree's.
+events); at web_fit's shape 3 and 2 calls. The route is the tree's
+default, and ``f32`` too where the wrapper takes a ``route``. Every tree
+writes a SHA-256 of each output (all three measures) under
+``build/time_masked_similarity/``; the last line says whether every
+tree's and route's outputs are bitwise the first tree's.
 
 Beside them each tree times a yardstick that is not the same function: the
 tensor-core route's three bf16 products (a² against [b≠0], a against
 [b≠0 ; b], [a≠0] against [b≠0 ; b ; b²]) through ``torch.matmul`` on
-operands converted beforehand — no masks built, no guard, no epilogue.
-Needs a CUDA card and ``nvcc``.
+operands converted beforehand — no masks built, no guard, no epilogue
+(not at web_fit's shape: its bf16 operands would take 96 GB). Needs a
+CUDA card and ``nvcc``.
 """
 from __future__ import annotations
 
@@ -35,11 +42,21 @@ import subprocess
 import sys
 from pathlib import Path
 
+from profile_web_fit import main_users, web_ratings
+
 FOLD_IN = 64  # users held out of the fit, as in chip_smoke.py
 OUT = Path(__file__).resolve().parents[1] / "build" / "time_masked_similarity"
 
 
-def _one(tree: str, tag: str) -> None:
+def _digest(t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def _one(tree: str, tag: str, web_users) -> None:
+    """One tree's lines; web_fit's shape at ``web_users`` users, left out
+    when None."""
     sys.path.insert(0, str(Path(tree).resolve() / "src"))
     import inspect
 
@@ -54,8 +71,8 @@ def _one(tree: str, tag: str) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    def event_ms(fn, iters=50):
-        for _ in range(3):
+    def event_ms(fn, iters=50, warm=3):
+        for _ in range(warm):
             fn()
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
@@ -102,14 +119,25 @@ def _one(tree: str, tag: str) -> None:
     cand = train[torch.randperm(train.shape[0], device="cpu",
                                 generator=torch.Generator().manual_seed(0))[
         :2].to(train.device)]
-    shapes = {"fit": (train[:u], lm), "fold-in": (train[u:], lm),
-              "coresets": (train, cand)}
+    lm128 = train[:u][popularity_landmarks(train[:u], cfg.WEB_FIT[
+        "n_landmarks"])]
+    shapes = {"fit": lambda: (train[:u], lm),
+              "fold-in": lambda: (train[u:], lm),
+              "coresets": lambda: (train, cand),
+              "fit n=128": lambda: (train[:u], lm128)}
+    if web_users is not None:
+        def web():
+            r = web_ratings(web_users, cfg.WEB_FIT["n_items"])
+            return r, r[popularity_landmarks(r, cfg.WEB_FIT["n_landmarks"])]
+        shapes["web_fit"] = web
     routes = [None]
     if "route" in inspect.signature(ops.masked_similarity).parameters:
         routes.append("f32")
     OUT.mkdir(parents=True, exist_ok=True)
     outputs = {}
-    for shape, (r_a, r_b) in shapes.items():
+    for shape, make in shapes.items():
+        r_a, r_b = make()
+        big = shape == "web_fit"
         for route in routes:
             kw = {} if route is None else {"route": route}
 
@@ -118,20 +146,23 @@ def _one(tree: str, tag: str) -> None:
 
             for measure in ("cosine", "pearson", "euclidean"):
                 outputs[f"{shape}/{route or 'default'}/{measure}"] = (
-                    ops.masked_similarity(r_a, r_b, measure, **kw).cpu())
-            dev, by_kernel = device_ms(run)
+                    _digest(ops.masked_similarity(r_a, r_b, measure, **kw)))
+            dev, by_kernel = device_ms(run, 2 if big else 20)
             print(json.dumps({
                 "tree": tree, "shape": shape,
                 "A": r_a.shape[0], "B": r_b.shape[0], "P": r_a.shape[1],
-                "route": route or "default", "events_ms": event_ms(run),
+                "route": route or "default",
+                "events_ms": event_ms(run, *((3, 1) if big else ())),
                 "device_ms": dev, "device_ms_by_kernel": by_kernel}),
                 flush=True)
-        mm = matmul_yardstick(r_a, r_b)
-        print(json.dumps({"tree": tree, "shape": shape,
-                          "yardstick": "three bf16 torch.matmul",
-                          "events_ms": event_ms(mm),
-                          "device_ms": device_ms(mm)[0]}), flush=True)
-    torch.save(outputs, OUT / f"{tag}.pt")
+        if not big:
+            mm = matmul_yardstick(r_a, r_b)
+            print(json.dumps({"tree": tree, "shape": shape,
+                              "yardstick": "three bf16 torch.matmul",
+                              "events_ms": event_ms(mm),
+                              "device_ms": device_ms(mm)[0]}), flush=True)
+        del r_a, r_b
+    (OUT / f"{tag}.json").write_text(json.dumps(outputs))
 
 
 def main() -> int:
@@ -139,16 +170,20 @@ def main() -> int:
     ap.add_argument("trees", nargs="*",
                     default=[str(Path(__file__).resolve().parents[1])])
     ap.add_argument("--reps", type=int, default=2)
+    ap.add_argument("--no-web", action="store_true",
+                    help="leave web_fit's shape out")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     ap.add_argument("--tag", help=argparse.SUPPRESS)
+    ap.add_argument("--users", type=int, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
-        _one(args.one, args.tag)
+        _one(args.one, args.tag, None if args.no_web else args.users)
         return 0
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(f"card: {card}", flush=True)
+    web = ["--no-web"] if args.no_web else ["--users", str(main_users())]
     order = []
     for r in range(args.reps):
         order += args.trees if r % 2 == 0 else args.trees[::-1]
@@ -156,17 +191,15 @@ def main() -> int:
     for i, tree in enumerate(order):
         tags.append(f"run{i}-tree{args.trees.index(tree)}")
         subprocess.run([sys.executable, __file__, "--one", tree, "--tag",
-                        tags[-1]], check=True)
-    import torch
-
-    first = torch.load(OUT / f"{tags[0]}.pt")
+                        tags[-1], *web], check=True)
+    first = json.loads((OUT / f"{tags[0]}.json").read_text())
     base = {k.rsplit("/", 2)[0] + "/" + k.rsplit("/", 1)[1]: v
             for k, v in first.items() if "/default/" in k}
     diff = []
     for tag in tags:
-        for key, val in torch.load(OUT / f"{tag}.pt").items():
+        for key, val in json.loads((OUT / f"{tag}.json").read_text()).items():
             shape, _, measure = key.split("/")
-            if not torch.equal(val, base[f"{shape}/{measure}"]):
+            if val != base[f"{shape}/{measure}"]:
                 diff.append(f"{tag}:{key}")
     print(json.dumps({"outputs_bitwise_equal": not diff,
                       "differ": diff[:20]}), flush=True)
