@@ -393,8 +393,8 @@ The cells slice adds:
     rows) under the tie rule, the predictions to a CPU run's within the
     parity tolerance; times printed, and web_fit's step split by kernel
     from a profiled step (d1, kernel 2's wide prep and scan, the popularity
-    count, everything else); (b) ``launch.dryrun --all`` on meta, a line
-    per cell, then the CF cells and four smoke cells (SmolLM's with full
+    count, everything else); (b) ``launch.dryrun --all --family F`` on meta
+    for the GNN, recsys and CF families, a line per cell, then the CF cells and four smoke cells (SmolLM's with full
     and with landmark attention, GatedGCN's, FM's) counted on the card by
     ``launch/step_costs.py::measure``: FLOPs and kernel calls equal to the
     dry run's count of the same cell, and the card's peak allocated bytes
@@ -405,6 +405,22 @@ The cells slice adds:
     round robin on one card) bitwise the CPU mesh's and within the
     reference test's bound. The kernel table gains each row's launches in
     (a) (``launches_cells``).
+20. dist — the multi-process launcher and the logical-axis rules
+    (``phase_dist``): SmolLM-360M at full width and depth (32 layers,
+    d = 960, 512 landmarks, S = 4096), landmark attention, AdamW, remat,
+    global batch 4 (the 8 ranks share the card's 80 GB): (a) 2 steps in
+    one process, (b) the dry run of the same cell on an 8-position fake
+    group (``launch/dist.py::fake_group``, a mesh of the card's type), (c)
+    8 ranks spawned (``launch/dist.py::spawn``) on data=2, model=4, gloo
+    on the one card (NCCL refuses two ranks of one communicator on one
+    device; gloo's all-gather of CUDA tensors is built from its
+    all-to-all), parameters, state and batch placed by the rules
+    (``launch/steps.py``): each rank's loss within the bf16 bound of (a),
+    kernel 7 and its backward launched in every rank, each rank's
+    collectives (count and bytes by kind, step 2) equal to (b)'s, step ms
+    (gloo over host memory on one shared card), peak memory beside (b)'s
+    argument + temp bytes. The kernel table gains rank 0's launches
+    (``launches_dist``).
 
 The last two lines are the kernel table and
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. TF32 is off for
@@ -5830,8 +5846,10 @@ def phase_cells(card):
     for k_, v in counts.items():
         launches[k_] = launches.get(k_, 0) + v
     t_b = time.perf_counter()
-    records = dryrun.main(["--all"])
-    print(f"phase 19b dry run: {len(records)} cells on meta in "
+    records = [r for fam in ("gnn", "recsys", "cf")
+               for r in dryrun.main(["--all", "--family", fam])]
+    print(f"phase 19b dry run: {len(records)} cells (the GNN, recsys and CF "
+          f"families; the LM's on a mesh in phase 20) on meta in "
           f"{time.perf_counter() - t_b:.1f}s")
     for name, (r, _) in fits.items():
         _card_vs_meta(f"{CF_ARCH}/{name}", arch, name, (None, r), card)
@@ -5849,6 +5867,155 @@ def phase_cells(card):
     _compression_on_card(card)
     print(f"phase 19: {time.perf_counter() - t0:.1f}s")
     return launches
+
+# ------------------------------------------------------------------ phase 20
+# SmolLM-360M at full width and depth, landmark attention, AdamW, remat,
+# trained over the reference's debug mesh (data=2, model=4) by 8 ranks, one
+# process each, on the one card: the ranks share its 80 GB, so the global
+# batch is cut from train_4k's 256 to 4 (one process alone peaks at
+# 35.8 GiB at B = 8)
+P20_ARCH, P20_BATCH, P20_STEPS = "smollm-360m", 4, 2
+P20_MESH = (("data", "model"), (2, 4))
+P20_TIMEOUT = 420  # s for the 8 ranks' run, spawn and build included
+# each rank's loss against the one-process step's: the bf16 loss bound of
+# tests/test_torch_lm.py (rtol 1e-2; the mesh sums in another order)
+P20_LOSS_RTOL = 1e-2
+# the leaves whose step-1 gradient and step-2 value rank 0 gathers whole
+# and holds against the one-process step's (the embedding, the first
+# layer's query projection, the last layer's MLP down projection), each
+# with its bounds on |mesh - one process| / |one process| (Frobenius) of
+# the gradient and of the value: about 2.5 times the H100's readings
+# (PERF.md, phase 20). The embedding's gradient is loose by nature: its
+# most frequent token's row sums thousands of lookup gradients in bf16, so
+# the one-process bf16 step's is 0.84 from the f32 step's there
+P20_LEAVES = {"embed": (0.5, 1e-4), "layers.0.wq": (0.05, 1e-4),
+              "layers.31.w2": (0.02, 1e-4)}
+
+
+def _p20_arch():
+    from repro_torch.launch import mesh_run
+
+    return mesh_run.smoke_arch(P20_ARCH, backend="landmark", smoke=False,
+                               batch=P20_BATCH, seq=LM_SEQ)
+
+
+def _p20_dry(arch):
+    """The dry run of phase 20's cell at the debug mesh: per-device
+    collectives by kind, argument and temp bytes. Its fake group's mesh is
+    of the card's type, as the ranks' is, so DTensor plans the same
+    collectives (a CPU mesh swaps an all-to-all for an all-gather)."""
+    from repro_torch.launch import dist as dist_mod
+    from repro_torch.launch.mesh import device_mesh
+
+    with dist_mod.fake_group(8):
+        costs, layers, traced = dryrun.count_cell(
+            arch, "train", mesh=device_mesh(*P20_MESH, DEVICE))
+    coll = {k: v for k, v in costs.collectives.items()
+            if not k.startswith("_") and v}
+    return dict(collectives=coll, counts={
+        k: v for k, v in costs.collectives["_counts"].items() if v},
+        argument_bytes=costs.memory["argument_size_in_bytes"],
+        temp_bytes=costs.memory["temp_size_in_bytes"], layers=layers,
+        traced=traced)
+
+
+def phase_dist(card):
+    """20: the multi-process launcher and the logical-axis rules on the
+    card. (a) SmolLM-360M's landmark train step in one process at B = 4,
+    the comparison; (b) the dry run of the same cell over the debug mesh on
+    meta; (c) 8 ranks (``launch/dist.py::spawn``) on data=2, model=4 train
+    it 2 steps with the parameters, AdamW state and batch placed by the
+    arch's rules. Checks: every rank's loss within the bf16 bound of the
+    one-process step's, kernel 7's forward and backward launched in every
+    rank on the tensor-core route, a forward and a remat recompute a layer
+    and a backward a layer each step, each rank's collectives (count and
+    bytes by kind, step 2) equal to the dry run's, and :data:`P20_LEAVES`'
+    step-1 gradients and step-2 values, gathered whole on rank 0, within
+    their bounds of the one-process step's. Prints the backend and why,
+    per-rank step ms (gloo over host memory on one shared card: nothing
+    about NCCL), peak memory beside the dry run's argument + temp bytes,
+    and what the collectives built from others really moved. Returns
+    rank 0's launches by kernel row."""
+    from repro_torch.launch import dist as dist_mod
+    from repro_torch.launch import mesh_run
+
+    t0 = time.perf_counter()
+    arch = _p20_arch()
+    cfg = arch.model
+    one = mesh_run.lm_train(DEVICE, arch, steps_n=P20_STEPS, want_grads=True,
+                            want_params=True, leaves=list(P20_LEAVES))
+    # the same step in f32: how far bf16 alone moves each leaf's gradient
+    one32 = mesh_run.lm_train(
+        DEVICE, dataclasses.replace(arch, model=dataclasses.replace(
+            cfg, dtype=torch.float32)), want_grads=True,
+        leaves=list(P20_LEAVES))
+    print(f"phase 20a one process ({card}): {P20_ARCH} L={cfg.n_layers} "
+          f"d={cfg.d_model} B={P20_BATCH} S={LM_SEQ} landmark: losses "
+          f"{one['losses']}, step ms {one['step_ms']}, peak GiB "
+          f"{one['peak_bytes'] / 2 ** 30:.2f}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_dry = time.perf_counter()
+    dry = _p20_dry(arch)
+    print(f"phase 20b dry run of the cell at data=2,model=4 on meta "
+          f"({time.perf_counter() - t_dry:.1f}s, depths {dry['traced']} "
+          f"taken to {dry['layers']}): " + json.dumps(dry))
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    t_run = time.perf_counter()
+    ranks = dist_mod.spawn(mesh_run.train_rank, 8, arch, P20_MESH,
+                           P20_STEPS, list(P20_LEAVES), device=DEVICE,
+                           threads=1, timeout=P20_TIMEOUT)
+    held = time.perf_counter() - t_run
+    r0 = ranks[0]
+    print(f"phase 20c ({card}): 8 ranks on mesh {dict(zip(*P20_MESH))}, "
+          f"device {r0['device']}, backend {r0['backend']} ({r0['reason']});"
+          f" collectives built from others: {r0['built'] or 'none'}; "
+          f"spawned, built and trained in {held:.1f}s")
+    launches = {}
+    bwd_calls = cfg.n_layers * lsum.BWD_LAUNCHES
+    for r in ranks:
+        counts = {k: sum(st.get(k, 0) for st in r["launches"])
+                  for k in ("landmark_summary", "landmark_summary_bwd")}
+        coll = {k: v["bytes"] for k, v in r["collectives"][-1].items()}
+        ncoll = {k: v["count"] for k, v in r["collectives"][-1].items()}
+        print(f"phase 20c rank {r['rank']}: losses {r['losses']} (one "
+              f"process {one['losses']}), launches {counts}, step ms "
+              f"{[round(x, 1) for x in r['step_ms']]} (gloo over host "
+              f"memory on one shared card), peak GiB "
+              f"{r['peak_bytes'] / 2 ** 30:.2f} (dry run: argument + temp "
+              f"{(dry['argument_bytes'] + dry['temp_bytes']) / 2 ** 30:.2f}"
+              f"), collective bytes {coll}, moved {r['moved']}")
+        np.testing.assert_allclose(r["losses"], one["losses"],
+                                   rtol=P20_LOSS_RTOL)
+        for st in r["launches"]:  # each step: forward and remat recompute
+            assert st["landmark_summary"] == 2 * cfg.n_layers, st
+            assert st["landmark_summary_bwd"] == bwd_calls, st
+        assert coll == {k: int(v) for k, v in dry["collectives"].items()}, (
+            coll, dry["collectives"])
+        assert ncoll == {k: int(v) for k, v in dry["counts"].items()}, (
+            ncoll, dry["counts"])
+        if r["rank"] == 0:
+            launches = counts
+    errs, over = {}, []
+    for name, tols in P20_LEAVES.items():
+        for key, tol in zip(("grads", "params"), tols):
+            want, got = one[key][name], r0[key][name]
+            errs[f"{key} {name}"] = err = float((got - want).norm()
+                                                / want.norm())
+            if not err <= tol:
+                over.append((key, name, err, tol))
+        w32 = one32["grads"][name]
+        errs[f"grads {name} one vs f32"] = float(
+            (one["grads"][name] - w32).norm() / w32.norm())
+    print(f"phase 20c rank 0 against one process, |diff| / |one| (bounds "
+          f"{P20_LEAVES}; step-1 gradients, step-2 values; the one-process "
+          f"bf16 gradients against the f32 step's beside them): "
+          + json.dumps(errs))
+    assert not over, over
+    print(f"phase 20: {time.perf_counter() - t0:.1f}s")
+    return launches
+
 
 
 def main():
@@ -5895,6 +6062,7 @@ def main():
     gnn_row, gnn_counts = phase_gnn(card)
     rec_notes, rec_counts = phase_recsys(d, card)
     cell_counts = phase_cells(card)
+    dist_counts = phase_dist(card)
     gnn_row["per_csr"].update({key: {t: v[t] for t in v if t.startswith(
         ("live", "max_degree", "head_share", "H="))}
         for key, v in rec_notes.items()})
@@ -5921,6 +6089,8 @@ def main():
         row["launches_recsys"] = rec_counts.get(row["name"], 0)
         # the CF cells (19a)
         row["launches_cells"] = cell_counts.get(row["name"], 0)
+        # rank 0 of the 8-rank mesh run (20c): kernel 7 and its backward
+        row["launches_dist"] = dist_counts.get(row["name"], 0)
         for tag, times in ivf["wide_ms"].items():  # kernels 2-6, 7a
             if row["name"] in times:
                 row[f"{tag} ms"] = times[row["name"]]

@@ -1,13 +1,14 @@
 """Config schema for the LM, GNN, recsys and CF families: an ``ArchConfig``
 holds one architecture's published hyperparameters, a reduced smoke model
-for CPU tests, its shape set, its optimizer and its gradient accumulation
-per shape — the reference's schema without the sharding rules, which the
-single-device port does not read."""
+for CPU tests, its shape set, its sharding rules (logical axis -> mesh
+axes, ``distributed/sharding.py``), its optimizer and its gradient
+accumulation per shape — the reference's schema."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, Tuple
 
+from ..distributed.sharding import DEFAULT_RULES
 from ..train.optimizer import OptConfig
 
 
@@ -29,6 +30,8 @@ class ArchConfig:
     smoke_model: Any
     shapes: Tuple[ShapeSpec, ...]
     source: str = ""
+    rules: Dict[str, Any] = dataclasses.field(
+        default_factory=lambda: dict(DEFAULT_RULES))
     opt: OptConfig = OptConfig()
     grad_accum: Dict[str, int] = dataclasses.field(default_factory=dict)
 

@@ -1,19 +1,31 @@
 """The LM architectures, dense and MoE, the GNN, the four recsys
 architectures and the paper's landmark CF, with the reference registry's
-exact hyperparameters, smoke models, optimizers and gradient accumulation
-(sources inline)."""
+exact hyperparameters, smoke models, optimizers, gradient accumulation
+and sharding rules (sources inline). Every arch takes the reference's
+rules, ``DEFAULT_RULES`` (:func:`_rules` with no override); the LMs'
+``shard_heads`` / ``shard_kv`` pick which of their attention weights the
+rules split."""
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
 
+from ..distributed.sharding import DEFAULT_RULES
 from ..models.gnn import GNNConfig
 from ..models.recsys import Bert4RecConfig, DIENConfig, FMConfig, MINDConfig
 from ..models.transformer import LMConfig, MoEConfig
 from ..train.optimizer import OptConfig
 from . import landmark_cf
 from .base import GNN_SHAPES, RECSYS_SHAPES, ArchConfig, lm_shapes
+
+
+
+def _rules(**over) -> Dict:
+    r = dict(DEFAULT_RULES)
+    r.update(over)
+    return r
+
 
 ARCHS: Dict[str, ArchConfig] = {}
 
@@ -30,11 +42,14 @@ _register(ArchConfig(
     model=LMConfig(
         name="llama3-405b", n_layers=126, d_model=16384, n_heads=128,
         n_kv_heads=8, head_dim=128, d_ff=53248, vocab=128256,
-        act="silu", rope_theta=500000.0, kv_chunk=1024, n_landmarks=512),
+        act="silu", rope_theta=500000.0,
+        shard_heads=True, shard_kv=False,  # 8 kv heads < tp16: kv replicated
+        kv_chunk=1024, n_landmarks=512),
     smoke_model=LMConfig(
         name="llama3-smoke", n_layers=2, d_model=128, n_heads=8, n_kv_heads=2,
         head_dim=16, d_ff=256, vocab=512, act="silu", n_landmarks=8),
     shapes=lm_shapes(),
+    rules=_rules(),  # seq -> model (the sequence-parallel residual)
     opt=OptConfig(name="adafactor", state_dtype=torch.bfloat16),
     grad_accum={"train_4k": 8},
 ))
@@ -46,11 +61,13 @@ _register(ArchConfig(
     model=LMConfig(
         name="smollm-360m", n_layers=32, d_model=960, n_heads=15,
         n_kv_heads=5, head_dim=64, d_ff=2560, vocab=49152,
-        act="silu", tied_embed=True, n_landmarks=512),
+        act="silu", tied_embed=True,
+        shard_heads=False,  # 15 heads % 16 != 0: attention weights replicated
+        n_landmarks=512),
     smoke_model=LMConfig(
         name="smollm-smoke", n_layers=2, d_model=96, n_heads=3, n_kv_heads=1,
         head_dim=32, d_ff=256, vocab=512, act="silu", tied_embed=True,
-        n_landmarks=8),
+        shard_heads=False, n_landmarks=8),
     shapes=lm_shapes(),
     opt=OptConfig(name="adamw"),
     grad_accum={"train_4k": 1},
@@ -103,6 +120,7 @@ _register(ArchConfig(
         n_kv_heads=8, head_dim=128, d_ff=0, vocab=100352, act="silu",
         moe=MoEConfig(n_experts=16, top_k=4, d_ff_expert=10752, n_shared=0,
                       capacity_factor=1.25, group_size=512),
+        shard_kv=False,  # 8 kv heads < tp16
         kv_chunk=1024, n_landmarks=512),
     smoke_model=LMConfig(
         name="dbrx-smoke", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -105,6 +106,14 @@ def build() -> Tuple[Path, str, float]:
     ``-Xptxas -v`` register, shared-memory and spill lines of a fresh build
     and is empty when nothing was rebuilt. Raises if ``nvcc`` fails.
     """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # one build at a time: ranks started together wait for the first
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return _build_locked()
+
+
+def _build_locked() -> Tuple[Path, str, float]:
     sources = sorted(CSRC.glob("*.cu"))
     headers = sorted(CSRC.glob("*.cuh"))
     lib = BUILD_DIR / LIB_NAME

@@ -2,7 +2,7 @@
 count what its step costs, with no memory and no arithmetic.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-360m --shape train_4k
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--skip-paper-native] [--out DIR] [--full-depth]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--debug-mesh] [--multi-pod] [--smoke] [--family F] [--skip-paper-native] [--out DIR] [--full-depth]
 
 The reference's ``repro.launch.dryrun`` lowers and compiles each cell on a
 512-device host mesh and reads XLA's cost and memory analyses. The port
@@ -15,33 +15,47 @@ meta CSR). A model of identical layers runs at depths 2 and 3 (and a
 step of many micro-batches at 2 and 3 of them), and its counts are taken
 to the cell on the line through them (:func:`count_cell`). One record a
 cell, with the reference's keys where they mean something here: ``mesh``
-and ``n_devices`` (one device: the port's cells carry no shardings),
-``trace_s`` in place of ``lower_s`` and ``compile_s``, ``flops``,
-``bytes_accessed`` (unfused), ``collectives`` and ``memory``. It runs on
-the CPU and needs no card.
+and ``n_devices``, ``trace_s`` in place of ``lower_s`` and ``compile_s``,
+``flops``, ``bytes_accessed`` (unfused), ``collectives`` and ``memory``.
+It runs on the CPU and needs no card.
 
-The reference's ``--multi-pod`` and ``--debug-mesh`` lay a cell's
-shardings over a mesh; they wait for the logical-axis layer and raise.
-A cell that fails fails the run (exit code 1), as in the reference.
+The LM cells are laid over the reference's meshes: its 16×16 production
+mesh by default, two pods (2×16×16) with ``--multi-pod``, its 8-position
+debug mesh (2×4, or 2×2×2 with ``--multi-pod``) with ``--debug-mesh``.
+One process sets up torch's in-process ``fake`` group of the mesh's size
+(``launch/dist.py::fake_group``), places each LM cell's parameters,
+state, cache and batch as DTensors on ``meta`` by the arch's rules
+(``launch/steps.py``) and runs its step as position 0: every count is
+that device's (argument bytes: its local blocks, the fullest; temp bytes;
+flops and bytes of its local ops) and ``collectives`` counts every
+functional collective DTensor issues by its output bytes, the reference's
+``launch/hlo.py`` convention. The other families' cells wait for their
+logical-axis trees (ROADMAP queue 1) and keep their one-device record
+(``n_devices`` 1); the run prints which. The fake group is destroyed
+after the run. A cell that fails fails the run (exit code 1), as in the
+reference.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import math
 import sys
 import traceback
 from pathlib import Path
 
 from ..configs import registry
+from . import dist
+from ..distributed.sharding import mesh_axes
+from .mesh import (DEBUG, DEBUG_MULTI_POD, MULTI_POD, PRODUCTION,
+                   make_debug_mesh, make_production_mesh)
 from .step_costs import StepCosts, measure, storage_bytes
 from .steps import COMM_MESH, build_cell
 
 DEPTHS = (2, 3)  # the depths a deeper model's step runs at
 MICRO_BATCHES = (2, 3)  # and a step of more micro-batches
-MESH_WAITS = ("launch.dryrun: --multi-pod and --debug-mesh lay a cell's "
-              "shardings over a mesh, which waits for the logical-axis layer "
-              "with the multi-process launcher (ROADMAP queue 1, item 4)")
+MESH_FAMILIES = ("lm",)  # the families whose cells are laid over the mesh
 UNFUSED = ("every operation's inputs and outputs summed, unfused, plus the "
            "kernels' formulas (kernels/cost.py)")
 
@@ -62,7 +76,7 @@ def _scaled(arch, shape_name: str, layers: int, accum: int):
 
 
 def count_cell(arch, shape_name: str, variant: str = "base",
-               full_depth: bool = False):
+               full_depth: bool = False, mesh=None):
     """(the cell's StepCosts, its model's layers, the (layers, micro-
     batches) pairs traced).
 
@@ -78,20 +92,29 @@ def count_cell(arch, shape_name: str, variant: str = "base",
     fewest micro-batches: a micro-batch frees its activations before the
     next starts, so the peak does not grow with their number. The
     argument bytes are the full cell's, counted from its inputs.
-    ``full_depth`` traces the whole cell instead."""
-    cell = build_cell(arch, shape_name, variant)
+    ``full_depth`` traces the whole cell instead. ``mesh``: an LM cell's
+    ``DeviceMesh`` (per-device counts)."""
+    cell = build_cell(arch, shape_name, variant, mesh)
     layers = getattr(arch.model, "n_layers", None)
     accum = arch.grad_accum.get(shape_name, 1)
     deep = (layers or 0) > max(DEPTHS)
-    if full_depth or (not deep and accum <= max(MICRO_BATCHES)):
-        return measure(cell.fn, cell.args)[1], layers, [(layers, accum)]
     ls = DEPTHS if deep else (layers,)
     accs = MICRO_BATCHES if accum > max(MICRO_BATCHES) else (accum,)
+    if mesh is not None:
+        # DTensor's first call of an op on new placements runs its sharding
+        # propagation and a slow path that the counts must not see: one
+        # untimed step of the cell's smallest form first
+        warm = (cell if full_depth else build_cell(
+            _scaled(arch, shape_name, ls[0], accs[0]), shape_name, variant,
+            mesh))
+        measure(warm.fn, warm.args)
+    if full_depth or (not deep and accum <= max(MICRO_BATCHES)):
+        return measure(cell.fn, cell.args)[1], layers, [(layers, accum)]
     runs = {}
     for lay in ls:
         for acc in accs:
             c = build_cell(_scaled(arch, shape_name, lay, acc), shape_name,
-                           variant)
+                           variant, mesh)
             runs[lay, acc] = measure(c.fn, c.args)[1]
 
     def weights(points, x):  # the line through one or two points at x
@@ -111,18 +134,28 @@ def count_cell(arch, shape_name: str, variant: str = "base",
 
 
 def run_cell(arch_name: str, shape_name: str, variant: str = "base",
-             verbose: bool = True, full_depth: bool = False) -> dict:
-    """Build the cell on ``meta``, count its step and return its
-    record."""
-    c, layers, traced = count_cell(registry.get(arch_name), shape_name,
-                                   variant, full_depth)
-    mesh = COMM_MESH[1] if variant == "comm" else (1, 1)
+             verbose: bool = True, full_depth: bool = False,
+             mesh=None, smoke: bool = False) -> dict:
+    """Build the cell on ``meta``, count its step and return its record;
+    an LM cell over ``mesh`` (a ``DeviceMesh``) when one is given; with
+    ``smoke`` the arch's smoke model at the cell's shape."""
+    arch = registry.get(arch_name)
+    if smoke:
+        arch = dataclasses.replace(arch, model=arch.smoke_model)
+    if arch.family not in MESH_FAMILIES:
+        mesh = None
+    c, layers, traced = count_cell(arch, shape_name, variant, full_depth,
+                                   mesh)
+    if mesh is not None:
+        sizes, n_dev = tuple(mesh_axes(mesh).values()), mesh.size()
+    else:
+        sizes, n_dev = COMM_MESH[1] if variant == "comm" else (1, 1), 1
     rec = {
         "arch": arch_name,
         "shape": shape_name,
         "variant": variant,
-        "mesh": "x".join(map(str, mesh)),
-        "n_devices": 1,
+        "mesh": "x".join(map(str, sizes)),
+        "n_devices": n_dev,
         "trace_s": round(c.seconds, 3),
         "layers": layers,
         "layers_traced": traced,
@@ -172,41 +205,65 @@ def main(argv=None):
     ap.add_argument("--debug-mesh", action="store_true")
     ap.add_argument("--out", default=None)
     ap.add_argument("--skip-paper-native", action="store_true")
+    ap.add_argument("--family", default=None,
+                    help="with --all: only this family's cells (lm, gnn, "
+                    "recsys, cf)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="each arch's smoke model at its cells' shapes")
     ap.add_argument("--full-depth", action="store_true",
                     help="trace every layer and micro-batch (slow at full "
                     "depth) instead of taking the counts to them")
     args = ap.parse_args(argv)
-    if args.multi_pod or args.debug_mesh:
-        raise NotImplementedError(MESH_WAITS)
     if not args.all and not (args.arch and args.shape):
-        ap.error("give --all, or --arch and --shape")
-    print("mesh axes=('data', 'model') shape=(1, 1): one device, the cells "
-          "carry no shardings", flush=True)
+        ap.error("give --all (with --arch: that arch's cells), or --arch "
+                 "and --shape")
+    if args.debug_mesh:
+        names, sizes = DEBUG_MULTI_POD if args.multi_pod else DEBUG
+        make = make_debug_mesh
+    else:
+        names, sizes = MULTI_POD if args.multi_pod else PRODUCTION
+        make = make_production_mesh
+    print(f"mesh axes={names} shape={sizes}: the LM cells' placements on a "
+          f"fake group of {math.prod(sizes)}", flush=True)
 
     if args.all:
         cells = all_cells()
         if args.skip_paper_native:
             cells = [c for c in cells if registry.get(c[0]).family != "cf"]
+        if args.family:
+            cells = [c for c in cells
+                     if registry.get(c[0]).family == args.family]
+        if args.arch:
+            cells = [c for c in cells if c[0] == args.arch]
     else:
         cells = [(args.arch, args.shape, args.variant)]
+    waiting = sorted({registry.get(c[0]).family for c in cells}
+                     - set(MESH_FAMILIES))
+    if waiting:
+        print(f"one device (their logical-axis trees wait): "
+              f"{', '.join(waiting)} cells", flush=True)
 
     records, failures = [], []
-    for arch_name, shape_name, variant in cells:
-        try:
-            records.append(run_cell(arch_name, shape_name, variant,
-                                    full_depth=args.full_depth))
-        except Exception as e:  # noqa: BLE001 — a failed cell is a bug to report
-            failures.append((arch_name, shape_name, variant, repr(e)))
-            print(f"[FAIL] {arch_name}/{shape_name}/{variant}: {e}",
-                  flush=True)
-            traceback.print_exc()
+    with dist.fake_group(math.prod(sizes)):
+        mesh = make(multi_pod=args.multi_pod, device="cpu", dist=True)
+        for arch_name, shape_name, variant in cells:
+            try:
+                records.append(run_cell(arch_name, shape_name, variant,
+                                        full_depth=args.full_depth,
+                                        mesh=mesh, smoke=args.smoke))
+            except Exception as e:  # noqa: BLE001 — a failed cell is a bug to report
+                failures.append((arch_name, shape_name, variant, repr(e)))
+                print(f"[FAIL] {arch_name}/{shape_name}/{variant}: {e}",
+                      flush=True)
+                traceback.print_exc()
 
     if args.out:
         out = Path(args.out)
         out.mkdir(parents=True, exist_ok=True)
-        (out / "dryrun_singlepod.json").write_text(json.dumps(records,
-                                                              indent=1))
-        print(f"wrote {out}/dryrun_singlepod.json ({len(records)} cells)")
+        tag = "multipod" if args.multi_pod else "singlepod"
+        (out / f"dryrun_{tag}.json").write_text(json.dumps(records,
+                                                           indent=1))
+        print(f"wrote {out}/dryrun_{tag}.json ({len(records)} cells)")
     if failures:
         print(f"{len(failures)} FAILURES:")
         for f in failures:

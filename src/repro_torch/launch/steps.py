@@ -7,12 +7,23 @@ single-process mesh).
 function and example inputs on the ``meta`` device (shapes and dtypes, no
 memory — the counterpart of the reference's ``ShapeDtypeStruct``\\ s), for
 ``launch/train.py`` and ``launch/serve.py``-style callers to run with real
-tensors. The port runs on one device, so a cell has no shardings and no
-donation: the train step updates the model and the optimizer state in
-place.
+tensors. A cell has no donation: the train step updates the model and the
+optimizer state in place.
+
+The LM cells (train, prefill, decode and the landmark decode) take an
+optional ``DeviceMesh`` (``launch/mesh.py::device_mesh``), the
+reference's ``_lm_state_specs`` and ``_lm_train_cell`` placements:
+parameters by ``lm_logical`` (:func:`place_params`), the optimizer state
+like its parameter (``opt_state_logical``), caches by ``cache_logical`` /
+``landmark_cache_logical`` and the batch over ``("pod", "data")``
+(:func:`place_tree`), all DTensors; the model then runs with the arch's
+rules and its collectives are counted (``launch/dist.py::Collectives``).
+Without a mesh a cell is the one-device cell. The other families' cells
+have no mesh form yet.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, Tuple
 
@@ -27,8 +38,11 @@ from ..kernels import ops
 from ..models import gnn as gnn_mod
 from ..models import recsys as rec_mod
 from ..models import transformer as lm_mod
+from ..distributed.sharding import (DTensor, distribute, filter_rules,
+                                    spec_for, splits_merged)
 from ..train.optimizer import opt_init, opt_update
-from .mesh import make_mesh
+from . import dist as dist_mod
+from .mesh import apart, make_mesh
 
 # the GNN's comm variant runs on the reference's debug mesh
 COMM_MESH = (("data", "model"), (2, 4))
@@ -40,6 +54,7 @@ class Cell:
     shape: ShapeSpec
     fn: Callable
     args: Tuple[Any, ...]  # example inputs on the meta device
+    mesh: Any = None  # the DeviceMesh of an LM cell's placements
 
 
 def _meta(shape, dtype) -> torch.Tensor:
@@ -48,6 +63,59 @@ def _meta(shape, dtype) -> torch.Tensor:
 
 def _meta_model(cfg) -> lm_mod.LM:
     return lm_mod.LM(cfg, device="meta")
+
+
+@torch.no_grad()
+def place_params(model: torch.nn.Module, logical: Dict[str, tuple], rules,
+                 mesh) -> torch.nn.Module:
+    """Each parameter, the same whole tensor on every rank, replaced in
+    place by a DTensor of its logical axes (``logical`` by parameter
+    name): each rank keeps its own block."""
+    rules = filter_rules(rules, mesh)
+    for name, p in list(model.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(owner) if owner else model
+        setattr(mod, leaf, torch.nn.Parameter(
+            distribute(p.detach(), mesh, spec_for(logical[name], rules)),
+            requires_grad=p.requires_grad))
+    return model
+
+
+def place_tree(tree: Dict[str, torch.Tensor], logical: Dict[str, tuple],
+               rules, mesh) -> Dict[str, torch.Tensor]:
+    """A dict of whole tensors as DTensors of their logical axes; a key
+    whose axes are () (a scalar, such as a cache's length) stays as it
+    is."""
+    rules = filter_rules(rules, mesh)
+    return {k: (distribute(v, mesh, spec_for(logical[k], rules))
+                if logical[k] else v) for k, v in tree.items()}
+
+
+def _counting(mesh):
+    """The collectives' count around a mesh cell's step; nothing without
+    one."""
+    return (contextlib.nullcontext() if mesh is None
+            else dist_mod.Collectives())
+
+
+def _serving(mesh):
+    """A serving cell's grad mode: ``inference_mode`` on one device;
+    ``no_grad`` on a mesh, where DTensor wraps local blocks in place
+    (``local_map``), which inference tensors refuse."""
+    return torch.inference_mode() if mesh is None else torch.no_grad()
+
+
+def _whole(x):
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def _batch_rules(arch: ArchConfig, b: int):
+    """The arch's rules, its batch replicated at batch 1 (the
+    reference's decode cells)."""
+    rules = dict(arch.rules)
+    if b == 1:
+        rules["batch"] = None
+    return rules
 
 
 def value_and_grad(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
@@ -64,7 +132,7 @@ def value_and_grad(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
     return loss.detach(), dict(zip(names, grads))
 
 
-def _lm_train_cell(arch: ArchConfig, shape: ShapeSpec) -> Cell:
+def _lm_train_cell(arch: ArchConfig, shape: ShapeSpec, mesh=None) -> Cell:
     b, s = shape.dims["batch"], shape.dims["seq"]
     accum = arch.grad_accum.get(shape.name, 1)
     mb = b // accum
@@ -72,61 +140,92 @@ def _lm_train_cell(arch: ArchConfig, shape: ShapeSpec) -> Cell:
     meta = _meta_model(arch.model)
     batch = {key: torch.empty(tok_shape, dtype=torch.int32, device="meta")
              for key in ("tokens", "labels")}
+    rules = arch.rules if mesh is not None else None
+    if mesh is not None:
+        place_params(meta, lm_mod.param_logical(arch.model), rules, mesh)
+        tok = ("null", "batch", "null") if accum > 1 else ("batch", "null")
+        batch = place_tree(batch, {"tokens": tok, "labels": tok}, rules,
+                           mesh)
+
+    def loss_fn(model, batch):
+        return lm_mod.lm_loss(model, batch, rules)
 
     def step(model, opt_state, batch):
-        if accum > 1:
-            # micro-batches in order; the accumulators are bf16 whatever the
-            # parameters' dtype, as the reference's scan carries them
-            batch = {key: val.reshape(accum, mb, *val.shape[-1:])
-                     for key, val in batch.items()}
-            g_acc, l_acc = None, 0.0
-            for i in range(accum):
-                loss, grads = value_and_grad(
-                    model, {key: val[i] for key, val in batch.items()})
-                if g_acc is None:
-                    g_acc = {n: torch.zeros_like(g, dtype=torch.bfloat16)
+        with _counting(mesh):
+            if accum > 1:
+                # micro-batches in order; the accumulators are bf16
+                # whatever the parameters' dtype, as the reference's scan
+                # carries them
+                batch = {key: val.reshape(accum, mb, *val.shape[-1:])
+                         for key, val in batch.items()}
+                g_acc, l_acc = None, 0.0
+                for i in range(accum):
+                    loss, grads = value_and_grad(
+                        model, {key: val[i] for key, val in batch.items()},
+                        loss_fn)
+                    if g_acc is None:
+                        g_acc = {n: torch.zeros_like(g, dtype=torch.bfloat16)
+                                 for n, g in grads.items()}
+                    g_acc = {n: g_acc[n] + g.to(torch.bfloat16)
                              for n, g in grads.items()}
-                g_acc = {n: g_acc[n] + g.to(torch.bfloat16)
-                         for n, g in grads.items()}
-                l_acc = l_acc + loss
-            grads = {n: g / accum for n, g in g_acc.items()}
-            loss = l_acc / accum
-        else:
-            loss, grads = value_and_grad(model, batch)
-        opt_update(model, grads, opt_state, arch.opt)
+                    l_acc = l_acc + loss
+                grads = {n: g / accum for n, g in g_acc.items()}
+                loss = l_acc / accum
+            else:
+                loss, grads = value_and_grad(model, batch, loss_fn)
+            opt_update(model, grads, opt_state, arch.opt)
+            loss = _whole(loss)
         return model, opt_state, {"loss": loss}
 
-    return Cell(arch, shape, step, (meta, opt_init(meta, arch.opt), batch))
+    return Cell(arch, shape, step, (meta, opt_init(meta, arch.opt), batch),
+                mesh)
 
 
-def _lm_prefill_cell(arch: ArchConfig, shape: ShapeSpec) -> Cell:
+def _lm_prefill_cell(arch: ArchConfig, shape: ShapeSpec, mesh=None) -> Cell:
     b, s = shape.dims["batch"], shape.dims["seq"]
     tokens = torch.empty((b, s), dtype=torch.int32, device="meta")
+    model = _meta_model(arch.model)
+    rules = arch.rules if mesh is not None else None
+    if mesh is not None:
+        place_params(model, lm_mod.param_logical(arch.model), rules, mesh)
+        tokens = place_tree({"t": tokens}, {"t": ("batch", "null")}, rules,
+                            mesh)["t"]
 
     def step(model, tokens):
-        with torch.inference_mode():
-            return lm_mod.lm_prefill(model, tokens)
+        with _counting(mesh), _serving(mesh):
+            return lm_mod.lm_prefill(model, tokens, rules=rules)
 
-    return Cell(arch, shape, step, (_meta_model(arch.model), tokens))
+    return Cell(arch, shape, step, (model, tokens), mesh)
 
 
 def _lm_decode_cell(arch: ArchConfig, shape: ShapeSpec,
-                    landmark: bool) -> Cell:
+                    landmark: bool, mesh=None) -> Cell:
     cfg = arch.model
     b, cache_len = shape.dims["batch"], shape.dims["cache_len"]
     token = torch.empty((b, 1), dtype=torch.int32, device="meta")
     if landmark:
         cache = lm_mod.make_landmark_cache(cfg, b, device="meta")
+        cache_la = lm_mod.landmark_cache_logical()
         decode = lm_mod.lm_landmark_decode_step
     else:
         cache = lm_mod.make_cache(cfg, b, cache_len, device="meta")
+        cache_la = lm_mod.cache_logical(cache_len > 100_000, cfg.kv_quant)
         decode = lm_mod.lm_decode_step
+    model = _meta_model(cfg)
+    rules = _batch_rules(arch, b) if mesh is not None else None
+    if mesh is not None:
+        if splits_merged(cache_la, rules, mesh):  # kv_seq_all at multi-pod
+            mesh = apart(mesh)
+        place_params(model, lm_mod.param_logical(cfg), rules, mesh)
+        cache = place_tree(cache, cache_la, rules, mesh)
+        token = place_tree({"t": token}, {"t": ("batch", "null")}, rules,
+                           mesh)["t"]
 
     def step(model, cache, token):
-        with torch.inference_mode():
-            return decode(model, cache, token)
+        with _counting(mesh), _serving(mesh):
+            return decode(model, cache, token, rules)
 
-    return Cell(arch, shape, step, (_meta_model(cfg), cache, token))
+    return Cell(arch, shape, step, (model, cache, token), mesh)
 
 
 def _gnn_sizes(shape: ShapeSpec, node_shards: int, edge_shards: int):
@@ -314,12 +413,17 @@ def _cf_cell(arch: ArchConfig, shape: ShapeSpec,
 
 
 def build_cell(arch: ArchConfig, shape_name: str,
-               variant: str = "base") -> Cell:
+               variant: str = "base", mesh=None) -> Cell:
     """The cell of ``arch`` at its shape ``shape_name``. ``variant``, for a
     decode shape: ``landmark`` (O(n) landmark decode) or ``kv_int8`` (the
     int8 KV cache); for a GNN shape: ``comm`` (the mesh form); for a CF
-    fit: ``fused`` (the same step on one card)."""
+    fit: ``fused`` (the same step on one card). ``mesh``: an LM cell's
+    ``DeviceMesh`` (the other families raise)."""
     shape = arch.shape(shape_name)
+    if mesh is not None and arch.family != "lm":
+        raise NotImplementedError(
+            f"build_cell: the {arch.family} cells' mesh form waits for "
+            f"their logical-axis trees (ROADMAP queue 1, items 4a-4b)")
     if arch.family == "gnn":
         return _gnn_train_cell(arch, shape, variant)
     if arch.family == "recsys":
@@ -329,13 +433,13 @@ def build_cell(arch: ArchConfig, shape_name: str,
     if arch.family != "lm":
         raise ValueError(f"build_cell: unknown family {arch.family!r}")
     if shape.kind == "train":
-        return _lm_train_cell(arch, shape)
+        return _lm_train_cell(arch, shape, mesh)
     if shape.kind == "prefill":
-        return _lm_prefill_cell(arch, shape)
+        return _lm_prefill_cell(arch, shape, mesh)
     if shape.kind == "decode":
         if variant == "kv_int8":
             arch = dataclasses.replace(arch, model=dataclasses.replace(
                 arch.model, kv_quant=True))
-            return _lm_decode_cell(arch, shape, False)
-        return _lm_decode_cell(arch, shape, variant == "landmark")
+            return _lm_decode_cell(arch, shape, False, mesh)
+        return _lm_decode_cell(arch, shape, variant == "landmark", mesh)
     raise ValueError(shape.kind)

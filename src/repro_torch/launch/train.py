@@ -23,13 +23,27 @@ a (4, 128) batch and no gradient accumulation, for the GNN the
 reference's ``random_graph(step, 200, 800, d_feat, n_classes,
 pad_edges_to=1024)`` (``molecule``: 4 molecules of 10 nodes and 20 edges).
 Runs on the card unless ``--device cpu`` is given; without a card it
-raises (it never falls back). The reference's ``--production-mesh`` and
-``--multi-pod`` wait for the multi-process launcher (ROADMAP queue 1).
+raises (it never falls back).
+
+An LM trains sharded over a mesh of ranks under ``torchrun`` (one
+process a rank, ``launch/dist.py::init``; the arch's rules place the
+parameters, the optimizer state and each batch, ``launch/steps.py``):
+``--production-mesh`` (16×16, or 2×16×16 with ``--multi-pod``),
+``--debug-mesh`` (2×4, or 2×2×2 with ``--multi-pod``) or ``--mesh
+data=2,model=2``, e.g.
+
+    torchrun --nproc-per-node 8 -m repro_torch.launch.train --arch smollm-360m --smoke --debug-mesh --steps 4 --ckpt-dir D
+
+A world whose size is not the mesh's raises, naming both. Checkpoints are
+written by every rank and resume on any mesh. The GNN's and the recsys
+models' mesh forms, and ``ogb_products``, wait for later slices (ROADMAP
+queue 1, items 4b and 4c) and raise.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 
 import torch
 
@@ -41,7 +55,9 @@ from ..models import recsys as rec_mod
 from ..models import transformer as lm_mod
 from ..train.optimizer import opt_init
 from ..train.trainer import Prefetcher, TrainerConfig, to_device, train_loop
-from .steps import build_cell
+from . import dist
+from .mesh import DEBUG, DEBUG_MULTI_POD, MULTI_POD, PRODUCTION, device_mesh
+from .steps import build_cell, place_params, place_tree
 
 SMOKE_BATCH, SMOKE_SEQ = 4, 128
 SMOKE_GRAPH = (200, 800, 1024)  # nodes, edges, edges padded to
@@ -52,8 +68,12 @@ OGB_WAITS = (
     "not fit one card: one (E, 70) f32 edge tensor is 61.86 M x 70 x 4 B = "
     "17.3 GB, a layer's forward holds about six live (~104 GB), and "
     "per-layer remat keeps 16 carries of e (277 GB). It trains "
-    "edge-sharded over a mesh and waits for the multi-process launcher "
-    "(ROADMAP queue 1, item 4).")
+    "edge-sharded over a mesh and waits for the GNN's edge sharding "
+    "(ROADMAP queue 1, item 4b).")
+MESH_WAITS = {
+    "gnn": "the GNN's edge sharding (ROADMAP queue 1, item 4b)",
+    "recsys": "the recsys rows' sharding on DTensor (ROADMAP queue 1, item "
+              "4a)"}
 
 
 def _lm_batches(cfg, shape: ShapeSpec):
@@ -136,6 +156,14 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (default cuda; the CPU "
                     "only when asked for)")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="shard over the 16x16 mesh (torchrun, 256 ranks)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="two pods: 2x16x16, or 2x2x2 with --debug-mesh")
+    ap.add_argument("--debug-mesh", action="store_true",
+                    help="shard over the 2x4 debug mesh (torchrun, 8 ranks)")
+    ap.add_argument("--mesh", default=None,
+                    help="shard over named axes, e.g. data=2,model=2")
     args = ap.parse_args(argv)
 
     device = torch.device(args.device)
@@ -143,6 +171,11 @@ def main(argv=None):
         raise RuntimeError("launch.train: no CUDA device; pass --device cpu "
                            "to train on the CPU")
     arch = registry.get(args.arch)
+    axes = _mesh_axes(args)
+    if axes is not None and arch.family in MESH_WAITS:
+        raise NotImplementedError(
+            f"launch.train: the {arch.family} family's mesh form waits for "
+            f"{MESH_WAITS[arch.family]}")
     if arch.family == "cf":
         raise ValueError(f"launch.train: {args.arch!r} fits rather than "
                          f"trains: serve it with launch.serve --workload cf, "
@@ -158,11 +191,27 @@ def main(argv=None):
                          f"{arch.shape(shape_name).kind} shape; recsys "
                          f"trains on train_batch")
 
-    cell = build_cell(arch, shape_name)
+    mesh = launch = None
+    if axes is not None:
+        launch = dist.current()
+        if launch is None and "RANK" in os.environ:  # started by torchrun
+            launch = dist.init(args.device)
+        mesh = device_mesh(*axes, device=device.type)  # raises off-size
+        device = launch.device
+    cell = build_cell(arch, shape_name, mesh=mesh)
     gen = torch.Generator(device).manual_seed(0)
+    put = lambda b: to_device(b, device)  # noqa: E731
     if arch.family == "lm":
         model = lm_mod.init_lm(cell.arch.model, gen, device)
         batches = _lm_batches(arch.model, cell.shape)
+        if mesh is not None:
+            place_params(model, lm_mod.param_logical(arch.model), arch.rules,
+                         mesh)
+            accum = arch.grad_accum.get(shape_name, 1)
+            tok = ("null", "batch", "null") if accum > 1 else ("batch", "null")
+            put = lambda b: place_tree(  # noqa: E731
+                to_device(_micro(b, accum), device),
+                {"tokens": tok, "labels": tok}, arch.rules, mesh)
     elif arch.family == "gnn":
         model = gnn_mod.init_gnn(cell.arch.model, gen, device)
         batches = _gnn_batches(cell.shape)
@@ -170,15 +219,39 @@ def main(argv=None):
         model = rec_mod.init_recsys(cell.arch.model, gen, device)
         batches = _rec_batches(cell.arch.model)
     opt_state = opt_init(model, arch.opt)
+    quiet = launch is not None and launch.rank != 0
     out = train_loop(
-        cell.fn, model, opt_state,
-        Prefetcher(batches, lambda b: to_device(b, device)),
+        cell.fn, model, opt_state, Prefetcher(batches, put),
         TrainerConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
                       ckpt_every=max(args.steps // 2, 1), log_every=10),
+        log=(lambda _: None) if quiet else print,
     )
-    print(f"final loss {out['losses'][-1]:.4f} after {out['last_step'] + 1} "
-          f"steps; stragglers flagged: {len(out['stragglers'])}")
+    if not quiet:
+        where = f" on mesh {dict(zip(*axes))}" if axes else ""
+        print(f"final loss {out['losses'][-1]:.4f} after "
+              f"{out['last_step'] + 1} steps{where}; stragglers flagged: "
+              f"{len(out['stragglers'])}")
     return out
+
+
+def _mesh_axes(args):
+    """(names, sizes) of the mesh the flags ask for, or None."""
+    if args.mesh:
+        pairs = [kv.split("=") for kv in args.mesh.split(",")]
+        return tuple(k for k, _ in pairs), tuple(int(v) for _, v in pairs)
+    if args.debug_mesh:
+        return DEBUG_MULTI_POD if args.multi_pod else DEBUG
+    if args.production_mesh or args.multi_pod:
+        return MULTI_POD if args.multi_pod else PRODUCTION
+    return None
+
+
+def _micro(batch, accum: int):
+    """A (B, S) batch as (accum, B / accum, S) micro-batches."""
+    if accum == 1:
+        return batch
+    return {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])
+            for k, v in batch.items()}
 
 
 if __name__ == "__main__":

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.topk import canonical_topk
+from ..distributed.sharding import constrain, replicated_like
 from ..kernels import ops
 
 
@@ -39,11 +40,13 @@ def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
-    """x: (B, S, H, D) — rotate pairs (d, d+D/2). positions: (B, S) int."""
+    """x: (B, S, H, D) — rotate pairs (d, d+D/2). positions: (B, S) int.
+    On a mesh the angles are replicated beside the DTensor ``x``."""
     d = x.shape[-1]
     freqs = torch.as_tensor(rope_freqs(d, theta), device=x.device)
     ang = positions[..., None].float() * freqs  # (B, S, D/2)
-    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    cos = replicated_like(torch.cos(ang)[:, :, None, :], x)
+    sin = replicated_like(torch.sin(ang)[:, :, None, :], x)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -270,9 +273,13 @@ def landmark_decode(state: LandmarkKVState, q: torch.Tensor,
 
 # ---------------------------------------------------------------------- MLP
 def glu_mlp(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
-            w2: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    """SwiGLU/GeGLU: down(act(x@w1) * (x@w3)); gelu is the tanh form."""
-    return (_act(x @ w1, act) * (x @ w3)) @ w2
+            w2: torch.Tensor, act: str = "silu", rules=None) -> torch.Tensor:
+    """SwiGLU/GeGLU: down(act(x@w1) * (x@w3)); gelu is the tanh form. On a
+    mesh the hidden is pinned to the tensor-parallel axis (column then
+    row parallel), as the reference's."""
+    a = constrain(x @ w1, ("batch", "null", "tp"), rules)
+    b = constrain(x @ w3, ("batch", "null", "tp"), rules)
+    return (_act(a, act) * b) @ w2
 
 
 def _act(a: torch.Tensor, act: str) -> torch.Tensor:

@@ -15,10 +15,10 @@ tree; DIEN's GRUs as ``gru1.{wx,wh,b}``), with ``init_*(cfg, generator,
 device)`` and the functions ``*_loss(model, batch)``,
 ``*_scores(model, batch)`` and ``*_retrieval(model, batch, k)``. The
 reference's ``lax.scan`` loops (BERT4Rec's blocks, MIND's routing,
-DIEN's two GRU scans) are Python loops. On one device the reference's
+DIEN's two GRU scans) are Python loops. On plain tensors the reference's
 sharding annotations (``constrain``, ``shard_batch_full``) are
-identities. The ``*_logical`` axis trees wait with the logical-axis layer
-(ROADMAP queue 1, item 4).
+identities. The ``*_logical`` axis trees, and this family's cells on a
+``DeviceMesh``, wait for ROADMAP queue 1, item 4a.
 """
 from __future__ import annotations
 

@@ -19,6 +19,16 @@ shard count on disk need not match the mesh that loads it.
 :class:`AsyncCheckpointer` writes a training checkpoint in a background
 thread after copying it to the host (one write in flight).
 
+A tree of DTensors (a model sharded over a ``torch.distributed`` mesh)
+is written by all its ranks together, as the reference writes a jax
+array's addressable shards: each block once (by the rank at coordinate 0
+of every mesh dim the block is replicated over), one file each, with its
+global index range; rank 0 writes the manifest and commits after a
+barrier. A restore reads every leaf whole and re-places it like the
+``tree_like`` leaf it fills: as a DTensor on that leaf's mesh and
+placements (any mesh), or on one device. Such a save runs on the calling
+thread (its barriers are collectives of the training's group).
+
 A tree is a dict (or list/tuple) of tensors or arrays, flattened the way
 ``jax.tree_util`` flattens it: dict keys in sorted order, sequences in
 order, depth first. bfloat16 leaves are stored as their uint16 bits and
@@ -78,6 +88,75 @@ def _row_blocks(rows: int, n_shards: int):
             ] if per else [(0, 0)]
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _blocks(shape, placements, mesh_shape):
+    """Every mesh coordinate's block of a DTensor of global ``shape``:
+    ``(coord, [(lo, hi) per dim], owner)`` where owner says the coordinate
+    writes the block (it is 0 on every mesh dim not splitting the
+    tensor). A dim split over several mesh dims is split in mesh order,
+    each split ``torch.chunk``'s (ceil-sized blocks, the last ones short
+    or empty)."""
+    from itertools import product
+
+    from torch.distributed.tensor import Shard
+
+    out = []
+    for coord in product(*(range(n) for n in mesh_shape)):
+        ranges = [[0, n] for n in shape]
+        for md, pl in enumerate(placements):
+            if isinstance(pl, Shard):
+                d = pl.dim % len(shape)
+                lo, hi = ranges[d]
+                per = -(-(hi - lo) // mesh_shape[md])
+                a = min(lo + coord[md] * per, hi)
+                ranges[d] = [a, min(a + per, hi)]
+        owner = all(c == 0 for c, pl in zip(coord, placements)
+                    if not isinstance(pl, Shard))
+        out.append((coord, ranges, owner))
+    return out
+
+
+def _save_sharded(tmp: Path, leaves: List) -> Dict[str, Any]:
+    """Each rank writes the blocks it owns of every leaf; returns the
+    manifest (the same on every rank)."""
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    manifest: Dict[str, Any] = {"n_leaves": len(leaves), "leaves": []}
+    for i, leaf in enumerate(leaves):
+        leaf_dir = tmp / f"leaf_{i:04d}"
+        leaf_dir.mkdir(exist_ok=True)
+        if not _is_dtensor(leaf):
+            host, dtype = _to_host(leaf)
+            if rank == 0:
+                np.save(leaf_dir / "shard_0000.npy", host)
+            manifest["leaves"].append({
+                "shape": list(host.shape), "dtype": dtype,
+                "shards": [{"file": "shard_0000.npy",
+                            "index": [[0, d] for d in host.shape]}]})
+            continue
+        mesh = leaf.device_mesh
+        me = tuple(mesh.get_coordinate())
+        host, dtype = _to_host(leaf.to_local())
+        shards = []
+        for j, (coord, ranges, owner) in enumerate(_blocks(
+                tuple(leaf.shape), leaf.placements, tuple(mesh.mesh.shape))):
+            if not owner or any(hi <= lo for lo, hi in ranges):
+                continue
+            name = f"shard_{j:04d}.npy"
+            if coord == me:
+                np.save(leaf_dir / name, host)
+            shards.append({"file": name, "index": ranges})
+        manifest["leaves"].append({"shape": list(leaf.shape), "dtype": dtype,
+                                   "shards": shards})
+    return manifest
+
+
 def save_checkpoint(directory: str, step: int, tree: Any, keep: int = 3,
                     extra_files: Optional[Dict[str, str]] = None,
                     row_shards: Optional[Dict[int, int]] = None) -> Path:
@@ -85,7 +164,11 @@ def save_checkpoint(directory: str, step: int, tree: Any, keep: int = 3,
     drop all but the newest ``keep`` committed steps. ``extra_files``
     (name → text) land in the tmp dir before the rename, so sidecars commit
     with the tensors. ``row_shards`` (leaf position in flatten order →
-    shard count) stores those leaves as blocks of rows, one file each."""
+    shard count) stores those leaves as blocks of rows, one file each. A
+    tree holding DTensors is written by every rank of their group (see
+    the module's notes)."""
+    if any(_is_dtensor(x) for x in _flatten(tree)):
+        return _save_dist(Path(directory), step, tree, keep, extra_files)
     directory = Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
     final = directory / f"step_{step:08d}"
@@ -125,6 +208,35 @@ def save_checkpoint(directory: str, step: int, tree: Any, keep: int = 3,
     return final
 
 
+def _save_dist(directory: Path, step: int, tree: Any, keep: int,
+               extra_files: Optional[Dict[str, str]]) -> Path:
+    import torch.distributed as dist
+
+    final = directory / f"step_{step:08d}"
+    tmp = directory / f"step_{step:08d}.tmp"
+    if dist.get_rank() == 0:
+        directory.mkdir(parents=True, exist_ok=True)
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir(parents=True)
+    dist.barrier()
+    manifest = {"step": step, **_save_sharded(tmp, _flatten(tree))}
+    dist.barrier()  # every block on disk
+    if dist.get_rank() == 0:
+        (tmp / "manifest.json").write_text(json.dumps(manifest))
+        for name, text in (extra_files or {}).items():
+            (tmp / name).write_text(text)
+        if final.exists():
+            shutil.rmtree(final)
+        os.rename(tmp, final)  # atomic commit
+        ckpts = sorted(p for p in directory.glob("step_*")
+                       if not p.name.endswith(".tmp"))
+        for old in ckpts[:-keep]:
+            shutil.rmtree(old, ignore_errors=True)
+    dist.barrier()  # committed before any rank goes on
+    return final
+
+
 def latest_step(directory: str) -> Optional[int]:
     """Highest committed step: past the rename (no ``.tmp``) and holding a
     ``manifest.json`` — a partial directory left by a crash is invisible."""
@@ -157,7 +269,9 @@ def _to_tensor(host: np.ndarray, dtype: str, device) -> torch.Tensor:
 def restore_checkpoint(directory: str, tree_like: Any,
                        step: Optional[int] = None, device="cuda") -> Any:
     """Restore step ``step`` (default: the latest) into the structure of
-    ``tree_like``, every leaf a tensor on ``device``. Shards written by a
+    ``tree_like``, every leaf a tensor on ``device``, or, where the
+    ``tree_like`` leaf is a DTensor, a DTensor of its mesh and placements
+    (each rank keeps its block of the whole leaf). Shards written by a
     multi-device save are reassembled from their index ranges."""
     step = step if step is not None else latest_step(directory)
     if step is None:
@@ -168,9 +282,18 @@ def restore_checkpoint(directory: str, tree_like: Any,
     if n != manifest["n_leaves"]:
         raise ValueError(f"tree structure changed: {n} leaves vs "
                          f"{manifest['n_leaves']} on disk")
-    leaves = [_to_tensor(_load_leaf(d / f"leaf_{i:04d}", meta),
-                         meta["dtype"], device)
-              for i, meta in enumerate(manifest["leaves"])]
+    leaves = []
+    for i, (meta, like) in enumerate(zip(manifest["leaves"],
+                                         _flatten(tree_like))):
+        dev = like.to_local().device if _is_dtensor(like) else device
+        t = _to_tensor(_load_leaf(d / f"leaf_{i:04d}", meta), meta["dtype"],
+                       dev)
+        if _is_dtensor(like):
+            from torch.distributed.tensor import distribute_tensor
+
+            t = distribute_tensor(t, like.device_mesh, like.placements,
+                                  src_data_rank=None)
+        leaves.append(t)
     return _unflatten(tree_like, leaves)
 
 
@@ -199,6 +322,9 @@ class AsyncCheckpointer:
 
     def save(self, step: int, tree: Any) -> None:
         self.wait()
+        if any(_is_dtensor(x) for x in _flatten(tree)):
+            save_checkpoint(self.directory, step, tree, self.keep)
+            return
         host = _unflatten(tree, [_host_copy(x) for x in _flatten(tree)])
         self._thread = threading.Thread(
             target=save_checkpoint, args=(self.directory, step, host,

@@ -22,9 +22,18 @@ Parameters and state are updated in place (the reference returns new
 arrays); the math runs in float32 and is stored back in the parameters'
 dtype and ``state_dtype``. The global gradient norm sums the leaves in the
 port's order, an ulp-level difference from the reference's.
+
+**On a mesh.** With DTensor parameters (``launch/steps.py``) each state
+leaf is a DTensor placed like its parameter, the reference's
+:func:`opt_state_logical`: a stacked leaf's layer dim replicated,
+Adafactor's ``vr`` and ``vc`` with their parameter's axes less the
+reduced dim (``la[:-1]``, ``la[:-2] + la[-1:]``). The update's
+arithmetic is the same DTensor ops; the global gradient norm and every
+mean reduce across the ranks that hold the shards.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import re
 from typing import Dict, List, Optional, Tuple
@@ -126,13 +135,86 @@ def _leaf_state(shape, cfg: OptConfig, device) -> Dict[str, torch.Tensor]:
     return st
 
 
+def opt_state_logical(params_logical, cfg: OptConfig) -> Dict:
+    """Logical axes of the state tree, from the parameters' (the
+    reference's, stacked ``layers`` included)."""
+    from ..distributed.sharding import tree_map_logical
+
+    def leaf(la):
+        la = tuple(la)
+        if cfg.name == "adamw":
+            return {"m": la, "v": la}
+        st = {}
+        if cfg.factored and len(la) >= 2:
+            st["vr"] = la[:-1]
+            st["vc"] = la[:-2] + la[-1:]
+        else:
+            st["v"] = la
+        if cfg.momentum:
+            st["m"] = la
+        return st
+
+    return {"step": (), "leaves": tree_map_logical(leaf, params_logical)}
+
+
+def _state_placements(p, kind: str, stacked: bool):
+    """The placements of a state leaf ``kind`` of DTensor parameter ``p``
+    (stacked: a leading layer dim): its parameter's, shifted past the
+    layer dim, less the dim ``vr`` or ``vc`` reduces."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    nd = p.ndim + stacked
+    gone = {"vr": nd - 1, "vc": nd - 2}.get(kind)
+    out = []
+    for pl in p.placements:
+        if isinstance(pl, Shard):
+            d = pl.dim % p.ndim + stacked
+            if d == gone:
+                out.append(Replicate())
+            else:
+                out.append(Shard(d - (gone is not None and d > gone)))
+        else:
+            out.append(pl)
+    return out
+
+
+def _place_state(st: Dict, param, stacked: bool) -> Dict:
+    """The zero state ``st`` as DTensors placed like DTensor ``param``."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
+    out = {}
+    for kind, z in st.items():
+        pls = _state_placements(param, kind, stacked)
+        local, _ = compute_local_shape_and_global_offset(
+            z.shape, param.device_mesh, pls)
+        out[kind] = DTensor.from_local(
+            torch.zeros(local, dtype=z.dtype,
+                        device=param.to_local().device),
+            param.device_mesh, pls, run_check=False, shape=z.shape,
+            stride=z.stride())
+    return out
+
+
 def opt_init(model: nn.Module, cfg: OptConfig) -> Dict:
-    """Zero state in the reference's tree (stacked over layers)."""
+    """Zero state in the reference's tree (stacked over layers); for
+    DTensor parameters each leaf a DTensor placed like its parameter."""
+    from torch.distributed.tensor import DTensor
+
     leaves: Dict = {}
     device = None
     for path, leaf in _leaf_items(stacks(model)):
-        device = (leaf[0] if isinstance(leaf, list) else leaf).device
-        _set(leaves, path, _leaf_state(_stacked_shape(leaf), cfg, device))
+        first = leaf[0] if isinstance(leaf, list) else leaf
+        if isinstance(first, DTensor):
+            st = _leaf_state(_stacked_shape(leaf), cfg, "meta")
+            _set(leaves, path, _place_state(st, first,
+                                            isinstance(leaf, list)))
+            device = first.to_local().device
+        else:
+            device = first.device
+            _set(leaves, path, _leaf_state(_stacked_shape(leaf), cfg,
+                                           device))
     return {"step": torch.zeros((), dtype=torch.int32, device=device),
             "leaves": leaves}
 
@@ -199,7 +281,20 @@ def opt_update(model: nn.Module, grads: Dict[str, torch.Tensor], state: Dict,
     """One step: clip by the global norm, then AdamW or Adafactor with
     decoupled weight decay. ``grads`` maps ``model.named_parameters()``
     names to gradients (any float dtype). Updates the parameters and
-    ``state`` in place and returns ``(model, state)``."""
+    ``state`` in place and returns ``(model, state)``. With DTensor
+    parameters the plain scalars (step, learning rate) act as replicated
+    DTensors."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    mesh = any(isinstance(p, DTensor) for p in model.parameters())
+    with implicit_replication() if mesh else contextlib.nullcontext():
+        return _update(model, grads, state, cfg)
+
+
+def _update(model, grads, state, cfg: OptConfig):
+    from torch.distributed.tensor import DTensor
+
     state["step"] += 1
     t = state["step"].float()
     lr = _schedule(cfg, state["step"])
@@ -224,8 +319,12 @@ def opt_update(model: nn.Module, grads: Dict[str, torch.Tensor], state: Dict,
                 p.copy_(run(p, grads[names[id(p)]],
                             {k: s[i] for k, s in st.items()}))
         else:  # the whole stack at once
-            new = run(torch.stack(list(leaf)),
+            stacked = torch.stack(list(leaf))
+            new = run(stacked,
                       torch.stack([grads[names[id(p)]] for p in leaf]), st)
-            for p, row in zip(leaf, new):
-                p.copy_(row)
+            if isinstance(new, DTensor):  # rows of the stack's placements
+                new = new.redistribute(stacked.device_mesh,
+                                       stacked.placements)
+            for i, p in enumerate(leaf):
+                p.copy_(new[i])
     return model, state

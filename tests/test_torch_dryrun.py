@@ -3,12 +3,16 @@
 (``kernels/cost.py``), on the CPU with no card.
 
 - ``--all`` builds every cell of ``all_cells()`` on ``meta`` (the four
-  ``landmark_cf`` cells with them) and exits 0: one module-scoped run.
+  ``landmark_cf`` cells with them) and exits 0: one module-scoped run. Its
+  default mesh is the reference's 16×16: the LM cells are placed over a
+  fake group of 256 and counted per device; the other families keep their
+  one-device record.
 - Each cell's argument bytes equal the sum of the reference cell's
-  ``ShapeDtypeStruct`` bytes (``repro.launch.steps.build_cell`` on a
-  one-device mesh; nothing lowered or compiled), but for the differences
-  listed in ``ARG_BYTES_DIFF``, each a known difference in how the port
-  holds state.
+  ``ShapeDtypeStruct`` bytes (``repro.launch.steps.build_cell``; nothing
+  lowered or compiled), per device on a 16×16 ``AbstractMesh`` for an LM
+  cell (the sum of its shard shapes) and on a one-device mesh otherwise,
+  but for the differences listed in ``ARG_BYTES_DIFF``, each a known
+  difference in how the port holds state.
 - The matrix-product FLOPs of an LM smoke train cell equal the count
   stated in the test; a deep model's counts taken to its depth equal a
   trace of every layer.
@@ -65,14 +69,16 @@ def test_all_cells_pass_with_a_record_each(records):
     assert sorted(records) == sorted(cells)
     assert len([c for c in cells if c[0] == "landmark_cf"]) == 4
     assert len(cells) == 49  # 25 LM, 4 GNN, 16 recsys, 4 CF
-    for rec in records.values():
-        assert rec["n_devices"] == 1 and rec["mesh"] == "1x1"
+    for (arch, _, _), rec in records.items():
+        lm = registry.get(arch).family == "lm"
+        assert (rec["n_devices"], rec["mesh"]) == (
+            (256, "16x16") if lm else (1, "1x1"))
         assert rec["flops"] >= 0 and rec["bytes_accessed"] > 0
         assert set(rec["memory"]) == {"argument_size_in_bytes",
                                       "output_size_in_bytes",
                                       "temp_size_in_bytes"}
         assert "unfused" in rec["bytes_accessed_note"]
-        assert rec["collectives"]["_counts"]["all-gather"] == 0
+        assert (rec["collectives"]["_counts"]["all-gather"] > 0) == lm
     fit = records["landmark_cf", "ml1m_fit", "base"]
     assert {k: v["calls"] for k, v in fit["kernels"].items()} == {
         "masked_similarity": 1, "topk_sim": 1}
@@ -84,19 +90,18 @@ def test_all_cells_pass_with_a_record_each(records):
 def test_argument_bytes_equal_the_reference_cells(records):
     mesh = jax.make_mesh((1, 1), ("data", "model"), axis_types=(
         jax.sharding.AxisType.Auto,) * 2)
+    prod = jax.sharding.AbstractMesh((16, 16), ("data", "model"))
     for (arch, shape, variant), rec in records.items():
-        jcell = jbuild_cell(jregistry.get(arch), shape, mesh, variant)
-        want = sum(int(np.prod(leaf.shape)) * np.dtype(leaf.dtype).itemsize
+        lm = registry.get(arch).family == "lm"
+        jcell = jbuild_cell(jregistry.get(arch), shape, prod if lm else mesh,
+                            variant)
+        want = sum(int(np.prod(leaf.sharding.shard_shape(leaf.shape)
+                               if lm else leaf.shape))
+                   * np.dtype(leaf.dtype).itemsize
                    for leaf in jax.tree_util.tree_leaves(jcell.args))
         got = rec["memory"]["argument_size_in_bytes"]
         assert got - want == ARG_BYTES_DIFF.get((arch, shape), 0), (
             arch, shape, variant, got, want)
-
-
-def test_mesh_flags_wait_for_the_launcher():
-    for flag in ("--debug-mesh", "--multi-pod"):
-        with pytest.raises(NotImplementedError, match=r"queue 1, item 4"):
-            dryrun.main(["--all", flag])
 
 
 def test_lm_smoke_train_matmul_flops_equal_the_analytic_count():

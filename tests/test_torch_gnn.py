@@ -567,8 +567,8 @@ def test_train_cli_gnn_smoke_trains_and_resumes(tmp_path, capsys):
 
 def test_train_cli_ogb_products_waits_for_the_launcher():
     with pytest.raises(NotImplementedError,
-                       match=r"17\.3 GB.*multi-process launcher \(ROADMAP "
-                       r"queue 1, item 4\)"):
+                       match=r"17\.3 GB.*edge sharding \(ROADMAP "
+                       r"queue 1, item 4b\)"):
         train.main(["--arch", "gatedgcn", "--shape", "ogb_products",
                     "--device", "cpu"])
 
