@@ -421,6 +421,32 @@ The cells slice adds:
     (gloo over host memory on one shared card), peak memory beside (b)'s
     argument + temp bytes. The kernel table gains rank 0's launches
     (``launches_dist``).
+21. dist families — the recsys family and GatedGCN on the same layer
+    (``phase_dist_families``): 8 ranks spawned on data=2, model=4 (gloo on
+    the one card, as 20c), tables' rows over ``model`` and the batch over
+    every axis (``launch/steps.py::rec_batch_specs``), GatedGCN's nodes
+    over ``data`` and its dst-partitioned edges over every axis. FM at
+    full width (a 41,689,088 × 10 table) at ``train_batch`` (65,536), MIND,
+    DIEN and BERT4Rec at full width, each at the largest power-of-two batch
+    up to 65,536 whose 8 ranks' dry-run argument + temp bytes stay under
+    ``P21_HEADROOM`` of the card (the cuts printed), and GatedGCN's
+    ``comm`` variant at full width (16 × 70, f32) on ``minibatch_lg``, 2
+    AdamW steps each. Checks: every rank's loss equal, and within its bound
+    (:data:`P21_LOSS_RTOL`) of the one-process run of the same steps (for
+    the comm form the single-process mesh form on the same axes); row 8
+    launched exactly as the step's lookups and layers imply in every rank
+    and step (:data:`P21_ROW8`), and no atomic
+    scatter kernel (``REC_ATOMIC``) in a rank's profiled first step, whose
+    profile must have seen kernels; each rank's collectives (count and
+    bytes by kind, step 2) equal to the dry run of the same cell on a fake
+    group of 8; :data:`P21_LEAVES` (every table and a dense leaf;
+    GatedGCN's first layer's U and V and its head): the step-1 gradient
+    and the update over the 2 steps, each rank's blocks held against the
+    one-process run's leaves (saved whole), within their bounds over
+    every copy of a leaf; peak memory a rank beside the dry run's
+    argument + temp; step ms a rank (gloo over host memory on one shared
+    card). The kernel table's row 8 gains rank 0's launches over the five
+    runs (``launches_dist``).
 
 The last two lines are the kernel table and
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. TF32 is off for
@@ -5880,16 +5906,30 @@ P20_TIMEOUT = 420  # s for the 8 ranks' run, spawn and build included
 # each rank's loss against the one-process step's: the bf16 loss bound of
 # tests/test_torch_lm.py (rtol 1e-2; the mesh sums in another order)
 P20_LOSS_RTOL = 1e-2
-# the leaves whose step-1 gradient and step-2 value rank 0 gathers whole
-# and holds against the one-process step's (the embedding, the first
-# layer's query projection, the last layer's MLP down projection), each
-# with its bounds on |mesh - one process| / |one process| (Frobenius) of
-# the gradient and of the value: about 2.5 times the H100's readings
-# (PERF.md, phase 20). The embedding's gradient is loose by nature: its
+# the leaves whose step-1 gradient and step-2 value the ranks hold against
+# the one-process step's, each rank its own blocks (``mesh_run.held``; the
+# embedding, the first layer's query projection, the last layer's MLP down
+# projection), each with its bounds on |mesh - one process| / |one
+# process| (Frobenius) of the gradient and of the value: about 2.5 times
+# the H100's readings (PERF.md, phase 20). The embedding's gradient is loose by nature: its
 # most frequent token's row sums thousands of lookup gradients in bf16, so
-# the one-process bf16 step's is 0.84 from the f32 step's there
+# the one-process bf16 step's is 0.84 from the f32 step's there; the
+# reference's bf16 lookup gives the same bits
+# (tests/test_torch_bf16_lookup.py), a fault the two share
 P20_LEAVES = {"embed": (0.5, 1e-4), "layers.0.wq": (0.05, 1e-4),
               "layers.31.w2": (0.02, 1e-4)}
+# the one-process runs' whole leaves, read by each rank for its own blocks
+DIST_DIR = ROOT / "build" / "phase20"
+
+
+def _saved_leaves(name, run, keys):
+    """``run``'s whole leaves of ``keys`` (``grads``, ``params``,
+    ``updates``) saved under :data:`DIST_DIR` for ranks to hold their
+    blocks against (``mesh_run.train(against=...)``): its path."""
+    DIST_DIR.mkdir(parents=True, exist_ok=True)
+    path = DIST_DIR / f"{name.replace(' ', '_')}.pt"
+    torch.save({k: run[k] for k in keys}, path)
+    return str(path)
 
 
 def _p20_arch():
@@ -5930,8 +5970,9 @@ def phase_dist(card):
     rank on the tensor-core route, a forward and a remat recompute a layer
     and a backward a layer each step, each rank's collectives (count and
     bytes by kind, step 2) equal to the dry run's, and :data:`P20_LEAVES`'
-    step-1 gradients and step-2 values, gathered whole on rank 0, within
-    their bounds of the one-process step's. Prints the backend and why,
+    step-1 gradients and step-2 values within their bounds of the
+    one-process step's (each rank holds its blocks against the
+    one-process leaves, saved whole; ``mesh_run.held``). Prints the backend and why,
     per-rank step ms (gloo over host memory on one shared card: nothing
     about NCCL), peak memory beside the dry run's argument + temp bytes,
     and what the collectives built from others really moved. Returns
@@ -5942,10 +5983,10 @@ def phase_dist(card):
     t0 = time.perf_counter()
     arch = _p20_arch()
     cfg = arch.model
-    one = mesh_run.lm_train(DEVICE, arch, steps_n=P20_STEPS, want_grads=True,
-                            want_params=True, leaves=list(P20_LEAVES))
+    one = mesh_run.train(DEVICE, arch, steps_n=P20_STEPS, want_grads=True,
+                         want_params=True, leaves=list(P20_LEAVES))
     # the same step in f32: how far bf16 alone moves each leaf's gradient
-    one32 = mesh_run.lm_train(
+    one32 = mesh_run.train(
         DEVICE, dataclasses.replace(arch, model=dataclasses.replace(
             cfg, dtype=torch.float32)), want_grads=True,
         leaves=list(P20_LEAVES))
@@ -5963,15 +6004,19 @@ def phase_dist(card):
     gc.collect()
     torch.cuda.empty_cache()  # the ranks share the card with this process
     t_run = time.perf_counter()
-    ranks = dist_mod.spawn(mesh_run.train_rank, 8, arch, P20_MESH,
-                           P20_STEPS, list(P20_LEAVES), device=DEVICE,
-                           threads=1, timeout=P20_TIMEOUT)
+    ref = _saved_leaves(P20_ARCH, one, ("grads", "params"))
+    place = dist_mod.spawn(
+        mesh_run.ranks_run, 8, [(P20_ARCH, arch, dict(against=ref))],
+        P20_MESH, P20_STEPS, device=DEVICE, threads=1, timeout=P20_TIMEOUT)
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
     held = time.perf_counter() - t_run
+    ranks = [dict(p[P20_ARCH], rank=p["rank"]) for p in place]
     r0 = ranks[0]
     print(f"phase 20c ({card}): 8 ranks on mesh {dict(zip(*P20_MESH))}, "
-          f"device {r0['device']}, backend {r0['backend']} ({r0['reason']});"
-          f" collectives built from others: {r0['built'] or 'none'}; "
-          f"spawned, built and trained in {held:.1f}s")
+          f"device {place[0]['device']}, backend {place[0]['backend']} "
+          f"({place[0]['reason']}); collectives built from others: "
+          f"{place[0]['built'] or 'none'}; spawned, built and trained in "
+          f"{held:.1f}s")
     launches = {}
     bwd_calls = cfg.n_layers * lsum.BWD_LAUNCHES
     for r in ranks:
@@ -6000,23 +6045,216 @@ def phase_dist(card):
     errs, over = {}, []
     for name, tols in P20_LEAVES.items():
         for key, tol in zip(("grads", "params"), tols):
-            want, got = one[key][name], r0[key][name]
-            errs[f"{key} {name}"] = err = float((got - want).norm()
-                                                / want.norm())
+            errs[f"{key} {name}"] = err = mesh_run.held(ranks, key, name)
             if not err <= tol:
                 over.append((key, name, err, tol))
         w32 = one32["grads"][name]
         errs[f"grads {name} one vs f32"] = float(
             (one["grads"][name] - w32).norm() / w32.norm())
-    print(f"phase 20c rank 0 against one process, |diff| / |one| (bounds "
-          f"{P20_LEAVES}; step-1 gradients, step-2 values; the one-process "
-          f"bf16 gradients against the f32 step's beside them): "
-          + json.dumps(errs))
+    print(f"phase 20c ranks against one process, |diff| / |one| over each "
+          f"copy of a leaf, the largest (bounds {P20_LEAVES}; step-1 "
+          f"gradients, step-2 values; the one-process bf16 gradients against "
+          f"the f32 step's beside them): " + json.dumps(errs))
     assert not over, over
     print(f"phase 20: {time.perf_counter() - t0:.1f}s")
     return launches
 
 
+
+# ------------------------------------------------------------------ phase 21
+# The recsys family and GatedGCN trained over the debug mesh by 8 ranks on
+# the one card, each in a process of its own (as phase 20): FM at full
+# width and train_batch, MIND, DIEN and BERT4Rec at full width, each at the
+# largest power-of-two batch whose 8 ranks' dry-run argument + temp bytes
+# stay under P21_HEADROOM of the card (the ranks share its memory; one
+# process ran BERT4Rec out of memory past 16,384, phase 18b), and
+# GatedGCN's comm variant at full width on minibatch_lg
+P21_MESH = P20_MESH
+P21_REC = ("fm", "mind", "dien", "bert4rec")
+P21_GNN_SHAPE = "minibatch_lg"
+P21_STEPS = 2
+P21_TIMEOUT = 420  # s for the 8 ranks' five runs, spawn and build included
+P21_HEADROOM = 0.8
+# each rank's loss against the one-process run's, about 3 times the
+# H100's readings (PERF.md, phase 21): recsys, f32, one ulp apart (8.6e-8:
+# the mesh adds its partial sums over the ranks in another order), and
+# GatedGCN's comm form (4.6e-5: bf16 partials on the wire, added in
+# another order than the single-process form's)
+P21_LOSS_RTOL = {"recsys": 3e-7, "comm": 1.5e-4}
+# the leaves whose step-1 gradient and update over the 2 steps (last value
+# less the initial one) the ranks hold against the one-process run's
+# (each rank its own blocks, ``mesh_run.held``): every table and a dense leaf of each recsys arch,
+# GatedGCN's first layer's U and V and its head. The update, not the
+# value: a step moves a value by about lr / warmup = 1e-5 of itself, so a
+# value's bound cannot see a wrong or missing update. Each with its
+# bounds on |mesh - one process| / |one process| (Frobenius) of the
+# gradient and of the update: about 3 times the H100's readings (PERF.md,
+# phase 21), 1e-6 at least (1e-4 on the wire). The sequence models' tables
+# read the most (2.0e-5 to 6.9e-5): their rows sum tens of thousands of
+# terms that mostly cancel, added in another order over the data blocks
+P21_LEAVES = {
+    "fm": {"v": (1e-6, 1e-6), "w": (1e-6, 1e-6), "b": (2e-6, 4e-6)},
+    "mind": {"item_embed": (2e-4, 1e-6), "s_matrix": (2e-6, 5e-5)},
+    "dien": {"item_embed": (7e-5, 2e-6), "gru1.wh": (1e-6, 3e-5)},
+    "bert4rec": {"item_embed": (3e-5, 6e-6), "layers.0.wq": (1e-6, 4e-5)},
+    "gatedgcn comm": {"layers.0.U": (3e-3, 6e-2), "layers.0.V": (3e-3, 7e-2),
+                      "head_w": (1e-4, 2e-4)},
+}
+# row 8's launches a step a rank: a lookup's backward each (FM's v and w
+# share one CSR, one backward each; BERT4Rec's masked-position gather is
+# one too); GatedGCN 8 a layer (2 forward, 2 in the remat recompute, 4
+# backward)
+P21_ROW8 = {"fm": 2, "mind": 4, "dien": 2, "bert4rec": 4}
+
+
+def _p21_dry(arch, shape, variant="base"):
+    """The dry run of a phase-21 cell at the debug mesh on meta, its fake
+    group's mesh of the card's type (as :func:`_p20_dry`): per-device
+    collectives by kind, argument and temp bytes."""
+    from repro_torch.launch import dist as dist_mod
+    from repro_torch.launch.mesh import device_mesh
+
+    with dist_mod.fake_group(8):
+        costs, _, _ = dryrun.count_cell(
+            arch, shape, variant, mesh=device_mesh(*P21_MESH, DEVICE))
+    return dict(
+        collectives={k: int(v) for k, v in costs.collectives.items()
+                     if not k.startswith("_") and v},
+        counts={k: int(v) for k, v in costs.collectives["_counts"].items()
+                if v},
+        argument_bytes=costs.memory["argument_size_in_bytes"],
+        temp_bytes=costs.memory["temp_size_in_bytes"])
+
+
+def _p21_cases(card_bytes):
+    """(tag, arch, variant) of each phase-21 run, the dry run of each, and
+    the batches cut on the way to each recsys arch's."""
+    from repro_torch.launch import mesh_run
+
+    cases, dry, cuts = [], {}, {}
+    for name in P21_REC:
+        b = registry.get(name).shape("train_batch").dims["batch"]
+        while True:
+            arch = mesh_run.rec_arch(name, smoke=False, batch=b)
+            d = _p21_dry(arch, "train_batch")
+            need = 8 * (d["argument_bytes"] + d["temp_bytes"])
+            if need < P21_HEADROOM * card_bytes or b == 1:
+                break
+            cuts.setdefault(name, []).append([b, need])
+            b //= 2
+        cases.append((name, arch, "base"))
+        dry[name] = dict(d, batch=b)
+    arch = mesh_run.gnn_arch(P21_GNN_SHAPE, smoke=False)
+    cases.append(("gatedgcn comm", arch, "comm"))
+    dry["gatedgcn comm"] = _p21_dry(arch, P21_GNN_SHAPE, "comm")
+    return cases, dry, cuts
+
+
+def phase_dist_families(card):
+    """21: the recsys family and GatedGCN on the multi-process layer. (a)
+    each run's dry run at the debug mesh on meta (the recsys batches cut
+    to what 8 ranks hold), (b) each run in one process on the card, 2
+    steps, the comparison (the comm form: the single-process mesh form on
+    the same axes), (c) 8 ranks (``launch/dist.py::spawn``) on data=2,
+    model=4 run the five one after another, 2 steps each
+    (``mesh_run.ranks_run``). Checks: every rank's losses equal, and
+    within their bound of (b)'s; row 8's launches in every rank and step
+    (:data:`P21_ROW8`); no atomic scatter kernel (``REC_ATOMIC``) in a
+    rank's profiled first step, and kernels in every rank's profile; each
+    rank's collectives (count and bytes by kind, step 2) equal to (a)'s;
+    :data:`P21_LEAVES`' step-1 gradients and updates, each rank's blocks
+    held against (b)'s saved leaves, within their bounds. Prints the
+    batches and their cuts, the backend and why, step ms a rank (gloo over
+    host memory on one shared card: nothing about NCCL), peak memory a
+    rank beside (a)'s argument + temp bytes. Returns rank 0's row-8
+    launches over the five runs."""
+    from repro_torch.launch import dist as dist_mod
+    from repro_torch.launch import mesh_run
+
+    t0 = time.perf_counter()
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    cases, dry, cuts = _p21_cases(card_bytes)
+    print(f"phase 21a dry runs at data=2,model=4 on meta "
+          f"({time.perf_counter() - t0:.1f}s; batch cuts [batch, 8 ranks' "
+          f"argument + temp bytes] past {P21_HEADROOM} of the card's "
+          f"{card_bytes} B: {json.dumps(cuts)}): " + json.dumps(dry))
+    one, runs = {}, []
+    for tag, arch, variant in cases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        r = mesh_run.train(DEVICE, arch, variant=variant, comm_axes=P21_MESH,
+                           steps_n=P21_STEPS, want_grads=True,
+                           want_updates=True, leaves=list(P21_LEAVES[tag]))
+        runs.append((tag, arch, dict(variant=variant, against=_saved_leaves(
+            tag, r, ("grads", "updates")))))
+        one[tag] = r = {k: v for k, v in r.items()
+                        if k not in ("grads", "updates")}
+        print(f"phase 21b one process ({card}): {tag} batch "
+              f"{arch.shapes[0].dims.get('batch', arch.shapes[0].name)}: "
+              f"losses {r['losses']}, step ms "
+              f"{[round(x, 1) for x in r['step_ms']]}, row 8 launches "
+              f"{[st['segment_sum'] for st in r['launches']]}, peak GiB "
+              f"{r['peak_bytes'] / 2 ** 30:.2f}")
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    t_run = time.perf_counter()
+    ranks = dist_mod.spawn(mesh_run.ranks_run, 8, runs, P21_MESH, P21_STEPS,
+                           REC_ATOMIC, device=DEVICE, threads=1,
+                           timeout=P21_TIMEOUT)
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    held = time.perf_counter() - t_run
+    r0 = ranks[0]
+    print(f"phase 21c ({card}): 8 ranks on mesh {dict(zip(*P21_MESH))}, "
+          f"device {r0['device']}, backend {r0['backend']} ({r0['reason']});"
+          f" collectives built from others: {r0['built'] or 'none'}; "
+          f"spawned, built and ran the five in {held:.1f}s")
+    launches, errs, over = 0, {}, []
+    for tag, arch, variant in cases:
+        want_row8 = (8 * arch.model.n_layers if arch.family == "gnn"
+                     else P21_ROW8[tag])
+        d = dry[tag]
+        for r in ranks:
+            got = r[tag]
+            coll = {k: v["bytes"] for k, v in got["collectives"][-1].items()}
+            ncoll = {k: v["count"] for k, v in got["collectives"][-1].items()}
+            prof = got.get("profile", {"kernels": 0, "watched": {}})
+            print(f"phase 21c {tag} rank {r['rank']}: losses {got['losses']} "
+                  f"(one process {one[tag]['losses']}), row 8 launches "
+                  f"{[st['segment_sum'] for st in got['launches']]}, step ms "
+                  f"{[round(x, 1) for x in got['step_ms']]} (the first "
+                  f"profiled; gloo over host memory on one shared card), "
+                  f"peak GiB {got['peak_bytes'] / 2 ** 30:.2f} (dry run: "
+                  f"argument + temp "
+                  f"{(d['argument_bytes'] + d['temp_bytes']) / 2 ** 30:.2f})"
+                  f", collective bytes {coll}, moved {got['moved']}, "
+                  f"profiled first step: {prof['kernels']} kernels, atomic "
+                  f"scatter kernels {prof['watched']}")
+            assert got["losses"] == ranks[0][tag]["losses"], tag
+            np.testing.assert_allclose(
+                got["losses"], one[tag]["losses"], err_msg=tag,
+                rtol=P21_LOSS_RTOL["comm" if variant == "comm" else "recsys"])
+            for st in got["launches"]:
+                assert st["segment_sum"] == want_row8, (tag, st)
+            # the atomics' check reads the profile: it must have seen
+            # the step's kernels
+            assert prof["kernels"] > 0, (tag, r["rank"], prof)
+            assert not any(prof["watched"].values()), (tag, prof)
+            assert coll == d["collectives"], (tag, coll, d["collectives"])
+            assert ncoll == d["counts"], (tag, ncoll, d["counts"])
+        launches += sum(st["segment_sum"] for st in r0[tag]["launches"])
+        for leaf, tols in P21_LEAVES[tag].items():
+            for key, tol in zip(("grads", "updates"), tols):
+                errs[f"{tag} {key} {leaf}"] = err = mesh_run.held(
+                    [r[tag] for r in ranks], key, leaf)
+                if not err <= tol:
+                    over.append((tag, key, leaf, err, tol))
+    print(f"phase 21c ranks against one process, |diff| / |one| over each "
+          f"copy of a leaf, the largest (bounds (gradient, update) "
+          f"{P21_LEAVES}; step-1 gradients, updates over the {P21_STEPS} "
+          f"steps): " + json.dumps(errs))
+    assert not over, over
+    print(f"phase 21: {time.perf_counter() - t0:.1f}s")
+    return {"segment_sum": launches}
 
 def main():
     if not torch.cuda.is_available():
@@ -6063,6 +6301,7 @@ def main():
     rec_notes, rec_counts = phase_recsys(d, card)
     cell_counts = phase_cells(card)
     dist_counts = phase_dist(card)
+    dist_counts.update(phase_dist_families(card))
     gnn_row["per_csr"].update({key: {t: v[t] for t in v if t.startswith(
         ("live", "max_degree", "head_share", "H="))}
         for key, v in rec_notes.items()})
@@ -6089,7 +6328,8 @@ def main():
         row["launches_recsys"] = rec_counts.get(row["name"], 0)
         # the CF cells (19a)
         row["launches_cells"] = cell_counts.get(row["name"], 0)
-        # rank 0 of the 8-rank mesh run (20c): kernel 7 and its backward
+        # rank 0 of the 8-rank mesh runs: kernel 7 and its backward (20c),
+        # row 8 over the recsys and GatedGCN runs (21c)
         row["launches_dist"] = dist_counts.get(row["name"], 0)
         for tag, times in ivf["wide_ms"].items():  # kernels 2-6, 7a
             if row["name"] in times:

@@ -327,6 +327,45 @@ def local_over(fn: Callable, args: Sequence, in_logical: Sequence,
                      redistribute_inputs=True)(*args)
 
 
+def rowwise(fn: Callable, *args):
+    """``fn(*args)`` on each rank's rows: where the first argument is a
+    DTensor placed over dim 0 (``Shard(0)`` or ``Replicate`` on each mesh
+    dim: a batch), every DTensor argument is redistributed to its
+    placements, ``fn`` runs on the local blocks and its output gets the
+    same placements; the gradients come back in them. ``fn(*args)`` itself on plain tensors.
+    For the batch-parallel steps whose ops DTensor has no rule for
+    (attention's recurrence, a gather by per-row positions)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    ref = args[0]
+    if not isinstance(ref, DTensor):
+        return fn(*args)
+    pl = tuple(ref.placements)
+    if any(p != Shard(0) and p != Replicate() for p in pl):
+        raise ValueError(f"rowwise: placements {pl} are not over dim 0")
+    inp = tuple(pl if isinstance(a, DTensor) else None for a in args)
+    return local_map(fn, out_placements=(pl,), in_placements=inp,
+                     in_grad_placements=inp, device_mesh=ref.device_mesh,
+                     redistribute_inputs=True)(*args)
+
+
+def zeros_rows(ref: torch.Tensor, shape: Sequence[int],
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Zeros of ``shape`` whose dim 0 is ``ref``'s rows: on ``ref``'s
+    device, and where ``ref`` is a DTensor placed over dim 0, a DTensor of
+    its placements (each rank's block of zeros)."""
+    dtype = dtype or ref.dtype
+    if not isinstance(ref, DTensor):
+        return torch.zeros(tuple(shape), dtype=dtype, device=ref.device)
+    local = ref.to_local()
+    block = (local.shape[0],) + tuple(shape[1:])
+    return DTensor.from_local(
+        torch.zeros(block, dtype=dtype, device=local.device),
+        ref.device_mesh, ref.placements, run_check=False,
+        shape=torch.Size(shape),
+        stride=torch.empty(tuple(shape), device="meta").stride())
+
+
 def mesh_size(x, axis: str) -> int:
     """The size of mesh axis ``axis`` under DTensor ``x`` (1 for a plain
     tensor or an axis the mesh lacks)."""

@@ -19,21 +19,23 @@ and ``n_devices``, ``trace_s`` in place of ``lower_s`` and ``compile_s``,
 ``flops``, ``bytes_accessed`` (unfused), ``collectives`` and ``memory``.
 It runs on the CPU and needs no card.
 
-The LM cells are laid over the reference's meshes: its 16×16 production
-mesh by default, two pods (2×16×16) with ``--multi-pod``, its 8-position
-debug mesh (2×4, or 2×2×2 with ``--multi-pod``) with ``--debug-mesh``.
-One process sets up torch's in-process ``fake`` group of the mesh's size
-(``launch/dist.py::fake_group``), places each LM cell's parameters,
-state, cache and batch as DTensors on ``meta`` by the arch's rules
-(``launch/steps.py``) and runs its step as position 0: every count is
-that device's (argument bytes: its local blocks, the fullest; temp bytes;
-flops and bytes of its local ops) and ``collectives`` counts every
+The LM, GNN and recsys cells are laid over the reference's meshes: its
+16×16 production mesh by default, two pods (2×16×16) with
+``--multi-pod``, its 8-position debug mesh (2×4, or 2×2×2 with
+``--multi-pod``) with ``--debug-mesh``. One process sets up torch's
+in-process ``fake`` group of the mesh's size
+(``launch/dist.py::fake_group``), places each cell's parameters, state,
+cache and batch as DTensors on ``meta`` by the arch's rules
+(``launch/steps.py``: an LM's batch over ``data``, a GNN's nodes over
+``data`` and edges over every axis, a recsys batch over every axis, the
+tables' rows over ``model``) and runs its step as position 0: every count
+is that device's (argument bytes: its local blocks, the fullest; temp
+bytes; flops and bytes of its local ops) and ``collectives`` counts every
 functional collective DTensor issues by its output bytes, the reference's
-``launch/hlo.py`` convention. The other families' cells wait for their
-logical-axis trees (ROADMAP queue 1) and keep their one-device record
-(``n_devices`` 1); the run prints which. The fake group is destroyed
-after the run. A cell that fails fails the run (exit code 1), as in the
-reference.
+``launch/hlo.py`` convention. The CF cells keep their one-device record
+(``n_devices`` 1), as in the reference; the run prints so. The fake group
+is destroyed after the run. A cell that fails fails the run (exit code
+1), as in the reference.
 """
 from __future__ import annotations
 
@@ -55,7 +57,9 @@ from .steps import COMM_MESH, build_cell
 
 DEPTHS = (2, 3)  # the depths a deeper model's step runs at
 MICRO_BATCHES = (2, 3)  # and a step of more micro-batches
-MESH_FAMILIES = ("lm",)  # the families whose cells are laid over the mesh
+# the families whose cells are laid over the mesh (the CF cells run on one
+# device, as the reference's)
+MESH_FAMILIES = ("lm", "gnn", "recsys")
 UNFUSED = ("every operation's inputs and outputs summed, unfused, plus the "
            "kernels' formulas (kernels/cost.py)")
 
@@ -92,7 +96,7 @@ def count_cell(arch, shape_name: str, variant: str = "base",
     fewest micro-batches: a micro-batch frees its activations before the
     next starts, so the peak does not grow with their number. The
     argument bytes are the full cell's, counted from its inputs.
-    ``full_depth`` traces the whole cell instead. ``mesh``: an LM cell's
+    ``full_depth`` traces the whole cell instead. ``mesh``: the cell's
     ``DeviceMesh`` (per-device counts)."""
     cell = build_cell(arch, shape_name, variant, mesh)
     layers = getattr(arch.model, "n_layers", None)
@@ -137,7 +141,8 @@ def run_cell(arch_name: str, shape_name: str, variant: str = "base",
              verbose: bool = True, full_depth: bool = False,
              mesh=None, smoke: bool = False) -> dict:
     """Build the cell on ``meta``, count its step and return its record;
-    an LM cell over ``mesh`` (a ``DeviceMesh``) when one is given; with
+    an LM, GNN or recsys cell over ``mesh`` (a ``DeviceMesh``) when one is
+    given; with
     ``smoke`` the arch's smoke model at the cell's shape."""
     arch = registry.get(arch_name)
     if smoke:
@@ -223,8 +228,9 @@ def main(argv=None):
     else:
         names, sizes = MULTI_POD if args.multi_pod else PRODUCTION
         make = make_production_mesh
-    print(f"mesh axes={names} shape={sizes}: the LM cells' placements on a "
-          f"fake group of {math.prod(sizes)}", flush=True)
+    print(f"mesh axes={names} shape={sizes}: the {', '.join(MESH_FAMILIES)} "
+          f"cells' placements on a fake group of {math.prod(sizes)}",
+          flush=True)
 
     if args.all:
         cells = all_cells()
@@ -240,8 +246,8 @@ def main(argv=None):
     waiting = sorted({registry.get(c[0]).family for c in cells}
                      - set(MESH_FAMILIES))
     if waiting:
-        print(f"one device (their logical-axis trees wait): "
-              f"{', '.join(waiting)} cells", flush=True)
+        print(f"one device (as the reference's): {', '.join(waiting)} cells",
+              flush=True)
 
     records, failures = [], []
     with dist.fake_group(math.prod(sizes)):

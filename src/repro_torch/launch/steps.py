@@ -10,23 +10,33 @@ memory — the counterpart of the reference's ``ShapeDtypeStruct``\\ s), for
 tensors. A cell has no donation: the train step updates the model and the
 optimizer state in place.
 
-The LM cells (train, prefill, decode and the landmark decode) take an
-optional ``DeviceMesh`` (``launch/mesh.py::device_mesh``), the
-reference's ``_lm_state_specs`` and ``_lm_train_cell`` placements:
-parameters by ``lm_logical`` (:func:`place_params`), the optimizer state
-like its parameter (``opt_state_logical``), caches by ``cache_logical`` /
-``landmark_cache_logical`` and the batch over ``("pod", "data")``
-(:func:`place_tree`), all DTensors; the model then runs with the arch's
-rules and its collectives are counted (``launch/dist.py::Collectives``).
-Without a mesh a cell is the one-device cell. The other families' cells
-have no mesh form yet.
+The LM, GNN and recsys cells take an optional ``DeviceMesh``
+(``launch/mesh.py::device_mesh``), the reference's placements: parameters
+by the family's logical tree (``lm_logical``, ``gnn_logical``, the
+recsys ``*_logical``; :func:`place_params`), the optimizer state like its
+parameter (``opt_state_logical``), an LM's caches by ``cache_logical`` /
+``landmark_cache_logical`` and its batch over ``("pod", "data")``
+(:func:`place_tree`), a GNN batch's nodes over ``("pod", "data")`` and
+its edges over every axis (:func:`gnn_batch_specs`), a recsys batch over
+every axis where it divides them, else over ``("pod", "data")``
+(:func:`rec_batch_specs`), all DTensors; the model then runs with the
+arch's rules and its collectives are counted
+(``launch/dist.py::Collectives``). Without a mesh a cell is the
+one-device cell; the CF cells have only that form, as the reference's.
+A train cell carries its ``loss``: the function its step differentiates.
+
+The cells' host batches live here too, for the train CLI and the mesh
+runs alike: the reference's recsys rows (:func:`rec_host_batch`,
+:func:`rec_rows`), each GNN shape's generator (:func:`gnn_host_batch`)
+and the ``--smoke`` shapes (:func:`smoke_shape`).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..configs.base import ArchConfig, ShapeSpec
@@ -34,18 +44,22 @@ from ..core import knn as core_knn
 from ..core.graph import build_neighbor_graph
 from ..core.selection import select_landmarks
 from ..core.types import NeighborGraph, round_up
+from ..data import synthetic
 from ..kernels import ops
 from ..models import gnn as gnn_mod
 from ..models import recsys as rec_mod
 from ..models import transformer as lm_mod
 from ..distributed.sharding import (DTensor, distribute, filter_rules,
-                                    spec_for, splits_merged)
+                                    mesh_axes, spec_for, splits_merged)
 from ..train.optimizer import opt_init, opt_update
 from . import dist as dist_mod
-from .mesh import apart, make_mesh
+from .mesh import Mesh, apart, make_mesh
 
 # the GNN's comm variant runs on the reference's debug mesh
 COMM_MESH = (("data", "model"), (2, 4))
+SMOKE_GRAPH = (200, 800, 1024)  # nodes, edges, edges padded to
+SMOKE_MOLECULES = (4, 10, 20)  # molecules, nodes and edges a molecule
+REC_BATCH = {"fm": 256, "seq": 32}  # the reference's recsys rows a step
 
 
 @dataclasses.dataclass
@@ -54,7 +68,72 @@ class Cell:
     shape: ShapeSpec
     fn: Callable
     args: Tuple[Any, ...]  # example inputs on the meta device
-    mesh: Any = None  # the DeviceMesh of an LM cell's placements
+    mesh: Any = None  # the DeviceMesh of the cell's placements
+    # a train cell's loss(model, batch): the one its step differentiates
+    loss: Optional[Callable] = None
+
+
+def rec_rows(cfg) -> int:
+    """The reference's recsys rows a step (its ``launch/train.py``)."""
+    return REC_BATCH["fm" if isinstance(cfg, rec_mod.FMConfig) else "seq"]
+
+
+def smoke_shape(arch: ArchConfig, shape_name: str) -> ShapeSpec:
+    """The train CLI's ``--smoke`` shape: for the LM a (4, 128) batch, the
+    recsys rows of :func:`rec_rows`, for the GNN the reference's
+    ``random_graph(step, 200, 800, d_feat, n_classes, pad_edges_to=1024)``
+    (``molecule``: 4 molecules of 10 nodes and 20 edges)."""
+    cfg = arch.smoke_model
+    if arch.family == "recsys":
+        return ShapeSpec(shape_name, "train", dict(batch=rec_rows(cfg)))
+    if arch.family == "lm":
+        return ShapeSpec(shape_name, "train", dict(batch=4, seq=128))
+    if shape_name == "molecule":
+        b, n, e = SMOKE_MOLECULES
+        return ShapeSpec(shape_name, "train_graph", dict(
+            batch=b, n_nodes=n, n_edges=e, d_feat=cfg.d_feat, n_classes=1))
+    n, e, pad = SMOKE_GRAPH
+    return ShapeSpec(shape_name, "train_graph", dict(
+        n_nodes=n, n_edges=e, pad_edges=pad, d_feat=cfg.d_feat,
+        n_classes=cfg.n_classes))
+
+
+def rec_host_batch(cfg, seed: int, step: int, rows: int
+                   ) -> Dict[str, np.ndarray]:
+    """The reference's recsys batch of ``rows`` rows (its
+    ``launch/train.py::_batches``), deterministic in the step."""
+    if isinstance(cfg, rec_mod.FMConfig):
+        return synthetic.fm_train_batch(seed, step, rows, cfg.field_vocabs)
+    if isinstance(cfg, rec_mod.Bert4RecConfig):
+        return synthetic.seq_rec_batch(seed, step, rows, cfg.seq_len,
+                                       cfg.n_items,
+                                       n_mask=max(1, cfg.seq_len // 5),
+                                       n_negatives=cfg.n_negatives)
+    if isinstance(cfg, rec_mod.MINDConfig):
+        return synthetic.seq_rec_batch(seed, step, rows, cfg.seq_len,
+                                       cfg.n_items,
+                                       n_negatives=cfg.n_negatives)
+    return synthetic.seq_rec_batch(seed, step, rows, cfg.seq_len,
+                                   cfg.n_items)
+
+
+def gnn_host_batch(shape: ShapeSpec, step: int, seed: int = 0
+                   ) -> Dict[str, np.ndarray]:
+    """Each GNN shape's own generator, deterministic in the step:
+    ``molecule_batch``, ``sampled_block`` (minibatch_lg) or
+    ``random_graph`` (seeded by the step, as the reference's)."""
+    d = shape.dims
+    if shape.name == "molecule":
+        return synthetic.molecule_batch(seed, step, d["batch"], d["n_nodes"],
+                                        d["n_edges"], d["d_feat"])
+    if "pad_nodes" in d:
+        return synthetic.sampled_block(seed, step, d["n_total_nodes"],
+                                       d["batch_nodes"], d["fanouts"],
+                                       d["d_feat"], d["n_classes"],
+                                       d["pad_nodes"], d["pad_edges"])
+    return synthetic.random_graph(step, d["n_nodes"], d["n_edges"],
+                                  d["d_feat"], d["n_classes"],
+                                  pad_edges_to=d.get("pad_edges"))
 
 
 def _meta(shape, dtype) -> torch.Tensor:
@@ -91,6 +170,66 @@ def place_tree(tree: Dict[str, torch.Tensor], logical: Dict[str, tuple],
                 if logical[k] else v) for k, v in tree.items()}
 
 
+def place_specs(tree: Dict[str, torch.Tensor], specs: Dict[str, tuple],
+                mesh) -> Dict[str, torch.Tensor]:
+    """A dict of whole tensors as DTensors of their specs (mesh axes per
+    dim, the reference's PartitionSpecs); a key without a spec stays
+    as it is."""
+    return {k: distribute(v, mesh, specs[k]) if k in specs else v
+            for k, v in tree.items()}
+
+
+def _axes_of(mesh, axes) -> Tuple[Tuple[str, ...], int]:
+    sizes = mesh_axes(mesh)
+    kept = tuple(a for a in axes if a in sizes)
+    n = 1
+    for a in kept:
+        n *= sizes[a]
+    return kept, n
+
+
+def rec_batch_specs(batch: Dict[str, torch.Tensor], mesh
+                    ) -> Dict[str, tuple]:
+    """The reference's ``_rec_batch_sds`` placements: every batch-leading
+    input over every mesh axis where the batch divides them, else over
+    ``("pod", "data")`` where it divides those (else replicated, as a
+    batch of 1); the shared negatives and the retrieval candidates
+    replicated."""
+    every, n_all = _axes_of(mesh, ("pod", "data", "model"))
+    baxes, n_b = _axes_of(mesh, ("pod", "data"))
+    out = {}
+    for key, t in batch.items():
+        b = t.shape[0] if t.ndim else 1
+        if key in ("negatives", "cand_ids") or b == 1:
+            axes = None
+        elif b % n_all == 0:
+            axes = every
+        elif baxes and b % n_b == 0:
+            axes = baxes
+        else:
+            axes = None
+        out[key] = (axes,) + (None,) * max(t.ndim - 1, 0)
+    return out
+
+
+def gnn_batch_specs(batch: Dict[str, torch.Tensor], mesh
+                    ) -> Dict[str, tuple]:
+    """The reference's ``_gnn_batch_sds`` placements: the node features
+    over ``("pod", "data")`` where the nodes divide them, the edge arrays
+    over every axis, labels, graph ids and targets replicated."""
+    every, _ = _axes_of(mesh, ("pod", "data", "model"))
+    naxes, n_b = _axes_of(mesh, ("pod", "data"))
+    n = batch["node_feats"].shape[0]
+    out = {"node_feats": ((naxes if naxes and n % n_b == 0 else None),
+                          None)}
+    for key in ("edge_src", "edge_dst", "edge_mask"):
+        out[key] = (every,)
+    for key in ("labels", "graph_ids", "targets"):
+        if key in batch:
+            out[key] = (None,)
+    return out
+
+
 def _counting(mesh):
     """The collectives' count around a mesh cell's step; nothing without
     one."""
@@ -124,12 +263,27 @@ def value_and_grad(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
     (default ``lm_loss``), through ``torch.autograd.grad`` (nothing
     accumulates in ``.grad``). A parameter the loss does not reach gets a
     zero gradient, as under ``jax.grad`` (the GNN's last ``ln_e`` only
-    updates edge states that nothing reads)."""
+    updates edge states that nothing reads). On a mesh each gradient comes
+    back in its parameter's placements (:func:`_reduced`)."""
     names, params = zip(*model.named_parameters())
     loss = loss_fn(model, batch)
     grads = torch.autograd.grad(loss, params, allow_unused=True,
                                 materialize_grads=True)
-    return loss.detach(), dict(zip(names, grads))
+    return loss.detach(), {n: _reduced(g, p)
+                           for n, g, p in zip(names, grads, params)}
+
+
+def _reduced(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A mesh gradient that is a partial sum over some mesh dims (a weight
+    the ranks' batch blocks each use) reduced once, to its parameter's
+    placements: the optimizer reads it several times, and each read of a
+    partial sum would reduce it again."""
+    from torch.distributed.tensor import Partial
+
+    if isinstance(g, DTensor) and any(isinstance(pl, Partial)
+                                      for pl in g.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def _lm_train_cell(arch: ArchConfig, shape: ShapeSpec, mesh=None) -> Cell:
@@ -178,7 +332,7 @@ def _lm_train_cell(arch: ArchConfig, shape: ShapeSpec, mesh=None) -> Cell:
         return model, opt_state, {"loss": loss}
 
     return Cell(arch, shape, step, (meta, opt_init(meta, arch.opt), batch),
-                mesh)
+                mesh, loss_fn)
 
 
 def _lm_prefill_cell(arch: ArchConfig, shape: ShapeSpec, mesh=None) -> Cell:
@@ -243,12 +397,14 @@ def _gnn_sizes(shape: ShapeSpec, node_shards: int, edge_shards: int):
 
 
 def _gnn_train_cell(arch: ArchConfig, shape: ShapeSpec,
-                    variant: str = "base") -> Cell:
+                    variant: str = "base", mesh=None) -> Cell:
     """The GNN's train step at ``shape``: ``d_feat``, ``n_classes`` and the
     task (``molecule`` is graph regression) from the shape; the cell's
-    ``arch.model`` is that config. ``variant="comm"`` runs the mesh form
-    (``gnn_loss_sharded``) on the reference's debug mesh (data=2,
-    model=4) over the parameters' device."""
+    ``arch.model`` is that config. ``variant="comm"`` runs the mesh form:
+    without a ``DeviceMesh`` ``gnn_loss_sharded`` on the reference's debug
+    mesh (data=2, model=4) over the parameters' device (or on ``mesh``, a
+    single-process ``launch/mesh.py::Mesh``), on a ``DeviceMesh`` over its
+    ranks (``gnn_loss(comm=True)``)."""
     d = shape.dims
     task = "graph" if shape.name == "molecule" else "node"
     cfg = dataclasses.replace(arch.model, d_feat=d["d_feat"],
@@ -257,8 +413,18 @@ def _gnn_train_cell(arch: ArchConfig, shape: ShapeSpec,
         raise ValueError(f"unknown GNN variant {variant!r}")
     if variant == "comm" and task == "graph":
         raise ValueError("the comm variant serves the node task")
-    data, model = COMM_MESH[1] if variant == "comm" else (1, 1)
-    n_nodes, n_edges = _gnn_sizes(shape, data, data * model)
+    one = mesh if isinstance(mesh, Mesh) else None
+    if one is not None:
+        if variant != "comm":
+            raise ValueError("a single-process mesh serves the comm variant")
+        mesh = None
+    if mesh is not None or one is not None:
+        _, data = _axes_of(mesh or one.shape, ("pod", "data"))
+        _, chips = _axes_of(mesh or one.shape, ("pod", "data", "model"))
+        n_nodes, n_edges = _gnn_sizes(shape, data, chips)
+    else:
+        data, model = COMM_MESH[1] if variant == "comm" else (1, 1)
+        n_nodes, n_edges = _gnn_sizes(shape, data, data * model)
 
     batch = {"node_feats": _meta((n_nodes, d["d_feat"]), torch.float32),
              "edge_src": _meta((n_edges,), torch.int32),
@@ -270,22 +436,29 @@ def _gnn_train_cell(arch: ArchConfig, shape: ShapeSpec,
     else:
         batch["labels"] = _meta((n_nodes,), torch.int32)
 
-    def step(model, opt_state, batch):
+    model = gnn_mod.GatedGCN(cfg, device="meta")
+    rules = arch.rules if mesh is not None else None
+    if mesh is not None:
+        place_params(model, gnn_mod.param_logical(cfg), rules, mesh)
+        batch = place_specs(batch, gnn_batch_specs(batch, mesh), mesh)
+
+    def loss_fn(mdl, batch):
         if task == "graph":
             batch = dict(batch, n_graphs=d["batch"])
-        if variant == "comm":
-            mesh = make_mesh(*COMM_MESH, next(model.parameters()).device)
-            loss, grads = value_and_grad(
-                model, batch, lambda mdl, b: gnn_mod.gnn_loss_sharded(
-                    mdl, b, mesh))
-        else:
-            loss, grads = value_and_grad(model, batch, gnn_mod.gnn_loss)
-        opt_update(model, grads, opt_state, arch.opt)
+        if variant == "comm" and mesh is None:
+            sp = one or make_mesh(*COMM_MESH, next(mdl.parameters()).device)
+            return gnn_mod.gnn_loss_sharded(mdl, batch, sp)
+        return gnn_mod.gnn_loss(mdl, batch, rules, comm=variant == "comm")
+
+    def step(model, opt_state, batch):
+        with _counting(mesh):
+            loss, grads = value_and_grad(model, batch, loss_fn)
+            opt_update(model, grads, opt_state, arch.opt)
+            loss = _whole(loss)
         return model, opt_state, {"loss": loss}
 
-    model = gnn_mod.GatedGCN(cfg, device="meta")
     return Cell(dataclasses.replace(arch, model=cfg), shape, step,
-                (model, opt_init(model, arch.opt), batch))
+                (model, opt_init(model, arch.opt), batch), mesh, loss_fn)
 
 
 def _rec_batch_sds(arch: ArchConfig, shape: ShapeSpec, kind: str
@@ -325,7 +498,7 @@ def _rec_batch_sds(arch: ArchConfig, shape: ShapeSpec, kind: str
     return out
 
 
-def _rec_cell(arch: ArchConfig, shape: ShapeSpec) -> Cell:
+def _rec_cell(arch: ArchConfig, shape: ShapeSpec, mesh=None) -> Cell:
     """A recsys cell: ``train`` (loss and gradients, then the arch's
     optimizer), ``scores`` (the model's scores of a batch) or
     ``retrieval`` (the top 100 over every item; FM over ``cand_ids``)."""
@@ -333,25 +506,31 @@ def _rec_cell(arch: ArchConfig, shape: ShapeSpec) -> Cell:
     kind = shape.kind
     model = fam.cls(arch.model, device="meta")
     batch = _rec_batch_sds(arch, shape, kind)
+    if mesh is not None:
+        place_params(model, rec_mod.param_logical(arch.model), arch.rules,
+                     mesh)
+        batch = place_specs(batch, rec_batch_specs(batch, mesh), mesh)
     if kind == "train":
         def step(model, opt_state, batch):
-            loss, grads = value_and_grad(model, batch, fam.loss)
-            opt_update(model, grads, opt_state, arch.opt)
+            with _counting(mesh):
+                loss, grads = value_and_grad(model, batch, fam.loss)
+                opt_update(model, grads, opt_state, arch.opt)
+                loss = _whole(loss)
             return model, opt_state, {"loss": loss}
 
         return Cell(arch, shape, step, (model, opt_init(model, arch.opt),
-                                        batch))
+                                        batch), mesh, fam.loss)
     if kind == "scores":
         def step(model, batch):
-            with torch.inference_mode():
+            with _counting(mesh), _serving(mesh):
                 return fam.scores(model, batch)
     elif kind == "retrieval":
         def step(model, batch):
-            with torch.inference_mode():
+            with _counting(mesh), _serving(mesh):
                 return fam.retrieval(model, batch, k=100)
     else:
         raise ValueError(f"unknown recsys shape kind {kind!r}")
-    return Cell(arch, shape, step, (model, batch))
+    return Cell(arch, shape, step, (model, batch), mesh)
 
 
 def _cf_cell(arch: ArchConfig, shape: ShapeSpec,
@@ -417,17 +596,17 @@ def build_cell(arch: ArchConfig, shape_name: str,
     """The cell of ``arch`` at its shape ``shape_name``. ``variant``, for a
     decode shape: ``landmark`` (O(n) landmark decode) or ``kv_int8`` (the
     int8 KV cache); for a GNN shape: ``comm`` (the mesh form); for a CF
-    fit: ``fused`` (the same step on one card). ``mesh``: an LM cell's
-    ``DeviceMesh`` (the other families raise)."""
+    fit: ``fused`` (the same step on one card). ``mesh``: the
+    ``DeviceMesh`` of an LM, GNN or recsys cell (a CF cell raises: it has
+    the one-device form only, as the reference's)."""
     shape = arch.shape(shape_name)
-    if mesh is not None and arch.family != "lm":
-        raise NotImplementedError(
-            f"build_cell: the {arch.family} cells' mesh form waits for "
-            f"their logical-axis trees (ROADMAP queue 1, items 4a-4b)")
+    if mesh is not None and arch.family == "cf":
+        raise ValueError("build_cell: the CF cells run on one device, as "
+                         "the reference's")
     if arch.family == "gnn":
-        return _gnn_train_cell(arch, shape, variant)
+        return _gnn_train_cell(arch, shape, variant, mesh)
     if arch.family == "recsys":
-        return _rec_cell(arch, shape)
+        return _rec_cell(arch, shape, mesh)
     if arch.family == "cf":
         return _cf_cell(arch, shape, variant)
     if arch.family != "lm":

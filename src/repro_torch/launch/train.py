@@ -12,7 +12,9 @@ on ``data/synthetic.py::lm_batch`` batches; the GNN on each shape's own
 generator: ``random_graph`` for ``full_graph_sm``, ``sampled_block`` for
 ``minibatch_lg``, ``molecule_batch`` for ``molecule`` (the reference feeds
 its 200-node smoke graph at every shape, with full_graph_sm's dims:
-ROADMAP B10). ``ogb_products`` does not fit one card and raises. The
+ROADMAP B10). ``ogb_products`` does not fit one card and raises in one
+process, naming the dry run's bytes a device at 16×16 (:func:`ogb_waits`):
+it trains on a mesh of cards of its own. The
 recsys family trains as the reference's ``_batches`` feeds it, whatever
 the shape's batch (ROADMAP B11): FM ``fm_train_batch`` of 256 rows, the
 sequence models ``seq_rec_batch`` of 32 (BERT4Rec with ``seq_len // 5``
@@ -25,24 +27,26 @@ pad_edges_to=1024)`` (``molecule``: 4 molecules of 10 nodes and 20 edges).
 Runs on the card unless ``--device cpu`` is given; without a card it
 raises (it never falls back).
 
-An LM trains sharded over a mesh of ranks under ``torchrun`` (one
-process a rank, ``launch/dist.py::init``; the arch's rules place the
-parameters, the optimizer state and each batch, ``launch/steps.py``):
-``--production-mesh`` (16×16, or 2×16×16 with ``--multi-pod``),
+The LM, the GNN and the recsys models train sharded over a mesh of ranks
+under ``torchrun`` (one process a rank, ``launch/dist.py::init``; the
+arch's rules place the parameters, the optimizer state and each batch,
+``launch/steps.py``: a table's rows over ``model``, a GNN batch's nodes
+over ``data`` and its edges over every axis, a recsys batch over every
+axis): ``--production-mesh`` (16×16, or 2×16×16 with ``--multi-pod``),
 ``--debug-mesh`` (2×4, or 2×2×2 with ``--multi-pod``) or ``--mesh
 data=2,model=2``, e.g.
 
     torchrun --nproc-per-node 8 -m repro_torch.launch.train --arch smollm-360m --smoke --debug-mesh --steps 4 --ckpt-dir D
+    torchrun --nproc-per-node 8 -m repro_torch.launch.train --arch fm --smoke --debug-mesh --device cpu
 
 A world whose size is not the mesh's raises, naming both. Checkpoints are
-written by every rank and resume on any mesh. The GNN's and the recsys
-models' mesh forms, and ``ogb_products``, wait for later slices (ROADMAP
-queue 1, items 4b and 4c) and raise.
+written by every rank and resume on any mesh.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import os
 
 import torch
@@ -57,23 +61,43 @@ from ..train.optimizer import opt_init
 from ..train.trainer import Prefetcher, TrainerConfig, to_device, train_loop
 from . import dist
 from .mesh import DEBUG, DEBUG_MULTI_POD, MULTI_POD, PRODUCTION, device_mesh
-from .steps import build_cell, place_params, place_tree
+from .steps import (build_cell, gnn_batch_specs, gnn_host_batch,
+                    place_params, place_specs, place_tree, rec_batch_specs,
+                    rec_host_batch, rec_rows, smoke_shape)
 
-SMOKE_BATCH, SMOKE_SEQ = 4, 128
-SMOKE_GRAPH = (200, 800, 1024)  # nodes, edges, edges padded to
-SMOKE_MOLECULES = (4, 10, 20)  # molecules, nodes and edges a molecule
-REC_BATCH = {"fm": 256, "seq": 32}  # the reference's recsys rows a step
-OGB_WAITS = (
-    "launch.train: ogb_products (2,449,029 nodes, 61,859,140 edges) does "
-    "not fit one card: one (E, 70) f32 edge tensor is 61.86 M x 70 x 4 B = "
-    "17.3 GB, a layer's forward holds about six live (~104 GB), and "
-    "per-layer remat keeps 16 carries of e (277 GB). It trains "
-    "edge-sharded over a mesh and waits for the GNN's edge sharding "
-    "(ROADMAP queue 1, item 4b).")
-MESH_WAITS = {
-    "gnn": "the GNN's edge sharding (ROADMAP queue 1, item 4b)",
-    "recsys": "the recsys rows' sharding on DTensor (ROADMAP queue 1, item "
-              "4a)"}
+
+def ogb_waits() -> str:
+    """Why ``ogb_products`` does not train in one process, with the dry
+    run's per-device bytes of its cell at 16×16 (counted here, on meta,
+    in a fake group of 256)."""
+    from .dryrun import run_cell
+
+    names, sizes = PRODUCTION
+    with dist.fake_group(math.prod(sizes)):
+        rec = run_cell("gatedgcn", "ogb_products", verbose=False,
+                       mesh=device_mesh(names, sizes, "cpu"))
+    mem = rec["memory"]
+    per = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    coll = sum(v for k, v in rec["collectives"].items()
+               if not k.startswith("_"))
+    return (
+        f"launch.train: ogb_products (2,449,029 nodes, 61,859,140 edges) "
+        f"does not fit one card: one (E, 70) f32 edge tensor is 61.86 M x "
+        f"70 x 4 B = 17.3 GB, and per-layer remat keeps 16 carries of e "
+        f"(about 277 GB for the step). Edge-sharded over the 16x16 mesh "
+        f"(launch.dryrun) a device holds {per / 1e9:.3f} GB of arguments + "
+        f"temps ({mem['argument_size_in_bytes']} + "
+        f"{mem['temp_size_in_bytes']} bytes) and moves {coll:.4g} "
+        f"collective bytes a step: it trains on a mesh of cards of its own "
+        f"(torchrun --production-mesh); the 8 ranks of one card share "
+        f"that card's memory{_card_memory()}, too little for the step.")
+
+
+def _card_memory() -> str:
+    """`` (N GB)``: the visible card's memory, or nothing without one."""
+    if not torch.cuda.is_available():
+        return ""
+    return f" ({torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB)"
 
 
 def _lm_batches(cfg, shape: ShapeSpec):
@@ -86,63 +110,20 @@ def _lm_batches(cfg, shape: ShapeSpec):
 
 def _gnn_batches(shape: ShapeSpec):
     """Each GNN shape's own generator, deterministic in the step."""
-    d = shape.dims
     step = 0
     while True:
-        if shape.name == "molecule":
-            yield S.molecule_batch(0, step, d["batch"], d["n_nodes"],
-                                   d["n_edges"], d["d_feat"])
-        elif "pad_nodes" in d:
-            yield S.sampled_block(0, step, d["n_total_nodes"],
-                                  d["batch_nodes"], d["fanouts"], d["d_feat"],
-                                  d["n_classes"], d["pad_nodes"],
-                                  d["pad_edges"])
-        else:
-            yield S.random_graph(step, d["n_nodes"], d["n_edges"],
-                                 d["d_feat"], d["n_classes"],
-                                 pad_edges_to=d.get("pad_edges"))
+        yield gnn_host_batch(shape, step)
         step += 1
-
-
-def _rec_rows(cfg) -> int:
-    return REC_BATCH["fm" if isinstance(cfg, rec_mod.FMConfig) else "seq"]
 
 
 def _rec_batches(cfg):
     """The reference's recsys batches (``launch/train.py::_batches``):
-    REC_BATCH rows a step, deterministic in the step."""
-    rows = _rec_rows(cfg)
+    :func:`~repro_torch.launch.steps.rec_rows` rows a step,
+    deterministic in the step."""
     step = 0
     while True:
-        if isinstance(cfg, rec_mod.FMConfig):
-            yield S.fm_train_batch(0, step, rows, cfg.field_vocabs)
-        elif isinstance(cfg, rec_mod.Bert4RecConfig):
-            yield S.seq_rec_batch(0, step, rows, cfg.seq_len, cfg.n_items,
-                                  n_mask=max(1, cfg.seq_len // 5),
-                                  n_negatives=cfg.n_negatives)
-        elif isinstance(cfg, rec_mod.MINDConfig):
-            yield S.seq_rec_batch(0, step, rows, cfg.seq_len, cfg.n_items,
-                                  n_negatives=cfg.n_negatives)
-        else:
-            yield S.seq_rec_batch(0, step, rows, cfg.seq_len, cfg.n_items)
+        yield rec_host_batch(cfg, 0, step, rec_rows(cfg))
         step += 1
-
-
-def _smoke_shape(arch, shape_name: str) -> ShapeSpec:
-    cfg = arch.smoke_model
-    if arch.family == "recsys":
-        return ShapeSpec(shape_name, "train", dict(batch=_rec_rows(cfg)))
-    if arch.family == "lm":
-        return ShapeSpec(shape_name, "train",
-                         dict(batch=SMOKE_BATCH, seq=SMOKE_SEQ))
-    if shape_name == "molecule":
-        b, n, e = SMOKE_MOLECULES
-        return ShapeSpec(shape_name, "train_graph", dict(
-            batch=b, n_nodes=n, n_edges=e, d_feat=cfg.d_feat, n_classes=1))
-    n, e, pad = SMOKE_GRAPH
-    return ShapeSpec(shape_name, "train_graph", dict(
-        n_nodes=n, n_edges=e, pad_edges=pad, d_feat=cfg.d_feat,
-        n_classes=cfg.n_classes))
 
 
 def main(argv=None):
@@ -172,20 +153,17 @@ def main(argv=None):
                            "to train on the CPU")
     arch = registry.get(args.arch)
     axes = _mesh_axes(args)
-    if axes is not None and arch.family in MESH_WAITS:
-        raise NotImplementedError(
-            f"launch.train: the {arch.family} family's mesh form waits for "
-            f"{MESH_WAITS[arch.family]}")
     if arch.family == "cf":
         raise ValueError(f"launch.train: {args.arch!r} fits rather than "
                          f"trains: serve it with launch.serve --workload cf, "
                          f"or run its cf_fit cell (launch/steps.py)")
     shape_name = args.shape or arch.shapes[0].name
-    if arch.family == "gnn" and shape_name == "ogb_products":
-        raise NotImplementedError(OGB_WAITS)
+    if (arch.family == "gnn" and shape_name == "ogb_products"
+            and axes is None):
+        raise NotImplementedError(ogb_waits())
     if args.smoke:
         arch = dataclasses.replace(arch, model=arch.smoke_model, grad_accum={},
-                                   shapes=(_smoke_shape(arch, shape_name),))
+                                   shapes=(smoke_shape(arch, shape_name),))
     elif arch.family == "recsys" and arch.shape(shape_name).kind != "train":
         raise ValueError(f"launch.train: {shape_name!r} is a "
                          f"{arch.shape(shape_name).kind} shape; recsys "
@@ -201,23 +179,31 @@ def main(argv=None):
     cell = build_cell(arch, shape_name, mesh=mesh)
     gen = torch.Generator(device).manual_seed(0)
     put = lambda b: to_device(b, device)  # noqa: E731
+    cfg = cell.arch.model
     if arch.family == "lm":
-        model = lm_mod.init_lm(cell.arch.model, gen, device)
+        model = lm_mod.init_lm(cfg, gen, device)
         batches = _lm_batches(arch.model, cell.shape)
+        logical = lm_mod.param_logical(cfg)
         if mesh is not None:
-            place_params(model, lm_mod.param_logical(arch.model), arch.rules,
-                         mesh)
             accum = arch.grad_accum.get(shape_name, 1)
             tok = ("null", "batch", "null") if accum > 1 else ("batch", "null")
             put = lambda b: place_tree(  # noqa: E731
                 to_device(_micro(b, accum), device),
                 {"tokens": tok, "labels": tok}, arch.rules, mesh)
-    elif arch.family == "gnn":
-        model = gnn_mod.init_gnn(cell.arch.model, gen, device)
-        batches = _gnn_batches(cell.shape)
     else:
-        model = rec_mod.init_recsys(cell.arch.model, gen, device)
-        batches = _rec_batches(cell.arch.model)
+        if arch.family == "gnn":
+            model = gnn_mod.init_gnn(cfg, gen, device)
+            batches = _gnn_batches(cell.shape)
+            logical, specs = gnn_mod.param_logical(cfg), gnn_batch_specs
+        else:
+            model = rec_mod.init_recsys(cfg, gen, device)
+            batches = _rec_batches(cfg)
+            logical, specs = rec_mod.param_logical(cfg), rec_batch_specs
+        if mesh is not None:
+            put = lambda b: place_specs(  # noqa: E731
+                to_device(b, device), specs(b, mesh), mesh)
+    if mesh is not None:
+        place_params(model, logical, arch.rules, mesh)
     opt_state = opt_init(model, arch.opt)
     quiet = launch is not None and launch.rank != 0
     out = train_loop(

@@ -18,23 +18,48 @@ its backward (the gathers of hv and he by source, of hd and the
 denominator by destination); with remat the forward runs twice.
 
 On one device the reference's ``constrain`` calls (sharding annotations,
-``gnn.py:117-119,138``) are no-ops and are left out. The mesh form
+``gnn.py:117-119,138``) are no-ops. The mesh form
 (:func:`gnn_forward_sharded`) is the reference's ``shard_map`` form on the
 port's single-process mesh (``launch/mesh.py``).
+
+Over a mesh of ranks (DTensor node features, edge arrays and parameters,
+placed by :func:`param_logical` and ``launch/steps.py``) each rank holds
+a block of nodes (``batch``: over ``pod`` and ``data``) and a block of
+edges (``edge``: over every axis), and builds its CSRs from its own edge
+block. Every gather by an edge index is a ``Gather`` and every sum into
+nodes a ``SegmentSum`` on the rank's blocks (``local_map``), so the
+kernel runs per rank in both directions. Two forms (:func:`gnn_forward`
+with ``comm``):
+
+- the base form, the reference's GSPMD step: each projection of h
+  (node-sharded, or cast to ``comm_dtype`` first, as the reference pins
+  it) is all-gathered for the edges' gathers; each rank's segment sums
+  over all N nodes are partial sums, reduced over every axis (the
+  denominator whole, the aggregate onto the node blocks: the reference's
+  ``constrain`` of h);
+- ``comm``, the reference's ``shard_map`` form (``gnn.py:185-270``) over
+  the ranks: one bf16 all-gather of h a layer, edges dst-partitioned
+  (:func:`dst_partition`: an edge lives with its destination's node
+  block), each rank's bf16 segment sums within its owner's block added
+  over ``model`` (the ``denom`` and ``agg`` psums). Its gradient is the
+  autograd gradient of that forward.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+import math
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from ..distributed.sharding import (all_gather_rows, cf_row_axes,
-                                    cf_shard_count, ordered_sum,
-                                    shard_devices)
+                                    cf_shard_count, filter_rules,
+                                    ordered_sum, placements, shard_devices,
+                                    spec_for, zeros_rows)
 from ..kernels import ops  # noqa: F401  (first: it imports every wrapper)
 from ..kernels.segment_sum import CSR, build_csr, gather, seg_sum
 
@@ -59,6 +84,27 @@ class GNNConfig:
     task: str = "node"  # node | graph (molecule regression)
     dtype: torch.dtype = torch.float32
     comm_dtype: Optional[torch.dtype] = None
+
+
+def gnn_logical(cfg: GNNConfig):
+    """The reference's logical axes of the stacked parameter tree: every
+    weight replicated (the GNN shards its nodes and edges)."""
+    lin, vec = ("layers", "null", "null"), ("layers", "null")
+    return {"embed_w": ("null", "null"), "embed_b": ("null",),
+            "layers": {**{k: lin for k in LAYER_MATS},
+                       **{k: vec for k in LAYER_NORMS}},
+            "head_w": ("null", "null"), "head_b": ("null",)}
+
+
+def param_logical(cfg: GNNConfig) -> Dict[str, tuple]:
+    """Logical axes by ``named_parameters()`` name (layer i's
+    ``layers.{i}.{name}``: the stacked tuple without ``"layers"``)."""
+    tree = gnn_logical(cfg)
+    out = {k: v for k, v in tree.items() if k != "layers"}
+    for i in range(cfg.n_layers):
+        for name, la in tree["layers"].items():
+            out[f"layers.{i}.{name}"] = la[1:]
+    return out
 
 
 class GNNLayer(nn.Module):
@@ -159,12 +205,21 @@ def gnn_forward(model: GatedGCN, node_feats: torch.Tensor,
                 edge_src: torch.Tensor, edge_dst: torch.Tensor,
                 edge_mask: torch.Tensor,
                 graph_ids: Optional[torch.Tensor] = None,
-                n_graphs: int = 0) -> torch.Tensor:
+                n_graphs: int = 0, rules=None,
+                comm: bool = False) -> torch.Tensor:
     """(N, n_classes) logits, or (n_graphs, n_classes) with ``graph_ids``
     (mean-pooled readout). Padded edges point at node 0 with mask 0; the
     CSRs by source and destination are built once here and serve every
     layer, its recompute and the backward. With grad enabled each layer
-    runs under ``torch.utils.checkpoint``: only its input is kept."""
+    runs under ``torch.utils.checkpoint``: only its input is kept. DTensor
+    inputs run over their mesh of ranks by ``rules`` (the base form, or
+    with ``comm`` the ``shard_map`` form): :func:`_forward_ranks`."""
+    if isinstance(node_feats, DTensor):
+        return _forward_ranks(model, node_feats, edge_src, edge_dst,
+                              edge_mask, graph_ids, n_graphs, rules, comm)
+    if comm:
+        raise ValueError("gnn_forward: the comm form runs over a mesh of "
+                         "ranks (DTensor inputs), or gnn_forward_sharded")
     cfg = model.cfg
     n = node_feats.shape[0]
     src = build_csr(edge_src, n, edge_mask)
@@ -189,26 +244,204 @@ def gnn_forward(model: GatedGCN, node_feats: torch.Tensor,
     return h @ model.head_w + model.head_b
 
 
-def _node_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Masked mean of −log softmax at the labels (labels < 0 masked)."""
+def _nll_parts(logits: torch.Tensor, labels: torch.Tensor):
+    """(−Σ log softmax at the labels, the number of labels), labels < 0
+    masked. The label's term is a one-hot contraction, the sum of one
+    value and zeros (exact), whose backward is no scatter: a gather's
+    would add on the card with atomics."""
     labels = labels.long()
     mask = (labels >= 0).float()
     logp = torch.log_softmax(logits.float(), dim=-1)
-    ll = logp.gather(-1, labels.clamp_min(0)[:, None])[:, 0]
-    return -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    classes = torch.arange(logp.shape[-1], device=logp.device)
+    onehot = (labels.clamp_min(0)[:, None] == classes).to(logp.dtype)
+    ll = (logp * onehot).sum(-1)
+    return -(ll * mask).sum(), mask.sum()
 
 
-def gnn_loss(model: GatedGCN, batch: Dict[str, torch.Tensor]
-             ) -> torch.Tensor:
+def _node_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Masked mean of −log softmax at the labels (labels < 0 masked). On a
+    mesh each rank sums its node block's, and the sums are added over the
+    node axes."""
+    if isinstance(logits, DTensor):
+        from torch.distributed.tensor.experimental import local_map
+
+        dm, pl = logits.device_mesh, tuple(logits.placements)
+        summed = tuple(Partial() if p == Shard(0) else Replicate()
+                       for p in pl)
+        nll, cnt = local_map(_nll_parts, out_placements=(summed, summed),
+                             in_placements=(pl, pl),
+                             in_grad_placements=(pl, pl), device_mesh=dm,
+                             redistribute_inputs=True)(logits, labels)
+    else:
+        nll, cnt = _nll_parts(logits, labels)
+    return nll / torch.clamp_min(cnt, 1.0)
+
+
+def gnn_loss(model: GatedGCN, batch: Dict[str, torch.Tensor], rules=None,
+             comm: bool = False) -> torch.Tensor:
     """The node task's masked cross-entropy, or the graph task's MSE of
-    the first logit against ``targets``."""
+    the first logit against ``targets``; on a mesh of ranks by ``rules``
+    (``comm``: the ``shard_map`` form)."""
     logits = gnn_forward(model, batch["node_feats"], batch["edge_src"],
                          batch["edge_dst"], batch["edge_mask"],
                          graph_ids=batch.get("graph_ids"),
-                         n_graphs=int(batch.get("n_graphs", 0)))
+                         n_graphs=int(batch.get("n_graphs", 0)),
+                         rules=rules, comm=comm)
     if model.cfg.task == "graph":  # regression (ZINC-style)
         return torch.mean((logits[..., 0] - batch["targets"]) ** 2)
     return _node_loss(logits, batch["labels"])
+
+
+# ---------------------------------------------------------------------------
+# Over a mesh of ranks: each rank's node and edge blocks (DTensor).
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class _RankEdges:
+    """A rank's edge block over a ``DeviceMesh`` and the placements the
+    layers move between."""
+
+    mesh: Any
+    rep: tuple  # replicated
+    node_pl: tuple  # (N, ·) node blocks
+    edge_pl: tuple  # (E, ·) edge blocks
+    part_pl: tuple  # a sum of every rank's edges: partial where split
+    owner_pl: tuple  # comm: node blocks, partial over an owner's ranks
+    src: CSR  # by source over all N nodes
+    dst: CSR  # by destination over all N nodes
+    local: Optional[CSR]  # comm: by destination within the owner's block
+    emask: torch.Tensor  # (E, 1) DTensor
+
+
+def _placed(x, dm, pl) -> DTensor:
+    if isinstance(x, DTensor):
+        return x if tuple(x.placements) == tuple(pl) else x.redistribute(
+            dm, pl)
+    return DTensor.from_local(x, dm, pl, run_check=False)
+
+
+def _rank_edges(feats: DTensor, edge_src, edge_dst, edge_mask, rules,
+                comm: bool, dtype) -> _RankEdges:
+    dm = feats.device_mesh
+    r = filter_rules(rules, dm)
+    edge_pl = placements(spec_for(("edge",), r), dm)
+    node_pl = tuple(feats.placements)
+    rep = (Replicate(),) * dm.ndim
+    part_pl = tuple(Partial() if p == Shard(0) else Replicate()
+                    for p in edge_pl)
+    owner_pl = tuple(n if n == Shard(0) else e
+                     for n, e in zip(node_pl, part_pl))
+    src, dst, mask = (_placed(x, dm, edge_pl).to_local()
+                      for x in (edge_src, edge_dst, edge_mask))
+    n = feats.shape[0]
+    local = None
+    if comm:
+        blocks = [i for i, p in enumerate(node_pl) if p == Shard(0)]
+        if not blocks or n % math.prod(int(dm.mesh.shape[i]) for i in blocks):
+            raise ValueError(f"gnn comm form: {n} nodes do not split into "
+                             f"equal blocks over {node_pl}")
+        coord, owner = dm.get_coordinate(), 0
+        for i in blocks:
+            owner = owner * dm.mesh.shape[i] + coord[i]
+        n_local = feats.to_local().shape[0]
+        dst_l = dst.long() - owner * n_local
+        owned = (dst_l >= 0) & (dst_l < n_local)
+        mask = mask * owned.to(mask.dtype)  # off-block destinations
+        local = build_csr(dst_l.clamp(0, n_local - 1), n_local, mask)
+    emask = DTensor.from_local(mask[:, None].to(dtype), dm, edge_pl,
+                               run_check=False)
+    return _RankEdges(dm, rep, node_pl, edge_pl, part_pl, owner_pl,
+                      build_csr(src, n, mask), build_csr(dst, n, mask),
+                      local, emask)
+
+
+def _on_ranks(fn, x, in_pl, out_pl, grad_pl, dm):
+    from torch.distributed.tensor.experimental import local_map
+
+    return local_map(fn, out_placements=(out_pl,), in_placements=(in_pl,),
+                     in_grad_placements=(grad_pl,), device_mesh=dm,
+                     redistribute_inputs=True)(x)
+
+
+def _to_edges(x: DTensor, csr: CSR, ed: _RankEdges, in_pl=None,
+              grad_pl=None) -> DTensor:
+    """``x[index]`` at the rank's edges: ``x`` (N, H) gathered whole (or
+    in ``in_pl``), its gradient a partial sum of every rank's edges."""
+    return _on_ranks(lambda t: gather(t, csr), x, in_pl or ed.rep,
+                     ed.edge_pl, grad_pl or ed.part_pl, ed.mesh)
+
+
+def _to_nodes(m: DTensor, csr: CSR, ed: _RankEdges, out_pl) -> DTensor:
+    """The rank's edges' segment sums over ``csr``'s nodes, a partial sum
+    (``out_pl``)."""
+    return _on_ranks(lambda t: seg_sum(t, csr), m, ed.edge_pl, out_pl,
+                     ed.edge_pl, ed.mesh)
+
+
+def _layer_ranks(h, e, lp: GNNLayer, ed: _RankEdges, cfg: GNNConfig,
+                 comm: bool):
+    """One layer over the ranks (the base form, or the ``comm`` form)."""
+    dt, cd, dm = cfg.dtype, cfg.comm_dtype, ed.mesh
+    hu = h @ lp.U
+    if comm:  # one bf16 all-gather of h
+        h_full = h.to(WIRE).redistribute(dm, ed.rep).to(dt)
+        hv, hd, he = (h_full @ getattr(lp, name) for name in "VDE")
+    else:  # the projections gathered, in comm_dtype when it is set
+        hv, hd, he = (h @ getattr(lp, name) for name in "VDE")
+        if cd is not None:
+            hv, hd, he = hv.to(cd), hd.to(cd), he.to(cd)
+    src_v = _to_edges(hv, ed.src, ed).to(dt)
+    e_new, gate = _edge_update(e, lp, src_v, _to_edges(hd, ed.dst, ed).to(dt),
+                               _to_edges(he, ed.src, ed).to(dt), ed.emask)
+    if comm:  # partials within the owner's block, summed over model
+        denom = _to_nodes(gate.to(WIRE), ed.local, ed, ed.owner_pl
+                          ).redistribute(dm, ed.node_pl).to(dt) + 1e-6
+        eta = gate / _to_edges(denom, ed.local, ed, ed.node_pl, ed.owner_pl)
+        agg = _to_nodes((eta * src_v * ed.emask).to(WIRE), ed.local, ed,
+                        ed.owner_pl).redistribute(dm, ed.node_pl).to(dt)
+    else:  # partials over all N nodes, summed over every axis
+        gsum = gate.to(cd) if cd is not None else gate
+        denom = _to_nodes(gsum, ed.dst, ed, ed.part_pl).redistribute(
+            dm, ed.rep).to(dt) + 1e-6
+        eta = gate / _to_edges(denom, ed.dst, ed)
+        msg = eta * src_v * ed.emask
+        if cd is not None:
+            msg = msg.to(cd)
+        agg = _to_nodes(msg, ed.dst, ed, ed.part_pl).redistribute(
+            dm, ed.node_pl).to(dt)
+    return h + torch.relu(_ln(hu + agg, lp.ln_h)), e_new
+
+
+def _forward_ranks(model: GatedGCN, feats: DTensor, edge_src, edge_dst,
+                   edge_mask, graph_ids, n_graphs: int, rules,
+                   comm: bool) -> DTensor:
+    """:func:`gnn_forward` over the mesh of ranks of ``feats``."""
+    cfg = model.cfg
+    if comm and cfg.task != "node":
+        raise ValueError("gnn comm form: the node task only, as the "
+                         "reference's")
+    ed = _rank_edges(feats, edge_src, edge_dst, edge_mask, rules, comm,
+                     cfg.dtype)
+    h = feats.to(cfg.dtype) @ model.embed_w + model.embed_b
+    e = zeros_rows(ed.emask, (ed.emask.shape[0], cfg.d_hidden), cfg.dtype)
+    remat = torch.is_grad_enabled()
+    for lp in model.layers:
+        if remat:
+            h, e = checkpoint(_layer_ranks, h, e, lp, ed, cfg, comm,
+                              use_reentrant=False, preserve_rng_state=False)
+        else:
+            h, e = _layer_ranks(h, e, lp, ed, cfg, comm)
+    if cfg.task == "graph":  # every rank pools the whole graph batch
+        ids = _placed(graph_ids, ed.mesh, ed.rep).to_local()
+        graphs = build_csr(ids, n_graphs)
+
+        def pool(t):
+            pooled = seg_sum(t, graphs)
+            cnt = seg_sum(torch.ones((t.shape[0], 1), dtype=cfg.dtype,
+                                     device=t.device), graphs)
+            return pooled / torch.clamp_min(cnt, 1.0)
+
+        h = _on_ranks(pool, h, ed.rep, ed.rep, ed.rep, ed.mesh)
+    return h @ model.head_w + model.head_b
 
 
 # ---------------------------------------------------------------------------

@@ -16,9 +16,19 @@ device)`` and the functions ``*_loss(model, batch)``,
 ``*_scores(model, batch)`` and ``*_retrieval(model, batch, k)``. The
 reference's ``lax.scan`` loops (BERT4Rec's blocks, MIND's routing,
 DIEN's two GRU scans) are Python loops. On plain tensors the reference's
-sharding annotations (``constrain``, ``shard_batch_full``) are
-identities. The ``*_logical`` axis trees, and this family's cells on a
-``DeviceMesh``, wait for ROADMAP queue 1, item 4a.
+sharding annotations (``shard_batch_full``) are identities.
+
+On a mesh of ranks the parameters are DTensors placed by the reference's
+``*_logical`` trees (:func:`param_logical`: every table's rows over
+``model``, everything else replicated) and the batch is split over the
+batch axes, or over every axis where it divides them
+(``launch/steps.py``): the lookups run on each rank's row shard
+(``distributed/embedding.py``), ``shard_batch_full`` splits their rows
+over every axis, DTensor carries the dense layers, and the steps it has
+no rule for (attention's recurrence, the masked positions' gather) run
+on each rank's rows (``sharding.rowwise``). Retrieval scores over a
+row-sharded table take each shard's top k, then the top k of those
+(``distributed_topk``).
 """
 from __future__ import annotations
 
@@ -32,8 +42,8 @@ from torch import nn
 
 from ..core.types import round_up
 from ..distributed.embedding import (distributed_topk, embedding_lookup,
-                                     lookup_csr)
-from ..distributed.sharding import shard_batch_full
+                                     embedding_lookups)
+from ..distributed.sharding import rowwise, shard_batch_full, zeros_rows
 from . import layers
 
 
@@ -50,13 +60,6 @@ def _bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     y = labels.float()
     return torch.mean(torch.clamp_min(logits, 0) - logits * y
                       + torch.log1p(torch.exp(-logits.abs())))
-
-
-def _mask_items(scores: torch.Tensor, n_items: int) -> torch.Tensor:
-    """Scores of the table's padding rows (ids >= n_items) set to -inf."""
-    ids = torch.arange(scores.shape[-1], device=scores.device)
-    return torch.where(ids < n_items, scores,
-                       scores.new_full((), float("-inf")))
 
 
 # ===================================================================== FM
@@ -94,6 +97,10 @@ class FM(nn.Module):
         self.b = _param((), cfg.dtype, device)
 
 
+def fm_logical(cfg: FMConfig):
+    return {"v": ("rows", "null"), "w": ("rows",), "b": ()}
+
+
 def init_fm(cfg: FMConfig, generator: Optional[torch.Generator] = None,
             device="cuda") -> FM:
     """v, w ~ N(0, 0.01²) in that order, b = 0. ``torch.Generator`` cannot
@@ -109,13 +116,9 @@ def init_fm(cfg: FMConfig, generator: Optional[torch.Generator] = None,
 def fm_scores(model: FM, field_ids: torch.Tensor, mesh=None) -> torch.Tensor:
     """Rendle's O(nk) sum-square trick. field_ids: (B, F), already offset.
     ``v`` and ``w`` take the same ids, so their lookups share one CSR."""
-    csr = (lookup_csr(field_ids, model.v.shape[0])
-           if mesh is None and torch.is_grad_enabled()
-           and model.v.requires_grad else None)
-    v = shard_batch_full(embedding_lookup(model.v, field_ids, mesh, csr=csr),
-                         mesh)
-    w = shard_batch_full(embedding_lookup(model.w[:, None], field_ids, mesh,
-                                          csr=csr), mesh)[..., 0]
+    v, w = embedding_lookups((model.v, model.w[:, None]), field_ids, mesh)
+    v = shard_batch_full(v, mesh)
+    w = shard_batch_full(w, mesh)[..., 0]
     sum_v = v.sum(dim=1)
     sum_sq = (v * v).sum(dim=1)
     pair = 0.5 * (sum_v * sum_v - sum_sq).sum(dim=-1)
@@ -194,6 +197,17 @@ class Bert4Rec(nn.Module):
         self.final_ln = _param((d,), dt, device, 1.0)
 
 
+def bert4rec_logical(cfg: Bert4RecConfig):
+    lin = ("layers", "null", "null")
+    return {
+        "item_embed": ("rows", "null"),
+        "pos_embed": ("null", "null"),
+        "layers": {**{k: lin for k in BLOCK_MATS},
+                   **{k: ("layers", "null") for k in BLOCK_NORMS}},
+        "final_ln": ("null",),
+    }
+
+
 def init_bert4rec(cfg: Bert4RecConfig,
                   generator: Optional[torch.Generator] = None,
                   device="cuda") -> Bert4Rec:
@@ -233,7 +247,8 @@ def bert4rec_encode(model: Bert4Rec, item_ids: torch.Tensor,
         q = (h @ lp.wq).reshape(heads)
         k = (h @ lp.wk).reshape(heads)
         v = (h @ lp.wv).reshape(heads)
-        a = layers.flash_attention(q, k, v, causal=False, kv_chunk=s)
+        a = rowwise(lambda q, k, v: layers.flash_attention(
+            q, k, v, causal=False, kv_chunk=s), q, k, v)
         x = x + a.reshape(b, s, -1) @ lp.wo
         h = _ln(x, lp.ln2)
         f = F.gelu(h @ lp.w1, approximate="tanh")
@@ -256,11 +271,15 @@ def _take_positions(enc: torch.Tensor, positions: torch.Tensor
     """``take_along_axis(enc, positions[..., None], axis=1)``: (B, M, D).
     Positions repeat within a row, so the gather's backward is the
     fixed-order segment sum over the flattened (B·S, D) encodings, not
-    ``torch.gather``'s scatter-add."""
-    b, s, d = enc.shape
-    rows = (torch.arange(b, device=enc.device)[:, None] * s
-            + positions.long())
-    return embedding_lookup(enc.reshape(b * s, d), rows)
+    ``torch.gather``'s scatter-add. On a mesh each rank takes its own
+    rows'."""
+    def take(enc, positions):
+        b, s, d = enc.shape
+        rows = (torch.arange(b, device=enc.device)[:, None] * s
+                + positions.long())
+        return embedding_lookup(enc.reshape(b * s, d), rows)
+
+    return rowwise(take, enc, positions)
 
 
 def bert4rec_loss(model: Bert4Rec, batch, mesh=None) -> torch.Tensor:
@@ -284,7 +303,7 @@ def bert4rec_scores(model: Bert4Rec, batch, mesh=None) -> torch.Tensor:
 def bert4rec_retrieval(model: Bert4Rec, batch, k: int = 100, mesh=None):
     user = bert4rec_encode(model, batch["item_ids"], mesh)[:, -1]
     scores = user @ model.item_embed.T
-    return distributed_topk(_mask_items(scores, model.cfg.n_items), k)
+    return distributed_topk(scores, k, model.cfg.n_items)
 
 
 # ==================================================================== MIND
@@ -315,6 +334,10 @@ class MIND(nn.Module):
         self.s_matrix = _param((d, d), cfg.dtype, device)
 
 
+def mind_logical(cfg: MINDConfig):
+    return {"item_embed": ("rows", "null"), "s_matrix": ("null", "null")}
+
+
 def init_mind(cfg: MINDConfig, generator: Optional[torch.Generator] = None,
               device="cuda") -> MIND:
     """item_embed ~ N(0, 0.02²), s_matrix ~ N(0, 1/d)."""
@@ -340,8 +363,8 @@ def mind_interests(model: MIND, item_ids: torch.Tensor,
                          mesh)
     msg = e @ model.s_matrix
     valid = (item_ids >= 0).float()
-    b_logits = torch.zeros((e.shape[0], cfg.n_interests, e.shape[1]),
-                           device=e.device)
+    b_logits = zeros_rows(e, (e.shape[0], cfg.n_interests, e.shape[1]),
+                          torch.float32)
     for _ in range(cfg.capsule_iters):
         w = torch.softmax(b_logits, dim=1) * valid[:, None, :]
         caps = _squash(torch.einsum("bks,bsd->bkd", w, msg))
@@ -369,7 +392,7 @@ def mind_scores(model: MIND, batch, mesh=None) -> torch.Tensor:
 def mind_retrieval(model: MIND, batch, k: int = 100, mesh=None):
     caps = mind_interests(model, batch["item_ids"], mesh)
     scores = torch.einsum("bkd,vd->bkv", caps, model.item_embed).amax(dim=1)
-    return distributed_topk(_mask_items(scores, model.cfg.n_items), k)
+    return distributed_topk(scores, k, model.cfg.n_items)
 
 
 # ==================================================================== DIEN
@@ -422,6 +445,14 @@ class DIEN(nn.Module):
             self.register_parameter(name, _param(shapes[name], dt, device))
 
 
+def dien_logical(cfg: DIENConfig):
+    gru = {"wx": ("null", "null"), "wh": ("null", "null"), "b": ("null",)}
+    return {"item_embed": ("rows", "null"), "gru1": gru, "gru2": dict(gru),
+            "att_w": ("null", "null"), "mlp_w1": ("null", "null"),
+            "mlp_b1": ("null",), "mlp_w2": ("null", "null"),
+            "mlp_b2": ("null",), "mlp_w3": ("null", "null"), "mlp_b3": ()}
+
+
 def init_dien(cfg: DIENConfig, generator: Optional[torch.Generator] = None,
               device="cuda") -> DIEN:
     """item_embed ~ N(0, 0.02²); each GRU's wx, wh ~ N(0, 1/(d_in + h));
@@ -457,8 +488,7 @@ def _interest_states(model: DIEN, e, valid):
     step, a list over S of (B, G). Padded steps keep the state. The steps
     take ``unbind`` views of the history, whose backward is one stack
     (indexing ``e[:, t]`` would add S zero-filled (B, S, d) gradients)."""
-    h = torch.zeros((e.shape[0], model.cfg.gru_dim), dtype=model.cfg.dtype,
-                    device=e.device)
+    h = zeros_rows(e, (e.shape[0], model.cfg.gru_dim), model.cfg.dtype)
     states = []
     for x, m in zip(e.unbind(1), valid[..., None].unbind(1)):
         h = m * _gru_step(model.gru1, h, x) + (1 - m) * h
@@ -502,7 +532,7 @@ def dien_retrieval(model: DIEN, batch, k: int = 100, mesh=None):
     e = embedding_lookup(model.item_embed, hist, mesh)
     h = _interest_states(model, e, (hist >= 0).to(e.dtype))[-1]
     scores = (h @ model.att_w) @ model.item_embed.T
-    return distributed_topk(_mask_items(scores, model.cfg.n_items), k)
+    return distributed_topk(scores, k, model.cfg.n_items)
 
 
 # ---------------------------------------------------------------- dispatch
@@ -511,6 +541,7 @@ class RecFamily:
     """One architecture's module, init, loss, scores and retrieval."""
 
     cls: type
+    logical: object
     init: object
     loss: object
     scores: object
@@ -527,20 +558,43 @@ def _fm_retrieval_batch(model, batch, k=100, mesh=None):
 
 # config type -> its functions; scores take a batch, as the cells call them
 FAMILIES = {
-    FMConfig: RecFamily(FM, init_fm, fm_loss, _fm_scores_batch,
+    FMConfig: RecFamily(FM, fm_logical, init_fm, fm_loss, _fm_scores_batch,
                         _fm_retrieval_batch),
-    Bert4RecConfig: RecFamily(Bert4Rec, init_bert4rec, bert4rec_loss,
-                              bert4rec_scores, bert4rec_retrieval),
-    MINDConfig: RecFamily(MIND, init_mind, mind_loss, mind_scores,
-                          mind_retrieval),
-    DIENConfig: RecFamily(DIEN, init_dien, dien_loss, dien_logits,
-                          dien_retrieval),
+    Bert4RecConfig: RecFamily(Bert4Rec, bert4rec_logical, init_bert4rec,
+                              bert4rec_loss, bert4rec_scores,
+                              bert4rec_retrieval),
+    MINDConfig: RecFamily(MIND, mind_logical, init_mind, mind_loss,
+                          mind_scores, mind_retrieval),
+    DIENConfig: RecFamily(DIEN, dien_logical, init_dien, dien_loss,
+                          dien_logits, dien_retrieval),
 }
 MODELS = tuple(f.cls for f in FAMILIES.values())
 
 
 def family(cfg) -> RecFamily:
     return FAMILIES[type(cfg)]
+
+
+def param_logical(cfg) -> dict:
+    """Logical axes by ``named_parameters()`` name, from the reference's
+    tree (``family(cfg).logical``): BERT4Rec's ``layers.{i}.{name}`` takes
+    the stacked tuple without its leading ``"layers"``, DIEN's
+    ``gru1.wx`` the nested entry."""
+    out = {}
+
+    def walk(tree, prefix):
+        for key, la in tree.items():
+            if key == "layers":
+                for i in range(cfg.n_blocks):
+                    for name, sub in la.items():
+                        out[f"layers.{i}.{name}"] = sub[1:]
+            elif isinstance(la, dict):
+                walk(la, f"{prefix}{key}.")
+            else:
+                out[prefix + key] = la
+
+    walk(family(cfg).logical(cfg), "")
+    return out
 
 
 def init_recsys(cfg, generator: Optional[torch.Generator] = None,

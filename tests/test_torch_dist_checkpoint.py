@@ -34,7 +34,7 @@ def _arch():
 
 
 def _ranks(launch, arch, ckpt, cli):
-    out = mesh_run.lm_checkpoint(
+    out = mesh_run.train_checkpoint(
         launch, arch, ckpt, save_axes=(("data", "model"), (2, 2)),
         restore_axes=(("data", "model"), (4, 1)))
     torch.distributed.barrier()
@@ -107,6 +107,7 @@ def test_train_cli_mesh_needs_a_world_of_its_size():
     with pytest.raises(ValueError, match=r"needs 256 ranks, the world has 1"):
         train.main(["--arch", "smollm-360m", "--smoke", "--production-mesh",
                     "--device", "cpu", "--steps", "1"])
-    with pytest.raises(NotImplementedError, match=r"item 4a"):
+    # the recsys and GNN families too: a world of 1 is not the debug mesh
+    with pytest.raises(ValueError, match=r"needs 8 ranks, the world has 1"):
         train.main(["--arch", "fm", "--smoke", "--debug-mesh", "--device",
                     "cpu"])

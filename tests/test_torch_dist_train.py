@@ -60,15 +60,15 @@ def _archs():
 
 
 def _ranks(launch, archs, mesh):
-    out = {b: mesh_run.lm_train(launch, a, mesh_axes=mesh, want_grads=True,
-                                want_params=True)
+    out = {b: mesh_run.train(launch, a, mesh_axes=mesh, want_grads=True,
+                             want_params=True)
            for b, a in archs.items()}
     out["serve"] = {n: mesh_run.lm_serve(launch, archs[n], mesh_axes=mesh)
                     for n in SERVED}
     # the all-gather built from the all-to-all, as gloo's CUDA ranks run it
     dist.build_all_gather("CPU")
-    out["built"] = mesh_run.lm_train(launch, archs["landmark"],
-                                     mesh_axes=mesh, want_params=True)
+    out["built"] = mesh_run.train(launch, archs["landmark"],
+                                  mesh_axes=mesh, want_params=True)
     return out
 
 
@@ -76,7 +76,7 @@ def _ranks(launch, archs, mesh):
 def runs():
     archs = _archs()
     mesh = dist.spawn(_ranks, 4, archs, MESH, timeout=600)
-    one = {b: mesh_run.lm_train("cpu", a, want_grads=True, want_params=True)
+    one = {b: mesh_run.train("cpu", a, want_grads=True, want_params=True)
            for b, a in archs.items()}
     one["serve"] = {n: mesh_run.lm_serve("cpu", archs[n]) for n in SERVED}
     return mesh, one
@@ -134,15 +134,15 @@ def test_mesh_serving_matches_the_one_process_run(runs, name):
 
 
 def _one_by_one(launch, arch):
-    return mesh_run.lm_train(launch, arch, mesh_axes=(("data", "model"),
-                                                      (1, 1)),
-                             want_grads=True, want_params=True)
+    return mesh_run.train(launch, arch, mesh_axes=(("data", "model"),
+                                                   (1, 1)),
+                          want_grads=True, want_params=True)
 
 
 def test_one_by_one_mesh_step_is_bitwise_the_plain_step():
     arch = _archs()["landmark"]
     (got,) = dist.spawn(_one_by_one, 1, arch, timeout=300)
-    want = mesh_run.lm_train("cpu", arch, want_grads=True, want_params=True)
+    want = mesh_run.train("cpu", arch, want_grads=True, want_params=True)
     assert got["losses"] == want["losses"]
     for key in ("grads", "params"):
         for name, t in want[key].items():

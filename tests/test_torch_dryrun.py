@@ -4,15 +4,16 @@
 
 - ``--all`` builds every cell of ``all_cells()`` on ``meta`` (the four
   ``landmark_cf`` cells with them) and exits 0: one module-scoped run. Its
-  default mesh is the reference's 16×16: the LM cells are placed over a
-  fake group of 256 and counted per device; the other families keep their
-  one-device record.
+  default mesh is the reference's 16×16: the LM, GNN and recsys cells are
+  placed over a fake group of 256 and counted per device; the CF cells
+  keep their one-device record, as the reference's.
 - Each cell's argument bytes equal the sum of the reference cell's
   ``ShapeDtypeStruct`` bytes (``repro.launch.steps.build_cell``; nothing
-  lowered or compiled), per device on a 16×16 ``AbstractMesh`` for an LM
-  cell (the sum of its shard shapes) and on a one-device mesh otherwise,
-  but for the differences listed in ``ARG_BYTES_DIFF``, each a known
-  difference in how the port holds state.
+  lowered or compiled), per device on a 16×16 ``AbstractMesh`` for an LM,
+  GNN or recsys cell (the sum of its shard shapes) and on a one-device
+  mesh for a CF cell, but for the differences listed in
+  ``ARG_BYTES_DIFF``, each a known difference in how the port holds
+  state.
 - The matrix-product FLOPs of an LM smoke train cell equal the count
   stated in the test; a deep model's counts taken to its depth equal a
   trace of every layer.
@@ -70,15 +71,18 @@ def test_all_cells_pass_with_a_record_each(records):
     assert len([c for c in cells if c[0] == "landmark_cf"]) == 4
     assert len(cells) == 49  # 25 LM, 4 GNN, 16 recsys, 4 CF
     for (arch, _, _), rec in records.items():
-        lm = registry.get(arch).family == "lm"
+        family = registry.get(arch).family
+        lm, mesh = family == "lm", family in dryrun.MESH_FAMILIES
         assert (rec["n_devices"], rec["mesh"]) == (
-            (256, "16x16") if lm else (1, "1x1"))
+            (256, "16x16") if mesh else (1, "1x1"))
+        assert (sum(rec["collectives"]["_counts"].values()) > 0) == mesh
         assert rec["flops"] >= 0 and rec["bytes_accessed"] > 0
         assert set(rec["memory"]) == {"argument_size_in_bytes",
                                       "output_size_in_bytes",
                                       "temp_size_in_bytes"}
         assert "unfused" in rec["bytes_accessed_note"]
-        assert (rec["collectives"]["_counts"]["all-gather"] > 0) == lm
+        if lm:  # the fsdp weights' all-gathers
+            assert rec["collectives"]["_counts"]["all-gather"] > 0
     fit = records["landmark_cf", "ml1m_fit", "base"]
     assert {k: v["calls"] for k, v in fit["kernels"].items()} == {
         "masked_similarity": 1, "topk_sim": 1}
@@ -92,11 +96,11 @@ def test_argument_bytes_equal_the_reference_cells(records):
         jax.sharding.AxisType.Auto,) * 2)
     prod = jax.sharding.AbstractMesh((16, 16), ("data", "model"))
     for (arch, shape, variant), rec in records.items():
-        lm = registry.get(arch).family == "lm"
-        jcell = jbuild_cell(jregistry.get(arch), shape, prod if lm else mesh,
+        on = registry.get(arch).family in dryrun.MESH_FAMILIES
+        jcell = jbuild_cell(jregistry.get(arch), shape, prod if on else mesh,
                             variant)
         want = sum(int(np.prod(leaf.sharding.shard_shape(leaf.shape)
-                               if lm else leaf.shape))
+                               if on else leaf.shape))
                    * np.dtype(leaf.dtype).itemsize
                    for leaf in jax.tree_util.tree_leaves(jcell.args))
         got = rec["memory"]["argument_size_in_bytes"]

@@ -97,7 +97,7 @@ def _arch():
 
 
 def _rank(launch, arch):
-    return mesh_run.lm_train(launch, arch, mesh_axes=MESH)["collectives"][0]
+    return mesh_run.train(launch, arch, mesh_axes=MESH)["collectives"][0]
 
 
 def test_dry_run_collectives_equal_the_ranks_traffic():

@@ -566,9 +566,14 @@ def test_train_cli_gnn_smoke_trains_and_resumes(tmp_path, capsys):
 
 
 def test_train_cli_ogb_products_waits_for_the_launcher():
+    """In one process ogb_products raises, naming its per-device bytes on
+    the 16x16 mesh it trains on (the dry run's), and that one card's 8
+    ranks share its memory."""
     with pytest.raises(NotImplementedError,
-                       match=r"17\.3 GB.*edge sharding \(ROADMAP "
-                       r"queue 1, item 4b\)"):
+                       match=r"17\.3 GB.*16x16 mesh \(launch\.dryrun\) a "
+                       r"device holds \d+\.\d{3} GB of arguments \+ temps "
+                       r"\(\d+ \+ \d+ bytes\).*--production-mesh.*8 ranks "
+                       r"of one card share that card's memory"):
         train.main(["--arch", "gatedgcn", "--shape", "ogb_products",
                     "--device", "cpu"])
 
